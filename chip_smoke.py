@@ -1,0 +1,400 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one CUDA GPU.
+
+    python3 chip_smoke.py [--seed 0] [--out results.json]
+
+Phases, each of which fails the run (nonzero exit) when it fails:
+  1. the card's name and power limit (nvidia-smi);
+  2. the build of every CUDA kernel of the port from its sources
+     (simpleimagecaptionzoo_tpu_torch/csrc, one nvcc per source, in
+     parallel);
+  3. K1, the fused head top-k, against its plain PyTorch version on the card
+     at the greedy decode shape (m=384, H=1024, V=10,102; k=1 and k=3;
+     float32 and bf16), on a cross-chunk tie, and at m=3;
+  4. K2, the fused LSTM cell, against its plain version (B=384, E=2048,
+     H=1024, float32 and bf16, and the unaligned E=200);
+  5. the main path: AoADetection greedy decode at full width (embed/hidden
+     1024, 6 refine layers, 8 heads, 36 boxes, vocab 10,102; random weights
+     from --seed), batch 384, 20 steps, through
+     engine.steps.make_greedy_decode, in float32 and in bf16.  Each is run
+     once with the plain versions (the reference) and three times through
+     the kernels; the launch counts of the kernel runs must equal their
+     decode steps, and the ids must agree with the reference run.  One
+     more decode per dtype runs under torch.profiler, which prints the
+     device time by kernel and the device's idle share.
+Then it prints one JSON line of per-kernel results and, last, the
+``{"ok": true, "device": ...}`` line.
+
+Timings use CUDA events, with a 128 MB buffer written between launches so
+each launch finds the L2 cache cold (as in the decode, where the other
+step's weights pass through L2 in between).  ``bound_ms`` is the larger of
+the bytes the function must move over 3.35 TB/s and its operations over
+the peak rate for their type (989 TFLOP/s bf16 tensor cores; 67 TFLOP/s
+float32, since TF32 is off), the H100 SXM data-sheet figures at 700 W.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+B, MAX_LEN, N_BOX = 384, 20, 36
+FULL = dict(model_type="AoADetection", vocab_size=10102, embed_dim=1024,
+            hidden_dim=1024, enc_dim=2048, num_heads=8, num_refine_layers=6,
+            max_bu_len=N_BOX)
+
+
+def require(cond, msg):
+    if not cond:
+        raise RuntimeError("chip_smoke: FAILED: " + msg)
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def time_ms(torch, fn, flush, reps=20):
+    """Median milliseconds of ``fn()`` over ``reps`` launches, each after
+    the L2 flush."""
+    for _ in range(3):
+        fn()
+    evs = []
+    for _ in range(reps):
+        flush.zero_()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        evs.append((s, e))
+    torch.cuda.synchronize()
+    t = sorted(s.elapsed_time(e) for s, e in evs)
+    return t[len(t) // 2]
+
+
+def bound(nbytes, nops, dtype_name):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = nops / PEAK_OPS_PER_S[dtype_name]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def profile_decode(torch, run, dn, top=12):
+    """Device time of one decode by kernel name, and the device's busy
+    share of the traced span, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    require(spans, "profile %s: the trace holds no device time" % dn)
+    busy, end = 0.0, spans[0][0]
+    by_name = {}
+    for s, e, n in spans:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+        tot, cnt = by_name.get(n, (0.0, 0))
+        by_name[n] = (tot + (e - s), cnt + 1)
+    span_ms = (spans[-1][1] - spans[0][0]) / 1e3
+    out = dict(wall_ms=wall_ms, device_span_ms=span_ms,
+               device_busy_ms=busy / 1e3, kernels=[])
+    log("profile %s: host wall %.2f ms, device span %.2f ms, busy %.2f ms "
+        "(idle %.1f%% of the span), %d kernel launches"
+        % (dn, wall_ms, span_ms, busy / 1e3, 100 * (1 - busy / 1e3 / span_ms),
+           len(spans)))
+    for n, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
+            :top]:
+        out["kernels"].append(dict(name=n, ms=tot / 1e3, count=cnt))
+        log("  %8.3f ms %5d x  %s" % (tot / 1e3, cnt, n[:90]))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None,
+                    help="also write the results as JSON to this file")
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the GPU",
+              file=sys.stderr)
+        return 1
+    from simpleimagecaptionzoo_tpu_torch.config import ModelConfig
+    from simpleimagecaptionzoo_tpu_torch.device import resolve_device
+    from simpleimagecaptionzoo_tpu_torch.engine import steps
+    from simpleimagecaptionzoo_tpu_torch.models.base import get_captioner
+    from simpleimagecaptionzoo_tpu_torch.ops import (_build, fused_head,
+                                                     fused_lstm)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+
+    dev = resolve_device("cuda")
+    name = torch.cuda.get_device_name(0)
+    results = {"card": smi, "torch": torch.__version__,
+               "cuda": torch.version.cuda, "seed": args.seed}
+
+    # -- 2. build -------------------------------------------------------------
+    t0 = time.time()
+    _build.build(["fused_head", "fused_lstm"])
+    results["build_s"] = time.time() - t0
+    log("build: fused_head, fused_lstm from csrc in %.2f s"
+        % results["build_s"])
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    model = get_captioner(ModelConfig(**FULL))
+    params = model.init_params(gen)
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
+    kernels = {}
+
+    def entry(kname, dtype_name, **kw):
+        kernels["%s/%s" % (kname, dtype_name)] = dict(
+            name="%s/%s" % (kname, dtype_name), route="cuda", **kw)
+
+    # -- 3. K1 against its plain version --------------------------------------
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        tol = 1e-4 if dtype == torch.float32 else 2e-3
+        head = fused_head.prepare_head(
+            steps._cast_floats(params["predict"], dtype), dtype)
+        x = (0.5 * torch.randn(B, FULL["hidden_dim"], generator=gen,
+                               device=dev)).to(dtype)
+        err = 0.0
+        cases = [(x, k) for k in (1, 3)] + [(x[:3].contiguous(), 3)]
+        for xs, k in cases:
+            kv, ki, kl = fused_head.topk_head(head, xs, k)
+            torch.cuda.synchronize()
+            pv, pi, pl = fused_head.topk_head_plain(head, xs, k + 1)
+            e = max(float((kv - pv[:, :k]).abs().max()),
+                    float((kl - pl).abs().max()))
+            require(e <= tol, "K1 %s m=%d k=%d: max |err| %.3g > %g"
+                    % (dn, xs.shape[0], k, e, tol))
+            # ids must match where the plain logits leave a gap > 1e-3 on
+            # both sides of the position
+            gaps = pv[:, :-1] - pv[:, 1:]                 # (m, k)
+            lo = torch.cat([torch.full_like(gaps[:, :1], float("inf")),
+                            gaps[:, :k - 1]], dim=1)
+            sure = (gaps[:, :k] > 1e-3) & (lo > 1e-3)
+            bad = int(((ki != pi[:, :k]) & sure).sum())
+            require(bad == 0, "K1 %s m=%d k=%d: %d ids differ where the gap "
+                    "exceeds 1e-3" % (dn, xs.shape[0], k, bad))
+            log("K1 %s m=%d k=%d: max|err| %.3g (tol %g); ids exact at %d of "
+                "%d positions with gap > 1e-3, %d of %d equal overall"
+                % (dn, xs.shape[0], k, e, tol, int(sure.sum()), sure.numel(),
+                   int((ki == pi[:, :k]).sum()), ki.numel()))
+            err = max(err, e)
+        ms = time_ms(torch, lambda: fused_head.topk_head(head, x, 1), flush)
+        plain_ms = time_ms(torch,
+                           lambda: fused_head.topk_head_plain(head, x, 1),
+                           flush)
+        kp, vp_ = head.w.shape
+        item = x.element_size()
+        nbytes = (B * FULL["hidden_dim"] * item
+                  + FULL["hidden_dim"] * head.v * item + 2 * head.v * 4
+                  + B * (1 * 8 + 4))
+        b_ms, b_by = bound(nbytes, 2 * B * FULL["hidden_dim"] * head.v, dn)
+        entry("fused_head_topk", dn,
+              source="simpleimagecaptionzoo_tpu_torch/csrc/fused_head.cu",
+              replaces="simpleimagecaptionzoo_tpu/ops/fused_head.py:155",
+              max_abs_err=err, max_err=err, ms=ms, kernel_ms=ms,
+              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+              library_ms=None, shape="m=%d K=%d V=%d (padded %dx%d) k=1"
+              % (B, FULL["hidden_dim"], head.v, kp, vp_))
+        log("K1 %s timing: kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s)"
+            % (dn, ms, plain_ms, b_ms, b_by))
+
+    # the tie across chunks, with two chunks made only of pad columns
+    v = 2 * fused_head.V_TILE
+    w = torch.zeros((8, v), device=dev)
+    w[:, 7] = 3.0
+    w[:, fused_head.V_TILE + 11] = 3.0
+    w[:, 100] = 1.0
+    tie_head = fused_head.prepare_head({"w": w[:, :700]}, torch.float32)
+    eye = torch.eye(8, device=dev)
+    _, ti, tl = fused_head.topk_head(tie_head, eye, 3)
+    _, pi, pl = fused_head.topk_head_plain(tie_head, eye, 3)
+    require(ti.tolist() == [[7, fused_head.V_TILE + 11, 100]] * 8
+            and torch.equal(ti, pi) and bool(torch.isfinite(tl).all())
+            and float((tl - pl).abs().max()) <= 1e-4,
+            "K1 tie case: %s" % ti.tolist())
+    log("K1 tie across chunks: ids %s, lse finite" % ti[0].tolist())
+
+    # -- 4. K2 against its plain version --------------------------------------
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+               else dict(rtol=1e-2, atol=1e-2))
+        w_cat, b_sum = fused_lstm.prepare_lstm(
+            steps._cast_floats(params["lstm"], dtype))
+        hd = FULL["hidden_dim"]
+        e_in = FULL["embed_dim"] + hd
+        err = 0.0
+        shapes = [(e_in, w_cat, b_sum)]
+        wb = 1 / hd ** 0.5
+        w200 = ((torch.rand(200 + hd, 4 * hd, generator=gen, device=dev) * 2
+                 - 1) * wb).to(dtype)
+        shapes.append((200, w200, b_sum))
+        for e, wc, bs in shapes:
+            x, h, c = (torch.randn(B, n, generator=gen, device=dev).to(dtype)
+                       for n in (e, hd, hd))
+            kh, kc = fused_lstm.lstm_cell_fused(wc, bs, x, h, c)
+            torch.cuda.synchronize()
+            ph, pc = fused_lstm.lstm_cell_plain(wc, bs, x, h, c)
+            for got, want, what in ((kh, ph, "h'"), (kc, pc, "c'")):
+                diff = (got.float() - want.float()).abs()
+                lim = tol["atol"] + tol["rtol"] * want.float().abs()
+                require(bool((diff <= lim).all()),
+                        "K2 %s E=%d %s: max |err| %.3g beyond rtol %g atol %g"
+                        % (dn, e, what, float(diff.max()), tol["rtol"],
+                           tol["atol"]))
+                err = max(err, float(diff.max()))
+            log("K2 %s B=%d E=%d H=%d: max|err| %.3g (rtol %g atol %g)"
+                % (dn, B, e, hd, err, tol["rtol"], tol["atol"]))
+        x, h, c = (torch.randn(B, n, generator=gen, device=dev).to(dtype)
+                   for n in (e_in, hd, hd))
+        ms = time_ms(torch, lambda: fused_lstm.lstm_cell_fused(
+            w_cat, b_sum, x, h, c), flush)
+        plain_ms = time_ms(torch, lambda: fused_lstm.lstm_cell_plain(
+            w_cat, b_sum, x, h, c), flush)
+        # the library yardstick: torch.lstm_cell on weights transposed once
+        lp = steps._cast_floats(params["lstm"], dtype)
+        w_ih_t = lp["w_ih"].t().contiguous()
+        w_hh_t = lp["w_hh"].t().contiguous()
+        lib = lambda: torch.lstm_cell(x, (h, c), w_ih_t, w_hh_t, lp["b_ih"],
+                                      lp["b_hh"])
+        lib_ms = time_ms(torch, lib, flush)
+        item = x.element_size()
+        nbytes = ((B * (e_in + 2 * hd) + (e_in + hd) * 4 * hd + 4 * hd
+                   + 2 * B * hd) * item)
+        b_ms, b_by = bound(nbytes, 2 * B * (e_in + hd) * 4 * hd, dn)
+        entry("fused_lstm_cell", dn,
+              source="simpleimagecaptionzoo_tpu_torch/csrc/fused_lstm.cu",
+              replaces="simpleimagecaptionzoo_tpu/ops/pallas_lstm.py:166",
+              max_abs_err=err, max_err=err, ms=ms, kernel_ms=ms,
+              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+              library_ms=lib_ms,
+              shape="B=%d E=%d H=%d" % (B, e_in, hd))
+        log("K2 %s timing: kernel %.4f ms, plain %.4f ms, torch.lstm_cell "
+            "%.4f ms, bound %.4f ms (%s)"
+            % (dn, ms, plain_ms, lib_ms, b_ms, b_by))
+
+    # -- 5. the main path ------------------------------------------------------
+    n_valid = 10 + torch.arange(B, device=dev) % (N_BOX - 9)   # 10..36 boxes
+    visual = {
+        "bu_feats": torch.relu(torch.randn(B, N_BOX, FULL["enc_dim"],
+                                           generator=gen, device=dev)),
+        "bu_masks": (torch.arange(N_BOX, device=dev)[None, :]
+                     < n_valid[:, None]).float(),
+    }
+
+    @contextlib.contextmanager
+    def plain_versions():
+        """The reference run: the decode's kernel wrappers swapped for their
+        plain versions on the same CUDA tensors."""
+        saved = fused_head.topk_head, fused_lstm.lstm_cell_fused
+        fused_head.topk_head = fused_head.topk_head_plain
+        fused_lstm.lstm_cell_fused = fused_lstm.lstm_cell_plain
+        try:
+            yield
+        finally:
+            fused_head.topk_head, fused_lstm.lstm_cell_fused = saved
+
+    calls = []
+    step_core = model.step_core
+
+    def counting_step_core(*a, **kw):
+        calls.append(1)
+        return step_core(*a, **kw)
+
+    model.step_core = counting_step_core
+    decode_results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        fn = steps.make_greedy_decode(model, max_len=MAX_LEN,
+                                      return_alphas=True, dtype=dtype,
+                                      device="cuda")
+        with plain_versions():
+            ref_ids, ref_al = fn(params, {}, visual)
+        torch.cuda.synchronize()
+        times, launches = [], None
+        for _ in range(3):
+            calls.clear()
+            fused_head.COUNT.n = 0
+            fused_lstm.COUNT.n = 0
+            t0 = time.perf_counter()
+            ids, al = fn(params, {}, visual)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            n_steps = len(calls)
+            launches = (fused_head.COUNT.n, fused_lstm.COUNT.n)
+            require(n_steps >= 1 and launches == (n_steps, n_steps),
+                    "%s decode: %d steps but launches K1 %d, K2 %d"
+                    % (dn, n_steps, *launches))
+        require(ids.shape == (B, MAX_LEN) and al.shape == (B, MAX_LEN, N_BOX),
+                "%s decode shapes %s %s" % (dn, tuple(ids.shape),
+                                            tuple(al.shape)))
+        require(int(ids.min()) >= 0 and int(ids.max()) < FULL["vocab_size"],
+                "%s decode ids out of range" % dn)
+        require(bool(torch.isfinite(al).all()), "%s alphas not finite" % dn)
+        live = al.sum(-1) > 0
+        require(bool(((al.sum(-1) - 1).abs()[live] < 1e-3).all()),
+                "%s alphas of live steps do not sum to 1" % dn)
+        require(bool((al[~live] == 0).all()) and bool(
+            (al.masked_select((visual["bu_masks"][:, None, :] == 0)
+                              .expand_as(al)) == 0).all()),
+                "%s alphas nonzero on masked boxes" % dn)
+        rows_same = float((ids == ref_ids).all(dim=1).float().mean())
+        first_same = float((ids[:, 0] == ref_ids[:, 0]).float().mean())
+        if dtype == torch.float32:
+            require(rows_same >= 0.99, "float32 decode: only %.4f of rows "
+                    "equal the plain run's" % rows_same)
+        else:
+            require(first_same >= 0.99, "bf16 decode: only %.4f of first "
+                    "ids equal the plain run's" % first_same)
+        t_med = sorted(times)[1]
+        decode_results[dn] = dict(
+            steps=n_steps, launches_k1=launches[0], launches_k2=launches[1],
+            rows_identical=rows_same, first_ids_identical=first_same,
+            alphas_max_abs_diff=float((al - ref_al).abs().max()),
+            seconds=times, captions_per_s=B / t_med)
+        for kname, n in (("fused_head_topk", launches[0]),
+                         ("fused_lstm_cell", launches[1])):
+            kernels["%s/%s" % (kname, dn)]["launches"] = n
+        log("decode %s: B=%d, %d steps, launches K1 %d K2 %d; rows identical "
+            "to the plain run %.4f, first ids %.4f; %.1f captions/s "
+            "(median of %s s)" % (dn, B, n_steps, launches[0], launches[1],
+                                  rows_same, first_same, B / t_med,
+                                  ["%.4f" % t for t in times]))
+        decode_results[dn]["profile"] = profile_decode(
+            torch, lambda: fn(params, {}, visual), dn)
+    del model.step_core
+
+    results["decode"] = decode_results
+    results["kernels"] = list(kernels.values())
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1)
+    print(json.dumps({"kernels": results["kernels"]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

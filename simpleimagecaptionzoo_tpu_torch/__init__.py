@@ -1,0 +1,27 @@
+"""simpleimagecaptionzoo_tpu_torch — the captioning stack in PyTorch for an
+NVIDIA Hopper GPU.
+
+A port of ``simpleimagecaptionzoo_tpu`` (JAX on a TPU), which stays beside it
+as the reference each part is held against.  The port imports ``torch`` and
+numpy only: nothing of JAX and nothing of the JAX package.  Every Pallas
+kernel of the JAX package becomes a CUDA C++ kernel written for ``sm_90a``
+(``csrc/``), built at first use (``ops/_build.py``) and launched through a
+wrapper that keeps a plain PyTorch version of the same function beside it for
+CPU tensors.
+
+What is ported so far: AoADetection greedy decode
+(``engine.steps.make_greedy_decode``) through the fused prediction-head top-k
+kernel (``ops/fused_head.py``) and the fused LSTM cell forward
+(``ops/fused_lstm.py``).  ``ROADMAP.md`` lists what follows.
+
+Token id conventions follow the reference (Build_caption_vocab.py:37-40):
+``<pad>``=0, ``<sta>``=1, ``<end>``=2, ``<unk>``=3.  Importing the package has
+no side effects.
+"""
+
+__version__ = "0.1.0"
+
+PAD_ID = 0
+STA_ID = 1
+END_ID = 2
+UNK_ID = 3

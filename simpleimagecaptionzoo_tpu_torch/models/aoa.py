@@ -1,0 +1,192 @@
+"""AoA ("Attention on Attention") captioner, Detection variant.
+
+Counterpart of the JAX package's ``models/aoa.py`` (reference
+Models/AoA_Model.py): multi-head scaled dot-product attention with a GLU
+"attention on attention" gate (AoABlock, :71-120), a pre-norm residual
+refiner over the projected bottom-up features (:140-162), and an LSTM
+decoder whose input mixes the word embedding with ``mean + ctx``, where
+``ctx`` is the previous step's AoA output (:197-293).
+
+Parity notes, as in the JAX package: the hand-rolled unbiased-std
+LayerNorm (``layers.layer_norm_std``); the embedding re-init U(-0.1,0.1)
+and zeroed predict bias; 'adaptive' masking (masked projection, -1e9
+masked softmax, masked mean).  The decoder K/V projections are hoisted into
+encode, and so is the LSTM's concatenated weight (``extras["lstm_cat"]``):
+both are loop-invariant.
+
+Attention scores and the attention-weighted values accumulate in float32
+whatever the compute dtype, as the JAX package's
+``preferred_element_type=float32`` einsums do.
+
+AoASpatial (from pixels), ``tf_inputs`` and the beam lanes step wait for
+later slices; int8 K/V (kernel K4) raises.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from simpleimagecaptionzoo_tpu_torch.models import layers as L
+from simpleimagecaptionzoo_tpu_torch.models.base import (Captioner, Encoded,
+                                                         register)
+from simpleimagecaptionzoo_tpu_torch.ops import fused_lstm
+
+
+def aoa_block_init(gen, d_model: int) -> dict:
+    return {
+        "q": L.dense_init(gen, d_model, d_model),
+        "k": L.dense_init(gen, d_model, d_model),
+        "v": L.dense_init(gen, d_model, d_model),
+        "aoa": L.dense_init(gen, 2 * d_model, 2 * d_model),
+    }
+
+
+def aoa_block(params: dict, query: torch.Tensor, key: torch.Tensor,
+              value: torch.Tensor, mask: Optional[torch.Tensor],
+              num_heads: int, *, dropout_aoa: float, dropout_dot: float,
+              train: bool, generator=None,
+              kv_proj: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """AoABlock forward (AoA_Model.py:90-120).
+
+    query (B,Tq,D); key/value (B,Tk,D); mask (B,Tk) or None.
+    kv_proj: optional precomputed (k_proj, v_proj), each (B,Tk,D).
+    Returns (x (B,Tq,D), mean-head attention (B,Tq,Tk) float32).
+    """
+    b, tq, d = query.shape
+    dh = d // num_heads
+    qp = L.dense(params["q"], query).reshape(b, tq, num_heads, dh)
+    if kv_proj is None:
+        kp = L.dense(params["k"], key)
+        vp = L.dense(params["v"], value)
+    else:
+        kp, vp = kv_proj
+    kp = kp.reshape(b, -1, num_heads, dh)
+    vp = vp.reshape(b, -1, num_heads, dh)
+    # (B, H, Tq, Tk), float32 accumulation
+    scores = torch.einsum("bqhd,bkhd->bhqk", qp.float(),
+                          kp.float()) / math.sqrt(dh)
+    p_atten = L.masked_softmax(
+        scores, None if mask is None else mask[:, None, None, :])
+    p_drop = L.dropout(p_atten, dropout_dot, train, generator)
+    x = torch.einsum("bhqk,bkhd->bqhd", p_drop.to(vp.dtype).float(),
+                     vp.float()).reshape(b, tq, d).to(query.dtype)
+    cat = torch.cat([x, query], dim=-1)
+    cat = L.dropout(cat, dropout_aoa, train, generator)
+    a, g = torch.chunk(L.dense(params["aoa"], cat), 2, dim=-1)  # GLU
+    return a * torch.sigmoid(g), p_atten.mean(dim=1)
+
+
+class _AoABase(Captioner):
+
+    def init_params(self, gen: torch.Generator) -> dict:
+        """Parameters on ``gen.device``, drawn from ``gen``."""
+        cfg = self.config
+        d = cfg.hidden_dim                        # d_model == hidden_dim
+        refine = [{"aoa": aoa_block_init(gen, d),
+                   "ln": L.layer_norm_std_init(d, gen.device)}
+                  for _ in range(cfg.num_refine_layers)]
+        return {
+            "proj": L.dense_init(gen, cfg.enc_dim, d),
+            "refine": refine,
+            "refine_ln": L.layer_norm_std_init(d, gen.device),
+            "embed": L.embedding_init(gen, cfg.vocab_size, cfg.embed_dim,
+                                      scale=0.1),
+            "lstm": L.lstm_cell_init(gen, cfg.embed_dim + d, d),
+            "aoa_dec": aoa_block_init(gen, d),
+            "h_norm": L.layer_norm_std_init(d, gen.device),
+            "predict": L.dense_wn_init(gen, d, cfg.vocab_size,
+                                       zero_bias=True),
+        }
+
+    def _raw_features(self, params, visual, model_state):
+        """-> (feats, mask, model_state)."""
+        raise NotImplementedError
+
+    def encode(self, params, visual: Dict[str, torch.Tensor], *,
+               train: bool = False, generator=None,
+               model_state: Optional[dict] = None
+               ) -> Tuple[Encoded, Optional[dict]]:
+        cfg = self.config
+        if "q" in params["predict"]:
+            raise NotImplementedError(
+                "int8 decode params need kernels K3 and K4, which the port "
+                "has not ported yet; see ROADMAP.md, Queue 2")
+        feats, mask, model_state = self._raw_features(params, visual,
+                                                      model_state)
+        # masked projection (pack_wrapper semantics): padded rows -> exactly 0
+        x = torch.relu(L.dense(params["proj"], feats))
+        x = L.dropout(x, cfg.dropout, train, generator)
+        if mask is not None:
+            x = x * mask[..., None]
+        # pre-norm residual AoA refiner (AoA_Model.py:136-162)
+        for layer in params["refine"]:
+            y = L.layer_norm_std(layer["ln"], x)
+            out, _ = aoa_block(layer["aoa"], y, y, y, mask, cfg.num_heads,
+                               dropout_aoa=cfg.dropout_aoa,
+                               dropout_dot=cfg.dropout_dot_atten,
+                               train=train, generator=generator)
+            out = L.dropout(out, cfg.dropout_sc, train, generator)
+            x = x + out
+        refined = L.layer_norm_std(params["refine_ln"], x)     # (B, N, D)
+        if mask is None:
+            mean = refined.mean(dim=1)
+        else:
+            mean = ((refined * mask[..., None]).sum(dim=1)
+                    / torch.clamp(mask.sum(dim=1, keepdim=True), min=1.0))
+        extras = {"k_proj": L.dense(params["aoa_dec"]["k"], refined),
+                  "v_proj": L.dense(params["aoa_dec"]["v"], refined),
+                  "lstm_cat": fused_lstm.prepare_lstm(params["lstm"])}
+        return (Encoded(features=refined, mean=mean, mask=mask,
+                        extras=extras),
+                model_state)
+
+    def _attend(self, params, query, encoded: Encoded, *, train: bool,
+                generator):
+        """Decoder AoA block over the hoisted K/V: query (B, q, D) ->
+        (gated ctx (B, q, D), mean-head attention (B, q, N))."""
+        cfg = self.config
+        ex = encoded.extras
+        if "k_q" in ex:
+            raise NotImplementedError(
+                "int8 K/V attention is kernel K4, which the port has not "
+                "ported yet; see ROADMAP.md, Queue 2")
+        return aoa_block(
+            params["aoa_dec"], query, encoded.features, encoded.features,
+            encoded.mask, cfg.num_heads,
+            dropout_aoa=0.0,                       # AoA_Model.py:205
+            dropout_dot=cfg.dropout_dot_atten,
+            train=train, generator=generator,
+            kv_proj=(ex["k_proj"], ex["v_proj"]))
+
+    def init_state(self, params, encoded: Encoded):
+        b = encoded.mean.shape[0]
+        z = torch.zeros((b, self.config.hidden_dim), dtype=encoded.mean.dtype,
+                        device=encoded.mean.device)
+        return {"h": z, "m": z, "ctx": z}
+
+    def step_core(self, params, encoded: Encoded, state,
+                  tokens: torch.Tensor, *, train: bool = False,
+                  generator=None):
+        cfg = self.config
+        ctx_in = encoded.mean + L.dropout(state["ctx"], cfg.dropout, train,
+                                          generator)
+        emb = torch.relu(L.embedding(params["embed"], tokens))
+        emb = L.dropout(emb, cfg.dropout, train, generator)
+        h, m = L.lstm_cell(params["lstm"], torch.cat([emb, ctx_in], dim=-1),
+                           state["h"], state["m"],
+                           prepared=(encoded.extras or {}).get("lstm_cat"))
+        q = L.layer_norm_std(params["h_norm"], h)[:, None, :]    # (B,1,D)
+        ctx, alpha = self._attend(params, q, encoded, train=train,
+                                  generator=generator)
+        ctx = ctx[:, 0, :]
+        out = L.dropout(ctx, cfg.dropout, train, generator)
+        return out, {"h": h, "m": m, "ctx": ctx}, alpha[:, 0, :]
+
+
+@register("AoADetection")
+class AoADetectionCaptioner(_AoABase):
+
+    def _raw_features(self, params, visual, model_state):
+        return visual["bu_feats"], visual.get("bu_masks"), model_state

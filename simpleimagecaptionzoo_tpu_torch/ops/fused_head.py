@@ -1,0 +1,154 @@
+"""Fused prediction-head -> logsumexp -> top-k (kernel K1).
+
+Counterpart of the JAX package's ``ops/fused_head.py``.  Every decode step
+ends with the (H, V) weight-norm head and a small selection over its logits:
+argmax for greedy decode, a per-row top-k for beam search.  The kernel
+(``csrc/fused_head.cu``) computes the logits chunk by chunk in float32 and
+keeps them out of device memory; it returns the top-k raw logits, their
+vocab ids and the logsumexp, so ``vals - lse[:, None]`` are the exact top-k
+log-softmax values.
+
+:func:`topk_head` launches the kernel for a CUDA tensor and takes
+:func:`topk_head_plain`, the same function in plain PyTorch, for a CPU
+tensor only.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple, Union
+
+import torch
+
+from simpleimagecaptionzoo_tpu_torch.ops import _build
+
+K_ALIGN = 128                   # x feature axis alignment
+V_TILE = 512                    # vocab padding unit (the JAX package's)
+HEAD_CHUNK = 128                # columns per kernel chunk (BN in the .cu)
+MAX_K = 16
+_NEG = -1e30
+
+COUNT = _build.Counter()
+
+
+class Head(NamedTuple):
+    """A head prepared for the kernel: w (Kp, Vp) in the compute dtype,
+    s and b (Vp,) float32, and the true vocab size v."""
+    w: torch.Tensor
+    s: torch.Tensor
+    b: torch.Tensor
+    v: int
+
+
+def _no_int8(head: dict) -> None:
+    if "q" in head:
+        raise NotImplementedError(
+            "int8 head weights need the int8-weight variant of K1, which "
+            "comes with kernel K3 (ROADMAP.md, Queue 2); not ported yet")
+
+
+def prepare_head(head: dict, dtype: torch.dtype) -> Head:
+    """Head param dict -> :class:`Head`.  Loop-invariant: call once per
+    decode.
+
+    Takes the weight-norm head ``{"v", "g", "b"}`` (effective weight
+    computed in float32, then cast to ``dtype``) or a plain dense
+    ``{"w", "b"}``.  K pads to 128 and V to 512 with zeros; pad columns get
+    scale 0 and bias -1e30, so their logit is -1e30 and never wins."""
+    _no_int8(head)
+    if "v" in head:
+        vv = head["v"].float()
+        w = vv * (head["g"].float()
+                  / (torch.linalg.vector_norm(vv, dim=0) + 1e-12))
+    else:
+        w = head["w"].float()
+    k, v = w.shape
+    kp = -(-k // K_ALIGN) * K_ALIGN
+    vp = -(-v // V_TILE) * V_TILE
+    w = torch.nn.functional.pad(w, (0, vp - v, 0, kp - k)).to(dtype)
+    s = torch.zeros(vp, dtype=torch.float32, device=w.device)
+    s[:v] = 1.0
+    b = torch.full((vp,), _NEG, dtype=torch.float32, device=w.device)
+    b[:v] = head["b"].float() if "b" in head else 0.0
+    return Head(w.contiguous(), s, b, v)
+
+
+def _prepared(head: Union[dict, Head], x: torch.Tensor):
+    if not isinstance(head, Head):
+        head = prepare_head(head, x.dtype)
+    kp = head.w.shape[0]
+    if x.shape[1] != kp:
+        x = torch.nn.functional.pad(x, (0, kp - x.shape[1]))
+    return head, x
+
+
+def topk_head_plain(head: Union[dict, Head], x: torch.Tensor, k: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1's function in plain PyTorch on materialized float32 logits."""
+    head, x = _prepared(head, x)
+    logits = (x.float() @ head.w.float()) * head.s + head.b
+    # a stable descending sort keeps equal values in id order: lax.top_k's
+    # tie order, which torch.topk does not promise
+    vals, idx = torch.sort(logits, dim=1, descending=True, stable=True)
+    lse = torch.logsumexp(logits, dim=1)
+    return vals[:, :k], idx[:, :k].to(torch.int32), lse
+
+
+def _run_kernel(head: Head, x: torch.Tensor, k: int):
+    w, s, b = head.w, head.s, head.b
+    m, kp = x.shape
+    vp = w.shape[1]
+    if not (x.is_cuda and w.device == x.device and s.device == x.device
+            and b.device == x.device):
+        raise ValueError("fused_head: x, w, s and b must be on one CUDA device")
+    if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
+        raise TypeError("fused_head: x and w must both be float32 or both "
+                        "bfloat16, got %s and %s" % (x.dtype, w.dtype))
+    if s.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError("fused_head: s and b must be float32")
+    if w.shape[0] != kp or s.shape != (vp,) or b.shape != (vp,):
+        raise ValueError("fused_head: shapes x %s w %s s %s b %s disagree"
+                         % (tuple(x.shape), tuple(w.shape), tuple(s.shape),
+                            tuple(b.shape)))
+    if not 1 <= k <= min(MAX_K, head.v):
+        raise ValueError("fused_head: k=%d outside [1, %d]"
+                         % (k, min(MAX_K, head.v)))
+    x = x.contiguous()
+    if not (w.is_contiguous() and s.is_contiguous() and b.is_contiguous()):
+        raise ValueError("fused_head: w, s and b must be contiguous")
+    lib = _build.load("fused_head", _declare)
+    nchunk = -(-vp // HEAD_CHUNK)
+    dev = x.device
+    pmax = torch.empty((m, nchunk), dtype=torch.float32, device=dev)
+    psum = torch.empty((m, nchunk), dtype=torch.float32, device=dev)
+    pval = torch.empty((m, nchunk, k), dtype=torch.float32, device=dev)
+    pidx = torch.empty((m, nchunk, k), dtype=torch.int32, device=dev)
+    vals = torch.empty((m, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((m, k), dtype=torch.int32, device=dev)
+    lse = torch.empty((m,), dtype=torch.float32, device=dev)
+    p = _build.ptr
+    code = lib.fused_head_topk(
+        p(x), p(w), p(s), p(b), p(pmax), p(psum), p(pval), p(pidx), p(vals),
+        p(idx), p(lse), m, kp, vp, k, nchunk,
+        0 if x.dtype == torch.float32 else 1, _build.stream_of(x))
+    _build.check(code, "fused_head_topk")
+    COUNT.n += 1
+    return vals, idx, lse
+
+
+def _declare(lib) -> None:
+    import ctypes
+    vp_, i_ = ctypes.c_void_p, ctypes.c_int
+    lib.fused_head_topk.argtypes = [vp_] * 11 + [i_] * 6 + [vp_]
+    lib.fused_head_topk.restype = i_
+
+
+def topk_head(head: Union[dict, Head], x: torch.Tensor, k: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x (m, H) -> (top-k raw logits (m, k) float32 descending, vocab ids
+    (m, k) int32, logsumexp (m,) float32).  ``idx[:, 0]`` is the argmax.
+    ``head`` is the param dict or a :class:`Head` from
+    :func:`prepare_head`.  A CUDA ``x`` launches the kernel; a CPU ``x``
+    takes the plain version."""
+    head, x = _prepared(head, x)
+    if x.device.type == "cpu":
+        return topk_head_plain(head, x, k)
+    return _run_kernel(head, x, k)

@@ -1,0 +1,98 @@
+"""Fused LSTM cell forward (kernel K2).
+
+Counterpart of the JAX package's ``ops/pallas_lstm.py``.  One step of torch
+nn.LSTMCell::
+
+    gates = [x, h] @ w_cat + b_sum;  c' = sig(f)*c + sig(i)*tanh(g);
+    h' = sig(o)*tanh(c')
+
+with float32 accumulation and a float32 epilogue, h' and c' cast back to
+their dtype: the Pallas kernel's semantics.  In bf16 that differs from the
+JAX package's jnp fallback cell (``layers.py:148-150``), whose bf16 matmuls
+round the gates to bf16 before the nonlinearities; the port follows the
+kernel, and so does its plain version, which upcasts before its matmul.
+
+:func:`lstm_cell_fused` launches ``csrc/fused_lstm.cu`` for CUDA tensors and
+takes :func:`lstm_cell_plain` for CPU tensors only.  The backward (the JAX
+package's custom VJP) comes with the training slice.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from simpleimagecaptionzoo_tpu_torch.ops import _build
+
+COUNT = _build.Counter()
+
+
+def prepare_lstm(params: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """LSTM param dict -> (w_cat (E+H, 4H), b_sum (4H,)), in the params'
+    dtype.  Loop-invariant: compute once per decode, not per step."""
+    w_cat = torch.cat([params["w_ih"], params["w_hh"]], dim=0).contiguous()
+    return w_cat, (params["b_ih"] + params["b_hh"]).contiguous()
+
+
+def gate_math(gates: torch.Tensor, c: torch.Tensor):
+    """i, f, g, o gate blocks -> (h', c') in the dtype of ``gates`` (the
+    JAX package's ``layers._gate_math``)."""
+    i, f, g, o = torch.chunk(gates, 4, dim=-1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c_new), c_new
+
+
+def lstm_cell_plain(w_cat: torch.Tensor, b_sum: torch.Tensor,
+                    x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
+    """K2's function in plain PyTorch: float32 gates and epilogue."""
+    gates = (torch.cat([x, h], dim=-1).float() @ w_cat.float()
+             + b_sum.float())
+    h_new, c_new = gate_math(gates, c.float())
+    return h_new.to(h.dtype), c_new.to(c.dtype)
+
+
+def _run_kernel(w_cat, b_sum, x, h, c):
+    b, e = x.shape
+    hidden = h.shape[1]
+    ts = (w_cat, b_sum, x, h, c)
+    if not all(t.is_cuda and t.device == x.device for t in ts):
+        raise ValueError("fused_lstm: all tensors must be on one CUDA device")
+    if x.dtype not in (torch.float32, torch.bfloat16) or any(
+            t.dtype != x.dtype for t in ts):
+        raise TypeError("fused_lstm: x, h, c, w_cat and b_sum must share "
+                        "one dtype, float32 or bfloat16; got %s"
+                        % [t.dtype for t in ts])
+    if (h.shape != (b, hidden) or c.shape != (b, hidden)
+            or w_cat.shape != (e + hidden, 4 * hidden)
+            or b_sum.shape != (4 * hidden,)):
+        raise ValueError("fused_lstm: shapes x %s h %s c %s w_cat %s b_sum %s "
+                         "disagree" % tuple(tuple(t.shape) for t in
+                                            (x, h, c, w_cat, b_sum)))
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("fused_lstm: inputs must be contiguous")
+    lib = _build.load("fused_lstm", _declare)
+    h_out = torch.empty_like(h)
+    c_out = torch.empty_like(c)
+    p = _build.ptr
+    code = lib.fused_lstm_cell(
+        p(x), p(h), p(c), p(w_cat), p(b_sum), p(h_out), p(c_out), b, e,
+        hidden, 0 if x.dtype == torch.float32 else 1, _build.stream_of(x))
+    _build.check(code, "fused_lstm_cell")
+    COUNT.n += 1
+    return h_out, c_out
+
+
+def _declare(lib) -> None:
+    import ctypes
+    vp_, i_ = ctypes.c_void_p, ctypes.c_int
+    lib.fused_lstm_cell.argtypes = [vp_] * 7 + [i_] * 4 + [vp_]
+    lib.fused_lstm_cell.restype = i_
+
+
+def lstm_cell_fused(w_cat: torch.Tensor, b_sum: torch.Tensor,
+                    x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
+    """(h', c') of one cell step from :func:`prepare_lstm`'s weights.  A
+    CUDA ``x`` launches the kernel; a CPU ``x`` takes the plain version."""
+    if x.device.type == "cpu":
+        return lstm_cell_plain(w_cat, b_sum, x, h, c)
+    return _run_kernel(w_cat, b_sum, x, h, c)

@@ -1,0 +1,92 @@
+"""The parameter bridge between the JAX package and its PyTorch port, and the
+port's independence from JAX: it imports neither ``jax`` nor anything of
+``simpleimagecaptionzoo_tpu``."""
+import ast
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import torch
+
+from simpleimagecaptionzoo_tpu.config import ModelConfig as JaxModelConfig
+from simpleimagecaptionzoo_tpu.models.base import get_captioner as jax_get
+from simpleimagecaptionzoo_tpu_torch.convert import from_jax, to_numpy
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "simpleimagecaptionzoo_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "simpleimagecaptionzoo_tpu")
+
+
+def _jax_params():
+    cfg = JaxModelConfig(model_type="AoADetection", vocab_size=50,
+                         embed_dim=16, hidden_dim=16, enc_dim=12, num_heads=2,
+                         num_refine_layers=2, max_bu_len=5)
+    params = jax_get(cfg).init_params(jax.random.PRNGKey(3),
+                                      include_cnn=False)
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+def test_round_trip_is_exact():
+    torch.set_num_threads(1)
+    ref = _jax_params()
+    tp = from_jax(ref)
+    assert isinstance(tp["refine"], list) and len(tp["refine"]) == 2
+    assert tp["lstm"]["w_ih"].shape == ref["lstm"]["w_ih"].shape  # (in, out)
+    assert isinstance(tp["predict"]["v"], torch.Tensor)
+    back = to_numpy(tp)
+    ref_leaves, ref_def = jax.tree_util.tree_flatten(ref)
+    back_leaves, back_def = jax.tree_util.tree_flatten(back)
+    assert ref_def == back_def
+    for a, b in zip(ref_leaves, back_leaves):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+
+
+def test_bf16_round_trip_comes_back_float32():
+    torch.set_num_threads(1)
+    tp = from_jax({"w": np.linspace(-1, 1, 7, dtype=np.float32)},
+                  dtype=torch.bfloat16)
+    assert tp["w"].dtype == torch.bfloat16
+    back = to_numpy(tp)["w"]
+    assert back.dtype == np.float32
+    np.testing.assert_array_equal(back, tp["w"].float().numpy())
+
+
+def test_import_leaves_jax_out_of_sys_modules():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "import simpleimagecaptionzoo_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in %r)\n"
+        "print('BAD', bad)\n" % (FORBIDDEN,))
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def _imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module and \
+                node.level == 0:
+            yield node.module
+
+
+def test_no_port_file_imports_jax_or_the_jax_package():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(PORT):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) > 10
+    bad = [(f, m) for f in files for m in _imports(f)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
