@@ -13,14 +13,24 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      float32 and bf16), on a cross-chunk tie, and at m=3;
   4. K2, the fused LSTM cell, against its plain version (B=384, E=2048,
      H=1024, float32 and bf16, and the unaligned E=200);
-  5. the main path: AoADetection greedy decode at full width (embed/hidden
+  5. K3, the int8 dequantizing product, against its plain version at the
+     three shapes of the int8 decode step (the LSTM gates, aoa_dec.q,
+     aoa_dec.aoa; m=384) and a ragged one (m=37, K=200, n=700), float32
+     and bf16;
+  6. K1-int8, the fused head over the int8 head weight, as in 3;
+  7. K4, the int8 K/V attention, against its plain version (B=384, k=1
+     and k=3, 36 boxes with 10-36 valid, 8 heads, float32 and bf16);
+  8. the main path: AoADetection greedy decode at full width (embed/hidden
      1024, 6 refine layers, 8 heads, 36 boxes, vocab 10,102; random weights
      from --seed), batch 384, 20 steps, through
-     engine.steps.make_greedy_decode, in float32 and in bf16.  Each is run
-     once with the plain versions (the reference) and three times through
-     the kernels; the launch counts of the kernel runs must equal their
-     decode steps, and the ids must agree with the reference run.  One
-     more decode per dtype runs under torch.profiler, which prints the
+     engine.steps.make_greedy_decode: in float32 and in bf16 (K1, K2), and
+     in int8 serving form, on model.quantize_decode_params with
+     SICZ_TPU_INT8_KV=auto, in float32 and in bf16 (K3 three times a step,
+     K1-int8 and K4 once, K2 never).  Each is run once with the plain
+     versions (the reference) and three times through the kernels; the
+     launch counts of the kernel runs must equal their decode steps times
+     those multiples, and the ids must agree with the reference run.  One
+     more decode per path runs under torch.profiler, which prints the
      device time by kernel and the device's idle share.
 Then it prints one JSON line of per-kernel results and, last, the
 ``{"ok": true, "device": ...}`` line.
@@ -31,12 +41,14 @@ step's weights pass through L2 in between).  ``bound_ms`` is the larger of
 the bytes the function must move over 3.35 TB/s and its operations over
 the peak rate for their type (989 TFLOP/s bf16 tensor cores; 67 TFLOP/s
 float32, since TF32 is off), the H100 SXM data-sheet figures at 700 W.
+An int8 weight is counted at one byte; its product runs at x's type.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -82,6 +94,36 @@ def bound(nbytes, nops, dtype_name):
     t_ops = nops / PEAK_OPS_PER_S[dtype_name]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def hold_head(torch, fused_head, tag, head, x, dn, tol):
+    """K1 (any weight type) against its plain version at k=1, k=3 and on
+    three rows; returns the largest error of values and lse."""
+    err = 0.0
+    cases = [(x, k) for k in (1, 3)] + [(x[:3].contiguous(), 3)]
+    for xs, k in cases:
+        kv, ki, kl = fused_head.topk_head(head, xs, k)
+        torch.cuda.synchronize()
+        pv, pi, pl = fused_head.topk_head_plain(head, xs, k + 1)
+        e = max(float((kv - pv[:, :k]).abs().max()),
+                float((kl - pl).abs().max()))
+        require(e <= tol, "%s %s m=%d k=%d: max |err| %.3g > %g"
+                % (tag, dn, xs.shape[0], k, e, tol))
+        # ids must match where the plain logits leave a gap > 1e-3 on
+        # both sides of the position
+        gaps = pv[:, :-1] - pv[:, 1:]                 # (m, k)
+        lo = torch.cat([torch.full_like(gaps[:, :1], float("inf")),
+                        gaps[:, :k - 1]], dim=1)
+        sure = (gaps[:, :k] > 1e-3) & (lo > 1e-3)
+        bad = int(((ki != pi[:, :k]) & sure).sum())
+        require(bad == 0, "%s %s m=%d k=%d: %d ids differ where the gap "
+                "exceeds 1e-3" % (tag, dn, xs.shape[0], k, bad))
+        log("%s %s m=%d k=%d: max|err| %.3g (tol %g); ids exact at %d of "
+            "%d positions with gap > 1e-3, %d of %d equal overall"
+            % (tag, dn, xs.shape[0], k, e, tol, int(sure.sum()), sure.numel(),
+               int((ki == pi[:, :k]).sum()), ki.numel()))
+        err = max(err, e)
+    return err
 
 
 def profile_decode(torch, run, dn, top=12):
@@ -136,7 +178,8 @@ def main(argv=None) -> int:
     from simpleimagecaptionzoo_tpu_torch.engine import steps
     from simpleimagecaptionzoo_tpu_torch.models.base import get_captioner
     from simpleimagecaptionzoo_tpu_torch.ops import (_build, fused_head,
-                                                     fused_lstm)
+                                                     fused_lstm,
+                                                     int8_attention, quant)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -151,10 +194,11 @@ def main(argv=None) -> int:
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.time()
-    _build.build(["fused_head", "fused_lstm"])
+    libs = ["fused_head", "fused_lstm", "quant_matmul", "int8_attention"]
+    _build.build(libs)
     results["build_s"] = time.time() - t0
-    log("build: fused_head, fused_lstm from csrc in %.2f s"
-        % results["build_s"])
+    log("build: %s from csrc in %.2f s" % (", ".join(libs),
+                                           results["build_s"]))
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = get_captioner(ModelConfig(**FULL))
@@ -174,30 +218,7 @@ def main(argv=None) -> int:
             steps._cast_floats(params["predict"], dtype), dtype)
         x = (0.5 * torch.randn(B, FULL["hidden_dim"], generator=gen,
                                device=dev)).to(dtype)
-        err = 0.0
-        cases = [(x, k) for k in (1, 3)] + [(x[:3].contiguous(), 3)]
-        for xs, k in cases:
-            kv, ki, kl = fused_head.topk_head(head, xs, k)
-            torch.cuda.synchronize()
-            pv, pi, pl = fused_head.topk_head_plain(head, xs, k + 1)
-            e = max(float((kv - pv[:, :k]).abs().max()),
-                    float((kl - pl).abs().max()))
-            require(e <= tol, "K1 %s m=%d k=%d: max |err| %.3g > %g"
-                    % (dn, xs.shape[0], k, e, tol))
-            # ids must match where the plain logits leave a gap > 1e-3 on
-            # both sides of the position
-            gaps = pv[:, :-1] - pv[:, 1:]                 # (m, k)
-            lo = torch.cat([torch.full_like(gaps[:, :1], float("inf")),
-                            gaps[:, :k - 1]], dim=1)
-            sure = (gaps[:, :k] > 1e-3) & (lo > 1e-3)
-            bad = int(((ki != pi[:, :k]) & sure).sum())
-            require(bad == 0, "K1 %s m=%d k=%d: %d ids differ where the gap "
-                    "exceeds 1e-3" % (dn, xs.shape[0], k, bad))
-            log("K1 %s m=%d k=%d: max|err| %.3g (tol %g); ids exact at %d of "
-                "%d positions with gap > 1e-3, %d of %d equal overall"
-                % (dn, xs.shape[0], k, e, tol, int(sure.sum()), sure.numel(),
-                   int((ki == pi[:, :k]).sum()), ki.numel()))
-            err = max(err, e)
+        err = hold_head(torch, fused_head, "K1", head, x, dn, tol)
         ms = time_ms(torch, lambda: fused_head.topk_head(head, x, 1), flush)
         plain_ms = time_ms(torch,
                            lambda: fused_head.topk_head_plain(head, x, 1),
@@ -293,26 +314,175 @@ def main(argv=None) -> int:
             "%.4f ms, bound %.4f ms (%s)"
             % (dn, ms, plain_ms, lib_ms, b_ms, b_by))
 
-    # -- 5. the main path ------------------------------------------------------
+    # -- 5. K3 against its plain version --------------------------------------
+    qparams = model.quantize_decode_params(params)
+    hd = FULL["hidden_dim"]
+    e_lstm = FULL["embed_dim"] + 2 * hd
+    ragged = quant.quantize_dense({
+        "w": torch.rand(200, 700, generator=gen, device=dev) * 2 - 1,
+        "b": torch.randn(700, generator=gen, device=dev)})
+    k3_cases = [("lstm", qparams["lstm"], B, e_lstm),
+                ("aoa_dec.q", qparams["aoa_dec"]["q"], B, hd),
+                ("aoa_dec.aoa", qparams["aoa_dec"]["aoa"], B, 2 * hd),
+                ("ragged", ragged, 37, 200)]
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        err = 0.0
+        for what, qp, m, k in k3_cases:
+            n = qp["s"].shape[0]
+            x = (0.5 * torch.randn(m, k, generator=gen, device=dev)).to(dtype)
+            got = quant.quant_matmul(x, qp)
+            torch.cuda.synchronize()
+            want = quant.quant_matmul_plain(x, qp)
+            diff = (got.float() - want.float()).abs()
+            if dtype == torch.float32:
+                # the sums run in another order: 1e-5 of the sum of |terms|,
+                # the float32 rounding bound of a dot product
+                lim = 1e-5 * (x.abs() @ (qp["q"][:k, :n].float().abs()
+                                         * qp["s"])) + 1e-6
+                tol_s = "1e-5 of sum |x q s|"
+            else:
+                lim = 1e-2 + 1e-2 * want.float().abs()   # one bf16 ulp
+                tol_s = "rtol 1e-2 atol 1e-2"
+            require(got.shape == (m, n) and got.dtype == dtype
+                    and bool((diff <= lim).all()),
+                    "K3 %s %s m=%d K=%d n=%d: max |err| %.3g beyond %s"
+                    % (dn, what, m, k, n, float(diff.max()), tol_s))
+            err = max(err, float(diff.max()))
+            log("K3 %s %s m=%d K=%d (Kp %d) n=%d (Np %d): max|err| %.3g (%s)"
+                % (dn, what, m, k, qp["q"].shape[0], n, qp["q"].shape[1],
+                   float(diff.max()), tol_s))
+        qp = qparams["lstm"]
+        n = qp["s"].shape[0]
+        x = (0.5 * torch.randn(B, e_lstm, generator=gen, device=dev)).to(dtype)
+        ms = time_ms(torch, lambda: quant.quant_matmul(x, qp), flush)
+        plain_ms = time_ms(torch, lambda: quant.quant_matmul_plain(x, qp),
+                           flush)
+        # the library yardstick: x @ (q s)^T without the bias
+        q_t = qp["q"][:e_lstm, :n].t().contiguous()
+        s_x = qp["s"].to(dtype)
+        lib_ms = time_ms(torch, lambda: torch._weight_int8pack_mm(x, q_t, s_x),
+                         flush)
+        item = x.element_size()
+        nbytes = B * e_lstm * item + e_lstm * n + 2 * n * 4 + B * n * item
+        b_ms, b_by = bound(nbytes, 2 * B * e_lstm * n, dn)
+        entry("quant_matmul", dn,
+              source="simpleimagecaptionzoo_tpu_torch/csrc/quant_matmul.cu",
+              replaces="simpleimagecaptionzoo_tpu/ops/quant.py:105",
+              max_abs_err=err, max_err=err, ms=ms, kernel_ms=ms,
+              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+              library_ms=lib_ms, shape="m=%d K=%d n=%d (the LSTM gates)"
+              % (B, e_lstm, n))
+        log("K3 %s timing: kernel %.4f ms, plain %.4f ms, "
+            "torch._weight_int8pack_mm %.4f ms, bound %.4f ms (%s)"
+            % (dn, ms, plain_ms, lib_ms, b_ms, b_by))
+
+    # -- 6. K1-int8 against its plain version ---------------------------------
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        tol = 1e-4 if dtype == torch.float32 else 2e-3
+        head = fused_head.prepare_head(qparams["predict"], dtype)
+        require(head.w.dtype == torch.int8, "K1-int8: head weight is %s"
+                % head.w.dtype)
+        x = (0.5 * torch.randn(B, hd, generator=gen, device=dev)).to(dtype)
+        err = hold_head(torch, fused_head, "K1-int8", head, x, dn, tol)
+        ms = time_ms(torch, lambda: fused_head.topk_head(head, x, 1), flush)
+        plain_ms = time_ms(torch,
+                           lambda: fused_head.topk_head_plain(head, x, 1),
+                           flush)
+        item = x.element_size()
+        nbytes = (B * hd * item + hd * head.v + 2 * head.v * 4
+                  + B * (1 * 8 + 4))
+        b_ms, b_by = bound(nbytes, 2 * B * hd * head.v, dn)
+        entry("fused_head_topk_int8", dn,
+              source="simpleimagecaptionzoo_tpu_torch/csrc/fused_head.cu",
+              replaces="simpleimagecaptionzoo_tpu/ops/fused_head.py:155",
+              max_abs_err=err, max_err=err, ms=ms, kernel_ms=ms,
+              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+              library_ms=None, shape="m=%d K=%d V=%d int8 W (padded %dx%d) "
+              "k=1" % (B, hd, head.v, *head.w.shape))
+        log("K1-int8 %s timing: kernel %.4f ms, plain %.4f ms, bound %.4f ms "
+            "(%s)" % (dn, ms, plain_ms, b_ms, b_by))
+
+    # -- 7. K4 against its plain version --------------------------------------
     n_valid = 10 + torch.arange(B, device=dev) % (N_BOX - 9)   # 10..36 boxes
+    box_mask = (torch.arange(N_BOX, device=dev)[None, :]
+                < n_valid[:, None]).float()
+    heads = FULL["num_heads"]
+    kq, ks = int8_attention.quantize_rows(
+        torch.randn(B, N_BOX, hd, generator=gen, device=dev))
+    vq, vs = int8_attention.quantize_rows(
+        torch.randn(B, N_BOX, hd, generator=gen, device=dev))
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        err = 0.0
+        for k in (1, 3):
+            q = torch.randn(B, k, hd, generator=gen, device=dev).to(dtype)
+            out, pm = int8_attention.lanes_attention_int8(q, kq, ks, vq, vs,
+                                                          box_mask, heads)
+            torch.cuda.synchronize()
+            pout, ppm = int8_attention.lanes_attention_int8_plain(
+                q, kq, ks, vq, vs, box_mask, heads)
+            d_out = (out.float() - pout.float()).abs()
+            lim = (2e-5 if dtype == torch.float32
+                   else 1e-2 + 1e-2 * pout.float().abs())
+            e_pm = float((pm - ppm).abs().max())
+            masked = pm.masked_select((box_mask == 0)[:, None, :]
+                                      .expand_as(pm))
+            require(out.dtype == dtype and bool((d_out <= lim).all())
+                    and e_pm <= 2e-6 and bool((masked == 0).all()),
+                    "K4 %s k=%d: out max |err| %.3g, pmean %.3g, masked "
+                    "max %.3g" % (dn, k, float(d_out.max()), e_pm,
+                                  float(masked.abs().max())))
+            err = max(err, float(d_out.max()), e_pm)
+            log("K4 %s B=%d k=%d N=%d heads=%d: out max|err| %.3g, pmean "
+                "%.3g (tol %s / 2e-6), masked boxes exactly 0"
+                % (dn, B, k, N_BOX, heads, float(d_out.max()), e_pm,
+                   "2e-5" if dtype == torch.float32 else "rtol/atol 1e-2"))
+        q = torch.randn(B, 1, hd, generator=gen, device=dev).to(dtype)
+        ms = time_ms(torch, lambda: int8_attention.lanes_attention_int8(
+            q, kq, ks, vq, vs, box_mask, heads), flush)
+        plain_ms = time_ms(torch, lambda: (
+            int8_attention.lanes_attention_int8_plain(q, kq, ks, vq, vs,
+                                                      box_mask, heads)),
+            flush)
+        item = q.element_size()
+        nbytes = (2 * B * hd * item + 2 * B * N_BOX * hd + 4 * B * N_BOX * 4)
+        b_ms, b_by = bound(nbytes, 4 * B * N_BOX * hd, dn)
+        entry("int8_attention", dn,
+              source="simpleimagecaptionzoo_tpu_torch/csrc/int8_attention.cu",
+              replaces="simpleimagecaptionzoo_tpu/ops/int8_attention.py:70",
+              max_abs_err=err, max_err=err, ms=ms, kernel_ms=ms,
+              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+              library_ms=None, shape="B=%d k=1 N=%d D=%d heads=%d"
+              % (B, N_BOX, hd, heads))
+        log("K4 %s timing: kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s)"
+            % (dn, ms, plain_ms, b_ms, b_by))
+
+    # -- 8. the main path ------------------------------------------------------
     visual = {
         "bu_feats": torch.relu(torch.randn(B, N_BOX, FULL["enc_dim"],
                                            generator=gen, device=dev)),
-        "bu_masks": (torch.arange(N_BOX, device=dev)[None, :]
-                     < n_valid[:, None]).float(),
+        "bu_masks": box_mask,
     }
 
     @contextlib.contextmanager
     def plain_versions():
         """The reference run: the decode's kernel wrappers swapped for their
         plain versions on the same CUDA tensors."""
-        saved = fused_head.topk_head, fused_lstm.lstm_cell_fused
-        fused_head.topk_head = fused_head.topk_head_plain
-        fused_lstm.lstm_cell_fused = fused_lstm.lstm_cell_plain
+        swaps = [(fused_head, "topk_head", fused_head.topk_head_plain),
+                 (fused_lstm, "lstm_cell_fused", fused_lstm.lstm_cell_plain),
+                 (quant, "quant_matmul", quant.quant_matmul_plain),
+                 (int8_attention, "lanes_attention_int8",
+                  int8_attention.lanes_attention_int8_plain)]
+        saved = [getattr(mod, name) for mod, name, _ in swaps]
+        for mod, name, plain in swaps:
+            setattr(mod, name, plain)
         try:
             yield
         finally:
-            fused_head.topk_head, fused_lstm.lstm_cell_fused = saved
+            for (mod, name, _), fn in zip(swaps, saved):
+                setattr(mod, name, fn)
 
     calls = []
     step_core = model.step_core
@@ -321,68 +491,116 @@ def main(argv=None) -> int:
         calls.append(1)
         return step_core(*a, **kw)
 
+    kv_kinds = []
+    encode = model.encode
+
+    def recording_encode(*a, **kw):
+        enc, st = encode(*a, **kw)
+        kv_kinds.append(enc.extras["k_q" if "k_q" in enc.extras
+                                   else "k_proj"].dtype)
+        return enc, st
+
     model.step_core = counting_step_core
-    decode_results = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    model.encode = recording_encode
+    # int8 K/V at encode (the port reads the switch there); the float paths
+    # have no int8 head, so it does not touch them
+    os.environ["SICZ_TPU_INT8_KV"] = "auto"
+    counters = dict(fused_head_topk=fused_head.COUNT,
+                    fused_lstm_cell=fused_lstm.COUNT,
+                    quant_matmul=quant.COUNT,
+                    int8_attention=int8_attention.COUNT)
+    float_path = dict(fused_head_topk=1, fused_lstm_cell=1, quant_matmul=0,
+                      int8_attention=0)
+    int8_path = dict(fused_head_topk=1, fused_lstm_cell=0, quant_matmul=3,
+                     int8_attention=1)
+    paths = [("float32", torch.float32, params, float_path),
+             ("bfloat16", torch.bfloat16, params, float_path),
+             ("int8/float32", torch.float32, qparams, int8_path),
+             ("int8/bfloat16", torch.bfloat16, qparams, int8_path)]
+    decode_results, float_ids = {}, {}
+    for label, dtype, prm, per_step in paths:
         dn = str(dtype).split(".")[1]
+        int8 = label.startswith("int8")
         fn = steps.make_greedy_decode(model, max_len=MAX_LEN,
                                       return_alphas=True, dtype=dtype,
                                       device="cuda")
         with plain_versions():
-            ref_ids, ref_al = fn(params, {}, visual)
+            ref_ids, ref_al = fn(prm, {}, visual)
         torch.cuda.synchronize()
         times, launches = [], None
         for _ in range(3):
             calls.clear()
-            fused_head.COUNT.n = 0
-            fused_lstm.COUNT.n = 0
+            for c in counters.values():
+                c.n = 0
             t0 = time.perf_counter()
-            ids, al = fn(params, {}, visual)
+            ids, al = fn(prm, {}, visual)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             n_steps = len(calls)
-            launches = (fused_head.COUNT.n, fused_lstm.COUNT.n)
-            require(n_steps >= 1 and launches == (n_steps, n_steps),
-                    "%s decode: %d steps but launches K1 %d, K2 %d"
-                    % (dn, n_steps, *launches))
+            launches = {kn: c.n for kn, c in counters.items()}
+            want = {kn: m * n_steps for kn, m in per_step.items()}
+            require(n_steps >= 1 and launches == want,
+                    "%s decode: %d steps, launches %s, expected %s"
+                    % (label, n_steps, launches, want))
+        require(kv_kinds[-1] == (torch.int8 if int8 else dtype),
+                "%s decode: encode stored its K/V as %s" % (label,
+                                                             kv_kinds[-1]))
         require(ids.shape == (B, MAX_LEN) and al.shape == (B, MAX_LEN, N_BOX),
-                "%s decode shapes %s %s" % (dn, tuple(ids.shape),
+                "%s decode shapes %s %s" % (label, tuple(ids.shape),
                                             tuple(al.shape)))
         require(int(ids.min()) >= 0 and int(ids.max()) < FULL["vocab_size"],
-                "%s decode ids out of range" % dn)
-        require(bool(torch.isfinite(al).all()), "%s alphas not finite" % dn)
+                "%s decode ids out of range" % label)
+        require(bool(torch.isfinite(al).all()), "%s alphas not finite" % label)
         live = al.sum(-1) > 0
         require(bool(((al.sum(-1) - 1).abs()[live] < 1e-3).all()),
-                "%s alphas of live steps do not sum to 1" % dn)
+                "%s alphas of live steps do not sum to 1" % label)
         require(bool((al[~live] == 0).all()) and bool(
             (al.masked_select((visual["bu_masks"][:, None, :] == 0)
                               .expand_as(al)) == 0).all()),
-                "%s alphas nonzero on masked boxes" % dn)
+                "%s alphas nonzero on masked boxes" % label)
         rows_same = float((ids == ref_ids).all(dim=1).float().mean())
         first_same = float((ids[:, 0] == ref_ids[:, 0]).float().mean())
-        if dtype == torch.float32:
+        if label == "float32":
             require(rows_same >= 0.99, "float32 decode: only %.4f of rows "
                     "equal the plain run's" % rows_same)
         else:
-            require(first_same >= 0.99, "bf16 decode: only %.4f of first "
-                    "ids equal the plain run's" % first_same)
+            require(first_same >= 0.99, "%s decode: only %.4f of first "
+                    "ids equal the plain run's" % (label, first_same))
         t_med = sorted(times)[1]
-        decode_results[dn] = dict(
-            steps=n_steps, launches_k1=launches[0], launches_k2=launches[1],
-            rows_identical=rows_same, first_ids_identical=first_same,
-            alphas_max_abs_diff=float((al - ref_al).abs().max()),
-            seconds=times, captions_per_s=B / t_med)
-        for kname, n in (("fused_head_topk", launches[0]),
-                         ("fused_lstm_cell", launches[1])):
-            kernels["%s/%s" % (kname, dn)]["launches"] = n
-        log("decode %s: B=%d, %d steps, launches K1 %d K2 %d; rows identical "
-            "to the plain run %.4f, first ids %.4f; %.1f captions/s "
-            "(median of %s s)" % (dn, B, n_steps, launches[0], launches[1],
-                                  rows_same, first_same, B / t_med,
-                                  ["%.4f" % t for t in times]))
-        decode_results[dn]["profile"] = profile_decode(
-            torch, lambda: fn(params, {}, visual), dn)
-    del model.step_core
+        res = dict(steps=n_steps, launches=launches,
+                   rows_identical=rows_same, first_ids_identical=first_same,
+                   alphas_max_abs_diff=float((al - ref_al).abs().max()),
+                   seconds=times, captions_per_s=B / t_med)
+        extra = ""
+        if int8:
+            # int8 is an approximation of the float decode, not a copy
+            fids = float_ids[dn]
+            res["first_ids_vs_float"] = float(
+                (ids[:, 0] == fids[:, 0]).float().mean())
+            res["rows_vs_float"] = float((ids == fids).all(dim=1).float()
+                                         .mean())
+            extra = ("; against the %s float decode: first ids %.4f, rows "
+                     "%.4f" % (dn, res["first_ids_vs_float"],
+                               res["rows_vs_float"]))
+        for kn, n in launches.items():
+            kname = ("fused_head_topk_int8"
+                     if int8 and kn == "fused_head_topk" else kn)
+            if per_step[kn]:
+                kernels["%s/%s" % (kname, dn)]["launches"] = n
+        log("decode %s: B=%d, %d steps, launches %s; K/V stored %s; rows "
+            "identical to the plain run %.4f, first ids %.4f%s; %.1f "
+            "captions/s (median of %s s)"
+            % (label, B, n_steps, launches, kv_kinds[-1], rows_same,
+               first_same, extra, B / t_med, ["%.4f" % t for t in times]))
+        res["profile"] = profile_decode(
+            torch, lambda: fn(prm, {}, visual), label)
+        decode_results[label] = res
+        if not int8:
+            float_ids[dn] = ids
+    del model.step_core, model.encode
+    missing = [k for k, v in kernels.items() if not v.get("launches")]
+    require(not missing, "kernels not launched on the main path: %s"
+            % missing)
 
     results["decode"] = decode_results
     results["kernels"] = list(kernels.values())

@@ -12,7 +12,11 @@ CPU tensors.
 What is ported so far: AoADetection greedy decode
 (``engine.steps.make_greedy_decode``) through the fused prediction-head top-k
 kernel (``ops/fused_head.py``) and the fused LSTM cell forward
-(``ops/fused_lstm.py``).  ``ROADMAP.md`` lists what follows.
+(``ops/fused_lstm.py``); and its int8 serving form
+(``model.quantize_decode_params``) through the int8 dequantizing product
+(``ops/quant.py``), the fused head over int8 weights and, with
+``SICZ_TPU_INT8_KV`` on, the int8 K/V attention (``ops/int8_attention.py``).
+``ROADMAP.md`` lists what follows.
 
 Token id conventions follow the reference (Build_caption_vocab.py:37-40):
 ``<pad>``=0, ``<sta>``=1, ``<end>``=2, ``<unk>``=3.  Importing the package has

@@ -16,8 +16,12 @@ import torch
 def from_jax(tree: Any, device="cpu", dtype: Optional[torch.dtype] = None):
     """JAX param tree (leaves numpy or anything ``np.asarray`` takes) -> the
     same structure of torch tensors on ``device``.  ``dtype``, if given, casts
-    the floating leaves; integer leaves keep their type."""
+    the floating leaves; integer leaves keep their type, and so does every
+    leaf of a weight-only int8 layer (a dict with ``q`` and ``s``), whose
+    float32 scales and bias are the quantization's error budget."""
     if isinstance(tree, dict):
+        if "q" in tree and "s" in tree:
+            dtype = None
         return {k: from_jax(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(from_jax(v, device, dtype) for v in tree)

@@ -1,9 +1,10 @@
-// Shared pieces of the port's CUDA kernels: element conversion and one
-// shared-memory tiled product with float32 accumulation.
+// Shared pieces of the port's CUDA kernels: element conversion (float32,
+// bf16 and int8 to float32, exact), warp reductions, and one shared-memory
+// tiled product with float32 accumulation.
 //
 // The tile product is the plain CUDA-core form (fmaf on float32 operands
 // staged in shared memory).  It is exact in its float32 accumulation for
-// both float32 and bf16 operands, which is what the kernels must reproduce
+// float32, bf16 and int8 operands, which is what the kernels must reproduce
 // first; moving it onto wgmma/TMA is later work (PERF.md).
 #pragma once
 
@@ -13,15 +14,29 @@
 
 namespace sicz {
 
-enum Dtype : int { kF32 = 0, kBF16 = 1 };
+enum Dtype : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+
+// max and sum across the 32 lanes of a warp; every lane gets the result
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
 }
 
 // acc[i][j] += sum_k A(r, k) * B(k, n) over k in [0, K) for the block tile

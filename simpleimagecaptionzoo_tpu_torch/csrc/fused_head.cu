@@ -2,22 +2,27 @@
 // (m, V) logits never written to device memory.
 //
 // Replaces simpleimagecaptionzoo_tpu/ops/fused_head.py:_kernel (launched by
-// _run_kernel, entered through topk_head), bf16/float32 weights.  The
-// int8-weight variant of that kernel comes with K3.
+// _run_kernel, entered through topk_head), with bf16/float32 weights and,
+// for the int8 serving path (K1-int8), int8 weights with a per-column scale
+// (prepare_head at fused_head.py:79-87).
 //
 //   logits = (x @ w) * s + b   in float32, per column chunk
 //   lse    = logsumexp(logits) per row
 //   top-k  of the raw logits, k <= 16, ordered by value descending and, on
 //          a tie, by vocab id ascending (lax.top_k order)
 //
-// x (m, K) and w (K, V) share one dtype, float32 or bf16; s and b are
-// float32 (V,).  Pad columns carry s = 0 and b = -1e30 (prepare_head).
+// x (m, K) is float32 or bf16; w (K, V) has x's dtype or is int8 (the
+// weight type is a template parameter: the loader widens each element to
+// float32 with to_f, exactly).  s and b are float32 (V,): 1 and the bias
+// for a float head, the column scale and bias for an int8 head.  Pad
+// columns carry s = 0 and b = -1e30 (prepare_head).
 //
 // What bounds it on an H100 SXM at the greedy shape (m=384, K=1024,
 // V=10,240, bf16): 8.05 GFLOP against 989 TFLOP/s of bf16 tensor cores is
 // 8.1 us; the 21.0 MB of w against 3.35 TB/s is 6.3 us.  So the product
-// bounds it.  This first kernel multiplies on the CUDA cores in float32
-// (67 TFLOP/s peak, at least 120 us); wgmma is the next step (PERF.md).
+// bounds it, and with an int8 w (10.5 MB, 3.1 us) all the more.  This
+// first kernel multiplies on the CUDA cores in float32 (67 TFLOP/s peak,
+// at least 120 us) for every weight type; wgmma is the next step (PERF.md).
 //
 // Design.  On the TPU the vocab grid runs in order and carries the running
 // max, sum and top-k from one tile to the next.  Here blocks run in
@@ -68,21 +73,9 @@ __device__ __forceinline__ void warp_best(float& v, int& i) {
   }
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-template <typename T>
+template <typename TX, typename TW>
 __global__ void __launch_bounds__(NT)
-head_partial(const T* __restrict__ x, const T* __restrict__ w,
+head_partial(const TX* __restrict__ x, const TW* __restrict__ w,
              const float* __restrict__ s, const float* __restrict__ b,
              float* __restrict__ pmax, float* __restrict__ psum,
              float* __restrict__ pval, int* __restrict__ pidx,
@@ -192,25 +185,37 @@ head_merge(const float* __restrict__ pmax, const float* __restrict__ psum,
   }
 }
 
+template <typename TX, typename TW>
+void launch_partial(dim3 grid, cudaStream_t st, const void* x, const void* w,
+                    const float* s, const float* b, float* pmax, float* psum,
+                    float* pval, int* pidx, int M, int K, int V, int k, int nchunk) {
+  head_partial<TX, TW><<<grid, NT, 0, st>>>((const TX*)x, (const TW*)w, s, b, pmax, psum,
+                                            pval, pidx, M, K, V, k, nchunk);
+}
+
 }  // namespace
 
+// dtype is x's type, wdtype w's: kF32 or kBF16, and w may also be kI8.
 extern "C" int fused_head_topk(const void* x, const void* w, const float* s,
                                const float* b, float* pmax, float* psum,
                                float* pval, int* pidx, float* vals, int* idx,
                                float* lse, int M, int K, int V, int k,
-                               int nchunk, int dtype, void* stream) {
+                               int nchunk, int dtype, int wdtype, void* stream) {
   if (M <= 0 || K <= 0 || V <= 0 || k < 1 || k > KMAX || k > V ||
       nchunk != (V + BN - 1) / BN)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   dim3 grid(nchunk, (M + BM - 1) / BM);
-  if (dtype == sicz::kF32) {
-    head_partial<float><<<grid, NT, 0, st>>>(
-        (const float*)x, (const float*)w, s, b, pmax, psum, pval, pidx, M, K, V, k, nchunk);
-  } else if (dtype == sicz::kBF16) {
-    head_partial<__nv_bfloat16><<<grid, NT, 0, st>>>(
-        (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, s, b, pmax, psum, pval, pidx,
-        M, K, V, k, nchunk);
+  if (dtype == sicz::kF32 && wdtype == sicz::kF32) {
+    launch_partial<float, float>(grid, st, x, w, s, b, pmax, psum, pval, pidx, M, K, V, k, nchunk);
+  } else if (dtype == sicz::kBF16 && wdtype == sicz::kBF16) {
+    launch_partial<__nv_bfloat16, __nv_bfloat16>(grid, st, x, w, s, b, pmax, psum, pval, pidx,
+                                                 M, K, V, k, nchunk);
+  } else if (dtype == sicz::kF32 && wdtype == sicz::kI8) {
+    launch_partial<float, int8_t>(grid, st, x, w, s, b, pmax, psum, pval, pidx, M, K, V, k, nchunk);
+  } else if (dtype == sicz::kBF16 && wdtype == sicz::kI8) {
+    launch_partial<__nv_bfloat16, int8_t>(grid, st, x, w, s, b, pmax, psum, pval, pidx,
+                                          M, K, V, k, nchunk);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -1,9 +1,10 @@
 """Decode entry points.
 
-Counterpart of the JAX package's ``engine/steps.py``.  This slice ports
+Counterpart of the JAX package's ``engine/steps.py``.  The port has
 :func:`make_greedy_decode`, the eval decode the engine runs when
-``eval_beam_size == -1``.  PyTorch runs eagerly, so there is no ``jit``:
-the returned function runs the decode when called.
+``eval_beam_size == -1``, in float32, bf16 and int8 serving form.
+PyTorch runs eagerly, so there is no ``jit``: the returned function runs
+the decode when called.
 """
 from __future__ import annotations
 
@@ -49,7 +50,13 @@ def make_greedy_decode(model: Captioner, max_len: int = 20,
     (B, max_len) [, alphas].  Params and visual move to ``device`` (the GPU
     unless the caller asks for the CPU); ``dtype=torch.bfloat16`` casts
     both, so ``bu_masks`` becomes bf16 too, as in the JAX package.  The
-    top-k itself stays float32 (ops/fused_head.py)."""
+    top-k itself stays float32 (ops/fused_head.py).
+
+    Int8 serving decode is this function with ``dtype=torch.bfloat16``
+    called on ``model.quantize_decode_params(params)``, as the JAX package's
+    engine does for ``--decode_dtype int8``: the int8 layer dicts keep
+    their types through the cast, and the step runs through K3 and K1's
+    int8 case (and K4 when ``SICZ_TPU_INT8_KV`` is on at encode)."""
     dev = resolve_device(device)
 
     @torch.inference_mode()

@@ -18,8 +18,13 @@ Attention scores and the attention-weighted values accumulate in float32
 whatever the compute dtype, as the JAX package's
 ``preferred_element_type=float32`` einsums do.
 
+Int8 serving (``quantize_decode_params``): the four per-step layers are
+weight-only int8 (kernel K3; K1-int8 for the head), and with
+``SICZ_TPU_INT8_KV`` on, encode stores the decoder K/V as int8 with per-row
+scales, which every step attends over through kernel K4.
+
 AoASpatial (from pixels), ``tf_inputs`` and the beam lanes step wait for
-later slices; int8 K/V (kernel K4) raises.
+later slices.
 """
 from __future__ import annotations
 
@@ -32,6 +37,8 @@ from simpleimagecaptionzoo_tpu_torch.models import layers as L
 from simpleimagecaptionzoo_tpu_torch.models.base import (Captioner, Encoded,
                                                          register)
 from simpleimagecaptionzoo_tpu_torch.ops import fused_lstm
+from simpleimagecaptionzoo_tpu_torch.ops import int8_attention as IA
+from simpleimagecaptionzoo_tpu_torch.ops import quant
 
 
 def aoa_block_init(gen, d_model: int) -> dict:
@@ -79,6 +86,10 @@ def aoa_block(params: dict, query: torch.Tensor, key: torch.Tensor,
 
 
 class _AoABase(Captioner):
+    # aoa_dec k/v run once in encode (the hoisted K/V) and so does the
+    # refiner: only the per-step layers are quantized
+    decode_quant_paths = (("lstm",), ("aoa_dec", "q"), ("aoa_dec", "aoa"),
+                          ("predict",))
 
     def init_params(self, gen: torch.Generator) -> dict:
         """Parameters on ``gen.device``, drawn from ``gen``."""
@@ -109,10 +120,6 @@ class _AoABase(Captioner):
                model_state: Optional[dict] = None
                ) -> Tuple[Encoded, Optional[dict]]:
         cfg = self.config
-        if "q" in params["predict"]:
-            raise NotImplementedError(
-                "int8 decode params need kernels K3 and K4, which the port "
-                "has not ported yet; see ROADMAP.md, Queue 2")
         feats, mask, model_state = self._raw_features(params, visual,
                                                       model_state)
         # masked projection (pack_wrapper semantics): padded rows -> exactly 0
@@ -135,9 +142,20 @@ class _AoABase(Captioner):
         else:
             mean = ((refined * mask[..., None]).sum(dim=1)
                     / torch.clamp(mask.sum(dim=1, keepdim=True), min=1.0))
-        extras = {"k_proj": L.dense(params["aoa_dec"]["k"], refined),
-                  "v_proj": L.dense(params["aoa_dec"]["v"], refined),
-                  "lstm_cat": fused_lstm.prepare_lstm(params["lstm"])}
+        k_proj = L.dense(params["aoa_dec"]["k"], refined)
+        v_proj = L.dense(params["aoa_dec"]["v"], refined)
+        if quant.is_quantized(params["predict"]) and \
+                IA.encode_should_quantize(refined.shape[0], refined.shape[1],
+                                          cfg.hidden_dim, cfg.num_heads):
+            # int8 serving with the switch on: int8 K/V with per-row scales,
+            # dequantized only inside K4
+            k_q, k_s = IA.quantize_rows(k_proj)
+            v_q, v_s = IA.quantize_rows(v_proj)
+            extras = {"k_q": k_q, "k_s": k_s, "v_q": v_q, "v_s": v_s}
+        else:
+            extras = {"k_proj": k_proj, "v_proj": v_proj}
+        if not quant.is_quantized(params["lstm"]):
+            extras["lstm_cat"] = fused_lstm.prepare_lstm(params["lstm"])
         return (Encoded(features=refined, mean=mean, mask=mask,
                         extras=extras),
                 model_state)
@@ -145,13 +163,33 @@ class _AoABase(Captioner):
     def _attend(self, params, query, encoded: Encoded, *, train: bool,
                 generator):
         """Decoder AoA block over the hoisted K/V: query (B, q, D) ->
-        (gated ctx (B, q, D), mean-head attention (B, q, N))."""
+        (gated ctx (B, q, D), mean-head attention (B, q, N)).  Dispatches on
+        the K/V that encode stored: float projections, or int8 with per-row
+        scales (kernel K4)."""
         cfg = self.config
         ex = encoded.extras
-        if "k_q" in ex:
-            raise NotImplementedError(
-                "int8 K/V attention is kernel K4, which the port has not "
-                "ported yet; see ROADMAP.md, Queue 2")
+        int8_kv = "k_q" in ex
+        if int8_kv and not IA.supported(query.shape[0], query.shape[1],
+                                        ex["k_q"].shape[1], cfg.hidden_dim,
+                                        cfg.num_heads):
+            # a query axis K4 does not take (encode checked k <= 4):
+            # dequantize once to the query dtype and attend as usual
+            ex = {"k_proj": (ex["k_q"].to(query.dtype)
+                             * ex["k_s"][..., None].to(query.dtype)),
+                  "v_proj": (ex["v_q"].to(query.dtype)
+                             * ex["v_s"][..., None].to(query.dtype))}
+            int8_kv = False
+        if int8_kv:
+            blk = params["aoa_dec"]
+            qp = L.dense(blk["q"], query)
+            x, alpha = IA.lanes_attention_int8(
+                qp, ex["k_q"], ex["k_s"], ex["v_q"], ex["v_s"], encoded.mask,
+                cfg.num_heads)
+            # the GLU tail of aoa_block (its dropouts are off in eval decode,
+            # the only place int8 K/V exist)
+            cat = torch.cat([x.to(query.dtype), query], dim=-1)
+            a, g = torch.chunk(L.dense(blk["aoa"], cat), 2, dim=-1)
+            return a * torch.sigmoid(g), alpha
         return aoa_block(
             params["aoa_dec"], query, encoded.features, encoded.features,
             encoded.mask, cfg.num_heads,

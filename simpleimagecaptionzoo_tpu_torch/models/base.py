@@ -14,6 +14,7 @@ import torch
 
 from simpleimagecaptionzoo_tpu_torch.config import ModelConfig
 from simpleimagecaptionzoo_tpu_torch.models import layers as L
+from simpleimagecaptionzoo_tpu_torch.ops import quant
 
 
 @dataclasses.dataclass
@@ -72,6 +73,19 @@ class Captioner:
                                                tokens, train=train,
                                                generator=generator)
         return self.predict(params, out), new_state, alpha
+
+    #: the layer dicts every decode step reads (the quantizable hot set);
+    #: layers that run once per batch in encode stay at full precision
+    decode_quant_paths: Tuple[Tuple[str, ...], ...] = ()
+
+    def quantize_decode_params(self, params) -> Dict[str, Any]:
+        """Weight-only int8 copy of ``params`` for serving decode
+        (``ops/quant.py``): the layers of :attr:`decode_quant_paths` become
+        ``{"q", "s", "b"}`` dicts, the rest is shared.  The result drops into
+        any decode function unchanged."""
+        if not self.decode_quant_paths:
+            return params
+        return quant.quantize_tree(params, self.decode_quant_paths)
 
 
 _REGISTRY: Dict[str, type] = {}

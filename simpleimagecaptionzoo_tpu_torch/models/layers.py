@@ -6,8 +6,8 @@ weight-norm ``v`` (in, out) with ``g`` per column) and the same
 initializer distributions, drawn from an explicit ``torch.Generator``.  The
 tensors an initializer makes live on its generator's device.
 
-Int8 weight-only params (a dict holding ``"q"``) need kernel K3, which is
-not ported yet: every layer given one raises :class:`NotImplementedError`.
+A weight-only int8 layer (a dict holding ``"q"``, ``ops/quant.py``) runs
+through kernel K3 in :func:`dense`, :func:`dense_wn` and :func:`lstm_cell`.
 """
 from __future__ import annotations
 
@@ -16,15 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from simpleimagecaptionzoo_tpu_torch.ops import fused_lstm
-
-
-def _no_int8(params: dict) -> None:
-    if "q" in params:
-        raise NotImplementedError(
-            "int8 weight-only params ('q') need kernel K3 (the JAX "
-            "package's ops/quant.py), which the port has not ported yet; "
-            "see ROADMAP.md, Queue 2")
+from simpleimagecaptionzoo_tpu_torch.ops import fused_lstm, quant
 
 
 # ---------------------------------------------------------------------------
@@ -94,7 +86,8 @@ def layer_norm_std_init(dim: int, device="cpu") -> dict:
 # ---------------------------------------------------------------------------
 
 def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
-    _no_int8(params)
+    if "q" in params:            # weight-only int8 (ops/quant.py, K3)
+        return quant.quant_matmul(x, params)
     y = x @ params["w"]
     if "b" in params:
         y = y + params["b"]
@@ -104,7 +97,8 @@ def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
 def dense_wn(params: dict, x: torch.Tensor) -> torch.Tensor:
     """Weight-norm linear.  The column norms are taken in float32 even when
     the params are bf16 (a bf16 sum of 1024 squares drifts ~0.3%)."""
-    _no_int8(params)
+    if "q" in params:            # weight-only int8 (ops/quant.py, K3)
+        return quant.quant_matmul(x, params)
     v = params["v"]
     norm = torch.linalg.vector_norm(v.float(), dim=0).to(v.dtype)
     y = x @ (v * (params["g"] / (norm + 1e-12)))
@@ -123,8 +117,14 @@ def lstm_cell(params: dict, x: torch.Tensor, h: torch.Tensor,
     """torch nn.LSTMCell step -> (h', c') through kernel K2: launched for
     CUDA tensors, its plain version for CPU tensors.  ``prepared`` is
     ``fused_lstm.prepare_lstm(params)``, made once outside a decode loop;
-    without it the weights are concatenated here."""
-    _no_int8(params)
+    without it the weights are concatenated here.
+
+    Int8 params (``ops/quant.quantize_lstm``) take the JAX package's int8
+    cell instead: the gates come from K3, rounded to x's dtype, and the gate
+    math runs in that dtype.  K2 does not run then."""
+    if "q" in params:
+        gates = quant.quant_matmul(torch.cat([x, h], dim=-1), params)
+        return fused_lstm.gate_math(gates, c)
     w_cat, b_sum = prepared if prepared is not None else \
         fused_lstm.prepare_lstm(params)
     return fused_lstm.lstm_cell_fused(w_cat, b_sum, x, h, c)

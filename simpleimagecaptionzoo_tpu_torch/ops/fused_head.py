@@ -6,7 +6,9 @@ argmax for greedy decode, a per-row top-k for beam search.  The kernel
 (``csrc/fused_head.cu``) computes the logits chunk by chunk in float32 and
 keeps them out of device memory; it returns the top-k raw logits, their
 vocab ids and the logsumexp, so ``vals - lse[:, None]`` are the exact top-k
-log-softmax values.
+log-softmax values.  The head weight is float32 or bf16 (x's dtype), or
+int8 with a per-column scale (``ops/quant.py``'s layout, the int8 serving
+path); the product is float32 either way.
 
 :func:`topk_head` launches the kernel for a CUDA tensor and takes
 :func:`topk_head_plain`, the same function in plain PyTorch, for a CPU
@@ -25,24 +27,18 @@ V_TILE = 512                    # vocab padding unit (the JAX package's)
 HEAD_CHUNK = 128                # columns per kernel chunk (BN in the .cu)
 MAX_K = 16
 _NEG = -1e30
+_DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}   # common.cuh
 
 COUNT = _build.Counter()
 
 
 class Head(NamedTuple):
-    """A head prepared for the kernel: w (Kp, Vp) in the compute dtype,
-    s and b (Vp,) float32, and the true vocab size v."""
+    """A head prepared for the kernel: w (Kp, Vp) in the compute dtype or
+    int8, s and b (Vp,) float32, and the true vocab size v."""
     w: torch.Tensor
     s: torch.Tensor
     b: torch.Tensor
     v: int
-
-
-def _no_int8(head: dict) -> None:
-    if "q" in head:
-        raise NotImplementedError(
-            "int8 head weights need the int8-weight variant of K1, which "
-            "comes with kernel K3 (ROADMAP.md, Queue 2); not ported yet")
 
 
 def prepare_head(head: dict, dtype: torch.dtype) -> Head:
@@ -50,10 +46,19 @@ def prepare_head(head: dict, dtype: torch.dtype) -> Head:
     decode.
 
     Takes the weight-norm head ``{"v", "g", "b"}`` (effective weight
-    computed in float32, then cast to ``dtype``) or a plain dense
-    ``{"w", "b"}``.  K pads to 128 and V to 512 with zeros; pad columns get
-    scale 0 and bias -1e30, so their logit is -1e30 and never wins."""
-    _no_int8(head)
+    computed in float32, then cast to ``dtype``), a plain dense
+    ``{"w", "b"}``, or the int8 head ``{"q", "s", "b"}`` (``q`` stays int8
+    and is already padded; its scale is per column).  K pads to 128 and V to
+    512 with zeros; pad columns get scale 0 and bias -1e30, so their logit
+    is -1e30 and never wins."""
+    if "q" in head:                      # ops/quant.py layout, pre-padded
+        q = head["q"]
+        v = head["s"].shape[0]
+        vp = q.shape[1]
+        s = torch.nn.functional.pad(head["s"].float(), (0, vp - v))
+        b = torch.nn.functional.pad(head["b"].float(), (0, vp - v),
+                                    value=_NEG)
+        return Head(q.contiguous(), s, b, v)
     if "v" in head:
         vv = head["v"].float()
         w = vv * (head["g"].float()
@@ -99,9 +104,11 @@ def _run_kernel(head: Head, x: torch.Tensor, k: int):
     if not (x.is_cuda and w.device == x.device and s.device == x.device
             and b.device == x.device):
         raise ValueError("fused_head: x, w, s and b must be on one CUDA device")
-    if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
-        raise TypeError("fused_head: x and w must both be float32 or both "
-                        "bfloat16, got %s and %s" % (x.dtype, w.dtype))
+    if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype not in (
+            x.dtype, torch.int8):
+        raise TypeError("fused_head: x must be float32 or bfloat16 and w "
+                        "the same or int8, got %s and %s" % (x.dtype,
+                                                            w.dtype))
     if s.dtype != torch.float32 or b.dtype != torch.float32:
         raise TypeError("fused_head: s and b must be float32")
     if w.shape[0] != kp or s.shape != (vp,) or b.shape != (vp,):
@@ -127,8 +134,8 @@ def _run_kernel(head: Head, x: torch.Tensor, k: int):
     p = _build.ptr
     code = lib.fused_head_topk(
         p(x), p(w), p(s), p(b), p(pmax), p(psum), p(pval), p(pidx), p(vals),
-        p(idx), p(lse), m, kp, vp, k, nchunk,
-        0 if x.dtype == torch.float32 else 1, _build.stream_of(x))
+        p(idx), p(lse), m, kp, vp, k, nchunk, _DTYPE[x.dtype],
+        _DTYPE[w.dtype], _build.stream_of(x))
     _build.check(code, "fused_head_topk")
     COUNT.n += 1
     return vals, idx, lse
@@ -137,7 +144,7 @@ def _run_kernel(head: Head, x: torch.Tensor, k: int):
 def _declare(lib) -> None:
     import ctypes
     vp_, i_ = ctypes.c_void_p, ctypes.c_int
-    lib.fused_head_topk.argtypes = [vp_] * 11 + [i_] * 6 + [vp_]
+    lib.fused_head_topk.argtypes = [vp_] * 11 + [i_] * 7 + [vp_]
     lib.fused_head_topk.restype = i_
 
 

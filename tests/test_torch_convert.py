@@ -90,3 +90,18 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     bad = [(f, m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+def test_bf16_carry_keeps_int8_layer_types():
+    """``dtype=bfloat16`` casts float leaves but leaves a weight-only int8
+    layer at its types: q int8, s and b float32 (as _cast_floats does)."""
+    torch.set_num_threads(1)
+    tree = {"lstm": {"q": np.ones((128, 512), np.int8),
+                     "s": np.full(4, 0.01, np.float32),
+                     "b": np.linspace(-1, 1, 4, dtype=np.float32)},
+            "embed": {"table": np.ones((3, 2), np.float32)}}
+    tp = from_jax(tree, dtype=torch.bfloat16)
+    assert tp["lstm"]["q"].dtype == torch.int8
+    assert tp["lstm"]["s"].dtype == tp["lstm"]["b"].dtype == torch.float32
+    np.testing.assert_array_equal(tp["lstm"]["b"].numpy(), tree["lstm"]["b"])
+    assert tp["embed"]["table"].dtype == torch.bfloat16

@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from simpleimagecaptionzoo_tpu_torch.ops import fused_head, fused_lstm
+from simpleimagecaptionzoo_tpu_torch.ops import (fused_head, fused_lstm,
+                                                 int8_attention, quant)
 
 pytestmark = pytest.mark.cuda
 
@@ -86,3 +87,91 @@ def test_head_kernel_ties_across_chunks(dev):
     assert idx.tolist() == [[7, fused_head.V_TILE + 11, 100]] * 8
     assert torch.isfinite(lse).all()
     torch.testing.assert_close(lse, pl, rtol=0, atol=1e-4)
+
+
+def _qdense(rng, k, n, dev):
+    w = torch.from_numpy(rng.uniform(-1, 1, (k, n)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+    return {t: a.to(dev) for t, a in quant.quantize_dense({"w": w, "b": b})
+            .items()}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(16, 256, 512), (64, 1024, 1024),
+                                   (37, 200, 700), (5, 3072, 130)])
+def test_quant_matmul_kernel_matches_plain(dev, dtype, m, k, n):
+    """K3: aligned, and ragged m, K (Kp 256) and n (Np 1024)."""
+    rng = np.random.default_rng(m + k + n)
+    qp = _qdense(rng, k, n, dev)
+    x = _t(rng.normal(size=(m, k)), dev, dtype)
+    before = quant.COUNT.n
+    got = quant.quant_matmul(x, qp)
+    torch.cuda.synchronize()
+    assert quant.COUNT.n == before + 1
+    assert got.shape == (m, n) and got.dtype == dtype
+    want = quant.quant_matmul_plain(x, qp)
+    if dtype == torch.bfloat16:              # one bf16 ulp
+        torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+    else:
+        # the sums run in another order: 1e-5 of the sum of |terms|, the
+        # float32 rounding bound of a dot product (outputs reach ~50 here)
+        terms = x.abs() @ (qp["q"][:k, :n].float().abs() * qp["s"])
+        assert bool(((got - want).abs() <= 1e-5 * terms + 1e-6).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k", [(16, 1), (16, 3), (3, 3), (45, 16)])
+def test_head_kernel_int8_weights_match_plain(dev, dtype, m, k):
+    """K1-int8: the int8 head of ops/quant.py, one scale per column."""
+    rng = np.random.default_rng(m * 17 + k)
+    hdim, v = 96, 1000
+    head = {"v": torch.from_numpy(rng.normal(size=(hdim, v)).astype(
+                np.float32)),
+            "g": torch.from_numpy(rng.uniform(0.5, 2.0, v).astype(
+                np.float32)),
+            "b": torch.from_numpy(rng.normal(size=v).astype(np.float32))}
+    qhead = {t: a.to(dev) for t, a in quant.quantize_dense_wn(head).items()}
+    prep = fused_head.prepare_head(qhead, dtype)
+    assert prep.w.dtype == torch.int8
+    x = _t(rng.normal(size=(m, hdim)), dev, dtype)
+    before = fused_head.COUNT.n
+    kv, ki, kl = fused_head.topk_head(prep, x, k)
+    torch.cuda.synchronize()
+    assert fused_head.COUNT.n == before + 1
+    pv, pi, pl = fused_head.topk_head_plain(prep, x, k)
+    tol = 1e-4 if dtype == torch.float32 else 2e-3
+    torch.testing.assert_close(kv, pv, rtol=0, atol=tol)
+    torch.testing.assert_close(kl, pl, rtol=0, atol=tol)
+    assert torch.equal(ki, pi)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,k,n,d,heads", [(8, 3, 5, 256, 2),
+                                           (16, 1, 36, 1024, 8),
+                                           (3, 16, 2048, 256, 1),
+                                           (5, 4, 37, 384, 3)])
+def test_int8_attention_kernel_matches_plain(dev, dtype, b, k, n, d, heads):
+    """K4: greedy and beam query rows, N up to 2048 (two passes of query
+    rows at k=16), ragged N; masked rows get exactly 0."""
+    rng = np.random.default_rng(b * k + n)
+    q = _t(rng.normal(size=(b, k, d)), dev, dtype)
+    kq, ks = int8_attention.quantize_rows(_t(rng.normal(size=(b, n, d)), dev,
+                                             torch.float32))
+    vq, vs = int8_attention.quantize_rows(_t(rng.normal(size=(b, n, d)), dev,
+                                             torch.float32))
+    valid = 1 + np.arange(b) % n
+    mask = _t(np.arange(n)[None, :] < valid[:, None], dev, torch.float32)
+    before = int8_attention.COUNT.n
+    out, pm = int8_attention.lanes_attention_int8(q, kq, ks, vq, vs, mask,
+                                                  heads)
+    torch.cuda.synchronize()
+    assert int8_attention.COUNT.n == before + 1
+    assert out.dtype == dtype and pm.dtype == torch.float32
+    pout, ppm = int8_attention.lanes_attention_int8_plain(q, kq, ks, vq, vs,
+                                                          mask, heads)
+    tol = (dict(rtol=0, atol=2e-5) if dtype == torch.float32
+           else dict(rtol=1e-2, atol=1e-2))
+    torch.testing.assert_close(out, pout, **tol)
+    torch.testing.assert_close(pm, ppm, rtol=0, atol=2e-6)
+    assert bool((pm.masked_select((mask == 0)[:, None, :].expand_as(pm))
+                 == 0).all())

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from simpleimagecaptionzoo_tpu.ops import fused_head as JF
+from simpleimagecaptionzoo_tpu.ops import quant as JQ
 from simpleimagecaptionzoo_tpu_torch.ops import fused_head as TF
 
 H, V, M = 64, 1000, 16
@@ -49,6 +50,27 @@ def test_plain_matches_jax_kernel(k, monkeypatch):
     np.testing.assert_array_equal(ti, ji)
     np.testing.assert_allclose(tv, jv, **TOL)
     np.testing.assert_allclose(tl, jl, **TOL)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_int8_head_matches_jax_kernel(k, monkeypatch):
+    """K1's int8-weight case: the JAX package's int8 head (ops/quant.py)
+    through its Pallas kernel and through the port's plain version."""
+    monkeypatch.setenv("SICZ_TPU_FUSED_HEAD", "interpret")
+    qhead = {n: np.array(a) for n, a in JQ.quantize_dense_wn(
+        {n: jnp.asarray(a) for n, a in _head(6).items()}).items()}
+    x = np.random.default_rng(7).normal(size=(M, H)).astype(np.float32)
+    assert JF.enabled({n: jnp.asarray(a) for n, a in qhead.items()}, M, k,
+                      jnp.float32)
+    jv, ji, jl, tv, ti, tl = _run_both(qhead, x, k)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_allclose(tv, jv, **TOL)
+    np.testing.assert_allclose(tl, jl, **TOL)
+    prep = TF.prepare_head({n: torch.from_numpy(a) for n, a in qhead.items()},
+                           torch.bfloat16)
+    assert prep.w.dtype == torch.int8 and prep.v == V
+    assert float(prep.s[V:].abs().max()) == 0.0
+    assert float(prep.b[V:].max()) == float(np.float32(-1e30))
 
 
 def test_dispatch_takes_plain_version_on_cpu(monkeypatch):

@@ -10,7 +10,7 @@ import torch
 
 from simpleimagecaptionzoo_tpu.models import layers as JL
 from simpleimagecaptionzoo_tpu_torch.models import layers as TL
-from simpleimagecaptionzoo_tpu_torch.ops import fused_head
+from simpleimagecaptionzoo_tpu_torch.ops import fused_head, quant
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -133,11 +133,22 @@ def test_initializer_bounds():
 
 
 def test_int8_params_raise():
-    q = {"q": torch.zeros((8, 8), dtype=torch.int8), "s": torch.ones(8),
-         "b": torch.zeros(8)}
-    x = torch.zeros((2, 8))
-    for fn in (lambda: TL.dense(q, x), lambda: TL.dense_wn(q, x),
-               lambda: TL.lstm_cell(q, x, x, x),
-               lambda: fused_head.prepare_head(q, torch.float32)):
-        with pytest.raises(NotImplementedError, match="K3"):
-            fn()
+    """Int8 layer dicts dispatch to K3 (its plain version on the CPU) and to
+    K1's int8 case; only a dict that is no layer raises, and so does an x
+    wider than q."""
+    rng = np.random.default_rng(0)
+    q = {"q": torch.from_numpy(rng.integers(-127, 128, (128, 512)).astype(
+             np.int8)),
+         "s": torch.from_numpy(rng.uniform(0.01, 0.02, 8).astype(np.float32)),
+         "b": torch.from_numpy(_np(1, 8))}
+    x = torch.from_numpy(_np(2, 2, 8))
+    want = (x @ (q["q"][:8, :8].float() * q["s"])) + q["b"]
+    torch.testing.assert_close(TL.dense(q, x), want, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(TL.dense_wn(q, x), want, rtol=1e-6, atol=1e-6)
+    h, c = TL.lstm_cell(q, x[:, :4], x[:, 4:6], x[:, 6:])   # 4 gates of 2
+    assert h.shape == c.shape == (2, 2)
+    assert fused_head.prepare_head(q, torch.float32).w.dtype == torch.int8
+    with pytest.raises(ValueError, match="not a quantizable"):
+        quant.quantize_tree({"layer": {"table": x}}, [("layer",)])
+    with pytest.raises(ValueError, match="q only 128 rows"):
+        TL.dense(q, torch.zeros((2, 200)))
