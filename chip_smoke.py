@@ -7,12 +7,19 @@ Phases, each of which fails the run (nonzero exit) when it fails:
   1. the card's name and power limit (nvidia-smi);
   2. the build of every CUDA kernel of the port from its sources
      (simpleimagecaptionzoo_tpu_torch/csrc, one nvcc per source, in
-     parallel);
+     parallel), ptxas's registers, shared memory and spills of the two
+     tensor-core kernels, and their SASS: cuobjdump (or nvdisasm) must find
+     HGMMA (wgmma) and UTMALDG (TMA loads) in both libraries;
   3. K1, the fused head top-k, against its plain PyTorch version on the card
      at the greedy decode shape (m=384, H=1024, V=10,102; k=1 and k=3;
-     float32 and bf16), on a cross-chunk tie, and at m=3;
+     float32 on the CUDA-core route, bf16 on both routes, the tensor-core
+     route also at the beam shape m=1,152, k=3), at m=3, and on a
+     cross-chunk tie on each route; the bf16 routes timed in turns (old,
+     new, new, old) at m=384 and m=1,152, beside cuBLAS's bare x @ W;
   4. K2, the fused LSTM cell, against its plain version (B=384, E=2048,
-     H=1024, float32 and bf16, and the unaligned E=200);
+     H=1024, and the unaligned E=200: float32 on the CUDA-core route, bf16
+     on both routes, the tensor-core route also at B=1,152); bf16 timed in
+     turns against the CUDA-core route and torch.lstm_cell;
   5. K3, the int8 dequantizing product, against its plain version at the
      three shapes of the int8 decode step (the LSTM gates, aoa_dec.q,
      aoa_dec.aoa; m=384) and a ragged one (m=37, K=200, n=700), float32
@@ -23,21 +30,25 @@ Phases, each of which fails the run (nonzero exit) when it fails:
   8. the main path: AoADetection greedy decode at full width (embed/hidden
      1024, 6 refine layers, 8 heads, 36 boxes, vocab 10,102; random weights
      from --seed), batch 384, 20 steps, through
-     engine.steps.make_greedy_decode: in float32 and in bf16 (K1, K2), and
-     in int8 serving form, on model.quantize_decode_params with
+     engine.steps.make_greedy_decode: in float32 (K1 and K2 on the CUDA-core
+     route) and in bf16 (K1 and K2, every launch on the tensor-core route),
+     and in int8 serving form, on model.quantize_decode_params with
      SICZ_TPU_INT8_KV=auto, in float32 and in bf16 (K3 three times a step,
      K1-int8 and K4 once, K2 never).  Each is run once with the plain
      versions (the reference) and three times through the kernels; the
-     launch counts of the kernel runs must equal their decode steps times
-     those multiples, and the ids must agree with the reference run.  One
-     more decode per path runs under torch.profiler, which prints the
-     device time by kernel and the device's idle share.
+     launch counts of the kernel runs, per route, must equal their decode
+     steps times those multiples, and the ids must agree with the reference
+     run.  One more decode per path runs under torch.profiler, which prints
+     the device time by kernel and the device's idle share.
 Then it prints one JSON line of per-kernel results and, last, the
 ``{"ok": true, "device": ...}`` line.
 
 Timings use CUDA events, with a 128 MB buffer written between launches so
 each launch finds the L2 cache cold (as in the decode, where the other
-step's weights pass through L2 in between).  ``bound_ms`` is the larger of
+step's weights pass through L2 in between).  A reading includes the host's
+time when the host issues a call more slowly than the card runs it; the
+bf16 routes of K1 and K2 are also timed with the card kept busy while the
+host issues them (``device_*``: the device's time alone).  ``bound_ms`` is the larger of
 the bytes the function must move over 3.35 TB/s and its operations over
 the peak rate for their type (989 TFLOP/s bf16 tensor cores; 67 TFLOP/s
 float32, since TF32 is off), the H100 SXM data-sheet figures at 700 W.
@@ -49,6 +60,7 @@ import argparse
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -70,14 +82,20 @@ def log(*a):
     print(*a, flush=True)
 
 
-def time_ms(torch, fn, flush, reps=20):
+def time_ms(torch, fn, flush, reps=20, lead=0):
     """Median milliseconds of ``fn()`` over ``reps`` launches, each after
-    the L2 flush."""
+    the L2 flush.  The host does not wait between launches, so where a
+    call's host work outlasts the flush the gap is timed too.  ``lead``
+    (GPU clock cycles, e.g. 500,000: about 0.25 ms) keeps the card busy
+    after the flush while the host issues ``fn``: the reading is then the
+    device's time alone."""
     for _ in range(3):
         fn()
     evs = []
     for _ in range(reps):
         flush.zero_()
+        if lead:
+            torch.cuda._sleep(lead)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -89,6 +107,69 @@ def time_ms(torch, fn, flush, reps=20):
     return t[len(t) // 2]
 
 
+def time_turns(torch, fns, flush, order, reps=50, lead=0):
+    """``time_ms`` of each callable of ``fns`` (name -> fn) in ``order``,
+    e.g. old, new, new, old on the same card; name -> its readings."""
+    out = {}
+    for name in order:
+        out.setdefault(name, []).append(time_ms(torch, fns[name], flush,
+                                                reps, lead))
+    return out
+
+
+DEVICE_LEAD = 500_000        # cycles of GPU sleep ahead of a device-only reading
+
+
+def mean(xs):
+    return sum(xs) / len(xs)
+
+
+def _tool(name):
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", name),
+                 "/usr/local/cuda/bin/" + name, shutil.which(name) or ""):
+        if cand and os.path.isfile(cand):
+            return cand
+    return None
+
+
+def sass_counts(_build, name, lib, ops=("HGMMA", "UTMALDG")):
+    """How often each SASS opcode of ``ops`` occurs in the built library
+    of ``csrc/<name>.cu``: cuobjdump -sass on the library, or, without
+    cuobjdump, nvdisasm on a cubin of the same source."""
+    cuobjdump = _tool("cuobjdump")
+    if cuobjdump:
+        text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+    else:
+        nvdisasm = _tool("nvdisasm")
+        require(nvdisasm, "neither cuobjdump nor nvdisasm found")
+        cubin = lib + ".cubin"
+        subprocess.run([_build.nvcc_path(), "-gencode",
+                        "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                        "-cubin", "-I", _build.CSRC_DIR, "-o", cubin,
+                        os.path.join(_build.CSRC_DIR, name + ".cu")],
+                       check=True, capture_output=True, timeout=300)
+        text = subprocess.run([nvdisasm, cubin], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+    return {op: text.count(op) for op in ops}
+
+
+def ptxas_lines(lib, marker="wgmma"):
+    """ptxas's report (-Xptxas -v, kept in <library>.log) of the kernels
+    whose mangled name holds ``marker``."""
+    lines, keep = [], 0
+    for line in open(lib + ".log").read().splitlines():
+        if "Compiling entry function" in line:
+            keep = 3 if marker in line else 0
+            if keep:
+                lines.append(line.split("'")[1])
+            continue
+        if keep:
+            lines.append("  " + line.strip())
+            keep -= 1
+    return lines
+
+
 def bound(nbytes, nops, dtype_name):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = nops / PEAK_OPS_PER_S[dtype_name]
@@ -96,13 +177,20 @@ def bound(nbytes, nops, dtype_name):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def hold_head(torch, fused_head, tag, head, x, dn, tol):
-    """K1 (any weight type) against its plain version at k=1, k=3 and on
-    three rows; returns the largest error of values and lse."""
+def hold_head(torch, fused_head, tag, head, x, dn, tol, extra=(),
+              route=None):
+    """K1 (any weight type) against its plain version at k=1, k=3, on
+    three rows and on the ``extra`` (x, k) cases, through ``topk_head`` or,
+    given ``route``, on that route; returns the largest error of values and
+    lse."""
     err = 0.0
-    cases = [(x, k) for k in (1, 3)] + [(x[:3].contiguous(), 3)]
+    cases = ([(x, k) for k in (1, 3)] + [(x[:3].contiguous(), 3)]
+             + list(extra))
     for xs, k in cases:
-        kv, ki, kl = fused_head.topk_head(head, xs, k)
+        if route is None:
+            kv, ki, kl = fused_head.topk_head(head, xs, k)
+        else:
+            kv, ki, kl = fused_head._run_kernel(head, xs, k, route)
         torch.cuda.synchronize()
         pv, pi, pl = fused_head.topk_head_plain(head, xs, k + 1)
         e = max(float((kv - pv[:, :k]).abs().max()),
@@ -195,10 +283,22 @@ def main(argv=None) -> int:
     # -- 2. build -------------------------------------------------------------
     t0 = time.time()
     libs = ["fused_head", "fused_lstm", "quant_matmul", "int8_attention"]
-    _build.build(libs)
+    lib_paths = _build.build(libs)
     results["build_s"] = time.time() - t0
     log("build: %s from csrc in %.2f s" % (", ".join(libs),
                                            results["build_s"]))
+    results["sass"], results["ptxas"] = {}, {}
+    for lname in ("fused_lstm", "fused_head"):
+        counts = sass_counts(_build, lname, lib_paths[lname])
+        require(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
+                "%s: the SASS holds %s; the tensor-core route needs HGMMA "
+                "and UTMALDG" % (lname, counts))
+        results["sass"][lname] = counts
+        results["ptxas"][lname] = ptxas_lines(lib_paths[lname])
+        log("SASS %s: %s" % (lname, ", ".join("%s x %d" % kv
+                                              for kv in counts.items())))
+        for line in results["ptxas"][lname]:
+            log("  ptxas " + line)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = get_captioner(ModelConfig(**FULL))
@@ -211,85 +311,192 @@ def main(argv=None) -> int:
             name="%s/%s" % (kname, dtype_name), route="cuda", **kw)
 
     # -- 3. K1 against its plain version --------------------------------------
+    mb = 3 * B                                      # beam rows: B x 3 beams
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
+        tc = dtype == torch.bfloat16
         tol = 1e-4 if dtype == torch.float32 else 2e-3
         head = fused_head.prepare_head(
             steps._cast_floats(params["predict"], dtype), dtype)
         x = (0.5 * torch.randn(B, FULL["hidden_dim"], generator=gen,
                                device=dev)).to(dtype)
-        err = hold_head(torch, fused_head, "K1", head, x, dn, tol)
-        ms = time_ms(torch, lambda: fused_head.topk_head(head, x, 1), flush)
+        xb = ((0.5 * torch.randn(mb, FULL["hidden_dim"], generator=gen,
+                                 device=dev)).to(dtype) if tc else None)
+        route = fused_head.head_route(head.w, x)
+        require(route == ("wgmma" if tc else "cuda_core"),
+                "K1 %s takes the %s route" % (dn, route))
+        before = fused_head.COUNT_WGMMA.n
+        err = hold_head(torch, fused_head, "K1/" + route, head, x, dn, tol,
+                        extra=[(xb, 3)] if tc else ())
+        require(fused_head.COUNT_WGMMA.n - before == (4 if tc else 0),
+                "K1 %s: %d launches on the wgmma route"
+                % (dn, fused_head.COUNT_WGMMA.n - before))
+        if tc:
+            # the CUDA-core route, which bf16 operands TMA cannot take go to
+            before = fused_head.COUNT.n, fused_head.COUNT_WGMMA.n
+            old_err = hold_head(torch, fused_head, "K1/cuda_core", head, x,
+                                dn, tol, route="cuda_core")
+            require((fused_head.COUNT.n - before[0],
+                     fused_head.COUNT_WGMMA.n - before[1]) == (3, 0),
+                    "K1 %s forced onto the cuda_core route: counters moved "
+                    "by %d and %d" % (dn, fused_head.COUNT.n - before[0],
+                                      fused_head.COUNT_WGMMA.n - before[1]))
+        kp, vp_ = head.w.shape
+        hd = FULL["hidden_dim"]
+        item = x.element_size()
+
+        def k1_bound(m, k):
+            nbytes = (m * hd * item + hd * head.v * item + 2 * head.v * 4
+                      + m * (k * 8 + 4))
+            return bound(nbytes, 2 * m * hd * head.v, dn)
+
+        b_ms, b_by = k1_bound(B, 1)
         plain_ms = time_ms(torch,
                            lambda: fused_head.topk_head_plain(head, x, 1),
                            flush)
-        kp, vp_ = head.w.shape
-        item = x.element_size()
-        nbytes = (B * FULL["hidden_dim"] * item
-                  + FULL["hidden_dim"] * head.v * item + 2 * head.v * 4
-                  + B * (1 * 8 + 4))
-        b_ms, b_by = bound(nbytes, 2 * B * FULL["hidden_dim"] * head.v, dn)
-        entry("fused_head_topk", dn,
+        shape = ("m=%d K=%d V=%d (padded %dx%d) k=1" % (B, hd, head.v, kp,
+                                                        vp_))
+        if not tc:
+            ms = time_ms(torch, lambda: fused_head.topk_head(head, x, 1),
+                         flush)
+            entry("fused_head_topk", dn,
+                  source="simpleimagecaptionzoo_tpu_torch/csrc/fused_head.cu",
+                  replaces="simpleimagecaptionzoo_tpu/ops/fused_head.py:155",
+                  max_abs_err=err, max_err=err, ms=ms, kernel_ms=ms,
+                  plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                  library_ms=None, kernel_route="cuda_core", shape=shape)
+            log("K1 %s timing (cuda_core): kernel %.4f ms, plain %.4f ms, "
+                "bound %.4f ms (%s)" % (dn, ms, plain_ms, b_ms, b_by))
+            continue
+        k1_fns = {
+            "old": lambda: fused_head._run_kernel(head, x, 1, "cuda_core"),
+            "new": lambda: fused_head.topk_head(head, x, 1)}
+        beam_fns = {
+            "old": lambda: fused_head._run_kernel(head, xb, 3, "cuda_core"),
+            "new": lambda: fused_head.topk_head(head, xb, 3)}
+        order = ["old", "new", "new", "old"]
+        turns = time_turns(torch, k1_fns, flush, order)
+        dev_turns = time_turns(torch, k1_fns, flush, order, lead=DEVICE_LEAD)
+        beam = time_turns(torch, beam_fns, flush, order)
+        dev_beam = time_turns(torch, beam_fns, flush, order, lead=DEVICE_LEAD)
+        prod_ms = time_ms(torch, lambda: x @ head.w, flush)
+        prod_beam_ms = time_ms(torch, lambda: xb @ head.w, flush)
+        bb_ms, bb_by = k1_bound(mb, 3)
+        ms = mean(turns["new"])
+        entry("fused_head_topk_wgmma", dn,
               source="simpleimagecaptionzoo_tpu_torch/csrc/fused_head.cu",
               replaces="simpleimagecaptionzoo_tpu/ops/fused_head.py:155",
               max_abs_err=err, max_err=err, ms=ms, kernel_ms=ms,
               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-              library_ms=None, shape="m=%d K=%d V=%d (padded %dx%d) k=1"
-              % (B, FULL["hidden_dim"], head.v, kp, vp_))
-        log("K1 %s timing: kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s)"
-            % (dn, ms, plain_ms, b_ms, b_by))
+              library_ms=None, kernel_route="wgmma", shape=shape,
+              turns=turns, old_route_ms=mean(turns["old"]),
+              old_route_max_abs_err=old_err,
+              device_turns=dev_turns, device_ms=mean(dev_turns["new"]),
+              device_old_route_ms=mean(dev_turns["old"]),
+              product_ms=prod_ms, beam_shape="m=%d k=3" % mb,
+              beam_turns=beam, beam_ms=mean(beam["new"]),
+              beam_old_route_ms=mean(beam["old"]),
+              beam_device_turns=dev_beam,
+              beam_product_ms=prod_beam_ms, beam_bound_ms=bb_ms)
+        log("K1 %s timing in turns (old, new, new, old): wgmma %s ms, "
+            "cuda_core %s ms; plain %.4f ms; x @ W alone (cuBLAS) %.4f ms; "
+            "bound %.4f ms (%s)"
+            % (dn, ["%.4f" % t for t in turns["new"]],
+               ["%.4f" % t for t in turns["old"]], plain_ms, prod_ms, b_ms,
+               b_by))
+        log("K1 %s at m=%d k=3 in turns: wgmma %s ms, cuda_core %s ms; "
+            "x @ W alone %.4f ms; bound %.4f ms (%s)"
+            % (dn, mb, ["%.4f" % t for t in beam["new"]],
+               ["%.4f" % t for t in beam["old"]], prod_beam_ms, bb_ms, bb_by))
+        log("K1 %s device time alone, in turns: m=%d k=1 wgmma %s, cuda_core "
+            "%s ms; m=%d k=3 wgmma %s, cuda_core %s ms"
+            % (dn, B, ["%.4f" % t for t in dev_turns["new"]],
+               ["%.4f" % t for t in dev_turns["old"]], mb,
+               ["%.4f" % t for t in dev_beam["new"]],
+               ["%.4f" % t for t in dev_beam["old"]]))
 
-    # the tie across chunks, with two chunks made only of pad columns
+    # the tie across chunks, with chunks made only of pad columns, on each
+    # route and in bf16 on both (3.0 and 1.0 are exact in bf16)
     v = 2 * fused_head.V_TILE
     w = torch.zeros((8, v), device=dev)
     w[:, 7] = 3.0
     w[:, fused_head.V_TILE + 11] = 3.0
     w[:, 100] = 1.0
-    tie_head = fused_head.prepare_head({"w": w[:, :700]}, torch.float32)
-    eye = torch.eye(8, device=dev)
-    _, ti, tl = fused_head.topk_head(tie_head, eye, 3)
-    _, pi, pl = fused_head.topk_head_plain(tie_head, eye, 3)
-    require(ti.tolist() == [[7, fused_head.V_TILE + 11, 100]] * 8
-            and torch.equal(ti, pi) and bool(torch.isfinite(tl).all())
-            and float((tl - pl).abs().max()) <= 1e-4,
-            "K1 tie case: %s" % ti.tolist())
-    log("K1 tie across chunks: ids %s, lse finite" % ti[0].tolist())
+    for dtype, route in ((torch.float32, "cuda_core"),
+                         (torch.bfloat16, "wgmma"),
+                         (torch.bfloat16, "cuda_core")):
+        tie_head = fused_head.prepare_head({"w": w[:, :700].to(dtype)}, dtype)
+        eye = torch.eye(8, tie_head.w.shape[0], device=dev, dtype=dtype)
+        if route == fused_head.head_route(tie_head.w, eye):
+            _, ti, tl = fused_head.topk_head(tie_head, eye, 3)
+        else:
+            _, ti, tl = fused_head._run_kernel(tie_head, eye, 3, route)
+        _, pi, pl = fused_head.topk_head_plain(tie_head, eye, 3)
+        require(ti.tolist() == [[7, fused_head.V_TILE + 11, 100]] * 8
+                and torch.equal(ti, pi) and bool(torch.isfinite(tl).all())
+                and float((tl - pl).abs().max()) <= 1e-4,
+                "K1 tie case %s: %s" % (route, ti.tolist()))
+        log("K1 tie across chunks, %s %s route (%d-column chunks): ids %s, "
+            "lse finite" % (str(dtype).split(".")[1], route,
+                            fused_head.V_TILE * 2 // fused_head.head_chunks(
+                                route, 2 * fused_head.V_TILE),
+                            ti[0].tolist()))
 
     # -- 4. K2 against its plain version --------------------------------------
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
+        tc = dtype == torch.bfloat16
+        want_route = "wgmma" if tc else "cuda_core"
         tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
                else dict(rtol=1e-2, atol=1e-2))
         w_cat, b_sum = fused_lstm.prepare_lstm(
             steps._cast_floats(params["lstm"], dtype))
         hd = FULL["hidden_dim"]
         e_in = FULL["embed_dim"] + hd
-        err = 0.0
-        shapes = [(e_in, w_cat, b_sum)]
+        errs = {"wgmma": 0.0, "cuda_core": 0.0}
         wb = 1 / hd ** 0.5
         w200 = ((torch.rand(200 + hd, 4 * hd, generator=gen, device=dev) * 2
                  - 1) * wb).to(dtype)
-        shapes.append((200, w200, b_sum))
-        for e, wc, bs in shapes:
-            x, h, c = (torch.randn(B, n, generator=gen, device=dev).to(dtype)
+        shapes = [(B, e_in, w_cat, want_route), (B, 200, w200, want_route)]
+        if tc:
+            # the beam rows, and the CUDA-core route, which bf16 shapes TMA
+            # cannot take go to, at the shapes above
+            shapes += [(mb, e_in, w_cat, "wgmma"),
+                       (B, e_in, w_cat, "cuda_core"),
+                       (B, 200, w200, "cuda_core")]
+        for m, e, wc, route in shapes:
+            x, h, c = (torch.randn(m, n, generator=gen, device=dev).to(dtype)
                        for n in (e, hd, hd))
-            kh, kc = fused_lstm.lstm_cell_fused(wc, bs, x, h, c)
+            before = fused_lstm.COUNT.n, fused_lstm.COUNT_WGMMA.n
+            if route == want_route:
+                got_route = fused_lstm.lstm_route(wc, x, h)
+                require(got_route == route, "K2 %s B=%d E=%d takes the %s "
+                        "route" % (dn, m, e, got_route))
+                kh, kc = fused_lstm.lstm_cell_fused(wc, b_sum, x, h, c)
+            else:
+                kh, kc = fused_lstm._run_kernel(wc, b_sum, x, h, c, route)
             torch.cuda.synchronize()
-            ph, pc = fused_lstm.lstm_cell_plain(wc, bs, x, h, c)
+            moved = (fused_lstm.COUNT.n - before[0],
+                     fused_lstm.COUNT_WGMMA.n - before[1])
+            require(moved == (1, int(route == "wgmma")),
+                    "K2 %s %s B=%d E=%d: the counters moved by %s"
+                    % (dn, route, m, e, moved))
+            ph, pc = fused_lstm.lstm_cell_plain(wc, b_sum, x, h, c)
             for got, want, what in ((kh, ph, "h'"), (kc, pc, "c'")):
                 diff = (got.float() - want.float()).abs()
                 lim = tol["atol"] + tol["rtol"] * want.float().abs()
                 require(bool((diff <= lim).all()),
-                        "K2 %s E=%d %s: max |err| %.3g beyond rtol %g atol %g"
-                        % (dn, e, what, float(diff.max()), tol["rtol"],
-                           tol["atol"]))
-                err = max(err, float(diff.max()))
-            log("K2 %s B=%d E=%d H=%d: max|err| %.3g (rtol %g atol %g)"
-                % (dn, B, e, hd, err, tol["rtol"], tol["atol"]))
+                        "K2 %s %s B=%d E=%d %s: max |err| %.3g beyond rtol %g "
+                        "atol %g" % (dn, route, m, e, what,
+                                     float(diff.max()), tol["rtol"],
+                                     tol["atol"]))
+                errs[route] = max(errs[route], float(diff.max()))
+            log("K2 %s (%s) B=%d E=%d H=%d: max|err| %.3g (rtol %g atol %g)"
+                % (dn, route, m, e, hd, errs[route], tol["rtol"],
+                   tol["atol"]))
+        err = errs[want_route]
         x, h, c = (torch.randn(B, n, generator=gen, device=dev).to(dtype)
                    for n in (e_in, hd, hd))
-        ms = time_ms(torch, lambda: fused_lstm.lstm_cell_fused(
-            w_cat, b_sum, x, h, c), flush)
         plain_ms = time_ms(torch, lambda: fused_lstm.lstm_cell_plain(
             w_cat, b_sum, x, h, c), flush)
         # the library yardstick: torch.lstm_cell on weights transposed once
@@ -298,21 +505,56 @@ def main(argv=None) -> int:
         w_hh_t = lp["w_hh"].t().contiguous()
         lib = lambda: torch.lstm_cell(x, (h, c), w_ih_t, w_hh_t, lp["b_ih"],
                                       lp["b_hh"])
-        lib_ms = time_ms(torch, lib, flush)
         item = x.element_size()
         nbytes = ((B * (e_in + 2 * hd) + (e_in + hd) * 4 * hd + 4 * hd
                    + 2 * B * hd) * item)
         b_ms, b_by = bound(nbytes, 2 * B * (e_in + hd) * 4 * hd, dn)
-        entry("fused_lstm_cell", dn,
+        shape = "B=%d E=%d H=%d" % (B, e_in, hd)
+        if not tc:
+            ms = time_ms(torch, lambda: fused_lstm.lstm_cell_fused(
+                w_cat, b_sum, x, h, c), flush)
+            lib_ms = time_ms(torch, lib, flush)
+            entry("fused_lstm_cell", dn,
+                  source="simpleimagecaptionzoo_tpu_torch/csrc/fused_lstm.cu",
+                  replaces="simpleimagecaptionzoo_tpu/ops/pallas_lstm.py:166",
+                  max_abs_err=err, max_err=err, ms=ms, kernel_ms=ms,
+                  plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                  library_ms=lib_ms, kernel_route="cuda_core", shape=shape)
+            log("K2 %s timing (cuda_core): kernel %.4f ms, plain %.4f ms, "
+                "torch.lstm_cell %.4f ms, bound %.4f ms (%s)"
+                % (dn, ms, plain_ms, lib_ms, b_ms, b_by))
+            continue
+        k2_fns = {
+            "old": lambda: fused_lstm._run_kernel(w_cat, b_sum, x, h, c,
+                                                  "cuda_core"),
+            "new": lambda: fused_lstm.lstm_cell_fused(w_cat, b_sum, x, h, c),
+            "lib": lib}
+        order = ["old", "new", "lib", "lib", "new", "old"]
+        turns = time_turns(torch, k2_fns, flush, order)
+        dev_turns = time_turns(torch, k2_fns, flush, order, lead=DEVICE_LEAD)
+        ms, lib_ms = mean(turns["new"]), mean(turns["lib"])
+        entry("fused_lstm_cell_wgmma", dn,
               source="simpleimagecaptionzoo_tpu_torch/csrc/fused_lstm.cu",
               replaces="simpleimagecaptionzoo_tpu/ops/pallas_lstm.py:166",
               max_abs_err=err, max_err=err, ms=ms, kernel_ms=ms,
               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-              library_ms=lib_ms,
-              shape="B=%d E=%d H=%d" % (B, e_in, hd))
-        log("K2 %s timing: kernel %.4f ms, plain %.4f ms, torch.lstm_cell "
-            "%.4f ms, bound %.4f ms (%s)"
-            % (dn, ms, plain_ms, lib_ms, b_ms, b_by))
+              library_ms=lib_ms, kernel_route="wgmma", shape=shape,
+              turns=turns, old_route_ms=mean(turns["old"]),
+              old_route_max_abs_err=errs["cuda_core"],
+              device_turns=dev_turns, device_ms=mean(dev_turns["new"]),
+              device_library_ms=mean(dev_turns["lib"]),
+              device_old_route_ms=mean(dev_turns["old"]))
+        log("K2 %s timing in turns (old, new, lib, lib, new, old): wgmma %s "
+            "ms, torch.lstm_cell %s ms, cuda_core %s ms; plain %.4f ms; "
+            "bound %.4f ms (%s)"
+            % (dn, ["%.4f" % t for t in turns["new"]],
+               ["%.4f" % t for t in turns["lib"]],
+               ["%.4f" % t for t in turns["old"]], plain_ms, b_ms, b_by))
+        log("K2 %s device time alone, in turns: wgmma %s ms, torch.lstm_cell "
+            "%s ms, cuda_core %s ms"
+            % (dn, ["%.4f" % t for t in dev_turns["new"]],
+               ["%.4f" % t for t in dev_turns["lib"]],
+               ["%.4f" % t for t in dev_turns["old"]]))
 
     # -- 5. K3 against its plain version --------------------------------------
     qparams = model.quantize_decode_params(params)
@@ -506,19 +748,35 @@ def main(argv=None) -> int:
     # have no int8 head, so it does not touch them
     os.environ["SICZ_TPU_INT8_KV"] = "auto"
     counters = dict(fused_head_topk=fused_head.COUNT,
+                    fused_head_topk_wgmma=fused_head.COUNT_WGMMA,
                     fused_lstm_cell=fused_lstm.COUNT,
+                    fused_lstm_cell_wgmma=fused_lstm.COUNT_WGMMA,
                     quant_matmul=quant.COUNT,
                     int8_attention=int8_attention.COUNT)
-    float_path = dict(fused_head_topk=1, fused_lstm_cell=1, quant_matmul=0,
-                      int8_attention=0)
-    int8_path = dict(fused_head_topk=1, fused_lstm_cell=0, quant_matmul=3,
+    # launches per step of each counter, and the kernels-line entry each
+    # counter's launches go to (COUNT is every launch of K1 or K2; the
+    # _wgmma counters those of the tensor-core route)
+    nil = dict.fromkeys(counters, 0)
+    f32_path = dict(nil, fused_head_topk=1, fused_lstm_cell=1)
+    bf16_path = dict(f32_path, fused_head_topk_wgmma=1,
+                     fused_lstm_cell_wgmma=1)
+    int8_path = dict(nil, fused_head_topk=1, quant_matmul=3,
                      int8_attention=1)
-    paths = [("float32", torch.float32, params, float_path),
-             ("bfloat16", torch.bfloat16, params, float_path),
-             ("int8/float32", torch.float32, qparams, int8_path),
-             ("int8/bfloat16", torch.bfloat16, qparams, int8_path)]
+    f32_entries = dict(fused_head_topk="fused_head_topk",
+                       fused_lstm_cell="fused_lstm_cell")
+    bf16_entries = dict(fused_head_topk_wgmma="fused_head_topk_wgmma",
+                        fused_lstm_cell_wgmma="fused_lstm_cell_wgmma")
+    int8_entries = dict(fused_head_topk="fused_head_topk_int8",
+                        quant_matmul="quant_matmul",
+                        int8_attention="int8_attention")
+    paths = [("float32", torch.float32, params, f32_path, f32_entries),
+             ("bfloat16", torch.bfloat16, params, bf16_path, bf16_entries),
+             ("int8/float32", torch.float32, qparams, int8_path,
+              int8_entries),
+             ("int8/bfloat16", torch.bfloat16, qparams, int8_path,
+              int8_entries)]
     decode_results, float_ids = {}, {}
-    for label, dtype, prm, per_step in paths:
+    for label, dtype, prm, per_step, entry_of in paths:
         dn = str(dtype).split(".")[1]
         int8 = label.startswith("int8")
         fn = steps.make_greedy_decode(model, max_len=MAX_LEN,
@@ -582,11 +840,8 @@ def main(argv=None) -> int:
             extra = ("; against the %s float decode: first ids %.4f, rows "
                      "%.4f" % (dn, res["first_ids_vs_float"],
                                res["rows_vs_float"]))
-        for kn, n in launches.items():
-            kname = ("fused_head_topk_int8"
-                     if int8 and kn == "fused_head_topk" else kn)
-            if per_step[kn]:
-                kernels["%s/%s" % (kname, dn)]["launches"] = n
+        for kn, ename in entry_of.items():
+            kernels["%s/%s" % (ename, dn)]["launches"] = launches[kn]
         log("decode %s: B=%d, %d steps, launches %s; K/V stored %s; rows "
             "identical to the plain run %.4f, first ids %.4f%s; %.1f "
             "captions/s (median of %s s)"

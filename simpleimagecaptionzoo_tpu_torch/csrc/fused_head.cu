@@ -1,46 +1,74 @@
 // K1 fused_head_topk: prediction head -> logsumexp -> top-k, with the
 // (m, V) logits never written to device memory.
 //
-// Replaces simpleimagecaptionzoo_tpu/ops/fused_head.py:_kernel (launched by
-// _run_kernel, entered through topk_head), with bf16/float32 weights and,
-// for the int8 serving path (K1-int8), int8 weights with a per-column scale
-// (prepare_head at fused_head.py:79-87).
+// Replaces simpleimagecaptionzoo_tpu/ops/fused_head.py:155 _kernel
+// (pallas_call at :203, launched by _run_kernel, entered through topk_head),
+// with bf16/float32 weights and, for the int8 serving path (K1-int8), int8
+// weights with a per-column scale (prepare_head at fused_head.py:79-87).
 //
 //   logits = (x @ w) * s + b   in float32, per column chunk
 //   lse    = logsumexp(logits) per row
 //   top-k  of the raw logits, k <= 16, ordered by value descending and, on
 //          a tie, by vocab id ascending (lax.top_k order)
 //
-// x (m, K) is float32 or bf16; w (K, V) has x's dtype or is int8 (the
-// weight type is a template parameter: the loader widens each element to
-// float32 with to_f, exactly).  s and b are float32 (V,): 1 and the bias
-// for a float head, the column scale and bias for an int8 head.  Pad
-// columns carry s = 0 and b = -1e30 (prepare_head).
+// x (m, K) is float32 or bf16; w (K, V) has x's dtype or is int8.  s and b
+// are float32 (V,): 1 and the bias for a float head, the column scale and
+// bias for an int8 head.  Pad columns carry s = 0 and b = -1e30
+// (prepare_head).
 //
 // What bounds it on an H100 SXM at the greedy shape (m=384, K=1024,
 // V=10,240, bf16): 8.05 GFLOP against 989 TFLOP/s of bf16 tensor cores is
 // 8.1 us; the 21.0 MB of w against 3.35 TB/s is 6.3 us.  So the product
-// bounds it, and with an int8 w (10.5 MB, 3.1 us) all the more.  This
-// first kernel multiplies on the CUDA cores in float32 (67 TFLOP/s peak,
-// at least 120 us) for every weight type; wgmma is the next step (PERF.md).
+// bounds it, and with an int8 w (10.5 MB, 3.1 us) all the more.
 //
 // Design.  On the TPU the vocab grid runs in order and carries the running
 // max, sum and top-k from one tile to the next.  Here blocks run in
 // parallel and in no order, so the work is two passes:
-//   1. head_partial: a block takes BM rows and one chunk of BN columns,
-//      computes the chunk's logits into shared memory, and writes per
-//      (row, chunk) the chunk max, the sum of exp(logit - max) and the
-//      chunk's top-k (value, id).
+//   1. a partial pass: a block takes BM rows and one chunk of BN columns,
+//      computes the chunk's logits and writes per (row, chunk) the chunk
+//      max, the sum of exp(logit - max) and the chunk's top-k (value, id);
 //   2. head_merge: one warp per row merges the partials:
 //      lse = M + log(sum_c s_c * exp(m_c - M)), and the top-k over the
 //      chunks' candidates in the same (value desc, id asc) order.
 // A chunk made only of pad columns has max -1e30 and sum BN, finite, and
 // adds exp(-1e30 - M) = 0 to the merged sum.  Columns past V (a ragged
 // last chunk) read as -inf with id INT_MAX and are never chosen.  Any m.
+//
+// The partial pass has two routes, picked by ops/fused_head.py:head_route
+// from dtypes, shapes and alignment; the chunk width is the route's
+// (head_chunks in ops/fused_head.py):
+//
+// 1. bf16 x and bf16 w with 16-byte rows and aligned bases:
+//    head_partial_wgmma, the tensor-core route (csrc/hopper.cuh).
+//    - A block takes 128 rows by a chunk of BN = 256 columns: at m=384 and
+//      V=10,240 that is 3 x 40 = 120 blocks, one wave on 120 of the 132
+//      SMs; at the beam shape m=1,152, 360 blocks, 2.7 waves.
+//    - One thread of a producer warpgroup keeps a ring of 4 stages full
+//      with TMA: a 128 x 64 box of x (128-byte swizzle) and four 64 x 64
+//      boxes of w (128-byte swizzle), 48 KB a stage, K = 1,024 in 16 steps.
+//      The producer warpgroup gives its registers to the consumers
+//      (setmaxnreg 40 / 232).
+//    - Two consumer warpgroups, 64 rows each, issue four m64n256k16 bf16
+//      wgmma per stage, one group in flight.  Each thread holds 128
+//      float32 accumulators.
+//    - Epilogue on the accumulator in registers: a row's 256 logits lie in
+//      the four lanes of a quad, 64 each.  Scale and bias in place (columns
+//      past V become -inf), then max, rescaled sum and k rounds of
+//      "best after the last taken", each reduced across the quad with
+//      __shfl_xor (1, 2).  Nothing goes through shared memory.
+// 2. Everything else (float32 x; int8 w, which moves with K3 to a widening
+//    stage in front of the same product later): head_partial, the
+//    CUDA-core route, BN = 128 (HEAD_CHUNK): common.cuh's tile product
+//    (fmaf in float32, at least 120 us at the greedy shape), the chunk's
+//    logits into shared memory, and one warp per row for the epilogue.
+//    float32 stays here: wgmma has no float32 product, and TF32's 10
+//    mantissa bits break the float32 hold (1e-4) and the float32 decode's
+//    identical rows.
 #include <climits>
 #include <math.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -185,6 +213,167 @@ head_merge(const float* __restrict__ pmax, const float* __restrict__ psum,
   }
 }
 
+// ---- the partial pass, route 1: TMA + wgmma (bf16) --------------------------
+
+namespace tc {
+
+using namespace sicz::hopper;
+
+constexpr int BM = 128;              // rows: two consumer warpgroups of 64
+constexpr int BN = 256;              // columns per chunk (wgmma N)
+constexpr int BK = 64;
+constexpr int STAGES = 4;
+constexpr int SWB = 128;             // bytes of a w box row: the 128-byte swizzle
+constexpr int BOXN = SWB / 2;        // columns of a w box
+constexpr int A_BYTES = BM * BK * 2;
+constexpr int B_BOX = BK * SWB;
+constexpr int B_BYTES = (BN / BOXN) * B_BOX;
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+// two consumer warpgroups and one producer warpgroup, whose registers go to
+// the consumers (setmaxnreg: 2 x 128 x 232 + 128 x 40 <= 65,536): the
+// 128-float accumulator and the epilogue then fit without spills
+constexpr int NT = 3 * 128;
+constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
+
+// best (value, id) across the four lanes of a quad
+__device__ __forceinline__ void quad_best(float& v, int& i) {
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
+    if (before(ov, oi, v, i)) { v = ov; i = oi; }
+  }
+}
+
+__global__ void __launch_bounds__(NT, 1)
+head_partial_wgmma(const __grid_constant__ CUtensorMap map_x,
+                   const __grid_constant__ CUtensorMap map_w,
+                   const float* __restrict__ s, const float* __restrict__ b,
+                   float* __restrict__ pmax, float* __restrict__ psum,
+                   float* __restrict__ pval, int* __restrict__ pidx,
+                   int M, int K, int V, int k, int nchunk) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const sa = smem_1024(smem_raw);
+  uint8_t* const sb = sa + STAGES * A_BYTES;
+  uint64_t* const full = (uint64_t*)(sb + STAGES * B_BYTES);
+  uint64_t* const empty = full + STAGES;
+  const int row0 = blockIdx.y * BM;
+  const int col0 = blockIdx.x * BN;
+  const int nk = (K + BK - 1) / BK;
+  const int warp = threadIdx.x / 32;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 2);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = warp / 4;
+  if (wg == 2) {                       // producer: one thread issues the TMA loads
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      for (int t = 0; t < nk; ++t) {
+        const int st = t % STAGES;
+        if (t >= STAGES) mbar_wait(&empty[st], ((t / STAGES) - 1) & 1);
+        mbar_expect_tx(&full[st], STAGE_BYTES);
+        tma_load_2d(sa + st * A_BYTES, &map_x, t * BK, row0, &full[st]);
+#pragma unroll
+        for (int q = 0; q < BN / BOXN; ++q)
+          tma_load_2d(sb + st * B_BYTES + q * B_BOX, &map_w, col0 + q * BOXN,
+                      t * BK, &full[st]);
+      }
+    }
+  } else {                             // consumers, to the end of the kernel
+    setmaxnreg_inc<232>();
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int t = 0; t < nk; ++t) {
+      const int st = t % STAGES;
+      mbar_wait(&full[st], (t / STAGES) & 1);
+      const uint8_t* a = sa + st * A_BYTES + wg * 64 * 128;
+      const uint8_t* bw = sb + st * B_BYTES;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_m64n256k16(acc, desc_a(a + kk * 32), desc_b<SWB>(bw + kk * 16 * SWB, B_BOX), 1);
+      wgmma_commit();
+      fence_regs(acc);
+      wgmma_wait<1>();
+      if (t > 0 && threadIdx.x % 128 == 0) mbar_arrive(&empty[(t - 1) % STAGES]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    // register i: row 16 w + l/4 + 8 ((i/2) % 2), column 8 (i/4) + 2 (l%4) + i%2
+    const int l = threadIdx.x % 32;
+    const int cq = col0 + 2 * (l % 4);
+#pragma unroll
+    for (int jb = 0; jb < BN / 8; ++jb) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = cq + 8 * jb + e;
+        const bool in = col < V;
+        const float sc = in ? s[col] : 0.f, bc = in ? b[col] : 0.f;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float& v = acc[4 * jb + 2 * r + e];
+          v = in ? fmaf(v, sc, bc) : -INFINITY;
+        }
+      }
+    }
+
+    const int rbase = row0 + wg * 64 + (warp % 4) * 16 + l / 4;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = rbase + 8 * r;
+      const bool live = row < M && l % 4 == 0;   // shuffles need every lane
+      float mx = -INFINITY;
+#pragma unroll
+      for (int jb = 0; jb < BN / 8; ++jb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) mx = fmaxf(mx, acc[4 * jb + 2 * r + e]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      float sm = 0.f;
+#pragma unroll
+      for (int jb = 0; jb < BN / 8; ++jb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) sm += expf(acc[4 * jb + 2 * r + e] - mx);
+      sm += __shfl_xor_sync(0xffffffffu, sm, 1);
+      sm += __shfl_xor_sync(0xffffffffu, sm, 2);
+      const size_t base = (size_t)row * nchunk + blockIdx.x;
+      if (live) { pmax[base] = mx; psum[base] = sm; }
+      // k rounds; round t takes the best candidate after the one taken in
+      // round t-1 in the total (value desc, id asc) order: ids are unique
+      float lv = INFINITY;
+      int li = -1;
+      for (int t = 0; t < k; ++t) {
+        float bv = -INFINITY;
+        int bi = INT_MAX;
+#pragma unroll
+        for (int jb = 0; jb < BN / 8; ++jb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float v = acc[4 * jb + 2 * r + e];
+            const int col = cq + 8 * jb + e;
+            const int id = col < V ? col : INT_MAX;
+            if (before(lv, li, v, id) && before(v, id, bv, bi)) { bv = v; bi = id; }
+          }
+        quad_best(bv, bi);
+        if (live) { pval[base * k + t] = bv; pidx[base * k + t] = bi; }
+        lv = bv; li = bi;
+      }
+    }
+  }
+}
+
+}  // namespace tc
+
 template <typename TX, typename TW>
 void launch_partial(dim3 grid, cudaStream_t st, const void* x, const void* w,
                     const float* s, const float* b, float* pmax, float* psum,
@@ -221,6 +410,39 @@ extern "C" int fused_head_topk(const void* x, const void* w, const float* s,
   }
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
+  head_merge<<<(M + NWARP - 1) / NWARP, NT, 0, st>>>(pmax, psum, pval, pidx, vals, idx,
+                                                     lse, M, k, nchunk);
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core route of the partial pass: x and w bf16, K and V multiples
+// of 8, x and w 16-byte aligned (TMA; cudaErrorMisalignedAddress if not);
+// nchunk = ceil(V / 256).  The merge is head_merge, as for the other route.
+// The two tensor maps come from hopper.cuh's cache of encoded maps.
+extern "C" int fused_head_topk_wgmma(const void* x, const void* w, const float* s,
+                                     const float* b, float* pmax, float* psum,
+                                     float* pval, int* pidx, float* vals,
+                                     int* idx, float* lse, int M, int K, int V,
+                                     int k, int nchunk, void* stream) {
+  if (M <= 0 || K <= 0 || V <= 0 || K % 8 != 0 || V % 8 != 0 || k < 1 ||
+      k > KMAX || k > V || nchunk != (V + tc::BN - 1) / tc::BN)
+    return (int)cudaErrorInvalidValue;
+  if (!sicz::hopper::aligned16(x) || !sicz::hopper::aligned16(w))
+    return (int)cudaErrorMisalignedAddress;
+  CUtensorMap mx, mw;
+  if (!sicz::hopper::tensor_map_bf16(&mx, x, M, K, K, tc::BM, tc::BK, 128) ||
+      !sicz::hopper::tensor_map_bf16(&mw, w, K, V, V, tc::BK, tc::BOXN, tc::SWB))
+    return (int)cudaErrorInvalidValue;
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t err =
+      sicz::hopper::allow_smem((const void*)tc::head_partial_wgmma, tc::SMEM, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  dim3 grid(nchunk, (M + tc::BM - 1) / tc::BM);
+  tc::head_partial_wgmma<<<grid, tc::NT, tc::SMEM, st>>>(
+      mx, mw, s, b, pmax, psum, pval, pidx, M, K, V, k, nchunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   head_merge<<<(M + NWARP - 1) / NWARP, NT, 0, st>>>(pmax, psum, pval, pidx, vals, idx,
                                                      lse, M, k, nchunk);
   return (int)cudaGetLastError();

@@ -1,8 +1,9 @@
 // K2 fused_lstm_cell: one LSTM cell step, torch nn.LSTMCell gate math.
 //
-// Replaces simpleimagecaptionzoo_tpu/ops/pallas_lstm.py:_kernel_wholerow
-// (and its TPU-tiling variants _kernel_tiled and _kernel_gate_tiled, which
-// compute the same function), entered through lstm_cell_fused.
+// Replaces simpleimagecaptionzoo_tpu/ops/pallas_lstm.py:166 _kernel_wholerow
+// (and its TPU-tiling variants _kernel_gate_tiled at :207 and _kernel_tiled
+// at :252, which compute the same function), entered through
+// lstm_cell_fused.
 //
 //   gates = [x, h] @ w_cat + b_sum           (float32 accumulation)
 //   i, f, g, o = sigmoid, sigmoid, tanh, sigmoid of the four gate blocks
@@ -14,18 +15,57 @@
 // What bounds it on an H100 SXM at the decode shape (B=384, E=2048,
 // H=1024, bf16): 9.66 GFLOP against 989 TFLOP/s of bf16 tensor cores is
 // 9.8 us; the 25.2 MB of w_cat against 3.35 TB/s is 7.5 us.  So the product
-// bounds it.  This first kernel multiplies on the CUDA cores in float32
-// (67 TFLOP/s peak), so it cannot come closer than about 144 us; moving the
-// product onto wgmma is the next step for speed (PERF.md).
+// bounds it.
 //
-// Design: the grid tiles rows (BM) and hidden columns (BH).  A block's
-// output tile holds, for hidden columns j..j+BH, the four gate columns j,
-// H+j, 2H+j and 3H+j, so the epilogue finishes c' and h' in registers and
-// the (B, 4H) gate block never reaches device memory.  x and h are read
-// through two pointers (k < E reads x, k >= E reads h), so [x, h] is never
-// concatenated in memory.  K, B and H may be ragged: loads outside the
-// operands read 0 and stores outside the outputs are skipped.
+// Two routes, picked by ops/fused_lstm.py:lstm_route from dtypes, shapes
+// and alignment:
+//
+// 1. bf16 with E and H multiples of 8 and 16-byte-aligned x, h and w_cat:
+//    lstm_cell_wgmma, the tensor-core route (csrc/hopper.cuh).
+//    - A block computes 128 rows by BH = 32 hidden columns, i.e. a 128 x 128
+//      tile of gate columns j0.., H+j0.., 2H+j0.., 3H+j0.. .  At B=384 that
+//      is 3 x 32 = 96 blocks, one wave on 96 of the 132 SMs; at the beam
+//      shape B=1,152, 288 blocks, 2.2 waves.
+//    - One producer warp keeps a ring of 3 stages of 64 KB full with TMA:
+//      per stage two 128 x 64 boxes of x or h (128-byte swizzle; 128 values
+//      of K) and four 128 x 32 boxes of w_cat, one per gate at columns
+//      gate*H + j0 (64-byte swizzle).  Deep stages halve the barrier,
+//      commit and release round trips per product against 64-value
+//      stages.  [x, h] is never concatenated: the k-loop runs ceil(E/128)
+//      steps over x (w_cat rows k0..) and then ceil(H/128) over h (rows
+//      E + k0..).  A step that straddles E reads w_cat rows of h, but x's
+//      zero fill past column E multiplies them by 0.
+//    - Each block loads its own w_cat boxes: the row tiles of a hidden tile
+//      read the same boxes at about the same time, so HBM serves w_cat once
+//      and L2 the rest (151 MB of L2 reads a call at B=384).
+//    - Two consumer warpgroups, 64 rows each, issue eight m64n128k16 bf16
+//      wgmma per stage, wait for them (wgmma.wait_group 0) and free the
+//      stage at once, so two of the three buffers are loading while one is
+//      multiplied; the other warpgroup's products keep the tensor cores
+//      busy meanwhile.
+//    - Epilogue in registers: in the wgmma fragment a thread that holds
+//      gate column n also holds n + 32, n + 64 and n + 96 (the fragment
+//      repeats every 8 columns), i.e. the i, f, g and o pre-activations of
+//      one hidden column.  So bias, sigmoid/tanh, c' and h' are finished
+//      where the product ends and the (B, 4H) gates never reach memory.
+//      The epilogue's operands (the four gate biases and c of the thread's
+//      columns) are loaded before the k-loop, so their latency hides
+//      behind the products.
+//    Host side: three TMA tensor maps per call, from hopper.cuh's cache of
+//    encoded maps (w_cat's is encoded once; x's and h's when their buffers
+//    move).
+//
+// 2. Everything else (float32, and bf16 shapes or pointers TMA cannot take):
+//    lstm_cell_kernel, the CUDA-core route.  The grid tiles rows (BM) and
+//    hidden columns (BH) with the same gate grouping and epilogue, on
+//    common.cuh's tile product (fmaf in float32, at least 144 us at the
+//    decode shape).  float32 stays here: wgmma has no float32 product, and
+//    TF32 keeps about 10 mantissa bits, too few for the float32 hold
+//    (1e-5) and for the float32 decode's identical rows.  K, B and H may
+//    be ragged: loads outside the operands read 0 and stores outside the
+//    outputs are skipped.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -94,6 +134,181 @@ lstm_cell_kernel(const T* __restrict__ x, const T* __restrict__ h,
   }
 }
 
+// ---- route 1: TMA + wgmma (bf16) -------------------------------------------
+
+namespace tc {
+
+using namespace sicz::hopper;
+
+constexpr int BM = 128;              // rows: two consumer warpgroups of 64
+constexpr int BH = 32;               // hidden columns of a block tile
+constexpr int BN = 4 * BH;           // gate columns of a block tile (wgmma N)
+constexpr int BK = 128;              // K per stage: two x or h boxes
+constexpr int STAGES = 3;
+constexpr int SWB = 2 * BH;          // bytes of a w_cat box row: the 64-byte swizzle
+constexpr int A_BOX = BM * 64 * 2;   // one x or h box: 64 values (128 bytes) a row
+constexpr int A_BYTES = (BK / 64) * A_BOX;
+constexpr int B_BOX = BK * SWB;      // one gate's box
+constexpr int B_BYTES = 4 * B_BOX;
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int NT = 2 * 128 + 32;     // two consumer warpgroups, one producer warp
+constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
+static_assert(SWB == 64, "the w_cat boxes use the 64-byte swizzle");
+
+// The epilogue's operands, loaded before the k-loop so their latency hides
+// behind the products: for this thread's hidden columns j, j+1 (one
+// bf16x2 each) the four gate biases, and c of its two rows (0 outside).
+struct EpiIn {
+  uint32_t bias[4][4];                 // [gate][jj]
+  uint32_t c[2][4];                    // [r][jj]
+};
+
+__device__ __forceinline__ uint32_t ldg_pair(const __nv_bfloat16* p) {
+  return __ldg((const unsigned int*)p);
+}
+
+__device__ __forceinline__ float2 unpack(uint32_t v) {
+  return __bfloat1622float2(*(const __nv_bfloat162*)&v);
+}
+
+// register i of the accumulator holds row 16 w + l/4 + 8 ((i/2) % 2) and
+// gate column 8 (i/4) + 2 (l%4) + i%2, i.e. gate (i/4) / 4 and hidden
+// column 8 ((i/4) % 4) + 2 (l%4) + i%2; rows from r64 on, hidden columns
+// from j0 on
+__device__ __forceinline__ void epilogue_load(EpiIn& in,
+                                              const __nv_bfloat16* __restrict__ c,
+                                              const __nv_bfloat16* __restrict__ b,
+                                              int B, int H, int r64, int j0) {
+  const int l = threadIdx.x % 32;
+  const int rbase = r64 + (threadIdx.x / 32 % 4) * 16 + l / 4;
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    const int j = j0 + 8 * jj + 2 * (l % 4);   // even; H % 8 == 0, so j + 1 < H too
+    const bool jin = j < H;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) in.bias[g][jj] = jin ? ldg_pair(b + g * H + j) : 0u;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = rbase + 8 * r;
+      in.c[r][jj] = jin && row < B ? ldg_pair(c + (size_t)row * H + j) : 0u;
+    }
+  }
+}
+
+// h' and c' of the warpgroup's 64 rows and 32 hidden columns
+__device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], const EpiIn& in,
+                                         __nv_bfloat16* __restrict__ h_out,
+                                         __nv_bfloat16* __restrict__ c_out,
+                                         int B, int H, int r64, int j0) {
+  const int l = threadIdx.x % 32;
+  const int rbase = r64 + (threadIdx.x / 32 % 4) * 16 + l / 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = rbase + 8 * r;
+    if (row >= B) continue;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int j = j0 + 8 * jj + 2 * (l % 4);
+      if (j >= H) continue;
+      const float2 bi = unpack(in.bias[0][jj]), bf = unpack(in.bias[1][jj]);
+      const float2 bg = unpack(in.bias[2][jj]), bo = unpack(in.bias[3][jj]);
+      const float2 cv = unpack(in.c[r][jj]);
+      const int i0 = 4 * jj + 2 * r;           // gate 0's registers: i0, i0 + 1
+      float hn[2], cn[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float zi = acc[i0 + e] + (e ? bi.y : bi.x);
+        const float zf = acc[i0 + e + 16] + (e ? bf.y : bf.x);
+        const float zg = acc[i0 + e + 32] + (e ? bg.y : bg.x);
+        const float zo = acc[i0 + e + 48] + (e ? bo.y : bo.x);
+        cn[e] = sigmoidf_(zf) * (e ? cv.y : cv.x) + sigmoidf_(zi) * tanhf(zg);
+        hn[e] = sigmoidf_(zo) * tanhf(cn[e]);
+      }
+      const size_t o = (size_t)row * H + j;
+      *(__nv_bfloat162*)(h_out + o) = __floats2bfloat162_rn(hn[0], hn[1]);
+      *(__nv_bfloat162*)(c_out + o) = __floats2bfloat162_rn(cn[0], cn[1]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(NT, 1)
+lstm_cell_wgmma(const __grid_constant__ CUtensorMap map_x,
+                const __grid_constant__ CUtensorMap map_h,
+                const __grid_constant__ CUtensorMap map_w,
+                const __nv_bfloat16* __restrict__ c,
+                const __nv_bfloat16* __restrict__ b,
+                __nv_bfloat16* __restrict__ h_out,
+                __nv_bfloat16* __restrict__ c_out, int B, int E, int H) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const sa = smem_1024(smem_raw);
+  uint8_t* const sb = sa + STAGES * A_BYTES;
+  uint64_t* const full = (uint64_t*)(sb + STAGES * B_BYTES);
+  uint64_t* const empty = full + STAGES;
+  const int row0 = blockIdx.y * BM;
+  const int j0 = blockIdx.x * BH;
+  const int nkx = (E + BK - 1) / BK;
+  const int nk = nkx + (H + BK - 1) / BK;
+  const int warp = threadIdx.x / 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);          // the producer's expect-tx arrival
+      mbar_init(&empty[s], 2);         // one arrival per consumer warpgroup
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 8) {                     // producer
+    if (threadIdx.x % 32 == 0) {
+      for (int t = 0; t < nk; ++t) {
+        const int s = t % STAGES;
+        if (t >= STAGES) mbar_wait(&empty[s], ((t / STAGES) - 1) & 1);
+        mbar_expect_tx(&full[s], STAGE_BYTES);
+        const bool xs = t < nkx;
+        const int k0 = (xs ? t : t - nkx) * BK;
+#pragma unroll
+        for (int q = 0; q < BK / 64; ++q)
+          tma_load_2d(sa + s * A_BYTES + q * A_BOX, xs ? &map_x : &map_h, k0 + 64 * q,
+                      row0, &full[s]);
+        const int krow = xs ? k0 : E + k0;
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          tma_load_2d(sb + s * B_BYTES + g * B_BOX, &map_w, g * H + j0, krow, &full[s]);
+      }
+    }
+  } else {                             // consumers: warpgroup wg takes rows row0 + 64 wg ..
+    const int wg = warp / 4;
+    EpiIn in;
+    epilogue_load(in, c, b, B, H, row0 + wg * 64, j0);
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int t = 0; t < nk; ++t) {
+      const int s = t % STAGES;
+      mbar_wait(&full[s], (t / STAGES) & 1);
+      const uint8_t* a = sa + s * A_BYTES + wg * 64 * 128;
+      const uint8_t* bw = sb + s * B_BYTES;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_m64n128k16(acc, desc_a(a + kk / 4 * A_BOX + kk % 4 * 32),
+                         desc_b<SWB>(bw + kk * 16 * SWB, B_BOX), 1);
+      wgmma_commit();
+      fence_regs(acc);
+      // free the stage as soon as its products are done: with 3 stages,
+      // holding it over the next step would leave one buffer for loads
+      wgmma_wait<0>();
+      if (threadIdx.x % 128 == 0) mbar_arrive(&empty[s]);
+    }
+    fence_regs(acc);
+    epilogue(acc, in, h_out, c_out, B, H, row0 + wg * 64, j0);
+  }
+}
+
+}  // namespace tc
+
 template <typename T>
 void launch(const void* x, const void* h, const void* c, const void* w,
             const void* b, void* h_out, void* c_out, int B, int E, int H,
@@ -119,5 +334,35 @@ extern "C" int fused_lstm_cell(const void* x, const void* h, const void* c,
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core route: bf16 only, E and H multiples of 8, x, h and w_cat
+// 16-byte aligned (TMA), c, b_sum, h_out and c_out 4-byte aligned (pairs);
+// cudaErrorMisalignedAddress if a pointer is not.
+extern "C" int fused_lstm_cell_wgmma(const void* x, const void* h, const void* c,
+                                     const void* w_cat, const void* b_sum,
+                                     void* h_out, void* c_out, int B, int E,
+                                     int H, void* stream) {
+  if (B <= 0 || E <= 0 || H <= 0 || E % 8 != 0 || H % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)c | (uintptr_t)b_sum | (uintptr_t)h_out | (uintptr_t)c_out) & 3 ||
+      !sicz::hopper::aligned16(x) || !sicz::hopper::aligned16(h) ||
+      !sicz::hopper::aligned16(w_cat))
+    return (int)cudaErrorMisalignedAddress;
+  CUtensorMap mx, mh, mw;
+  if (!sicz::hopper::tensor_map_bf16(&mx, x, B, E, E, tc::BM, 64, 128) ||
+      !sicz::hopper::tensor_map_bf16(&mh, h, B, H, H, tc::BM, 64, 128) ||
+      !sicz::hopper::tensor_map_bf16(&mw, w_cat, (uint64_t)E + H, 4 * (uint64_t)H,
+                       4 * (uint64_t)H, tc::BK, tc::BH, tc::SWB))
+    return (int)cudaErrorInvalidValue;
+  static std::atomic<uint64_t> smem_set{0};
+  const cudaError_t err =
+      sicz::hopper::allow_smem((const void*)tc::lstm_cell_wgmma, tc::SMEM, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((H + tc::BH - 1) / tc::BH, (B + tc::BM - 1) / tc::BM);
+  tc::lstm_cell_wgmma<<<grid, tc::NT, tc::SMEM, (cudaStream_t)stream>>>(
+      mx, mh, mw, (const __nv_bfloat16*)c, (const __nv_bfloat16*)b_sum,
+      (__nv_bfloat16*)h_out, (__nv_bfloat16*)c_out, B, E, H);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,321 @@
+// Hopper (sm_90a) pieces of the port's tensor-core kernels: TMA tensor
+// maps made on the host, the mbarrier ring, TMA tile loads and bf16 wgmma
+// tile products with their shared-memory matrix descriptors.  Used by the
+// bf16 routes of K1 (csrc/fused_head.cu) and K2 (csrc/fused_lstm.cu); the
+// CUDA-core tile product of common.cuh stays for float32 and int8 weights.
+//
+// Everything is inline PTX, so a kernel source still builds with one nvcc
+// call and no other headers than the toolkit's.  cuTensorMapEncodeTiled is
+// a driver-API function; it is fetched once through the runtime's
+// cudaGetDriverEntryPoint, so the libraries need no -lcuda.
+//
+// The layouts, as both kernels use them:
+//   A, the activations, row-major (m, K): TMA boxes of 64 K-values (128
+//     bytes) by BM rows with the 128-byte swizzle.  In shared memory a row
+//     is 128 bytes and eight rows make a 1024-byte swizzle atom: the
+//     "K-major" layout of wgmma, SBO = 1024 bytes.  The next 16 values of K
+//     start 32 bytes further on.
+//   B, the weight, row-major (K, N), N contiguous, as stored: TMA boxes of
+//     SW/2 columns (SW = 64 or 128 bytes, the swizzle) by BK rows, one box
+//     beside the other.  That is wgmma's "MN-major" layout (the transpose
+//     bit of B set): a box row is SW bytes, eight rows are one swizzle atom
+//     (SBO = 8 * SW bytes), and the next SW/2 columns are the next box
+//     (LBO = BK * SW bytes).  The next 16 rows of K start 16 * SW bytes on.
+// Every stage buffer starts on a 1024-byte boundary, so the swizzle phase
+// of every descriptor is 0.  TMA fills what lies outside the tensor with
+// zeros (FLOAT_OOB_FILL_NONE), so ragged rows, columns and K read 0.
+//
+// The accumulator of m64nNk16 (PTX ISA, wgmma D fragment): thread t of the
+// warpgroup, w = t / 32, l = t % 32, holds in register i the element
+//   row 16 w + l / 4 + 8 ((i / 2) % 2),  column 8 (i / 4) + 2 (l % 4) + i % 2.
+// So a thread holding column n also holds n + 8 q for every q: a fused
+// epilogue can take the columns it needs from its own registers.
+#pragma once
+
+#include <cuda.h>            // CUtensorMap and its enums (types only)
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <atomic>
+
+namespace sicz {
+namespace hopper {
+
+// ---- host: TMA tensor maps --------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
+  }
+  return fn;
+}
+
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// Tensor map of a row-major bf16 matrix (rows, cols) whose rows lie `pitch`
+// elements apart, read in boxes of box_rows x box_cols with the given
+// swizzle (64 or 128 bytes; box_cols * 2 must equal it).  False when the
+// driver refuses it (a base or a pitch not 16-byte aligned among others).
+//
+// A map is a function of these arguments alone, so each host thread keeps
+// the last MAP_CACHE maps it encoded and copies one out on a repeat: a
+// weight's map is encoded once, and x's or h's again only when the
+// allocator hands out another buffer.
+constexpr int MAP_CACHE = 16;
+
+inline bool tensor_map_bf16(CUtensorMap* map, const void* base, uint64_t rows,
+                            uint64_t cols, uint64_t pitch, uint32_t box_rows,
+                            uint32_t box_cols, int swizzle_bytes) {
+  struct Entry {
+    CUtensorMap map;
+    const void* base;
+    uint64_t rows, cols, pitch;
+    uint32_t box_rows, box_cols;
+    int swizzle_bytes;
+  };
+  thread_local Entry cache[MAP_CACHE] = {};
+  thread_local int next = 0;
+  for (const Entry& e : cache)
+    if (e.base != nullptr && e.base == base && e.rows == rows && e.cols == cols &&
+        e.pitch == pitch && e.box_rows == box_rows && e.box_cols == box_cols &&
+        e.swizzle_bytes == swizzle_bytes) {
+      *map = e.map;
+      return true;
+    }
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr || !aligned16(base) || (pitch * 2) % 16 != 0) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {pitch * 2};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  if (fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         swizzle_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  cache[next] = {*map, base, rows, cols, pitch, box_rows, box_cols, swizzle_bytes};
+  next = (next + 1) % MAP_CACHE;
+  return true;
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory on the current
+// device.  The attribute belongs to the device's context, so it is set once
+// per device; `done` (one per kernel) keeps a bit for each device set.
+inline cudaError_t allow_smem(const void* kernel, int bytes,
+                              std::atomic<uint64_t>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
+  if (bit & done.load(std::memory_order_relaxed)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
+
+// ---- device: mbarriers and TMA -----------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// The dynamic shared memory rounded up to a 1024-byte boundary (the kernels
+// ask for 1024 bytes more than they use).
+__device__ __forceinline__ uint8_t* smem_1024(uint8_t* raw) {
+  return (uint8_t*)(((uintptr_t)raw + 1023) & ~(uintptr_t)1023);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// after the inits, before any thread uses the barriers (then a __syncthreads)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival that also tells the barrier to wait for `bytes` of TMA data
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed.  A wait that lasts
+// 2^34 clock cycles (about 9 s) traps, so a pipeline fault ends the launch
+// with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  do {
+    if (clock64() - t0 > (1ll << 34)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// TMA: the box at (column c0, row c1) of `map` into shared memory at dst;
+// completion (the box's full byte count) is reported to `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"((uint64_t)map), "r"(smem_addr(bar)),
+         "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// ---- device: wgmma --------------------------------------------------------------
+
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo_bytes,
+                                              uint32_t sbo_bytes, uint32_t layout) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4)
+       | ((uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16)
+       | ((uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32)
+       | ((uint64_t)layout << 62);
+}
+
+// A: K-major, 128-byte swizzle (layout type 1); LBO is unused there
+__device__ __forceinline__ uint64_t desc_a(const void* p) {
+  return smem_desc(p, 16, 1024, 1);
+}
+
+// B: MN-major with the SW-byte swizzle (type 1 for 128, 2 for 64); boxes of
+// SW/2 columns lie box_bytes apart
+template <int SW>
+__device__ __forceinline__ uint64_t desc_b(const void* p, uint32_t box_bytes) {
+  static_assert(SW == 64 || SW == 128, "64- or 128-byte swizzle");
+  return smem_desc(p, box_bytes, 8 * SW, SW == 128 ? 1 : 2);
+}
+
+// hand registers between warpgroups (every warp of the warpgroup calls);
+// a kernel that uses them splits its warpgroups in one if/else that never
+// joins again
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous product
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// D (64 x 128, float32, the wgmma fragment) += A (64 x 16, K-major) *
+// B (16 x 128, MN-major: the weight's rows, N contiguous), bf16 operands.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 256, float32, the wgmma fragment) += A (64 x 16, K-major) *
+// B (16 x 256, MN-major: the weight's rows, N contiguous), bf16 operands.
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+}  // namespace hopper
+}  // namespace sicz

@@ -4,6 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own,
 with ``nvcc`` alone (no PyTorch headers), into
 ``build/lib<name>-<hash>.so``; the hash covers the source, the shared
 headers and the flags, so an edited source never meets a stale library.
+nvcc's output, with ptxas's registers, shared memory and spills of every
+kernel (``-Xptxas -v``), is kept beside it as ``<library>.log``.
 The library is loaded with ``ctypes``.  Every C entry point takes its
 pointers and the CUDA stream as ``void*`` and returns ``cudaGetLastError()``
 after its launches; :func:`check` raises on a nonzero code.
@@ -25,7 +27,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -80,6 +82,8 @@ def build(names: Iterable[str]) -> Dict[str, str]:
             failed.append("%s (nvcc exit %d):\n%s" % (name, proc.returncode,
                                                       out))
             continue
+        with open(paths[name] + ".log", "w") as f:
+            f.write(out)
         os.replace(tmp, paths[name])
     if failed:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
@@ -96,9 +100,22 @@ def load(name: str, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
     return _LIBS[name]
 
 
+def tma_aligned(*ts) -> bool:
+    """True when every tensor starts on a 16-byte boundary and every row
+    stride is a multiple of 16 bytes: what a TMA tensor map needs."""
+    return all(t.data_ptr() % 16 == 0 and all(
+        (st * t.element_size()) % 16 == 0 for st in t.stride()[:-1])
+        for t in ts)
+
+
+# the codes the C entries return for arguments they refuse
+_ERRORS = {1: "invalid value", 716: "misaligned address"}
+
+
 def check(code: int, what: str) -> None:
     if code != 0:
-        raise RuntimeError("%s: CUDA error %d at launch" % (what, code))
+        raise RuntimeError("%s: CUDA error %d (%s) at launch" % (
+            what, code, _ERRORS.get(code, "see cudaError_t")))
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -12,10 +12,16 @@ path); the product is float32 either way.
 
 :func:`topk_head` launches the kernel for a CUDA tensor and takes
 :func:`topk_head_plain`, the same function in plain PyTorch, for a CPU
-tensor only.
+tensor only.  The kernel's partial pass has two routes, chosen by
+:func:`head_route` from dtypes, shapes and alignment: ``"wgmma"`` (bf16 x
+and w on the tensor cores, TMA-fed, chunks of ``HEAD_CHUNK_WGMMA``
+columns) and ``"cuda_core"`` (float32 x, int8 w, chunks of ``HEAD_CHUNK``).
+``COUNT`` counts every launch, ``COUNT_WGMMA`` those of the tensor-core
+route.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Tuple, Union
 
 import torch
@@ -24,12 +30,14 @@ from simpleimagecaptionzoo_tpu_torch.ops import _build
 
 K_ALIGN = 128                   # x feature axis alignment
 V_TILE = 512                    # vocab padding unit (the JAX package's)
-HEAD_CHUNK = 128                # columns per kernel chunk (BN in the .cu)
+HEAD_CHUNK = 128                # columns per chunk, "cuda_core" route (BN)
+HEAD_CHUNK_WGMMA = 256          # columns per chunk, "wgmma" route (tc::BN)
 MAX_K = 16
 _NEG = -1e30
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}   # common.cuh
 
-COUNT = _build.Counter()
+COUNT = _build.Counter()           # every launch, either route
+COUNT_WGMMA = _build.Counter()     # launches of the "wgmma" route
 
 
 class Head(NamedTuple):
@@ -97,7 +105,25 @@ def topk_head_plain(head: Union[dict, Head], x: torch.Tensor, k: int
     return vals[:, :k], idx[:, :k].to(torch.int32), lse
 
 
-def _run_kernel(head: Head, x: torch.Tensor, k: int):
+def head_route(w: torch.Tensor, x: torch.Tensor) -> str:
+    """The partial pass's route for these operands: ``"wgmma"`` when x and
+    w are both bf16, their rows are multiples of 8 values (16 bytes, for
+    TMA) and both start on 16-byte boundaries; else ``"cuda_core"``."""
+    if (x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16
+            and x.shape[1] % 8 == 0 and w.shape[1] % 8 == 0
+            and _build.tma_aligned(x, w)):
+        return "wgmma"
+    return "cuda_core"
+
+
+def head_chunks(route: str, vp: int) -> int:
+    """Vocab chunks of the partial pass over ``vp`` columns on ``route``:
+    one (max, sum, top-k) partial per row and chunk."""
+    width = {"wgmma": HEAD_CHUNK_WGMMA, "cuda_core": HEAD_CHUNK}[route]
+    return -(-vp // width)
+
+
+def _run_kernel(head: Head, x: torch.Tensor, k: int, route: str):
     w, s, b = head.w, head.s, head.b
     m, kp = x.shape
     vp = w.shape[1]
@@ -121,31 +147,52 @@ def _run_kernel(head: Head, x: torch.Tensor, k: int):
     x = x.contiguous()
     if not (w.is_contiguous() and s.is_contiguous() and b.is_contiguous()):
         raise ValueError("fused_head: w, s and b must be contiguous")
+    # alignment: head_route checked it, and the C entry of the wgmma route
+    # refuses a misaligned pointer (CUDA error 716)
+    if route == "wgmma" and not (x.dtype == w.dtype == torch.bfloat16
+                                 and kp % 8 == 0 and vp % 8 == 0):
+        raise ValueError("fused_head: the wgmma route takes bf16 x and w with "
+                         "K and V multiples of 8; got %s, %s, K=%d, V=%d"
+                         % (x.dtype, w.dtype, kp, vp))
     lib = _build.load("fused_head", _declare)
-    nchunk = -(-vp // HEAD_CHUNK)
+    nchunk = head_chunks(route, vp)
     dev = x.device
-    pmax = torch.empty((m, nchunk), dtype=torch.float32, device=dev)
-    psum = torch.empty((m, nchunk), dtype=torch.float32, device=dev)
-    pval = torch.empty((m, nchunk, k), dtype=torch.float32, device=dev)
-    pidx = torch.empty((m, nchunk, k), dtype=torch.int32, device=dev)
+    # the partials (max, sum, then k values and k int32 ids per row and
+    # chunk) share one scratch allocation: fewer host calls per launch
+    n = m * nchunk
+    scratch = torch.empty(n * (2 + 2 * k), dtype=torch.float32, device=dev)
+    at = scratch.data_ptr()
+    pmax, psum, pval, pidx = (ctypes.c_void_p(at + 4 * off)
+                              for off in (0, n, 2 * n, (2 + k) * n))
     vals = torch.empty((m, k), dtype=torch.float32, device=dev)
     idx = torch.empty((m, k), dtype=torch.int32, device=dev)
     lse = torch.empty((m,), dtype=torch.float32, device=dev)
     p = _build.ptr
-    code = lib.fused_head_topk(
-        p(x), p(w), p(s), p(b), p(pmax), p(psum), p(pval), p(pidx), p(vals),
-        p(idx), p(lse), m, kp, vp, k, nchunk, _DTYPE[x.dtype],
-        _DTYPE[w.dtype], _build.stream_of(x))
-    _build.check(code, "fused_head_topk")
+    if route == "wgmma":
+        code = lib.fused_head_topk_wgmma(
+            p(x), p(w), p(s), p(b), pmax, psum, pval, pidx,
+            p(vals), p(idx), p(lse), m, kp, vp, k, nchunk,
+            _build.stream_of(x))
+        _build.check(code, "fused_head_topk_wgmma")
+        COUNT_WGMMA.n += 1
+    elif route == "cuda_core":
+        code = lib.fused_head_topk(
+            p(x), p(w), p(s), p(b), pmax, psum, pval, pidx,
+            p(vals), p(idx), p(lse), m, kp, vp, k, nchunk, _DTYPE[x.dtype],
+            _DTYPE[w.dtype], _build.stream_of(x))
+        _build.check(code, "fused_head_topk")
+    else:
+        raise ValueError("fused_head: unknown route %r" % (route,))
     COUNT.n += 1
     return vals, idx, lse
 
 
 def _declare(lib) -> None:
-    import ctypes
     vp_, i_ = ctypes.c_void_p, ctypes.c_int
     lib.fused_head_topk.argtypes = [vp_] * 11 + [i_] * 7 + [vp_]
     lib.fused_head_topk.restype = i_
+    lib.fused_head_topk_wgmma.argtypes = [vp_] * 11 + [i_] * 5 + [vp_]
+    lib.fused_head_topk_wgmma.restype = i_
 
 
 def topk_head(head: Union[dict, Head], x: torch.Tensor, k: int
@@ -153,9 +200,10 @@ def topk_head(head: Union[dict, Head], x: torch.Tensor, k: int
     """x (m, H) -> (top-k raw logits (m, k) float32 descending, vocab ids
     (m, k) int32, logsumexp (m,) float32).  ``idx[:, 0]`` is the argmax.
     ``head`` is the param dict or a :class:`Head` from
-    :func:`prepare_head`.  A CUDA ``x`` launches the kernel; a CPU ``x``
-    takes the plain version."""
+    :func:`prepare_head`.  A CUDA ``x`` launches the kernel on
+    :func:`head_route`'s route; a CPU ``x`` takes the plain version."""
     head, x = _prepared(head, x)
     if x.device.type == "cpu":
         return topk_head_plain(head, x, k)
-    return _run_kernel(head, x, k)
+    x = x.contiguous()
+    return _run_kernel(head, x, k, head_route(head.w, x))

@@ -13,7 +13,11 @@ round the gates to bf16 before the nonlinearities; the port follows the
 kernel, and so does its plain version, which upcasts before its matmul.
 
 :func:`lstm_cell_fused` launches ``csrc/fused_lstm.cu`` for CUDA tensors and
-takes :func:`lstm_cell_plain` for CPU tensors only.  The backward (the JAX
+takes :func:`lstm_cell_plain` for CPU tensors only.  The kernel has two
+routes, chosen by :func:`lstm_route` from dtypes, shapes and alignment:
+``"wgmma"`` (bf16 on the tensor cores, TMA-fed) and ``"cuda_core"``
+(float32, and bf16 shapes TMA cannot take).  ``COUNT`` counts every launch,
+``COUNT_WGMMA`` those of the tensor-core route.  The backward (the JAX
 package's custom VJP) comes with the training slice.
 """
 from __future__ import annotations
@@ -24,7 +28,8 @@ import torch
 
 from simpleimagecaptionzoo_tpu_torch.ops import _build
 
-COUNT = _build.Counter()
+COUNT = _build.Counter()           # every launch, either route
+COUNT_WGMMA = _build.Counter()     # launches of the "wgmma" route
 
 
 def prepare_lstm(params: dict) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -51,7 +56,19 @@ def lstm_cell_plain(w_cat: torch.Tensor, b_sum: torch.Tensor,
     return h_new.to(h.dtype), c_new.to(c.dtype)
 
 
-def _run_kernel(w_cat, b_sum, x, h, c):
+def lstm_route(w_cat: torch.Tensor, x: torch.Tensor, h: torch.Tensor) -> str:
+    """The kernel route for these operands: ``"wgmma"`` when all are bf16,
+    E and H are multiples of 8 (16-byte rows for TMA) and x, h and w_cat
+    start on 16-byte boundaries; else ``"cuda_core"``."""
+    e, hidden = x.shape[1], h.shape[1]
+    if (all(t.dtype == torch.bfloat16 for t in (w_cat, x, h))
+            and e > 0 and e % 8 == 0 and hidden % 8 == 0
+            and _build.tma_aligned(w_cat, x, h)):
+        return "wgmma"
+    return "cuda_core"
+
+
+def _run_kernel(w_cat, b_sum, x, h, c, route):
     b, e = x.shape
     hidden = h.shape[1]
     ts = (w_cat, b_sum, x, h, c)
@@ -74,10 +91,26 @@ def _run_kernel(w_cat, b_sum, x, h, c):
     h_out = torch.empty_like(h)
     c_out = torch.empty_like(c)
     p = _build.ptr
-    code = lib.fused_lstm_cell(
-        p(x), p(h), p(c), p(w_cat), p(b_sum), p(h_out), p(c_out), b, e,
-        hidden, 0 if x.dtype == torch.float32 else 1, _build.stream_of(x))
-    _build.check(code, "fused_lstm_cell")
+    if route == "wgmma":
+        # alignment: lstm_route checked it, and the C entry refuses a
+        # misaligned pointer (CUDA error 716)
+        if x.dtype != torch.bfloat16 or e % 8 or hidden % 8:
+            raise ValueError("fused_lstm: the wgmma route takes bf16 with E "
+                             "and H multiples of 8; got %s, E=%d, H=%d"
+                             % (x.dtype, e, hidden))
+        code = lib.fused_lstm_cell_wgmma(
+            p(x), p(h), p(c), p(w_cat), p(b_sum), p(h_out), p(c_out), b, e,
+            hidden, _build.stream_of(x))
+        _build.check(code, "fused_lstm_cell_wgmma")
+        COUNT_WGMMA.n += 1
+    elif route == "cuda_core":
+        code = lib.fused_lstm_cell(
+            p(x), p(h), p(c), p(w_cat), p(b_sum), p(h_out), p(c_out), b, e,
+            hidden, 0 if x.dtype == torch.float32 else 1,
+            _build.stream_of(x))
+        _build.check(code, "fused_lstm_cell")
+    else:
+        raise ValueError("fused_lstm: unknown route %r" % (route,))
     COUNT.n += 1
     return h_out, c_out
 
@@ -87,12 +120,15 @@ def _declare(lib) -> None:
     vp_, i_ = ctypes.c_void_p, ctypes.c_int
     lib.fused_lstm_cell.argtypes = [vp_] * 7 + [i_] * 4 + [vp_]
     lib.fused_lstm_cell.restype = i_
+    lib.fused_lstm_cell_wgmma.argtypes = [vp_] * 7 + [i_] * 3 + [vp_]
+    lib.fused_lstm_cell_wgmma.restype = i_
 
 
 def lstm_cell_fused(w_cat: torch.Tensor, b_sum: torch.Tensor,
                     x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
     """(h', c') of one cell step from :func:`prepare_lstm`'s weights.  A
-    CUDA ``x`` launches the kernel; a CPU ``x`` takes the plain version."""
+    CUDA ``x`` launches the kernel on :func:`lstm_route`'s route; a CPU
+    ``x`` takes the plain version."""
     if x.device.type == "cpu":
         return lstm_cell_plain(w_cat, b_sum, x, h, c)
-    return _run_kernel(w_cat, b_sum, x, h, c)
+    return _run_kernel(w_cat, b_sum, x, h, c, lstm_route(w_cat, x, h))

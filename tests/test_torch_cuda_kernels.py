@@ -39,10 +39,12 @@ def test_lstm_kernel_matches_plain(dev, dtype, b, e, h):
     bias = _t(rng.uniform(-bound, bound, 4 * h), dev, dtype)
     x, hh, c = (_t(rng.normal(size=(b, n)), dev, dtype)
                 for n in (e, h, h))
-    before = fused_lstm.COUNT.n
+    before = fused_lstm.COUNT.n, fused_lstm.COUNT_WGMMA.n
     kh, kc = fused_lstm.lstm_cell_fused(w, bias, x, hh, c)
     torch.cuda.synchronize()
-    assert fused_lstm.COUNT.n == before + 1
+    tc = dtype == torch.bfloat16 and e % 8 == 0     # H is a multiple of 8
+    assert (fused_lstm.COUNT.n, fused_lstm.COUNT_WGMMA.n) == (
+        before[0] + 1, before[1] + tc)
     ph, pc = fused_lstm.lstm_cell_plain(w, bias, x, hh, c)
     tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
            else dict(rtol=1e-2, atol=1e-2))
@@ -60,15 +62,146 @@ def test_head_kernel_matches_plain(dev, dtype, m, k):
             "b": _t(rng.normal(size=v), dev, dtype)}
     x = _t(rng.normal(size=(m, hdim)), dev, dtype)
     prep = fused_head.prepare_head(head, dtype)
-    before = fused_head.COUNT.n
+    before = fused_head.COUNT.n, fused_head.COUNT_WGMMA.n
     kv, ki, kl = fused_head.topk_head(prep, x, k)
     torch.cuda.synchronize()
-    assert fused_head.COUNT.n == before + 1
+    assert (fused_head.COUNT.n, fused_head.COUNT_WGMMA.n) == (
+        before[0] + 1, before[1] + (dtype == torch.bfloat16))
     pv, pi, pl = fused_head.topk_head_plain(prep, x, k)
     tol = 1e-4 if dtype == torch.float32 else 2e-3
     torch.testing.assert_close(kv, pv, rtol=0, atol=tol)
     torch.testing.assert_close(kl, pl, rtol=0, atol=tol)
     assert torch.equal(ki, pi)
+
+
+@pytest.mark.parametrize("b,e,h,route", [(1152, 2048, 1024, "wgmma"),
+                                         (256, 2048, 1024, "wgmma"),
+                                         (37, 200, 128, "wgmma"),
+                                         (37, 70, 128, "cuda_core")])
+def test_lstm_bf16_routes_match_plain(dev, b, e, h, route):
+    """K2 in bf16 at the beam shape (B=1,152: 9 row tiles), at B=256 (2) and
+    ragged B=37 with a k-step that straddles E=200 (one row tile) on the
+    tensor-core route; E=70 (rows of 140 bytes, which TMA cannot take)
+    stays on the CUDA-core route."""
+    rng = np.random.default_rng(b + e)
+    bound = 1 / np.sqrt(h)
+    w = _t(rng.uniform(-bound, bound, (e + h, 4 * h)), dev, torch.bfloat16)
+    bias = _t(rng.uniform(-bound, bound, 4 * h), dev, torch.bfloat16)
+    x, hh, c = (_t(rng.normal(size=(b, n)), dev, torch.bfloat16)
+                for n in (e, h, h))
+    assert fused_lstm.lstm_route(w, x, hh) == route
+    before = fused_lstm.COUNT.n, fused_lstm.COUNT_WGMMA.n
+    kh, kc = fused_lstm.lstm_cell_fused(w, bias, x, hh, c)
+    torch.cuda.synchronize()
+    assert (fused_lstm.COUNT.n, fused_lstm.COUNT_WGMMA.n) == (
+        before[0] + 1, before[1] + (route == "wgmma"))
+    ph, pc = fused_lstm.lstm_cell_plain(w, bias, x, hh, c)
+    torch.testing.assert_close(kh, ph, rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(kc, pc, rtol=1e-2, atol=1e-2)
+
+
+def test_head_bf16_wgmma_route_at_beam_shape(dev):
+    """K1 in bf16 on the tensor-core route at m=1,152, k=3, full width (H
+    1,024, V 10,102): values and lse within 2e-3, ids exact where the
+    plain logits leave a gap above 1e-3 on both sides."""
+    rng = np.random.default_rng(1152)
+    hdim, v, m, k = 1024, 10102, 1152, 3
+    head = {"v": _t(rng.normal(size=(hdim, v)), dev, torch.bfloat16),
+            "g": _t(rng.uniform(0.5, 2.0, v), dev, torch.bfloat16),
+            "b": _t(rng.normal(size=v), dev, torch.bfloat16)}
+    prep = fused_head.prepare_head(head, torch.bfloat16)
+    x = _t(0.5 * rng.normal(size=(m, hdim)), dev, torch.bfloat16)
+    assert fused_head.head_route(prep.w, x) == "wgmma"
+    before = fused_head.COUNT_WGMMA.n
+    kv, ki, kl = fused_head.topk_head(prep, x, k)
+    torch.cuda.synchronize()
+    assert fused_head.COUNT_WGMMA.n == before + 1
+    pv, pi, pl = fused_head.topk_head_plain(prep, x, k + 1)
+    torch.testing.assert_close(kv, pv[:, :k], rtol=0, atol=2e-3)
+    torch.testing.assert_close(kl, pl, rtol=0, atol=2e-3)
+    gaps = pv[:, :-1] - pv[:, 1:]
+    lo = torch.cat([torch.full_like(gaps[:, :1], float("inf")),
+                    gaps[:, :k - 1]], dim=1)
+    sure = (gaps[:, :k] > 1e-3) & (lo > 1e-3)
+    assert int(((ki != pi[:, :k]) & sure).sum()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_kernel_ties_across_chunks_by_route(dev, dtype):
+    """The cross-chunk tie on each route (3.0 and 1.0 are exact in bf16):
+    float32 takes the CUDA-core route (128-column chunks), bf16 the
+    tensor-core route (256-column chunks); both have a chunk made only of
+    pad columns."""
+    v = 2 * fused_head.V_TILE
+    w = np.zeros((8, v), np.float32)
+    w[:, 7] = 3.0
+    w[:, fused_head.V_TILE + 11] = 3.0
+    w[:, 100] = 1.0
+    head = fused_head.prepare_head({"w": _t(w[:, :700], dev, dtype)}, dtype)
+    x = torch.eye(8, device=dev, dtype=dtype)
+    before = fused_head.COUNT_WGMMA.n
+    vals, idx, lse = fused_head.topk_head(head, x, 3)
+    torch.cuda.synchronize()
+    assert fused_head.COUNT_WGMMA.n == before + (dtype == torch.bfloat16)
+    pv, pi, pl = fused_head.topk_head_plain(head, x, 3)
+    assert idx.tolist() == [[7, fused_head.V_TILE + 11, 100]] * 8
+    assert torch.equal(idx, pi)
+    assert torch.isfinite(lse).all()
+    torch.testing.assert_close(lse, pl, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("m,k", [(384, 1), (384, 3), (3, 3), (45, 16)])
+def test_head_bf16_cuda_core_route_matches_plain(dev, m, k):
+    """K1's CUDA-core route in bf16, forced (bf16 operands that TMA cannot
+    take go there), at full width (H 1,024, V 10,102), and on the
+    cross-chunk tie: values and lse within 2e-3, ids exact where the plain
+    logits leave a gap above 1e-3 on both sides."""
+    rng = np.random.default_rng(m * 7 + k)
+    hdim, v = 1024, 10102
+    head = {"v": _t(rng.normal(size=(hdim, v)), dev, torch.bfloat16),
+            "g": _t(rng.uniform(0.5, 2.0, v), dev, torch.bfloat16),
+            "b": _t(rng.normal(size=v), dev, torch.bfloat16)}
+    prep = fused_head.prepare_head(head, torch.bfloat16)
+    x = _t(0.5 * rng.normal(size=(m, hdim)), dev, torch.bfloat16)
+    before = fused_head.COUNT.n, fused_head.COUNT_WGMMA.n
+    kv, ki, kl = fused_head._run_kernel(prep, x, k, "cuda_core")
+    torch.cuda.synchronize()
+    assert (fused_head.COUNT.n, fused_head.COUNT_WGMMA.n) == (
+        before[0] + 1, before[1])
+    pv, pi, pl = fused_head.topk_head_plain(prep, x, k + 1)
+    torch.testing.assert_close(kv, pv[:, :k], rtol=0, atol=2e-3)
+    torch.testing.assert_close(kl, pl, rtol=0, atol=2e-3)
+    gaps = pv[:, :-1] - pv[:, 1:]
+    lo = torch.cat([torch.full_like(gaps[:, :1], float("inf")),
+                    gaps[:, :k - 1]], dim=1)
+    sure = (gaps[:, :k] > 1e-3) & (lo > 1e-3)
+    assert int(((ki != pi[:, :k]) & sure).sum()) == 0
+
+    w = np.zeros((8, 2 * fused_head.V_TILE), np.float32)
+    w[:, 7] = 3.0
+    w[:, fused_head.V_TILE + 11] = 3.0
+    w[:, 100] = 1.0
+    tie = fused_head.prepare_head({"w": _t(w[:, :700], dev, torch.bfloat16)},
+                                  torch.bfloat16)
+    eye = torch.eye(8, tie.w.shape[0], device=dev, dtype=torch.bfloat16)
+    _, idx, lse = fused_head._run_kernel(tie, eye, 3, "cuda_core")
+    _, pi, pl = fused_head.topk_head_plain(tie, eye, 3)
+    assert idx.tolist() == [[7, fused_head.V_TILE + 11, 100]] * 8
+    assert torch.equal(idx, pi)
+    torch.testing.assert_close(lse, pl, rtol=0, atol=1e-4)
+
+
+def test_head_wgmma_route_refuses_a_misaligned_x(dev):
+    """The tensor-core route's C entry refuses a base TMA cannot take."""
+    head = fused_head.prepare_head(
+        {"w": torch.randn(128, 512, device=dev), "b": torch.zeros(512,
+                                                                  device=dev)},
+        torch.bfloat16)
+    flat = torch.zeros(8 * 128 + 8, device=dev, dtype=torch.bfloat16)
+    x = flat[1:1 + 8 * 128].view(8, 128)
+    assert fused_head.head_route(head.w, x) == "cuda_core"
+    with pytest.raises(RuntimeError, match="misaligned"):
+        fused_head._run_kernel(head, x, 1, "wgmma")
 
 
 def test_head_kernel_ties_across_chunks(dev):

@@ -1,0 +1,123 @@
+"""The kernel routes of K1 and K2 (simpleimagecaptionzoo_tpu_torch/ops), on
+the CPU: which route a wrapper picks from dtypes, shapes and alignment, and
+K1's chunk plan per route.  The kernels themselves run only on the card
+(tests/test_torch_cuda_kernels.py, chip_smoke.py)."""
+import pytest
+import torch
+
+from simpleimagecaptionzoo_tpu_torch.ops import _build, fused_head, fused_lstm
+
+
+def _misaligned(*shape, dtype=torch.bfloat16):
+    """A contiguous tensor whose data starts 2 bytes past a 16-byte
+    boundary."""
+    n = 1
+    for s in shape:
+        n *= s
+    flat = torch.zeros(n + 8, dtype=dtype)
+    off = next(i for i in range(1, 8)
+               if (flat.data_ptr() + i * flat.element_size()) % 16 == 2)
+    return flat[off:off + n].view(*shape)
+
+
+def _lstm(b, e, h, dtype=torch.bfloat16):
+    return (torch.zeros(e + h, 4 * h, dtype=dtype),
+            torch.zeros(b, e, dtype=dtype), torch.zeros(b, h, dtype=dtype))
+
+
+@pytest.mark.parametrize("b,e,h,dtype,route", [
+    (384, 2048, 1024, torch.bfloat16, "wgmma"),       # the decode step
+    (1152, 2048, 1024, torch.bfloat16, "wgmma"),      # the beam step
+    (37, 200, 128, torch.bfloat16, "wgmma"),          # ragged B, K step straddles E
+    (384, 2048, 1024, torch.float32, "cuda_core"),    # no float32 wgmma
+    (37, 70, 128, torch.bfloat16, "cuda_core"),       # rows of 140 bytes
+    (16, 384, 100, torch.bfloat16, "cuda_core"),      # H not a multiple of 8
+])
+def test_lstm_route_rule(b, e, h, dtype, route):
+    w, x, hh = _lstm(b, e, h, dtype)
+    assert fused_lstm.lstm_route(w, x, hh) == route
+
+
+def test_lstm_route_needs_aligned_bases():
+    w, x, hh = _lstm(16, 384, 128)
+    assert fused_lstm.lstm_route(w, x, hh) == "wgmma"
+    assert fused_lstm.lstm_route(w, _misaligned(16, 384), hh) == "cuda_core"
+    assert fused_lstm.lstm_route(w, x, _misaligned(16, 128)) == "cuda_core"
+    assert fused_lstm.lstm_route(_misaligned(512, 512), x, hh) == "cuda_core"
+
+
+def _head(vocab, dtype, wdtype=None):
+    head = fused_head.prepare_head(
+        {"w": torch.randn(96, vocab), "b": torch.zeros(vocab)}, dtype)
+    if wdtype is not None:
+        head = head._replace(w=head.w.to(wdtype))
+    return head
+
+
+@pytest.mark.parametrize("xdtype,wdtype,route", [
+    (torch.bfloat16, torch.bfloat16, "wgmma"),
+    (torch.float32, torch.float32, "cuda_core"),
+    (torch.bfloat16, torch.int8, "cuda_core"),     # K1-int8 moves with K3
+    (torch.float32, torch.int8, "cuda_core"),
+])
+def test_head_route_rule(xdtype, wdtype, route):
+    head = _head(1000, xdtype, wdtype)
+    x = torch.zeros(16, head.w.shape[0], dtype=xdtype)
+    assert fused_head.head_route(head.w, x) == route
+
+
+def test_head_route_needs_aligned_bases():
+    head = _head(1000, torch.bfloat16)
+    x = _misaligned(16, head.w.shape[0])
+    assert fused_head.head_route(head.w, x) == "cuda_core"
+    assert fused_head.head_route(head.w, x.clone()) == "wgmma"
+
+
+@pytest.mark.parametrize("route,vp,nchunk", [
+    ("wgmma", 10240, 40),         # the COCO vocabulary, padded to 512
+    ("cuda_core", 10240, 80),
+    ("wgmma", 512, 2),
+    ("cuda_core", 512, 4),
+    ("wgmma", 700, 3),            # a ragged last chunk
+])
+def test_head_chunk_plan(route, vp, nchunk):
+    assert fused_head.head_chunks(route, vp) == nchunk
+
+
+def test_head_chunk_widths_match_the_kernel_tiles():
+    assert (fused_head.HEAD_CHUNK, fused_head.HEAD_CHUNK_WGMMA) == (128, 256)
+    assert fused_head.V_TILE % fused_head.HEAD_CHUNK_WGMMA == 0
+    with pytest.raises(KeyError):
+        fused_head.head_chunks("tf32", 512)
+
+
+def test_tma_alignment_rule():
+    t = torch.zeros(4, 16, dtype=torch.bfloat16)
+    assert _build.tma_aligned(t)
+    assert not _build.tma_aligned(torch.zeros(4, 12, dtype=torch.bfloat16))
+    assert not _build.tma_aligned(_misaligned(4, 16))
+    # a view whose rows lie 40 bytes apart
+    assert not _build.tma_aligned(torch.zeros(4, 20, dtype=torch.bfloat16)[:, :16])
+    assert _build.tma_aligned(torch.zeros(4, 24, dtype=torch.bfloat16)[:, :16])
+
+
+def test_cpu_tensors_take_the_plain_versions_on_either_route():
+    """bf16 on the CPU would be the wgmma route on the card; here the
+    wrappers take their plain versions and count no launch."""
+    torch.manual_seed(0)
+    w, x, hh = (t.normal_() for t in _lstm(8, 64, 32))
+    b = torch.zeros(128, dtype=torch.bfloat16)
+    c = torch.randn(8, 32).bfloat16()
+    head = _head(600, torch.bfloat16)
+    xh = torch.randn(8, 96).bfloat16()
+    counts = (fused_lstm.COUNT.n, fused_lstm.COUNT_WGMMA.n,
+              fused_head.COUNT.n, fused_head.COUNT_WGMMA.n)
+    got = fused_lstm.lstm_cell_fused(w, b, x, hh, c)
+    want = fused_lstm.lstm_cell_plain(w, b, x, hh, c)
+    assert all(torch.equal(g, v) for g, v in zip(got, want))
+    got = fused_head.topk_head(head, xh, 3)
+    want = fused_head.topk_head_plain(head, xh, 3)
+    assert all(torch.equal(g, v) for g, v in zip(got, want))
+    assert counts == (fused_lstm.COUNT.n, fused_lstm.COUNT_WGMMA.n,
+                      fused_head.COUNT.n, fused_head.COUNT_WGMMA.n)
+
