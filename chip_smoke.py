@@ -7,9 +7,10 @@ Phases, each of which fails the run (nonzero exit) when it fails:
   1. the card's name and power limit (nvidia-smi);
   2. the build of every CUDA kernel of the port from its sources
      (simpleimagecaptionzoo_tpu_torch/csrc, one nvcc per source, in
-     parallel), ptxas's registers, shared memory and spills of the two
+     parallel), ptxas's registers, shared memory and spills of the
      tensor-core kernels, and their SASS: cuobjdump (or nvdisasm) must find
-     HGMMA (wgmma) and UTMALDG (TMA loads) in both libraries;
+     HGMMA (wgmma) and UTMALDG (TMA loads) in libfused_lstm, libfused_head
+     and libquant_matmul;
   3. K1, the fused head top-k, against its plain PyTorch version on the card
      at the greedy decode shape (m=384, H=1024, V=10,102; k=1 and k=3;
      float32 on the CUDA-core route, bf16 on both routes, the tensor-core
@@ -22,9 +23,13 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      turns against the CUDA-core route and torch.lstm_cell;
   5. K3, the int8 dequantizing product, against its plain version at the
      three shapes of the int8 decode step (the LSTM gates, aoa_dec.q,
-     aoa_dec.aoa; m=384) and a ragged one (m=37, K=200, n=700), float32
-     and bf16;
-  6. K1-int8, the fused head over the int8 head weight, as in 3;
+     aoa_dec.aoa; m=384) and a ragged one (m=37, K=200, n=700): float32 on
+     the CUDA-core route, bf16 on both routes (the tensor-core route also at
+     m=1,152); each step shape timed in turns (old, new, lib, lib, new,
+     old) against torch._weight_int8pack_mm;
+  6. K1-int8, the fused head over the int8 head weight, as in 3: float32 on
+     the CUDA-core route, bf16 on both routes (the tensor-core route also
+     at m=1,152, k=3), the cross-chunk tie with an int8 head on each;
   7. K4, the int8 K/V attention, against its plain version (B=384, k=1
      and k=3, 36 boxes with 10-36 valid, 8 heads, float32 and bf16);
   8. the main path: AoADetection greedy decode at full width (embed/hidden
@@ -33,13 +38,15 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      engine.steps.make_greedy_decode: in float32 (K1 and K2 on the CUDA-core
      route) and in bf16 (K1 and K2, every launch on the tensor-core route),
      and in int8 serving form, on model.quantize_decode_params with
-     SICZ_TPU_INT8_KV=auto, in float32 and in bf16 (K3 three times a step,
-     K1-int8 and K4 once, K2 never).  Each is run once with the plain
-     versions (the reference) and three times through the kernels; the
-     launch counts of the kernel runs, per route, must equal their decode
-     steps times those multiples, and the ids must agree with the reference
-     run.  One more decode per path runs under torch.profiler, which prints
-     the device time by kernel and the device's idle share.
+     SICZ_TPU_INT8_KV=auto, in float32 (K3 three times a step, K1-int8 and
+     K4 once, K2 never; CUDA-core routes) and in bf16 (the same, with every
+     K3 and K1-int8 launch on the tensor-core route).  Each is run once
+     with the plain versions (the reference) and three times through the
+     kernels; the launch counts of the kernel runs, per route, must equal
+     their decode steps times those multiples, and the ids must agree with
+     the reference run.  One more decode per path runs under
+     torch.profiler, which prints the device time by kernel and the
+     device's idle share.
 Then it prints one JSON line of per-kernel results and, last, the
 ``{"ok": true, "device": ...}`` line.
 
@@ -47,9 +54,11 @@ Timings use CUDA events, with a 128 MB buffer written between launches so
 each launch finds the L2 cache cold (as in the decode, where the other
 step's weights pass through L2 in between).  A reading includes the host's
 time when the host issues a call more slowly than the card runs it; the
-bf16 routes of K1 and K2 are also timed with the card kept busy while the
-host issues them (``device_*``: the device's time alone).  ``bound_ms`` is the larger of
-the bytes the function must move over 3.35 TB/s and its operations over
+bf16 routes of K1, K2, K3 and K1-int8 are also timed with the card kept
+busy while the host launches them (``device_*``: the device's time alone).
+The bf16 CUDA-core routes of K3 and K1-int8 keep their entries
+(``launches`` 0: no decode runs them).  ``bound_ms`` is the larger of the
+bytes the function must move over 3.35 TB/s and its operations over
 the peak rate for their type (989 TFLOP/s bf16 tensor cores; 67 TFLOP/s
 float32, since TF32 is off), the H100 SXM data-sheet figures at 700 W.
 An int8 weight is counted at one byte; its product runs at x's type.
@@ -288,7 +297,7 @@ def main(argv=None) -> int:
     log("build: %s from csrc in %.2f s" % (", ".join(libs),
                                            results["build_s"]))
     results["sass"], results["ptxas"] = {}, {}
-    for lname in ("fused_lstm", "fused_head"):
+    for lname in ("fused_lstm", "fused_head", "quant_matmul"):
         counts = sass_counts(_build, lname, lib_paths[lname])
         require(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
                 "%s: the SASS holds %s; the tensor-core route needs HGMMA "
@@ -563,18 +572,37 @@ def main(argv=None) -> int:
     ragged = quant.quantize_dense({
         "w": torch.rand(200, 700, generator=gen, device=dev) * 2 - 1,
         "b": torch.randn(700, generator=gen, device=dev)})
-    k3_cases = [("lstm", qparams["lstm"], B, e_lstm),
+    k3_steps = [("lstm", qparams["lstm"], B, e_lstm),
                 ("aoa_dec.q", qparams["aoa_dec"]["q"], B, hd),
-                ("aoa_dec.aoa", qparams["aoa_dec"]["aoa"], B, 2 * hd),
-                ("ragged", ragged, 37, 200)]
+                ("aoa_dec.aoa", qparams["aoa_dec"]["aoa"], B, 2 * hd)]
+    k3_cases = k3_steps + [("ragged", ragged, 37, 200)]
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
-        err = 0.0
-        for what, qp, m, k in k3_cases:
+        tc = dtype == torch.bfloat16
+        # bf16: the tensor-core route (quant_route's pick), also at the beam
+        # rows, and the CUDA-core route forced at every shape
+        cases = [c + ("cuda_core",) for c in k3_cases]
+        if tc:
+            cases = ([c + ("wgmma",) for c in k3_cases]
+                     + [("lstm", qparams["lstm"], mb, e_lstm, "wgmma")]
+                     + cases)
+        errs = {"wgmma": 0.0, "cuda_core": 0.0}
+        for what, qp, m, k, route in cases:
             n = qp["s"].shape[0]
             x = (0.5 * torch.randn(m, k, generator=gen, device=dev)).to(dtype)
-            got = quant.quant_matmul(x, qp)
+            before = quant.COUNT.n, quant.COUNT_WGMMA.n
+            if route == quant.quant_route(x, qp["q"]):
+                got = quant.quant_matmul(x, qp)
+            else:
+                require(tc and route == "cuda_core", "K3 %s %s m=%d K=%d takes "
+                        "the %s route" % (dn, what, m, k,
+                                          quant.quant_route(x, qp["q"])))
+                got = quant._run_kernel(x, qp["q"], qp["s"], qp["b"], route)
             torch.cuda.synchronize()
+            moved = (quant.COUNT.n - before[0], quant.COUNT_WGMMA.n - before[1])
+            require(moved == (1, int(route == "wgmma")),
+                    "K3 %s %s %s: the counters moved by %s"
+                    % (dn, route, what, moved))
             want = quant.quant_matmul_plain(x, qp)
             diff = (got.float() - want.float()).abs()
             if dtype == torch.float32:
@@ -588,63 +616,188 @@ def main(argv=None) -> int:
                 tol_s = "rtol 1e-2 atol 1e-2"
             require(got.shape == (m, n) and got.dtype == dtype
                     and bool((diff <= lim).all()),
-                    "K3 %s %s m=%d K=%d n=%d: max |err| %.3g beyond %s"
-                    % (dn, what, m, k, n, float(diff.max()), tol_s))
-            err = max(err, float(diff.max()))
-            log("K3 %s %s m=%d K=%d (Kp %d) n=%d (Np %d): max|err| %.3g (%s)"
-                % (dn, what, m, k, qp["q"].shape[0], n, qp["q"].shape[1],
-                   float(diff.max()), tol_s))
-        qp = qparams["lstm"]
-        n = qp["s"].shape[0]
-        x = (0.5 * torch.randn(B, e_lstm, generator=gen, device=dev)).to(dtype)
-        ms = time_ms(torch, lambda: quant.quant_matmul(x, qp), flush)
-        plain_ms = time_ms(torch, lambda: quant.quant_matmul_plain(x, qp),
-                           flush)
-        # the library yardstick: x @ (q s)^T without the bias
-        q_t = qp["q"][:e_lstm, :n].t().contiguous()
-        s_x = qp["s"].to(dtype)
-        lib_ms = time_ms(torch, lambda: torch._weight_int8pack_mm(x, q_t, s_x),
-                         flush)
-        item = x.element_size()
-        nbytes = B * e_lstm * item + e_lstm * n + 2 * n * 4 + B * n * item
-        b_ms, b_by = bound(nbytes, 2 * B * e_lstm * n, dn)
-        entry("quant_matmul", dn,
-              source="simpleimagecaptionzoo_tpu_torch/csrc/quant_matmul.cu",
-              replaces="simpleimagecaptionzoo_tpu/ops/quant.py:105",
-              max_abs_err=err, max_err=err, ms=ms, kernel_ms=ms,
-              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-              library_ms=lib_ms, shape="m=%d K=%d n=%d (the LSTM gates)"
-              % (B, e_lstm, n))
-        log("K3 %s timing: kernel %.4f ms, plain %.4f ms, "
-            "torch._weight_int8pack_mm %.4f ms, bound %.4f ms (%s)"
-            % (dn, ms, plain_ms, lib_ms, b_ms, b_by))
+                    "K3 %s %s %s m=%d K=%d n=%d: max |err| %.3g beyond %s"
+                    % (dn, route, what, m, k, n, float(diff.max()), tol_s))
+            errs[route] = max(errs[route], float(diff.max()))
+            log("K3 %s (%s) %s m=%d K=%d (Kp %d) n=%d (Np %d): max|err| %.3g "
+                "(%s)" % (dn, route, what, m, k, qp["q"].shape[0], n,
+                          qp["q"].shape[1], float(diff.max()), tol_s))
+        item = torch.tensor([], dtype=dtype).element_size()
+        shapes = {"wgmma": [], "cuda_core": []}
+        for what, qp, m, k in k3_steps:
+            n = qp["s"].shape[0]
+            x = (0.5 * torch.randn(m, k, generator=gen, device=dev)).to(dtype)
+            nbytes = m * k * item + k * n + 2 * n * 4 + m * n * item
+            b_ms, b_by = bound(nbytes, 2 * m * k * n, dn)
+            plain_ms = time_ms(torch, lambda: quant.quant_matmul_plain(x, qp),
+                               flush)
+            # the library yardstick: x @ (q s)^T without the bias
+            q_t = qp["q"][:k, :n].t().contiguous()
+            s_x = qp["s"].to(dtype)
+            fns = {"old": lambda: quant._run_kernel(x, qp["q"], qp["s"],
+                                                    qp["b"], "cuda_core"),
+                   "new": lambda: quant.quant_matmul(x, qp),
+                   "lib": lambda: torch._weight_int8pack_mm(x, q_t, s_x)}
+            order = (["old", "new", "lib", "lib", "new", "old"] if tc
+                     else ["old", "lib", "lib", "old"])
+            turns = time_turns(torch, fns, flush, order)
+            dev_turns = time_turns(torch, fns, flush, order, lead=DEVICE_LEAD)
+            common = dict(what=what, shape="m=%d K=%d n=%d" % (m, k, n),
+                          launches_per_decode=MAX_LEN, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by,
+                          library_ms=mean(turns["lib"]),
+                          device_library_ms=mean(dev_turns["lib"]))
+            for route, key in (("cuda_core", "old"), ("wgmma", "new")):
+                if key in turns:
+                    shapes[route].append(dict(
+                        common, ms=mean(turns[key]), turns=turns[key],
+                        device_ms=mean(dev_turns[key]),
+                        device_turns=dev_turns[key]))
+            log("K3 %s %s m=%d K=%d n=%d timing in turns (%s): %scuda_core %s "
+                "ms, torch._weight_int8pack_mm %s ms; device alone: %s"
+                "cuda_core %s, library %s ms; plain %.4f ms; bound %.4f ms (%s)"
+                % (dn, what, m, k, n, ", ".join(order),
+                   "wgmma %s ms, " % ["%.4f" % t for t in turns["new"]]
+                   if tc else "", ["%.4f" % t for t in turns["old"]],
+                   ["%.4f" % t for t in turns["lib"]],
+                   "wgmma %s, " % ["%.4f" % t for t in dev_turns["new"]]
+                   if tc else "", ["%.4f" % t for t in dev_turns["old"]],
+                   ["%.4f" % t for t in dev_turns["lib"]], plain_ms, b_ms,
+                   b_by))
+        for route in (("cuda_core", "wgmma") if tc else ("cuda_core",)):
+            first = shapes[route][0]                     # the LSTM gates
+            ename = "quant_matmul_wgmma" if route == "wgmma" else "quant_matmul"
+            extra = (dict(old_route_ms=shapes["cuda_core"][0]["ms"],
+                          device_old_route_ms=shapes["cuda_core"][0][
+                              "device_ms"],
+                          old_route_max_abs_err=errs["cuda_core"])
+                     if route == "wgmma" else {})
+            entry(ename, dn,
+                  source="simpleimagecaptionzoo_tpu_torch/csrc/quant_matmul.cu",
+                  replaces="simpleimagecaptionzoo_tpu/ops/quant.py:105",
+                  max_abs_err=errs[route], max_err=errs[route],
+                  ms=first["ms"], kernel_ms=first["ms"],
+                  device_ms=first["device_ms"], plain_ms=first["plain_ms"],
+                  bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+                  library_ms=first["library_ms"], kernel_route=route,
+                  shape=first["shape"] + " (the LSTM gates)",
+                  shapes=shapes[route], **extra)
 
     # -- 6. K1-int8 against its plain version ---------------------------------
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
+        tc = dtype == torch.bfloat16
         tol = 1e-4 if dtype == torch.float32 else 2e-3
         head = fused_head.prepare_head(qparams["predict"], dtype)
         require(head.w.dtype == torch.int8, "K1-int8: head weight is %s"
                 % head.w.dtype)
         x = (0.5 * torch.randn(B, hd, generator=gen, device=dev)).to(dtype)
-        err = hold_head(torch, fused_head, "K1-int8", head, x, dn, tol)
-        ms = time_ms(torch, lambda: fused_head.topk_head(head, x, 1), flush)
-        plain_ms = time_ms(torch,
-                           lambda: fused_head.topk_head_plain(head, x, 1),
-                           flush)
+        xb = ((0.5 * torch.randn(mb, hd, generator=gen, device=dev)).to(dtype)
+              if tc else None)
+        route = fused_head.head_route(head.w, x)
+        require(route == ("wgmma" if tc else "cuda_core"),
+                "K1-int8 %s takes the %s route" % (dn, route))
+        before = fused_head.COUNT_WGMMA.n
+        err = hold_head(torch, fused_head, "K1-int8/" + route, head, x, dn,
+                        tol, extra=[(xb, 3)] if tc else ())
+        require(fused_head.COUNT_WGMMA.n - before == (4 if tc else 0),
+                "K1-int8 %s: %d launches on the wgmma route"
+                % (dn, fused_head.COUNT_WGMMA.n - before))
         item = x.element_size()
         nbytes = (B * hd * item + hd * head.v + 2 * head.v * 4
                   + B * (1 * 8 + 4))
         b_ms, b_by = bound(nbytes, 2 * B * hd * head.v, dn)
-        entry("fused_head_topk_int8", dn,
-              source="simpleimagecaptionzoo_tpu_torch/csrc/fused_head.cu",
-              replaces="simpleimagecaptionzoo_tpu/ops/fused_head.py:155",
-              max_abs_err=err, max_err=err, ms=ms, kernel_ms=ms,
-              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-              library_ms=None, shape="m=%d K=%d V=%d int8 W (padded %dx%d) "
-              "k=1" % (B, hd, head.v, *head.w.shape))
-        log("K1-int8 %s timing: kernel %.4f ms, plain %.4f ms, bound %.4f ms "
-            "(%s)" % (dn, ms, plain_ms, b_ms, b_by))
+        plain_ms = time_ms(torch,
+                           lambda: fused_head.topk_head_plain(head, x, 1),
+                           flush)
+        common = dict(source="simpleimagecaptionzoo_tpu_torch/csrc/"
+                      "fused_head.cu",
+                      replaces="simpleimagecaptionzoo_tpu/ops/fused_head.py:155",
+                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                      library_ms=None, shape="m=%d K=%d V=%d int8 W (padded "
+                      "%dx%d) k=1" % (B, hd, head.v, *head.w.shape))
+        if not tc:
+            ms = time_ms(torch, lambda: fused_head.topk_head(head, x, 1),
+                         flush)
+            entry("fused_head_topk_int8", dn, max_abs_err=err, max_err=err,
+                  ms=ms, kernel_ms=ms, kernel_route="cuda_core", **common)
+            log("K1-int8 %s timing (cuda_core): kernel %.4f ms, plain %.4f "
+                "ms, bound %.4f ms (%s)" % (dn, ms, plain_ms, b_ms, b_by))
+            continue
+        # the CUDA-core route, which int8 heads TMA cannot take go to
+        before = fused_head.COUNT.n, fused_head.COUNT_WGMMA.n
+        old_err = hold_head(torch, fused_head, "K1-int8/cuda_core", head, x,
+                            dn, tol, route="cuda_core")
+        require((fused_head.COUNT.n - before[0],
+                 fused_head.COUNT_WGMMA.n - before[1]) == (3, 0),
+                "K1-int8 %s forced onto the cuda_core route: counters moved "
+                "by %d and %d" % (dn, fused_head.COUNT.n - before[0],
+                                  fused_head.COUNT_WGMMA.n - before[1]))
+        fns = {"old": lambda: fused_head._run_kernel(head, x, 1, "cuda_core"),
+               "new": lambda: fused_head.topk_head(head, x, 1)}
+        beam_fns = {
+            "old": lambda: fused_head._run_kernel(head, xb, 3, "cuda_core"),
+            "new": lambda: fused_head.topk_head(head, xb, 3)}
+        order = ["old", "new", "new", "old"]
+        turns = time_turns(torch, fns, flush, order)
+        dev_turns = time_turns(torch, fns, flush, order, lead=DEVICE_LEAD)
+        beam = time_turns(torch, beam_fns, flush, order)
+        dev_beam = time_turns(torch, beam_fns, flush, order, lead=DEVICE_LEAD)
+        bb_ms, bb_by = bound(mb * hd * item + hd * head.v + 2 * head.v * 4
+                             + mb * (3 * 8 + 4), 2 * mb * hd * head.v, dn)
+        entry("fused_head_topk_int8", dn, max_abs_err=old_err,
+              max_err=old_err, ms=mean(turns["old"]),
+              kernel_ms=mean(turns["old"]),
+              device_ms=mean(dev_turns["old"]), kernel_route="cuda_core",
+              **common)
+        entry("fused_head_topk_int8_wgmma", dn, max_abs_err=err, max_err=err,
+              ms=mean(turns["new"]), kernel_ms=mean(turns["new"]),
+              kernel_route="wgmma", turns=turns,
+              old_route_ms=mean(turns["old"]), old_route_max_abs_err=old_err,
+              device_turns=dev_turns, device_ms=mean(dev_turns["new"]),
+              device_old_route_ms=mean(dev_turns["old"]),
+              beam_shape="m=%d k=3" % mb, beam_turns=beam,
+              beam_ms=mean(beam["new"]), beam_old_route_ms=mean(beam["old"]),
+              beam_device_turns=dev_beam, beam_bound_ms=bb_ms, **common)
+        log("K1-int8 %s timing in turns (old, new, new, old): wgmma %s ms, "
+            "cuda_core %s ms; device alone: wgmma %s, cuda_core %s ms; plain "
+            "%.4f ms; bound %.4f ms (%s)"
+            % (dn, ["%.4f" % t for t in turns["new"]],
+               ["%.4f" % t for t in turns["old"]],
+               ["%.4f" % t for t in dev_turns["new"]],
+               ["%.4f" % t for t in dev_turns["old"]], plain_ms, b_ms, b_by))
+        log("K1-int8 %s at m=%d k=3 in turns: wgmma %s ms, cuda_core %s ms; "
+            "device alone: wgmma %s, cuda_core %s ms; bound %.4f ms (%s)"
+            % (dn, mb, ["%.4f" % t for t in beam["new"]],
+               ["%.4f" % t for t in beam["old"]],
+               ["%.4f" % t for t in dev_beam["new"]],
+               ["%.4f" % t for t in dev_beam["old"]], bb_ms, bb_by))
+
+    # the tie across chunks with an int8 head, on both bf16 routes and in
+    # float32 (3 and 1 are exact int8 values; scale 1, bias 0)
+    q = torch.zeros((128, 2 * fused_head.V_TILE), dtype=torch.int8,
+                    device=dev)
+    q[:8, 7] = 3
+    q[:8, fused_head.V_TILE + 11] = 3
+    q[:8, 100] = 1
+    for dtype, route in ((torch.float32, "cuda_core"),
+                         (torch.bfloat16, "wgmma"),
+                         (torch.bfloat16, "cuda_core")):
+        tie_head = fused_head.prepare_head(
+            {"q": q, "s": torch.ones(700, device=dev),
+             "b": torch.zeros(700, device=dev)}, dtype)
+        eye = torch.eye(8, 128, device=dev, dtype=dtype)
+        if route == fused_head.head_route(tie_head.w, eye):
+            _, ti, tl = fused_head.topk_head(tie_head, eye, 3)
+        else:
+            _, ti, tl = fused_head._run_kernel(tie_head, eye, 3, route)
+        _, pi, pl = fused_head.topk_head_plain(tie_head, eye, 3)
+        require(ti.tolist() == [[7, fused_head.V_TILE + 11, 100]] * 8
+                and torch.equal(ti, pi) and bool(torch.isfinite(tl).all())
+                and float((tl - pl).abs().max()) <= 1e-4,
+                "K1-int8 tie case %s %s: %s" % (dtype, route, ti.tolist()))
+        log("K1-int8 tie across chunks, %s %s route: ids %s, lse finite"
+            % (str(dtype).split(".")[1], route, ti[0].tolist()))
 
     # -- 7. K4 against its plain version --------------------------------------
     n_valid = 10 + torch.arange(B, device=dev) % (N_BOX - 9)   # 10..36 boxes
@@ -752,30 +905,37 @@ def main(argv=None) -> int:
                     fused_lstm_cell=fused_lstm.COUNT,
                     fused_lstm_cell_wgmma=fused_lstm.COUNT_WGMMA,
                     quant_matmul=quant.COUNT,
+                    quant_matmul_wgmma=quant.COUNT_WGMMA,
                     int8_attention=int8_attention.COUNT)
     # launches per step of each counter, and the kernels-line entry each
-    # counter's launches go to (COUNT is every launch of K1 or K2; the
+    # counter's launches go to (COUNT is every launch of K1, K2 or K3; the
     # _wgmma counters those of the tensor-core route)
     nil = dict.fromkeys(counters, 0)
     f32_path = dict(nil, fused_head_topk=1, fused_lstm_cell=1)
     bf16_path = dict(f32_path, fused_head_topk_wgmma=1,
                      fused_lstm_cell_wgmma=1)
-    int8_path = dict(nil, fused_head_topk=1, quant_matmul=3,
-                     int8_attention=1)
+    int8_f32_path = dict(nil, fused_head_topk=1, quant_matmul=3,
+                         int8_attention=1)
+    int8_bf16_path = dict(int8_f32_path, fused_head_topk_wgmma=1,
+                          quant_matmul_wgmma=3)
     f32_entries = dict(fused_head_topk="fused_head_topk",
                        fused_lstm_cell="fused_lstm_cell")
     bf16_entries = dict(fused_head_topk_wgmma="fused_head_topk_wgmma",
                         fused_lstm_cell_wgmma="fused_lstm_cell_wgmma")
-    int8_entries = dict(fused_head_topk="fused_head_topk_int8",
-                        quant_matmul="quant_matmul",
-                        int8_attention="int8_attention")
+    int8_f32_entries = dict(fused_head_topk="fused_head_topk_int8",
+                            quant_matmul="quant_matmul",
+                            int8_attention="int8_attention")
+    int8_bf16_entries = dict(
+        fused_head_topk_wgmma="fused_head_topk_int8_wgmma",
+        quant_matmul_wgmma="quant_matmul_wgmma",
+        int8_attention="int8_attention")
     paths = [("float32", torch.float32, params, f32_path, f32_entries),
              ("bfloat16", torch.bfloat16, params, bf16_path, bf16_entries),
-             ("int8/float32", torch.float32, qparams, int8_path,
-              int8_entries),
-             ("int8/bfloat16", torch.bfloat16, qparams, int8_path,
-              int8_entries)]
-    decode_results, float_ids = {}, {}
+             ("int8/float32", torch.float32, qparams, int8_f32_path,
+              int8_f32_entries),
+             ("int8/bfloat16", torch.bfloat16, qparams, int8_bf16_path,
+              int8_bf16_entries)]
+    decode_results, float_ids, on_path = {}, {}, set()
     for label, dtype, prm, per_step, entry_of in paths:
         dn = str(dtype).split(".")[1]
         int8 = label.startswith("int8")
@@ -842,6 +1002,7 @@ def main(argv=None) -> int:
                                res["rows_vs_float"]))
         for kn, ename in entry_of.items():
             kernels["%s/%s" % (ename, dn)]["launches"] = launches[kn]
+            on_path.add("%s/%s" % (ename, dn))
         log("decode %s: B=%d, %d steps, launches %s; K/V stored %s; rows "
             "identical to the plain run %.4f, first ids %.4f%s; %.1f "
             "captions/s (median of %s s)"
@@ -853,9 +1014,13 @@ def main(argv=None) -> int:
         if not int8:
             float_ids[dn] = ids
     del model.step_core, model.encode
-    missing = [k for k, v in kernels.items() if not v.get("launches")]
+    missing = [k for k in on_path if not kernels[k].get("launches")]
     require(not missing, "kernels not launched on the main path: %s"
             % missing)
+    # the bf16 CUDA-core routes of K3 and K1-int8 are held and timed above
+    # but no decode runs them: operands TMA cannot take go there
+    for k, v in kernels.items():
+        v.setdefault("launches", 0)
 
     results["decode"] = decode_results
     results["kernels"] = list(kernels.values())

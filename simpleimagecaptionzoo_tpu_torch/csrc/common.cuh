@@ -4,8 +4,9 @@
 //
 // The tile product is the plain CUDA-core form (fmaf on float32 operands
 // staged in shared memory).  It is exact in its float32 accumulation for
-// float32, bf16 and int8 operands, which is what the kernels must reproduce
-// first; moving it onto wgmma/TMA is later work (PERF.md).
+// float32, bf16 and int8 operands.  The kernels' tensor-core routes
+// (hopper.cuh) take bf16 x; this one stays for float32 and for operands
+// TMA cannot take.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -19,7 +19,8 @@
 // What bounds it on an H100 SXM at the greedy shape (m=384, K=1024,
 // V=10,240, bf16): 8.05 GFLOP against 989 TFLOP/s of bf16 tensor cores is
 // 8.1 us; the 21.0 MB of w against 3.35 TB/s is 6.3 us.  So the product
-// bounds it, and with an int8 w (10.5 MB, 3.1 us) all the more.
+// bounds it, and with an int8 w (10.5 MB, 3.1 us) all the more: the int8
+// head multiplies in bf16 on the same tensor cores after widening.
 //
 // Design.  On the TPU the vocab grid runs in order and carries the running
 // max, sum and top-k from one tile to the next.  Here blocks run in
@@ -38,15 +39,25 @@
 // from dtypes, shapes and alignment; the chunk width is the route's
 // (head_chunks in ops/fused_head.py):
 //
-// 1. bf16 x and bf16 w with 16-byte rows and aligned bases:
-//    head_partial_wgmma, the tensor-core route (csrc/hopper.cuh).
+// 1. bf16 x, bf16 or int8 w, with 16-byte rows and aligned bases:
+//    head_partial_wgmma<TW>, the tensor-core route (csrc/hopper.cuh).
 //    - A block takes 128 rows by a chunk of BN = 256 columns: at m=384 and
 //      V=10,240 that is 3 x 40 = 120 blocks, one wave on 120 of the 132
 //      SMs; at the beam shape m=1,152, 360 blocks, 2.7 waves.
-//    - One thread of a producer warpgroup keeps a ring of 4 stages full
-//      with TMA: a 128 x 64 box of x (128-byte swizzle) and four 64 x 64
-//      boxes of w (128-byte swizzle), 48 KB a stage, K = 1,024 in 16 steps.
-//      The producer warpgroup gives its registers to the consumers
+//    - bf16 w: one thread of a producer warpgroup keeps a ring of 4 stages
+//      full with TMA: a 128 x 64 box of x (128-byte swizzle) and four
+//      64 x 64 boxes of w (128-byte swizzle), 48 KB a stage, K = 1,024 in
+//      16 steps; dynamic shared memory 197,728 bytes.
+//    - int8 w (K1-int8): a ring of 3 stages of 64 KB, each the x box, a
+//      64 x 256-byte int8 box of w into a staging tile, and the bf16 B
+//      tile it is widened into (hopper.cuh's i8_producer: one thread loads,
+//      the 128 threads of the producer warpgroup widen step t while the
+//      consumers multiply step t - 1, a proxy fence before each "widened"
+//      arrival); four stages would need 256 KB.  Dynamic shared memory
+//      197,704 bytes.  ptxas: 168 registers at entry and the same 192
+//      bytes of epilogue spills as the bf16 sibling, so the widening fits
+//      the producer's 40 registers.
+//    - The producer warpgroup gives its registers to the consumers
 //      (setmaxnreg 40 / 232).
 //    - Two consumer warpgroups, 64 rows each, issue four m64n256k16 bf16
 //      wgmma per stage, one group in flight.  Each thread holds 128
@@ -56,14 +67,13 @@
 //      past V become -inf), then max, rescaled sum and k rounds of
 //      "best after the last taken", each reduced across the quad with
 //      __shfl_xor (1, 2).  Nothing goes through shared memory.
-// 2. Everything else (float32 x; int8 w, which moves with K3 to a widening
-//    stage in front of the same product later): head_partial, the
-//    CUDA-core route, BN = 128 (HEAD_CHUNK): common.cuh's tile product
-//    (fmaf in float32, at least 120 us at the greedy shape), the chunk's
-//    logits into shared memory, and one warp per row for the epilogue.
-//    float32 stays here: wgmma has no float32 product, and TF32's 10
-//    mantissa bits break the float32 hold (1e-4) and the float32 decode's
-//    identical rows.
+// 2. Everything else (float32 x, and bf16 operands TMA cannot take):
+//    head_partial, the CUDA-core route, BN = 128 (HEAD_CHUNK): common.cuh's
+//    tile product (fmaf in float32, at least 120 us at the greedy shape),
+//    the chunk's logits into shared memory, and one warp per row for the
+//    epilogue.  float32 stays here: wgmma has no float32 product, and
+//    TF32's 10 mantissa bits break the float32 hold (1e-4) and the float32
+//    decode's identical rows.
 #include <climits>
 #include <math.h>
 
@@ -222,18 +232,26 @@ using namespace sicz::hopper;
 constexpr int BM = 128;              // rows: two consumer warpgroups of 64
 constexpr int BN = 256;              // columns per chunk (wgmma N)
 constexpr int BK = 64;
-constexpr int STAGES = 4;
 constexpr int SWB = 128;             // bytes of a w box row: the 128-byte swizzle
 constexpr int BOXN = SWB / 2;        // columns of a w box
 constexpr int A_BYTES = BM * BK * 2;
 constexpr int B_BOX = BK * SWB;
 constexpr int B_BYTES = (BN / BOXN) * B_BOX;
-constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 // two consumer warpgroups and one producer warpgroup, whose registers go to
 // the consumers (setmaxnreg: 2 x 128 x 232 + 128 x 40 <= 65,536): the
 // 128-float accumulator and the epilogue then fit without spills
 constexpr int NT = 3 * 128;
-constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
+
+// The ring per weight type.  bf16 w: 4 stages of [x box][w boxes], 48 KB.
+// int8 w: 3 stages of [x box][widened w][int8 staging tile], 64 KB (four
+// would need 256 KB).  Barriers after the ring: full, ready, empty.
+template <typename TW>
+struct Ring {
+  static constexpr bool I8 = sizeof(TW) == 1;
+  static constexpr int STAGES = I8 ? 3 : 4;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES + (I8 ? BK * BN : 0);
+  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 3 * STAGES * 8;
+};
 
 // best (value, id) across the four lanes of a quad
 __device__ __forceinline__ void quad_best(float& v, int& i) {
@@ -245,6 +263,7 @@ __device__ __forceinline__ void quad_best(float& v, int& i) {
   }
 }
 
+template <typename TW>
 __global__ void __launch_bounds__(NT, 1)
 head_partial_wgmma(const __grid_constant__ CUtensorMap map_x,
                    const __grid_constant__ CUtensorMap map_w,
@@ -252,11 +271,13 @@ head_partial_wgmma(const __grid_constant__ CUtensorMap map_x,
                    float* __restrict__ pmax, float* __restrict__ psum,
                    float* __restrict__ pval, int* __restrict__ pidx,
                    int M, int K, int V, int k, int nchunk) {
+  using R = Ring<TW>;
+  constexpr int STAGES = R::STAGES;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* const sa = smem_1024(smem_raw);
-  uint8_t* const sb = sa + STAGES * A_BYTES;
-  uint64_t* const full = (uint64_t*)(sb + STAGES * B_BYTES);
-  uint64_t* const empty = full + STAGES;
+  uint8_t* const ring = smem_1024(smem_raw);
+  uint64_t* const full = (uint64_t*)(ring + STAGES * R::STAGE_BYTES);
+  uint64_t* const ready = full + STAGES;
+  uint64_t* const empty = ready + STAGES;
   const int row0 = blockIdx.y * BM;
   const int col0 = blockIdx.x * BN;
   const int nk = (K + BK - 1) / BK;
@@ -265,6 +286,7 @@ head_partial_wgmma(const __grid_constant__ CUtensorMap map_x,
   if (threadIdx.x == 0) {
     for (int st = 0; st < STAGES; ++st) {
       mbar_init(&full[st], 1);
+      mbar_init(&ready[st], 128);      // int8 w: the widening warpgroup
       mbar_init(&empty[st], 2);
     }
     mbar_init_fence();
@@ -272,18 +294,21 @@ head_partial_wgmma(const __grid_constant__ CUtensorMap map_x,
   __syncthreads();
 
   const int wg = warp / 4;
-  if (wg == 2) {                       // producer: one thread issues the TMA loads
+  if (wg == 2) {                       // producer
     setmaxnreg_dec<40>();
-    if (threadIdx.x == 256) {
+    if constexpr (R::I8) {             // one thread loads, all 128 widen
+      i8_producer<BM, BK, BN, STAGES>(&map_x, &map_w, ring, full, ready, empty, row0, col0,
+                                      nk, threadIdx.x - 256);
+    } else if (threadIdx.x == 256) {   // one thread starts the TMA loads
       for (int t = 0; t < nk; ++t) {
         const int st = t % STAGES;
+        uint8_t* const sp = ring + st * R::STAGE_BYTES;
         if (t >= STAGES) mbar_wait(&empty[st], ((t / STAGES) - 1) & 1);
-        mbar_expect_tx(&full[st], STAGE_BYTES);
-        tma_load_2d(sa + st * A_BYTES, &map_x, t * BK, row0, &full[st]);
+        mbar_expect_tx(&full[st], A_BYTES + B_BYTES);
+        tma_load_2d(sp, &map_x, t * BK, row0, &full[st]);
 #pragma unroll
         for (int q = 0; q < BN / BOXN; ++q)
-          tma_load_2d(sb + st * B_BYTES + q * B_BOX, &map_w, col0 + q * BOXN,
-                      t * BK, &full[st]);
+          tma_load_2d(sp + A_BYTES + q * B_BOX, &map_w, col0 + q * BOXN, t * BK, &full[st]);
       }
     }
   } else {                             // consumers, to the end of the kernel
@@ -294,8 +319,9 @@ head_partial_wgmma(const __grid_constant__ CUtensorMap map_x,
     for (int t = 0; t < nk; ++t) {
       const int st = t % STAGES;
       mbar_wait(&full[st], (t / STAGES) & 1);
-      const uint8_t* a = sa + st * A_BYTES + wg * 64 * 128;
-      const uint8_t* bw = sb + st * B_BYTES;
+      if constexpr (R::I8) mbar_wait(&ready[st], (t / STAGES) & 1);
+      const uint8_t* a = ring + st * R::STAGE_BYTES + wg * 64 * 128;
+      const uint8_t* bw = ring + st * R::STAGE_BYTES + A_BYTES;
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
@@ -415,32 +441,43 @@ extern "C" int fused_head_topk(const void* x, const void* w, const float* s,
   return (int)cudaGetLastError();
 }
 
-// The tensor-core route of the partial pass: x and w bf16, K and V multiples
-// of 8, x and w 16-byte aligned (TMA; cudaErrorMisalignedAddress if not);
-// nchunk = ceil(V / 256).  The merge is head_merge, as for the other route.
-// The two tensor maps come from hopper.cuh's cache of encoded maps.
+// The tensor-core route of the partial pass: x bf16, w bf16 or int8 (wdtype
+// kBF16 or kI8), K a multiple of 8 and w's rows 16 bytes (V a multiple of 8
+// for bf16, of 16 for int8), x and w 16-byte aligned (TMA;
+// cudaErrorMisalignedAddress if not); nchunk = ceil(V / 256).  The merge is
+// head_merge, as for the other route.  The two tensor maps come from
+// hopper.cuh's cache of encoded maps.
 extern "C" int fused_head_topk_wgmma(const void* x, const void* w, const float* s,
                                      const float* b, float* pmax, float* psum,
                                      float* pval, int* pidx, float* vals,
                                      int* idx, float* lse, int M, int K, int V,
-                                     int k, int nchunk, void* stream) {
-  if (M <= 0 || K <= 0 || V <= 0 || K % 8 != 0 || V % 8 != 0 || k < 1 ||
-      k > KMAX || k > V || nchunk != (V + tc::BN - 1) / tc::BN)
+                                     int k, int nchunk, int wdtype, void* stream) {
+  const bool i8 = wdtype == sicz::kI8;
+  if (M <= 0 || K <= 0 || V <= 0 || K % 8 != 0 || V % (i8 ? 16 : 8) != 0 || k < 1 ||
+      k > KMAX || k > V || nchunk != (V + tc::BN - 1) / tc::BN ||
+      (wdtype != sicz::kBF16 && !i8))
     return (int)cudaErrorInvalidValue;
   if (!sicz::hopper::aligned16(x) || !sicz::hopper::aligned16(w))
     return (int)cudaErrorMisalignedAddress;
   CUtensorMap mx, mw;
   if (!sicz::hopper::tensor_map_bf16(&mx, x, M, K, K, tc::BM, tc::BK, 128) ||
-      !sicz::hopper::tensor_map_bf16(&mw, w, K, V, V, tc::BK, tc::BOXN, tc::SWB))
+      !(i8 ? sicz::hopper::tensor_map_i8(&mw, w, K, V, V, tc::BK, tc::BN)
+           : sicz::hopper::tensor_map_bf16(&mw, w, K, V, V, tc::BK, tc::BOXN, tc::SWB)))
     return (int)cudaErrorInvalidValue;
-  static std::atomic<uint64_t> smem_set{0};
-  cudaError_t err =
-      sicz::hopper::allow_smem((const void*)tc::head_partial_wgmma, tc::SMEM, smem_set);
+  static std::atomic<uint64_t> smem_set_bf16{0}, smem_set_i8{0};
+  const void* kern = i8 ? (const void*)tc::head_partial_wgmma<int8_t>
+                        : (const void*)tc::head_partial_wgmma<__nv_bfloat16>;
+  const int smem = i8 ? tc::Ring<int8_t>::SMEM : tc::Ring<__nv_bfloat16>::SMEM;
+  cudaError_t err = sicz::hopper::allow_smem(kern, smem, i8 ? smem_set_i8 : smem_set_bf16);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
   dim3 grid(nchunk, (M + tc::BM - 1) / tc::BM);
-  tc::head_partial_wgmma<<<grid, tc::NT, tc::SMEM, st>>>(
-      mx, mw, s, b, pmax, psum, pval, pidx, M, K, V, k, nchunk);
+  if (i8)
+    tc::head_partial_wgmma<int8_t><<<grid, tc::NT, smem, st>>>(
+        mx, mw, s, b, pmax, psum, pval, pidx, M, K, V, k, nchunk);
+  else
+    tc::head_partial_wgmma<__nv_bfloat16><<<grid, tc::NT, smem, st>>>(
+        mx, mw, s, b, pmax, psum, pval, pidx, M, K, V, k, nchunk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   head_merge<<<(M + NWARP - 1) / NWARP, NT, 0, st>>>(pmax, psum, pval, pidx, vals, idx,

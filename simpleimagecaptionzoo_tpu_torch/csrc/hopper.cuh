@@ -1,15 +1,17 @@
 // Hopper (sm_90a) pieces of the port's tensor-core kernels: TMA tensor
-// maps made on the host, the mbarrier ring, TMA tile loads and bf16 wgmma
-// tile products with their shared-memory matrix descriptors.  Used by the
-// bf16 routes of K1 (csrc/fused_head.cu) and K2 (csrc/fused_lstm.cu); the
-// CUDA-core tile product of common.cuh stays for float32 and int8 weights.
+// maps made on the host, the mbarrier ring, TMA tile loads, bf16 wgmma
+// tile products with their shared-memory matrix descriptors, and the
+// int8 -> bf16 widening stage of the int8-weight products.  Used by the
+// bf16 routes of K1 (csrc/fused_head.cu, bf16 and int8 weights), K2
+// (csrc/fused_lstm.cu) and K3 (csrc/quant_matmul.cu); the CUDA-core tile
+// product of common.cuh stays for float32.
 //
 // Everything is inline PTX, so a kernel source still builds with one nvcc
 // call and no other headers than the toolkit's.  cuTensorMapEncodeTiled is
 // a driver-API function; it is fetched once through the runtime's
 // cudaGetDriverEntryPoint, so the libraries need no -lcuda.
 //
-// The layouts, as both kernels use them:
+// The layouts, as the kernels use them:
 //   A, the activations, row-major (m, K): TMA boxes of 64 K-values (128
 //     bytes) by BM rows with the 128-byte swizzle.  In shared memory a row
 //     is 128 bytes and eight rows make a 1024-byte swizzle atom: the
@@ -21,6 +23,19 @@
 //     bit of B set): a box row is SW bytes, eight rows are one swizzle atom
 //     (SBO = 8 * SW bytes), and the next SW/2 columns are the next box
 //     (LBO = BK * SW bytes).  The next 16 rows of K start 16 * SW bytes on.
+//     In a box row the 16-byte chunk c (columns 8c .. 8c+7 of the box) of
+//     row k lies at chunk c ^ (k % 8): the swizzle.
+//   An int8 weight, row-major (Kp, Np) as ops/quant.py stores it, reaches
+//     B in two moves.  TMA copies a box of BK rows by BN bytes, unswizzled,
+//     into a staging tile (row k at k * BN bytes).  Then the 128 threads of
+//     the producer warpgroup widen it (widen_i8_tile): each takes 8 int8 of
+//     one row (8 bytes), makes 8 bf16 (16 bytes; exact, |q| <= 128 has at
+//     most 8 significant bits) and stores them where TMA would have put a
+//     bf16 weight: box c / 8 of BN / 64, row k, chunk (c % 8) ^ (k % 8), the
+//     128-byte-swizzled B above (store_b_chunk).  Those are ordinary
+//     (generic-proxy) stores and wgmma reads through the async proxy, so
+//     each thread fences (fence_proxy_async) before it arrives on the
+//     barrier that hands the stage to the consumers.
 // Every stage buffer starts on a 1024-byte boundary, so the swizzle phase
 // of every descriptor is 0.  TMA fills what lies outside the tensor with
 // zeros (FLOAT_OOB_FILL_NONE), so ragged rows, columns and K read 0.
@@ -69,10 +84,12 @@ inline EncodeTiledFn encode_tiled() {
 
 inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-// Tensor map of a row-major bf16 matrix (rows, cols) whose rows lie `pitch`
+// Tensor map of a row-major matrix (rows, cols) of bf16 or int8 (dtype
+// CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 or _UINT8) whose rows lie `pitch`
 // elements apart, read in boxes of box_rows x box_cols with the given
-// swizzle (64 or 128 bytes; box_cols * 2 must equal it).  False when the
-// driver refuses it (a base or a pitch not 16-byte aligned among others).
+// swizzle (0 for none; 64 or 128 bytes, box_cols times the element size
+// must then equal it).  False when cuTensorMapEncodeTiled refuses it (a
+// base or a pitch not 16-byte aligned among others).
 //
 // A map is a function of these arguments alone, so each host thread keeps
 // the last MAP_CACHE maps it encoded and copies one out on a repeat: a
@@ -80,11 +97,12 @@ inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 // allocator hands out another buffer.
 constexpr int MAP_CACHE = 16;
 
-inline bool tensor_map_bf16(CUtensorMap* map, const void* base, uint64_t rows,
-                            uint64_t cols, uint64_t pitch, uint32_t box_rows,
-                            uint32_t box_cols, int swizzle_bytes) {
+inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType dtype, const void* base,
+                       uint64_t rows, uint64_t cols, uint64_t pitch, uint32_t box_rows,
+                       uint32_t box_cols, int swizzle_bytes) {
   struct Entry {
     CUtensorMap map;
+    CUtensorMapDataType dtype;
     const void* base;
     uint64_t rows, cols, pitch;
     uint32_t box_rows, box_cols;
@@ -93,27 +111,46 @@ inline bool tensor_map_bf16(CUtensorMap* map, const void* base, uint64_t rows,
   thread_local Entry cache[MAP_CACHE] = {};
   thread_local int next = 0;
   for (const Entry& e : cache)
-    if (e.base != nullptr && e.base == base && e.rows == rows && e.cols == cols &&
-        e.pitch == pitch && e.box_rows == box_rows && e.box_cols == box_cols &&
-        e.swizzle_bytes == swizzle_bytes) {
+    if (e.base != nullptr && e.base == base && e.dtype == dtype && e.rows == rows &&
+        e.cols == cols && e.pitch == pitch && e.box_rows == box_rows &&
+        e.box_cols == box_cols && e.swizzle_bytes == swizzle_bytes) {
       *map = e.map;
       return true;
     }
+  const uint64_t item = dtype == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ? 2
+                      : dtype == CU_TENSOR_MAP_DATA_TYPE_UINT8 ? 1 : 0;
   const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr || !aligned16(base) || (pitch * 2) % 16 != 0) return false;
+  if (fn == nullptr || item == 0 || !aligned16(base) || (pitch * item) % 16 != 0)
+    return false;
   const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {pitch * 2};
+  const cuuint64_t strides[1] = {pitch * item};
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t unit[2] = {1, 1};
-  if (fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-         swizzle_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  const CUtensorMapSwizzle swz = swizzle_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                               : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                               : CU_TENSOR_MAP_SWIZZLE_NONE;
+  if (fn(map, dtype, 2, const_cast<void*>(base), dims, strides, box, unit,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return false;
-  cache[next] = {*map, base, rows, cols, pitch, box_rows, box_cols, swizzle_bytes};
+  cache[next] = {*map, dtype, base, rows, cols, pitch, box_rows, box_cols, swizzle_bytes};
   next = (next + 1) % MAP_CACHE;
   return true;
+}
+
+inline bool tensor_map_bf16(CUtensorMap* map, const void* base, uint64_t rows,
+                            uint64_t cols, uint64_t pitch, uint32_t box_rows,
+                            uint32_t box_cols, int swizzle_bytes) {
+  return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rows, cols, pitch,
+                    box_rows, box_cols, swizzle_bytes);
+}
+
+// an int8 matrix read in unswizzled boxes: the widening stage's staging tile
+inline bool tensor_map_i8(CUtensorMap* map, const void* base, uint64_t rows,
+                          uint64_t cols, uint64_t pitch, uint32_t box_rows,
+                          uint32_t box_cols) {
+  return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, rows, cols, pitch,
+                    box_rows, box_cols, 0);
 }
 
 // Lets `kernel` take `bytes` of dynamic shared memory on the current
@@ -195,6 +232,108 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// make this thread's ordinary shared-memory stores visible to the async
+// proxy (wgmma, TMA) before it signals that they are there
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- device: the int8 -> bf16 widening stage -----------------------------------
+
+// 8 int8 (two words, lowest byte first) -> 8 bf16 (four words), exact.
+// u = q + 128 as a byte; the float with bits 0x4B0000uu is 2^23 + u, so
+// subtracting 2^23 + 128 leaves q exactly, and the upper half of a float
+// with at most 8 significant bits is that value in bf16.  Byte permutes and
+// float adds, no int-to-float conversion (a quarter-rate instruction).
+__device__ __forceinline__ uint32_t widen2(uint32_t w, uint32_t sel_lo, uint32_t sel_hi) {
+  const float lo = __uint_as_float(__byte_perm(w, 0x4B000000u, sel_lo)) - 8388736.f;
+  const float hi = __uint_as_float(__byte_perm(w, 0x4B000000u, sel_hi)) - 8388736.f;
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+__device__ __forceinline__ uint4 widen8(uint32_t w0, uint32_t w1) {
+  w0 ^= 0x80808080u;
+  w1 ^= 0x80808080u;
+  return make_uint4(widen2(w0, 0x7540, 0x7541), widen2(w0, 0x7542, 0x7543),
+                    widen2(w1, 0x7540, 0x7541), widen2(w1, 0x7542, 0x7543));
+}
+
+// store 8 widened bf16 (columns 8c .. 8c+7 of row k) where desc_b<128>
+// reads them: box c / 8 (box_bytes apart), row k, chunk (c % 8) ^ (k % 8)
+__device__ __forceinline__ void store_b_chunk(uint8_t* b, uint32_t box_bytes, int k, int c,
+                                              uint4 v) {
+  const uint32_t a = smem_addr(b + (c >> 3) * box_bytes + k * 128 + (((c ^ k) & 7) << 4));
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(a), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
+}
+
+// The staging tile (BK rows of BN int8, row k at k * BN) widened into B:
+// BN / 64 boxes of BK rows x 128 bytes, 128-byte swizzle.  tid is the
+// thread's index in its warpgroup; the 128 threads share the tile, a warp
+// reading whole rows (8 bytes a thread) and writing whole box rows.  Loads
+// go out four at a time ahead of their stores (the asm keeps its order),
+// in few registers: the producer of K1 runs on 40.
+template <int BK, int BN>
+__device__ __forceinline__ void widen_i8_tile(const uint8_t* src, uint8_t* dst, int tid) {
+  constexpr int CPR = BN / 8;                  // 8-column chunks per row
+  constexpr int PER = BK * CPR / 128;          // chunks per thread
+  constexpr int BATCH = 4;
+  static_assert(BN % 64 == 0 && PER % BATCH == 0, "whole boxes, whole batches");
+  const uint32_t s0 = smem_addr(src);
+#pragma unroll 1
+  for (int i0 = 0; i0 < PER; i0 += BATCH) {
+    uint32_t w[BATCH][2];
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      const int e = tid + 128 * (i0 + j);
+      asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+                   : "=r"(w[j][0]), "=r"(w[j][1])
+                   : "r"(s0 + (e / CPR) * BN + (e % CPR) * 8) : "memory");
+    }
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      const int e = tid + 128 * (i0 + j);
+      store_b_chunk(dst, BK * 128, e / CPR, e % CPR, widen8(w[j][0], w[j][1]));
+    }
+  }
+}
+
+// The producer warpgroup of an int8-weight product (all 128 threads call;
+// tid is the index in the warpgroup).  A ring of STAGES stages, each
+// [A: BM x BK bf16][B: BK x BN bf16, widened][staging: BK x BN int8], and
+// three barriers per stage: full (TMA landed; the expect-tx arrival),
+// ready (widened; 128 arrivals) and empty (both consumer warpgroups done).
+// Thread 0 starts the TMA loads, STAGES - 1 steps ahead; all 128 widen
+// step t while the consumers multiply step t - 1.
+template <int BM, int BK, int BN, int STAGES>
+__device__ __forceinline__ void i8_producer(const CUtensorMap* map_x, const CUtensorMap* map_q,
+                                            uint8_t* ring, uint64_t* full, uint64_t* ready,
+                                            uint64_t* empty, int row0, int col0, int nk,
+                                            int tid) {
+  constexpr int A_BYTES = BM * BK * 2, B_BYTES = BK * BN * 2, Q_BYTES = BK * BN;
+  constexpr int STAGE_BYTES = A_BYTES + B_BYTES + Q_BYTES;
+  auto load_step = [&](int t) {
+    const int s = t % STAGES;
+    uint8_t* st = ring + s * STAGE_BYTES;
+    if (t >= STAGES) mbar_wait(&empty[s], ((t / STAGES) - 1) & 1);
+    mbar_expect_tx(&full[s], A_BYTES + Q_BYTES);
+    tma_load_2d(st, map_x, t * BK, row0, &full[s]);
+    tma_load_2d(st + A_BYTES + B_BYTES, map_q, col0, t * BK, &full[s]);
+  };
+  if (tid == 0)
+    for (int t = 0; t < STAGES - 1 && t < nk; ++t) load_step(t);
+  for (int t = 0; t < nk; ++t) {
+    const int s = t % STAGES;
+    uint8_t* st = ring + s * STAGE_BYTES;
+    mbar_wait(&full[s], (t / STAGES) & 1);
+    widen_i8_tile<BK, BN>(st + A_BYTES + B_BYTES, st + A_BYTES, tid);
+    fence_proxy_async();
+    mbar_arrive(&ready[s]);
+    // the slot of step t - 1, free once its products are done
+    if (tid == 0 && t + STAGES - 1 < nk) load_step(t + STAGES - 1);
+  }
+}
+
 // ---- device: wgmma --------------------------------------------------------------
 
 __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo_bytes,
@@ -251,6 +390,26 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// D (64 x 64, float32, the wgmma fragment) += A (64 x 16, K-major) *
+// B (16 x 64, MN-major: the weight's rows, N contiguous), bf16 operands.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // D (64 x 128, float32, the wgmma fragment) += A (64 x 16, K-major) *

@@ -14,8 +14,10 @@ path); the product is float32 either way.
 :func:`topk_head_plain`, the same function in plain PyTorch, for a CPU
 tensor only.  The kernel's partial pass has two routes, chosen by
 :func:`head_route` from dtypes, shapes and alignment: ``"wgmma"`` (bf16 x
-and w on the tensor cores, TMA-fed, chunks of ``HEAD_CHUNK_WGMMA``
-columns) and ``"cuda_core"`` (float32 x, int8 w, chunks of ``HEAD_CHUNK``).
+with bf16 or int8 w on the tensor cores, TMA-fed, an int8 w widened to bf16
+in shared memory first; chunks of ``HEAD_CHUNK_WGMMA`` columns) and
+``"cuda_core"`` (float32 x, and operands TMA cannot take; chunks of
+``HEAD_CHUNK``).
 ``COUNT`` counts every launch, ``COUNT_WGMMA`` those of the tensor-core
 route.
 """
@@ -106,11 +108,14 @@ def topk_head_plain(head: Union[dict, Head], x: torch.Tensor, k: int
 
 
 def head_route(w: torch.Tensor, x: torch.Tensor) -> str:
-    """The partial pass's route for these operands: ``"wgmma"`` when x and
-    w are both bf16, their rows are multiples of 8 values (16 bytes, for
-    TMA) and both start on 16-byte boundaries; else ``"cuda_core"``."""
-    if (x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16
-            and x.shape[1] % 8 == 0 and w.shape[1] % 8 == 0
+    """The partial pass's route for these operands: ``"wgmma"`` when x is
+    bf16, w is bf16 or int8, x's rows are multiples of 8 values and w's of
+    16 bytes (for TMA) and both start on 16-byte boundaries; else
+    ``"cuda_core"``."""
+    if (x.dtype == torch.bfloat16
+            and w.dtype in (torch.bfloat16, torch.int8)
+            and x.shape[1] % 8 == 0
+            and (w.shape[1] * w.element_size()) % 16 == 0
             and _build.tma_aligned(x, w)):
         return "wgmma"
     return "cuda_core"
@@ -149,10 +154,13 @@ def _run_kernel(head: Head, x: torch.Tensor, k: int, route: str):
         raise ValueError("fused_head: w, s and b must be contiguous")
     # alignment: head_route checked it, and the C entry of the wgmma route
     # refuses a misaligned pointer (CUDA error 716)
-    if route == "wgmma" and not (x.dtype == w.dtype == torch.bfloat16
-                                 and kp % 8 == 0 and vp % 8 == 0):
-        raise ValueError("fused_head: the wgmma route takes bf16 x and w with "
-                         "K and V multiples of 8; got %s, %s, K=%d, V=%d"
+    if route == "wgmma" and not (
+            x.dtype == torch.bfloat16 and w.dtype in (torch.bfloat16,
+                                                      torch.int8)
+            and kp % 8 == 0 and (vp * w.element_size()) % 16 == 0):
+        raise ValueError("fused_head: the wgmma route takes bf16 x and bf16 "
+                         "or int8 w with K a multiple of 8 and rows of w "
+                         "of 16 bytes; got %s, %s, K=%d, V=%d"
                          % (x.dtype, w.dtype, kp, vp))
     lib = _build.load("fused_head", _declare)
     nchunk = head_chunks(route, vp)
@@ -171,7 +179,7 @@ def _run_kernel(head: Head, x: torch.Tensor, k: int, route: str):
     if route == "wgmma":
         code = lib.fused_head_topk_wgmma(
             p(x), p(w), p(s), p(b), pmax, psum, pval, pidx,
-            p(vals), p(idx), p(lse), m, kp, vp, k, nchunk,
+            p(vals), p(idx), p(lse), m, kp, vp, k, nchunk, _DTYPE[w.dtype],
             _build.stream_of(x))
         _build.check(code, "fused_head_topk_wgmma")
         COUNT_WGMMA.n += 1
@@ -191,7 +199,7 @@ def _declare(lib) -> None:
     vp_, i_ = ctypes.c_void_p, ctypes.c_int
     lib.fused_head_topk.argtypes = [vp_] * 11 + [i_] * 7 + [vp_]
     lib.fused_head_topk.restype = i_
-    lib.fused_head_topk_wgmma.argtypes = [vp_] * 11 + [i_] * 5 + [vp_]
+    lib.fused_head_topk_wgmma.argtypes = [vp_] * 11 + [i_] * 6 + [vp_]
     lib.fused_head_topk_wgmma.restype = i_
 
 

@@ -11,6 +11,11 @@ dispatch on ``"q"``, so a decode runs unchanged on a quantized tree.
 rounded once to x's dtype.  It launches ``csrc/quant_matmul.cu`` for a CUDA
 ``x`` and takes :func:`quant_matmul_plain` for a CPU ``x`` only.  The JAX
 package's row-count and VMEM gate is the TPU's; K3 takes any row count.
+The kernel has two routes, chosen by :func:`quant_route` from dtypes,
+shapes and alignment: ``"wgmma"`` (bf16 x; q widened to bf16 in shared
+memory between its TMA load and the tensor-core product) and
+``"cuda_core"`` (float32 x, and operands TMA cannot take).  ``COUNT``
+counts every launch, ``COUNT_WGMMA`` those of the tensor-core route.
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ from simpleimagecaptionzoo_tpu_torch.ops import _build
 K_ALIGN = 128
 N_ALIGN = 512
 
-COUNT = _build.Counter()
+COUNT = _build.Counter()           # every launch, either route
+COUNT_WGMMA = _build.Counter()     # launches of the "wgmma" route
 
 
 # ---------------------------------------------------------------------------
@@ -119,8 +125,18 @@ def quant_matmul_plain(x: torch.Tensor, qp: dict) -> torch.Tensor:
     return (acc * s + b).to(x.dtype).reshape(lead + (n,))
 
 
+def quant_route(x2: torch.Tensor, q: torch.Tensor) -> str:
+    """The kernel route for x2 (m, K) and q: ``"wgmma"`` when x2 is bf16,
+    K is a multiple of 8 (16-byte rows for TMA) and x2 and q start on
+    16-byte boundaries with 16-byte row strides; else ``"cuda_core"``."""
+    if (x2.dtype == torch.bfloat16 and x2.shape[1] % 8 == 0
+            and _build.tma_aligned(x2, q)):
+        return "wgmma"
+    return "cuda_core"
+
+
 def _run_kernel(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
-                b: torch.Tensor) -> torch.Tensor:
+                b: torch.Tensor, route: str) -> torch.Tensor:
     m, k = x2.shape
     kp, np_ = q.shape
     n = s.shape[0]
@@ -142,10 +158,24 @@ def _run_kernel(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     lib = _build.load("quant_matmul", _declare)
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
     p = _build.ptr
-    code = lib.quant_matmul(p(x2), p(q), p(s), p(b), p(out), m, k, n, kp, np_,
-                            0 if x2.dtype == torch.float32 else 1,
-                            _build.stream_of(x2))
-    _build.check(code, "quant_matmul")
+    if route == "wgmma":
+        # alignment: quant_route checked it, and the C entry refuses a
+        # misaligned pointer (CUDA error 716)
+        if x2.dtype != torch.bfloat16 or k % 8:
+            raise ValueError("quant_matmul: the wgmma route takes bf16 x "
+                             "with K a multiple of 8; got %s, K=%d"
+                             % (x2.dtype, k))
+        code = lib.quant_matmul_wgmma(p(x2), p(q), p(s), p(b), p(out), m, k,
+                                      n, kp, np_, _build.stream_of(x2))
+        _build.check(code, "quant_matmul_wgmma")
+        COUNT_WGMMA.n += 1
+    elif route == "cuda_core":
+        code = lib.quant_matmul(p(x2), p(q), p(s), p(b), p(out), m, k, n, kp,
+                                np_, 0 if x2.dtype == torch.float32 else 1,
+                                _build.stream_of(x2))
+        _build.check(code, "quant_matmul")
+    else:
+        raise ValueError("quant_matmul: unknown route %r" % (route,))
     COUNT.n += 1
     return out
 
@@ -155,12 +185,17 @@ def _declare(lib) -> None:
     vp_, i_ = ctypes.c_void_p, ctypes.c_int
     lib.quant_matmul.argtypes = [vp_] * 5 + [i_] * 6 + [vp_]
     lib.quant_matmul.restype = i_
+    lib.quant_matmul_wgmma.argtypes = [vp_] * 5 + [i_] * 5 + [vp_]
+    lib.quant_matmul_wgmma.restype = i_
 
 
 def quant_matmul(x: torch.Tensor, qp: dict) -> torch.Tensor:
     """x (..., K) with a quantized layer dict -> (..., N) in x's dtype.  A
-    CUDA ``x`` launches the kernel; a CPU ``x`` takes the plain version."""
+    CUDA ``x`` launches the kernel on :func:`quant_route`'s route; a CPU
+    ``x`` takes the plain version."""
     if x.device.type == "cpu":
         return quant_matmul_plain(x, qp)
     x2, q, s, b, lead = _operands(x, qp)
-    return _run_kernel(x2, q, s, b).reshape(lead + (s.shape[0],))
+    x2 = x2.contiguous()
+    return _run_kernel(x2, q, s, b, quant_route(x2, q)).reshape(
+        lead + (s.shape[0],))

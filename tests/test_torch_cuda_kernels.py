@@ -308,3 +308,102 @@ def test_int8_attention_kernel_matches_plain(dev, dtype, b, k, n, d, heads):
     torch.testing.assert_close(pm, ppm, rtol=0, atol=2e-6)
     assert bool((pm.masked_select((mask == 0)[:, None, :].expand_as(pm))
                  == 0).all())
+
+
+@pytest.mark.parametrize("route", ["wgmma", "cuda_core"])
+@pytest.mark.parametrize("m,k,n", [(384, 3072, 4096),    # the LSTM gates
+                                   (384, 1024, 1024),    # aoa_dec.q
+                                   (384, 2048, 2048),    # aoa_dec.aoa
+                                   (1152, 3072, 4096),   # the beam rows
+                                   (37, 200, 700)])      # ragged m, K, n
+def test_quant_matmul_bf16_routes_match_plain(dev, route, m, k, n):
+    """K3 in bf16 on the tensor-core route (quant_route's pick) and on the
+    CUDA-core route (forced) at the int8 decode step's shapes, at the beam
+    rows and ragged: within one bf16 ulp of the plain version."""
+    rng = np.random.default_rng(m + k + n)
+    qp = _qdense(rng, k, n, dev)
+    x = _t(0.5 * rng.normal(size=(m, k)), dev, torch.bfloat16)
+    assert quant.quant_route(x, qp["q"]) == "wgmma"
+    before = quant.COUNT.n, quant.COUNT_WGMMA.n
+    if route == "wgmma":
+        got = quant.quant_matmul(x, qp)
+    else:
+        got = quant._run_kernel(x, qp["q"], qp["s"], qp["b"], route)
+    torch.cuda.synchronize()
+    assert (quant.COUNT.n, quant.COUNT_WGMMA.n) == (
+        before[0] + 1, before[1] + (route == "wgmma"))
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    want = quant.quant_matmul_plain(x, qp)
+    torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+
+
+def test_quant_matmul_wgmma_route_refuses_a_misaligned_x(dev):
+    """The tensor-core route's C entry refuses a base TMA cannot take."""
+    qp = _qdense(np.random.default_rng(3), 128, 512, dev)
+    flat = torch.zeros(8 * 128 + 8, device=dev, dtype=torch.bfloat16)
+    x = flat[1:1 + 8 * 128].view(8, 128)
+    assert quant.quant_route(x, qp["q"]) == "cuda_core"
+    with pytest.raises(RuntimeError, match="misaligned"):
+        quant._run_kernel(x, qp["q"], qp["s"], qp["b"], "wgmma")
+
+
+def _int8_head(rng, hdim, v, dev):
+    head = {"v": torch.from_numpy(rng.normal(size=(hdim, v)).astype(
+                np.float32)),
+            "g": torch.from_numpy(rng.uniform(0.5, 2.0, v).astype(
+                np.float32)),
+            "b": torch.from_numpy(rng.normal(size=v).astype(np.float32))}
+    qhead = {t: a.to(dev) for t, a in quant.quantize_dense_wn(head).items()}
+    return fused_head.prepare_head(qhead, torch.bfloat16)
+
+
+@pytest.mark.parametrize("m,k", [(16, 1), (16, 3), (3, 3), (45, 16),
+                                 (1152, 3)])
+def test_head_int8_wgmma_route_matches_plain(dev, m, k):
+    """K1-int8 in bf16 on the tensor-core route (the int8 head widened in
+    shared memory) at full width (H 1,024, V 10,102): values and lse within
+    2e-3, ids exact where the plain logits leave a gap above 1e-3 on both
+    sides."""
+    rng = np.random.default_rng(m * 13 + k)
+    prep = _int8_head(rng, 1024, 10102, dev)
+    assert prep.w.dtype == torch.int8
+    x = _t(0.5 * rng.normal(size=(m, 1024)), dev, torch.bfloat16)
+    assert fused_head.head_route(prep.w, x) == "wgmma"
+    before = fused_head.COUNT.n, fused_head.COUNT_WGMMA.n
+    kv, ki, kl = fused_head.topk_head(prep, x, k)
+    torch.cuda.synchronize()
+    assert (fused_head.COUNT.n, fused_head.COUNT_WGMMA.n) == (
+        before[0] + 1, before[1] + 1)
+    pv, pi, pl = fused_head.topk_head_plain(prep, x, k + 1)
+    torch.testing.assert_close(kv, pv[:, :k], rtol=0, atol=2e-3)
+    torch.testing.assert_close(kl, pl, rtol=0, atol=2e-3)
+    gaps = pv[:, :-1] - pv[:, 1:]
+    lo = torch.cat([torch.full_like(gaps[:, :1], float("inf")),
+                    gaps[:, :k - 1]], dim=1)
+    sure = (gaps[:, :k] > 1e-3) & (lo > 1e-3)
+    assert int(((ki != pi[:, :k]) & sure).sum()) == 0
+
+
+def test_head_int8_wgmma_route_ties_across_chunks(dev):
+    """The cross-chunk tie with an int8 head on the tensor-core route: equal
+    winners in two 256-column chunks go to the smaller id, and a chunk made
+    only of pad columns neither wins nor makes NaN."""
+    vp = 2 * fused_head.V_TILE
+    q = torch.zeros((128, vp), dtype=torch.int8)
+    q[:8, 7] = 3
+    q[:8, fused_head.V_TILE + 11] = 3
+    q[:8, 100] = 1
+    head = fused_head.prepare_head(
+        {"q": q.to(dev), "s": torch.ones(700, device=dev),
+         "b": torch.zeros(700, device=dev)}, torch.bfloat16)
+    x = torch.eye(8, 128, device=dev, dtype=torch.bfloat16)
+    assert fused_head.head_route(head.w, x) == "wgmma"
+    before = fused_head.COUNT_WGMMA.n
+    vals, idx, lse = fused_head.topk_head(head, x, 3)
+    torch.cuda.synchronize()
+    assert fused_head.COUNT_WGMMA.n == before + 1
+    pv, pi, pl = fused_head.topk_head_plain(head, x, 3)
+    assert idx.tolist() == [[7, fused_head.V_TILE + 11, 100]] * 8
+    assert torch.equal(idx, pi)
+    assert torch.isfinite(lse).all()
+    torch.testing.assert_close(lse, pl, rtol=0, atol=1e-4)

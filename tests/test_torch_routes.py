@@ -1,11 +1,12 @@
-"""The kernel routes of K1 and K2 (simpleimagecaptionzoo_tpu_torch/ops), on
-the CPU: which route a wrapper picks from dtypes, shapes and alignment, and
-K1's chunk plan per route.  The kernels themselves run only on the card
+"""The kernel routes of K1, K2 and K3 (simpleimagecaptionzoo_tpu_torch/ops),
+on the CPU: which route a wrapper picks from dtypes, shapes and alignment,
+and K1's chunk plan per route.  The kernels themselves run only on the card
 (tests/test_torch_cuda_kernels.py, chip_smoke.py)."""
 import pytest
 import torch
 
-from simpleimagecaptionzoo_tpu_torch.ops import _build, fused_head, fused_lstm
+from simpleimagecaptionzoo_tpu_torch.ops import (_build, fused_head, fused_lstm,
+                                                 quant)
 
 
 def _misaligned(*shape, dtype=torch.bfloat16):
@@ -57,13 +58,23 @@ def _head(vocab, dtype, wdtype=None):
 @pytest.mark.parametrize("xdtype,wdtype,route", [
     (torch.bfloat16, torch.bfloat16, "wgmma"),
     (torch.float32, torch.float32, "cuda_core"),
-    (torch.bfloat16, torch.int8, "cuda_core"),     # K1-int8 moves with K3
+    (torch.bfloat16, torch.int8, "wgmma"),         # K1-int8, widened to bf16
     (torch.float32, torch.int8, "cuda_core"),
 ])
 def test_head_route_rule(xdtype, wdtype, route):
     head = _head(1000, xdtype, wdtype)
     x = torch.zeros(16, head.w.shape[0], dtype=xdtype)
     assert fused_head.head_route(head.w, x) == route
+
+
+def test_head_route_int8_rows_need_16_bytes():
+    head = _head(1000, torch.bfloat16, torch.int8)       # Vp 1,024
+    x = torch.zeros(16, head.w.shape[0], dtype=torch.bfloat16)
+    assert fused_head.head_route(head.w, x) == "wgmma"
+    w = torch.zeros(head.w.shape[0], 1000, dtype=torch.int8)  # rows of 1,000 B
+    assert fused_head.head_route(w, x) == "cuda_core"
+    assert fused_head.head_route(_misaligned(128, 1024, dtype=torch.int8),
+                                 x) == "cuda_core"
 
 
 def test_head_route_needs_aligned_bases():
@@ -91,6 +102,36 @@ def test_head_chunk_widths_match_the_kernel_tiles():
         fused_head.head_chunks("tf32", 512)
 
 
+def _q(kp, np_):
+    return torch.zeros(kp, np_, dtype=torch.int8)
+
+
+@pytest.mark.parametrize("m,k,dtype,route", [
+    (384, 3072, torch.bfloat16, "wgmma"),      # the LSTM gates
+    (384, 1024, torch.bfloat16, "wgmma"),      # aoa_dec.q
+    (384, 2048, torch.bfloat16, "wgmma"),      # aoa_dec.aoa
+    (1152, 3072, torch.bfloat16, "wgmma"),     # the beam rows
+    (37, 200, torch.bfloat16, "wgmma"),        # ragged m and K
+    (384, 3072, torch.float32, "cuda_core"),   # no float32 wgmma
+    (37, 70, torch.bfloat16, "cuda_core"),     # K not a multiple of 8
+    (5, 1, torch.bfloat16, "cuda_core"),
+])
+def test_quant_route_rule(m, k, dtype, route):
+    x = torch.zeros(m, k, dtype=dtype)
+    assert quant.quant_route(x, _q(-(-k // 128) * 128, 512)) == route
+
+
+@pytest.mark.parametrize("which", ["x", "q"])
+def test_quant_route_needs_aligned_bases(which):
+    x, q = torch.zeros(16, 256, dtype=torch.bfloat16), _q(256, 512)
+    assert quant.quant_route(x, q) == "wgmma"
+    if which == "x":
+        x = _misaligned(16, 256)
+    else:
+        q = _misaligned(256, 512, dtype=torch.int8)
+    assert quant.quant_route(x, q) == "cuda_core"
+
+
 def test_tma_alignment_rule():
     t = torch.zeros(4, 16, dtype=torch.bfloat16)
     assert _build.tma_aligned(t)
@@ -102,22 +143,34 @@ def test_tma_alignment_rule():
 
 
 def test_cpu_tensors_take_the_plain_versions_on_either_route():
-    """bf16 on the CPU would be the wgmma route on the card; here the
-    wrappers take their plain versions and count no launch."""
+    """bf16 on the CPU would be the wgmma route on the card (int8 weights
+    too); here the wrappers take their plain versions and count no
+    launch."""
     torch.manual_seed(0)
     w, x, hh = (t.normal_() for t in _lstm(8, 64, 32))
     b = torch.zeros(128, dtype=torch.bfloat16)
     c = torch.randn(8, 32).bfloat16()
     head = _head(600, torch.bfloat16)
     xh = torch.randn(8, 96).bfloat16()
-    counts = (fused_lstm.COUNT.n, fused_lstm.COUNT_WGMMA.n,
-              fused_head.COUNT.n, fused_head.COUNT_WGMMA.n)
+    qhead = fused_head.prepare_head(quant.quantize_dense(
+        {"w": torch.randn(96, 600), "b": torch.randn(600)}), torch.bfloat16)
+    qp = quant.quantize_dense({"w": torch.randn(96, 200),
+                               "b": torch.randn(200)})
+    xq = torch.randn(8, 96).bfloat16()
+    assert quant.quant_route(xq, qp["q"]) == "wgmma"
+    assert fused_head.head_route(qhead.w, torch.nn.functional.pad(
+        xh, (0, 32))) == "wgmma"
+    counters = (fused_lstm.COUNT, fused_lstm.COUNT_WGMMA, fused_head.COUNT,
+                fused_head.COUNT_WGMMA, quant.COUNT, quant.COUNT_WGMMA)
+    counts = [cn.n for cn in counters]
     got = fused_lstm.lstm_cell_fused(w, b, x, hh, c)
     want = fused_lstm.lstm_cell_plain(w, b, x, hh, c)
     assert all(torch.equal(g, v) for g, v in zip(got, want))
-    got = fused_head.topk_head(head, xh, 3)
-    want = fused_head.topk_head_plain(head, xh, 3)
-    assert all(torch.equal(g, v) for g, v in zip(got, want))
-    assert counts == (fused_lstm.COUNT.n, fused_lstm.COUNT_WGMMA.n,
-                      fused_head.COUNT.n, fused_head.COUNT_WGMMA.n)
+    for hd in (head, qhead):
+        got = fused_head.topk_head(hd, xh, 3)
+        want = fused_head.topk_head_plain(hd, xh, 3)
+        assert all(torch.equal(g, v) for g, v in zip(got, want))
+    assert torch.equal(quant.quant_matmul(xq, qp),
+                       quant.quant_matmul_plain(xq, qp))
+    assert counts == [cn.n for cn in counters]
 
