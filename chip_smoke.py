@@ -10,17 +10,21 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      parallel), ptxas's registers, shared memory and spills of the
      tensor-core kernels, and their SASS: cuobjdump (or nvdisasm) must find
      HGMMA (wgmma) and UTMALDG (TMA loads) in libfused_lstm, libfused_head
-     and libquant_matmul;
+     and libquant_matmul, and the tf32 HGMMA of the 3xTF32 products in the
+     first two;
   3. K1, the fused head top-k, against its plain PyTorch version on the card
-     at the greedy decode shape (m=384, H=1024, V=10,102; k=1 and k=3;
-     float32 on the CUDA-core route, bf16 on both routes, the tensor-core
-     route also at the beam shape m=1,152, k=3), at m=3, and on a
-     cross-chunk tie on each route; the bf16 routes timed in turns (old,
-     new, new, old) at m=384 and m=1,152, beside cuBLAS's bare x @ W;
+     at the greedy decode shape (m=384, H=1024, V=10,102; k=1 and k=3), at
+     m=3 and at the beam shape (m=1,152, k=3) on each dtype's tensor-core
+     route (bf16: "wgmma"; float32: "tf32x3", three TF32 products), at the
+     greedy shape on the CUDA-core route too, and on a cross-chunk tie on
+     every route; each dtype timed in turns (old: CUDA cores, new, new,
+     old) at m=384 and m=1,152, host-inclusive and device-only, beside
+     cuBLAS's bare x @ W;
   4. K2, the fused LSTM cell, against its plain version (B=384, E=2048,
-     H=1024, and the unaligned E=200: float32 on the CUDA-core route, bf16
-     on both routes, the tensor-core route also at B=1,152); bf16 timed in
-     turns against the CUDA-core route and torch.lstm_cell;
+     H=1024, the unaligned E=200 and the beam rows B=1,152 on each dtype's
+     tensor-core route; B=384 and E=200 on the CUDA-core route too); each
+     dtype timed in turns against the CUDA-core route and torch.lstm_cell
+     at B=384 and B=1,152;
   5. K3, the int8 dequantizing product, against its plain version at the
      three shapes of the int8 decode step (the LSTM gates, aoa_dec.q,
      aoa_dec.aoa; m=384) and a ragged one (m=37, K=200, n=700): float32 on
@@ -35,8 +39,8 @@ Phases, each of which fails the run (nonzero exit) when it fails:
   8. the main path: AoADetection greedy decode at full width (embed/hidden
      1024, 6 refine layers, 8 heads, 36 boxes, vocab 10,102; random weights
      from --seed), batch 384, 20 steps, through
-     engine.steps.make_greedy_decode: in float32 (K1 and K2 on the CUDA-core
-     route) and in bf16 (K1 and K2, every launch on the tensor-core route),
+     engine.steps.make_greedy_decode: in float32 (K1 and K2, every launch on
+     the "tf32x3" route) and in bf16 (every launch on the "wgmma" route),
      and in int8 serving form, on model.quantize_decode_params with
      SICZ_TPU_INT8_KV=auto, in float32 (K3 three times a step, K1-int8 and
      K4 once, K2 never; CUDA-core routes) and in bf16 (the same, with every
@@ -54,13 +58,15 @@ Timings use CUDA events, with a 128 MB buffer written between launches so
 each launch finds the L2 cache cold (as in the decode, where the other
 step's weights pass through L2 in between).  A reading includes the host's
 time when the host issues a call more slowly than the card runs it; the
-bf16 routes of K1, K2, K3 and K1-int8 are also timed with the card kept
-busy while the host launches them (``device_*``: the device's time alone).
-The bf16 CUDA-core routes of K3 and K1-int8 keep their entries
-(``launches`` 0: no decode runs them).  ``bound_ms`` is the larger of the
-bytes the function must move over 3.35 TB/s and its operations over
-the peak rate for their type (989 TFLOP/s bf16 tensor cores; 67 TFLOP/s
-float32, since TF32 is off), the H100 SXM data-sheet figures at 700 W.
+tensor-core routes of K1, K2, K3 and K1-int8 are also timed with the card
+kept busy while the host launches them (``device_*``: the device's time
+alone).  The float32 CUDA-core routes of K1 and K2 and the bf16 ones of K3
+and K1-int8 keep their entries (``launches`` 0: no decode runs them).
+``bound_ms`` is the larger of the bytes the function must move over 3.35
+TB/s and its operations over the peak rate for their type and route (989
+TFLOP/s bf16 tensor cores; 67 TFLOP/s float32 on the CUDA cores; for the
+3xTF32 routes a third of the 494.7 TFLOP/s TF32 peak, as each float32
+operation is three TF32 ones), the H100 SXM data-sheet figures at 700 W.
 An int8 weight is counted at one byte; its product runs at x's type.
 """
 from __future__ import annotations
@@ -75,7 +81,10 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+# a 3xTF32 product does three TF32 products' operations: its float32
+# operations run at a third of the 494.7 TFLOP/s TF32 peak
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12,
+                  "tf32x3": 494.7e12 / 3}
 B, MAX_LEN, N_BOX = 384, 20, 36
 FULL = dict(model_type="AoADetection", vocab_size=10102, embed_dim=1024,
             hidden_dim=1024, enc_dim=2048, num_heads=8, num_refine_layers=6,
@@ -141,10 +150,14 @@ def _tool(name):
     return None
 
 
-def sass_counts(_build, name, lib, ops=("HGMMA", "UTMALDG")):
+SASS_OPS = ("HGMMA", "UTMALDG", "HGMMA.64x128x8.F32.TF32")
+
+
+def sass_counts(_build, name, lib, ops=SASS_OPS):
     """How often each SASS opcode of ``ops`` occurs in the built library
-    of ``csrc/<name>.cu``: cuobjdump -sass on the library, or, without
-    cuobjdump, nvdisasm on a cubin of the same source."""
+    of ``csrc/<name>.cu`` (HGMMA counts every wgmma, the last one the tf32
+    products of the "tf32x3" routes): cuobjdump -sass on the library, or,
+    without cuobjdump, nvdisasm on a cubin of the same source."""
     cuobjdump = _tool("cuobjdump")
     if cuobjdump:
         text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
@@ -163,13 +176,13 @@ def sass_counts(_build, name, lib, ops=("HGMMA", "UTMALDG")):
     return {op: text.count(op) for op in ops}
 
 
-def ptxas_lines(lib, marker="wgmma"):
+def ptxas_lines(lib, markers=("wgmma", "tf32x3")):
     """ptxas's report (-Xptxas -v, kept in <library>.log) of the kernels
-    whose mangled name holds ``marker``."""
+    whose mangled name holds one of ``markers``: the tensor-core ones."""
     lines, keep = [], 0
     for line in open(lib + ".log").read().splitlines():
         if "Compiling entry function" in line:
-            keep = 3 if marker in line else 0
+            keep = 3 if any(m in line for m in markers) else 0
             if keep:
                 lines.append(line.split("'")[1])
             continue
@@ -179,9 +192,26 @@ def ptxas_lines(lib, marker="wgmma"):
     return lines
 
 
-def bound(nbytes, nops, dtype_name):
+def counts(mod):
+    """(every launch, "wgmma" launches, "tf32x3" launches) of K1's or K2's
+    counters."""
+    return mod.COUNT.n, mod.COUNT_WGMMA.n, mod.COUNT_TF32X3.n
+
+
+def moved(now, before):
+    return tuple(a - b for a, b in zip(now, before))
+
+
+def launched(route, n=1):
+    """How ``n`` launches on ``route`` move :func:`counts`."""
+    return n, n * (route == "wgmma"), n * (route == "tf32x3")
+
+
+def bound(nbytes, nops, rate):
+    """Milliseconds: the larger of the bytes over HBM's rate and the
+    operations over PEAK_OPS_PER_S[rate], and which of the two it is."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = nops / PEAK_OPS_PER_S[dtype_name]
+    t_ops = nops / PEAK_OPS_PER_S[rate]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -276,7 +306,8 @@ def main(argv=None) -> int:
     from simpleimagecaptionzoo_tpu_torch.models.base import get_captioner
     from simpleimagecaptionzoo_tpu_torch.ops import (_build, fused_head,
                                                      fused_lstm,
-                                                     int8_attention, quant)
+                                                     int8_attention, quant,
+                                                     tf32)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -298,14 +329,15 @@ def main(argv=None) -> int:
                                            results["build_s"]))
     results["sass"], results["ptxas"] = {}, {}
     for lname in ("fused_lstm", "fused_head", "quant_matmul"):
-        counts = sass_counts(_build, lname, lib_paths[lname])
-        require(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
-                "%s: the SASS holds %s; the tensor-core route needs HGMMA "
-                "and UTMALDG" % (lname, counts))
-        results["sass"][lname] = counts
+        ops = sass_counts(_build, lname, lib_paths[lname])
+        require(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0
+                and (ops[SASS_OPS[2]] > 0 or lname == "quant_matmul"),
+                "%s: the SASS holds %s; the tensor-core routes need HGMMA "
+                "(tf32 in K1 and K2) and UTMALDG" % (lname, ops))
+        results["sass"][lname] = ops
         results["ptxas"][lname] = ptxas_lines(lib_paths[lname])
         log("SASS %s: %s" % (lname, ", ".join("%s x %d" % kv
-                                              for kv in counts.items())))
+                                              for kv in ops.items())))
         for line in results["ptxas"][lname]:
             log("  ptxas " + line)
 
@@ -323,60 +355,47 @@ def main(argv=None) -> int:
     mb = 3 * B                                      # beam rows: B x 3 beams
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
-        tc = dtype == torch.bfloat16
+        tc_route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+        rate = dn if tc_route == "wgmma" else tc_route     # for bound()
         tol = 1e-4 if dtype == torch.float32 else 2e-3
         head = fused_head.prepare_head(
             steps._cast_floats(params["predict"], dtype), dtype)
         x = (0.5 * torch.randn(B, FULL["hidden_dim"], generator=gen,
                                device=dev)).to(dtype)
-        xb = ((0.5 * torch.randn(mb, FULL["hidden_dim"], generator=gen,
-                                 device=dev)).to(dtype) if tc else None)
+        xb = (0.5 * torch.randn(mb, FULL["hidden_dim"], generator=gen,
+                                device=dev)).to(dtype)
         route = fused_head.head_route(head.w, x)
-        require(route == ("wgmma" if tc else "cuda_core"),
-                "K1 %s takes the %s route" % (dn, route))
-        before = fused_head.COUNT_WGMMA.n
+        require(route == tc_route, "K1 %s takes the %s route" % (dn, route))
+        before = counts(fused_head)
         err = hold_head(torch, fused_head, "K1/" + route, head, x, dn, tol,
-                        extra=[(xb, 3)] if tc else ())
-        require(fused_head.COUNT_WGMMA.n - before == (4 if tc else 0),
-                "K1 %s: %d launches on the wgmma route"
-                % (dn, fused_head.COUNT_WGMMA.n - before))
-        if tc:
-            # the CUDA-core route, which bf16 operands TMA cannot take go to
-            before = fused_head.COUNT.n, fused_head.COUNT_WGMMA.n
-            old_err = hold_head(torch, fused_head, "K1/cuda_core", head, x,
-                                dn, tol, route="cuda_core")
-            require((fused_head.COUNT.n - before[0],
-                     fused_head.COUNT_WGMMA.n - before[1]) == (3, 0),
-                    "K1 %s forced onto the cuda_core route: counters moved "
-                    "by %d and %d" % (dn, fused_head.COUNT.n - before[0],
-                                      fused_head.COUNT_WGMMA.n - before[1]))
+                        extra=[(xb, 3)])
+        require(moved(counts(fused_head), before)
+                == launched(tc_route, 4),
+                "K1 %s: the counters moved by %s"
+                % (dn, moved(counts(fused_head), before)))
+        # the CUDA-core route, which operands TMA cannot take go to
+        before = counts(fused_head)
+        old_err = hold_head(torch, fused_head, "K1/cuda_core", head, x, dn,
+                            tol, route="cuda_core")
+        require(moved(counts(fused_head), before) == launched("cuda_core", 3),
+                "K1 %s forced onto the cuda_core route: the counters moved "
+                "by %s" % (dn, moved(counts(fused_head), before)))
         kp, vp_ = head.w.shape
         hd = FULL["hidden_dim"]
         item = x.element_size()
 
-        def k1_bound(m, k):
+        def k1_bound(m, k, rate):
             nbytes = (m * hd * item + hd * head.v * item + 2 * head.v * 4
                       + m * (k * 8 + 4))
-            return bound(nbytes, 2 * m * hd * head.v, dn)
+            return bound(nbytes, 2 * m * hd * head.v, rate)
 
-        b_ms, b_by = k1_bound(B, 1)
+        b_ms, b_by = k1_bound(B, 1, rate)
+        bb_ms, bb_by = k1_bound(mb, 3, rate)
         plain_ms = time_ms(torch,
                            lambda: fused_head.topk_head_plain(head, x, 1),
                            flush)
         shape = ("m=%d K=%d V=%d (padded %dx%d) k=1" % (B, hd, head.v, kp,
                                                         vp_))
-        if not tc:
-            ms = time_ms(torch, lambda: fused_head.topk_head(head, x, 1),
-                         flush)
-            entry("fused_head_topk", dn,
-                  source="simpleimagecaptionzoo_tpu_torch/csrc/fused_head.cu",
-                  replaces="simpleimagecaptionzoo_tpu/ops/fused_head.py:155",
-                  max_abs_err=err, max_err=err, ms=ms, kernel_ms=ms,
-                  plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                  library_ms=None, kernel_route="cuda_core", shape=shape)
-            log("K1 %s timing (cuda_core): kernel %.4f ms, plain %.4f ms, "
-                "bound %.4f ms (%s)" % (dn, ms, plain_ms, b_ms, b_by))
-            continue
         k1_fns = {
             "old": lambda: fused_head._run_kernel(head, x, 1, "cuda_core"),
             "new": lambda: fused_head.topk_head(head, x, 1)}
@@ -390,48 +409,63 @@ def main(argv=None) -> int:
         dev_beam = time_turns(torch, beam_fns, flush, order, lead=DEVICE_LEAD)
         prod_ms = time_ms(torch, lambda: x @ head.w, flush)
         prod_beam_ms = time_ms(torch, lambda: xb @ head.w, flush)
-        bb_ms, bb_by = k1_bound(mb, 3)
         ms = mean(turns["new"])
-        entry("fused_head_topk_wgmma", dn,
-              source="simpleimagecaptionzoo_tpu_torch/csrc/fused_head.cu",
-              replaces="simpleimagecaptionzoo_tpu/ops/fused_head.py:155",
-              max_abs_err=err, max_err=err, ms=ms, kernel_ms=ms,
-              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-              library_ms=None, kernel_route="wgmma", shape=shape,
-              turns=turns, old_route_ms=mean(turns["old"]),
+        common = dict(
+            source="simpleimagecaptionzoo_tpu_torch/csrc/fused_head.cu",
+            replaces="simpleimagecaptionzoo_tpu/ops/fused_head.py:155",
+            plain_ms=plain_ms, library_ms=None, shape=shape,
+            beam_shape="m=%d k=3" % mb, product_ms=prod_ms,
+            beam_product_ms=prod_beam_ms)
+        if tc_route == "tf32x3":
+            # the CUDA-core route's own entry, held to float32's CUDA-core
+            # rate; no decode runs it now
+            ob_ms, ob_by = k1_bound(B, 1, dn)
+            entry("fused_head_topk", dn, max_abs_err=old_err,
+                  max_err=old_err, ms=mean(turns["old"]),
+                  kernel_ms=mean(turns["old"]),
+                  device_ms=mean(dev_turns["old"]), bound_ms=ob_ms,
+                  bound_by=ob_by, kernel_route="cuda_core",
+                  beam_ms=mean(beam["old"]),
+                  beam_device_ms=mean(dev_beam["old"]),
+                  beam_bound_ms=k1_bound(mb, 3, dn)[0], **common)
+        entry("fused_head_topk_" + tc_route, dn, max_abs_err=err,
+              max_err=err, ms=ms, kernel_ms=ms, bound_ms=b_ms, bound_by=b_by,
+              kernel_route=tc_route, turns=turns,
+              old_route_ms=mean(turns["old"]),
               old_route_max_abs_err=old_err,
               device_turns=dev_turns, device_ms=mean(dev_turns["new"]),
               device_old_route_ms=mean(dev_turns["old"]),
-              product_ms=prod_ms, beam_shape="m=%d k=3" % mb,
               beam_turns=beam, beam_ms=mean(beam["new"]),
               beam_old_route_ms=mean(beam["old"]),
               beam_device_turns=dev_beam,
-              beam_product_ms=prod_beam_ms, beam_bound_ms=bb_ms)
-        log("K1 %s timing in turns (old, new, new, old): wgmma %s ms, "
+              beam_device_ms=mean(dev_beam["new"]),
+              beam_bound_ms=bb_ms, **common)
+        log("K1 %s timing in turns (old, new, new, old): %s %s ms, "
             "cuda_core %s ms; plain %.4f ms; x @ W alone (cuBLAS) %.4f ms; "
             "bound %.4f ms (%s)"
-            % (dn, ["%.4f" % t for t in turns["new"]],
+            % (dn, tc_route, ["%.4f" % t for t in turns["new"]],
                ["%.4f" % t for t in turns["old"]], plain_ms, prod_ms, b_ms,
                b_by))
-        log("K1 %s at m=%d k=3 in turns: wgmma %s ms, cuda_core %s ms; "
+        log("K1 %s at m=%d k=3 in turns: %s %s ms, cuda_core %s ms; "
             "x @ W alone %.4f ms; bound %.4f ms (%s)"
-            % (dn, mb, ["%.4f" % t for t in beam["new"]],
+            % (dn, mb, tc_route, ["%.4f" % t for t in beam["new"]],
                ["%.4f" % t for t in beam["old"]], prod_beam_ms, bb_ms, bb_by))
-        log("K1 %s device time alone, in turns: m=%d k=1 wgmma %s, cuda_core "
-            "%s ms; m=%d k=3 wgmma %s, cuda_core %s ms"
-            % (dn, B, ["%.4f" % t for t in dev_turns["new"]],
-               ["%.4f" % t for t in dev_turns["old"]], mb,
+        log("K1 %s device time alone, in turns: m=%d k=1 %s %s, cuda_core "
+            "%s ms; m=%d k=3 %s %s, cuda_core %s ms"
+            % (dn, B, tc_route, ["%.4f" % t for t in dev_turns["new"]],
+               ["%.4f" % t for t in dev_turns["old"]], mb, tc_route,
                ["%.4f" % t for t in dev_beam["new"]],
                ["%.4f" % t for t in dev_beam["old"]]))
 
     # the tie across chunks, with chunks made only of pad columns, on each
-    # route and in bf16 on both (3.0 and 1.0 are exact in bf16)
+    # route of each dtype (3.0 and 1.0 are exact in bf16 and TF32)
     v = 2 * fused_head.V_TILE
     w = torch.zeros((8, v), device=dev)
     w[:, 7] = 3.0
     w[:, fused_head.V_TILE + 11] = 3.0
     w[:, 100] = 1.0
-    for dtype, route in ((torch.float32, "cuda_core"),
+    for dtype, route in ((torch.float32, "tf32x3"),
+                         (torch.float32, "cuda_core"),
                          (torch.bfloat16, "wgmma"),
                          (torch.bfloat16, "cuda_core")):
         tie_head = fused_head.prepare_head({"w": w[:, :700].to(dtype)}, dtype)
@@ -454,42 +488,43 @@ def main(argv=None) -> int:
     # -- 4. K2 against its plain version --------------------------------------
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
-        tc = dtype == torch.bfloat16
-        want_route = "wgmma" if tc else "cuda_core"
+        tc_route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+        rate = dn if tc_route == "wgmma" else tc_route     # for bound()
         tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
                else dict(rtol=1e-2, atol=1e-2))
-        w_cat, b_sum = fused_lstm.prepare_lstm(
+        w_cat, b_sum, split = fused_lstm.prepare_lstm(
             steps._cast_floats(params["lstm"], dtype))
         hd = FULL["hidden_dim"]
         e_in = FULL["embed_dim"] + hd
-        errs = {"wgmma": 0.0, "cuda_core": 0.0}
+        errs = {tc_route: 0.0, "cuda_core": 0.0}
         wb = 1 / hd ** 0.5
         w200 = ((torch.rand(200 + hd, 4 * hd, generator=gen, device=dev) * 2
                  - 1) * wb).to(dtype)
-        shapes = [(B, e_in, w_cat, want_route), (B, 200, w200, want_route)]
-        if tc:
-            # the beam rows, and the CUDA-core route, which bf16 shapes TMA
-            # cannot take go to, at the shapes above
-            shapes += [(mb, e_in, w_cat, "wgmma"),
-                       (B, e_in, w_cat, "cuda_core"),
-                       (B, 200, w200, "cuda_core")]
-        for m, e, wc, route in shapes:
+        split200 = (tf32.prepare_split(w200)
+                    if dtype == torch.float32 else None)
+        # the decode step, the unaligned E=200 and the beam rows on the
+        # tensor-core route; the CUDA-core route, which shapes TMA cannot
+        # take go to, at the first two
+        shapes = [(B, e_in, w_cat, split, tc_route),
+                  (B, 200, w200, split200, tc_route),
+                  (mb, e_in, w_cat, split, tc_route),
+                  (B, e_in, w_cat, split, "cuda_core"),
+                  (B, 200, w200, split200, "cuda_core")]
+        for m, e, wc, sp, route in shapes:
             x, h, c = (torch.randn(m, n, generator=gen, device=dev).to(dtype)
                        for n in (e, hd, hd))
-            before = fused_lstm.COUNT.n, fused_lstm.COUNT_WGMMA.n
-            if route == want_route:
+            before = counts(fused_lstm)
+            if route == tc_route:
                 got_route = fused_lstm.lstm_route(wc, x, h)
                 require(got_route == route, "K2 %s B=%d E=%d takes the %s "
                         "route" % (dn, m, e, got_route))
-                kh, kc = fused_lstm.lstm_cell_fused(wc, b_sum, x, h, c)
+                kh, kc = fused_lstm.lstm_cell_fused(wc, b_sum, x, h, c, sp)
             else:
                 kh, kc = fused_lstm._run_kernel(wc, b_sum, x, h, c, route)
             torch.cuda.synchronize()
-            moved = (fused_lstm.COUNT.n - before[0],
-                     fused_lstm.COUNT_WGMMA.n - before[1])
-            require(moved == (1, int(route == "wgmma")),
+            require(moved(counts(fused_lstm), before) == launched(route),
                     "K2 %s %s B=%d E=%d: the counters moved by %s"
-                    % (dn, route, m, e, moved))
+                    % (dn, route, m, e, moved(counts(fused_lstm), before)))
             ph, pc = fused_lstm.lstm_cell_plain(wc, b_sum, x, h, c)
             for got, want, what in ((kh, ph, "h'"), (kc, pc, "c'")):
                 diff = (got.float() - want.float()).abs()
@@ -503,67 +538,83 @@ def main(argv=None) -> int:
             log("K2 %s (%s) B=%d E=%d H=%d: max|err| %.3g (rtol %g atol %g)"
                 % (dn, route, m, e, hd, errs[route], tol["rtol"],
                    tol["atol"]))
-        err = errs[want_route]
-        x, h, c = (torch.randn(B, n, generator=gen, device=dev).to(dtype)
-                   for n in (e_in, hd, hd))
-        plain_ms = time_ms(torch, lambda: fused_lstm.lstm_cell_plain(
-            w_cat, b_sum, x, h, c), flush)
+        err = errs[tc_route]
         # the library yardstick: torch.lstm_cell on weights transposed once
         lp = steps._cast_floats(params["lstm"], dtype)
         w_ih_t = lp["w_ih"].t().contiguous()
         w_hh_t = lp["w_hh"].t().contiguous()
-        lib = lambda: torch.lstm_cell(x, (h, c), w_ih_t, w_hh_t, lp["b_ih"],
-                                      lp["b_hh"])
-        item = x.element_size()
-        nbytes = ((B * (e_in + 2 * hd) + (e_in + hd) * 4 * hd + 4 * hd
-                   + 2 * B * hd) * item)
-        b_ms, b_by = bound(nbytes, 2 * B * (e_in + hd) * 4 * hd, dn)
-        shape = "B=%d E=%d H=%d" % (B, e_in, hd)
-        if not tc:
-            ms = time_ms(torch, lambda: fused_lstm.lstm_cell_fused(
-                w_cat, b_sum, x, h, c), flush)
-            lib_ms = time_ms(torch, lib, flush)
-            entry("fused_lstm_cell", dn,
-                  source="simpleimagecaptionzoo_tpu_torch/csrc/fused_lstm.cu",
-                  replaces="simpleimagecaptionzoo_tpu/ops/pallas_lstm.py:166",
-                  max_abs_err=err, max_err=err, ms=ms, kernel_ms=ms,
-                  plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                  library_ms=lib_ms, kernel_route="cuda_core", shape=shape)
-            log("K2 %s timing (cuda_core): kernel %.4f ms, plain %.4f ms, "
-                "torch.lstm_cell %.4f ms, bound %.4f ms (%s)"
-                % (dn, ms, plain_ms, lib_ms, b_ms, b_by))
-            continue
-        k2_fns = {
-            "old": lambda: fused_lstm._run_kernel(w_cat, b_sum, x, h, c,
-                                                  "cuda_core"),
-            "new": lambda: fused_lstm.lstm_cell_fused(w_cat, b_sum, x, h, c),
-            "lib": lib}
-        order = ["old", "new", "lib", "lib", "new", "old"]
-        turns = time_turns(torch, k2_fns, flush, order)
-        dev_turns = time_turns(torch, k2_fns, flush, order, lead=DEVICE_LEAD)
-        ms, lib_ms = mean(turns["new"]), mean(turns["lib"])
-        entry("fused_lstm_cell_wgmma", dn,
-              source="simpleimagecaptionzoo_tpu_torch/csrc/fused_lstm.cu",
-              replaces="simpleimagecaptionzoo_tpu/ops/pallas_lstm.py:166",
-              max_abs_err=err, max_err=err, ms=ms, kernel_ms=ms,
-              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-              library_ms=lib_ms, kernel_route="wgmma", shape=shape,
-              turns=turns, old_route_ms=mean(turns["old"]),
+        item = torch.tensor([], dtype=dtype).element_size()
+        timed = {}
+        for m in (B, mb):
+            x, h, c = (torch.randn(m, n, generator=gen, device=dev).to(dtype)
+                       for n in (e_in, hd, hd))
+            fns = {"old": lambda: fused_lstm._run_kernel(
+                       w_cat, b_sum, x, h, c, "cuda_core"),
+                   "new": lambda: fused_lstm.lstm_cell_fused(
+                       w_cat, b_sum, x, h, c, split),
+                   "lib": lambda: torch.lstm_cell(
+                       x, (h, c), w_ih_t, w_hh_t, lp["b_ih"], lp["b_hh"])}
+            order = ["old", "new", "lib", "lib", "new", "old"]
+            nbytes = ((m * (e_in + 2 * hd) + (e_in + hd) * 4 * hd + 4 * hd
+                       + 2 * m * hd) * item)
+            nops = 2 * m * (e_in + hd) * 4 * hd
+            timed[m] = dict(
+                turns=time_turns(torch, fns, flush, order),
+                dev_turns=time_turns(torch, fns, flush, order,
+                                     lead=DEVICE_LEAD),
+                plain_ms=time_ms(torch, lambda: fused_lstm.lstm_cell_plain(
+                    w_cat, b_sum, x, h, c), flush),
+                bound=bound(nbytes, nops, rate),
+                old_bound=bound(nbytes, nops, dn))
+        g, bm = timed[B], timed[mb]
+        b_ms, b_by = g["bound"]
+        common = dict(
+            source="simpleimagecaptionzoo_tpu_torch/csrc/fused_lstm.cu",
+            replaces="simpleimagecaptionzoo_tpu/ops/pallas_lstm.py:166",
+            plain_ms=g["plain_ms"], library_ms=mean(g["turns"]["lib"]),
+            device_library_ms=mean(g["dev_turns"]["lib"]),
+            shape="B=%d E=%d H=%d" % (B, e_in, hd), beam_shape="B=%d" % mb,
+            beam_plain_ms=bm["plain_ms"],
+            beam_library_ms=mean(bm["turns"]["lib"]),
+            beam_device_library_ms=mean(bm["dev_turns"]["lib"]))
+        if tc_route == "tf32x3":
+            # the CUDA-core route's own entry, held to float32's CUDA-core
+            # rate; no decode runs it now
+            entry("fused_lstm_cell", dn, max_abs_err=errs["cuda_core"],
+                  max_err=errs["cuda_core"], ms=mean(g["turns"]["old"]),
+                  kernel_ms=mean(g["turns"]["old"]),
+                  device_ms=mean(g["dev_turns"]["old"]),
+                  bound_ms=g["old_bound"][0], bound_by=g["old_bound"][1],
+                  kernel_route="cuda_core",
+                  beam_device_ms=mean(bm["dev_turns"]["old"]),
+                  beam_bound_ms=bm["old_bound"][0], **common)
+        ms = mean(g["turns"]["new"])
+        entry("fused_lstm_cell_" + tc_route, dn, max_abs_err=err,
+              max_err=err, ms=ms, kernel_ms=ms, bound_ms=b_ms, bound_by=b_by,
+              kernel_route=tc_route, turns=g["turns"],
+              old_route_ms=mean(g["turns"]["old"]),
               old_route_max_abs_err=errs["cuda_core"],
-              device_turns=dev_turns, device_ms=mean(dev_turns["new"]),
-              device_library_ms=mean(dev_turns["lib"]),
-              device_old_route_ms=mean(dev_turns["old"]))
-        log("K2 %s timing in turns (old, new, lib, lib, new, old): wgmma %s "
-            "ms, torch.lstm_cell %s ms, cuda_core %s ms; plain %.4f ms; "
-            "bound %.4f ms (%s)"
-            % (dn, ["%.4f" % t for t in turns["new"]],
-               ["%.4f" % t for t in turns["lib"]],
-               ["%.4f" % t for t in turns["old"]], plain_ms, b_ms, b_by))
-        log("K2 %s device time alone, in turns: wgmma %s ms, torch.lstm_cell "
-            "%s ms, cuda_core %s ms"
-            % (dn, ["%.4f" % t for t in dev_turns["new"]],
-               ["%.4f" % t for t in dev_turns["lib"]],
-               ["%.4f" % t for t in dev_turns["old"]]))
+              device_turns=g["dev_turns"],
+              device_ms=mean(g["dev_turns"]["new"]),
+              device_old_route_ms=mean(g["dev_turns"]["old"]),
+              beam_turns=bm["turns"], beam_device_turns=bm["dev_turns"],
+              beam_ms=mean(bm["turns"]["new"]),
+              beam_device_ms=mean(bm["dev_turns"]["new"]),
+              beam_device_old_route_ms=mean(bm["dev_turns"]["old"]),
+              beam_bound_ms=bm["bound"][0], **common)
+        for m, t in timed.items():
+            log("K2 %s B=%d timing in turns (old, new, lib, lib, new, old): "
+                "%s %s ms, torch.lstm_cell %s ms, cuda_core %s ms; device "
+                "alone: %s %s, torch.lstm_cell %s, cuda_core %s ms; plain "
+                "%.4f ms; bound %.4f ms (%s; the CUDA-core rate's %.4f)"
+                % (dn, m, tc_route, ["%.4f" % v for v in t["turns"]["new"]],
+                   ["%.4f" % v for v in t["turns"]["lib"]],
+                   ["%.4f" % v for v in t["turns"]["old"]], tc_route,
+                   ["%.4f" % v for v in t["dev_turns"]["new"]],
+                   ["%.4f" % v for v in t["dev_turns"]["lib"]],
+                   ["%.4f" % v for v in t["dev_turns"]["old"]],
+                   t["plain_ms"], t["bound"][0], t["bound"][1],
+                   t["old_bound"][0]))
 
     # -- 5. K3 against its plain version --------------------------------------
     qparams = model.quantize_decode_params(params)
@@ -599,10 +650,11 @@ def main(argv=None) -> int:
                                           quant.quant_route(x, qp["q"])))
                 got = quant._run_kernel(x, qp["q"], qp["s"], qp["b"], route)
             torch.cuda.synchronize()
-            moved = (quant.COUNT.n - before[0], quant.COUNT_WGMMA.n - before[1])
-            require(moved == (1, int(route == "wgmma")),
+            delta = (quant.COUNT.n - before[0],
+                     quant.COUNT_WGMMA.n - before[1])
+            require(delta == (1, int(route == "wgmma")),
                     "K3 %s %s %s: the counters moved by %s"
-                    % (dn, route, what, moved))
+                    % (dn, route, what, delta))
             want = quant.quant_matmul_plain(x, qp)
             diff = (got.float() - want.float()).abs()
             if dtype == torch.float32:
@@ -866,7 +918,10 @@ def main(argv=None) -> int:
         """The reference run: the decode's kernel wrappers swapped for their
         plain versions on the same CUDA tensors."""
         swaps = [(fused_head, "topk_head", fused_head.topk_head_plain),
-                 (fused_lstm, "lstm_cell_fused", fused_lstm.lstm_cell_plain),
+                 # the plain cell takes the unsplit w_cat, not the TF32 split
+                 (fused_lstm, "lstm_cell_fused",
+                  lambda w_cat, b_sum, x, h, c, split=None:
+                  fused_lstm.lstm_cell_plain(w_cat, b_sum, x, h, c)),
                  (quant, "quant_matmul", quant.quant_matmul_plain),
                  (int8_attention, "lanes_attention_int8",
                   int8_attention.lanes_attention_int8_plain)]
@@ -902,24 +957,29 @@ def main(argv=None) -> int:
     os.environ["SICZ_TPU_INT8_KV"] = "auto"
     counters = dict(fused_head_topk=fused_head.COUNT,
                     fused_head_topk_wgmma=fused_head.COUNT_WGMMA,
+                    fused_head_topk_tf32x3=fused_head.COUNT_TF32X3,
                     fused_lstm_cell=fused_lstm.COUNT,
                     fused_lstm_cell_wgmma=fused_lstm.COUNT_WGMMA,
+                    fused_lstm_cell_tf32x3=fused_lstm.COUNT_TF32X3,
                     quant_matmul=quant.COUNT,
                     quant_matmul_wgmma=quant.COUNT_WGMMA,
                     int8_attention=int8_attention.COUNT)
     # launches per step of each counter, and the kernels-line entry each
     # counter's launches go to (COUNT is every launch of K1, K2 or K3; the
-    # _wgmma counters those of the tensor-core route)
+    # _wgmma and _tf32x3 counters those of a tensor-core route): every K1
+    # and K2 launch of the float32 decode on "tf32x3", of the bf16 decode
+    # on "wgmma"
     nil = dict.fromkeys(counters, 0)
-    f32_path = dict(nil, fused_head_topk=1, fused_lstm_cell=1)
-    bf16_path = dict(f32_path, fused_head_topk_wgmma=1,
-                     fused_lstm_cell_wgmma=1)
+    f32_path = dict(nil, fused_head_topk=1, fused_lstm_cell=1,
+                    fused_head_topk_tf32x3=1, fused_lstm_cell_tf32x3=1)
+    bf16_path = dict(nil, fused_head_topk=1, fused_lstm_cell=1,
+                     fused_head_topk_wgmma=1, fused_lstm_cell_wgmma=1)
     int8_f32_path = dict(nil, fused_head_topk=1, quant_matmul=3,
                          int8_attention=1)
     int8_bf16_path = dict(int8_f32_path, fused_head_topk_wgmma=1,
                           quant_matmul_wgmma=3)
-    f32_entries = dict(fused_head_topk="fused_head_topk",
-                       fused_lstm_cell="fused_lstm_cell")
+    f32_entries = dict(fused_head_topk_tf32x3="fused_head_topk_tf32x3",
+                       fused_lstm_cell_tf32x3="fused_lstm_cell_tf32x3")
     bf16_entries = dict(fused_head_topk_wgmma="fused_head_topk_wgmma",
                         fused_lstm_cell_wgmma="fused_lstm_cell_wgmma")
     int8_f32_entries = dict(fused_head_topk="fused_head_topk_int8",
@@ -1017,8 +1077,9 @@ def main(argv=None) -> int:
     missing = [k for k in on_path if not kernels[k].get("launches")]
     require(not missing, "kernels not launched on the main path: %s"
             % missing)
-    # the bf16 CUDA-core routes of K3 and K1-int8 are held and timed above
-    # but no decode runs them: operands TMA cannot take go there
+    # the CUDA-core routes of K1 and K2 (float32) and of K3 and K1-int8
+    # (bf16) are held and timed above but no decode runs them: operands TMA
+    # cannot take go there
     for k, v in kernels.items():
         v.setdefault("launches", 0)
 

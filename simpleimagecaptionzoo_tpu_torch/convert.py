@@ -15,7 +15,8 @@ import torch
 
 def from_jax(tree: Any, device="cpu", dtype: Optional[torch.dtype] = None):
     """JAX param tree (leaves numpy or anything ``np.asarray`` takes) -> the
-    same structure of torch tensors on ``device``.  ``dtype``, if given, casts
+    same structure of torch tensors on ``device``; a bf16 leaf comes over
+    bit for bit as ``torch.bfloat16``.  ``dtype``, if given, casts
     the floating leaves; integer leaves keep their type, and so does every
     leaf of a weight-only int8 layer (a dict with ``q`` and ``s``), whose
     float32 scales and bias are the quantization's error budget."""
@@ -27,7 +28,14 @@ def from_jax(tree: Any, device="cpu", dtype: Optional[torch.dtype] = None):
         return type(tree)(from_jax(v, device, dtype) for v in tree)
     if tree is None:
         return None
-    t = torch.from_numpy(np.array(tree, copy=True)).to(device)
+    a = np.array(tree, copy=True)
+    if a.dtype.name == "bfloat16":
+        # numpy has no bf16 of its own (JAX's is ml_dtypes'), and
+        # torch.from_numpy refuses it: carry the bits, which is exact
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    t = t.to(device)
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t

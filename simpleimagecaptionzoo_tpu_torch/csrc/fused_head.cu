@@ -17,10 +17,16 @@
 // (prepare_head).
 //
 // What bounds it on an H100 SXM at the greedy shape (m=384, K=1024,
-// V=10,240, bf16): 8.05 GFLOP against 989 TFLOP/s of bf16 tensor cores is
-// 8.1 us; the 21.0 MB of w against 3.35 TB/s is 6.3 us.  So the product
+// V=10,240): in bf16, 8.05 GFLOP against 989 TFLOP/s of bf16 tensor cores
+// is 8.1 us; the 21.0 MB of w against 3.35 TB/s is 6.3 us.  So the product
 // bounds it, and with an int8 w (10.5 MB, 3.1 us) all the more: the int8
-// head multiplies in bf16 on the same tensor cores after widening.
+// head multiplies in bf16 on the same tensor cores after widening.  In
+// float32, three TF32 products (24.2 GFLOP) against 494.7 TFLOP/s are
+// 48.8 us; the 42 MB of w 12.5 us.
+//
+// The float32 products are float32-accurate on every route: route 2 runs
+// 3xTF32 (hopper.cuh), route 3 float32 fmaf, and the plain version on the
+// card float32 with TF32 off.
 //
 // Design.  On the TPU the vocab grid runs in order and carries the running
 // max, sum and top-k from one tile to the next.  Here blocks run in
@@ -35,7 +41,7 @@
 // adds exp(-1e30 - M) = 0 to the merged sum.  Columns past V (a ragged
 // last chunk) read as -inf with id INT_MAX and are never chosen.  Any m.
 //
-// The partial pass has two routes, picked by ops/fused_head.py:head_route
+// The partial pass has three routes, picked by ops/fused_head.py:head_route
 // from dtypes, shapes and alignment; the chunk width is the route's
 // (head_chunks in ops/fused_head.py):
 //
@@ -66,14 +72,30 @@
 //      the four lanes of a quad, 64 each.  Scale and bias in place (columns
 //      past V become -inf), then max, rescaled sum and k rounds of
 //      "best after the last taken", each reduced across the quad with
-//      __shfl_xor (1, 2).  Nothing goes through shared memory.
-// 2. Everything else (float32 x, and bf16 operands TMA cannot take):
-//    head_partial, the CUDA-core route, BN = 128 (HEAD_CHUNK): common.cuh's
-//    tile product (fmaf in float32, at least 120 us at the greedy shape),
-//    the chunk's logits into shared memory, and one warp per row for the
-//    epilogue.  float32 stays here: wgmma has no float32 product, and
-//    TF32's 10 mantissa bits break the float32 hold (1e-4) and the float32
-//    decode's identical rows.
+//      __shfl_xor (1, 2).  Nothing goes through shared memory
+//      (chunk_partials).
+// 2. float32 x and w, with 16-byte rows and aligned bases:
+//    head_partial_tf32x3, the tensor-core route for float32.  wgmma has no
+//    float32 product and plain TF32's 10 mantissa bits break the float32
+//    hold (1e-4) and the float32 decode's identical rows; so the logits are
+//    three TF32 products, x_lo w_hi + x_hi w_lo + x_hi w_hi, on
+//    hopper.cuh's tf32x3 pipeline.  w_hi and w_lo are w split and
+//    transposed once per decode (ops/tf32.py: (Vp, Kp), K-major, which
+//    tf32 wgmma requires); x is split in registers.
+//    - A block takes 128 rows by a chunk of BN = 128 columns
+//      (HEAD_CHUNK_TF32X3): at m=384 and V=10,240, 3 x 80 = 240 blocks,
+//      1.8 waves on 132 SMs.  A 256-column chunk would give each thread
+//      128 accumulators beside its A fragments, and a stage of 32 K-values
+//      80 KB (two stages); at 128 columns a stage is 48 KB, a ring of 4.
+//    - Each consumer warpgroup issues 12 m64n128k8 tf32 wgmma a stage into
+//      a partial and adds it into its float32 result (hopper.cuh); the
+//      producer warpgroup gives its registers to the consumers.
+//    - The epilogue is route 1's (chunk_partials) on 64 accumulators.
+// 3. Everything else (float32 x with an int8 w, and operands TMA cannot
+//    take): head_partial, the CUDA-core route, BN = 128 (HEAD_CHUNK):
+//    common.cuh's tile product (fmaf in float32, at least 120 us at the
+//    greedy shape), the chunk's logits into shared memory, and one warp
+//    per row for the epilogue.
 #include <climits>
 #include <math.h>
 
@@ -263,6 +285,81 @@ __device__ __forceinline__ void quad_best(float& v, int& i) {
   }
 }
 
+// The chunk's partials from the accumulator of an m64nN product in
+// registers (R = N / 2 floats a thread): rows r64 .. r64 + 63, columns
+// col0 .. col0 + N - 1.  A row's N logits lie in the four lanes of a quad,
+// N / 4 each.  Scale and bias in place (columns past V become -inf), then
+// max, rescaled sum and k rounds of "best after the last taken", each
+// reduced across the quad with __shfl_xor (1, 2).
+template <int R>
+__device__ __forceinline__ void chunk_partials(float (&acc)[R], const float* __restrict__ s,
+                                               const float* __restrict__ b,
+                                               float* __restrict__ pmax, float* __restrict__ psum,
+                                               float* __restrict__ pval, int* __restrict__ pidx,
+                                               int M, int V, int k, int nchunk, int r64,
+                                               int col0) {
+  // register i: row 16 w + l/4 + 8 ((i/2) % 2), column 8 (i/4) + 2 (l%4) + i%2
+  const int l = threadIdx.x % 32;
+  const int cq = col0 + 2 * (l % 4);
+#pragma unroll
+  for (int jb = 0; jb < R / 4; ++jb) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = cq + 8 * jb + e;
+      const bool in = col < V;
+      const float sc = in ? s[col] : 0.f, bc = in ? b[col] : 0.f;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float& v = acc[4 * jb + 2 * r + e];
+        v = in ? fmaf(v, sc, bc) : -INFINITY;
+      }
+    }
+  }
+
+  const int rbase = r64 + (threadIdx.x / 32 % 4) * 16 + l / 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = rbase + 8 * r;
+    const bool live = row < M && l % 4 == 0;   // shuffles need every lane
+    float mx = -INFINITY;
+#pragma unroll
+    for (int jb = 0; jb < R / 4; ++jb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) mx = fmaxf(mx, acc[4 * jb + 2 * r + e]);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    float sm = 0.f;
+#pragma unroll
+    for (int jb = 0; jb < R / 4; ++jb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) sm += expf(acc[4 * jb + 2 * r + e] - mx);
+    sm += __shfl_xor_sync(0xffffffffu, sm, 1);
+    sm += __shfl_xor_sync(0xffffffffu, sm, 2);
+    const size_t base = (size_t)row * nchunk + blockIdx.x;
+    if (live) { pmax[base] = mx; psum[base] = sm; }
+    // k rounds; round t takes the best candidate after the one taken in
+    // round t-1 in the total (value desc, id asc) order: ids are unique
+    float lv = INFINITY;
+    int li = -1;
+    for (int t = 0; t < k; ++t) {
+      float bv = -INFINITY;
+      int bi = INT_MAX;
+#pragma unroll
+      for (int jb = 0; jb < R / 4; ++jb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float v = acc[4 * jb + 2 * r + e];
+          const int col = cq + 8 * jb + e;
+          const int id = col < V ? col : INT_MAX;
+          if (before(lv, li, v, id) && before(v, id, bv, bi)) { bv = v; bi = id; }
+        }
+      quad_best(bv, bi);
+      if (live) { pval[base * k + t] = bv; pidx[base * k + t] = bi; }
+      lv = bv; li = bi;
+    }
+  }
+}
+
 template <typename TW>
 __global__ void __launch_bounds__(NT, 1)
 head_partial_wgmma(const __grid_constant__ CUtensorMap map_x,
@@ -334,67 +431,39 @@ head_partial_wgmma(const __grid_constant__ CUtensorMap map_x,
     }
     wgmma_wait<0>();
     fence_regs(acc);
+    chunk_partials(acc, s, b, pmax, psum, pval, pidx, M, V, k, nchunk, row0 + wg * 64, col0);
+  }
+}
 
-    // register i: row 16 w + l/4 + 8 ((i/2) % 2), column 8 (i/4) + 2 (l%4) + i%2
-    const int l = threadIdx.x % 32;
-    const int cq = col0 + 2 * (l % 4);
-#pragma unroll
-    for (int jb = 0; jb < BN / 8; ++jb) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = cq + 8 * jb + e;
-        const bool in = col < V;
-        const float sc = in ? s[col] : 0.f, bc = in ? b[col] : 0.f;
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float& v = acc[4 * jb + 2 * r + e];
-          v = in ? fmaf(v, sc, bc) : -INFINITY;
-        }
-      }
-    }
+// ---- the partial pass, route 2: TMA + 3xTF32 wgmma (float32) ----------------
 
-    const int rbase = row0 + wg * 64 + (warp % 4) * 16 + l / 4;
+__global__ void __launch_bounds__(tf32x3::NT, 1)
+head_partial_tf32x3(const __grid_constant__ CUtensorMap map_x,
+                    const __grid_constant__ CUtensorMap map_hi,
+                    const __grid_constant__ CUtensorMap map_lo,
+                    const float* __restrict__ s, const float* __restrict__ b,
+                    float* __restrict__ pmax, float* __restrict__ psum,
+                    float* __restrict__ pval, int* __restrict__ pidx,
+                    int M, int K, int V, int k, int nchunk) {
+  extern __shared__ uint8_t smem_raw[];
+  const tf32x3::Ring r = tf32x3::ring_init(smem_raw);
+  const int row0 = blockIdx.y * tf32x3::BM;
+  const int col0 = blockIdx.x * tf32x3::BN;
+  const int nk = (K + tf32x3::BK - 1) / tf32x3::BK;
+  const int warp = threadIdx.x / 32;
+  const int wg = warp / 4;
+  if (wg == 2) {                       // producer: w_hi / w_lo rows col0 .. col0 + 127
+    setmaxnreg_dec<tf32x3::PRODUCER_REGS>();
+    if (threadIdx.x == 256)
+      tf32x3::produce(r, &map_x, &map_x, nk, nk, 0, row0, &map_hi, &map_lo, col0,
+                      tf32x3::BOX_N);
+  } else {                             // consumers: warpgroup wg takes rows row0 + 64 wg ..
+    setmaxnreg_inc<tf32x3::CONSUMER_REGS>();
+    float acc[tf32x3::BN / 2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = rbase + 8 * r;
-      const bool live = row < M && l % 4 == 0;   // shuffles need every lane
-      float mx = -INFINITY;
-#pragma unroll
-      for (int jb = 0; jb < BN / 8; ++jb)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) mx = fmaxf(mx, acc[4 * jb + 2 * r + e]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      float sm = 0.f;
-#pragma unroll
-      for (int jb = 0; jb < BN / 8; ++jb)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) sm += expf(acc[4 * jb + 2 * r + e] - mx);
-      sm += __shfl_xor_sync(0xffffffffu, sm, 1);
-      sm += __shfl_xor_sync(0xffffffffu, sm, 2);
-      const size_t base = (size_t)row * nchunk + blockIdx.x;
-      if (live) { pmax[base] = mx; psum[base] = sm; }
-      // k rounds; round t takes the best candidate after the one taken in
-      // round t-1 in the total (value desc, id asc) order: ids are unique
-      float lv = INFINITY;
-      int li = -1;
-      for (int t = 0; t < k; ++t) {
-        float bv = -INFINITY;
-        int bi = INT_MAX;
-#pragma unroll
-        for (int jb = 0; jb < BN / 8; ++jb)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float v = acc[4 * jb + 2 * r + e];
-            const int col = cq + 8 * jb + e;
-            const int id = col < V ? col : INT_MAX;
-            if (before(lv, li, v, id) && before(v, id, bv, bi)) { bv = v; bi = id; }
-          }
-        quad_best(bv, bi);
-        if (live) { pval[base * k + t] = bv; pidx[base * k + t] = bi; }
-        lv = bv; li = bi;
-      }
-    }
+    for (int i = 0; i < tf32x3::BN / 2; ++i) acc[i] = 0.f;
+    tf32x3::consume(r, acc, nk, wg);
+    chunk_partials(acc, s, b, pmax, psum, pval, pidx, M, V, k, nchunk, row0 + wg * 64, col0);
   }
 }
 
@@ -478,6 +547,43 @@ extern "C" int fused_head_topk_wgmma(const void* x, const void* w, const float* 
   else
     tc::head_partial_wgmma<__nv_bfloat16><<<grid, tc::NT, smem, st>>>(
         mx, mw, s, b, pmax, psum, pval, pidx, M, K, V, k, nchunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  head_merge<<<(M + NWARP - 1) / NWARP, NT, 0, st>>>(pmax, psum, pval, pidx, vals, idx,
+                                                     lse, M, k, nchunk);
+  return (int)cudaGetLastError();
+}
+
+// The float32 tensor-core route of the partial pass (3xTF32): x float32
+// (M, K); w_hi and w_lo w's TF32 parts, each (V, K) row-major (ops/tf32.py);
+// K a multiple of 4, x, w_hi and w_lo 16-byte aligned (TMA;
+// cudaErrorMisalignedAddress if not); nchunk = ceil(V / 128).  The merge is
+// head_merge, as for the other routes.
+extern "C" int fused_head_topk_tf32x3(const void* x, const void* w_hi, const void* w_lo,
+                                      const float* s, const float* b, float* pmax,
+                                      float* psum, float* pval, int* pidx, float* vals,
+                                      int* idx, float* lse, int M, int K, int V, int k,
+                                      int nchunk, void* stream) {
+  namespace t3 = sicz::hopper::tf32x3;
+  if (M <= 0 || K <= 0 || V <= 0 || K % 4 != 0 || k < 1 || k > KMAX || k > V ||
+      nchunk != (V + t3::BN - 1) / t3::BN)
+    return (int)cudaErrorInvalidValue;
+  if (!sicz::hopper::aligned16(x) || !sicz::hopper::aligned16(w_hi) ||
+      !sicz::hopper::aligned16(w_lo))
+    return (int)cudaErrorMisalignedAddress;
+  CUtensorMap mx, mhi, mlo;
+  if (!sicz::hopper::tensor_map_f32(&mx, x, M, K, K, t3::BM) ||
+      !sicz::hopper::tensor_map_f32(&mhi, w_hi, V, K, K, t3::BOX_N) ||
+      !sicz::hopper::tensor_map_f32(&mlo, w_lo, V, K, K, t3::BOX_N))
+    return (int)cudaErrorInvalidValue;
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t err =
+      sicz::hopper::allow_smem((const void*)tc::head_partial_tf32x3, t3::SMEM, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  dim3 grid(nchunk, (M + t3::BM - 1) / t3::BM);
+  tc::head_partial_tf32x3<<<grid, t3::NT, t3::SMEM, st>>>(mx, mhi, mlo, s, b, pmax, psum,
+                                                          pval, pidx, M, K, V, k, nchunk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   head_merge<<<(M + NWARP - 1) / NWARP, NT, 0, st>>>(pmax, psum, pval, pidx, vals, idx,

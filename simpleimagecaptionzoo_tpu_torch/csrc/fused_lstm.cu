@@ -13,11 +13,16 @@
 // b_sum is (4H,).  All tensors share one dtype, float32 or bf16.
 //
 // What bounds it on an H100 SXM at the decode shape (B=384, E=2048,
-// H=1024, bf16): 9.66 GFLOP against 989 TFLOP/s of bf16 tensor cores is
-// 9.8 us; the 25.2 MB of w_cat against 3.35 TB/s is 7.5 us.  So the product
-// bounds it.
+// H=1024): in bf16, 9.66 GFLOP against 989 TFLOP/s of bf16 tensor cores is
+// 9.8 us; the 25.2 MB of w_cat against 3.35 TB/s is 7.5 us.  In float32,
+// three TF32 products of that size (29.0 GFLOP) against 494.7 TFLOP/s are
+// 58.6 us; the 50.3 MB of w_cat 15.0 us.  So the product bounds it.
 //
-// Two routes, picked by ops/fused_lstm.py:lstm_route from dtypes, shapes
+// The float32 products are float32-accurate on every route: route 2 runs
+// 3xTF32 (hopper.cuh), route 3 float32 fmaf, and the plain version on the
+// card float32 with TF32 off.
+//
+// Three routes, picked by ops/fused_lstm.py:lstm_route from dtypes, shapes
 // and alignment:
 //
 // 1. bf16 with E and H multiples of 8 and 16-byte-aligned x, h and w_cat:
@@ -55,15 +60,33 @@
 //    encoded maps (w_cat's is encoded once; x's and h's when their buffers
 //    move).
 //
-// 2. Everything else (float32, and bf16 shapes or pointers TMA cannot take):
+// 2. float32 with E and H multiples of 4 and 16-byte-aligned x, h, w_hi and
+//    w_lo: lstm_cell_tf32x3, the tensor-core route for float32.  wgmma has
+//    no float32 product and plain TF32 keeps 10 mantissa bits, too few for
+//    the float32 hold (1e-5) and the float32 decode's identical rows; so
+//    the gates are three TF32 products, a_lo w_hi + a_hi w_lo + a_hi w_hi,
+//    on hopper.cuh's tf32x3 pipeline.  w_hi and w_lo are w_cat split and
+//    transposed once per decode (ops/tf32.py: (4H, E+H), K-major, which
+//    tf32 wgmma requires); x and h are split in registers.
+//    - The tile and grid of route 1: 128 rows by BH = 32 hidden columns,
+//      the weight tile four 32-row boxes of w_hi and w_lo at rows
+//      gate*H + j0; 96 blocks at B=384, 288 at B=1,152.
+//    - A stage is 32 values of K (128 bytes of float32): A 16 KB + w_hi and
+//      w_lo 16 KB each; a ring of 4.  The k-loop runs over x and then h.
+//    - Each consumer warpgroup issues 12 m64n128k8 tf32 wgmma a stage (three
+//      per k8) into a partial, frees the stage when they are done and adds
+//      the partial into its float32 result; a producer warpgroup (one
+//      thread loads) gives its registers to the consumers (setmaxnreg).
+//    - The epilogue is route 1's on float32 pairs, its operands loaded after
+//      the k-loop: held through it beside the result and the partial they
+//      made ptxas spill 184 bytes, and the kernel 19 % slower (0.1324
+//      against 0.1074 ms at B=384 on the H100, chip_smoke.py).
+// 3. Everything else (bf16 or float32 shapes or pointers TMA cannot take):
 //    lstm_cell_kernel, the CUDA-core route.  The grid tiles rows (BM) and
 //    hidden columns (BH) with the same gate grouping and epilogue, on
 //    common.cuh's tile product (fmaf in float32, at least 144 us at the
-//    decode shape).  float32 stays here: wgmma has no float32 product, and
-//    TF32 keeps about 10 mantissa bits, too few for the float32 hold
-//    (1e-5) and for the float32 decode's identical rows.  K, B and H may
-//    be ragged: loads outside the operands read 0 and stores outside the
-//    outputs are skipped.
+//    decode shape).  K, B and H may be ragged: loads outside the operands
+//    read 0 and stores outside the outputs are skipped.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -155,51 +178,72 @@ constexpr int NT = 2 * 128 + 32;     // two consumer warpgroups, one producer wa
 constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
 static_assert(SWB == 64, "the w_cat boxes use the 64-byte swizzle");
 
-// The epilogue's operands, loaded before the k-loop so their latency hides
-// behind the products: for this thread's hidden columns j, j+1 (one
-// bf16x2 each) the four gate biases, and c of its two rows (0 outside).
-struct EpiIn {
-  uint32_t bias[4][4];                 // [gate][jj]
-  uint32_t c[2][4];                    // [r][jj]
+// Two neighbouring elements (hidden columns j, j + 1) of T: one bf16x2
+// word or one float2.
+template <typename T> struct Pair;
+
+template <> struct Pair<__nv_bfloat16> {
+  using Raw = uint32_t;
+  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
+    return __ldg((const unsigned int*)p);
+  }
+  static __device__ __forceinline__ float2 get(Raw v) {
+    return __bfloat1622float2(*(const __nv_bfloat162*)&v);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, float a, float b) {
+    *(__nv_bfloat162*)p = __floats2bfloat162_rn(a, b);
+  }
 };
 
-__device__ __forceinline__ uint32_t ldg_pair(const __nv_bfloat16* p) {
-  return __ldg((const unsigned int*)p);
-}
+template <> struct Pair<float> {
+  using Raw = float2;
+  static __device__ __forceinline__ Raw load(const float* p) { return __ldg((const float2*)p); }
+  static __device__ __forceinline__ float2 get(Raw v) { return v; }
+  static __device__ __forceinline__ void store(float* p, float a, float b) {
+    *(float2*)p = make_float2(a, b);
+  }
+};
 
-__device__ __forceinline__ float2 unpack(uint32_t v) {
-  return __bfloat1622float2(*(const __nv_bfloat162*)&v);
-}
+// The epilogue's operands, loaded before the k-loop so their latency hides
+// behind the products: for this thread's hidden columns j, j+1 (one pair
+// each) the four gate biases, and c of its two rows (0 outside).
+template <typename T>
+struct EpiIn {
+  typename Pair<T>::Raw bias[4][4];    // [gate][jj]
+  typename Pair<T>::Raw c[2][4];       // [r][jj]
+};
 
 // register i of the accumulator holds row 16 w + l/4 + 8 ((i/2) % 2) and
 // gate column 8 (i/4) + 2 (l%4) + i%2, i.e. gate (i/4) / 4 and hidden
 // column 8 ((i/4) % 4) + 2 (l%4) + i%2; rows from r64 on, hidden columns
 // from j0 on
-__device__ __forceinline__ void epilogue_load(EpiIn& in,
-                                              const __nv_bfloat16* __restrict__ c,
-                                              const __nv_bfloat16* __restrict__ b,
-                                              int B, int H, int r64, int j0) {
+template <typename T>
+__device__ __forceinline__ void epilogue_load(EpiIn<T>& in, const T* __restrict__ c,
+                                              const T* __restrict__ b, int B, int H, int r64,
+                                              int j0) {
+  using P = Pair<T>;
   const int l = threadIdx.x % 32;
   const int rbase = r64 + (threadIdx.x / 32 % 4) * 16 + l / 4;
 #pragma unroll
   for (int jj = 0; jj < 4; ++jj) {
-    const int j = j0 + 8 * jj + 2 * (l % 4);   // even; H % 8 == 0, so j + 1 < H too
+    const int j = j0 + 8 * jj + 2 * (l % 4);   // even; H is even, so j + 1 < H too
     const bool jin = j < H;
 #pragma unroll
-    for (int g = 0; g < 4; ++g) in.bias[g][jj] = jin ? ldg_pair(b + g * H + j) : 0u;
+    for (int g = 0; g < 4; ++g) in.bias[g][jj] = jin ? P::load(b + g * H + j) : typename P::Raw{};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = rbase + 8 * r;
-      in.c[r][jj] = jin && row < B ? ldg_pair(c + (size_t)row * H + j) : 0u;
+      in.c[r][jj] = jin && row < B ? P::load(c + (size_t)row * H + j) : typename P::Raw{};
     }
   }
 }
 
 // h' and c' of the warpgroup's 64 rows and 32 hidden columns
-__device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], const EpiIn& in,
-                                         __nv_bfloat16* __restrict__ h_out,
-                                         __nv_bfloat16* __restrict__ c_out,
+template <typename T>
+__device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], const EpiIn<T>& in,
+                                         T* __restrict__ h_out, T* __restrict__ c_out,
                                          int B, int H, int r64, int j0) {
+  using P = Pair<T>;
   const int l = threadIdx.x % 32;
   const int rbase = r64 + (threadIdx.x / 32 % 4) * 16 + l / 4;
 #pragma unroll
@@ -210,9 +254,9 @@ __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], const EpiIn
     for (int jj = 0; jj < 4; ++jj) {
       const int j = j0 + 8 * jj + 2 * (l % 4);
       if (j >= H) continue;
-      const float2 bi = unpack(in.bias[0][jj]), bf = unpack(in.bias[1][jj]);
-      const float2 bg = unpack(in.bias[2][jj]), bo = unpack(in.bias[3][jj]);
-      const float2 cv = unpack(in.c[r][jj]);
+      const float2 bi = P::get(in.bias[0][jj]), bf = P::get(in.bias[1][jj]);
+      const float2 bg = P::get(in.bias[2][jj]), bo = P::get(in.bias[3][jj]);
+      const float2 cv = P::get(in.c[r][jj]);
       const int i0 = 4 * jj + 2 * r;           // gate 0's registers: i0, i0 + 1
       float hn[2], cn[2];
 #pragma unroll
@@ -225,8 +269,8 @@ __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], const EpiIn
         hn[e] = sigmoidf_(zo) * tanhf(cn[e]);
       }
       const size_t o = (size_t)row * H + j;
-      *(__nv_bfloat162*)(h_out + o) = __floats2bfloat162_rn(hn[0], hn[1]);
-      *(__nv_bfloat162*)(c_out + o) = __floats2bfloat162_rn(cn[0], cn[1]);
+      P::store(h_out + o, hn[0], hn[1]);
+      P::store(c_out + o, cn[0], cn[1]);
     }
   }
 }
@@ -279,7 +323,7 @@ lstm_cell_wgmma(const __grid_constant__ CUtensorMap map_x,
     }
   } else {                             // consumers: warpgroup wg takes rows row0 + 64 wg ..
     const int wg = warp / 4;
-    EpiIn in;
+    EpiIn<__nv_bfloat16> in;
     epilogue_load(in, c, b, B, H, row0 + wg * 64, j0);
     float acc[BN / 2];
 #pragma unroll
@@ -303,6 +347,42 @@ lstm_cell_wgmma(const __grid_constant__ CUtensorMap map_x,
       if (threadIdx.x % 128 == 0) mbar_arrive(&empty[s]);
     }
     fence_regs(acc);
+    epilogue(acc, in, h_out, c_out, B, H, row0 + wg * 64, j0);
+  }
+}
+
+// ---- route 2: TMA + 3xTF32 wgmma (float32) -----------------------------------
+
+static_assert(tf32x3::BN == BN && tf32x3::BM == BM,
+              "route 2 keeps route 1's tile and epilogue");
+
+__global__ void __launch_bounds__(tf32x3::NT, 1)
+lstm_cell_tf32x3(const __grid_constant__ CUtensorMap map_x,
+                 const __grid_constant__ CUtensorMap map_h,
+                 const __grid_constant__ CUtensorMap map_hi,
+                 const __grid_constant__ CUtensorMap map_lo,
+                 const float* __restrict__ c, const float* __restrict__ b,
+                 float* __restrict__ h_out, float* __restrict__ c_out, int B, int E, int H) {
+  extern __shared__ uint8_t smem_raw[];
+  const tf32x3::Ring r = tf32x3::ring_init(smem_raw);
+  const int row0 = blockIdx.y * BM;
+  const int j0 = blockIdx.x * BH;
+  const int nkx = (E + tf32x3::BK - 1) / tf32x3::BK;
+  const int nk = nkx + (H + tf32x3::BK - 1) / tf32x3::BK;
+  const int warp = threadIdx.x / 32;
+  const int wg = warp / 4;
+  if (wg == 2) {                       // producer: w_hi / w_lo boxes at gate * H + j0
+    setmaxnreg_dec<tf32x3::PRODUCER_REGS>();
+    if (threadIdx.x == 256)
+      tf32x3::produce(r, &map_x, &map_h, nkx, nk, E, row0, &map_hi, &map_lo, j0, H);
+  } else {                             // consumers: warpgroup wg takes rows row0 + 64 wg ..
+    setmaxnreg_inc<tf32x3::CONSUMER_REGS>();
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    tf32x3::consume(r, acc, nk, wg);
+    EpiIn<float> in;
+    epilogue_load(in, c, b, B, H, row0 + wg * 64, j0);
     epilogue(acc, in, h_out, c_out, B, H, row0 + wg * 64, j0);
   }
 }
@@ -364,5 +444,39 @@ extern "C" int fused_lstm_cell_wgmma(const void* x, const void* h, const void* c
   tc::lstm_cell_wgmma<<<grid, tc::NT, tc::SMEM, (cudaStream_t)stream>>>(
       mx, mh, mw, (const __nv_bfloat16*)c, (const __nv_bfloat16*)b_sum,
       (__nv_bfloat16*)h_out, (__nv_bfloat16*)c_out, B, E, H);
+  return (int)cudaGetLastError();
+}
+
+// The float32 tensor-core route (3xTF32): E and H multiples of 4; w_hi and
+// w_lo are w_cat's TF32 parts, each (4H, E+H) row-major (ops/tf32.py);
+// x, h, w_hi and w_lo 16-byte aligned (TMA), c, b_sum, h_out and c_out
+// 8-byte aligned (float2 pairs); cudaErrorMisalignedAddress if a pointer
+// is not.
+extern "C" int fused_lstm_cell_tf32x3(const void* x, const void* h, const void* c,
+                                      const void* w_hi, const void* w_lo,
+                                      const void* b_sum, void* h_out, void* c_out, int B,
+                                      int E, int H, void* stream) {
+  namespace t3 = sicz::hopper::tf32x3;
+  if (B <= 0 || E <= 0 || H <= 0 || E % 4 != 0 || H % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)c | (uintptr_t)b_sum | (uintptr_t)h_out | (uintptr_t)c_out) & 7 ||
+      !sicz::hopper::aligned16(x) || !sicz::hopper::aligned16(h) ||
+      !sicz::hopper::aligned16(w_hi) || !sicz::hopper::aligned16(w_lo))
+    return (int)cudaErrorMisalignedAddress;
+  const uint64_t kt = (uint64_t)E + H, n4 = 4 * (uint64_t)H;
+  CUtensorMap mx, mh, mhi, mlo;
+  if (!sicz::hopper::tensor_map_f32(&mx, x, B, E, E, t3::BM) ||
+      !sicz::hopper::tensor_map_f32(&mh, h, B, H, H, t3::BM) ||
+      !sicz::hopper::tensor_map_f32(&mhi, w_hi, n4, kt, kt, t3::BOX_N) ||
+      !sicz::hopper::tensor_map_f32(&mlo, w_lo, n4, kt, kt, t3::BOX_N))
+    return (int)cudaErrorInvalidValue;
+  static std::atomic<uint64_t> smem_set{0};
+  const cudaError_t err =
+      sicz::hopper::allow_smem((const void*)tc::lstm_cell_tf32x3, t3::SMEM, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((H + tc::BH - 1) / tc::BH, (B + t3::BM - 1) / t3::BM);
+  tc::lstm_cell_tf32x3<<<grid, t3::NT, t3::SMEM, (cudaStream_t)stream>>>(
+      mx, mh, mhi, mlo, (const float*)c, (const float*)b_sum, (float*)h_out, (float*)c_out,
+      B, E, H);
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,12 @@
 // Hopper (sm_90a) pieces of the port's tensor-core kernels: TMA tensor
-// maps made on the host, the mbarrier ring, TMA tile loads, bf16 wgmma
-// tile products with their shared-memory matrix descriptors, and the
-// int8 -> bf16 widening stage of the int8-weight products.  Used by the
-// bf16 routes of K1 (csrc/fused_head.cu, bf16 and int8 weights), K2
-// (csrc/fused_lstm.cu) and K3 (csrc/quant_matmul.cu); the CUDA-core tile
-// product of common.cuh stays for float32.
+// maps made on the host, the mbarrier ring, TMA tile loads, bf16 and tf32
+// wgmma tile products with their shared-memory matrix descriptors, the
+// int8 -> bf16 widening stage of the int8-weight products, and the 3xTF32
+// pipeline of the float32 products.  Used by the bf16 routes of K1
+// (csrc/fused_head.cu, bf16 and int8 weights), K2 (csrc/fused_lstm.cu) and
+// K3 (csrc/quant_matmul.cu), and by the float32 ("tf32x3") routes of K1
+// and K2; the CUDA-core tile product of common.cuh stays for shapes TMA
+// cannot take, for float32 x with an int8 weight and for K3 in float32.
 //
 // Everything is inline PTX, so a kernel source still builds with one nvcc
 // call and no other headers than the toolkit's.  cuTensorMapEncodeTiled is
@@ -36,6 +38,11 @@
 //     (generic-proxy) stores and wgmma reads through the async proxy, so
 //     each thread fences (fence_proxy_async) before it arrives on the
 //     barrier that hands the stage to the consumers.
+//   The float32 products (3xTF32, tf32x3 below) take both operands
+//     K-major, since wgmma has no transpose for tf32: A as above with 32
+//     float32 values (128 bytes) a row, and the weight stored transposed,
+//     (N, K), read the same way, 32 K-values by 32 rows a box.  A k8 step
+//     is 32 bytes, as a bf16 k16 step is, so desc_a describes both.
 // Every stage buffer starts on a 1024-byte boundary, so the swizzle phase
 // of every descriptor is 0.  TMA fills what lies outside the tensor with
 // zeros (FLOAT_OOB_FILL_NONE), so ragged rows, columns and K read 0.
@@ -84,8 +91,8 @@ inline EncodeTiledFn encode_tiled() {
 
 inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-// Tensor map of a row-major matrix (rows, cols) of bf16 or int8 (dtype
-// CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 or _UINT8) whose rows lie `pitch`
+// Tensor map of a row-major matrix (rows, cols) of bf16, int8 or float32
+// (dtype CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, _UINT8 or _FLOAT32) whose rows lie `pitch`
 // elements apart, read in boxes of box_rows x box_cols with the given
 // swizzle (0 for none; 64 or 128 bytes, box_cols times the element size
 // must then equal it).  False when cuTensorMapEncodeTiled refuses it (a
@@ -118,7 +125,8 @@ inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType dtype, const void* 
       return true;
     }
   const uint64_t item = dtype == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ? 2
-                      : dtype == CU_TENSOR_MAP_DATA_TYPE_UINT8 ? 1 : 0;
+                      : dtype == CU_TENSOR_MAP_DATA_TYPE_UINT8 ? 1
+                      : dtype == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 0;
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr || item == 0 || !aligned16(base) || (pitch * item) % 16 != 0)
     return false;
@@ -151,6 +159,14 @@ inline bool tensor_map_i8(CUtensorMap* map, const void* base, uint64_t rows,
                           uint32_t box_cols) {
   return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, rows, cols, pitch,
                     box_rows, box_cols, 0);
+}
+
+// a float32 matrix read in boxes of box_rows x 32 values (128 bytes), with
+// the 128-byte swizzle: the operands of the 3xTF32 products
+inline bool tensor_map_f32(CUtensorMap* map, const void* base, uint64_t rows,
+                           uint64_t cols, uint64_t pitch, uint32_t box_rows) {
+  return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, rows, cols, pitch,
+                    box_rows, 32, 128);
 }
 
 // Lets `kernel` take `bytes` of dynamic shared memory on the current
@@ -344,7 +360,8 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo_bytes,
        | ((uint64_t)layout << 62);
 }
 
-// A: K-major, 128-byte swizzle (layout type 1); LBO is unused there
+// A: K-major, 128-byte swizzle (layout type 1); LBO is unused there.  The
+// same descriptor takes the K-major weight of the tf32 products as B.
 __device__ __forceinline__ uint64_t desc_a(const void* p) {
   return smem_desc(p, 16, 1024, 1);
 }
@@ -390,6 +407,12 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
 
 // D (64 x 64, float32, the wgmma fragment) += A (64 x 16, K-major) *
@@ -475,6 +498,198 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(scale_d));
 }
+
+// D (64 x 128, float32, the wgmma fragment) += A (64 x 8, tf32, from
+// registers: the fragment below) * B (8 x 128, tf32, K-major).
+// The A fragment of m64nNk8 tf32 (PTX ISA, wgmma register fragments;
+// CUTLASS's ALayout_64x8): thread t, w = t / 32, l = t % 32, holds in
+// register i the element  row 16 w + l / 4 + 8 (i % 2),  k = l % 4 + 4 (i / 2).
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], const uint32_t (&a)[4],
+                                                     uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// ---- device: 3xTF32, the float32 products on the tensor cores -----------------
+//
+// wgmma has no float32 product, and one TF32 product keeps 10 of float32's
+// 23 mantissa bits.  So each operand is split into two TF32 values,
+// a = a_hi + a_lo (a_hi = rna(a), a_lo = rna(a - a_hi): exact to 2^-22 of
+// |a|), and each k8 step sums three products into one float32
+// accumulator, the small terms first: a_lo * b_hi, a_hi * b_lo, a_hi * b_hi
+// (the order of CUTLASS's OpMultiplyAddFastF32).  a_lo * b_lo, below
+// 2^-22 of the product, is dropped.
+//
+// The tensor core's float32 sums are not IEEE: measured on the H100, one
+// accumulator carried through all of K2's 1,152 products (K = 3,072) put
+// h' up to 3.1e-5 off the float32 product, against a hold of 1e-5.  So a
+// stage's 12 products go into a fresh accumulator (scale-d 0 on the first),
+// which is then added into the float32 result with ordinary
+// round-to-nearest adds: the tensor core only sums 32 values of K at a
+// time, at the partial's small magnitude.  That costs 64 more registers a
+// thread, hence the producer warpgroup that hands its registers to the
+// consumers (setmaxnreg 40 / 232).
+//
+// The weight is split once per decode on the host side (ops/tf32.py) and
+// stored transposed, (N, K), as w_hi and w_lo; the activations are split
+// here, in registers, as they leave shared memory.
+//
+// One tile shape serves K1 and K2: BM = 128 rows (two consumer warpgroups
+// of 64) by BN = 128 weight rows, 32 K-values (128 bytes) a stage.  A
+// stage is A (128 x 32 float32, 16 KB) + w_hi and w_lo (128 x 32 each,
+// 16 KB), 48 KB; a ring of 4 stages.  The weight tile is four TMA boxes
+// of 32 rows, box g at weight row brow0 + g * bstride (K2: the four gates
+// of 32 hidden columns; K1: 128 consecutive vocab columns).  One thread of
+// the producer warpgroup keeps the ring full; each consumer warpgroup, per
+// stage, reads its A fragments for the four k8 steps (16 floats a thread,
+// conflict-free through the swizzle), splits them (cvt.rna.tf32.f32),
+// issues the 12 products into the stage's partial, waits for them, frees
+// the stage and adds the partial into its result.
+namespace tf32x3 {
+
+constexpr int BM = 128;
+constexpr int BN = 128;
+constexpr int BK = 32;
+constexpr int STAGES = 4;
+constexpr int BOX_N = 32;                  // weight rows of one TMA box
+constexpr int A_BYTES = BM * BK * 4;
+constexpr int B_BYTES = BN * BK * 4;       // each of w_hi and w_lo
+constexpr int STAGE_BYTES = A_BYTES + 2 * B_BYTES;
+constexpr int NT = 3 * 128;                // two consumer warpgroups, one producer warpgroup
+constexpr int PRODUCER_REGS = 40;          // setmaxnreg: 2 x 128 x 232 + 128 x 40 <= 65,536
+constexpr int CONSUMER_REGS = 232;
+constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
+
+__device__ __forceinline__ uint32_t rna_tf32(float f) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(f));
+  return r;
+}
+
+// The ring in dynamic shared memory, its barriers after it: full (the
+// producer's expect-tx arrival) and empty (one arrival per consumer
+// warpgroup).  Every thread of the block calls this.
+struct Ring {
+  uint8_t* stages;
+  uint64_t* full;
+  uint64_t* empty;
+};
+
+__device__ __forceinline__ Ring ring_init(uint8_t* smem_raw) {
+  Ring r;
+  r.stages = smem_1024(smem_raw);
+  r.full = (uint64_t*)(r.stages + STAGES * STAGE_BYTES);
+  r.empty = r.full + STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&r.full[s], 1);
+      mbar_init(&r.empty[s], 2);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  return r;
+}
+
+// One thread.  Step t loads A's box from map_a (t < nka) or map_a2, at K
+// column (t or t - nka) * BK, rows row0 ..; and the four boxes of w_hi and
+// w_lo at K column t * BK (t < nka) or koff + (t - nka) * BK.  So K2 runs
+// over x and then h without concatenating them (koff = E), and K1 over x
+// alone (nka = nk).  A step past the end of one operand reads zeros (TMA's
+// fill), which also zero the products with the other operand's rows.
+__device__ __forceinline__ void produce(const Ring& r, const CUtensorMap* map_a,
+                                        const CUtensorMap* map_a2, int nka, int nk, int koff,
+                                        int row0, const CUtensorMap* map_hi,
+                                        const CUtensorMap* map_lo, int brow0, int bstride) {
+  for (int t = 0; t < nk; ++t) {
+    const int s = t % STAGES;
+    uint8_t* const st = r.stages + s * STAGE_BYTES;
+    if (t >= STAGES) mbar_wait(&r.empty[s], ((t / STAGES) - 1) & 1);
+    mbar_expect_tx(&r.full[s], STAGE_BYTES);
+    const bool first = t < nka;
+    const int k0 = (first ? t : t - nka) * BK;
+    tma_load_2d(st, first ? map_a : map_a2, k0, row0, &r.full[s]);
+    const int kb = first ? k0 : koff + k0;
+#pragma unroll
+    for (int g = 0; g < BN / BOX_N; ++g) {
+      const int row = brow0 + g * bstride;
+      tma_load_2d(st + A_BYTES + g * BOX_N * 128, map_hi, kb, row, &r.full[s]);
+      tma_load_2d(st + A_BYTES + B_BYTES + g * BOX_N * 128, map_lo, kb, row, &r.full[s]);
+    }
+  }
+}
+
+// A consumer warpgroup (wg 0 or 1: rows 64 wg .. of the tile): acc (the
+// m64n128 fragment, zeroed by the caller) += its A rows times the weight
+// tile, over nk stages.
+__device__ __forceinline__ void consume(const Ring& r, float (&acc)[64], int nk, int wg) {
+  float part[64];                             // one stage's products
+  const int l = threadIdx.x % 32;
+  // the fragment's rows 16 w + l/4 (+ 8) lie 128 bytes apart; in the
+  // 128-byte swizzle their 16-byte chunk c sits at c ^ (row % 8) = c ^ (l/4)
+  const uint32_t frag = smem_addr(r.stages) +
+                        (wg * 64 + (threadIdx.x / 32 % 4) * 16 + l / 4) * 128 + (l % 4) * 4;
+  const int swz = l / 4;
+  for (int t = 0; t < nk; ++t) {
+    const int s = t % STAGES;
+    mbar_wait(&r.full[s], (t / STAGES) & 1);
+    const uint8_t* const st = r.stages + s * STAGE_BYTES;
+    uint32_t hi[BK / 8][4], lo[BK / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int chunk = 2 * kk + i / 2;           // k = 8 kk + l % 4 + 4 (i / 2)
+        float f;
+        asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(f)
+                     : "r"(frag + s * STAGE_BYTES + (i % 2) * 1024 + ((chunk ^ swz) << 4)));
+        hi[kk][i] = rna_tf32(f);
+        lo[kk][i] = rna_tf32(f - __uint_as_float(hi[kk][i]));
+      }
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      fence_regs(hi[kk]);
+      fence_regs(lo[kk]);
+    }
+    fence_regs(part);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      const uint64_t dh = desc_a(st + A_BYTES + kk * 32);
+      const uint64_t dl = desc_a(st + A_BYTES + B_BYTES + kk * 32);
+      wgmma_m64n128k8_tf32(part, lo[kk], dh, kk > 0);   // the first starts the partial
+      wgmma_m64n128k8_tf32(part, hi[kk], dl, 1);
+      wgmma_m64n128k8_tf32(part, hi[kk], dh, 1);
+    }
+    wgmma_commit();
+    fence_regs(part);
+    wgmma_wait<0>();
+    fence_regs(part);
+    if (threadIdx.x % 128 == 0) mbar_arrive(&r.empty[s]);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+  }
+}
+
+}  // namespace tf32x3
 
 }  // namespace hopper
 }  // namespace sicz

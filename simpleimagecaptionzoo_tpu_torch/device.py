@@ -3,8 +3,12 @@
 Entry points run on the GPU unless the caller asks for the CPU: ``"cuda"``
 is the default everywhere, and it raises when no CUDA device is present
 instead of falling back.  This is also the one place that states the float32
-matmul policy: full float32 (no TF32), so a float32 decode on the card
-computes what the float32 decode on the CPU computes.
+matmul policy: the port's float32 products are float32-accurate, so a
+float32 decode on the card computes what the float32 decode on the CPU
+computes.  The library calls (cuBLAS, cuDNN) run with TF32 off, set here;
+the float32 routes of kernels K1 and K2 run on the tensor cores as three
+TF32 products each (3xTF32, ``ops/tf32.py``), which keeps float32 accuracy;
+the other kernels' float32 routes multiply on the CUDA cores in float32.
 """
 from __future__ import annotations
 

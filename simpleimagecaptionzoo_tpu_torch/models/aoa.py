@@ -11,8 +11,8 @@ Parity notes, as in the JAX package: the hand-rolled unbiased-std
 LayerNorm (``layers.layer_norm_std``); the embedding re-init U(-0.1,0.1)
 and zeroed predict bias; 'adaptive' masking (masked projection, -1e9
 masked softmax, masked mean).  The decoder K/V projections are hoisted into
-encode, and so is the LSTM's concatenated weight (``extras["lstm_cat"]``):
-both are loop-invariant.
+encode, and so is the LSTM's concatenated weight (``extras["lstm_cat"]``,
+with its TF32 split in float32): both are loop-invariant.
 
 Attention scores and the attention-weighted values accumulate in float32
 whatever the compute dtype, as the JAX package's

@@ -12,7 +12,7 @@ through kernel K3 in :func:`dense`, :func:`dense_wn` and :func:`lstm_cell`.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
@@ -113,11 +113,11 @@ def embedding(params: dict, ids: torch.Tensor) -> torch.Tensor:
 
 def lstm_cell(params: dict, x: torch.Tensor, h: torch.Tensor,
               c: torch.Tensor,
-              prepared: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+              prepared: Optional[fused_lstm.LstmWeights] = None):
     """torch nn.LSTMCell step -> (h', c') through kernel K2: launched for
     CUDA tensors, its plain version for CPU tensors.  ``prepared`` is
     ``fused_lstm.prepare_lstm(params)``, made once outside a decode loop;
-    without it the weights are concatenated here.
+    without it the weights are concatenated (and, in float32, split) here.
 
     Int8 params (``ops/quant.quantize_lstm``) take the JAX package's int8
     cell instead: the gates come from K3, rounded to x's dtype, and the gate
@@ -125,9 +125,8 @@ def lstm_cell(params: dict, x: torch.Tensor, h: torch.Tensor,
     if "q" in params:
         gates = quant.quant_matmul(torch.cat([x, h], dim=-1), params)
         return fused_lstm.gate_math(gates, c)
-    w_cat, b_sum = prepared if prepared is not None else \
-        fused_lstm.prepare_lstm(params)
-    return fused_lstm.lstm_cell_fused(w_cat, b_sum, x, h, c)
+    w = prepared if prepared is not None else fused_lstm.prepare_lstm(params)
+    return fused_lstm.lstm_cell_fused(w.w_cat, w.b_sum, x, h, c, w.split)
 
 
 def layer_norm_std(params: dict, x: torch.Tensor,

@@ -12,43 +12,49 @@ path); the product is float32 either way.
 
 :func:`topk_head` launches the kernel for a CUDA tensor and takes
 :func:`topk_head_plain`, the same function in plain PyTorch, for a CPU
-tensor only.  The kernel's partial pass has two routes, chosen by
+tensor only.  The kernel's partial pass has three routes, chosen by
 :func:`head_route` from dtypes, shapes and alignment: ``"wgmma"`` (bf16 x
 with bf16 or int8 w on the tensor cores, TMA-fed, an int8 w widened to bf16
-in shared memory first; chunks of ``HEAD_CHUNK_WGMMA`` columns) and
-``"cuda_core"`` (float32 x, and operands TMA cannot take; chunks of
-``HEAD_CHUNK``).
-``COUNT`` counts every launch, ``COUNT_WGMMA`` those of the tensor-core
-route.
+in shared memory first; chunks of ``HEAD_CHUNK_WGMMA`` columns),
+``"tf32x3"`` (float32 x and w on the tensor cores as three TF32 products,
+float32-accurate: ``ops/tf32.py``; chunks of ``HEAD_CHUNK_TF32X3``) and
+``"cuda_core"`` (float32 x with an int8 w, and operands TMA cannot take;
+chunks of ``HEAD_CHUNK``).
+``COUNT`` counts every launch, ``COUNT_WGMMA`` and ``COUNT_TF32X3`` those
+of the tensor-core routes.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from simpleimagecaptionzoo_tpu_torch.ops import _build
+from simpleimagecaptionzoo_tpu_torch.ops import _build, tf32
 
 K_ALIGN = 128                   # x feature axis alignment
 V_TILE = 512                    # vocab padding unit (the JAX package's)
 HEAD_CHUNK = 128                # columns per chunk, "cuda_core" route (BN)
 HEAD_CHUNK_WGMMA = 256          # columns per chunk, "wgmma" route (tc::BN)
+HEAD_CHUNK_TF32X3 = 128         # columns per chunk, "tf32x3" (tf32x3::BN)
 MAX_K = 16
 _NEG = -1e30
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}   # common.cuh
 
-COUNT = _build.Counter()           # every launch, either route
+COUNT = _build.Counter()           # every launch, any route
 COUNT_WGMMA = _build.Counter()     # launches of the "wgmma" route
+COUNT_TF32X3 = _build.Counter()    # launches of the "tf32x3" route
 
 
 class Head(NamedTuple):
     """A head prepared for the kernel: w (Kp, Vp) in the compute dtype or
-    int8, s and b (Vp,) float32, and the true vocab size v."""
+    int8, s and b (Vp,) float32, the true vocab size v, and, for a float32
+    w, its TF32 split for the "tf32x3" route (else None)."""
     w: torch.Tensor
     s: torch.Tensor
     b: torch.Tensor
     v: int
+    split: Optional[tf32.Split] = None
 
 
 def prepare_head(head: dict, dtype: torch.dtype) -> Head:
@@ -60,7 +66,7 @@ def prepare_head(head: dict, dtype: torch.dtype) -> Head:
     ``{"w", "b"}``, or the int8 head ``{"q", "s", "b"}`` (``q`` stays int8
     and is already padded; its scale is per column).  K pads to 128 and V to
     512 with zeros; pad columns get scale 0 and bias -1e30, so their logit
-    is -1e30 and never wins."""
+    is -1e30 and never wins.  A float32 head also gets its TF32 split."""
     if "q" in head:                      # ops/quant.py layout, pre-padded
         q = head["q"]
         v = head["s"].shape[0]
@@ -83,7 +89,9 @@ def prepare_head(head: dict, dtype: torch.dtype) -> Head:
     s[:v] = 1.0
     b = torch.full((vp,), _NEG, dtype=torch.float32, device=w.device)
     b[:v] = head["b"].float() if "b" in head else 0.0
-    return Head(w.contiguous(), s, b, v)
+    w = w.contiguous()
+    return Head(w, s, b, v,
+                tf32.prepare_split(w) if dtype == torch.float32 else None)
 
 
 def _prepared(head: Union[dict, Head], x: torch.Tensor):
@@ -108,23 +116,26 @@ def topk_head_plain(head: Union[dict, Head], x: torch.Tensor, k: int
 
 
 def head_route(w: torch.Tensor, x: torch.Tensor) -> str:
-    """The partial pass's route for these operands: ``"wgmma"`` when x is
-    bf16, w is bf16 or int8, x's rows are multiples of 8 values and w's of
-    16 bytes (for TMA) and both start on 16-byte boundaries; else
-    ``"cuda_core"``."""
-    if (x.dtype == torch.bfloat16
-            and w.dtype in (torch.bfloat16, torch.int8)
-            and x.shape[1] % 8 == 0
+    """The partial pass's route for these operands, when x's and w's rows
+    are multiples of 16 bytes (for TMA) and both start on 16-byte
+    boundaries: ``"wgmma"`` when x is bf16 and w bf16 or int8,
+    ``"tf32x3"`` when both are float32; else ``"cuda_core"``."""
+    if ((x.shape[1] * x.element_size()) % 16 == 0
             and (w.shape[1] * w.element_size()) % 16 == 0
             and _build.tma_aligned(x, w)):
-        return "wgmma"
+        if x.dtype == torch.bfloat16 and w.dtype in (torch.bfloat16,
+                                                     torch.int8):
+            return "wgmma"
+        if x.dtype == torch.float32 and w.dtype == torch.float32:
+            return "tf32x3"
     return "cuda_core"
 
 
 def head_chunks(route: str, vp: int) -> int:
     """Vocab chunks of the partial pass over ``vp`` columns on ``route``:
     one (max, sum, top-k) partial per row and chunk."""
-    width = {"wgmma": HEAD_CHUNK_WGMMA, "cuda_core": HEAD_CHUNK}[route]
+    width = {"wgmma": HEAD_CHUNK_WGMMA, "tf32x3": HEAD_CHUNK_TF32X3,
+             "cuda_core": HEAD_CHUNK}[route]
     return -(-vp // width)
 
 
@@ -152,8 +163,14 @@ def _run_kernel(head: Head, x: torch.Tensor, k: int, route: str):
     x = x.contiguous()
     if not (w.is_contiguous() and s.is_contiguous() and b.is_contiguous()):
         raise ValueError("fused_head: w, s and b must be contiguous")
-    # alignment: head_route checked it, and the C entry of the wgmma route
-    # refuses a misaligned pointer (CUDA error 716)
+    # alignment: head_route checked it, and the C entries of the
+    # tensor-core routes refuse a misaligned pointer (CUDA error 716)
+    if route == "tf32x3" and not (
+            x.dtype == torch.float32 and w.dtype == torch.float32
+            and kp % 4 == 0 and vp % 4 == 0):
+        raise ValueError("fused_head: the tf32x3 route takes float32 x and "
+                         "w with K and V multiples of 4; got %s, %s, K=%d, "
+                         "V=%d" % (x.dtype, w.dtype, kp, vp))
     if route == "wgmma" and not (
             x.dtype == torch.bfloat16 and w.dtype in (torch.bfloat16,
                                                       torch.int8)
@@ -183,6 +200,20 @@ def _run_kernel(head: Head, x: torch.Tensor, k: int, route: str):
             _build.stream_of(x))
         _build.check(code, "fused_head_topk_wgmma")
         COUNT_WGMMA.n += 1
+    elif route == "tf32x3":
+        split = head.split if head.split is not None else \
+            tf32.prepare_split(w)
+        if not all(t.shape == (vp, kp) and t.is_contiguous()
+                   and t.dtype == torch.float32 and t.device == dev
+                   for t in split):
+            raise ValueError("fused_head: the split must be two contiguous "
+                             "float32 (Vp, Kp) tensors on x's device")
+        code = lib.fused_head_topk_tf32x3(
+            p(x), p(split.hi), p(split.lo), p(s), p(b), pmax, psum, pval,
+            pidx, p(vals), p(idx), p(lse), m, kp, vp, k, nchunk,
+            _build.stream_of(x))
+        _build.check(code, "fused_head_topk_tf32x3")
+        COUNT_TF32X3.n += 1
     elif route == "cuda_core":
         code = lib.fused_head_topk(
             p(x), p(w), p(s), p(b), pmax, psum, pval, pidx,
@@ -201,6 +232,8 @@ def _declare(lib) -> None:
     lib.fused_head_topk.restype = i_
     lib.fused_head_topk_wgmma.argtypes = [vp_] * 11 + [i_] * 6 + [vp_]
     lib.fused_head_topk_wgmma.restype = i_
+    lib.fused_head_topk_tf32x3.argtypes = [vp_] * 12 + [i_] * 5 + [vp_]
+    lib.fused_head_topk_tf32x3.restype = i_
 
 
 def topk_head(head: Union[dict, Head], x: torch.Tensor, k: int

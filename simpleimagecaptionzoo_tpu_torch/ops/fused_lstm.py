@@ -13,30 +13,45 @@ round the gates to bf16 before the nonlinearities; the port follows the
 kernel, and so does its plain version, which upcasts before its matmul.
 
 :func:`lstm_cell_fused` launches ``csrc/fused_lstm.cu`` for CUDA tensors and
-takes :func:`lstm_cell_plain` for CPU tensors only.  The kernel has two
+takes :func:`lstm_cell_plain` for CPU tensors only.  The kernel has three
 routes, chosen by :func:`lstm_route` from dtypes, shapes and alignment:
-``"wgmma"`` (bf16 on the tensor cores, TMA-fed) and ``"cuda_core"``
-(float32, and bf16 shapes TMA cannot take).  ``COUNT`` counts every launch,
-``COUNT_WGMMA`` those of the tensor-core route.  The backward (the JAX
-package's custom VJP) comes with the training slice.
+``"wgmma"`` (bf16 on the tensor cores, TMA-fed), ``"tf32x3"`` (float32 on
+the tensor cores as three TF32 products, float32-accurate: ``ops/tf32.py``)
+and ``"cuda_core"`` (shapes and pointers TMA cannot take).  ``COUNT``
+counts every launch, ``COUNT_WGMMA`` and ``COUNT_TF32X3`` those of the
+tensor-core routes.  The backward (the JAX package's custom VJP) comes with
+the training slice.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from simpleimagecaptionzoo_tpu_torch.ops import _build
+from simpleimagecaptionzoo_tpu_torch.ops import _build, tf32
 
-COUNT = _build.Counter()           # every launch, either route
+COUNT = _build.Counter()           # every launch, any route
 COUNT_WGMMA = _build.Counter()     # launches of the "wgmma" route
+COUNT_TF32X3 = _build.Counter()    # launches of the "tf32x3" route
 
 
-def prepare_lstm(params: dict) -> Tuple[torch.Tensor, torch.Tensor]:
-    """LSTM param dict -> (w_cat (E+H, 4H), b_sum (4H,)), in the params'
-    dtype.  Loop-invariant: compute once per decode, not per step."""
+class LstmWeights(NamedTuple):
+    """The cell's weights prepared for the kernel: w_cat (E+H, 4H), b_sum
+    (4H,) in the params' dtype, and, for float32, w_cat's TF32 split for
+    the "tf32x3" route (else None)."""
+    w_cat: torch.Tensor
+    b_sum: torch.Tensor
+    split: Optional[tf32.Split]
+
+
+def prepare_lstm(params: dict) -> LstmWeights:
+    """LSTM param dict -> :class:`LstmWeights`.  Loop-invariant: compute
+    once per decode, not per step."""
     w_cat = torch.cat([params["w_ih"], params["w_hh"]], dim=0).contiguous()
-    return w_cat, (params["b_ih"] + params["b_hh"]).contiguous()
+    split = (tf32.prepare_split(w_cat) if w_cat.dtype == torch.float32
+             else None)
+    return LstmWeights(w_cat, (params["b_ih"] + params["b_hh"]).contiguous(),
+                       split)
 
 
 def gate_math(gates: torch.Tensor, c: torch.Tensor):
@@ -57,18 +72,22 @@ def lstm_cell_plain(w_cat: torch.Tensor, b_sum: torch.Tensor,
 
 
 def lstm_route(w_cat: torch.Tensor, x: torch.Tensor, h: torch.Tensor) -> str:
-    """The kernel route for these operands: ``"wgmma"`` when all are bf16,
-    E and H are multiples of 8 (16-byte rows for TMA) and x, h and w_cat
-    start on 16-byte boundaries; else ``"cuda_core"``."""
+    """The kernel route for these operands, when E and H make 16-byte rows
+    (TMA) and x, h and w_cat start on 16-byte boundaries: ``"wgmma"`` when
+    all are bf16, ``"tf32x3"`` when all are float32; else
+    ``"cuda_core"``."""
     e, hidden = x.shape[1], h.shape[1]
-    if (all(t.dtype == torch.bfloat16 for t in (w_cat, x, h))
-            and e > 0 and e % 8 == 0 and hidden % 8 == 0
+    dtype = x.dtype
+    if (dtype in (torch.bfloat16, torch.float32)
+            and w_cat.dtype == dtype and h.dtype == dtype and e > 0
+            and (e * x.element_size()) % 16 == 0
+            and (hidden * x.element_size()) % 16 == 0
             and _build.tma_aligned(w_cat, x, h)):
-        return "wgmma"
+        return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     return "cuda_core"
 
 
-def _run_kernel(w_cat, b_sum, x, h, c, route):
+def _run_kernel(w_cat, b_sum, x, h, c, route, split=None):
     b, e = x.shape
     hidden = h.shape[1]
     ts = (w_cat, b_sum, x, h, c)
@@ -103,6 +122,23 @@ def _run_kernel(w_cat, b_sum, x, h, c, route):
             hidden, _build.stream_of(x))
         _build.check(code, "fused_lstm_cell_wgmma")
         COUNT_WGMMA.n += 1
+    elif route == "tf32x3":
+        if x.dtype != torch.float32 or e % 4 or hidden % 4:
+            raise ValueError("fused_lstm: the tf32x3 route takes float32 "
+                             "with E and H multiples of 4; got %s, E=%d, "
+                             "H=%d" % (x.dtype, e, hidden))
+        if split is None:
+            split = tf32.prepare_split(w_cat)
+        if not all(t.shape == (4 * hidden, e + hidden) and t.is_contiguous()
+                   and t.dtype == torch.float32 and t.device == x.device
+                   for t in split):
+            raise ValueError("fused_lstm: the split must be two contiguous "
+                             "float32 (4H, E+H) tensors on x's device")
+        code = lib.fused_lstm_cell_tf32x3(
+            p(x), p(h), p(c), p(split.hi), p(split.lo), p(b_sum), p(h_out),
+            p(c_out), b, e, hidden, _build.stream_of(x))
+        _build.check(code, "fused_lstm_cell_tf32x3")
+        COUNT_TF32X3.n += 1
     elif route == "cuda_core":
         code = lib.fused_lstm_cell(
             p(x), p(h), p(c), p(w_cat), p(b_sum), p(h_out), p(c_out), b, e,
@@ -122,13 +158,18 @@ def _declare(lib) -> None:
     lib.fused_lstm_cell.restype = i_
     lib.fused_lstm_cell_wgmma.argtypes = [vp_] * 7 + [i_] * 3 + [vp_]
     lib.fused_lstm_cell_wgmma.restype = i_
+    lib.fused_lstm_cell_tf32x3.argtypes = [vp_] * 8 + [i_] * 3 + [vp_]
+    lib.fused_lstm_cell_tf32x3.restype = i_
 
 
 def lstm_cell_fused(w_cat: torch.Tensor, b_sum: torch.Tensor,
-                    x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
+                    x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+                    split: Optional[tf32.Split] = None):
     """(h', c') of one cell step from :func:`prepare_lstm`'s weights.  A
     CUDA ``x`` launches the kernel on :func:`lstm_route`'s route; a CPU
-    ``x`` takes the plain version."""
+    ``x`` takes the plain version (on the unsplit w_cat).  ``split`` is
+    :func:`prepare_lstm`'s; without it the "tf32x3" route splits w_cat for
+    this call."""
     if x.device.type == "cpu":
         return lstm_cell_plain(w_cat, b_sum, x, h, c)
-    return _run_kernel(w_cat, b_sum, x, h, c, lstm_route(w_cat, x, h))
+    return _run_kernel(w_cat, b_sum, x, h, c, lstm_route(w_cat, x, h), split)

@@ -7,7 +7,9 @@ import subprocess
 import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from simpleimagecaptionzoo_tpu.config import ModelConfig as JaxModelConfig
@@ -52,6 +54,28 @@ def test_bf16_round_trip_comes_back_float32():
     back = to_numpy(tp)["w"]
     assert back.dtype == np.float32
     np.testing.assert_array_equal(back, tp["w"].float().numpy())
+
+
+@pytest.mark.parametrize("as_numpy", [False, True])
+def test_bf16_leaf_carries_bit_for_bit(as_numpy):
+    """A bf16 leaf, as a jnp array or after ``np.asarray`` (ml_dtypes'
+    bfloat16, which torch.from_numpy refuses), arrives as torch.bfloat16
+    with JAX's bits; ``dtype`` still casts it."""
+    torch.set_num_threads(1)
+    vals = np.array([[1.0, -2.5, 3.1415927], [1e-3, -65504.0, 7e20]],
+                    np.float32)
+    leaf = jnp.asarray(vals, dtype=jnp.bfloat16)
+    if as_numpy:
+        leaf = np.asarray(leaf)
+    tp = from_jax({"w": leaf, "n": np.arange(3, dtype=np.int32)})
+    assert tp["w"].dtype == torch.bfloat16 and tp["w"].shape == (2, 3)
+    want = np.asarray(jnp.asarray(vals, dtype=jnp.bfloat16)).view(np.int16)
+    np.testing.assert_array_equal(tp["w"].view(torch.int16).numpy(), want)
+    np.testing.assert_array_equal(
+        tp["w"].float().numpy(),
+        np.asarray(jnp.asarray(vals, dtype=jnp.bfloat16).astype(jnp.float32)))
+    assert tp["n"].dtype == torch.int32
+    assert from_jax(leaf, dtype=torch.float32).dtype == torch.float32
 
 
 def test_import_leaves_jax_out_of_sys_modules():

@@ -28,23 +28,43 @@ def _t(a, dev, dtype):
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
 
 
+def _lstm_counts():
+    return (fused_lstm.COUNT.n, fused_lstm.COUNT_WGMMA.n,
+            fused_lstm.COUNT_TF32X3.n)
+
+
+def _head_counts():
+    return (fused_head.COUNT.n, fused_head.COUNT_WGMMA.n,
+            fused_head.COUNT_TF32X3.n)
+
+
+def _moved(route):
+    """How one launch on ``route`` moves (COUNT, COUNT_WGMMA,
+    COUNT_TF32X3)."""
+    return (1, int(route == "wgmma"), int(route == "tf32x3"))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,e,h", [(16, 384, 128), (16, 200, 128),
                                    (37, 70, 96)])
 def test_lstm_kernel_matches_plain(dev, dtype, b, e, h):
-    """Aligned, unaligned K (E=200) and ragged B, E, H."""
+    """Aligned, unaligned K (E=200) and ragged B, E, H: bf16 on the wgmma
+    route and float32 on the tf32x3 route where TMA takes the rows (the
+    split made by the wrapper), both on the CUDA-core route at E=70."""
     rng = np.random.default_rng(b + e + h)
     bound = 1 / np.sqrt(h)
     w = _t(rng.uniform(-bound, bound, (e + h, 4 * h)), dev, dtype)
     bias = _t(rng.uniform(-bound, bound, 4 * h), dev, dtype)
     x, hh, c = (_t(rng.normal(size=(b, n)), dev, dtype)
                 for n in (e, h, h))
-    before = fused_lstm.COUNT.n, fused_lstm.COUNT_WGMMA.n
+    route = fused_lstm.lstm_route(w, x, hh)
+    assert route == ("cuda_core" if e == 70 else
+                     "wgmma" if dtype == torch.bfloat16 else "tf32x3")
+    before = _lstm_counts()
     kh, kc = fused_lstm.lstm_cell_fused(w, bias, x, hh, c)
     torch.cuda.synchronize()
-    tc = dtype == torch.bfloat16 and e % 8 == 0     # H is a multiple of 8
-    assert (fused_lstm.COUNT.n, fused_lstm.COUNT_WGMMA.n) == (
-        before[0] + 1, before[1] + tc)
+    assert tuple(a - b for a, b in zip(_lstm_counts(), before)) == \
+        _moved(route)
     ph, pc = fused_lstm.lstm_cell_plain(w, bias, x, hh, c)
     tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
            else dict(rtol=1e-2, atol=1e-2))
@@ -62,11 +82,14 @@ def test_head_kernel_matches_plain(dev, dtype, m, k):
             "b": _t(rng.normal(size=v), dev, dtype)}
     x = _t(rng.normal(size=(m, hdim)), dev, dtype)
     prep = fused_head.prepare_head(head, dtype)
-    before = fused_head.COUNT.n, fused_head.COUNT_WGMMA.n
+    route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    assert fused_head.head_route(prep.w, fused_head._prepared(prep, x)[1]) \
+        == route
+    before = _head_counts()
     kv, ki, kl = fused_head.topk_head(prep, x, k)
     torch.cuda.synchronize()
-    assert (fused_head.COUNT.n, fused_head.COUNT_WGMMA.n) == (
-        before[0] + 1, before[1] + (dtype == torch.bfloat16))
+    assert tuple(a - b for a, b in zip(_head_counts(), before)) == \
+        _moved(route)
     pv, pi, pl = fused_head.topk_head_plain(prep, x, k)
     tol = 1e-4 if dtype == torch.float32 else 2e-3
     torch.testing.assert_close(kv, pv, rtol=0, atol=tol)
@@ -128,9 +151,9 @@ def test_head_bf16_wgmma_route_at_beam_shape(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_head_kernel_ties_across_chunks_by_route(dev, dtype):
-    """The cross-chunk tie on each route (3.0 and 1.0 are exact in bf16):
-    float32 takes the CUDA-core route (128-column chunks), bf16 the
-    tensor-core route (256-column chunks); both have a chunk made only of
+    """The cross-chunk tie on each tensor-core route (3.0 and 1.0 are exact
+    in bf16 and TF32): float32 takes the tf32x3 route (128-column chunks),
+    bf16 the wgmma route (256-column chunks); both have a chunk made only of
     pad columns."""
     v = 2 * fused_head.V_TILE
     w = np.zeros((8, v), np.float32)
@@ -139,10 +162,11 @@ def test_head_kernel_ties_across_chunks_by_route(dev, dtype):
     w[:, 100] = 1.0
     head = fused_head.prepare_head({"w": _t(w[:, :700], dev, dtype)}, dtype)
     x = torch.eye(8, device=dev, dtype=dtype)
-    before = fused_head.COUNT_WGMMA.n
+    before = _head_counts()
     vals, idx, lse = fused_head.topk_head(head, x, 3)
     torch.cuda.synchronize()
-    assert fused_head.COUNT_WGMMA.n == before + (dtype == torch.bfloat16)
+    assert tuple(a - b for a, b in zip(_head_counts(), before)) == _moved(
+        "wgmma" if dtype == torch.bfloat16 else "tf32x3")
     pv, pi, pl = fused_head.topk_head_plain(head, x, 3)
     assert idx.tolist() == [[7, fused_head.V_TILE + 11, 100]] * 8
     assert torch.equal(idx, pi)
@@ -407,3 +431,96 @@ def test_head_int8_wgmma_route_ties_across_chunks(dev):
     assert torch.equal(idx, pi)
     assert torch.isfinite(lse).all()
     torch.testing.assert_close(lse, pl, rtol=0, atol=1e-4)
+
+
+def _lstm_weights(rng, e, h, dev):
+    bound = 1 / np.sqrt(h)
+    u = lambda *shape: _t(rng.uniform(-bound, bound, shape), dev,
+                          torch.float32)
+    return fused_lstm.prepare_lstm({"w_ih": u(e, 4 * h), "w_hh": u(h, 4 * h),
+                                    "b_ih": u(4 * h), "b_hh": u(4 * h)})
+
+
+@pytest.mark.parametrize("b,e,h,route", [(384, 2048, 1024, "tf32x3"),
+                                         (1152, 2048, 1024, "tf32x3"),
+                                         (37, 200, 128, "tf32x3"),
+                                         (384, 2048, 1024, "cuda_core"),
+                                         (37, 70, 128, "cuda_core")])
+def test_lstm_f32_routes_match_plain(dev, b, e, h, route):
+    """K2 in float32 at the decode shape (B=384), the beam shape (B=1,152)
+    and ragged B=37 with a k-step that straddles E=200 on the tf32x3 route,
+    with prepare_lstm's split; the CUDA-core route forced at B=384 and
+    taken at E=70 (rows of 280 bytes).  h' and c' within rtol and atol
+    1e-5 of the plain version, TF32 off."""
+    rng = np.random.default_rng(b + e + 1)
+    wt = _lstm_weights(rng, e, h, dev)
+    x, hh, c = (_t(rng.normal(size=(b, n)), dev, torch.float32)
+                for n in (e, h, h))
+    picked = fused_lstm.lstm_route(wt.w_cat, x, hh)
+    assert picked == ("cuda_core" if e == 70 else "tf32x3")
+    before = _lstm_counts()
+    if route == picked:
+        kh, kc = fused_lstm.lstm_cell_fused(wt.w_cat, wt.b_sum, x, hh, c,
+                                            wt.split)
+    else:
+        kh, kc = fused_lstm._run_kernel(wt.w_cat, wt.b_sum, x, hh, c, route)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_lstm_counts(), before)) == \
+        _moved(route)
+    ph, pc = fused_lstm.lstm_cell_plain(wt.w_cat, wt.b_sum, x, hh, c)
+    torch.testing.assert_close(kh, ph, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(kc, pc, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("m,k,route", [(384, 1, "tf32x3"), (384, 3, "tf32x3"),
+                                       (1152, 3, "tf32x3"), (45, 16, "tf32x3"),
+                                       (384, 1, "cuda_core")])
+def test_head_f32_routes_match_plain(dev, m, k, route):
+    """K1 in float32 at full width (H 1,024, V 10,102) on the tf32x3 route
+    (greedy m=384, the beam shape m=1,152 with k=3, ragged m=45 with k=16)
+    and on the CUDA-core route forced: values and lse within 1e-4 of the
+    plain version (TF32 off), ids exact where the plain logits leave a gap
+    above 1e-3 on both sides."""
+    rng = np.random.default_rng(m * 11 + k)
+    hdim, v = 1024, 10102
+    head = {"v": _t(rng.normal(size=(hdim, v)), dev, torch.float32),
+            "g": _t(rng.uniform(0.5, 2.0, v), dev, torch.float32),
+            "b": _t(rng.normal(size=v), dev, torch.float32)}
+    prep = fused_head.prepare_head(head, torch.float32)
+    assert prep.split is not None
+    x = _t(0.5 * rng.normal(size=(m, hdim)), dev, torch.float32)
+    assert fused_head.head_route(prep.w, x) == "tf32x3"
+    before = _head_counts()
+    kv, ki, kl = fused_head._run_kernel(prep, x, k, route)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_head_counts(), before)) == \
+        _moved(route)
+    pv, pi, pl = fused_head.topk_head_plain(prep, x, k + 1)
+    torch.testing.assert_close(kv, pv[:, :k], rtol=0, atol=1e-4)
+    torch.testing.assert_close(kl, pl, rtol=0, atol=1e-4)
+    gaps = pv[:, :-1] - pv[:, 1:]
+    lo = torch.cat([torch.full_like(gaps[:, :1], float("inf")),
+                    gaps[:, :k - 1]], dim=1)
+    sure = (gaps[:, :k] > 1e-3) & (lo > 1e-3)
+    assert int(((ki != pi[:, :k]) & sure).sum()) == 0
+
+
+def test_tf32x3_routes_refuse_a_misaligned_x(dev):
+    """The float32 tensor-core routes' C entries refuse a base TMA cannot
+    take: no fallback."""
+    head = fused_head.prepare_head(
+        {"w": torch.randn(128, 512, device=dev), "b": torch.zeros(512,
+                                                                  device=dev)},
+        torch.float32)
+    flat = torch.zeros(8 * 128 + 8, device=dev)
+    x = flat[1:1 + 8 * 128].view(8, 128)
+    assert fused_head.head_route(head.w, x) == "cuda_core"
+    with pytest.raises(RuntimeError, match="misaligned"):
+        fused_head._run_kernel(head, x, 1, "tf32x3")
+    wt = _lstm_weights(np.random.default_rng(5), 128, 64, dev)
+    xs = flat[1:1 + 8 * 128].view(8, 128)
+    hh, c = (torch.zeros(8, 64, device=dev) for _ in range(2))
+    assert fused_lstm.lstm_route(wt.w_cat, xs, hh) == "cuda_core"
+    with pytest.raises(RuntimeError, match="misaligned"):
+        fused_lstm._run_kernel(wt.w_cat, wt.b_sum, xs, hh, c, "tf32x3",
+                               wt.split)

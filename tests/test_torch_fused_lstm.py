@@ -40,9 +40,10 @@ def test_plain_matches_jax_kernel(e, zero_c):
     jh, jc = pallas_lstm.lstm_cell_fused(
         {n: jnp.asarray(a) for n, a in params.items()}, jnp.asarray(x),
         jnp.asarray(h), jnp.asarray(c), interpret=True)
-    w_cat, b_sum = fused_lstm.prepare_lstm(
+    w_cat, b_sum, split = fused_lstm.prepare_lstm(
         {n: torch.from_numpy(a) for n, a in params.items()})
     assert w_cat.shape == (e + H, 4 * H) and b_sum.shape == (4 * H,)
+    assert split.hi.shape == split.lo.shape == (4 * H, e + H)
     th, tc = fused_lstm.lstm_cell_plain(w_cat, b_sum, torch.from_numpy(x),
                                         torch.from_numpy(h),
                                         torch.from_numpy(c))
@@ -52,7 +53,7 @@ def test_plain_matches_jax_kernel(e, zero_c):
     before = fused_lstm.COUNT.n
     fh, fc = fused_lstm.lstm_cell_fused(w_cat, b_sum, torch.from_numpy(x),
                                         torch.from_numpy(h),
-                                        torch.from_numpy(c))
+                                        torch.from_numpy(c), split)
     assert fused_lstm.COUNT.n == before
     torch.testing.assert_close(fh, th, rtol=0, atol=0)
     torch.testing.assert_close(fc, tc, rtol=0, atol=0)
@@ -66,7 +67,8 @@ def test_bf16_follows_the_kernel_float32_epilogue():
     tp = {n: torch.from_numpy(a).to(torch.bfloat16)
           for n, a in params.items()}
     xs = [torch.from_numpy(a).to(torch.bfloat16) for a in (x, h, c)]
-    w_cat, b_sum = fused_lstm.prepare_lstm(tp)
+    w_cat, b_sum, split = fused_lstm.prepare_lstm(tp)
+    assert split is None                  # the TF32 split is float32's alone
     bh, bc = fused_lstm.lstm_cell_plain(w_cat, b_sum, *xs)
     assert bh.dtype == torch.bfloat16 and bc.dtype == torch.bfloat16
     fh, fc = fused_lstm.lstm_cell_plain(w_cat.float(), b_sum.float(),

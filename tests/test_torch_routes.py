@@ -10,14 +10,15 @@ from simpleimagecaptionzoo_tpu_torch.ops import (_build, fused_head, fused_lstm,
 
 
 def _misaligned(*shape, dtype=torch.bfloat16):
-    """A contiguous tensor whose data starts 2 bytes past a 16-byte
-    boundary."""
+    """A contiguous tensor whose data starts 2 bytes (4 for float32) past a
+    16-byte boundary."""
     n = 1
     for s in shape:
         n *= s
     flat = torch.zeros(n + 8, dtype=dtype)
+    past = max(2, flat.element_size())
     off = next(i for i in range(1, 8)
-               if (flat.data_ptr() + i * flat.element_size()) % 16 == 2)
+               if (flat.data_ptr() + i * flat.element_size()) % 16 == past)
     return flat[off:off + n].view(*shape)
 
 
@@ -30,9 +31,14 @@ def _lstm(b, e, h, dtype=torch.bfloat16):
     (384, 2048, 1024, torch.bfloat16, "wgmma"),       # the decode step
     (1152, 2048, 1024, torch.bfloat16, "wgmma"),      # the beam step
     (37, 200, 128, torch.bfloat16, "wgmma"),          # ragged B, K step straddles E
-    (384, 2048, 1024, torch.float32, "cuda_core"),    # no float32 wgmma
+    (384, 2048, 1024, torch.float32, "tf32x3"),       # float32: 3xTF32 wgmma
     (37, 70, 128, torch.bfloat16, "cuda_core"),       # rows of 140 bytes
     (16, 384, 100, torch.bfloat16, "cuda_core"),      # H not a multiple of 8
+    (1152, 2048, 1024, torch.float32, "tf32x3"),      # the beam step
+    (37, 200, 128, torch.float32, "tf32x3"),          # ragged B, E=200
+    (16, 384, 100, torch.float32, "tf32x3"),          # rows of 400 bytes
+    (37, 70, 128, torch.float32, "cuda_core"),        # rows of 280 bytes
+    (16, 384, 102, torch.float32, "cuda_core"),       # rows of 408 bytes
 ])
 def test_lstm_route_rule(b, e, h, dtype, route):
     w, x, hh = _lstm(b, e, h, dtype)
@@ -47,6 +53,26 @@ def test_lstm_route_needs_aligned_bases():
     assert fused_lstm.lstm_route(_misaligned(512, 512), x, hh) == "cuda_core"
 
 
+@pytest.mark.parametrize("which", ["w", "x", "h"])
+def test_lstm_f32_route_needs_aligned_bases(which):
+    f32 = torch.float32
+    w, x, hh = _lstm(16, 384, 128, f32)
+    assert fused_lstm.lstm_route(w, x, hh) == "tf32x3"
+    if which == "w":
+        w = _misaligned(512, 512, dtype=f32)
+    elif which == "x":
+        x = _misaligned(16, 384, dtype=f32)
+    else:
+        hh = _misaligned(16, 128, dtype=f32)
+    assert fused_lstm.lstm_route(w, x, hh) == "cuda_core"
+
+
+def test_lstm_route_needs_one_dtype():
+    w, x, hh = _lstm(16, 384, 128, torch.float32)
+    assert fused_lstm.lstm_route(w.bfloat16(), x, hh) == "cuda_core"
+    assert fused_lstm.lstm_route(w, x, hh.bfloat16()) == "cuda_core"
+
+
 def _head(vocab, dtype, wdtype=None):
     head = fused_head.prepare_head(
         {"w": torch.randn(96, vocab), "b": torch.zeros(vocab)}, dtype)
@@ -57,9 +83,9 @@ def _head(vocab, dtype, wdtype=None):
 
 @pytest.mark.parametrize("xdtype,wdtype,route", [
     (torch.bfloat16, torch.bfloat16, "wgmma"),
-    (torch.float32, torch.float32, "cuda_core"),
+    (torch.float32, torch.float32, "tf32x3"),      # 3xTF32 wgmma
     (torch.bfloat16, torch.int8, "wgmma"),         # K1-int8, widened to bf16
-    (torch.float32, torch.int8, "cuda_core"),
+    (torch.float32, torch.int8, "cuda_core"),      # float32 x, int8 w
 ])
 def test_head_route_rule(xdtype, wdtype, route):
     head = _head(1000, xdtype, wdtype)
@@ -84,20 +110,39 @@ def test_head_route_needs_aligned_bases():
     assert fused_head.head_route(head.w, x.clone()) == "wgmma"
 
 
+def test_head_f32_route_needs_aligned_bases_and_16_byte_rows():
+    f32 = torch.float32
+    head = _head(1000, f32)                              # Kp 128, Vp 1,024
+    x = _misaligned(16, head.w.shape[0], dtype=f32)
+    assert fused_head.head_route(head.w, x) == "cuda_core"
+    assert fused_head.head_route(head.w, x.clone()) == "tf32x3"
+    assert fused_head.head_route(_misaligned(128, 1024, dtype=f32),
+                                 x.clone()) == "cuda_core"
+    w = torch.zeros(head.w.shape[0], 1001)               # rows of 4,004 B
+    assert fused_head.head_route(w, x.clone()) == "cuda_core"
+    assert fused_head.head_route(head.w[:98], torch.zeros(16, 98)) == \
+        "cuda_core"                                      # x rows of 392 B
+
+
 @pytest.mark.parametrize("route,vp,nchunk", [
     ("wgmma", 10240, 40),         # the COCO vocabulary, padded to 512
     ("cuda_core", 10240, 80),
     ("wgmma", 512, 2),
     ("cuda_core", 512, 4),
     ("wgmma", 700, 3),            # a ragged last chunk
+    ("tf32x3", 10240, 80),
+    ("tf32x3", 512, 4),
+    ("tf32x3", 700, 6),
 ])
 def test_head_chunk_plan(route, vp, nchunk):
     assert fused_head.head_chunks(route, vp) == nchunk
 
 
 def test_head_chunk_widths_match_the_kernel_tiles():
-    assert (fused_head.HEAD_CHUNK, fused_head.HEAD_CHUNK_WGMMA) == (128, 256)
+    assert (fused_head.HEAD_CHUNK, fused_head.HEAD_CHUNK_WGMMA,
+            fused_head.HEAD_CHUNK_TF32X3) == (128, 256, 128)
     assert fused_head.V_TILE % fused_head.HEAD_CHUNK_WGMMA == 0
+    assert fused_head.V_TILE % fused_head.HEAD_CHUNK_TF32X3 == 0
     with pytest.raises(KeyError):
         fused_head.head_chunks("tf32", 512)
 
