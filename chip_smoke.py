@@ -8,10 +8,11 @@ Phases, each of which fails the run (nonzero exit) when it fails:
   2. the build of every CUDA kernel of the port from its sources
      (simpleimagecaptionzoo_tpu_torch/csrc, one nvcc per source, in
      parallel), ptxas's registers, shared memory and spills of the
-     tensor-core kernels, and their SASS: cuobjdump (or nvdisasm) must find
-     HGMMA (wgmma) and UTMALDG (TMA loads) in libfused_lstm, libfused_head
-     and libquant_matmul, and the tf32 HGMMA of the 3xTF32 products in the
-     first two;
+     tensor-core kernels and of K4's "tma" route, and their SASS:
+     cuobjdump (or nvdisasm) must find HGMMA (wgmma) and UTMALDG (TMA
+     loads) in libfused_lstm, libfused_head and libquant_matmul, the tf32
+     HGMMA of the 3xTF32 products in the first two, and UTMALDG in
+     libint8_attention;
   3. K1, the fused head top-k, against its plain PyTorch version on the card
      at the greedy decode shape (m=384, H=1024, V=10,102; k=1 and k=3), at
      m=3 and at the beam shape (m=1,152, k=3) on each dtype's tensor-core
@@ -35,7 +36,11 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      the CUDA-core route, bf16 on both routes (the tensor-core route also
      at m=1,152, k=3), the cross-chunk tie with an int8 head on each;
   7. K4, the int8 K/V attention, against its plain version (B=384, k=1
-     and k=3, 36 boxes with 10-36 valid, 8 heads, float32 and bf16);
+     and k=3, 36 boxes with 10-36 valid, 8 heads, float32 and bf16) on
+     both routes ("tma": a sample's K and V requested whole by TMA, every
+     head at once; "cuda_core", forced); each dtype and k timed in
+     turns (old: cuda_core, new, new, old), host-inclusive and
+     device-only;
   8. the main path: AoADetection greedy decode at full width (embed/hidden
      1024, 6 refine layers, 8 heads, 36 boxes, vocab 10,102; random weights
      from --seed), batch 384, 20 steps, through
@@ -43,8 +48,9 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      the "tf32x3" route) and in bf16 (every launch on the "wgmma" route),
      and in int8 serving form, on model.quantize_decode_params with
      SICZ_TPU_INT8_KV=auto, in float32 (K3 three times a step, K1-int8 and
-     K4 once, K2 never; CUDA-core routes) and in bf16 (the same, with every
-     K3 and K1-int8 launch on the tensor-core route).  Each is run once
+     K4 once, K2 never; K3 and K1-int8 on the CUDA-core routes) and in bf16
+     (the same, with every K3 and K1-int8 launch on the tensor-core route);
+     in both, every K4 launch on the "tma" route.  Each is run once
      with the plain versions (the reference) and three times through the
      kernels; the launch counts of the kernel runs, per route, must equal
      their decode steps times those multiples, and the ids must agree with
@@ -58,15 +64,17 @@ Timings use CUDA events, with a 128 MB buffer written between launches so
 each launch finds the L2 cache cold (as in the decode, where the other
 step's weights pass through L2 in between).  A reading includes the host's
 time when the host issues a call more slowly than the card runs it; the
-tensor-core routes of K1, K2, K3 and K1-int8 are also timed with the card
-kept busy while the host launches them (``device_*``: the device's time
-alone).  The float32 CUDA-core routes of K1 and K2 and the bf16 ones of K3
-and K1-int8 keep their entries (``launches`` 0: no decode runs them).
+tensor-core routes of K1, K2, K3 and K1-int8, and both routes of K4, are
+also timed with the card kept busy while the host launches them
+(``device_*``: the device's time alone).  The float32 CUDA-core routes of
+K1 and K2, the bf16 ones of K3 and K1-int8 and K4's "cuda_core" route keep
+their entries (``launches`` 0: no decode runs them).
 ``bound_ms`` is the larger of the bytes the function must move over 3.35
 TB/s and its operations over the peak rate for their type and route (989
 TFLOP/s bf16 tensor cores; 67 TFLOP/s float32 on the CUDA cores; for the
 3xTF32 routes a third of the 494.7 TFLOP/s TF32 peak, as each float32
-operation is three TF32 ones), the H100 SXM data-sheet figures at 700 W.
+operation is three TF32 ones; K4's float32 arithmetic at the CUDA-core
+rate whatever q's type), the H100 SXM data-sheet figures at 700 W.
 An int8 weight is counted at one byte; its product runs at x's type.
 """
 from __future__ import annotations
@@ -253,7 +261,7 @@ def hold_head(torch, fused_head, tag, head, x, dn, tol, extra=(),
     return err
 
 
-def profile_decode(torch, run, dn, top=12):
+def profile_decode(torch, run, dn, top=16):
     """Device time of one decode by kernel name, and the device's busy
     share of the traced span, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -340,6 +348,17 @@ def main(argv=None) -> int:
                                               for kv in ops.items())))
         for line in results["ptxas"][lname]:
             log("  ptxas " + line)
+    # K4's "tma" route loads K and V with TMA (no tensor-core product)
+    ops = sass_counts(_build, "int8_attention", lib_paths["int8_attention"],
+                      ops=("UTMALDG",))
+    require(ops["UTMALDG"] > 0, "int8_attention: the SASS holds %s; the tma "
+            "route needs UTMALDG" % ops)
+    results["sass"]["int8_attention"] = ops
+    results["ptxas"]["int8_attention"] = ptxas_lines(
+        lib_paths["int8_attention"], markers=("attend_tma",))
+    log("SASS int8_attention: UTMALDG x %d" % ops["UTMALDG"])
+    for line in results["ptxas"]["int8_attention"]:
+        log("  ptxas " + line)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = get_captioner(ModelConfig(**FULL))
@@ -860,51 +879,103 @@ def main(argv=None) -> int:
         torch.randn(B, N_BOX, hd, generator=gen, device=dev))
     vq, vs = int8_attention.quantize_rows(
         torch.randn(B, N_BOX, hd, generator=gen, device=dev))
+    k4_counts = lambda: (int8_attention.COUNT.n, int8_attention.COUNT_TMA.n)
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
-        err = 0.0
+        errs = {"tma": 0.0, "cuda_core": 0.0}
+        item = torch.tensor([], dtype=dtype).element_size()
+        timed = {}
         for k in (1, 3):
             q = torch.randn(B, k, hd, generator=gen, device=dev).to(dtype)
-            out, pm = int8_attention.lanes_attention_int8(q, kq, ks, vq, vs,
-                                                          box_mask, heads)
-            torch.cuda.synchronize()
+            route = int8_attention.attention_route(q, kq, vq, N_BOX, hd, heads)
+            require(route == "tma", "K4 %s k=%d takes the %s route"
+                    % (dn, k, route))
             pout, ppm = int8_attention.lanes_attention_int8_plain(
                 q, kq, ks, vq, vs, box_mask, heads)
-            d_out = (out.float() - pout.float()).abs()
-            lim = (2e-5 if dtype == torch.float32
-                   else 1e-2 + 1e-2 * pout.float().abs())
-            e_pm = float((pm - ppm).abs().max())
-            masked = pm.masked_select((box_mask == 0)[:, None, :]
-                                      .expand_as(pm))
-            require(out.dtype == dtype and bool((d_out <= lim).all())
-                    and e_pm <= 2e-6 and bool((masked == 0).all()),
-                    "K4 %s k=%d: out max |err| %.3g, pmean %.3g, masked "
-                    "max %.3g" % (dn, k, float(d_out.max()), e_pm,
-                                  float(masked.abs().max())))
-            err = max(err, float(d_out.max()), e_pm)
-            log("K4 %s B=%d k=%d N=%d heads=%d: out max|err| %.3g, pmean "
-                "%.3g (tol %s / 2e-6), masked boxes exactly 0"
-                % (dn, B, k, N_BOX, heads, float(d_out.max()), e_pm,
-                   "2e-5" if dtype == torch.float32 else "rtol/atol 1e-2"))
-        q = torch.randn(B, 1, hd, generator=gen, device=dev).to(dtype)
-        ms = time_ms(torch, lambda: int8_attention.lanes_attention_int8(
-            q, kq, ks, vq, vs, box_mask, heads), flush)
-        plain_ms = time_ms(torch, lambda: (
-            int8_attention.lanes_attention_int8_plain(q, kq, ks, vq, vs,
-                                                      box_mask, heads)),
-            flush)
-        item = q.element_size()
-        nbytes = (2 * B * hd * item + 2 * B * N_BOX * hd + 4 * B * N_BOX * 4)
-        b_ms, b_by = bound(nbytes, 4 * B * N_BOX * hd, dn)
-        entry("int8_attention", dn,
-              source="simpleimagecaptionzoo_tpu_torch/csrc/int8_attention.cu",
-              replaces="simpleimagecaptionzoo_tpu/ops/int8_attention.py:70",
-              max_abs_err=err, max_err=err, ms=ms, kernel_ms=ms,
-              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-              library_ms=None, shape="B=%d k=1 N=%d D=%d heads=%d"
-              % (B, N_BOX, hd, heads))
-        log("K4 %s timing: kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s)"
-            % (dn, ms, plain_ms, b_ms, b_by))
+            for r in ("tma", "cuda_core"):
+                before = k4_counts()
+                if r == route:
+                    out, pm = int8_attention.lanes_attention_int8(
+                        q, kq, ks, vq, vs, box_mask, heads)
+                else:
+                    out, pm = int8_attention._run_kernel(
+                        q, kq, ks, vq, vs, box_mask, heads, r)
+                torch.cuda.synchronize()
+                require(moved(k4_counts(), before) == (1, int(r == "tma")),
+                        "K4 %s %s k=%d: the counters moved by %s"
+                        % (dn, r, k, moved(k4_counts(), before)))
+                d_out = (out.float() - pout.float()).abs()
+                lim = (2e-5 if dtype == torch.float32
+                       else 1e-2 + 1e-2 * pout.float().abs())
+                e_pm = float((pm - ppm).abs().max())
+                masked = pm.masked_select((box_mask == 0)[:, None, :]
+                                          .expand_as(pm))
+                require(out.dtype == dtype and bool((d_out <= lim).all())
+                        and e_pm <= 2e-6 and bool((masked == 0).all()),
+                        "K4 %s %s k=%d: out max |err| %.3g, pmean %.3g, "
+                        "masked max %.3g" % (dn, r, k, float(d_out.max()), e_pm,
+                                             float(masked.abs().max())))
+                errs[r] = max(errs[r], float(d_out.max()), e_pm)
+                log("K4 %s (%s) B=%d k=%d N=%d heads=%d: out max|err| %.3g, "
+                    "pmean %.3g (tol %s / 2e-6), masked boxes exactly 0"
+                    % (dn, r, B, k, N_BOX, heads, float(d_out.max()), e_pm,
+                       "2e-5" if dtype == torch.float32 else "rtol/atol 1e-2"))
+
+            def k4(route, q=q):
+                if route == "tma":
+                    return lambda: int8_attention.lanes_attention_int8(
+                        q, kq, ks, vq, vs, box_mask, heads)
+                return lambda: int8_attention._run_kernel(
+                    q, kq, ks, vq, vs, box_mask, heads, route)
+
+            fns = {"old": k4("cuda_core"), "new": k4("tma")}
+            order = ["old", "new", "new", "old"]
+            nbytes = (2 * B * k * hd * item + 2 * B * N_BOX * hd
+                      + 3 * B * N_BOX * 4 + B * k * N_BOX * 4)
+            timed[k] = dict(
+                turns=time_turns(torch, fns, flush, order),
+                dev_turns=time_turns(torch, fns, flush, order,
+                                     lead=DEVICE_LEAD),
+                plain_ms=time_ms(torch, lambda q=q: (
+                    int8_attention.lanes_attention_int8_plain(
+                        q, kq, ks, vq, vs, box_mask, heads)), flush),
+                bound=bound(nbytes, 4 * B * k * N_BOX * hd, "float32"))
+        g, bm = timed[1], timed[3]
+        common = dict(
+            source="simpleimagecaptionzoo_tpu_torch/csrc/int8_attention.cu",
+            replaces="simpleimagecaptionzoo_tpu/ops/int8_attention.py:70",
+            plain_ms=g["plain_ms"], bound_ms=g["bound"][0],
+            bound_by=g["bound"][1], library_ms=None,
+            shape="B=%d k=1 N=%d D=%d heads=%d" % (B, N_BOX, hd, heads),
+            beam_shape="B=%d k=3" % B, beam_plain_ms=bm["plain_ms"],
+            beam_bound_ms=bm["bound"][0])
+        for r, key in (("cuda_core", "old"), ("tma", "new")):
+            extra = (dict(old_route_ms=mean(g["turns"]["old"]),
+                          device_old_route_ms=mean(g["dev_turns"]["old"]),
+                          beam_old_route_ms=mean(bm["turns"]["old"]),
+                          beam_device_old_route_ms=mean(
+                              bm["dev_turns"]["old"]),
+                          old_route_max_abs_err=errs["cuda_core"],
+                          turns=g["turns"], device_turns=g["dev_turns"],
+                          beam_turns=bm["turns"],
+                          beam_device_turns=bm["dev_turns"])
+                     if r == "tma" else {})
+            entry("int8_attention" + ("_tma" if r == "tma" else ""), dn,
+                  max_abs_err=errs[r], max_err=errs[r],
+                  ms=mean(g["turns"][key]), kernel_ms=mean(g["turns"][key]),
+                  device_ms=mean(g["dev_turns"][key]),
+                  beam_ms=mean(bm["turns"][key]),
+                  beam_device_ms=mean(bm["dev_turns"][key]), kernel_route=r,
+                  **common, **extra)
+        for k, t in timed.items():
+            log("K4 %s B=%d k=%d timing in turns (old, new, new, old): tma %s "
+                "ms, cuda_core %s ms; device alone: tma %s, cuda_core %s ms; "
+                "plain %.4f ms; bound %.4f ms (%s)"
+                % (dn, B, k, ["%.4f" % v for v in t["turns"]["new"]],
+                   ["%.4f" % v for v in t["turns"]["old"]],
+                   ["%.4f" % v for v in t["dev_turns"]["new"]],
+                   ["%.4f" % v for v in t["dev_turns"]["old"]],
+                   t["plain_ms"], t["bound"][0], t["bound"][1]))
 
     # -- 8. the main path ------------------------------------------------------
     visual = {
@@ -963,19 +1034,21 @@ def main(argv=None) -> int:
                     fused_lstm_cell_tf32x3=fused_lstm.COUNT_TF32X3,
                     quant_matmul=quant.COUNT,
                     quant_matmul_wgmma=quant.COUNT_WGMMA,
-                    int8_attention=int8_attention.COUNT)
+                    int8_attention=int8_attention.COUNT,
+                    int8_attention_tma=int8_attention.COUNT_TMA)
     # launches per step of each counter, and the kernels-line entry each
-    # counter's launches go to (COUNT is every launch of K1, K2 or K3; the
-    # _wgmma and _tf32x3 counters those of a tensor-core route): every K1
-    # and K2 launch of the float32 decode on "tf32x3", of the bf16 decode
-    # on "wgmma"
+    # counter's launches go to (COUNT is every launch of K1, K2, K3 or K4;
+    # the _wgmma and _tf32x3 counters those of a tensor-core route, _tma
+    # those of K4's "tma" route): every K1 and K2 launch of the float32
+    # decode on "tf32x3", of the bf16 decode on "wgmma", every K4 launch of
+    # the int8 decodes on "tma"
     nil = dict.fromkeys(counters, 0)
     f32_path = dict(nil, fused_head_topk=1, fused_lstm_cell=1,
                     fused_head_topk_tf32x3=1, fused_lstm_cell_tf32x3=1)
     bf16_path = dict(nil, fused_head_topk=1, fused_lstm_cell=1,
                      fused_head_topk_wgmma=1, fused_lstm_cell_wgmma=1)
     int8_f32_path = dict(nil, fused_head_topk=1, quant_matmul=3,
-                         int8_attention=1)
+                         int8_attention=1, int8_attention_tma=1)
     int8_bf16_path = dict(int8_f32_path, fused_head_topk_wgmma=1,
                           quant_matmul_wgmma=3)
     f32_entries = dict(fused_head_topk_tf32x3="fused_head_topk_tf32x3",
@@ -984,11 +1057,11 @@ def main(argv=None) -> int:
                         fused_lstm_cell_wgmma="fused_lstm_cell_wgmma")
     int8_f32_entries = dict(fused_head_topk="fused_head_topk_int8",
                             quant_matmul="quant_matmul",
-                            int8_attention="int8_attention")
+                            int8_attention_tma="int8_attention_tma")
     int8_bf16_entries = dict(
         fused_head_topk_wgmma="fused_head_topk_int8_wgmma",
         quant_matmul_wgmma="quant_matmul_wgmma",
-        int8_attention="int8_attention")
+        int8_attention_tma="int8_attention_tma")
     paths = [("float32", torch.float32, params, f32_path, f32_entries),
              ("bfloat16", torch.bfloat16, params, bf16_path, bf16_entries),
              ("int8/float32", torch.float32, qparams, int8_f32_path,
@@ -1077,9 +1150,9 @@ def main(argv=None) -> int:
     missing = [k for k in on_path if not kernels[k].get("launches")]
     require(not missing, "kernels not launched on the main path: %s"
             % missing)
-    # the CUDA-core routes of K1 and K2 (float32) and of K3 and K1-int8
-    # (bf16) are held and timed above but no decode runs them: operands TMA
-    # cannot take go there
+    # the CUDA-core routes of K1 and K2 (float32), of K3 and K1-int8 (bf16)
+    # and of K4 are held and timed above but no decode runs them: operands
+    # TMA cannot take go there
     for k, v in kernels.items():
         v.setdefault("launches", 0)
 

@@ -11,7 +11,12 @@ hoisted K/V projections as int8 with a symmetric per-row scale
     pmean  = sum over heads of p / heads    float32 (the alphas)
 
 It launches ``csrc/int8_attention.cu`` for a CUDA ``q`` and takes
-:func:`lanes_attention_int8_plain` for a CPU ``q`` only.  :func:`supported`
+:func:`lanes_attention_int8_plain` for a CPU ``q`` only.  The kernel has two
+routes, chosen by :func:`attention_route`: ``"tma"`` (a block per sample,
+its int8 K and V requested whole by TMA at entry, every head at once) and
+``"cuda_core"`` (a block per sample looping over the heads), for the
+shapes and pointers the first does not take.  ``COUNT`` counts every launch, ``COUNT_TMA`` those of the ``"tma"``
+route.  :func:`supported`
 keeps the JAX package's gate (``d % heads``, ``dh % 128``, ``n <= 2048``):
 those numbers are the TPU's lanes, kept because the gate decides whether
 encode stores int8 K/V, and both packages must decide alike.
@@ -31,7 +36,12 @@ MAX_K = 16
 MAX_N = 2048
 _NEG = -1e9
 
-COUNT = _build.Counter()
+# the "tma" route: a block holds at most 227 KB of shared memory
+TMA_SMEM = 232448
+TMA_BOX_ROWS = 256
+
+COUNT = _build.Counter()           # every launch, either route
+COUNT_TMA = _build.Counter()       # launches of the "tma" route
 
 
 def _mode() -> str:
@@ -93,7 +103,36 @@ def lanes_attention_int8_plain(q, kq, ks, vq, vs, mask, num_heads: int):
     return out.to(q.dtype), p.mean(dim=1)
 
 
-def _run_kernel(q, kq, ks, vq, vs, mask_f, num_heads: int):
+def tma_smem_bytes(k: int, n: int, d: int, heads: int) -> int:
+    """Shared memory of one block (one sample) of the "tma" route
+    (csrc/int8_attention.cu attn_plan): K and V in boxes of at most 256
+    rows by 128 bytes, the two barriers, the scores and p * vs (heads x k x
+    n each), and ks, vs and mask; 128 bytes to align."""
+    nbox = -(-n // TMA_BOX_ROWS)
+    rows = -(-n // nbox)
+    return (128 + 2 * (d // 128) * nbox * rows * 128 + 16
+            + 4 * (2 * heads * k * n + 3 * n))
+
+
+def attention_route(q: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
+                    n: int, d: int, heads: int) -> str:
+    """The kernel route for q (B, k, D) over kq and vq (B, n, d):
+    ``"tma"`` when dh is a multiple of 128, d a multiple of 16, q, kq and
+    vq start on 16-byte boundaries (TMA, and q's 16-byte vector loads) and
+    the block's plan fits 227 KB of
+    shared memory (at d 1,024, 8 heads and k 1, n up to 109); else
+    ``"cuda_core"``."""
+    k = q.shape[1]
+    if (heads >= 1 and d % 16 == 0 and d % heads == 0
+            and (d // heads) % 128 == 0 and 1 <= k <= MAX_K
+            and 1 <= n <= MAX_N and q.data_ptr() % 16 == 0
+            and kq.data_ptr() % 16 == 0 and vq.data_ptr() % 16 == 0
+            and tma_smem_bytes(k, n, d, heads) <= TMA_SMEM):
+        return "tma"
+    return "cuda_core"
+
+
+def _run_kernel(q, kq, ks, vq, vs, mask_f, num_heads: int, route: str):
     b, k, d = q.shape
     n = kq.shape[1]
     ts = (q, kq, ks, vq, vs, mask_f)
@@ -125,21 +164,30 @@ def _run_kernel(q, kq, ks, vq, vs, mask_f, num_heads: int):
     lib = _build.load("int8_attention", _declare)
     out = torch.empty((b, k, d), dtype=q.dtype, device=q.device)
     pmean = torch.empty((b, k, n), dtype=torch.float32, device=q.device)
+    if route == "tma":
+        # the C entry refuses (invalid value) what the route does not take
+        entry = lib.int8_attention_tma
+    elif route == "cuda_core":
+        entry = lib.int8_attention
+    else:
+        raise ValueError("int8_attention: unknown route %r" % (route,))
     p = _build.ptr
-    code = lib.int8_attention(
+    code = entry(
         p(q), p(kq), p(ks), p(vq), p(vs), p(mask_f), p(out), p(pmean), b, k,
         n, d, num_heads, 1.0 / math.sqrt(d // num_heads),
         0 if q.dtype == torch.float32 else 1, _build.stream_of(q))
-    _build.check(code, "int8_attention")
+    _build.check(code, "int8_attention" + ("_tma" if route == "tma" else ""))
+    if route == "tma":
+        COUNT_TMA.n += 1
     COUNT.n += 1
     return out, pmean
 
 
 def _declare(lib) -> None:
     vp_, i_ = ctypes.c_void_p, ctypes.c_int
-    lib.int8_attention.argtypes = ([vp_] * 8 + [i_] * 5 + [ctypes.c_float]
-                                   + [i_, vp_])
-    lib.int8_attention.restype = i_
+    for fn in (lib.int8_attention, lib.int8_attention_tma):
+        fn.argtypes = [vp_] * 8 + [i_] * 5 + [ctypes.c_float] + [i_, vp_]
+        fn.restype = i_
 
 
 def lanes_attention_int8(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
@@ -148,9 +196,10 @@ def lanes_attention_int8(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q (B, k, D) over int8 K/V (B, N, D) with scales (B, N) -> (attended
     (B, k, D) in q's dtype, mean-head attention (B, k, N) float32).  A CUDA
-    ``q`` launches the kernel; a CPU ``q`` takes the plain version."""
+    ``q`` launches the kernel on :func:`attention_route`'s route; a CPU
+    ``q`` takes the plain version."""
     if q.device.type == "cpu":
         return lanes_attention_int8_plain(q, kq, ks, vq, vs, mask, num_heads)
-    return _run_kernel(q, kq, ks, vq, vs,
-                       _mask(mask, q.shape[0], kq.shape[1], q.device),
-                       num_heads)
+    n, d = kq.shape[1], q.shape[2]
+    return _run_kernel(q, kq, ks, vq, vs, _mask(mask, q.shape[0], n, q.device),
+                       num_heads, attention_route(q, kq, vq, n, d, num_heads))

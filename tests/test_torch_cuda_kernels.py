@@ -302,15 +302,8 @@ def test_head_kernel_int8_weights_match_plain(dev, dtype, m, k):
     assert torch.equal(ki, pi)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,k,n,d,heads", [(8, 3, 5, 256, 2),
-                                           (16, 1, 36, 1024, 8),
-                                           (3, 16, 2048, 256, 1),
-                                           (5, 4, 37, 384, 3)])
-def test_int8_attention_kernel_matches_plain(dev, dtype, b, k, n, d, heads):
-    """K4: greedy and beam query rows, N up to 2048 (two passes of query
-    rows at k=16), ragged N; masked rows get exactly 0."""
-    rng = np.random.default_rng(b * k + n)
+def _attention_inputs(b, k, n, d, dev, dtype, seed):
+    rng = np.random.default_rng(seed)
     q = _t(rng.normal(size=(b, k, d)), dev, dtype)
     kq, ks = int8_attention.quantize_rows(_t(rng.normal(size=(b, n, d)), dev,
                                              torch.float32))
@@ -318,20 +311,88 @@ def test_int8_attention_kernel_matches_plain(dev, dtype, b, k, n, d, heads):
                                              torch.float32))
     valid = 1 + np.arange(b) % n
     mask = _t(np.arange(n)[None, :] < valid[:, None], dev, torch.float32)
-    before = int8_attention.COUNT.n
-    out, pm = int8_attention.lanes_attention_int8(q, kq, ks, vq, vs, mask,
-                                                  heads)
-    torch.cuda.synchronize()
-    assert int8_attention.COUNT.n == before + 1
+    return q, kq, ks, vq, vs, mask
+
+
+def _hold_attention(dtype, got, want, mask):
+    """out within 2e-5 (float32) or rtol/atol 1e-2 (bf16), pmean within
+    2e-6, masked boxes exactly 0."""
+    (out, pm), (pout, ppm) = got, want
     assert out.dtype == dtype and pm.dtype == torch.float32
-    pout, ppm = int8_attention.lanes_attention_int8_plain(q, kq, ks, vq, vs,
-                                                          mask, heads)
     tol = (dict(rtol=0, atol=2e-5) if dtype == torch.float32
            else dict(rtol=1e-2, atol=1e-2))
     torch.testing.assert_close(out, pout, **tol)
     torch.testing.assert_close(pm, ppm, rtol=0, atol=2e-6)
     assert bool((pm.masked_select((mask == 0)[:, None, :].expand_as(pm))
                  == 0).all())
+
+
+@pytest.mark.parametrize("route", ["tma", "cuda_core"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,k,n,d,heads", [(8, 3, 5, 256, 2),
+                                           (16, 1, 36, 1024, 8),
+                                           (3, 16, 2048, 256, 1),
+                                           (5, 4, 37, 384, 3),
+                                           (384, 1, 36, 1024, 8),
+                                           (384, 3, 36, 1024, 8),
+                                           (6, 2, 300, 256, 2)])
+def test_int8_attention_kernel_matches_plain(dev, route, dtype, b, k, n, d,
+                                             heads):
+    """K4 on each route: greedy and beam query rows, the decode's shape
+    (B=384, k=1 and k=3, N=36, D=1,024, 8 heads), N=300 (two TMA boxes of
+    rows), N up to 2048 (two passes of query rows at k=16 on the CUDA-core
+    route; beyond the "tma" route's plan, which its C entry refuses), ragged
+    N; masked rows get exactly 0, and two launches give the same bits."""
+    q, kq, ks, vq, vs, mask = _attention_inputs(b, k, n, d, dev, dtype,
+                                                b * k + n)
+    picked = int8_attention.attention_route(q, kq, vq, n, d, heads)
+    assert picked == ("cuda_core" if n == 2048 else "tma")
+    if route == "tma" and picked != "tma":
+        with pytest.raises(RuntimeError, match="invalid value"):
+            int8_attention._run_kernel(q, kq, ks, vq, vs, mask, heads, route)
+        return
+    before = int8_attention.COUNT.n, int8_attention.COUNT_TMA.n
+    if route == picked:
+        got = int8_attention.lanes_attention_int8(q, kq, ks, vq, vs, mask,
+                                                  heads)
+    else:
+        got = int8_attention._run_kernel(q, kq, ks, vq, vs, mask, heads,
+                                         route)
+    again = int8_attention._run_kernel(q, kq, ks, vq, vs, mask, heads, route)
+    torch.cuda.synchronize()
+    assert (int8_attention.COUNT.n, int8_attention.COUNT_TMA.n) == (
+        before[0] + 2, before[1] + 2 * (route == "tma"))
+    want = int8_attention.lanes_attention_int8_plain(q, kq, ks, vq, vs, mask,
+                                                     heads)
+    _hold_attention(dtype, got, want, mask)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_attention_misaligned_kv_takes_cuda_core(dev, dtype):
+    """kq (then vq) 4 bytes past a 16-byte boundary: the rule picks the
+    CUDA-core route, which holds against the plain version; the "tma"
+    route's C entry refuses it."""
+    b, k, n, d, heads = 16, 1, 36, 1024, 8
+    q, kq, ks, vq, vs, mask = _attention_inputs(b, k, n, d, dev, dtype, 7)
+    for which in ("k", "v"):
+        flat = torch.zeros(b * n * d + 16, dtype=torch.int8, device=dev)
+        off = next(i for i in range(4, 20) if (flat.data_ptr() + i) % 16 == 4)
+        view = flat[off:off + b * n * d].view(b, n, d)
+        view.copy_(kq if which == "k" else vq)
+        kk, vv = (view, vq) if which == "k" else (kq, view)
+        assert int8_attention.attention_route(q, kk, vv, n, d, heads) == \
+            "cuda_core"
+        before = int8_attention.COUNT.n, int8_attention.COUNT_TMA.n
+        got = int8_attention.lanes_attention_int8(q, kk, ks, vv, vs, mask,
+                                                  heads)
+        torch.cuda.synchronize()
+        assert (int8_attention.COUNT.n, int8_attention.COUNT_TMA.n) == (
+            before[0] + 1, before[1])
+        _hold_attention(dtype, got, int8_attention.lanes_attention_int8_plain(
+            q, kk, ks, vv, vs, mask, heads), mask)
+        with pytest.raises(RuntimeError, match="invalid value"):
+            int8_attention._run_kernel(q, kk, ks, vv, vs, mask, heads, "tma")
 
 
 @pytest.mark.parametrize("route", ["wgmma", "cuda_core"])
