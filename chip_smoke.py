@@ -28,13 +28,14 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      at B=384 and B=1,152;
   5. K3, the int8 dequantizing product, against its plain version at the
      three shapes of the int8 decode step (the LSTM gates, aoa_dec.q,
-     aoa_dec.aoa; m=384) and a ragged one (m=37, K=200, n=700): float32 on
-     the CUDA-core route, bf16 on both routes (the tensor-core route also at
-     m=1,152); each step shape timed in turns (old, new, lib, lib, new,
-     old) against torch._weight_int8pack_mm;
+     aoa_dec.aoa; m=384, and m=1,152 for the beam step) and a ragged one
+     (m=37, K=200, n=700): float32 on the CUDA-core route, bf16 on both
+     routes (the tensor-core route also at m=1,152); each step shape timed
+     at both m in turns (old, new, lib, lib, new, old) against
+     torch._weight_int8pack_mm;
   6. K1-int8, the fused head over the int8 head weight, as in 3: float32 on
-     the CUDA-core route, bf16 on both routes (the tensor-core route also
-     at m=1,152, k=3), the cross-chunk tie with an int8 head on each;
+     the CUDA-core route, bf16 on both routes, each also at m=1,152, k=3;
+     the cross-chunk tie with an int8 head on each;
   7. K4, the int8 K/V attention, against its plain version (B=384, k=1
      and k=3, 36 boxes with 10-36 valid, 8 heads, float32 and bf16) on
      both routes ("tma": a sample's K and V requested whole by TMA, every
@@ -56,8 +57,25 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      their decode steps times those multiples, and the ids must agree with
      the reference run.  One more decode per path runs under
      torch.profiler, which prints the device time by kernel and the
-     device's idle share.
-Then it prints one JSON line of per-kernel results and, last, the
+     device's idle share;
+  9. the main path, beam: AoADetection beam-3 decode of the same model and
+     batch, step cap 20, through engine.steps.make_beam_decode, on the same
+     four paths.  Per step the launches per route are those of 8, with K1
+     at m=1,152 and k=3, K2 and K3 over 1,152 rows and K4 at 3 query rows
+     (every launch's shape is recorded).  Each path runs once with the
+     plain versions and three times through the kernels (timed: captions/s
+     is B over the median), once more with alphas (finite, summing to 1 on
+     live steps, 0 on masked boxes), once with every kernel call held
+     against its plain version on the same inputs to the kernel's own
+     tolerance (engine/holds.held_calls), and once
+     under torch.profiler.  The float32 ids must equal the plain run's in
+     99 % of rows; in the other paths both runs' winners are rescored by
+     the plain step (ops/decode.sequence_logprob), and every row's kernel
+     winner must score no lower than the plain winner minus 2 x 20 steps x
+     4 x K1's value hold (1e-4 float32, 2e-3 bf16).
+     scripts/rehearse_beam_gate.py shows what these gates pass and fail.
+Then it prints one JSON line of per-kernel results (the beam shapes'
+launches as entries of their own, named ``..._beam``) and, last, the
 ``{"ok": true, "device": ...}`` line.
 
 Timings use CUDA events, with a 128 MB buffer written between launches so
@@ -80,7 +98,6 @@ An int8 weight is counted at one byte; its product runs at x's type.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import shutil
@@ -93,7 +110,7 @@ HBM_BYTES_PER_S = 3.35e12
 # operations run at a third of the 494.7 TFLOP/s TF32 peak
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12,
                   "tf32x3": 494.7e12 / 3}
-B, MAX_LEN, N_BOX = 384, 20, 36
+B, MAX_LEN, N_BOX, BEAM = 384, 20, 36, 3
 FULL = dict(model_type="AoADetection", vocab_size=10102, embed_dim=1024,
             hidden_dim=1024, enc_dim=2048, num_heads=8, num_refine_layers=6,
             max_bu_len=N_BOX)
@@ -310,7 +327,7 @@ def main(argv=None) -> int:
         return 1
     from simpleimagecaptionzoo_tpu_torch.config import ModelConfig
     from simpleimagecaptionzoo_tpu_torch.device import resolve_device
-    from simpleimagecaptionzoo_tpu_torch.engine import steps
+    from simpleimagecaptionzoo_tpu_torch.engine import holds, steps
     from simpleimagecaptionzoo_tpu_torch.models.base import get_captioner
     from simpleimagecaptionzoo_tpu_torch.ops import (_build, fused_head,
                                                      fused_lstm,
@@ -413,6 +430,8 @@ def main(argv=None) -> int:
         plain_ms = time_ms(torch,
                            lambda: fused_head.topk_head_plain(head, x, 1),
                            flush)
+        beam_plain_ms = time_ms(
+            torch, lambda: fused_head.topk_head_plain(head, xb, 3), flush)
         shape = ("m=%d K=%d V=%d (padded %dx%d) k=1" % (B, hd, head.v, kp,
                                                         vp_))
         k1_fns = {
@@ -459,6 +478,14 @@ def main(argv=None) -> int:
               beam_device_turns=dev_beam,
               beam_device_ms=mean(dev_beam["new"]),
               beam_bound_ms=bb_ms, **common)
+        entry("fused_head_topk_%s_beam" % tc_route, dn, max_abs_err=err,
+              max_err=err, ms=mean(beam["new"]), kernel_ms=mean(beam["new"]),
+              device_ms=mean(dev_beam["new"]), plain_ms=beam_plain_ms,
+              bound_ms=bb_ms, bound_by=bb_by, library_ms=None,
+              kernel_route=tc_route, shape="m=%d K=%d V=%d k=3" % (mb, hd,
+                                                                   head.v),
+              source=common["source"], replaces=common["replaces"],
+              product_ms=prod_beam_ms)
         log("K1 %s timing in turns (old, new, new, old): %s %s ms, "
             "cuda_core %s ms; plain %.4f ms; x @ W alone (cuBLAS) %.4f ms; "
             "bound %.4f ms (%s)"
@@ -466,9 +493,10 @@ def main(argv=None) -> int:
                ["%.4f" % t for t in turns["old"]], plain_ms, prod_ms, b_ms,
                b_by))
         log("K1 %s at m=%d k=3 in turns: %s %s ms, cuda_core %s ms; "
-            "x @ W alone %.4f ms; bound %.4f ms (%s)"
+            "x @ W alone %.4f ms; plain %.4f ms; bound %.4f ms (%s)"
             % (dn, mb, tc_route, ["%.4f" % t for t in beam["new"]],
-               ["%.4f" % t for t in beam["old"]], prod_beam_ms, bb_ms, bb_by))
+               ["%.4f" % t for t in beam["old"]], prod_beam_ms, beam_plain_ms,
+               bb_ms, bb_by))
         log("K1 %s device time alone, in turns: m=%d k=1 %s %s, cuda_core "
             "%s ms; m=%d k=3 %s %s, cuda_core %s ms"
             % (dn, B, tc_route, ["%.4f" % t for t in dev_turns["new"]],
@@ -621,6 +649,15 @@ def main(argv=None) -> int:
               beam_device_ms=mean(bm["dev_turns"]["new"]),
               beam_device_old_route_ms=mean(bm["dev_turns"]["old"]),
               beam_bound_ms=bm["bound"][0], **common)
+        entry("fused_lstm_cell_%s_beam" % tc_route, dn, max_abs_err=err,
+              max_err=err, ms=mean(bm["turns"]["new"]),
+              kernel_ms=mean(bm["turns"]["new"]),
+              device_ms=mean(bm["dev_turns"]["new"]),
+              plain_ms=bm["plain_ms"], bound_ms=bm["bound"][0],
+              bound_by=bm["bound"][1], library_ms=mean(bm["turns"]["lib"]),
+              device_library_ms=mean(bm["dev_turns"]["lib"]),
+              kernel_route=tc_route, shape="B=%d E=%d H=%d" % (mb, e_in, hd),
+              source=common["source"], replaces=common["replaces"])
         for m, t in timed.items():
             log("K2 %s B=%d timing in turns (old, new, lib, lib, new, old): "
                 "%s %s ms, torch.lstm_cell %s ms, cuda_core %s ms; device "
@@ -645,17 +682,20 @@ def main(argv=None) -> int:
     k3_steps = [("lstm", qparams["lstm"], B, e_lstm),
                 ("aoa_dec.q", qparams["aoa_dec"]["q"], B, hd),
                 ("aoa_dec.aoa", qparams["aoa_dec"]["aoa"], B, 2 * hd)]
+    k3_beam = [(what, qp, mb, k) for what, qp, _, k in k3_steps]
     k3_cases = k3_steps + [("ragged", ragged, 37, 200)]
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         tc = dtype == torch.bfloat16
         # bf16: the tensor-core route (quant_route's pick), also at the beam
-        # rows, and the CUDA-core route forced at every shape
+        # rows, and the CUDA-core route forced at every greedy shape;
+        # float32: the CUDA-core route, also at the beam rows
         cases = [c + ("cuda_core",) for c in k3_cases]
         if tc:
-            cases = ([c + ("wgmma",) for c in k3_cases]
-                     + [("lstm", qparams["lstm"], mb, e_lstm, "wgmma")]
+            cases = ([c + ("wgmma",) for c in k3_cases + k3_beam]
                      + cases)
+        else:
+            cases += [c + ("cuda_core",) for c in k3_beam]
         errs = {"wgmma": 0.0, "cuda_core": 0.0}
         for what, qp, m, k, route in cases:
             n = qp["s"].shape[0]
@@ -694,8 +734,8 @@ def main(argv=None) -> int:
                 "(%s)" % (dn, route, what, m, k, qp["q"].shape[0], n,
                           qp["q"].shape[1], float(diff.max()), tol_s))
         item = torch.tensor([], dtype=dtype).element_size()
-        shapes = {"wgmma": [], "cuda_core": []}
-        for what, qp, m, k in k3_steps:
+        shapes = {(r, m): [] for r in ("wgmma", "cuda_core") for m in (B, mb)}
+        for what, qp, m, k in k3_steps + k3_beam:
             n = qp["s"].shape[0]
             x = (0.5 * torch.randn(m, k, generator=gen, device=dev)).to(dtype)
             nbytes = m * k * item + k * n + 2 * n * 4 + m * n * item
@@ -714,13 +754,13 @@ def main(argv=None) -> int:
             turns = time_turns(torch, fns, flush, order)
             dev_turns = time_turns(torch, fns, flush, order, lead=DEVICE_LEAD)
             common = dict(what=what, shape="m=%d K=%d n=%d" % (m, k, n),
-                          launches_per_decode=MAX_LEN, plain_ms=plain_ms,
+                          plain_ms=plain_ms,
                           bound_ms=b_ms, bound_by=b_by,
                           library_ms=mean(turns["lib"]),
                           device_library_ms=mean(dev_turns["lib"]))
             for route, key in (("cuda_core", "old"), ("wgmma", "new")):
                 if key in turns:
-                    shapes[route].append(dict(
+                    shapes[route, m].append(dict(
                         common, ms=mean(turns[key]), turns=turns[key],
                         device_ms=mean(dev_turns[key]),
                         device_turns=dev_turns[key]))
@@ -735,15 +775,18 @@ def main(argv=None) -> int:
                    if tc else "", ["%.4f" % t for t in dev_turns["old"]],
                    ["%.4f" % t for t in dev_turns["lib"]], plain_ms, b_ms,
                    b_by))
-        for route in (("cuda_core", "wgmma") if tc else ("cuda_core",)):
-            first = shapes[route][0]                     # the LSTM gates
+        # the greedy rows' entries, and the beam rows' on the route the
+        # beam decode of this dtype runs
+        for route, m in ([("cuda_core", B), ("wgmma", B), ("wgmma", mb)]
+                         if tc else [("cuda_core", B), ("cuda_core", mb)]):
+            first = shapes[route, m][0]                  # the LSTM gates
             ename = "quant_matmul_wgmma" if route == "wgmma" else "quant_matmul"
-            extra = (dict(old_route_ms=shapes["cuda_core"][0]["ms"],
-                          device_old_route_ms=shapes["cuda_core"][0][
+            extra = (dict(old_route_ms=shapes["cuda_core", m][0]["ms"],
+                          device_old_route_ms=shapes["cuda_core", m][0][
                               "device_ms"],
                           old_route_max_abs_err=errs["cuda_core"])
                      if route == "wgmma" else {})
-            entry(ename, dn,
+            entry(ename + ("_beam" if m == mb else ""), dn,
                   source="simpleimagecaptionzoo_tpu_torch/csrc/quant_matmul.cu",
                   replaces="simpleimagecaptionzoo_tpu/ops/quant.py:105",
                   max_abs_err=errs[route], max_err=errs[route],
@@ -752,7 +795,7 @@ def main(argv=None) -> int:
                   bound_ms=first["bound_ms"], bound_by=first["bound_by"],
                   library_ms=first["library_ms"], kernel_route=route,
                   shape=first["shape"] + " (the LSTM gates)",
-                  shapes=shapes[route], **extra)
+                  shapes=shapes[route, m], **extra)
 
     # -- 6. K1-int8 against its plain version ---------------------------------
     for dtype in (torch.float32, torch.bfloat16):
@@ -763,14 +806,13 @@ def main(argv=None) -> int:
         require(head.w.dtype == torch.int8, "K1-int8: head weight is %s"
                 % head.w.dtype)
         x = (0.5 * torch.randn(B, hd, generator=gen, device=dev)).to(dtype)
-        xb = ((0.5 * torch.randn(mb, hd, generator=gen, device=dev)).to(dtype)
-              if tc else None)
+        xb = (0.5 * torch.randn(mb, hd, generator=gen, device=dev)).to(dtype)
         route = fused_head.head_route(head.w, x)
         require(route == ("wgmma" if tc else "cuda_core"),
                 "K1-int8 %s takes the %s route" % (dn, route))
         before = fused_head.COUNT_WGMMA.n
         err = hold_head(torch, fused_head, "K1-int8/" + route, head, x, dn,
-                        tol, extra=[(xb, 3)] if tc else ())
+                        tol, extra=[(xb, 3)])
         require(fused_head.COUNT_WGMMA.n - before == (4 if tc else 0),
                 "K1-int8 %s: %d launches on the wgmma route"
                 % (dn, fused_head.COUNT_WGMMA.n - before))
@@ -781,6 +823,17 @@ def main(argv=None) -> int:
         plain_ms = time_ms(torch,
                            lambda: fused_head.topk_head_plain(head, x, 1),
                            flush)
+        beam_plain_ms = time_ms(
+            torch, lambda: fused_head.topk_head_plain(head, xb, 3), flush)
+        bb_ms, bb_by = bound(mb * hd * item + hd * head.v + 2 * head.v * 4
+                             + mb * (3 * 8 + 4), 2 * mb * hd * head.v, dn)
+        beam_common = dict(
+            source="simpleimagecaptionzoo_tpu_torch/csrc/fused_head.cu",
+            replaces="simpleimagecaptionzoo_tpu/ops/fused_head.py:155",
+            max_abs_err=err, max_err=err, plain_ms=beam_plain_ms,
+            bound_ms=bb_ms, bound_by=bb_by, library_ms=None,
+            kernel_route=route, shape="m=%d K=%d V=%d int8 W k=3"
+            % (mb, hd, head.v))
         common = dict(source="simpleimagecaptionzoo_tpu_torch/csrc/"
                       "fused_head.cu",
                       replaces="simpleimagecaptionzoo_tpu/ops/fused_head.py:155",
@@ -790,10 +843,23 @@ def main(argv=None) -> int:
         if not tc:
             ms = time_ms(torch, lambda: fused_head.topk_head(head, x, 1),
                          flush)
+            dev_ms = time_ms(torch, lambda: fused_head.topk_head(head, x, 1),
+                             flush, lead=DEVICE_LEAD)
+            beam_ms = time_ms(torch, lambda: fused_head.topk_head(head, xb, 3),
+                              flush)
+            beam_dev_ms = time_ms(
+                torch, lambda: fused_head.topk_head(head, xb, 3), flush,
+                lead=DEVICE_LEAD)
             entry("fused_head_topk_int8", dn, max_abs_err=err, max_err=err,
-                  ms=ms, kernel_ms=ms, kernel_route="cuda_core", **common)
-            log("K1-int8 %s timing (cuda_core): kernel %.4f ms, plain %.4f "
-                "ms, bound %.4f ms (%s)" % (dn, ms, plain_ms, b_ms, b_by))
+                  ms=ms, kernel_ms=ms, device_ms=dev_ms,
+                  kernel_route="cuda_core", **common)
+            entry("fused_head_topk_int8_beam", dn, ms=beam_ms,
+                  kernel_ms=beam_ms, device_ms=beam_dev_ms, **beam_common)
+            log("K1-int8 %s timing (cuda_core): kernel %.4f ms (device alone "
+                "%.4f), plain %.4f ms, bound %.4f ms (%s); at m=%d k=3 %.4f "
+                "ms (device alone %.4f), plain %.4f ms, bound %.4f ms (%s)"
+                % (dn, ms, dev_ms, plain_ms, b_ms, b_by, mb, beam_ms,
+                   beam_dev_ms, beam_plain_ms, bb_ms, bb_by))
             continue
         # the CUDA-core route, which int8 heads TMA cannot take go to
         before = fused_head.COUNT.n, fused_head.COUNT_WGMMA.n
@@ -814,8 +880,6 @@ def main(argv=None) -> int:
         dev_turns = time_turns(torch, fns, flush, order, lead=DEVICE_LEAD)
         beam = time_turns(torch, beam_fns, flush, order)
         dev_beam = time_turns(torch, beam_fns, flush, order, lead=DEVICE_LEAD)
-        bb_ms, bb_by = bound(mb * hd * item + hd * head.v + 2 * head.v * 4
-                             + mb * (3 * 8 + 4), 2 * mb * hd * head.v, dn)
         entry("fused_head_topk_int8", dn, max_abs_err=old_err,
               max_err=old_err, ms=mean(turns["old"]),
               kernel_ms=mean(turns["old"]),
@@ -830,6 +894,10 @@ def main(argv=None) -> int:
               beam_shape="m=%d k=3" % mb, beam_turns=beam,
               beam_ms=mean(beam["new"]), beam_old_route_ms=mean(beam["old"]),
               beam_device_turns=dev_beam, beam_bound_ms=bb_ms, **common)
+        entry("fused_head_topk_int8_wgmma_beam", dn, ms=mean(beam["new"]),
+              kernel_ms=mean(beam["new"]), device_ms=mean(dev_beam["new"]),
+              old_route_ms=mean(beam["old"]),
+              device_old_route_ms=mean(dev_beam["old"]), **beam_common)
         log("K1-int8 %s timing in turns (old, new, new, old): wgmma %s ms, "
             "cuda_core %s ms; device alone: wgmma %s, cuda_core %s ms; plain "
             "%.4f ms; bound %.4f ms (%s)"
@@ -838,11 +906,13 @@ def main(argv=None) -> int:
                ["%.4f" % t for t in dev_turns["new"]],
                ["%.4f" % t for t in dev_turns["old"]], plain_ms, b_ms, b_by))
         log("K1-int8 %s at m=%d k=3 in turns: wgmma %s ms, cuda_core %s ms; "
-            "device alone: wgmma %s, cuda_core %s ms; bound %.4f ms (%s)"
+            "device alone: wgmma %s, cuda_core %s ms; plain %.4f ms; bound "
+            "%.4f ms (%s)"
             % (dn, mb, ["%.4f" % t for t in beam["new"]],
                ["%.4f" % t for t in beam["old"]],
                ["%.4f" % t for t in dev_beam["new"]],
-               ["%.4f" % t for t in dev_beam["old"]], bb_ms, bb_by))
+               ["%.4f" % t for t in dev_beam["old"]], beam_plain_ms, bb_ms,
+               bb_by))
 
     # the tie across chunks with an int8 head, on both bf16 routes and in
     # float32 (3 and 1 are exact int8 values; scale 1, bias 0)
@@ -967,6 +1037,17 @@ def main(argv=None) -> int:
                   beam_ms=mean(bm["turns"][key]),
                   beam_device_ms=mean(bm["dev_turns"][key]), kernel_route=r,
                   **common, **extra)
+        entry("int8_attention_tma_beam", dn, max_abs_err=errs["tma"],
+              max_err=errs["tma"], ms=mean(bm["turns"]["new"]),
+              kernel_ms=mean(bm["turns"]["new"]),
+              device_ms=mean(bm["dev_turns"]["new"]),
+              old_route_ms=mean(bm["turns"]["old"]),
+              device_old_route_ms=mean(bm["dev_turns"]["old"]),
+              plain_ms=bm["plain_ms"], bound_ms=bm["bound"][0],
+              bound_by=bm["bound"][1], library_ms=None, kernel_route="tma",
+              q_in_shared_memory=dtype == torch.float32,
+              shape="B=%d k=3 N=%d D=%d heads=%d" % (B, N_BOX, hd, heads),
+              source=common["source"], replaces=common["replaces"])
         for k, t in timed.items():
             log("K4 %s B=%d k=%d timing in turns (old, new, new, old): tma %s "
                 "ms, cuda_core %s ms; device alone: tma %s, cuda_core %s ms; "
@@ -983,27 +1064,6 @@ def main(argv=None) -> int:
                                            generator=gen, device=dev)),
         "bu_masks": box_mask,
     }
-
-    @contextlib.contextmanager
-    def plain_versions():
-        """The reference run: the decode's kernel wrappers swapped for their
-        plain versions on the same CUDA tensors."""
-        swaps = [(fused_head, "topk_head", fused_head.topk_head_plain),
-                 # the plain cell takes the unsplit w_cat, not the TF32 split
-                 (fused_lstm, "lstm_cell_fused",
-                  lambda w_cat, b_sum, x, h, c, split=None:
-                  fused_lstm.lstm_cell_plain(w_cat, b_sum, x, h, c)),
-                 (quant, "quant_matmul", quant.quant_matmul_plain),
-                 (int8_attention, "lanes_attention_int8",
-                  int8_attention.lanes_attention_int8_plain)]
-        saved = [getattr(mod, name) for mod, name, _ in swaps]
-        for mod, name, plain in swaps:
-            setattr(mod, name, plain)
-        try:
-            yield
-        finally:
-            for (mod, name, _), fn in zip(swaps, saved):
-                setattr(mod, name, fn)
 
     calls = []
     step_core = model.step_core
@@ -1075,7 +1135,7 @@ def main(argv=None) -> int:
         fn = steps.make_greedy_decode(model, max_len=MAX_LEN,
                                       return_alphas=True, dtype=dtype,
                                       device="cuda")
-        with plain_versions():
+        with holds.plain_versions():
             ref_ids, ref_al = fn(prm, {}, visual)
         torch.cuda.synchronize()
         times, launches = [], None
@@ -1147,6 +1207,136 @@ def main(argv=None) -> int:
         if not int8:
             float_ids[dn] = ids
     del model.step_core, model.encode
+
+    # -- 9. the main path, beam -----------------------------------------------
+    from simpleimagecaptionzoo_tpu_torch import END_ID, PAD_ID, STA_ID
+    lane_steps = []
+    step_lanes_core = model.step_lanes_core
+
+    def counting_step_lanes_core(*a, **kw):
+        lane_steps.append(1)
+        return step_lanes_core(*a, **kw)
+
+    shapes = []     # every launch's (kernel, route, rows, k)
+    # the shapes each path's launches must have: K1 over B*k rows at k, K2
+    # and K3 over B*k rows, K4 over B samples with k query rows
+    mk = B * BEAM
+    f32_shapes = {("K1", "tf32x3", mk, BEAM), ("K2", "tf32x3", mk, None)}
+    bf16_shapes = {("K1", "wgmma", mk, BEAM), ("K2", "wgmma", mk, None)}
+    int8_f32_shapes = {("K1", "cuda_core", mk, BEAM),
+                       ("K3", "cuda_core", mk, None), ("K4", "tma", B, BEAM)}
+    int8_bf16_shapes = {("K1", "wgmma", mk, BEAM), ("K3", "wgmma", mk, None),
+                        ("K4", "tma", B, BEAM)}
+    beam_paths = [
+        (label, dtype, prm, per_step, entry_of, want_shapes)
+        for (label, dtype, prm, per_step, entry_of), want_shapes in zip(
+            paths, (f32_shapes, bf16_shapes, int8_f32_shapes,
+                    int8_bf16_shapes))]
+    model.step_lanes_core = counting_step_lanes_core
+    beam_results = {}
+    for label, dtype, prm, per_step, entry_of, want_shapes in beam_paths:
+        dn = str(dtype).split(".")[1]
+        fn = steps.make_beam_decode(model, beam_size=BEAM, max_steps=MAX_LEN,
+                                    dtype=dtype, device="cuda")
+        with holds.plain_versions():
+            ref_ids = fn(prm, {}, visual)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            lane_steps.clear()
+            shapes.clear()
+            for c in counters.values():
+                c.n = 0
+            t0 = time.perf_counter()
+            with holds.recording_shapes(shapes):
+                ids = fn(prm, {}, visual)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            n_steps = len(lane_steps)
+            launches = {kn: c.n for kn, c in counters.items()}
+            want = {kn: m * n_steps for kn, m in per_step.items()}
+            require(n_steps >= 1 and launches == want,
+                    "beam %s decode: %d steps, launches %s, expected %s"
+                    % (label, n_steps, launches, want))
+            require(set(shapes) == want_shapes,
+                    "beam %s decode: launch shapes %s, expected %s"
+                    % (label, sorted(set(shapes), key=str),
+                       sorted(want_shapes, key=str)))
+        require(ids.shape == (B, MAX_LEN + 1) and ids.dtype == torch.long,
+                "beam %s ids %s %s" % (label, tuple(ids.shape), ids.dtype))
+        require(bool((ids[:, 0] == STA_ID).all()) and int(ids.min()) >= 0
+                and int(ids.max()) < FULL["vocab_size"],
+                "beam %s ids: column 0 not <sta>, or out of range" % label)
+        ended = (ids[:, 1:] == END_ID).cumsum(dim=1) > 0
+        after = torch.cat([torch.zeros_like(ended[:, :1]), ended[:, :-1]], 1)
+        require(bool((ids[:, 1:][after] == PAD_ID).all()),
+                "beam %s ids: not <pad> after <end>" % label)
+        # the alphas of one more run: finite, summing to 1 on live steps,
+        # 0 on masked boxes
+        _, al = steps.make_beam_decode(model, beam_size=BEAM,
+                                       max_steps=MAX_LEN, return_alphas=True,
+                                       dtype=dtype, device="cuda")(
+            prm, {}, visual)
+        live = al.sum(-1) > 0
+        require(al.shape == (B, MAX_LEN, N_BOX)
+                and bool(torch.isfinite(al).all())
+                and bool(((al.sum(-1) - 1).abs()[live] < 1e-3).all())
+                and bool((al.masked_select(
+                    (visual["bu_masks"][:, None, :] == 0).expand_as(al))
+                    == 0).all()),
+                "beam %s alphas: shape %s, or not finite, or not summing to 1 "
+                "on live steps, or nonzero on masked boxes"
+                % (label, tuple(al.shape)))
+        # one more run with every kernel call held against its plain
+        # version on the same inputs, to the kernel's own tolerance
+        broken = []
+        with holds.held_calls(broken):
+            fn(prm, {}, visual)
+        torch.cuda.synchronize()
+        require(not broken, "beam %s decode: %d kernel calls broke their "
+                "hold (first: %s)" % (label, len(broken), broken[:1]))
+        # rescore both runs' winners with the plain step in this dtype
+        margin = holds.rescored_margin(model, prm, visual, ids, ref_ids,
+                                       dtype, dev)
+        tol = holds.beam_tol(dtype, MAX_LEN)
+        passed, rows_same = holds.beam_gate(label == "float32", ids, ref_ids,
+                                            margin, tol)
+        first_same = float((ids[:, 1] == ref_ids[:, 1]).float().mean())
+        require(passed, "beam %s decode: rows identical to the plain run's "
+                "%.4f (gate %.2f in float32); a row's winner scores %.4f "
+                "below the plain run's winner (tol %.4f)"
+                % (label, rows_same, holds.ROWS_IDENTICAL,
+                   -float(margin.min()), tol))
+        t_med = sorted(times)[1]
+        res = dict(steps=n_steps, launches=launches,
+                   launch_shapes=sorted([list(x) for x in set(shapes)],
+                                        key=str),
+                   rows_identical=rows_same, first_ids_identical=first_same,
+                   rescored_min_margin=float(margin.min()),
+                   rescored_rows_below=int((margin < 0).sum()),
+                   rescore_tol=tol, seconds=times, captions_per_s=B / t_med,
+                   rows_ended=int(ended[:, -1].sum()))
+        for kn, ename in entry_of.items():
+            beam_name = "%s_beam/%s" % (ename, dn)
+            kernels[beam_name]["launches"] = launches[kn]
+            on_path.add(beam_name)
+        log("beam %s decode: B=%d, beam %d, %d steps, launches %s, shapes "
+            "%s; every kernel call of a run held against its plain version; "
+            "rows identical to the plain run %.4f, first ids %.4f; "
+            "rescored by the plain step, the kernel run's winner minus the "
+            "plain run's: min %.4f (%s %.4f), %d rows below 0; %d rows "
+            "ended; %.1f captions/s (median of %s s)"
+            % (label, B, BEAM, n_steps, launches, res["launch_shapes"],
+               rows_same, first_same, float(margin.min()),
+               "ungated, tol" if label == "float32" else "tol", tol,
+               res["rescored_rows_below"], res["rows_ended"], B / t_med,
+               ["%.4f" % t for t in times]))
+        res["profile"] = profile_decode(
+            torch, lambda: fn(prm, {}, visual), "beam " + label)
+        beam_results[label] = res
+    del model.step_lanes_core
+    results["beam"] = beam_results
+
     missing = [k for k in on_path if not kernels[k].get("launches")]
     require(not missing, "kernels not launched on the main path: %s"
             % missing)

@@ -16,7 +16,11 @@ card kept busy while the host launches), the span of the global timer
 from the first block's entry to the last block's exit, the blocks resident
 at once, and the median SM cycles of each phase of a block.  A clone of K
 and V (28.3 MB read and written) is timed beside them as a yardstick of
-the card's bandwidth.  Exits nonzero when there is no CUDA device.
+the card's bandwidth.  Then, at float32 q with k=3 (the float32 beam
+step), it times the kernel as it is, which stages q's rows in shared
+memory there, against a copy that reads q through L1, in turns, and holds
+both against the plain version.  Exits nonzero when there is no CUDA
+device.
 """
 from __future__ import annotations
 
@@ -73,6 +77,13 @@ def instrumented(src):
                 '{ tma::g_dbg = (unsigned long long*)p; }\n')
 
 
+def q_through_l1(src):
+    """The kernel with q read through L1 at every k: attend_tma<float, 4>
+    as it was before it staged q's rows in shared memory."""
+    return patch(src, "constexpr bool q_staged = std::is_same<T, float>::value"
+                 " && KB == 4;", "constexpr bool q_staged = false;")
+
+
 def variants(src):
     s = instrumented(src)
     loads = patch(s, "  mbar_wait(&bar[0], 0);\n",
@@ -121,8 +132,11 @@ def main(argv=None) -> int:
     from simpleimagecaptionzoo_tpu_torch.ops import int8_attention as IA
 
     with open(os.path.join(_build.CSRC_DIR, "int8_attention.cu")) as f:
-        libs = {name: build(_build, "probe_" + name.replace(" ", "_"), text)
-                for name, text in variants(f.read()).items()}
+        src = f.read()
+    libs = {name: build(_build, "probe_" + name.replace(" ", "_"), text)
+            for name, text in variants(src).items()}
+    q_libs = {"smem": build(_build, "probe_q_smem", src),
+              "l1": build(_build, "probe_q_l1", q_through_l1(src))}
     dev = torch.device("cuda")
     B, N, D, H = 384, 36, 1024, 8
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -190,6 +204,37 @@ def main(argv=None) -> int:
                     print("    %-34s median %6d cycles, p90 %6d"
                           % (phase, statistics.median(cyc),
                              sorted(cyc)[int(0.9 * len(cyc))]))
+
+    # float32 q at k=3 (attend_tma<float, 4>, the float32 beam step): q's
+    # rows staged in shared memory against q read through L1, in turns
+    q = torch.randn(B, 3, D, generator=gen, device=dev)
+    want, pwant = IA.lanes_attention_int8_plain(q, kq, ks, vq, vs, mask, H)
+    turns = {"l1": [], "smem": []}
+    for name in ("l1", "smem", "smem", "l1"):
+        out = torch.empty(B, 3, D, device=dev)
+        pm = torch.empty(B, 3, N, device=dev)
+
+        def run(L=q_libs[name]):
+            code = L.int8_attention_tma(
+                ptr(q), ptr(kq), ptr(ks), ptr(vq), ptr(vs), ptr(mask),
+                ptr(out), ptr(pm), B, 3, N, D, H,
+                ctypes.c_float(1 / 128 ** 0.5), 0,
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+            if code:
+                raise RuntimeError("probe: launch failed, CUDA error %d"
+                                   % code)
+
+        turns[name].append(device_ms(run))
+        err = float((out - want).abs().max())
+        err_p = float((pm - pwant).abs().max())
+        if err > 2e-5 or err_p > 2e-6:
+            raise RuntimeError("probe: q %s off the plain version by %.3g "
+                               "(pmean %.3g)" % (name, err, err_p))
+    print("float32 k=3, in turns (l1, smem, smem, l1), device: q through L1 "
+          "%s ms, q staged in shared memory %s ms; both within 2e-5 (pmean "
+          "2e-6) of the plain version"
+          % (["%.4f" % t for t in turns["l1"]],
+             ["%.4f" % t for t in turns["smem"]]))
     return 0
 
 

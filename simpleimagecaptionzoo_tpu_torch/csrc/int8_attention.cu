@@ -38,10 +38,13 @@
 //    128-byte swizzle does the same in the layout, but needs 1024-byte
 //    aligned boxes: 36 rows padded to 40, and a block then no longer fits
 //    three to an SM.)  q is read from device memory through L1 (prefetched
-//    at entry), the chunk the thread reads of K.  int8 widens to float32 by
-//    byte permutes and float adds (no I2F); 1, 2 or 4 query rows ride one
-//    pass over the row (a template argument, so k = 1 and 2 test nothing
-//    per row), each in two accumulators for a shorter dependent chain.
+//    at entry), the chunk the thread reads of K; float32 q with 3 or more
+//    rows (beam search) is staged in shared memory instead, laid out so
+//    that the 8 chunks a load phase reads fall on 8 bank groups (q_staged).
+//    int8 widens to float32 by byte permutes and float adds (no I2F); 1,
+//    2 or 4 query rows ride one pass over the row (a template argument, so
+//    k = 1 and 2 test nothing per row), each in two accumulators for a
+//    shorter dependent chain.
 //  - softmax: a warp per (head, query row), into p and p * vs.
 //  - out: a thread per (query row, 4 columns), 4 float32 sums over the
 //    value rows in key order (a warp reads a row's 128 bytes: no
@@ -71,6 +74,7 @@
 
 #include <algorithm>
 #include <atomic>
+#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -184,20 +188,44 @@ constexpr int SMEM_MAX = 232448;        // 227 KB, a block's most
 // rows are never read.  Then the two mbarriers, the scores (then p) and
 // p * vs (heads x k x N each), ks, vs and mask (N each); 128 bytes more to
 // align the start.  At the greedy shape that is 76,608 bytes: three
-// blocks an SM (each also holds 1 KB the card reserves).
+// blocks an SM (each also holds 1 KB the card reserves).  Where q's rows
+// are staged in shared memory (q_staged, below), they follow, 16-byte
+// aligned: k x D floats and 16 bytes more.
 // ops/int8_attention.py (tma_smem_bytes) repeats this sum.
 struct Plan {
   int nbox, rows;
   size_t smem;
 };
 
+// KB: query rows a thread carries through one pass over its K row (1, 2
+// or 4: no per-row test where k is 1 or 2)
+inline int rows_a_pass(int k) { return k == 1 ? 1 : k == 2 ? 2 : 4; }
+
+// Does attend_tma<T, KB> stage q's rows in shared memory?  Only float32 q
+// with 4 rows a pass (k >= 3, the beam): there each key row reads 48 bytes
+// of q a chunk, which through L1 cost more than K's own 16; bf16 q and
+// fewer rows read q through L1.
+template <typename T, int KB>
+constexpr bool q_staged = std::is_same<T, float>::value && KB == 4;
+
+template <typename T>
 inline Plan attn_plan(int k, int N, int D, int heads) {
   Plan p;
   p.nbox = (N + BOX_ROWS - 1) / BOX_ROWS;
   p.rows = (N + p.nbox - 1) / p.nbox;
   p.smem = 128 + 2 * (size_t)(D / 128) * p.nbox * p.rows * 128 + 16 +
-           4 * (2 * (size_t)heads * k * N + 3 * (size_t)N);
+           4 * (2 * (size_t)heads * k * N + 3 * (size_t)N) +
+           (q_staged<T, 4> && rows_a_pass(k) == 4 ? 16 + 4 * (size_t)k * D : 0);
   return p;
+}
+
+// q staged in shared memory (QS): a row's 128-column block is 32 float4,
+// float4 u of 16-value chunk c at slot u * 8 + c, so the 8 threads of a
+// 16-byte load phase, which read 8 different chunks c, hit 8 different
+// 16-byte bank groups
+__device__ __forceinline__ void load_q16s(const float4* blk, int c, float4 (&v)[4]) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) v[u] = blk[u * 8 + c];
 }
 
 // 16 values of q (float32 or bf16) from device memory (through L1: the
@@ -260,8 +288,7 @@ __device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* o, const fl
   *reinterpret_cast<uint2*>(o) = v;
 }
 
-// KB: query rows a thread carries through one pass over its K row (1, 2
-// or 4: no per-row test where k is 1 or 2)
+// KB: query rows a pass (rows_a_pass)
 template <typename T, int KB>
 __global__ void __launch_bounds__(NT, KB == 1 ? 3 : 2)
 attend_tma(const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
@@ -279,9 +306,11 @@ attend_tma(const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CU
   float* const kss = pvs + heads * k * N;
   float* const vss = kss + N;
   float* const msk = vss + N;
+  float4* const qs4 = (float4*)(((uintptr_t)(msk + N) + 15) & ~(uintptr_t)15);  // QS only
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const size_t b = blockIdx.x;
   const size_t row0 = b * k;                                         // q's first row
+  constexpr bool QS = q_staged<T, KB>;
 
   if (tid == 0) {
     mbar_init(&bar[0], 1);
@@ -302,11 +331,19 @@ attend_tma(const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CU
         tma_load_2d(Vs + g * cbytes + j * rows * 128, &map_v, g * 128, (int)(b * N) + j * rows,
                     &bar[1]);
   }
-  // q stays in device memory, read through L1; each thread asks for one
-  // of its 128-byte lines now, while K and V are on their way
+  // without QS q stays in device memory, read through L1; each thread
+  // asks for one of its 128-byte lines now, while K and V are on their way
   const T* qb = q + row0 * D;
-  if (tid < k * D * (int)sizeof(T) / 128)
+  if constexpr (QS) {
+    const float4* qg = reinterpret_cast<const float4*>(qb);
+    const int w4 = D / 4;                                  // float4 a row
+    for (int e = tid; e < k * w4; e += NT) {
+      const int i = e / w4, w = e - i * w4;
+      qs4[(i * ncol + (w >> 5)) * 32 + (w & 3) * 8 + ((w >> 2) & 7)] = __ldg(qg + e);
+    }
+  } else if (tid < k * D * (int)sizeof(T) / 128) {
     asm volatile("prefetch.global.L1 [%0];" :: "l"((const char*)qb + tid * 128));
+  }
   for (int n = tid; n < N; n += NT) {
     const float a = ks[b * N + n], c = vs[b * N + n], m = mask[b * N + n];
     kss[n] = a;
@@ -340,7 +377,10 @@ attend_tma(const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CU
           for (int i = 0; i < KB; ++i) {
             if (KB <= 2 || i0 + i < k) {
               float4 qv[4];
-              load_q16(qc + (size_t)i * D + c * 16, qv);
+              if constexpr (QS)
+                load_q16s(qs4 + ((i0 + i) * ncol + h * ncb + cb) * 32, c, qv);
+              else
+                load_q16(qc + (size_t)i * D + c * 16, qv);
               float& a = acc[i][s & 1];
               a = dot4(qv[3], k3, dot4(qv[2], k2, dot4(qv[1], k1, dot4(qv[0], k0, a))));
             }
@@ -417,7 +457,7 @@ template <typename T>
 cudaError_t launch(const void* q, const void* kq, const float* ks, const void* vq,
                    const float* vs, const float* mask, void* out, float* pmean, int B, int k,
                    int N, int D, int heads, float inv_sqrt_dh, cudaStream_t st) {
-  const Plan p = attn_plan(k, N, D, heads);
+  const Plan p = attn_plan<T>(k, N, D, heads);
   CUtensorMap mk, mv;
   if (!tensor_map_i8(&mk, kq, (uint64_t)B * N, D, D, p.rows, 128) ||
       !tensor_map_i8(&mv, vq, (uint64_t)B * N, D, D, p.rows, 128))
@@ -470,14 +510,16 @@ extern "C" int int8_attention_tma(const void* q, const void* kq, const float* ks
                                   const void* vq, const float* vs, const float* mask,
                                   void* out, float* pmean, int B, int k, int N, int D,
                                   int heads, float inv_sqrt_dh, int dtype, void* stream) {
+  const bool f32 = dtype == sicz::kF32;
   if (B <= 0 || k < 1 || k > KMAX || N < 1 || N > NMAX || heads <= 0 || D % heads ||
       (D / heads) % 128 || D % 16 ||
-      tma::attn_plan(k, N, D, heads).smem > (size_t)tma::SMEM_MAX ||
+      (f32 ? tma::attn_plan<float>(k, N, D, heads)
+           : tma::attn_plan<__nv_bfloat16>(k, N, D, heads)).smem > (size_t)tma::SMEM_MAX ||
       !sicz::hopper::aligned16(q) || !sicz::hopper::aligned16(kq) ||
       !sicz::hopper::aligned16(vq))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == sicz::kF32)
+  if (f32)
     return (int)tma::launch<float>(q, kq, ks, vq, vs, mask, out, pmean, B, k, N, D, heads,
                                    inv_sqrt_dh, st);
   if (dtype == sicz::kBF16)

@@ -1,10 +1,10 @@
 """Decode entry points.
 
-Counterpart of the JAX package's ``engine/steps.py``.  The port has
-:func:`make_greedy_decode`, the eval decode the engine runs when
-``eval_beam_size == -1``, in float32, bf16 and int8 serving form.
-PyTorch runs eagerly, so there is no ``jit``: the returned function runs
-the decode when called.
+Counterpart of the JAX package's ``engine/steps.py``.  The port has the
+two eval decodes: :func:`make_beam_decode` (the engine's default,
+``eval_beam_size`` 3) and :func:`make_greedy_decode` (``eval_beam_size ==
+-1``), each in float32, bf16 and int8 serving form.  PyTorch runs eagerly,
+so there is no ``jit``: the returned function runs the decode when called.
 """
 from __future__ import annotations
 
@@ -67,5 +67,29 @@ def make_greedy_decode(model: Captioner, max_len: int = 20,
                               model_state=model_state)
         ids, alphas = decode.greedy(model, params, enc, max_len)
         return (ids, alphas) if return_alphas else ids
+
+    return fn
+
+
+def make_beam_decode(model: Captioner, beam_size: int = 3,
+                     max_steps: int = 50, return_alphas: bool = False,
+                     dtype: Optional[torch.dtype] = None, device="cuda"):
+    """Batched beam decode: ``fn(params, model_state, visual)`` -> ids
+    (B, max_steps+1) with column 0 = ``<sta>`` [, alphas (B, max_steps,
+    N)].  Params and visual move to ``device`` and cast to ``dtype`` as in
+    :func:`make_greedy_decode`; the beam scores stay float32
+    (``ops/decode.py``).  Int8 serving beam decode is this function with
+    ``dtype=torch.bfloat16`` called on ``model.quantize_decode_params(
+    params)``."""
+    dev = resolve_device(device)
+
+    @torch.inference_mode()
+    def fn(params, model_state, visual):
+        params = _cast_floats(params, dtype, dev)
+        visual = _cast_floats(visual, dtype, dev)
+        enc, _ = model.encode(params, visual, train=False,
+                              model_state=model_state)
+        return decode.beam_search(model, params, enc, beam_size, max_steps,
+                                  return_alphas=return_alphas)
 
     return fn

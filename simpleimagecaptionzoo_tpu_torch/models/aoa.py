@@ -23,8 +23,11 @@ weight-only int8 (kernel K3; K1-int8 for the head), and with
 ``SICZ_TPU_INT8_KV`` on, encode stores the decoder K/V as int8 with per-row
 scales, which every step attends over through kernel K4.
 
-AoASpatial (from pixels), ``tf_inputs`` and the beam lanes step wait for
-later slices.
+Beam search runs :meth:`_AoABase.step_lanes_core`: the k beams of a sample
+ride the AoA block's query axis, so each step reads the sample's K/V once,
+not once per beam, and the LSTM cell runs over B*k rows.
+
+AoASpatial (from pixels) and ``tf_inputs`` wait for later slices.
 """
 from __future__ import annotations
 
@@ -221,6 +224,36 @@ class _AoABase(Captioner):
         ctx = ctx[:, 0, :]
         out = L.dropout(ctx, cfg.dropout, train, generator)
         return out, {"h": h, "m": m, "ctx": ctx}, alpha[:, 0, :]
+
+    def init_lane_state(self, params, encoded: Encoded, k: int):
+        b = encoded.mean.shape[0]
+        z = torch.zeros((b, k, self.config.hidden_dim),
+                        dtype=encoded.mean.dtype, device=encoded.mean.device)
+        return {"h": z, "m": z, "ctx": z}
+
+    def step_lanes_core(self, params, encoded: Encoded, state, tokens, *,
+                        train: bool = False, generator=None):
+        """Beam-lane step with shared K/V: the k lanes of a sample ride the
+        AoA block's query axis (``_attend`` gets q (B, k, D); the int8
+        branch is K4 with k query rows), and the LSTM cell runs over B*k
+        rows with encode's prepared weights.  h, m and ctx stay contiguous
+        (B, k, D) tensors, which the tensor-core routes need.  Returns the
+        pre-logit ctx (B, k, D); the caller applies the head (``step_lanes``
+        or the fused top-k)."""
+        b, k = tokens.shape
+        emb = torch.relu(L.embedding(params["embed"], tokens))   # (B,k,E)
+        ctx_in = encoded.mean[:, None, :].to(state["ctx"].dtype) \
+            + state["ctx"]
+        x = torch.cat([emb, ctx_in], dim=-1).reshape(b * k, -1)
+        h, m = L.lstm_cell(params["lstm"], x, state["h"].reshape(b * k, -1),
+                           state["m"].reshape(b * k, -1),
+                           prepared=(encoded.extras or {}).get("lstm_cat"))
+        h = h.reshape(b, k, -1)
+        m = m.reshape(b, k, -1)
+        q = L.layer_norm_std(params["h_norm"], h)                # (B,k,D)
+        ctx, alpha = self._attend(params, q, encoded, train=train,
+                                  generator=generator)
+        return ctx, {"h": h, "m": m, "ctx": ctx}, alpha
 
 
 @register("AoADetection")

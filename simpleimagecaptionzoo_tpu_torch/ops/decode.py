@@ -1,8 +1,19 @@
 """Decode loops derived from a captioner's step.
 
-Counterpart of the JAX package's ``ops/decode.py``.  This slice ports greedy
-decode; beam search, the multinomial rollout and teacher forcing follow in
-later slices.
+Counterpart of the JAX package's ``ops/decode.py``:
+
+* :func:`greedy` — argmax decode, stopping once every lane has ended;
+* :func:`beam_search` — batched fixed-k beam search.  The reference runs
+  beam search per sentence with dynamic beam shrinking (NIC_Model.py:
+  153-212).  As in the JAX package, the shrinking-k semantics are kept with
+  fixed shapes: candidates ranked at or beyond the beams still open are
+  killed, and finished beams are parked in a per-sample pool.  The pick is
+  the best finished beam by raw cumulative log-probability (no length
+  normalization), else the best live beam, as in the reference.
+
+The loops are eager Python: each step ends in one host sync, the test of
+whether any lane is still open.  The multinomial rollout and teacher
+forcing follow in later slices.
 """
 from __future__ import annotations
 
@@ -11,8 +22,11 @@ from typing import Optional, Tuple
 import torch
 
 from simpleimagecaptionzoo_tpu_torch import END_ID, PAD_ID, STA_ID
-from simpleimagecaptionzoo_tpu_torch.models.base import Captioner, Encoded
+from simpleimagecaptionzoo_tpu_torch.models.base import (Captioner, Encoded,
+                                                         _tree_map)
 from simpleimagecaptionzoo_tpu_torch.ops import fused_head
+
+_NEG = -1e18
 
 
 def greedy(model: Captioner, params, encoded: Encoded, max_len: int = 20
@@ -49,3 +63,151 @@ def greedy(model: Captioner, params, encoded: Encoded, max_len: int = 20
         if bool(finished.all()):
             break
     return ids, alphas
+
+
+def sequence_logprob(model: Captioner, params, encoded: Encoded,
+                     ids: torch.Tensor) -> torch.Tensor:
+    """Rescore id rows: ids (B, T+1) with column 0 = ``<sta>`` -> (B,)
+    float32 sums of log p(ids[:, t+1] | ids[:, :t+1]) under the flat step
+    and the head's float32 logits, up to and including each row's first
+    ``<end>``.  The measure beam search maximizes, used to compare two
+    decodes' winners."""
+    head = fused_head.prepare_head(params["predict"], encoded.mean.dtype)
+    state = model.init_state(params, encoded)
+    total = torch.zeros((ids.shape[0],), dtype=torch.float32,
+                        device=ids.device)
+    live = torch.ones((ids.shape[0],), dtype=torch.bool, device=ids.device)
+    for t in range(ids.shape[1] - 1):
+        hidden, state, _ = model.step_core(params, encoded, state, ids[:, t])
+        logp = torch.log_softmax(
+            fused_head.logits_plain(head, hidden)[:, :head.v], dim=-1)
+        total += torch.where(live, logp.gather(1, ids[:, t + 1:t + 2])[:, 0],
+                             0.0)
+        live = live & (ids[:, t + 1] != END_ID)
+    return total
+
+
+def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along the last axis with equal values in index order
+    (``lax.top_k``'s tie order, which ``torch.topk`` does not promise).
+    Ties are real here: every candidate of a dead lane is ``_NEG`` plus a
+    log-probability, which float32 rounds to ``_NEG`` itself."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def beam_search(model: Captioner, params, encoded: Encoded,
+                beam_size: int = 3, max_steps: int = 50,
+                return_alphas: bool = False):
+    """Batched beam search.  Returns ids (B, max_steps+1) int64 — column 0
+    is ``<sta>``, the winning sequence ends with ``<end>`` (the rest
+    ``<pad>``) — and, if asked for, alphas (B, max_steps, N) float32.
+
+    Each step runs :meth:`Captioner.step_lanes_core` over (B, k) lanes.
+    Where :func:`fused_head.enabled` holds for k, the head is the fused
+    top-k (kernel K1 at k over B*k rows): the union of each lane's top k
+    holds the global top k, so the merge is over (B, k*k) candidates and
+    the (B, k, V) logits are never materialized.  Otherwise the full
+    logits go through a float32 log-softmax and the merge is over (B, k*V).
+    Scores, candidate sums and the log-softmax are float32 whatever the
+    compute dtype."""
+    k = beam_size
+    mean = encoded.mean
+    b, dev = mean.shape[0], mean.device
+    num_feat = encoded.features.shape[1]
+    rows = torch.arange(b, device=dev)[:, None]                 # (B, 1)
+    use_fused = fused_head.enabled(k)
+    head = (fused_head.prepare_head(params["predict"], mean.dtype)
+            if use_fused else None)
+    lanes = torch.arange(k, device=dev)[None, :]                # (1, k)
+
+    def lane_gather(a, prev):
+        """a (B, k, ...) indexed by prev (B, k) along the lanes axis."""
+        return a[rows, prev]
+
+    state = model.init_lane_state(params, encoded, k)
+    tokens = torch.full((b, k, max_steps + 1), PAD_ID, dtype=torch.long,
+                        device=dev)
+    tokens[:, :, 0] = STA_ID
+    scores = torch.full((b, k), _NEG, dtype=torch.float32, device=dev)
+    scores[:, 0] = 0.0                                          # lane 0 live
+    # the finished pool has one spare slot, k: a write that the JAX
+    # package drops (mode="drop") lands there, and the slot is cut off
+    fin_tokens = torch.zeros((b, k + 1, max_steps + 1), dtype=torch.long,
+                             device=dev)
+    fin_scores = torch.full((b, k + 1), _NEG, dtype=torch.float32,
+                            device=dev)
+    fin_count = torch.zeros((b,), dtype=torch.long, device=dev)
+    k_rem = torch.full((b,), k, dtype=torch.long, device=dev)
+    if return_alphas:
+        # carried only when asked for: the eval path needs ids alone
+        alphas = torch.zeros((b, k, max_steps, num_feat), dtype=torch.float32,
+                             device=dev)
+        fin_alphas = torch.zeros((b, k + 1, max_steps, num_feat),
+                                 dtype=torch.float32, device=dev)
+
+    t = 0
+    while t < max_steps and bool((k_rem > 0).any()):
+        cur = tokens[:, :, t]
+        if use_fused:
+            pre, new_state, alpha = model.step_lanes_core(params, encoded,
+                                                          state, cur)
+            vals, idx, lse = fused_head.topk_head(
+                head, pre.reshape((b * k,) + pre.shape[2:]), k)
+            logp_top = (vals - lse[:, None]).reshape(b, k * k)
+            cand = scores.repeat_interleave(k, dim=1) + logp_top
+            top_scores, flat_idx = _top_k(cand, k)        # over k*k
+            prev = flat_idx // k
+            tok = idx.reshape(b, k * k).long().gather(1, flat_idx)
+        else:
+            logits, new_state, alpha = model.step_lanes(params, encoded,
+                                                        state, cur)
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            v = logp.shape[-1]
+            cand = (scores[..., None] + logp).reshape(b, k * v)
+            top_scores, flat_idx = _top_k(cand, k)        # over k*V
+            prev = flat_idx // v
+            tok = flat_idx % v
+        valid = lanes < k_rem[:, None]                    # shrinking k
+        is_end = (tok == END_ID) & valid
+
+        tokens = lane_gather(tokens, prev)
+        tokens[:, :, t + 1] = tok
+        state = _tree_map(lambda s: lane_gather(s, prev), new_state)
+
+        # park the newly finished candidates in the pool: at most k_rem end
+        # in a step, so a real slot never passes k - 1
+        slot = torch.where(is_end,
+                           fin_count[:, None] + is_end.cumsum(dim=1) - 1, k)
+        fin_tokens[rows, slot] = tokens
+        fin_scores[rows, slot] = top_scores
+        n_end = is_end.sum(dim=1)
+        scores = torch.where(valid & ~is_end, top_scores,
+                             torch.full_like(top_scores, _NEG))
+        fin_count = fin_count + n_end
+        k_rem = k_rem - n_end
+        if return_alphas:
+            if alpha is None:
+                alpha = torch.zeros((b, k, num_feat), dtype=torch.float32,
+                                    device=dev)
+            alphas = lane_gather(alphas, prev)
+            alphas[:, :, t] = lane_gather(alpha, prev).float()
+            fin_alphas[rows, slot] = alphas
+        t += 1
+
+    # pick: the best finished beam, else the best live beam
+    # (NIC_Model.py:204-211)
+    any_fin = fin_count > 0
+    fin_best = fin_scores[:, :k].argmax(dim=1)
+    live_best = scores.argmax(dim=1)
+    b_idx = rows[:, 0]
+
+    def pick(pool, live):
+        return torch.where(
+            any_fin.reshape((b,) + (1,) * (pool.dim() - 2)),
+            pool[b_idx, fin_best], live[b_idx, live_best])
+
+    ids = pick(fin_tokens, tokens)
+    if not return_alphas:
+        return ids
+    return ids, pick(fin_alphas, alphas)

@@ -103,11 +103,17 @@ def _prepared(head: Union[dict, Head], x: torch.Tensor):
     return head, x
 
 
+def logits_plain(head: Union[dict, Head], x: torch.Tensor) -> torch.Tensor:
+    """The head's float32 logits (m, Vp), pad columns at -1e30: what K1
+    reduces without writing it out."""
+    head, x = _prepared(head, x)
+    return (x.float() @ head.w.float()) * head.s + head.b
+
+
 def topk_head_plain(head: Union[dict, Head], x: torch.Tensor, k: int
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1's function in plain PyTorch on materialized float32 logits."""
-    head, x = _prepared(head, x)
-    logits = (x.float() @ head.w.float()) * head.s + head.b
+    logits = logits_plain(head, x)
     # a stable descending sort keeps equal values in id order: lax.top_k's
     # tie order, which torch.topk does not promise
     vals, idx = torch.sort(logits, dim=1, descending=True, stable=True)
@@ -234,6 +240,15 @@ def _declare(lib) -> None:
     lib.fused_head_topk_wgmma.restype = i_
     lib.fused_head_topk_tf32x3.argtypes = [vp_] * 12 + [i_] * 5 + [vp_]
     lib.fused_head_topk_tf32x3.restype = i_
+
+
+def enabled(k: int) -> bool:
+    """Does beam search take the fused head at beam ``k``?  The counterpart
+    of the JAX package's ``fused_head.enabled``: the kernel takes every k
+    up to ``MAX_K`` on every device (a CPU tensor takes its plain version),
+    so only k decides; a wider beam takes the full-logits branch of
+    ``ops/decode.beam_search``."""
+    return 1 <= k <= MAX_K
 
 
 def topk_head(head: Union[dict, Head], x: torch.Tensor, k: int

@@ -103,15 +103,20 @@ def lanes_attention_int8_plain(q, kq, ks, vq, vs, mask, num_heads: int):
     return out.to(q.dtype), p.mean(dim=1)
 
 
-def tma_smem_bytes(k: int, n: int, d: int, heads: int) -> int:
+def tma_smem_bytes(k: int, n: int, d: int, heads: int,
+                   dtype: torch.dtype = torch.bfloat16) -> int:
     """Shared memory of one block (one sample) of the "tma" route
-    (csrc/int8_attention.cu attn_plan): K and V in boxes of at most 256
-    rows by 128 bytes, the two barriers, the scores and p * vs (heads x k x
-    n each), and ks, vs and mask; 128 bytes to align."""
+    (csrc/int8_attention.cu attn_plan) for q of ``dtype``: K and V in boxes
+    of at most 256 rows by 128 bytes, the two barriers, the scores and p *
+    vs (heads x k x n each), and ks, vs and mask; 128 bytes to align.
+    float32 q with 3 or more rows (the beam) is staged in shared memory:
+    its k x d values and 16 bytes to align them."""
     nbox = -(-n // TMA_BOX_ROWS)
     rows = -(-n // nbox)
+    staged = dtype == torch.float32 and k >= 3
     return (128 + 2 * (d // 128) * nbox * rows * 128 + 16
-            + 4 * (2 * heads * k * n + 3 * n))
+            + 4 * (2 * heads * k * n + 3 * n)
+            + (16 + 4 * k * d if staged else 0))
 
 
 def attention_route(q: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
@@ -127,7 +132,7 @@ def attention_route(q: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
             and (d // heads) % 128 == 0 and 1 <= k <= MAX_K
             and 1 <= n <= MAX_N and q.data_ptr() % 16 == 0
             and kq.data_ptr() % 16 == 0 and vq.data_ptr() % 16 == 0
-            and tma_smem_bytes(k, n, d, heads) <= TMA_SMEM):
+            and tma_smem_bytes(k, n, d, heads, q.dtype) <= TMA_SMEM):
         return "tma"
     return "cuda_core"
 

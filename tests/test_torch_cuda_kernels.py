@@ -585,3 +585,79 @@ def test_tf32x3_routes_refuse_a_misaligned_x(dev):
     with pytest.raises(RuntimeError, match="misaligned"):
         fused_lstm._run_kernel(wt.w_cat, wt.b_sum, xs, hh, c, "tf32x3",
                                wt.split)
+
+
+@pytest.mark.parametrize("b,k,n,d,heads", [(384, 3, 36, 1024, 8),
+                                           (8, 3, 5, 256, 2),
+                                           (5, 16, 37, 384, 3)])
+def test_int8_attention_f32_beam_q_staging_matches_plain(dev, b, k, n, d,
+                                                         heads):
+    """attend_tma<float, 4> (float32 q, k >= 3), which stages q's rows in
+    shared memory, holds against the plain version."""
+    q, kq, ks, vq, vs, mask = _attention_inputs(b, k, n, d, dev,
+                                                torch.float32, b + k + n)
+    assert int8_attention.attention_route(q, kq, vq, n, d, heads) == "tma"
+    got = int8_attention._run_kernel(q, kq, ks, vq, vs, mask, heads, "tma")
+    torch.cuda.synchronize()
+    want = int8_attention.lanes_attention_int8_plain(q, kq, ks, vq, vs, mask,
+                                                     heads)
+    _hold_attention(torch.float32, got, want, mask)
+
+
+@pytest.mark.parametrize("path", ["float32", "bfloat16", "int8/float32",
+                                  "int8/bfloat16"])
+def test_beam_decode_through_the_kernels_matches_plain(dev, path,
+                                                       monkeypatch):
+    """A small AoADetection beam-3 decode (hidden 256, 2 heads: dh = 128,
+    which K4 takes; vocab 1,000; B=16, 8 steps) through the kernels against
+    the same decode through the plain versions.  Every step launches K1 at
+    m = 48, k = 3, and K2 (float paths) or K3 three times and K4 at 3 query
+    rows (int8 paths), each on its tensor-core or "tma" route (K1-int8 and
+    K3 on the CUDA cores in float32).  Every kernel call holds against its
+    plain version on the same inputs.  float32 ids are identical in all but
+    at most one row; in the other paths each row's winner, rescored by the
+    plain step, scores no lower than the plain run's winner minus 2 x 8
+    steps x 4 x K1's value hold (1e-4 float32, 2e-3 bf16)."""
+    from simpleimagecaptionzoo_tpu_torch.config import ModelConfig
+    from simpleimagecaptionzoo_tpu_torch.engine import holds, steps
+    from simpleimagecaptionzoo_tpu_torch.models.base import get_captioner
+    b, n_box, beam, max_steps = 16, 5, 3, 8
+    cfg = dict(model_type="AoADetection", vocab_size=1000, embed_dim=256,
+               hidden_dim=256, enc_dim=64, num_heads=2, num_refine_layers=1,
+               max_bu_len=n_box)
+    monkeypatch.setenv("SICZ_TPU_INT8_KV", "auto")
+    model = get_captioner(ModelConfig(**cfg))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init_params(gen)
+    if path.startswith("int8"):
+        params = model.quantize_decode_params(params)
+    dtype = torch.bfloat16 if path.endswith("bfloat16") else torch.float32
+    valid = 1 + torch.arange(b, device=dev) % n_box
+    visual = {"bu_feats": torch.relu(torch.randn(b, n_box, 64, generator=gen,
+                                                 device=dev)),
+              "bu_masks": (torch.arange(n_box, device=dev)[None]
+                           < valid[:, None]).float()}
+    fn = steps.make_beam_decode(model, beam_size=beam, max_steps=max_steps,
+                                dtype=dtype, device="cuda")
+    with holds.plain_versions():
+        ref = fn(params, {}, visual)
+    shapes, broken = [], []
+    with holds.recording_shapes(shapes), holds.held_calls(broken):
+        ids = fn(params, {}, visual)
+    torch.cuda.synchronize()
+    assert broken == []
+    mk, tc = b * beam, dtype == torch.bfloat16
+    want = {"float32": {("K1", "tf32x3", mk, beam),
+                        ("K2", "tf32x3", mk, None)},
+            "bfloat16": {("K1", "wgmma", mk, beam),
+                         ("K2", "wgmma", mk, None)}}.get(
+        path, {("K1", "wgmma" if tc else "cuda_core", mk, beam),
+               ("K3", "wgmma" if tc else "cuda_core", mk, None),
+               ("K4", "tma", b, beam)})
+    assert set(shapes) == want
+    assert ids.shape == ref.shape == (b, max_steps + 1)
+    if path == "float32":
+        assert int((ids != ref).any(dim=1).sum()) <= 1
+        return
+    margin = holds.rescored_margin(model, params, visual, ids, ref, dtype, dev)
+    assert float(margin.min()) >= -holds.beam_tol(dtype, max_steps)

@@ -74,6 +74,25 @@ def test_tma_smem_plan(k, n, d, heads, smem):
     assert IA.tma_smem_bytes(k, n, d, heads) == smem
 
 
+@pytest.mark.parametrize("dtype,k,staged", [
+    (torch.float32, 1, False), (torch.float32, 2, False),
+    (torch.float32, 3, True), (torch.float32, 16, True),
+    (torch.bfloat16, 3, False), (torch.bfloat16, 16, False)])
+def test_q_staged_in_shared_memory_for_float32_beams(dtype, k, staged):
+    """float32 q with 3 or more rows (attend_tma<float, 4>) is staged in
+    shared memory, 16 bytes to align and k x d floats more; bf16 q and
+    fewer rows read q through L1.  The route decision counts the staged q:
+    at N=36 and D=1,024 float32 k=16 still fits 227 KB."""
+    base = IA.tma_smem_bytes(k, 36, 1024, 8)
+    assert IA.tma_smem_bytes(k, 36, 1024, 8, dtype) == (
+        base + (16 + 4 * k * 1024 if staged else 0))
+    q = torch.zeros(384, k, 1024, dtype=dtype)
+    assert IA.attention_route(q, _kv(384, 36, 1024), _kv(384, 36, 1024), 36,
+                              1024, 8) == "tma"
+    # the beam step's plan: two blocks an SM either way
+    assert IA.tma_smem_bytes(3, 36, 1024, 8, torch.float32) == 93520
+
+
 def _inputs(b, k, n, d, dtype, seed):
     rng = np.random.default_rng(seed)
     q = torch.from_numpy(rng.normal(size=(b, k, d)).astype(np.float32)).to(
