@@ -9,10 +9,11 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      (simpleimagecaptionzoo_tpu_torch/csrc, one nvcc per source, in
      parallel), ptxas's registers, shared memory and spills of the
      tensor-core kernels and of K4's "tma" route, and their SASS:
-     cuobjdump (or nvdisasm) must find HGMMA (wgmma) and UTMALDG (TMA
-     loads) in libfused_lstm, libfused_head and libquant_matmul, the tf32
-     HGMMA of the 3xTF32 products in the first two, and UTMALDG in
-     libint8_attention;
+     cuobjdump (or nvdisasm) must find HGMMA (wgmma), its tf32 form and
+     UTMALDG (TMA loads) in libfused_lstm, libfused_head and
+     libquant_matmul, the tf32 HGMMA and UTMALDG in each of the two
+     "tf32x2" kernels (head_partial_tf32x2, quant_matmul_tf32x2) on its
+     own, and UTMALDG in libint8_attention;
   3. K1, the fused head top-k, against its plain PyTorch version on the card
      at the greedy decode shape (m=384, H=1024, V=10,102; k=1 and k=3), at
      m=3 and at the beam shape (m=1,152, k=3) on each dtype's tensor-core
@@ -29,13 +30,16 @@ Phases, each of which fails the run (nonzero exit) when it fails:
   5. K3, the int8 dequantizing product, against its plain version at the
      three shapes of the int8 decode step (the LSTM gates, aoa_dec.q,
      aoa_dec.aoa; m=384, and m=1,152 for the beam step) and a ragged one
-     (m=37, K=200, n=700): float32 on the CUDA-core route, bf16 on both
-     routes (the tensor-core route also at m=1,152); each step shape timed
-     at both m in turns (old, new, lib, lib, new, old) against
-     torch._weight_int8pack_mm;
-  6. K1-int8, the fused head over the int8 head weight, as in 3: float32 on
-     the CUDA-core route, bf16 on both routes, each also at m=1,152, k=3;
-     the cross-chunk tie with an int8 head on each;
+     (m=37, K=200, n=700) on each dtype's tensor-core route (bf16:
+     "wgmma"; float32: "tf32x2", two TF32 products over q widened to
+     float32 in shared memory), and at the same shapes on the CUDA-core
+     route (forced); each step shape timed at both m in turns
+     (old: CUDA cores, new, lib, lib, new, old), host-inclusive and
+     device-only, against torch._weight_int8pack_mm;
+  6. K1-int8, the fused head over the int8 head weight, as in 3, on each
+     dtype's tensor-core route ("wgmma", "tf32x2") and on the CUDA-core
+     route (forced), each also at m=1,152, k=3; timed in turns (old, new,
+     new, old); the cross-chunk tie with an int8 head on every route;
   7. K4, the int8 K/V attention, against its plain version (B=384, k=1
      and k=3, 36 boxes with 10-36 valid, 8 heads, float32 and bf16) on
      both routes ("tma": a sample's K and V requested whole by TMA, every
@@ -49,9 +53,9 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      the "tf32x3" route) and in bf16 (every launch on the "wgmma" route),
      and in int8 serving form, on model.quantize_decode_params with
      SICZ_TPU_INT8_KV=auto, in float32 (K3 three times a step, K1-int8 and
-     K4 once, K2 never; K3 and K1-int8 on the CUDA-core routes) and in bf16
-     (the same, with every K3 and K1-int8 launch on the tensor-core route);
-     in both, every K4 launch on the "tma" route.  Each is run once
+     K4 once, K2 never; every K3 and K1-int8 launch on "tf32x2") and in
+     bf16 (the same, with every K3 and K1-int8 launch on "wgmma"); in both,
+     every K4 launch on the "tma" route.  Each is run once
      with the plain versions (the reference) and three times through the
      kernels; the launch counts of the kernel runs, per route, must equal
      their decode steps times those multiples, and the ids must agree with
@@ -85,14 +89,20 @@ time when the host issues a call more slowly than the card runs it; the
 tensor-core routes of K1, K2, K3 and K1-int8, and both routes of K4, are
 also timed with the card kept busy while the host launches them
 (``device_*``: the device's time alone).  The float32 CUDA-core routes of
-K1 and K2, the bf16 ones of K3 and K1-int8 and K4's "cuda_core" route keep
-their entries (``launches`` 0: no decode runs them).
+K1, K2, K3 and K1-int8, the bf16 ones of K3 and K1-int8 and K4's
+"cuda_core" route keep their entries (``launches`` 0: no decode runs
+them).
 ``bound_ms`` is the larger of the bytes the function must move over 3.35
 TB/s and its operations over the peak rate for their type and route (989
 TFLOP/s bf16 tensor cores; 67 TFLOP/s float32 on the CUDA cores; for the
 3xTF32 routes a third of the 494.7 TFLOP/s TF32 peak, as each float32
-operation is three TF32 ones; K4's float32 arithmetic at the CUDA-core
-rate whatever q's type), the H100 SXM data-sheet figures at 700 W.
+operation is three TF32 ones; for float32 x with an int8 weight, the
+"tf32x2" routes, a third of the bf16 rate, the card's best for that
+function: q is exact in bf16 and x in three bf16 parts keeps 27 bits, so
+three bf16 products keep float32 accuracy (the 2xTF32 scheme's own rate,
+half the TF32 peak, is printed beside it as ``scheme_bound_ms``); K4's
+float32 arithmetic at the CUDA-core rate whatever q's type), the H100 SXM
+data-sheet figures at 700 W.
 An int8 weight is counted at one byte; its product runs at x's type.
 """
 from __future__ import annotations
@@ -100,6 +110,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -107,9 +118,13 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12
 # a 3xTF32 product does three TF32 products' operations: its float32
-# operations run at a third of the 494.7 TFLOP/s TF32 peak
+# operations run at a third of the 494.7 TFLOP/s TF32 peak.  Float32 x
+# times an int8 weight ("tf32x2") is bound at a third of the bf16 rate:
+# three bf16 products (x in three bf16 parts, q exact in bf16) keep
+# float32 accuracy, faster than the route's own 2xTF32 ("2xtf32")
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12,
-                  "tf32x3": 494.7e12 / 3}
+                  "tf32x3": 494.7e12 / 3, "tf32x2": 989e12 / 3,
+                  "2xtf32": 494.7e12 / 2}
 B, MAX_LEN, N_BOX, BEAM = 384, 20, 36, 3
 FULL = dict(model_type="AoADetection", vocab_size=10102, embed_dim=1024,
             hidden_dim=1024, enc_dim=2048, num_heads=8, num_refine_layers=6,
@@ -178,30 +193,43 @@ def _tool(name):
 SASS_OPS = ("HGMMA", "UTMALDG", "HGMMA.64x128x8.F32.TF32")
 
 
-def sass_counts(_build, name, lib, ops=SASS_OPS):
-    """How often each SASS opcode of ``ops`` occurs in the built library
-    of ``csrc/<name>.cu`` (HGMMA counts every wgmma, the last one the tf32
-    products of the "tf32x3" routes): cuobjdump -sass on the library, or,
-    without cuobjdump, nvdisasm on a cubin of the same source."""
+def sass_text(_build, name, lib):
+    """The SASS of the built library of ``csrc/<name>.cu``: cuobjdump -sass
+    on the library, or, without cuobjdump, nvdisasm on a cubin of the same
+    source."""
     cuobjdump = _tool("cuobjdump")
     if cuobjdump:
-        text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+        return subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
                               text=True, timeout=120, check=True).stdout
-    else:
-        nvdisasm = _tool("nvdisasm")
-        require(nvdisasm, "neither cuobjdump nor nvdisasm found")
-        cubin = lib + ".cubin"
-        subprocess.run([_build.nvcc_path(), "-gencode",
-                        "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                        "-cubin", "-I", _build.CSRC_DIR, "-o", cubin,
-                        os.path.join(_build.CSRC_DIR, name + ".cu")],
-                       check=True, capture_output=True, timeout=300)
-        text = subprocess.run([nvdisasm, cubin], capture_output=True,
-                              text=True, timeout=120, check=True).stdout
+    nvdisasm = _tool("nvdisasm")
+    require(nvdisasm, "neither cuobjdump nor nvdisasm found")
+    cubin = lib + ".cubin"
+    subprocess.run([_build.nvcc_path(), "-gencode",
+                    "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                    "-cubin", "-I", _build.CSRC_DIR, "-o", cubin,
+                    os.path.join(_build.CSRC_DIR, name + ".cu")],
+                   check=True, capture_output=True, timeout=300)
+    return subprocess.run([nvdisasm, cubin], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+
+
+def sass_counts(text, ops=SASS_OPS):
+    """How often each SASS opcode of ``ops`` occurs in ``text`` (HGMMA
+    counts every wgmma, the last one the tf32 products of the "tf32x3" and
+    "tf32x2" routes)."""
     return {op: text.count(op) for op in ops}
 
 
-def ptxas_lines(lib, markers=("wgmma", "tf32x3")):
+def sass_functions(text):
+    """{mangled kernel name: its SASS} from cuobjdump's ("Function : name")
+    or nvdisasm's (".text.name:") listing."""
+    parts = re.split(r"Function : (\S+)|^\s*\.text\.(\S+):", text,
+                     flags=re.M)
+    return {parts[i] or parts[i + 1]: parts[i + 2]
+            for i in range(1, len(parts) - 2, 3)}
+
+
+def ptxas_lines(lib, markers=("wgmma", "tf32x3", "tf32x2")):
     """ptxas's report (-Xptxas -v, kept in <library>.log) of the kernels
     whose mangled name holds one of ``markers``: the tensor-core ones."""
     lines, keep = [], 0
@@ -217,19 +245,21 @@ def ptxas_lines(lib, markers=("wgmma", "tf32x3")):
     return lines
 
 
-def counts(mod):
-    """(every launch, "wgmma" launches, "tf32x3" launches) of K1's or K2's
-    counters."""
-    return mod.COUNT.n, mod.COUNT_WGMMA.n, mod.COUNT_TF32X3.n
+def counts(mod, tf32="tf32x3"):
+    """(every launch, "wgmma" launches, launches of the float32 route
+    ``tf32``) of a kernel's counters: "tf32x3" for K1 and K2, "tf32x2" for
+    K3 and K1-int8."""
+    return mod.COUNT.n, mod.COUNT_WGMMA.n, getattr(mod, "COUNT_"
+                                                   + tf32.upper()).n
 
 
 def moved(now, before):
     return tuple(a - b for a, b in zip(now, before))
 
 
-def launched(route, n=1):
+def launched(route, n=1, tf32="tf32x3"):
     """How ``n`` launches on ``route`` move :func:`counts`."""
-    return n, n * (route == "wgmma"), n * (route == "tf32x3")
+    return n, n * (route == "wgmma"), n * (route == tf32)
 
 
 def bound(nbytes, nops, rate):
@@ -354,19 +384,33 @@ def main(argv=None) -> int:
                                            results["build_s"]))
     results["sass"], results["ptxas"] = {}, {}
     for lname in ("fused_lstm", "fused_head", "quant_matmul"):
-        ops = sass_counts(_build, lname, lib_paths[lname])
-        require(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0
-                and (ops[SASS_OPS[2]] > 0 or lname == "quant_matmul"),
+        text = sass_text(_build, lname, lib_paths[lname])
+        ops = sass_counts(text)
+        require(all(v > 0 for v in ops.values()),
                 "%s: the SASS holds %s; the tensor-core routes need HGMMA "
-                "(tf32 in K1 and K2) and UTMALDG" % (lname, ops))
+                "(tf32 in K1, K2 and K3) and UTMALDG" % (lname, ops))
         results["sass"][lname] = ops
         results["ptxas"][lname] = ptxas_lines(lib_paths[lname])
         log("SASS %s: %s" % (lname, ", ".join("%s x %d" % kv
                                               for kv in ops.items())))
+        # the 2xTF32 kernels on their own: tf32 wgmma fed by TMA
+        for fname, body in sass_functions(text).items():
+            if "tf32x2" not in fname:
+                continue
+            fops = sass_counts(body)
+            require(fops["UTMALDG"] > 0 and fops[SASS_OPS[2]] > 0,
+                    "%s: the SASS of %s holds %s; the tf32x2 route needs "
+                    "the tf32 HGMMA and UTMALDG" % (lname, fname, fops))
+            results["sass"]["%s:%s" % (lname, fname)] = fops
+            log("SASS %s: %s" % (fname, ", ".join("%s x %d" % kv
+                                                  for kv in fops.items())))
         for line in results["ptxas"][lname]:
             log("  ptxas " + line)
+    require(sum("tf32x2" in n for n in results["sass"]) == 2,
+            "the SASS lacks a tf32x2 kernel: %s" % list(results["sass"]))
     # K4's "tma" route loads K and V with TMA (no tensor-core product)
-    ops = sass_counts(_build, "int8_attention", lib_paths["int8_attention"],
+    ops = sass_counts(sass_text(_build, "int8_attention",
+                                lib_paths["int8_attention"]),
                       ops=("UTMALDG",))
     require(ops["UTMALDG"] > 0, "int8_attention: the SASS holds %s; the tma "
             "route needs UTMALDG" % ops)
@@ -686,32 +730,28 @@ def main(argv=None) -> int:
     k3_cases = k3_steps + [("ragged", ragged, 37, 200)]
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
-        tc = dtype == torch.bfloat16
-        # bf16: the tensor-core route (quant_route's pick), also at the beam
-        # rows, and the CUDA-core route forced at every greedy shape;
-        # float32: the CUDA-core route, also at the beam rows
-        cases = [c + ("cuda_core",) for c in k3_cases]
-        if tc:
-            cases = ([c + ("wgmma",) for c in k3_cases + k3_beam]
-                     + cases)
-        else:
-            cases += [c + ("cuda_core",) for c in k3_beam]
-        errs = {"wgmma": 0.0, "cuda_core": 0.0}
+        tc_route = "wgmma" if dtype == torch.bfloat16 else "tf32x2"
+        rate = dn if tc_route == "wgmma" else tc_route     # for bound()
+        # the tensor-core route (quant_route's pick) and, forced, the
+        # CUDA-core route, which operands TMA cannot take go to, at every
+        # shape: the greedy and beam rows and the ragged one
+        cases = [c + (route,) for route in (tc_route, "cuda_core")
+                 for c in k3_cases + k3_beam]
+        errs = {tc_route: 0.0, "cuda_core": 0.0}
         for what, qp, m, k, route in cases:
             n = qp["s"].shape[0]
             x = (0.5 * torch.randn(m, k, generator=gen, device=dev)).to(dtype)
-            before = quant.COUNT.n, quant.COUNT_WGMMA.n
-            if route == quant.quant_route(x, qp["q"]):
+            before = counts(quant, "tf32x2")
+            if route == tc_route:
+                got_route = quant.quant_route(x, qp["q"])
+                require(got_route == route, "K3 %s %s m=%d K=%d takes the %s "
+                        "route" % (dn, what, m, k, got_route))
                 got = quant.quant_matmul(x, qp)
             else:
-                require(tc and route == "cuda_core", "K3 %s %s m=%d K=%d takes "
-                        "the %s route" % (dn, what, m, k,
-                                          quant.quant_route(x, qp["q"])))
                 got = quant._run_kernel(x, qp["q"], qp["s"], qp["b"], route)
             torch.cuda.synchronize()
-            delta = (quant.COUNT.n - before[0],
-                     quant.COUNT_WGMMA.n - before[1])
-            require(delta == (1, int(route == "wgmma")),
+            delta = moved(counts(quant, "tf32x2"), before)
+            require(delta == launched(route, tf32="tf32x2"),
                     "K3 %s %s %s: the counters moved by %s"
                     % (dn, route, what, delta))
             want = quant.quant_matmul_plain(x, qp)
@@ -731,15 +771,22 @@ def main(argv=None) -> int:
                     % (dn, route, what, m, k, n, float(diff.max()), tol_s))
             errs[route] = max(errs[route], float(diff.max()))
             log("K3 %s (%s) %s m=%d K=%d (Kp %d) n=%d (Np %d): max|err| %.3g "
-                "(%s)" % (dn, route, what, m, k, qp["q"].shape[0], n,
-                          qp["q"].shape[1], float(diff.max()), tol_s))
+                "(%s; largest share of the hold %.3g)"
+                % (dn, route, what, m, k, qp["q"].shape[0], n,
+                   qp["q"].shape[1], float(diff.max()), tol_s,
+                   float((diff / lim).max())))
         item = torch.tensor([], dtype=dtype).element_size()
-        shapes = {(r, m): [] for r in ("wgmma", "cuda_core") for m in (B, mb)}
+        shapes = {(r, m): [] for r in (tc_route, "cuda_core") for m in (B, mb)}
         for what, qp, m, k in k3_steps + k3_beam:
             n = qp["s"].shape[0]
             x = (0.5 * torch.randn(m, k, generator=gen, device=dev)).to(dtype)
             nbytes = m * k * item + k * n + 2 * n * 4 + m * n * item
-            b_ms, b_by = bound(nbytes, 2 * m * k * n, dn)
+            tc_bound = bound(nbytes, 2 * m * k * n, rate)
+            old_bound = bound(nbytes, 2 * m * k * n, dn)
+            # float32: the 2xTF32 scheme's own rate, beside the bound
+            scheme = ({"scheme_bound_ms": bound(nbytes, 2 * m * k * n,
+                                                "2xtf32")[0]}
+                      if tc_route == "tf32x2" else {})
             plain_ms = time_ms(torch, lambda: quant.quant_matmul_plain(x, qp),
                                flush)
             # the library yardstick: x @ (q s)^T without the bias
@@ -749,43 +796,47 @@ def main(argv=None) -> int:
                                                     qp["b"], "cuda_core"),
                    "new": lambda: quant.quant_matmul(x, qp),
                    "lib": lambda: torch._weight_int8pack_mm(x, q_t, s_x)}
-            order = (["old", "new", "lib", "lib", "new", "old"] if tc
-                     else ["old", "lib", "lib", "old"])
+            order = ["old", "new", "lib", "lib", "new", "old"]
             turns = time_turns(torch, fns, flush, order)
             dev_turns = time_turns(torch, fns, flush, order, lead=DEVICE_LEAD)
             common = dict(what=what, shape="m=%d K=%d n=%d" % (m, k, n),
-                          plain_ms=plain_ms,
-                          bound_ms=b_ms, bound_by=b_by,
-                          library_ms=mean(turns["lib"]),
+                          plain_ms=plain_ms, library_ms=mean(turns["lib"]),
                           device_library_ms=mean(dev_turns["lib"]))
-            for route, key in (("cuda_core", "old"), ("wgmma", "new")):
-                if key in turns:
-                    shapes[route, m].append(dict(
-                        common, ms=mean(turns[key]), turns=turns[key],
-                        device_ms=mean(dev_turns[key]),
-                        device_turns=dev_turns[key]))
-            log("K3 %s %s m=%d K=%d n=%d timing in turns (%s): %scuda_core %s "
-                "ms, torch._weight_int8pack_mm %s ms; device alone: %s"
-                "cuda_core %s, library %s ms; plain %.4f ms; bound %.4f ms (%s)"
-                % (dn, what, m, k, n, ", ".join(order),
-                   "wgmma %s ms, " % ["%.4f" % t for t in turns["new"]]
-                   if tc else "", ["%.4f" % t for t in turns["old"]],
-                   ["%.4f" % t for t in turns["lib"]],
-                   "wgmma %s, " % ["%.4f" % t for t in dev_turns["new"]]
-                   if tc else "", ["%.4f" % t for t in dev_turns["old"]],
-                   ["%.4f" % t for t in dev_turns["lib"]], plain_ms, b_ms,
-                   b_by))
-        # the greedy rows' entries, and the beam rows' on the route the
-        # beam decode of this dtype runs
-        for route, m in ([("cuda_core", B), ("wgmma", B), ("wgmma", mb)]
-                         if tc else [("cuda_core", B), ("cuda_core", mb)]):
+            for route, key, (b_ms, b_by) in (("cuda_core", "old", old_bound),
+                                             (tc_route, "new", tc_bound)):
+                shapes[route, m].append(dict(
+                    common, bound_ms=b_ms, bound_by=b_by,
+                    **(scheme if route == tc_route else {}),
+                    ms=mean(turns[key]), turns=turns[key],
+                    device_ms=mean(dev_turns[key]),
+                    device_turns=dev_turns[key]))
+            log("K3 %s %s m=%d K=%d n=%d timing in turns (%s): %s %s ms, "
+                "cuda_core %s ms, torch._weight_int8pack_mm %s ms; device "
+                "alone: %s %s, cuda_core %s, library %s ms; plain %.4f ms; "
+                "bound %.4f ms (%s; %sthe CUDA-core rate's %.4f)"
+                % (dn, what, m, k, n, ", ".join(order), tc_route,
+                   ["%.4f" % t for t in turns["new"]],
+                   ["%.4f" % t for t in turns["old"]],
+                   ["%.4f" % t for t in turns["lib"]], tc_route,
+                   ["%.4f" % t for t in dev_turns["new"]],
+                   ["%.4f" % t for t in dev_turns["old"]],
+                   ["%.4f" % t for t in dev_turns["lib"]], plain_ms,
+                   tc_bound[0], tc_bound[1],
+                   "".join("2xTF32's %.4f, " % v for v in scheme.values()),
+                   old_bound[0]))
+        # the CUDA-core route's entry at the greedy rows, the tensor-core
+        # route's at the greedy rows and at the beam rows
+        for route, m in (("cuda_core", B), (tc_route, B), (tc_route, mb)):
             first = shapes[route, m][0]                  # the LSTM gates
-            ename = "quant_matmul_wgmma" if route == "wgmma" else "quant_matmul"
+            ename = ("quant_matmul" if route == "cuda_core"
+                     else "quant_matmul_" + route)
             extra = (dict(old_route_ms=shapes["cuda_core", m][0]["ms"],
                           device_old_route_ms=shapes["cuda_core", m][0][
                               "device_ms"],
+                          old_route_bound_ms=shapes["cuda_core", m][0][
+                              "bound_ms"],
                           old_route_max_abs_err=errs["cuda_core"])
-                     if route == "wgmma" else {})
+                     if route != "cuda_core" else {})
             entry(ename + ("_beam" if m == mb else ""), dn,
                   source="simpleimagecaptionzoo_tpu_torch/csrc/quant_matmul.cu",
                   replaces="simpleimagecaptionzoo_tpu/ops/quant.py:105",
@@ -793,6 +844,7 @@ def main(argv=None) -> int:
                   ms=first["ms"], kernel_ms=first["ms"],
                   device_ms=first["device_ms"], plain_ms=first["plain_ms"],
                   bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+                  **{k: first[k] for k in ("scheme_bound_ms",) if k in first},
                   library_ms=first["library_ms"], kernel_route=route,
                   shape=first["shape"] + " (the LSTM gates)",
                   shapes=shapes[route, m], **extra)
@@ -800,7 +852,8 @@ def main(argv=None) -> int:
     # -- 6. K1-int8 against its plain version ---------------------------------
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
-        tc = dtype == torch.bfloat16
+        tc_route = "wgmma" if dtype == torch.bfloat16 else "tf32x2"
+        rate = dn if tc_route == "wgmma" else tc_route     # for bound()
         tol = 1e-4 if dtype == torch.float32 else 2e-3
         head = fused_head.prepare_head(qparams["predict"], dtype)
         require(head.w.dtype == torch.int8, "K1-int8: head weight is %s"
@@ -808,68 +861,40 @@ def main(argv=None) -> int:
         x = (0.5 * torch.randn(B, hd, generator=gen, device=dev)).to(dtype)
         xb = (0.5 * torch.randn(mb, hd, generator=gen, device=dev)).to(dtype)
         route = fused_head.head_route(head.w, x)
-        require(route == ("wgmma" if tc else "cuda_core"),
-                "K1-int8 %s takes the %s route" % (dn, route))
-        before = fused_head.COUNT_WGMMA.n
+        require(route == tc_route, "K1-int8 %s takes the %s route"
+                % (dn, route))
+        before = counts(fused_head, "tf32x2")
         err = hold_head(torch, fused_head, "K1-int8/" + route, head, x, dn,
                         tol, extra=[(xb, 3)])
-        require(fused_head.COUNT_WGMMA.n - before == (4 if tc else 0),
-                "K1-int8 %s: %d launches on the wgmma route"
-                % (dn, fused_head.COUNT_WGMMA.n - before))
+        delta = moved(counts(fused_head, "tf32x2"), before)
+        require(delta == launched(tc_route, 4, tf32="tf32x2"),
+                "K1-int8 %s: the counters moved by %s" % (dn, delta))
+        # the CUDA-core route, which int8 heads TMA cannot take go to
+        before = counts(fused_head, "tf32x2")
+        old_err = hold_head(torch, fused_head, "K1-int8/cuda_core", head, x,
+                            dn, tol, extra=[(xb, 3)], route="cuda_core")
+        delta = moved(counts(fused_head, "tf32x2"), before)
+        require(delta == launched("cuda_core", 4, tf32="tf32x2"),
+                "K1-int8 %s forced onto the cuda_core route: the counters "
+                "moved by %s" % (dn, delta))
         item = x.element_size()
-        nbytes = (B * hd * item + hd * head.v + 2 * head.v * 4
-                  + B * (1 * 8 + 4))
-        b_ms, b_by = bound(nbytes, 2 * B * hd * head.v, dn)
+
+        def k1i_bound(m, k, rate):
+            nbytes = (m * hd * item + hd * head.v + 2 * head.v * 4
+                      + m * (k * 8 + 4))
+            return bound(nbytes, 2 * m * hd * head.v, rate)
+
+        b_ms, b_by = k1i_bound(B, 1, rate)
+        bb_ms, bb_by = k1i_bound(mb, 3, rate)
+        # float32: the 2xTF32 scheme's own rate, beside the bound
+        scheme = ({"scheme_bound_ms": k1i_bound(B, 1, "2xtf32")[0],
+                   "beam_scheme_bound_ms": k1i_bound(mb, 3, "2xtf32")[0]}
+                  if tc_route == "tf32x2" else {})
         plain_ms = time_ms(torch,
                            lambda: fused_head.topk_head_plain(head, x, 1),
                            flush)
         beam_plain_ms = time_ms(
             torch, lambda: fused_head.topk_head_plain(head, xb, 3), flush)
-        bb_ms, bb_by = bound(mb * hd * item + hd * head.v + 2 * head.v * 4
-                             + mb * (3 * 8 + 4), 2 * mb * hd * head.v, dn)
-        beam_common = dict(
-            source="simpleimagecaptionzoo_tpu_torch/csrc/fused_head.cu",
-            replaces="simpleimagecaptionzoo_tpu/ops/fused_head.py:155",
-            max_abs_err=err, max_err=err, plain_ms=beam_plain_ms,
-            bound_ms=bb_ms, bound_by=bb_by, library_ms=None,
-            kernel_route=route, shape="m=%d K=%d V=%d int8 W k=3"
-            % (mb, hd, head.v))
-        common = dict(source="simpleimagecaptionzoo_tpu_torch/csrc/"
-                      "fused_head.cu",
-                      replaces="simpleimagecaptionzoo_tpu/ops/fused_head.py:155",
-                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                      library_ms=None, shape="m=%d K=%d V=%d int8 W (padded "
-                      "%dx%d) k=1" % (B, hd, head.v, *head.w.shape))
-        if not tc:
-            ms = time_ms(torch, lambda: fused_head.topk_head(head, x, 1),
-                         flush)
-            dev_ms = time_ms(torch, lambda: fused_head.topk_head(head, x, 1),
-                             flush, lead=DEVICE_LEAD)
-            beam_ms = time_ms(torch, lambda: fused_head.topk_head(head, xb, 3),
-                              flush)
-            beam_dev_ms = time_ms(
-                torch, lambda: fused_head.topk_head(head, xb, 3), flush,
-                lead=DEVICE_LEAD)
-            entry("fused_head_topk_int8", dn, max_abs_err=err, max_err=err,
-                  ms=ms, kernel_ms=ms, device_ms=dev_ms,
-                  kernel_route="cuda_core", **common)
-            entry("fused_head_topk_int8_beam", dn, ms=beam_ms,
-                  kernel_ms=beam_ms, device_ms=beam_dev_ms, **beam_common)
-            log("K1-int8 %s timing (cuda_core): kernel %.4f ms (device alone "
-                "%.4f), plain %.4f ms, bound %.4f ms (%s); at m=%d k=3 %.4f "
-                "ms (device alone %.4f), plain %.4f ms, bound %.4f ms (%s)"
-                % (dn, ms, dev_ms, plain_ms, b_ms, b_by, mb, beam_ms,
-                   beam_dev_ms, beam_plain_ms, bb_ms, bb_by))
-            continue
-        # the CUDA-core route, which int8 heads TMA cannot take go to
-        before = fused_head.COUNT.n, fused_head.COUNT_WGMMA.n
-        old_err = hold_head(torch, fused_head, "K1-int8/cuda_core", head, x,
-                            dn, tol, route="cuda_core")
-        require((fused_head.COUNT.n - before[0],
-                 fused_head.COUNT_WGMMA.n - before[1]) == (3, 0),
-                "K1-int8 %s forced onto the cuda_core route: counters moved "
-                "by %d and %d" % (dn, fused_head.COUNT.n - before[0],
-                                  fused_head.COUNT_WGMMA.n - before[1]))
         fns = {"old": lambda: fused_head._run_kernel(head, x, 1, "cuda_core"),
                "new": lambda: fused_head.topk_head(head, x, 1)}
         beam_fns = {
@@ -880,48 +905,73 @@ def main(argv=None) -> int:
         dev_turns = time_turns(torch, fns, flush, order, lead=DEVICE_LEAD)
         beam = time_turns(torch, beam_fns, flush, order)
         dev_beam = time_turns(torch, beam_fns, flush, order, lead=DEVICE_LEAD)
+        common = dict(source="simpleimagecaptionzoo_tpu_torch/csrc/"
+                      "fused_head.cu",
+                      replaces="simpleimagecaptionzoo_tpu/ops/fused_head.py:155",
+                      plain_ms=plain_ms, library_ms=None,
+                      shape="m=%d K=%d V=%d int8 W (padded %dx%d) k=1"
+                      % (B, hd, head.v, *head.w.shape))
+        ob_ms, ob_by = k1i_bound(B, 1, dn)
         entry("fused_head_topk_int8", dn, max_abs_err=old_err,
               max_err=old_err, ms=mean(turns["old"]),
               kernel_ms=mean(turns["old"]),
-              device_ms=mean(dev_turns["old"]), kernel_route="cuda_core",
-              **common)
-        entry("fused_head_topk_int8_wgmma", dn, max_abs_err=err, max_err=err,
+              device_ms=mean(dev_turns["old"]), bound_ms=ob_ms,
+              bound_by=ob_by, kernel_route="cuda_core",
+              beam_ms=mean(beam["old"]), beam_device_ms=mean(dev_beam["old"]),
+              beam_bound_ms=k1i_bound(mb, 3, dn)[0], **common)
+        tc_name = ("fused_head_topk_int8_wgmma" if tc_route == "wgmma"
+                   else "fused_head_topk_tf32x2")
+        entry(tc_name, dn, max_abs_err=err, max_err=err,
               ms=mean(turns["new"]), kernel_ms=mean(turns["new"]),
-              kernel_route="wgmma", turns=turns,
-              old_route_ms=mean(turns["old"]), old_route_max_abs_err=old_err,
+              bound_ms=b_ms, bound_by=b_by, kernel_route=tc_route,
+              turns=turns, old_route_ms=mean(turns["old"]),
+              old_route_max_abs_err=old_err, old_route_bound_ms=ob_ms,
               device_turns=dev_turns, device_ms=mean(dev_turns["new"]),
               device_old_route_ms=mean(dev_turns["old"]),
               beam_shape="m=%d k=3" % mb, beam_turns=beam,
               beam_ms=mean(beam["new"]), beam_old_route_ms=mean(beam["old"]),
-              beam_device_turns=dev_beam, beam_bound_ms=bb_ms, **common)
-        entry("fused_head_topk_int8_wgmma_beam", dn, ms=mean(beam["new"]),
-              kernel_ms=mean(beam["new"]), device_ms=mean(dev_beam["new"]),
+              beam_device_turns=dev_beam, beam_device_ms=mean(dev_beam["new"]),
+              beam_bound_ms=bb_ms, **scheme, **common)
+        entry(tc_name + "_beam", dn, max_abs_err=err, max_err=err,
+              ms=mean(beam["new"]), kernel_ms=mean(beam["new"]),
+              device_ms=mean(dev_beam["new"]),
               old_route_ms=mean(beam["old"]),
-              device_old_route_ms=mean(dev_beam["old"]), **beam_common)
-        log("K1-int8 %s timing in turns (old, new, new, old): wgmma %s ms, "
-            "cuda_core %s ms; device alone: wgmma %s, cuda_core %s ms; plain "
-            "%.4f ms; bound %.4f ms (%s)"
-            % (dn, ["%.4f" % t for t in turns["new"]],
-               ["%.4f" % t for t in turns["old"]],
+              device_old_route_ms=mean(dev_beam["old"]),
+              plain_ms=beam_plain_ms, bound_ms=bb_ms, bound_by=bb_by,
+              **{k[5:]: v for k, v in scheme.items() if k.startswith("beam_")},
+              library_ms=None, kernel_route=tc_route,
+              shape="m=%d K=%d V=%d int8 W k=3" % (mb, hd, head.v),
+              source=common["source"], replaces=common["replaces"])
+        log("K1-int8 %s timing in turns (old, new, new, old): %s %s ms, "
+            "cuda_core %s ms; device alone: %s %s, cuda_core %s ms; plain "
+            "%.4f ms; bound %.4f ms (%s; %sthe CUDA-core rate's %.4f)"
+            % (dn, tc_route, ["%.4f" % t for t in turns["new"]],
+               ["%.4f" % t for t in turns["old"]], tc_route,
                ["%.4f" % t for t in dev_turns["new"]],
-               ["%.4f" % t for t in dev_turns["old"]], plain_ms, b_ms, b_by))
-        log("K1-int8 %s at m=%d k=3 in turns: wgmma %s ms, cuda_core %s ms; "
-            "device alone: wgmma %s, cuda_core %s ms; plain %.4f ms; bound "
-            "%.4f ms (%s)"
-            % (dn, mb, ["%.4f" % t for t in beam["new"]],
-               ["%.4f" % t for t in beam["old"]],
+               ["%.4f" % t for t in dev_turns["old"]], plain_ms, b_ms, b_by,
+               "".join("2xTF32's %.4f, " % scheme[k]
+                       for k in ("scheme_bound_ms",) if k in scheme),
+               ob_ms))
+        log("K1-int8 %s at m=%d k=3 in turns: %s %s ms, cuda_core %s ms; "
+            "device alone: %s %s, cuda_core %s ms; plain %.4f ms; bound "
+            "%.4f ms (%s%s)"
+            % (dn, mb, tc_route, ["%.4f" % t for t in beam["new"]],
+               ["%.4f" % t for t in beam["old"]], tc_route,
                ["%.4f" % t for t in dev_beam["new"]],
                ["%.4f" % t for t in dev_beam["old"]], beam_plain_ms, bb_ms,
-               bb_by))
+               bb_by, "".join("; 2xTF32's %.4f" % scheme[k]
+                              for k in ("beam_scheme_bound_ms",)
+                              if k in scheme)))
 
-    # the tie across chunks with an int8 head, on both bf16 routes and in
-    # float32 (3 and 1 are exact int8 values; scale 1, bias 0)
+    # the tie across chunks with an int8 head, on both routes of each dtype
+    # (3 and 1 are exact int8 values; scale 1, bias 0)
     q = torch.zeros((128, 2 * fused_head.V_TILE), dtype=torch.int8,
                     device=dev)
     q[:8, 7] = 3
     q[:8, fused_head.V_TILE + 11] = 3
     q[:8, 100] = 1
-    for dtype, route in ((torch.float32, "cuda_core"),
+    for dtype, route in ((torch.float32, "tf32x2"),
+                         (torch.float32, "cuda_core"),
                          (torch.bfloat16, "wgmma"),
                          (torch.bfloat16, "cuda_core")):
         tie_head = fused_head.prepare_head(
@@ -1094,29 +1144,34 @@ def main(argv=None) -> int:
                     fused_lstm_cell_tf32x3=fused_lstm.COUNT_TF32X3,
                     quant_matmul=quant.COUNT,
                     quant_matmul_wgmma=quant.COUNT_WGMMA,
+                    quant_matmul_tf32x2=quant.COUNT_TF32X2,
+                    fused_head_topk_tf32x2=fused_head.COUNT_TF32X2,
                     int8_attention=int8_attention.COUNT,
                     int8_attention_tma=int8_attention.COUNT_TMA)
     # launches per step of each counter, and the kernels-line entry each
     # counter's launches go to (COUNT is every launch of K1, K2, K3 or K4;
-    # the _wgmma and _tf32x3 counters those of a tensor-core route, _tma
-    # those of K4's "tma" route): every K1 and K2 launch of the float32
-    # decode on "tf32x3", of the bf16 decode on "wgmma", every K4 launch of
-    # the int8 decodes on "tma"
+    # the _wgmma, _tf32x3 and _tf32x2 counters those of a tensor-core route,
+    # _tma those of K4's "tma" route): every K1 and K2 launch of the float32
+    # decode on "tf32x3", of the bf16 decode on "wgmma", every K1-int8 and
+    # K3 launch of the int8 float32 decode on "tf32x2", of the int8 bf16
+    # decode on "wgmma", every K4 launch of the int8 decodes on "tma"
     nil = dict.fromkeys(counters, 0)
     f32_path = dict(nil, fused_head_topk=1, fused_lstm_cell=1,
                     fused_head_topk_tf32x3=1, fused_lstm_cell_tf32x3=1)
     bf16_path = dict(nil, fused_head_topk=1, fused_lstm_cell=1,
                      fused_head_topk_wgmma=1, fused_lstm_cell_wgmma=1)
-    int8_f32_path = dict(nil, fused_head_topk=1, quant_matmul=3,
-                         int8_attention=1, int8_attention_tma=1)
-    int8_bf16_path = dict(int8_f32_path, fused_head_topk_wgmma=1,
+    int8_path = dict(nil, fused_head_topk=1, quant_matmul=3,
+                     int8_attention=1, int8_attention_tma=1)
+    int8_f32_path = dict(int8_path, fused_head_topk_tf32x2=1,
+                         quant_matmul_tf32x2=3)
+    int8_bf16_path = dict(int8_path, fused_head_topk_wgmma=1,
                           quant_matmul_wgmma=3)
     f32_entries = dict(fused_head_topk_tf32x3="fused_head_topk_tf32x3",
                        fused_lstm_cell_tf32x3="fused_lstm_cell_tf32x3")
     bf16_entries = dict(fused_head_topk_wgmma="fused_head_topk_wgmma",
                         fused_lstm_cell_wgmma="fused_lstm_cell_wgmma")
-    int8_f32_entries = dict(fused_head_topk="fused_head_topk_int8",
-                            quant_matmul="quant_matmul",
+    int8_f32_entries = dict(fused_head_topk_tf32x2="fused_head_topk_tf32x2",
+                            quant_matmul_tf32x2="quant_matmul_tf32x2",
                             int8_attention_tma="int8_attention_tma")
     int8_bf16_entries = dict(
         fused_head_topk_wgmma="fused_head_topk_int8_wgmma",
@@ -1223,8 +1278,8 @@ def main(argv=None) -> int:
     mk = B * BEAM
     f32_shapes = {("K1", "tf32x3", mk, BEAM), ("K2", "tf32x3", mk, None)}
     bf16_shapes = {("K1", "wgmma", mk, BEAM), ("K2", "wgmma", mk, None)}
-    int8_f32_shapes = {("K1", "cuda_core", mk, BEAM),
-                       ("K3", "cuda_core", mk, None), ("K4", "tma", B, BEAM)}
+    int8_f32_shapes = {("K1", "tf32x2", mk, BEAM),
+                       ("K3", "tf32x2", mk, None), ("K4", "tma", B, BEAM)}
     int8_bf16_shapes = {("K1", "wgmma", mk, BEAM), ("K3", "wgmma", mk, None),
                         ("K4", "tma", B, BEAM)}
     beam_paths = [
@@ -1340,9 +1395,8 @@ def main(argv=None) -> int:
     missing = [k for k in on_path if not kernels[k].get("launches")]
     require(not missing, "kernels not launched on the main path: %s"
             % missing)
-    # the CUDA-core routes of K1 and K2 (float32), of K3 and K1-int8 (bf16)
-    # and of K4 are held and timed above but no decode runs them: operands
-    # TMA cannot take go there
+    # the CUDA-core routes of K1, K2, K3, K1-int8 and K4 are held and timed
+    # above but no decode runs them: operands TMA cannot take go there
     for k, v in kernels.items():
         v.setdefault("launches", 0)
 

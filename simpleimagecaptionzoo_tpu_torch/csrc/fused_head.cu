@@ -25,8 +25,8 @@
 // 48.8 us; the 42 MB of w 12.5 us.
 //
 // The float32 products are float32-accurate on every route: route 2 runs
-// 3xTF32 (hopper.cuh), route 3 float32 fmaf, and the plain version on the
-// card float32 with TF32 off.
+// 3xTF32 (hopper.cuh), route 3 (an int8 w) 2xTF32, route 4 float32 fmaf,
+// and the plain version on the card float32 with TF32 off.
 //
 // Design.  On the TPU the vocab grid runs in order and carries the running
 // max, sum and top-k from one tile to the next.  Here blocks run in
@@ -41,7 +41,7 @@
 // adds exp(-1e30 - M) = 0 to the merged sum.  Columns past V (a ragged
 // last chunk) read as -inf with id INT_MAX and are never chosen.  Any m.
 //
-// The partial pass has three routes, picked by ops/fused_head.py:head_route
+// The partial pass has four routes, picked by ops/fused_head.py:head_route
 // from dtypes, shapes and alignment; the chunk width is the route's
 // (head_chunks in ops/fused_head.py):
 //
@@ -91,11 +91,25 @@
 //      a partial and adds it into its float32 result (hopper.cuh); the
 //      producer warpgroup gives its registers to the consumers.
 //    - The epilogue is route 1's (chunk_partials) on 64 accumulators.
-// 3. Everything else (float32 x with an int8 w, and operands TMA cannot
-//    take): head_partial, the CUDA-core route, BN = 128 (HEAD_CHUNK):
-//    common.cuh's tile product (fmaf in float32, at least 120 us at the
-//    greedy shape), the chunk's logits into shared memory, and one warp
-//    per row for the epilogue.
+// 3. float32 x with an int8 w (K1-int8 in float32), 16-byte rows and
+//    aligned bases: head_partial_tf32x2, 2xTF32 on hopper.cuh's tf32x2
+//    pipeline.  An int8 w is exact in TF32, so x_lo q + x_hi q keeps the
+//    float32 hold with two products; q stays int8 in device memory and is
+//    transposed and widened to float32 in shared memory, between its TMA
+//    load and the products (widen_i8_tile_tf32), since tf32 wgmma takes B
+//    K-major only.  At the greedy shape 16.1 GFLOP against 494.7 TFLOP/s
+//    is 32.6 us; the 10.5 MB int8 w 3.1 us.
+//    - A block takes 128 rows by a chunk of 128 columns (HEAD_CHUNK_TF32X3,
+//      as route 2): 240 blocks at m=384, 720 at the beam's m=1,152.
+//    - A ring of 5 stages of 36 KB (x, the widened w, the int8 staging
+//      tile); the producer warpgroup loads and widens on 40 registers, the
+//      consumers run two m64n128k8 tf32 wgmma a k8 step into a stage
+//      partial added into the float32 result.
+//    - The epilogue is route 1's (chunk_partials) on 64 accumulators.
+// 4. Everything else (operands TMA cannot take): head_partial, the
+//    CUDA-core route, BN = 128 (HEAD_CHUNK): common.cuh's tile product
+//    (fmaf in float32, at least 120 us at the greedy shape), the chunk's
+//    logits into shared memory, and one warp per row for the epilogue.
 #include <climits>
 #include <math.h>
 
@@ -266,13 +280,13 @@ constexpr int NT = 3 * 128;
 
 // The ring per weight type.  bf16 w: 4 stages of [x box][w boxes], 48 KB.
 // int8 w: 3 stages of [x box][widened w][int8 staging tile], 64 KB (four
-// would need 256 KB).  Barriers after the ring: full, ready, empty.
+// would need 256 KB).  Both in hopper.cuh's I8Ring.
 template <typename TW>
 struct Ring {
   static constexpr bool I8 = sizeof(TW) == 1;
   static constexpr int STAGES = I8 ? 3 : 4;
   static constexpr int STAGE_BYTES = A_BYTES + B_BYTES + (I8 ? BK * BN : 0);
-  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 3 * STAGES * 8;
+  static constexpr int SMEM = i8_ring_smem(STAGES, STAGE_BYTES);
 };
 
 // best (value, id) across the four lanes of a quad
@@ -371,41 +385,26 @@ head_partial_wgmma(const __grid_constant__ CUtensorMap map_x,
   using R = Ring<TW>;
   constexpr int STAGES = R::STAGES;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* const ring = smem_1024(smem_raw);
-  uint64_t* const full = (uint64_t*)(ring + STAGES * R::STAGE_BYTES);
-  uint64_t* const ready = full + STAGES;
-  uint64_t* const empty = ready + STAGES;
+  const I8Ring r = i8_ring_init<STAGES, R::STAGE_BYTES>(smem_raw);
   const int row0 = blockIdx.y * BM;
   const int col0 = blockIdx.x * BN;
   const int nk = (K + BK - 1) / BK;
   const int warp = threadIdx.x / 32;
-
-  if (threadIdx.x == 0) {
-    for (int st = 0; st < STAGES; ++st) {
-      mbar_init(&full[st], 1);
-      mbar_init(&ready[st], 128);      // int8 w: the widening warpgroup
-      mbar_init(&empty[st], 2);
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
-
   const int wg = warp / 4;
   if (wg == 2) {                       // producer
     setmaxnreg_dec<40>();
     if constexpr (R::I8) {             // one thread loads, all 128 widen
-      i8_producer<BM, BK, BN, STAGES>(&map_x, &map_w, ring, full, ready, empty, row0, col0,
-                                      nk, threadIdx.x - 256);
+      i8_producer<BM, BK, BN, STAGES>(&map_x, &map_w, r, row0, col0, nk, threadIdx.x - 256);
     } else if (threadIdx.x == 256) {   // one thread starts the TMA loads
       for (int t = 0; t < nk; ++t) {
         const int st = t % STAGES;
-        uint8_t* const sp = ring + st * R::STAGE_BYTES;
-        if (t >= STAGES) mbar_wait(&empty[st], ((t / STAGES) - 1) & 1);
-        mbar_expect_tx(&full[st], A_BYTES + B_BYTES);
-        tma_load_2d(sp, &map_x, t * BK, row0, &full[st]);
+        uint8_t* const sp = r.stages + st * R::STAGE_BYTES;
+        if (t >= STAGES) mbar_wait(&r.empty[st], ((t / STAGES) - 1) & 1);
+        mbar_expect_tx(&r.full[st], A_BYTES + B_BYTES);
+        tma_load_2d(sp, &map_x, t * BK, row0, &r.full[st]);
 #pragma unroll
         for (int q = 0; q < BN / BOXN; ++q)
-          tma_load_2d(sp + A_BYTES + q * B_BOX, &map_w, col0 + q * BOXN, t * BK, &full[st]);
+          tma_load_2d(sp + A_BYTES + q * B_BOX, &map_w, col0 + q * BOXN, t * BK, &r.full[st]);
       }
     }
   } else {                             // consumers, to the end of the kernel
@@ -415,10 +414,10 @@ head_partial_wgmma(const __grid_constant__ CUtensorMap map_x,
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
     for (int t = 0; t < nk; ++t) {
       const int st = t % STAGES;
-      mbar_wait(&full[st], (t / STAGES) & 1);
-      if constexpr (R::I8) mbar_wait(&ready[st], (t / STAGES) & 1);
-      const uint8_t* a = ring + st * R::STAGE_BYTES + wg * 64 * 128;
-      const uint8_t* bw = ring + st * R::STAGE_BYTES + A_BYTES;
+      mbar_wait(&r.full[st], (t / STAGES) & 1);
+      if constexpr (R::I8) mbar_wait(&r.ready[st], (t / STAGES) & 1);
+      const uint8_t* a = r.stages + st * R::STAGE_BYTES + wg * 64 * 128;
+      const uint8_t* bw = r.stages + st * R::STAGE_BYTES + A_BYTES;
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
@@ -427,7 +426,7 @@ head_partial_wgmma(const __grid_constant__ CUtensorMap map_x,
       wgmma_commit();
       fence_regs(acc);
       wgmma_wait<1>();
-      if (t > 0 && threadIdx.x % 128 == 0) mbar_arrive(&empty[(t - 1) % STAGES]);
+      if (t > 0 && threadIdx.x % 128 == 0) mbar_arrive(&r.empty[(t - 1) % STAGES]);
     }
     wgmma_wait<0>();
     fence_regs(acc);
@@ -463,6 +462,34 @@ head_partial_tf32x3(const __grid_constant__ CUtensorMap map_x,
 #pragma unroll
     for (int i = 0; i < tf32x3::BN / 2; ++i) acc[i] = 0.f;
     tf32x3::consume(r, acc, nk, wg);
+    chunk_partials(acc, s, b, pmax, psum, pval, pidx, M, V, k, nchunk, row0 + wg * 64, col0);
+  }
+}
+
+// ---- the partial pass, route 3: TMA + int8 widened to TF32 + 2xTF32 wgmma -----
+
+__global__ void __launch_bounds__(tf32x2::NT, 1)
+head_partial_tf32x2(const __grid_constant__ CUtensorMap map_x,
+                    const __grid_constant__ CUtensorMap map_w,
+                    const float* __restrict__ s, const float* __restrict__ b,
+                    float* __restrict__ pmax, float* __restrict__ psum,
+                    float* __restrict__ pval, int* __restrict__ pidx,
+                    int M, int K, int V, int k, int nchunk) {
+  extern __shared__ uint8_t smem_raw[];
+  const I8Ring r = tf32x2::ring_init(smem_raw);
+  const int row0 = blockIdx.y * tf32x2::BM;
+  const int col0 = blockIdx.x * tf32x2::BN;
+  const int nk = (K + tf32x2::BK - 1) / tf32x2::BK;
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {                       // producer: loads and widens w's columns col0 ..
+    setmaxnreg_dec<tf32x2::PRODUCER_REGS>();
+    tf32x2::produce(r, &map_x, &map_w, row0, col0, nk, threadIdx.x - 256);
+  } else {                             // consumers: warpgroup wg takes rows row0 + 64 wg ..
+    setmaxnreg_inc<tf32x2::CONSUMER_REGS>();
+    float acc[tf32x2::BN / 2];
+#pragma unroll
+    for (int i = 0; i < tf32x2::BN / 2; ++i) acc[i] = 0.f;
+    tf32x2::consume(r, acc, nk, wg);
     chunk_partials(acc, s, b, pmax, psum, pval, pidx, M, V, k, nchunk, row0 + wg * 64, col0);
   }
 }
@@ -584,6 +611,41 @@ extern "C" int fused_head_topk_tf32x3(const void* x, const void* w_hi, const voi
   dim3 grid(nchunk, (M + t3::BM - 1) / t3::BM);
   tc::head_partial_tf32x3<<<grid, t3::NT, t3::SMEM, st>>>(mx, mhi, mlo, s, b, pmax, psum,
                                                           pval, pidx, M, K, V, k, nchunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  head_merge<<<(M + NWARP - 1) / NWARP, NT, 0, st>>>(pmax, psum, pval, pidx, vals, idx,
+                                                     lse, M, k, nchunk);
+  return (int)cudaGetLastError();
+}
+
+// The float32 tensor-core route of the partial pass with an int8 head
+// (2xTF32): x float32 (M, K), w int8 (K, V) as stored; K a multiple of 4,
+// V of 16, x and w 16-byte aligned (TMA; cudaErrorMisalignedAddress if
+// not); nchunk = ceil(V / 128).  The merge is head_merge, as for the other
+// routes.
+extern "C" int fused_head_topk_tf32x2(const void* x, const void* w, const float* s,
+                                      const float* b, float* pmax, float* psum,
+                                      float* pval, int* pidx, float* vals, int* idx,
+                                      float* lse, int M, int K, int V, int k, int nchunk,
+                                      void* stream) {
+  namespace t2 = sicz::hopper::tf32x2;
+  if (M <= 0 || K <= 0 || V <= 0 || K % 4 != 0 || V % 16 != 0 || k < 1 || k > KMAX ||
+      k > V || nchunk != (V + t2::BN - 1) / t2::BN)
+    return (int)cudaErrorInvalidValue;
+  if (!sicz::hopper::aligned16(x) || !sicz::hopper::aligned16(w))
+    return (int)cudaErrorMisalignedAddress;
+  CUtensorMap mx, mw;
+  if (!sicz::hopper::tensor_map_f32(&mx, x, M, K, K, t2::BM) ||
+      !sicz::hopper::tensor_map_i8(&mw, w, K, V, V, t2::BK, t2::BN))
+    return (int)cudaErrorInvalidValue;
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t err =
+      sicz::hopper::allow_smem((const void*)tc::head_partial_tf32x2, t2::SMEM, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  dim3 grid(nchunk, (M + t2::BM - 1) / t2::BM);
+  tc::head_partial_tf32x2<<<grid, t2::NT, t2::SMEM, st>>>(mx, mw, s, b, pmax, psum, pval,
+                                                          pidx, M, K, V, k, nchunk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   head_merge<<<(M + NWARP - 1) / NWARP, NT, 0, st>>>(pmax, psum, pval, pidx, vals, idx,

@@ -1,12 +1,13 @@
 // Hopper (sm_90a) pieces of the port's tensor-core kernels: TMA tensor
 // maps made on the host, the mbarrier ring, TMA tile loads, bf16 and tf32
 // wgmma tile products with their shared-memory matrix descriptors, the
-// int8 -> bf16 widening stage of the int8-weight products, and the 3xTF32
-// pipeline of the float32 products.  Used by the bf16 routes of K1
-// (csrc/fused_head.cu, bf16 and int8 weights), K2 (csrc/fused_lstm.cu) and
-// K3 (csrc/quant_matmul.cu), and by the float32 ("tf32x3") routes of K1
-// and K2; the CUDA-core tile product of common.cuh stays for shapes TMA
-// cannot take, for float32 x with an int8 weight and for K3 in float32.
+// int8 -> bf16 and int8 -> TF32 widening stages of the int8-weight
+// products, and the 3xTF32 and 2xTF32 pipelines of the float32 products.
+// Used by the bf16 routes of K1 (csrc/fused_head.cu, bf16 and int8
+// weights), K2 (csrc/fused_lstm.cu) and K3 (csrc/quant_matmul.cu), by the
+// float32 ("tf32x3") routes of K1 and K2, and by the float32 routes with an
+// int8 weight ("tf32x2") of K1 and K3; the CUDA-core tile product of
+// common.cuh stays for shapes and pointers TMA cannot take.
 //
 // Everything is inline PTX, so a kernel source still builds with one nvcc
 // call and no other headers than the toolkit's.  cuTensorMapEncodeTiled is
@@ -43,6 +44,12 @@
 //     float32 values (128 bytes) a row, and the weight stored transposed,
 //     (N, K), read the same way, 32 K-values by 32 rows a box.  A k8 step
 //     is 32 bytes, as a bf16 k16 step is, so desc_a describes both.
+//   An int8 weight under float32 x (2xTF32, tf32x2 below) reaches that
+//     K-major B from its stored (Kp, Np) layout: TMA copies a box of 32 K
+//     rows by 128 bytes, unswizzled, into a staging tile, and the producer
+//     warpgroup transposes while it widens (widen_i8_tile_tf32): four words
+//     of four K rows, a 4 x 4 byte transpose, one 16-byte chunk of four
+//     float32 per column, stored at row n (a column of q), chunk c ^ (n % 8).
 // Every stage buffer starts on a 1024-byte boundary, so the swizzle phase
 // of every descriptor is 0.  TMA fills what lies outside the tensor with
 // zeros (FLOAT_OOB_FILL_NONE), so ragged rows, columns and K read 0.
@@ -314,20 +321,127 @@ __device__ __forceinline__ void widen_i8_tile(const uint8_t* src, uint8_t* dst, 
   }
 }
 
+// ---- device: the int8 -> TF32 widening stage ------------------------------------
+
+// 4 int8 (one word, lowest byte first) -> 4 float32 (16 bytes), exact, as
+// widen2: the float with bits 0x4B0000uu is 2^23 + u, u = q + 128.  Each
+// is a TF32 value: |q| <= 127 has at most 7 significant bits, TF32 11.
+__device__ __forceinline__ uint4 widen4_f32(uint32_t w) {
+  w ^= 0x80808080u;
+  return make_uint4(
+      __float_as_uint(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540)) - 8388736.f),
+      __float_as_uint(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7541)) - 8388736.f),
+      __float_as_uint(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7542)) - 8388736.f),
+      __float_as_uint(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7543)) - 8388736.f));
+}
+
+// The staging tile (BK = 32 rows of BN = 128 int8, row k at k * BN)
+// transposed and widened into the K-major B of the tf32 products: row n (a
+// column of q) at n * 128 bytes, its 32 K-values in 8 chunks of 4 floats,
+// chunk c (K values 4c .. 4c+3) at c ^ (n % 8), the 128-byte swizzle (the
+// layout TMA gives w_hi in the 3xTF32 products).  Warp w of the producer
+// warpgroup takes K rows 4c .. 4c+3 for c = w and w + 4 (both groups'
+// eight loads go out before the first is used), lane j columns
+// 4j .. 4j+3: four words, one a K row (a warp reads 128 consecutive bytes
+// of a row: no bank conflict), a 4 x 4 byte transpose (prmt) into one
+// word a column, each widened to one 16-byte chunk.  A warp's 16-byte
+// stores go out eight lanes at a time; each lane first rotates its words
+// by (j / 2) % 4 bytes, so lanes 8p .. 8p+7 store the columns
+// 4j + (t + j / 2) % 4, whose n % 8 differ: eight chunks on eight
+// different bank groups.
+template <int BK, int BN>
+__device__ __forceinline__ void widen_i8_tile_tf32(const uint8_t* src, uint8_t* dst, int tid) {
+  static_assert(BK == 32 && BN == 128, "a warp per 4 K rows, a lane per 4 columns");
+  const int j = tid % 32;
+  const int rot = (j >> 1) & 3;
+  const uint32_t s0 = smem_addr(src) + 4 * j;
+  const uint32_t d0 = smem_addr(dst);
+  uint32_t ws[2][4];                           // both groups' loads go out first
+#pragma unroll
+  for (int g = 0; g < 2; ++g)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      asm volatile("ld.shared.u32 %0, [%1];\n"
+                   : "=r"(ws[g][r]) : "r"(s0 + (4 * (tid / 32 + 4 * g) + r) * BN) : "memory");
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    const int c = tid / 32 + 4 * g;
+    uint32_t w[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) w[r] = __funnelshift_r(ws[g][r], ws[g][r], 8 * rot);
+    // byte t of w[r]: q[4c + r][4j + (t + rot) % 4]
+    const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140), t1 = __byte_perm(w[0], w[1], 0x7362);
+    const uint32_t t2 = __byte_perm(w[2], w[3], 0x5140), t3 = __byte_perm(w[2], w[3], 0x7362);
+    const uint32_t col[4] = {__byte_perm(t0, t2, 0x5410), __byte_perm(t0, t2, 0x7632),
+                             __byte_perm(t1, t3, 0x5410), __byte_perm(t1, t3, 0x7632)};
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {            // col[t]: q[4c .. 4c+3][n]
+      const int n = 4 * j + ((t + rot) & 3);
+      const uint4 v = widen4_f32(col[t]);
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n"
+                   :: "r"(d0 + n * 128 + ((c ^ (n & 7)) << 4)), "r"(v.x), "r"(v.y), "r"(v.z),
+                      "r"(v.w)
+                   : "memory");
+    }
+  }
+}
+
+// The ring of an int8-weight product in dynamic shared memory: STAGES
+// stages of STAGE_BYTES from the first 1,024-byte boundary, then three
+// barriers per stage: full (TMA landed; the expect-tx arrival), ready
+// (widened; every thread of the producer warpgroup) and empty (one arrival
+// per consumer warpgroup).  K1's bf16 weight, which needs no widening,
+// shares the layout and leaves ready unused.
+struct I8Ring {
+  uint8_t* stages;
+  uint64_t* full;
+  uint64_t* ready;
+  uint64_t* empty;
+};
+
+// Dynamic shared memory of an I8Ring: the ring, its barriers, and up to
+// 1,024 bytes to align the ring.
+constexpr int i8_ring_smem(int stages, int stage_bytes) {
+  return 1024 + stages * stage_bytes + 3 * stages * 8;
+}
+
+// Every thread of the block calls this.
+template <int STAGES, int STAGE_BYTES>
+__device__ __forceinline__ I8Ring i8_ring_init(uint8_t* smem_raw) {
+  I8Ring r;
+  r.stages = smem_1024(smem_raw);
+  r.full = (uint64_t*)(r.stages + STAGES * STAGE_BYTES);
+  r.ready = r.full + STAGES;
+  r.empty = r.ready + STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&r.full[s], 1);
+      mbar_init(&r.ready[s], 128);
+      mbar_init(&r.empty[s], 2);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  return r;
+}
+
 // The producer warpgroup of an int8-weight product (all 128 threads call;
-// tid is the index in the warpgroup).  A ring of STAGES stages, each
-// [A: BM x BK bf16][B: BK x BN bf16, widened][staging: BK x BN int8], and
-// three barriers per stage: full (TMA landed; the expect-tx arrival),
-// ready (widened; 128 arrivals) and empty (both consumer warpgroups done).
-// Thread 0 starts the TMA loads, STAGES - 1 steps ahead; all 128 widen
-// step t while the consumers multiply step t - 1.
-template <int BM, int BK, int BN, int STAGES>
+// tid is the index in the warpgroup), on an I8Ring whose stages are
+// [A: BM x BK][B: the widened BK x BN][staging: BK x BN int8].  A and B
+// are bf16 (B MN-major, widen_i8_tile), or with TF32 float32 (B K-major,
+// widen_i8_tile_tf32).  Thread 0 starts the TMA loads, STAGES - 1 steps
+// ahead; all 128 widen step t while the consumers multiply step t - 1.
+template <int BM, int BK, int BN, int STAGES, bool TF32 = false>
 __device__ __forceinline__ void i8_producer(const CUtensorMap* map_x, const CUtensorMap* map_q,
-                                            uint8_t* ring, uint64_t* full, uint64_t* ready,
-                                            uint64_t* empty, int row0, int col0, int nk,
+                                            const I8Ring& r, int row0, int col0, int nk,
                                             int tid) {
-  constexpr int A_BYTES = BM * BK * 2, B_BYTES = BK * BN * 2, Q_BYTES = BK * BN;
+  constexpr int ITEM = TF32 ? 4 : 2;           // bytes of an A value and a widened B value
+  constexpr int A_BYTES = BM * BK * ITEM, B_BYTES = BK * BN * ITEM, Q_BYTES = BK * BN;
   constexpr int STAGE_BYTES = A_BYTES + B_BYTES + Q_BYTES;
+  uint8_t* const ring = r.stages;
+  uint64_t* const full = r.full;
+  uint64_t* const ready = r.ready;
+  uint64_t* const empty = r.empty;
   auto load_step = [&](int t) {
     const int s = t % STAGES;
     uint8_t* st = ring + s * STAGE_BYTES;
@@ -342,7 +456,8 @@ __device__ __forceinline__ void i8_producer(const CUtensorMap* map_x, const CUte
     const int s = t % STAGES;
     uint8_t* st = ring + s * STAGE_BYTES;
     mbar_wait(&full[s], (t / STAGES) & 1);
-    widen_i8_tile<BK, BN>(st + A_BYTES + B_BYTES, st + A_BYTES, tid);
+    if constexpr (TF32) widen_i8_tile_tf32<BK, BN>(st + A_BYTES + B_BYTES, st + A_BYTES, tid);
+    else widen_i8_tile<BK, BN>(st + A_BYTES + B_BYTES, st + A_BYTES, tid);
     fence_proxy_async();
     mbar_arrive(&ready[s]);
     // the slot of step t - 1, free once its products are done
@@ -563,6 +678,47 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], const uint3
 // conflict-free through the swizzle), splits them (cvt.rna.tf32.f32),
 // issues the 12 products into the stage's partial, waits for them, frees
 // the stage and adds the partial into its result.
+__device__ __forceinline__ uint32_t rna_tf32(float f) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(f));
+  return r;
+}
+
+// The shared-memory address of this thread's first A value in a stage
+// whose A (128 rows of 32 float32, 128-byte swizzle) starts at `stages`,
+// for consumer warpgroup wg (rows 64 wg ..): the fragment's rows
+// 16 w + l/4 (+ 8) lie 128 bytes apart.
+__device__ __forceinline__ uint32_t a_frag(const uint8_t* stages, int wg) {
+  const int l = threadIdx.x % 32;
+  return smem_addr(stages) + (wg * 64 + (threadIdx.x / 32 % 4) * 16 + l / 4) * 128 + (l % 4) * 4;
+}
+
+// This thread's A fragments of one stage (frag: a_frag plus the stage's
+// offset), one per k8 step, each float split into TF32 hi and lo
+// (cvt.rna.tf32.f32): 16 floats, conflict-free through the swizzle, which
+// puts 16-byte chunk c of the fragment's rows at c ^ (row % 8) = c ^ (l/4).
+template <int KSTEPS>
+__device__ __forceinline__ void split_a(uint32_t frag, uint32_t (&hi)[KSTEPS][4],
+                                        uint32_t (&lo)[KSTEPS][4]) {
+  const int swz = threadIdx.x % 32 / 4;
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int chunk = 2 * kk + i / 2;             // k = 8 kk + l % 4 + 4 (i / 2)
+      float f;
+      asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(f)
+                   : "r"(frag + (i % 2) * 1024 + ((chunk ^ swz) << 4)));
+      hi[kk][i] = rna_tf32(f);
+      lo[kk][i] = rna_tf32(f - __uint_as_float(hi[kk][i]));
+    }
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    fence_regs(hi[kk]);
+    fence_regs(lo[kk]);
+  }
+}
+
 namespace tf32x3 {
 
 constexpr int BM = 128;
@@ -577,12 +733,6 @@ constexpr int NT = 3 * 128;                // two consumer warpgroups, one produ
 constexpr int PRODUCER_REGS = 40;          // setmaxnreg: 2 x 128 x 232 + 128 x 40 <= 65,536
 constexpr int CONSUMER_REGS = 232;
 constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
-
-__device__ __forceinline__ uint32_t rna_tf32(float f) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(f));
-  return r;
-}
 
 // The ring in dynamic shared memory, its barriers after it: full (the
 // producer's expect-tx arrival) and empty (one arrival per consumer
@@ -642,33 +792,13 @@ __device__ __forceinline__ void produce(const Ring& r, const CUtensorMap* map_a,
 // tile, over nk stages.
 __device__ __forceinline__ void consume(const Ring& r, float (&acc)[64], int nk, int wg) {
   float part[64];                             // one stage's products
-  const int l = threadIdx.x % 32;
-  // the fragment's rows 16 w + l/4 (+ 8) lie 128 bytes apart; in the
-  // 128-byte swizzle their 16-byte chunk c sits at c ^ (row % 8) = c ^ (l/4)
-  const uint32_t frag = smem_addr(r.stages) +
-                        (wg * 64 + (threadIdx.x / 32 % 4) * 16 + l / 4) * 128 + (l % 4) * 4;
-  const int swz = l / 4;
+  const uint32_t frag = a_frag(r.stages, wg);
   for (int t = 0; t < nk; ++t) {
     const int s = t % STAGES;
     mbar_wait(&r.full[s], (t / STAGES) & 1);
     const uint8_t* const st = r.stages + s * STAGE_BYTES;
     uint32_t hi[BK / 8][4], lo[BK / 8][4];
-#pragma unroll
-    for (int kk = 0; kk < BK / 8; ++kk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int chunk = 2 * kk + i / 2;           // k = 8 kk + l % 4 + 4 (i / 2)
-        float f;
-        asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(f)
-                     : "r"(frag + s * STAGE_BYTES + (i % 2) * 1024 + ((chunk ^ swz) << 4)));
-        hi[kk][i] = rna_tf32(f);
-        lo[kk][i] = rna_tf32(f - __uint_as_float(hi[kk][i]));
-      }
-#pragma unroll
-    for (int kk = 0; kk < BK / 8; ++kk) {
-      fence_regs(hi[kk]);
-      fence_regs(lo[kk]);
-    }
+    split_a(frag + s * STAGE_BYTES, hi, lo);
     fence_regs(part);
     wgmma_fence();
 #pragma unroll
@@ -690,6 +820,96 @@ __device__ __forceinline__ void consume(const Ring& r, float (&acc)[64], int nk,
 }
 
 }  // namespace tf32x3
+
+// ---- device: 2xTF32, float32 x times an int8 weight on the tensor cores ---------
+//
+// An int8 weight is exact in TF32 (|q| <= 127: 7 significant bits of 11),
+// so q_lo = 0 and 3xTF32 loses its a_hi * b_lo product: each k8 step sums
+// x_lo * q + x_hi * q, which keeps float32 accuracy at half the TF32 rate.
+// x is split in registers as in tf32x3 (split_a); q stays int8 in device
+// memory, (Kp, Np) as ops/quant.py stores it, and reaches wgmma's K-major
+// B through the widening stage (i8_producer with TF32: TMA into an int8
+// staging tile, widen_i8_tile_tf32 into B).  As in tf32x3, each stage's
+// products go into a fresh accumulator that is then added into the
+// float32 result.  The two consumer warpgroups multiply side by side:
+// taking the tensor cores in turns, to hide one's split under the other's
+// products, measured a quarter slower (PERF.md, the tf32x2 findings), as
+// one warpgroup's chain of eight dependent products alone does not keep
+// the tensor cores busy.
+//
+// One tile shape serves K1-int8 and K3: BM = 128 rows (two consumer
+// warpgroups of 64) by BN = 128 columns of q, 32 K-values a stage.  A stage
+// is A (128 x 32 float32, 16 KB), B (q widened, 128 x 32 float32, 16 KB)
+// and the staging tile (32 x 128 int8, 4 KB), 36 KB; a ring of 5.
+// Barriers per stage: full (TMA: A and the staging tile), ready (widened;
+// 128 arrivals after a proxy fence each), empty (both consumer warpgroups).
+// The producer warpgroup widens on 40 registers and gives the rest to the
+// consumers (setmaxnreg 40 / 232), whose result and stage partial are 128
+// floats a thread; ptxas holds the kernel to 168 (384 threads), so a
+// second set of A fragments, to split a stage under the previous one's
+// products, spills.
+namespace tf32x2 {
+
+constexpr int BM = 128;
+constexpr int BN = 128;
+constexpr int BK = 32;
+constexpr int STAGES = 5;
+constexpr int A_BYTES = BM * BK * 4;
+constexpr int B_BYTES = BN * BK * 4;       // q's tile widened to float32, K-major
+constexpr int Q_BYTES = BK * BN;           // q's int8 staging tile
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES + Q_BYTES;
+constexpr int NT = 3 * 128;                // two consumer warpgroups, one producer warpgroup
+constexpr int PRODUCER_REGS = 40;          // setmaxnreg: 2 x 128 x 232 + 128 x 40 <= 65,536
+constexpr int CONSUMER_REGS = 232;
+constexpr int SMEM = i8_ring_smem(STAGES, STAGE_BYTES);
+
+// The ring (an I8Ring); every thread of the block calls this.
+__device__ __forceinline__ I8Ring ring_init(uint8_t* smem_raw) {
+  return i8_ring_init<STAGES, STAGE_BYTES>(smem_raw);
+}
+
+// The producer warpgroup (all 128 threads; tid the index in it): x's rows
+// row0 .., q's columns col0 .., nk stages of 32 K-values.  A stage past
+// x's K reads zeros (TMA's fill), which zero its products.
+__device__ __forceinline__ void produce(const I8Ring& r, const CUtensorMap* map_x,
+                                        const CUtensorMap* map_q, int row0, int col0, int nk,
+                                        int tid) {
+  i8_producer<BM, BK, BN, STAGES, true>(map_x, map_q, r, row0, col0, nk, tid);
+}
+
+// A consumer warpgroup (wg 0 or 1: rows 64 wg .. of the tile): acc (the
+// m64n128 fragment, zeroed by the caller) += its A rows times the widened
+// q tile, over nk stages.
+__device__ __forceinline__ void consume(const I8Ring& r, float (&acc)[64], int nk, int wg) {
+  float part[64];                             // one stage's products
+  const uint32_t frag = a_frag(r.stages, wg);
+  for (int t = 0; t < nk; ++t) {
+    const int s = t % STAGES;
+    const uint32_t ph = (t / STAGES) & 1;
+    mbar_wait(&r.full[s], ph);                // x's box
+    mbar_wait(&r.ready[s], ph);               // the widened q tile
+    const uint8_t* const st = r.stages + s * STAGE_BYTES;
+    uint32_t hi[BK / 8][4], lo[BK / 8][4];
+    split_a(frag + s * STAGE_BYTES, hi, lo);
+    fence_regs(part);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      const uint64_t dq = desc_a(st + A_BYTES + kk * 32);
+      wgmma_m64n128k8_tf32(part, lo[kk], dq, kk > 0);   // the first starts the partial
+      wgmma_m64n128k8_tf32(part, hi[kk], dq, 1);
+    }
+    wgmma_commit();
+    fence_regs(part);
+    wgmma_wait<0>();
+    fence_regs(part);
+    if (threadIdx.x % 128 == 0) mbar_arrive(&r.empty[s]);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+  }
+}
+
+}  // namespace tf32x2
 
 }  // namespace hopper
 }  // namespace sicz

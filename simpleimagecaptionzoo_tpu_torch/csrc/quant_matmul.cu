@@ -19,7 +19,7 @@
 // shapes (aoa_dec.q 384 x 1024 x 1024, aoa_dec.aoa 384 x 2048 x 2048) are
 // bound the same way, at 0.8 and 3.3 us.
 //
-// Two routes, picked by ops/quant.py:quant_route from dtypes, shapes and
+// Three routes, picked by ops/quant.py:quant_route from dtypes, shapes and
 // alignment:
 //
 // 1. bf16 x with K a multiple of 8 and 16-byte-aligned x and q:
@@ -48,14 +48,37 @@
 //    The weight could instead be A, widened in registers (out^T = q^T x^T,
 //    CUTLASS's mixed-input scheme), which skips the bf16 rewrite of shared
 //    memory; that is for when the widening is shown to set the pace.
-// 2. Everything else (float32 x, and bf16 shapes or pointers TMA cannot
-//    take): quant_matmul_kernel, the CUDA-core route.  The grid tiles rows
-//    (BM) and columns (BN); the shared tile product of common.cuh reads x
+// 2. float32 x with K a multiple of 4 and 16-byte-aligned x and q:
+//    quant_matmul_tf32x2, the float32 tensor-core route (hopper.cuh's
+//    tf32x2).  wgmma has no float32 product, and one TF32 product of x
+//    (10 mantissa bits) breaks the float32 hold; but q is exact in TF32, so
+//    two products, x_lo q + x_hi q (x split in registers), keep float32
+//    accuracy.  At the LSTM shape that is 19.3 GFLOP of TF32 against 494.7
+//    TFLOP/s, 39.1 us; the 23.6 MB to move (x and out in float32) take 7.1
+//    us, so the products bound it.
+//    - A block computes 128 rows by 128 columns at every shape (96 blocks
+//      at the LSTM shape, 24 and 48 at aoa_dec.q and aoa_dec.aoa; 288, 72
+//      and 144 over the beam's 1,152 rows).
+//    - The producer warpgroup keeps a ring of 5 stages of 36 KB full: a
+//      128 x 32 box of x (float32, 128-byte swizzle), a 32 x 128-byte int8
+//      box of q into a staging tile, and the 128 x 32 float32 B tile,
+//      K-major (tf32 wgmma takes no other), that the warpgroup transposes
+//      and widens the staging tile into (widen_i8_tile_tf32).  The
+//      barriers are route 1's.
+//    - Two consumer warpgroups, 64 rows each, split their A fragments into
+//      TF32 hi and lo (cvt.rna.tf32.f32), run two m64n128k8 tf32 wgmma per
+//      k8 step (x_lo q, then x_hi q) into a fresh stage partial, wait for
+//      them, free the stage and add the partial into the float32 result.
+//    - Epilogue in registers: acc * s[c] + b[c] in float32, pairs of
+//      columns stored where c < n; s and b read after the k-loop (the
+//      consumers hold 128 floats a thread during it).
+// 3. Everything else (shapes or pointers TMA cannot take):
+//    quant_matmul_kernel, the CUDA-core route.  The grid tiles rows (BM)
+//    and columns (BN); the shared tile product of common.cuh reads x
 //    through load_a and q through load_b, which widens each int8 with to_f
-//    (fmaf in float32, at least 144 us at the LSTM shape).  float32 stays
-//    here: wgmma has no float32 product, and TF32 breaks the float32 hold.
-//    Any M, K and n are taken (loads outside the operands read 0, stores
-//    outside out are skipped).
+//    (fmaf in float32, at least 144 us at the LSTM shape).  Any M, K and n
+//    are taken (loads outside the operands read 0, stores outside out are
+//    skipped).
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -124,7 +147,7 @@ template <int BN>
 struct Tile {
   static constexpr int STAGES = BN == 128 ? 5 : 7;
   static constexpr int STAGE_BYTES = A_BYTES + BK * BN * 2 + BK * BN;
-  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 3 * STAGES * 8;
+  static constexpr int SMEM = i8_ring_smem(STAGES, STAGE_BYTES);
 };
 
 template <int BN>
@@ -136,28 +159,14 @@ quant_matmul_wgmma(const __grid_constant__ CUtensorMap map_x,
   static_assert(BN == 64 || BN == 128, "wgmma N of 64 or 128");
   constexpr int STAGES = Tile<BN>::STAGES, STAGE_BYTES = Tile<BN>::STAGE_BYTES;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* const ring = smem_1024(smem_raw);
-  uint64_t* const full = (uint64_t*)(ring + STAGES * STAGE_BYTES);
-  uint64_t* const ready = full + STAGES;
-  uint64_t* const empty = ready + STAGES;
+  const I8Ring ring = i8_ring_init<STAGES, STAGE_BYTES>(smem_raw);
   const int row0 = blockIdx.y * BM;
   const int col0 = blockIdx.x * BN;
   const int nk = (K + BK - 1) / BK;
   const int wg = threadIdx.x / 128;
 
-  if (threadIdx.x == 0) {
-    for (int st = 0; st < STAGES; ++st) {
-      mbar_init(&full[st], 1);         // the expect-tx arrival
-      mbar_init(&ready[st], 128);      // every thread of the producer warpgroup
-      mbar_init(&empty[st], 2);        // one arrival per consumer warpgroup
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
-
   if (wg == 2) {
-    i8_producer<BM, BK, BN, STAGES>(&map_x, &map_q, ring, full, ready, empty, row0, col0,
-                                    nk, threadIdx.x - 256);
+    i8_producer<BM, BK, BN, STAGES>(&map_x, &map_q, ring, row0, col0, nk, threadIdx.x - 256);
     return;
   }
   // consumers: warpgroup wg takes rows row0 + 64 wg ..; register i of the
@@ -179,10 +188,10 @@ quant_matmul_wgmma(const __grid_constant__ CUtensorMap map_x,
   for (int t = 0; t < nk; ++t) {
     const int st = t % STAGES;
     const uint32_t ph = (t / STAGES) & 1;
-    mbar_wait(&full[st], ph);          // x's box
-    mbar_wait(&ready[st], ph);         // the widened q tile
-    const uint8_t* a = ring + st * STAGE_BYTES + wg * 64 * 128;
-    const uint8_t* bw = ring + st * STAGE_BYTES + A_BYTES;
+    mbar_wait(&ring.full[st], ph);     // x's box
+    mbar_wait(&ring.ready[st], ph);    // the widened q tile
+    const uint8_t* a = ring.stages + st * STAGE_BYTES + wg * 64 * 128;
+    const uint8_t* bw = ring.stages + st * STAGE_BYTES + A_BYTES;
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
@@ -194,7 +203,7 @@ quant_matmul_wgmma(const __grid_constant__ CUtensorMap map_x,
     wgmma_commit();
     fence_regs(acc);
     wgmma_wait<0>();
-    if (threadIdx.x % 128 == 0) mbar_arrive(&empty[st]);
+    if (threadIdx.x % 128 == 0) mbar_arrive(&ring.empty[st]);
   }
   fence_regs(acc);
 
@@ -237,6 +246,58 @@ cudaError_t launch_wgmma(const void* x, const void* q, const float* s, const flo
   quant_matmul_wgmma<BN><<<grid, NT, Tile<BN>::SMEM, stream>>>(
       mx, mq, s, b, (__nv_bfloat16*)out, M, K, n);
   return cudaGetLastError();
+}
+
+// ---- route 2: TMA + int8 widening to TF32 + two TF32 wgmma (float32 x) ---------
+
+__global__ void __launch_bounds__(tf32x2::NT, 1)
+quant_matmul_tf32x2(const __grid_constant__ CUtensorMap map_x,
+                    const __grid_constant__ CUtensorMap map_q,
+                    const float* __restrict__ s, const float* __restrict__ b,
+                    float* __restrict__ out, int M, int K, int n) {
+  extern __shared__ uint8_t smem_raw[];
+  const I8Ring r = tf32x2::ring_init(smem_raw);
+  const int row0 = blockIdx.y * tf32x2::BM;
+  const int col0 = blockIdx.x * tf32x2::BN;
+  const int nk = (K + tf32x2::BK - 1) / tf32x2::BK;
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {                       // producer: loads and widens
+    setmaxnreg_dec<tf32x2::PRODUCER_REGS>();
+    tf32x2::produce(r, &map_x, &map_q, row0, col0, nk, threadIdx.x - 256);
+  } else {                             // consumers: warpgroup wg takes rows row0 + 64 wg ..
+    setmaxnreg_inc<tf32x2::CONSUMER_REGS>();
+    float acc[tf32x2::BN / 2];
+#pragma unroll
+    for (int i = 0; i < tf32x2::BN / 2; ++i) acc[i] = 0.f;
+    tf32x2::consume(r, acc, nk, wg);
+    // register i: row 16 w + l/4 + 8 ((i/2) % 2), column 8 (i/4) + 2 (l%4) + i%2
+    const int l = threadIdx.x % 32;
+    const int cq = col0 + 2 * (l % 4);
+    const int rbase = row0 + wg * 64 + (threadIdx.x / 32 % 4) * 16 + l / 4;
+    const bool pairs = n % 2 == 0;     // (row * n + col) even: float2 stores
+#pragma unroll
+    for (int jb = 0; jb < tf32x2::BN / 8; ++jb) {
+      const int col = cq + 8 * jb;
+      if (col >= n) continue;
+      const bool two = col + 1 < n;
+      const float s0 = __ldg(s + col), b0 = __ldg(b + col);
+      const float s1 = two ? __ldg(s + col + 1) : 0.f, b1 = two ? __ldg(b + col + 1) : 0.f;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = rbase + 8 * rr;
+        if (row >= M) continue;
+        float* const o = out + (size_t)row * n + col;
+        const float v0 = fmaf(acc[4 * jb + 2 * rr], s0, b0);
+        const float v1 = fmaf(acc[4 * jb + 2 * rr + 1], s1, b1);
+        if (pairs) {
+          *(float2*)o = make_float2(v0, v1);
+        } else {
+          o[0] = v0;
+          if (two) o[1] = v1;
+        }
+      }
+    }
+  }
 }
 
 }  // namespace tc
@@ -283,4 +344,30 @@ extern "C" int quant_matmul_wgmma(const void* x, const void* q, const float* s,
   return (int)(2 * blocks128 <= sms
                    ? tc::launch_wgmma<64>(x, q, s, b, out, M, K, n, Kp, Np, st)
                    : tc::launch_wgmma<128>(x, q, s, b, out, M, K, n, Kp, Np, st));
+}
+
+// The float32 tensor-core route (2xTF32): float32 x with K a multiple of 4,
+// x and q 16-byte aligned (TMA; cudaErrorMisalignedAddress if not), out
+// 8-byte aligned.  The tile is 128 x 128 at every shape; the tensor maps
+// come from hopper.cuh's cache of encoded maps.
+extern "C" int quant_matmul_tf32x2(const void* x, const void* q, const float* s,
+                                   const float* b, void* out, int M, int K, int n,
+                                   int Kp, int Np, void* stream) {
+  namespace t2 = sicz::hopper::tf32x2;
+  if (M <= 0 || K <= 0 || n <= 0 || K > Kp || n > Np || K % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (!sicz::hopper::aligned16(x) || !sicz::hopper::aligned16(q) || ((uintptr_t)out & 7))
+    return (int)cudaErrorMisalignedAddress;
+  CUtensorMap mx, mq;
+  if (!sicz::hopper::tensor_map_f32(&mx, x, M, K, K, t2::BM) ||
+      !sicz::hopper::tensor_map_i8(&mq, q, Kp, Np, Np, t2::BK, t2::BN))
+    return (int)cudaErrorInvalidValue;
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t err =
+      sicz::hopper::allow_smem((const void*)tc::quant_matmul_tf32x2, t2::SMEM, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + t2::BN - 1) / t2::BN, (M + t2::BM - 1) / t2::BM);
+  tc::quant_matmul_tf32x2<<<grid, t2::NT, t2::SMEM, (cudaStream_t)stream>>>(
+      mx, mq, s, b, (float*)out, M, K, n);
+  return (int)cudaGetLastError();
 }

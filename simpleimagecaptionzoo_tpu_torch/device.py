@@ -7,8 +7,10 @@ matmul policy: the port's float32 products are float32-accurate, so a
 float32 decode on the card computes what the float32 decode on the CPU
 computes.  The library calls (cuBLAS, cuDNN) run with TF32 off, set here;
 the float32 routes of kernels K1 and K2 run on the tensor cores as three
-TF32 products each (3xTF32, ``ops/tf32.py``), which keeps float32 accuracy;
-the other kernels' float32 routes multiply on the CUDA cores in float32.
+TF32 products each (3xTF32, ``ops/tf32.py``), those of K1 and K3 with an
+int8 weight as two (2xTF32: the int8 weight is exact in TF32), which keeps
+float32 accuracy; K4 and the CUDA-core routes that operands TMA cannot take
+multiply on the CUDA cores in float32.
 """
 from __future__ import annotations
 

@@ -12,16 +12,18 @@ path); the product is float32 either way.
 
 :func:`topk_head` launches the kernel for a CUDA tensor and takes
 :func:`topk_head_plain`, the same function in plain PyTorch, for a CPU
-tensor only.  The kernel's partial pass has three routes, chosen by
+tensor only.  The kernel's partial pass has four routes, chosen by
 :func:`head_route` from dtypes, shapes and alignment: ``"wgmma"`` (bf16 x
 with bf16 or int8 w on the tensor cores, TMA-fed, an int8 w widened to bf16
 in shared memory first; chunks of ``HEAD_CHUNK_WGMMA`` columns),
 ``"tf32x3"`` (float32 x and w on the tensor cores as three TF32 products,
-float32-accurate: ``ops/tf32.py``; chunks of ``HEAD_CHUNK_TF32X3``) and
-``"cuda_core"`` (float32 x with an int8 w, and operands TMA cannot take;
+float32-accurate: ``ops/tf32.py``; chunks of ``HEAD_CHUNK_TF32X3``),
+``"tf32x2"`` (float32 x with an int8 w: two TF32 products, the int8 w
+exact in TF32, transposed and widened to float32 in shared memory; chunks
+of ``HEAD_CHUNK_TF32X3``) and ``"cuda_core"`` (operands TMA cannot take;
 chunks of ``HEAD_CHUNK``).
-``COUNT`` counts every launch, ``COUNT_WGMMA`` and ``COUNT_TF32X3`` those
-of the tensor-core routes.
+``COUNT`` counts every launch, ``COUNT_WGMMA``, ``COUNT_TF32X3`` and
+``COUNT_TF32X2`` those of the tensor-core routes.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ K_ALIGN = 128                   # x feature axis alignment
 V_TILE = 512                    # vocab padding unit (the JAX package's)
 HEAD_CHUNK = 128                # columns per chunk, "cuda_core" route (BN)
 HEAD_CHUNK_WGMMA = 256          # columns per chunk, "wgmma" route (tc::BN)
-HEAD_CHUNK_TF32X3 = 128         # columns per chunk, "tf32x3" (tf32x3::BN)
+HEAD_CHUNK_TF32X3 = 128         # columns per chunk, "tf32x3" and "tf32x2" (BN)
 MAX_K = 16
 _NEG = -1e30
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}   # common.cuh
@@ -44,6 +46,7 @@ _DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}   # common.cuh
 COUNT = _build.Counter()           # every launch, any route
 COUNT_WGMMA = _build.Counter()     # launches of the "wgmma" route
 COUNT_TF32X3 = _build.Counter()    # launches of the "tf32x3" route
+COUNT_TF32X2 = _build.Counter()    # launches of the "tf32x2" route
 
 
 class Head(NamedTuple):
@@ -125,7 +128,8 @@ def head_route(w: torch.Tensor, x: torch.Tensor) -> str:
     """The partial pass's route for these operands, when x's and w's rows
     are multiples of 16 bytes (for TMA) and both start on 16-byte
     boundaries: ``"wgmma"`` when x is bf16 and w bf16 or int8,
-    ``"tf32x3"`` when both are float32; else ``"cuda_core"``."""
+    ``"tf32x3"`` when both are float32, ``"tf32x2"`` when x is float32 and
+    w int8; else ``"cuda_core"``."""
     if ((x.shape[1] * x.element_size()) % 16 == 0
             and (w.shape[1] * w.element_size()) % 16 == 0
             and _build.tma_aligned(x, w)):
@@ -134,6 +138,8 @@ def head_route(w: torch.Tensor, x: torch.Tensor) -> str:
             return "wgmma"
         if x.dtype == torch.float32 and w.dtype == torch.float32:
             return "tf32x3"
+        if x.dtype == torch.float32 and w.dtype == torch.int8:
+            return "tf32x2"
     return "cuda_core"
 
 
@@ -141,7 +147,7 @@ def head_chunks(route: str, vp: int) -> int:
     """Vocab chunks of the partial pass over ``vp`` columns on ``route``:
     one (max, sum, top-k) partial per row and chunk."""
     width = {"wgmma": HEAD_CHUNK_WGMMA, "tf32x3": HEAD_CHUNK_TF32X3,
-             "cuda_core": HEAD_CHUNK}[route]
+             "tf32x2": HEAD_CHUNK_TF32X3, "cuda_core": HEAD_CHUNK}[route]
     return -(-vp // width)
 
 
@@ -177,6 +183,12 @@ def _run_kernel(head: Head, x: torch.Tensor, k: int, route: str):
         raise ValueError("fused_head: the tf32x3 route takes float32 x and "
                          "w with K and V multiples of 4; got %s, %s, K=%d, "
                          "V=%d" % (x.dtype, w.dtype, kp, vp))
+    if route == "tf32x2" and not (
+            x.dtype == torch.float32 and w.dtype == torch.int8
+            and kp % 4 == 0 and vp % 16 == 0):
+        raise ValueError("fused_head: the tf32x2 route takes float32 x and "
+                         "int8 w with K a multiple of 4 and V of 16; got %s, "
+                         "%s, K=%d, V=%d" % (x.dtype, w.dtype, kp, vp))
     if route == "wgmma" and not (
             x.dtype == torch.bfloat16 and w.dtype in (torch.bfloat16,
                                                       torch.int8)
@@ -220,6 +232,13 @@ def _run_kernel(head: Head, x: torch.Tensor, k: int, route: str):
             _build.stream_of(x))
         _build.check(code, "fused_head_topk_tf32x3")
         COUNT_TF32X3.n += 1
+    elif route == "tf32x2":
+        code = lib.fused_head_topk_tf32x2(
+            p(x), p(w), p(s), p(b), pmax, psum, pval, pidx,
+            p(vals), p(idx), p(lse), m, kp, vp, k, nchunk,
+            _build.stream_of(x))
+        _build.check(code, "fused_head_topk_tf32x2")
+        COUNT_TF32X2.n += 1
     elif route == "cuda_core":
         code = lib.fused_head_topk(
             p(x), p(w), p(s), p(b), pmax, psum, pval, pidx,
@@ -240,6 +259,8 @@ def _declare(lib) -> None:
     lib.fused_head_topk_wgmma.restype = i_
     lib.fused_head_topk_tf32x3.argtypes = [vp_] * 12 + [i_] * 5 + [vp_]
     lib.fused_head_topk_tf32x3.restype = i_
+    lib.fused_head_topk_tf32x2.argtypes = [vp_] * 11 + [i_] * 5 + [vp_]
+    lib.fused_head_topk_tf32x2.restype = i_
 
 
 def enabled(k: int) -> bool:

@@ -11,11 +11,14 @@ dispatch on ``"q"``, so a decode runs unchanged on a quantized tree.
 rounded once to x's dtype.  It launches ``csrc/quant_matmul.cu`` for a CUDA
 ``x`` and takes :func:`quant_matmul_plain` for a CPU ``x`` only.  The JAX
 package's row-count and VMEM gate is the TPU's; K3 takes any row count.
-The kernel has two routes, chosen by :func:`quant_route` from dtypes,
+The kernel has three routes, chosen by :func:`quant_route` from dtypes,
 shapes and alignment: ``"wgmma"`` (bf16 x; q widened to bf16 in shared
-memory between its TMA load and the tensor-core product) and
-``"cuda_core"`` (float32 x, and operands TMA cannot take).  ``COUNT``
-counts every launch, ``COUNT_WGMMA`` those of the tensor-core route.
+memory between its TMA load and the tensor-core product), ``"tf32x2"``
+(float32 x; q transposed and widened to float32 in shared memory, and two
+TF32 products, x_lo q + x_hi q, which keep float32 accuracy because an
+int8 q is exact in TF32) and ``"cuda_core"`` (operands TMA cannot take).
+``COUNT`` counts every launch, ``COUNT_WGMMA`` and ``COUNT_TF32X2`` those
+of the tensor-core routes.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ N_ALIGN = 512
 
 COUNT = _build.Counter()           # every launch, either route
 COUNT_WGMMA = _build.Counter()     # launches of the "wgmma" route
+COUNT_TF32X2 = _build.Counter()    # launches of the "tf32x2" route
 
 
 # ---------------------------------------------------------------------------
@@ -126,12 +130,16 @@ def quant_matmul_plain(x: torch.Tensor, qp: dict) -> torch.Tensor:
 
 
 def quant_route(x2: torch.Tensor, q: torch.Tensor) -> str:
-    """The kernel route for x2 (m, K) and q: ``"wgmma"`` when x2 is bf16,
-    K is a multiple of 8 (16-byte rows for TMA) and x2 and q start on
-    16-byte boundaries with 16-byte row strides; else ``"cuda_core"``."""
-    if (x2.dtype == torch.bfloat16 and x2.shape[1] % 8 == 0
+    """The kernel route for x2 (m, K) and q, when x2's rows are 16 bytes
+    (K a multiple of 8 in bf16, of 4 in float32: TMA's rule) and x2 and q
+    start on 16-byte boundaries with 16-byte row strides: ``"wgmma"`` for
+    bf16 x2, ``"tf32x2"`` for float32; else ``"cuda_core"``."""
+    if ((x2.shape[1] * x2.element_size()) % 16 == 0
             and _build.tma_aligned(x2, q)):
-        return "wgmma"
+        if x2.dtype == torch.bfloat16:
+            return "wgmma"
+        if x2.dtype == torch.float32:
+            return "tf32x2"
     return "cuda_core"
 
 
@@ -169,6 +177,15 @@ def _run_kernel(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                                       n, kp, np_, _build.stream_of(x2))
         _build.check(code, "quant_matmul_wgmma")
         COUNT_WGMMA.n += 1
+    elif route == "tf32x2":
+        if x2.dtype != torch.float32 or k % 4:
+            raise ValueError("quant_matmul: the tf32x2 route takes float32 x "
+                             "with K a multiple of 4; got %s, K=%d"
+                             % (x2.dtype, k))
+        code = lib.quant_matmul_tf32x2(p(x2), p(q), p(s), p(b), p(out), m, k,
+                                       n, kp, np_, _build.stream_of(x2))
+        _build.check(code, "quant_matmul_tf32x2")
+        COUNT_TF32X2.n += 1
     elif route == "cuda_core":
         code = lib.quant_matmul(p(x2), p(q), p(s), p(b), p(out), m, k, n, kp,
                                 np_, 0 if x2.dtype == torch.float32 else 1,
@@ -187,6 +204,8 @@ def _declare(lib) -> None:
     lib.quant_matmul.restype = i_
     lib.quant_matmul_wgmma.argtypes = [vp_] * 5 + [i_] * 5 + [vp_]
     lib.quant_matmul_wgmma.restype = i_
+    lib.quant_matmul_tf32x2.argtypes = [vp_] * 5 + [i_] * 5 + [vp_]
+    lib.quant_matmul_tf32x2.restype = i_
 
 
 def quant_matmul(x: torch.Tensor, qp: dict) -> torch.Tensor:

@@ -11,7 +11,8 @@ The weights do not change within a decode, so their split is made here,
 once, by the ``prepare_*`` functions (``fused_lstm.prepare_lstm``,
 ``fused_head.prepare_head``); the kernels split the activations
 themselves, with ``cvt.rna.tf32.f32``, whose rounding :func:`round_tf32`
-reproduces bit for bit.  Both parts are stored transposed, (N, K) with K
+reproduces bit for bit.  An int8 weight is exact in TF32, so the "tf32x2"
+routes of K3 and K1-int8 split only x.  Both parts are stored transposed, (N, K) with K
 contiguous: ``wgmma`` takes TF32 operands K-major only.
 """
 from __future__ import annotations

@@ -587,6 +587,119 @@ def test_tf32x3_routes_refuse_a_misaligned_x(dev):
                                wt.split)
 
 
+def _k3_f32_hold(got, want, x, qp):
+    """K3's float32 hold: within 1e-5 of the sum of |x q s| (the float32
+    rounding bound of a dot product summed in another order), plus 1e-6."""
+    k, n = x.shape[1], want.shape[1]
+    terms = x.abs() @ (qp["q"][:k, :n].float().abs() * qp["s"])
+    err = (got - want).abs()
+    assert bool((err <= 1e-5 * terms + 1e-6).all()), float(err.max())
+
+
+@pytest.mark.parametrize("route", ["tf32x2", "cuda_core"])
+@pytest.mark.parametrize("m,k,n", [(384, 3072, 4096),    # the LSTM gates
+                                   (384, 1024, 1024),    # aoa_dec.q
+                                   (384, 2048, 2048),    # aoa_dec.aoa
+                                   (1152, 3072, 4096),   # the beam rows
+                                   (1152, 1024, 1024),
+                                   (1152, 2048, 2048),
+                                   (37, 200, 700)])      # ragged m, K, n
+def test_quant_matmul_f32_routes_match_plain(dev, route, m, k, n):
+    """K3 in float32 on the 2xTF32 tensor-core route (quant_route's pick)
+    at the int8 decode step's three shapes, over the greedy and the beam
+    rows and ragged, and on the CUDA-core route (forced): K3's float32
+    hold, x N(0, 1)."""
+    rng = np.random.default_rng(m + k + n + 1)
+    qp = _qdense(rng, k, n, dev)
+    x = _t(rng.normal(size=(m, k)), dev, torch.float32)
+    assert quant.quant_route(x, qp["q"]) == "tf32x2"
+    before = quant.COUNT.n, quant.COUNT_WGMMA.n, quant.COUNT_TF32X2.n
+    if route == "tf32x2":
+        got = quant.quant_matmul(x, qp)
+    else:
+        got = quant._run_kernel(x, qp["q"], qp["s"], qp["b"], route)
+    torch.cuda.synchronize()
+    assert (quant.COUNT.n, quant.COUNT_WGMMA.n, quant.COUNT_TF32X2.n) == (
+        before[0] + 1, before[1], before[2] + (route == "tf32x2"))
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    _k3_f32_hold(got, quant.quant_matmul_plain(x, qp), x, qp)
+
+
+def _int8_counts():
+    return (fused_head.COUNT.n, fused_head.COUNT_WGMMA.n,
+            fused_head.COUNT_TF32X2.n)
+
+
+@pytest.mark.parametrize("m,k,route", [(16, 1, "tf32x2"), (16, 3, "tf32x2"),
+                                       (3, 3, "tf32x2"), (45, 16, "tf32x2"),
+                                       (384, 1, "tf32x2"), (384, 3, "tf32x2"),
+                                       (1152, 3, "tf32x2"),
+                                       (45, 16, "cuda_core")])
+def test_head_int8_f32_routes_match_plain(dev, m, k, route):
+    """K1-int8 in float32 at full width (H 1,024, V 10,102) on the 2xTF32
+    route (head_route's pick) and on the CUDA-core route (forced): values
+    and lse within 1e-4 of the plain version, ids exact where the plain
+    logits leave a gap above 1e-3 on both sides."""
+    rng = np.random.default_rng(m * 7 + k)
+    prep = _int8_head(rng, 1024, 10102, dev)
+    assert prep.w.dtype == torch.int8
+    x = _t(rng.normal(size=(m, 1024)), dev, torch.float32)
+    assert fused_head.head_route(prep.w, x) == "tf32x2"
+    before = _int8_counts()
+    kv, ki, kl = fused_head._run_kernel(prep, x, k, route)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_int8_counts(), before)) == (
+        1, 0, int(route == "tf32x2"))
+    pv, pi, pl = fused_head.topk_head_plain(prep, x, k + 1)
+    torch.testing.assert_close(kv, pv[:, :k], rtol=0, atol=1e-4)
+    torch.testing.assert_close(kl, pl, rtol=0, atol=1e-4)
+    gaps = pv[:, :-1] - pv[:, 1:]
+    lo = torch.cat([torch.full_like(gaps[:, :1], float("inf")),
+                    gaps[:, :k - 1]], dim=1)
+    sure = (gaps[:, :k] > 1e-3) & (lo > 1e-3)
+    assert int(((ki != pi[:, :k]) & sure).sum()) == 0
+
+
+def test_head_int8_tf32x2_route_ties_across_chunks(dev):
+    """The cross-chunk tie with an int8 head and float32 x on the 2xTF32
+    route: equal winners in two 128-column chunks go to the smaller id, and
+    a chunk made only of pad columns neither wins nor makes NaN."""
+    vp = 2 * fused_head.V_TILE
+    q = torch.zeros((128, vp), dtype=torch.int8)
+    q[:8, 7] = 3
+    q[:8, fused_head.V_TILE + 11] = 3
+    q[:8, 100] = 1
+    head = fused_head.prepare_head(
+        {"q": q.to(dev), "s": torch.ones(700, device=dev),
+         "b": torch.zeros(700, device=dev)}, torch.float32)
+    x = torch.eye(8, 128, device=dev)
+    assert fused_head.head_route(head.w, x) == "tf32x2"
+    before = fused_head.COUNT_TF32X2.n
+    vals, idx, lse = fused_head.topk_head(head, x, 3)
+    torch.cuda.synchronize()
+    assert fused_head.COUNT_TF32X2.n == before + 1
+    pv, pi, pl = fused_head.topk_head_plain(head, x, 3)
+    assert idx.tolist() == [[7, fused_head.V_TILE + 11, 100]] * 8
+    assert torch.equal(idx, pi)
+    assert torch.isfinite(lse).all()
+    torch.testing.assert_close(lse, pl, rtol=0, atol=1e-4)
+
+
+def test_tf32x2_routes_refuse_a_misaligned_x(dev):
+    """The 2xTF32 routes' C entries refuse a base TMA cannot take: no
+    fallback."""
+    flat = torch.zeros(8 * 128 + 8, device=dev)
+    x = flat[1:1 + 8 * 128].view(8, 128)
+    qp = _qdense(np.random.default_rng(3), 128, 512, dev)
+    assert quant.quant_route(x, qp["q"]) == "cuda_core"
+    with pytest.raises(RuntimeError, match="misaligned"):
+        quant._run_kernel(x, qp["q"], qp["s"], qp["b"], "tf32x2")
+    head = fused_head.prepare_head(qp, torch.float32)
+    assert fused_head.head_route(head.w, x) == "cuda_core"
+    with pytest.raises(RuntimeError, match="misaligned"):
+        fused_head._run_kernel(head, x, 1, "tf32x2")
+
+
 @pytest.mark.parametrize("b,k,n,d,heads", [(384, 3, 36, 1024, 8),
                                            (8, 3, 5, 256, 2),
                                            (5, 16, 37, 384, 3)])
@@ -613,7 +726,7 @@ def test_beam_decode_through_the_kernels_matches_plain(dev, path,
     the same decode through the plain versions.  Every step launches K1 at
     m = 48, k = 3, and K2 (float paths) or K3 three times and K4 at 3 query
     rows (int8 paths), each on its tensor-core or "tma" route (K1-int8 and
-    K3 on the CUDA cores in float32).  Every kernel call holds against its
+    K3 on "tf32x2" in float32).  Every kernel call holds against its
     plain version on the same inputs.  float32 ids are identical in all but
     at most one row; in the other paths each row's winner, rescored by the
     plain step, scores no lower than the plain run's winner minus 2 x 8
@@ -651,8 +764,8 @@ def test_beam_decode_through_the_kernels_matches_plain(dev, path,
                         ("K2", "tf32x3", mk, None)},
             "bfloat16": {("K1", "wgmma", mk, beam),
                          ("K2", "wgmma", mk, None)}}.get(
-        path, {("K1", "wgmma" if tc else "cuda_core", mk, beam),
-               ("K3", "wgmma" if tc else "cuda_core", mk, None),
+        path, {("K1", "wgmma" if tc else "tf32x2", mk, beam),
+               ("K3", "wgmma" if tc else "tf32x2", mk, None),
                ("K4", "tma", b, beam)})
     assert set(shapes) == want
     assert ids.shape == ref.shape == (b, max_steps + 1)

@@ -81,11 +81,13 @@ def _head(vocab, dtype, wdtype=None):
     return head
 
 
+# a case whose expected route changed keeps the id it was collected under
 @pytest.mark.parametrize("xdtype,wdtype,route", [
     (torch.bfloat16, torch.bfloat16, "wgmma"),
     (torch.float32, torch.float32, "tf32x3"),      # 3xTF32 wgmma
     (torch.bfloat16, torch.int8, "wgmma"),         # K1-int8, widened to bf16
-    (torch.float32, torch.int8, "cuda_core"),      # float32 x, int8 w
+    pytest.param(torch.float32, torch.int8, "tf32x2",   # 2xTF32, widened
+                 id="xdtype3-wdtype3-cuda_core"),       # to float32
 ])
 def test_head_route_rule(xdtype, wdtype, route):
     head = _head(1000, xdtype, wdtype)
@@ -101,6 +103,20 @@ def test_head_route_int8_rows_need_16_bytes():
     assert fused_head.head_route(w, x) == "cuda_core"
     assert fused_head.head_route(_misaligned(128, 1024, dtype=torch.int8),
                                  x) == "cuda_core"
+
+
+def test_head_route_f32_int8_needs_16_byte_rows_and_aligned_bases():
+    head = _head(1000, torch.float32, torch.int8)        # Kp 128, Vp 1,024
+    x = torch.zeros(16, head.w.shape[0])
+    assert fused_head.head_route(head.w, x) == "tf32x2"
+    w = torch.zeros(head.w.shape[0], 1000, dtype=torch.int8)  # rows of 1,000 B
+    assert fused_head.head_route(w, x) == "cuda_core"
+    assert fused_head.head_route(_misaligned(128, 1024, dtype=torch.int8),
+                                 x) == "cuda_core"
+    assert fused_head.head_route(
+        head.w, _misaligned(16, 128, dtype=torch.float32)) == "cuda_core"
+    assert fused_head.head_route(head.w[:98], torch.zeros(16, 98)) == \
+        "cuda_core"                                      # x rows of 392 B
 
 
 def test_head_route_needs_aligned_bases():
@@ -133,6 +149,8 @@ def test_head_f32_route_needs_aligned_bases_and_16_byte_rows():
     ("tf32x3", 10240, 80),
     ("tf32x3", 512, 4),
     ("tf32x3", 700, 6),
+    ("tf32x2", 10240, 80),        # K1-int8 in float32: tf32x3's chunks
+    ("tf32x2", 700, 6),
 ])
 def test_head_chunk_plan(route, vp, nchunk):
     assert fused_head.head_chunks(route, vp) == nchunk
@@ -141,6 +159,8 @@ def test_head_chunk_plan(route, vp, nchunk):
 def test_head_chunk_widths_match_the_kernel_tiles():
     assert (fused_head.HEAD_CHUNK, fused_head.HEAD_CHUNK_WGMMA,
             fused_head.HEAD_CHUNK_TF32X3) == (128, 256, 128)
+    assert fused_head.head_chunks("tf32x2", 10240) == \
+        fused_head.head_chunks("tf32x3", 10240)
     assert fused_head.V_TILE % fused_head.HEAD_CHUNK_WGMMA == 0
     assert fused_head.V_TILE % fused_head.HEAD_CHUNK_TF32X3 == 0
     with pytest.raises(KeyError):
@@ -157,9 +177,18 @@ def _q(kp, np_):
     (384, 2048, torch.bfloat16, "wgmma"),      # aoa_dec.aoa
     (1152, 3072, torch.bfloat16, "wgmma"),     # the beam rows
     (37, 200, torch.bfloat16, "wgmma"),        # ragged m and K
-    (384, 3072, torch.float32, "cuda_core"),   # no float32 wgmma
+    pytest.param(384, 3072, torch.float32, "tf32x2",   # float32: 2xTF32
+                 id="384-3072-dtype5-cuda_core"),      # (id kept)
     (37, 70, torch.bfloat16, "cuda_core"),     # K not a multiple of 8
     (5, 1, torch.bfloat16, "cuda_core"),
+    (384, 1024, torch.float32, "tf32x2"),      # aoa_dec.q
+    (384, 2048, torch.float32, "tf32x2"),      # aoa_dec.aoa
+    (1152, 3072, torch.float32, "tf32x2"),     # the beam rows
+    (37, 200, torch.float32, "tf32x2"),        # ragged m and K, rows of 800 B
+    (37, 70, torch.float32, "cuda_core"),      # K not a multiple of 4
+    (16, 102, torch.float32, "cuda_core"),     # rows of 408 bytes
+    (5, 1, torch.float32, "cuda_core"),
+    (16, 256, torch.float16, "cuda_core"),     # no route takes float16
 ])
 def test_quant_route_rule(m, k, dtype, route):
     x = torch.zeros(m, k, dtype=dtype)
@@ -172,6 +201,17 @@ def test_quant_route_needs_aligned_bases(which):
     assert quant.quant_route(x, q) == "wgmma"
     if which == "x":
         x = _misaligned(16, 256)
+    else:
+        q = _misaligned(256, 512, dtype=torch.int8)
+    assert quant.quant_route(x, q) == "cuda_core"
+
+
+@pytest.mark.parametrize("which", ["x", "q"])
+def test_quant_f32_route_needs_aligned_bases(which):
+    x, q = torch.zeros(16, 256), _q(256, 512)
+    assert quant.quant_route(x, q) == "tf32x2"
+    if which == "x":
+        x = _misaligned(16, 256, dtype=torch.float32)
     else:
         q = _misaligned(256, 512, dtype=torch.int8)
     assert quant.quant_route(x, q) == "cuda_core"
