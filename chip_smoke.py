@@ -26,16 +26,22 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      H=1024, the unaligned E=200 and the beam rows B=1,152 on each dtype's
      tensor-core route; B=384 and E=200 on the CUDA-core route too); each
      dtype timed in turns against the CUDA-core route and torch.lstm_cell
-     at B=384 and B=1,152;
+     at B=384 and B=1,152; and BUTD's two cells (E=4,096, the attention
+     cell's [h2, mean, emb]; E=3,072, the language cell's [attended, h1])
+     at B=384 and 1,152 on each dtype's tensor-core route, timed in turns
+     against torch.lstm_cell;
   5. K3, the int8 dequantizing product, against its plain version at the
      three shapes of the int8 decode step (the LSTM gates, aoa_dec.q,
-     aoa_dec.aoa; m=384, and m=1,152 for the beam step) and a ragged one
+     aoa_dec.aoa; m=384, and m=1,152 for the beam step), at BUTD's three
+     (its cells' [x, h], K=5,120 and 4,096 to n=4,096; att_dec, 1,024 to
+     1,024; m=384 and 1,152) and a ragged one
      (m=37, K=200, n=700) on each dtype's tensor-core route (bf16:
      "wgmma"; float32: "tf32x2", two TF32 products over q widened to
      float32 in shared memory), and at the same shapes on the CUDA-core
      route (forced); each step shape timed at both m in turns
      (old: CUDA cores, new, lib, lib, new, old), host-inclusive and
-     device-only, against torch._weight_int8pack_mm;
+     device-only, against torch._weight_int8pack_mm (BUTD's shapes in
+     turns of old, new, lib, new, old, 10 launches a reading);
   6. K1-int8, the fused head over the int8 head weight, as in 3, on each
      dtype's tensor-core route ("wgmma", "tf32x2") and on the CUDA-core
      route (forced), each also at m=1,152, k=3; timed in turns (old, new,
@@ -58,8 +64,10 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      every K4 launch on the "tma" route.  Each is run once
      with the plain versions (the reference) and three times through the
      kernels; the launch counts of the kernel runs, per route, must equal
-     their decode steps times those multiples, and the ids must agree with
-     the reference run.  One more decode per path runs under
+     their decode steps times those multiples, every launch's shape
+     (engine/holds.recording_shapes: rows, and k for K1 and K4, the width
+     of x for K2 and K3) must be one the path expects, each once a step,
+     and the ids must agree with the reference run.  One more decode per path runs under
      torch.profiler, which prints the device time by kernel and the
      device's idle share;
   9. the main path, beam: AoADetection beam-3 decode of the same model and
@@ -77,10 +85,22 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      the plain step (ops/decode.sequence_logprob), and every row's kernel
      winner must score no lower than the plain winner minus 2 x 20 steps x
      4 x K1's value hold (1e-4 float32, 2e-3 bf16).
-     scripts/rehearse_beam_gate.py shows what these gates pass and fail.
+     scripts/rehearse_beam_gate.py shows what these gates pass and fail;
+ 10. BUTDDetection in feature mode at the width of
+     Configs/Models/BUTDDetection.json (embed, hidden and atten 1024,
+     enc_dim 2048, vocab 10,102; 36 boxes with 10-36 valid; random weights
+     from --seed), B=384, step cap 20: greedy as in 8 and beam 3 as in 9,
+     on the same four paths.  Per step: K1 once and K2 twice (its two
+     cells, E=4,096 and 3,072) in float32 and bf16; K1-int8 once and K3
+     three times (K=5,120, 4,096 and att_dec's 1,024), K2 and K4 never, in
+     int8 serving form; each on its dtype's tensor-core route;
+ 11. BUTDSpatial (49 unmasked grid regions, the same weights): beam 3 in
+     bf16 and in int8 bf16, as in 10.
 Then it prints one JSON line of per-kernel results (the beam shapes'
-launches as entries of their own, named ``..._beam``) and, last, the
-``{"ok": true, "device": ...}`` line.
+launches as entries of their own, named ``..._beam``; BUTD's K2 and K3
+shapes as ``..._butd_<layer>``; an entry's ``launches`` is the sum over the
+main paths' reading runs that launched it, ``launches_by_path`` per path)
+and, last, the ``{"ok": true, "device": ...}`` line.
 
 Timings use CUDA events, with a 128 MB buffer written between launches so
 each launch finds the L2 cache cold (as in the decode, where the other
@@ -126,6 +146,8 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12,
                   "tf32x3": 494.7e12 / 3, "tf32x2": 989e12 / 3,
                   "2xtf32": 494.7e12 / 2}
 B, MAX_LEN, N_BOX, BEAM = 384, 20, 36, 3
+N_GRID = 49                   # BUTDSpatial: a 7 x 7 grid of ResNet features
+HERE = os.path.dirname(os.path.abspath(__file__))
 FULL = dict(model_type="AoADetection", vocab_size=10102, embed_dim=1024,
             hidden_dim=1024, enc_dim=2048, num_heads=8, num_refine_layers=6,
             max_bu_len=N_BOX)
@@ -355,7 +377,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
               file=sys.stderr)
         return 1
-    from simpleimagecaptionzoo_tpu_torch.config import ModelConfig
+    from simpleimagecaptionzoo_tpu_torch.config import (ModelConfig,
+                                                        load_model_config)
     from simpleimagecaptionzoo_tpu_torch.device import resolve_device
     from simpleimagecaptionzoo_tpu_torch.engine import holds, steps
     from simpleimagecaptionzoo_tpu_torch.models.base import get_captioner
@@ -376,7 +399,7 @@ def main(argv=None) -> int:
                "cuda": torch.version.cuda, "seed": args.seed}
 
     # -- 2. build -------------------------------------------------------------
-    t0 = time.time()
+    t0 = t_start = time.time()
     libs = ["fused_head", "fused_lstm", "quant_matmul", "int8_attention"]
     lib_paths = _build.build(libs)
     results["build_s"] = time.time() - t0
@@ -424,6 +447,23 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = get_captioner(ModelConfig(**FULL))
     params = model.init_params(gen)
+    # BUTDDetection and BUTDSpatial at the width of their published configs
+    # (one param tree serves both: feature mode has no CNN)
+    butd, butd_sp = (get_captioner(load_model_config(
+        os.path.join(HERE, "Configs", "Models", fam + ".json"),
+        vocab_size=FULL["vocab_size"])) for fam in ("BUTDDetection",
+                                                    "BUTDSpatial"))
+    bparams = butd.init_params(gen)
+    bcfg = butd.config
+    # the widths of x at each BUTD launch: K2's E (the attention cell's
+    # [h2, mean, emb], the language cell's [attended, h1]); K3's K (each
+    # cell's [x, h], att_dec's h1)
+    e_td = bcfg.hidden_dim + bcfg.enc_dim + bcfg.embed_dim
+    e_lang = bcfg.enc_dim + bcfg.hidden_dim
+    butd_k2 = (("td", "lstm_td", e_td), ("lang", "lstm_lang", e_lang))
+    butd_k3 = (("td", "lstm_td", e_td + bcfg.hidden_dim),
+               ("lang", "lstm_lang", e_lang + bcfg.hidden_dim),
+               ("att_dec", "att_dec", bcfg.hidden_dim))
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
     kernels = {}
 
@@ -431,6 +471,7 @@ def main(argv=None) -> int:
         kernels["%s/%s" % (kname, dtype_name)] = dict(
             name="%s/%s" % (kname, dtype_name), route="cuda", **kw)
 
+    log("-- phase 3 at %.1f s" % (time.time() - t_start))
     # -- 3. K1 against its plain version --------------------------------------
     mb = 3 * B                                      # beam rows: B x 3 beams
     for dtype in (torch.float32, torch.bfloat16):
@@ -576,6 +617,7 @@ def main(argv=None) -> int:
                                 route, 2 * fused_head.V_TILE),
                             ti[0].tolist()))
 
+    log("-- phase 4 at %.1f s" % (time.time() - t_start))
     # -- 4. K2 against its plain version --------------------------------------
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
@@ -593,15 +635,24 @@ def main(argv=None) -> int:
                  - 1) * wb).to(dtype)
         split200 = (tf32.prepare_split(w200)
                     if dtype == torch.float32 else None)
+        # BUTD's two cells (phase 10's widths), each with its weights
+        bws = {}
+        for tag, cell, e in butd_k2:
+            lp = steps._cast_floats(bparams[cell], dtype)
+            bws[tag] = (lp, fused_lstm.prepare_lstm(lp), e)
         # the decode step, the unaligned E=200 and the beam rows on the
         # tensor-core route; the CUDA-core route, which shapes TMA cannot
-        # take go to, at the first two
-        shapes = [(B, e_in, w_cat, split, tc_route),
-                  (B, 200, w200, split200, tc_route),
-                  (mb, e_in, w_cat, split, tc_route),
-                  (B, e_in, w_cat, split, "cuda_core"),
-                  (B, 200, w200, split200, "cuda_core")]
-        for m, e, wc, sp, route in shapes:
+        # take go to, at the first two; BUTD's cells at the greedy and the
+        # beam rows on the tensor-core route
+        shapes = [(B, e_in, w_cat, b_sum, split, tc_route),
+                  (B, 200, w200, b_sum, split200, tc_route),
+                  (mb, e_in, w_cat, b_sum, split, tc_route),
+                  (B, e_in, w_cat, b_sum, split, "cuda_core"),
+                  (B, 200, w200, b_sum, split200, "cuda_core")] + [
+            (m, e, bw.w_cat, bw.b_sum, bw.split, tc_route)
+            for _, bw, e in bws.values() for m in (B, mb)]
+        case_err = {}          # (B, E) -> max |err| on the tensor-core route
+        for m, e, wc, bs, sp, route in shapes:
             x, h, c = (torch.randn(m, n, generator=gen, device=dev).to(dtype)
                        for n in (e, hd, hd))
             before = counts(fused_lstm)
@@ -609,14 +660,15 @@ def main(argv=None) -> int:
                 got_route = fused_lstm.lstm_route(wc, x, h)
                 require(got_route == route, "K2 %s B=%d E=%d takes the %s "
                         "route" % (dn, m, e, got_route))
-                kh, kc = fused_lstm.lstm_cell_fused(wc, b_sum, x, h, c, sp)
+                kh, kc = fused_lstm.lstm_cell_fused(wc, bs, x, h, c, sp)
             else:
-                kh, kc = fused_lstm._run_kernel(wc, b_sum, x, h, c, route)
+                kh, kc = fused_lstm._run_kernel(wc, bs, x, h, c, route)
             torch.cuda.synchronize()
             require(moved(counts(fused_lstm), before) == launched(route),
                     "K2 %s %s B=%d E=%d: the counters moved by %s"
                     % (dn, route, m, e, moved(counts(fused_lstm), before)))
-            ph, pc = fused_lstm.lstm_cell_plain(wc, b_sum, x, h, c)
+            ph, pc = fused_lstm.lstm_cell_plain(wc, bs, x, h, c)
+            err = 0.0
             for got, want, what in ((kh, ph, "h'"), (kc, pc, "c'")):
                 diff = (got.float() - want.float()).abs()
                 lim = tol["atol"] + tol["rtol"] * want.float().abs()
@@ -625,10 +677,13 @@ def main(argv=None) -> int:
                         "atol %g" % (dn, route, m, e, what,
                                      float(diff.max()), tol["rtol"],
                                      tol["atol"]))
-                errs[route] = max(errs[route], float(diff.max()))
+                err = max(err, float(diff.max()))
+            if e in (e_in, 200):
+                errs[route] = max(errs[route], err)
+            else:
+                case_err[m, e] = err
             log("K2 %s (%s) B=%d E=%d H=%d: max|err| %.3g (rtol %g atol %g)"
-                % (dn, route, m, e, hd, errs[route], tol["rtol"],
-                   tol["atol"]))
+                % (dn, route, m, e, hd, err, tol["rtol"], tol["atol"]))
         err = errs[tc_route]
         # the library yardstick: torch.lstm_cell on weights transposed once
         lp = steps._cast_floats(params["lstm"], dtype)
@@ -716,6 +771,54 @@ def main(argv=None) -> int:
                    t["plain_ms"], t["bound"][0], t["bound"][1],
                    t["old_bound"][0]))
 
+        # BUTD's two cells, timed in turns beside torch.lstm_cell
+        for tag, (lp, bw, e) in bws.items():
+            w_ih_t = lp["w_ih"].t().contiguous()
+            w_hh_t = lp["w_hh"].t().contiguous()
+            for m in (B, mb):
+                x, h, c = (torch.randn(m, n, generator=gen,
+                                       device=dev).to(dtype)
+                           for n in (e, hd, hd))
+                err = case_err[m, e]
+                fns = {"new": lambda: fused_lstm.lstm_cell_fused(
+                           bw.w_cat, bw.b_sum, x, h, c, bw.split),
+                       "lib": lambda: torch.lstm_cell(
+                           x, (h, c), w_ih_t, w_hh_t, lp["b_ih"],
+                           lp["b_hh"])}
+                order = ["new", "lib", "lib", "new"]
+                turns = time_turns(torch, fns, flush, order)
+                dev_turns = time_turns(torch, fns, flush, order,
+                                       lead=DEVICE_LEAD)
+                plain_ms = time_ms(torch, lambda: fused_lstm.lstm_cell_plain(
+                    bw.w_cat, bw.b_sum, x, h, c), flush)
+                nbytes = ((m * (e + 2 * hd) + (e + hd) * 4 * hd + 4 * hd
+                           + 2 * m * hd) * item)
+                b_ms, b_by = bound(nbytes, 2 * m * (e + hd) * 4 * hd, rate)
+                entry("fused_lstm_cell_%s_butd_%s%s"
+                      % (tc_route, tag, "_beam" if m == mb else ""), dn,
+                      max_abs_err=err, max_err=err, ms=mean(turns["new"]),
+                      kernel_ms=mean(turns["new"]),
+                      device_ms=mean(dev_turns["new"]), plain_ms=plain_ms,
+                      bound_ms=b_ms, bound_by=b_by,
+                      library_ms=mean(turns["lib"]),
+                      device_library_ms=mean(dev_turns["lib"]),
+                      kernel_route=tc_route, turns=turns,
+                      device_turns=dev_turns,
+                      shape="B=%d E=%d H=%d (BUTD's %s cell)" % (m, e, hd,
+                                                                tag),
+                      source=common["source"], replaces=common["replaces"])
+                log("K2 %s BUTD %s cell B=%d E=%d: max|err| %.3g (rtol %g "
+                    "atol %g); in turns (new, lib, lib, new): %s %s ms, "
+                    "torch.lstm_cell %s ms; device alone: %s %s, "
+                    "torch.lstm_cell %s ms; plain %.4f ms; bound %.4f ms (%s)"
+                    % (dn, tag, m, e, err, tol["rtol"], tol["atol"], tc_route,
+                       ["%.4f" % v for v in turns["new"]],
+                       ["%.4f" % v for v in turns["lib"]], tc_route,
+                       ["%.4f" % v for v in dev_turns["new"]],
+                       ["%.4f" % v for v in dev_turns["lib"]], plain_ms,
+                       b_ms, b_by))
+
+    log("-- phase 5 at %.1f s" % (time.time() - t_start))
     # -- 5. K3 against its plain version --------------------------------------
     qparams = model.quantize_decode_params(params)
     hd = FULL["hidden_dim"]
@@ -728,6 +831,9 @@ def main(argv=None) -> int:
                 ("aoa_dec.aoa", qparams["aoa_dec"]["aoa"], B, 2 * hd)]
     k3_beam = [(what, qp, mb, k) for what, qp, _, k in k3_steps]
     k3_cases = k3_steps + [("ragged", ragged, 37, 200)]
+    bq = butd.quantize_decode_params(bparams)
+    k3_butd = [("butd." + tag, bq[layer], m, k) for tag, layer, k in butd_k3
+               for m in (B, mb)]
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         tc_route = "wgmma" if dtype == torch.bfloat16 else "tf32x2"
@@ -736,8 +842,9 @@ def main(argv=None) -> int:
         # CUDA-core route, which operands TMA cannot take go to, at every
         # shape: the greedy and beam rows and the ragged one
         cases = [c + (route,) for route in (tc_route, "cuda_core")
-                 for c in k3_cases + k3_beam]
+                 for c in k3_cases + k3_beam + k3_butd]
         errs = {tc_route: 0.0, "cuda_core": 0.0}
+        case_err = {}          # (what, m, route) -> max |err|
         for what, qp, m, k, route in cases:
             n = qp["s"].shape[0]
             x = (0.5 * torch.randn(m, k, generator=gen, device=dev)).to(dtype)
@@ -769,7 +876,9 @@ def main(argv=None) -> int:
                     and bool((diff <= lim).all()),
                     "K3 %s %s %s m=%d K=%d n=%d: max |err| %.3g beyond %s"
                     % (dn, route, what, m, k, n, float(diff.max()), tol_s))
-            errs[route] = max(errs[route], float(diff.max()))
+            case_err[what, m, route] = float(diff.max())
+            if not what.startswith("butd."):
+                errs[route] = max(errs[route], float(diff.max()))
             log("K3 %s (%s) %s m=%d K=%d (Kp %d) n=%d (Np %d): max|err| %.3g "
                 "(%s; largest share of the hold %.3g)"
                 % (dn, route, what, m, k, qp["q"].shape[0], n,
@@ -849,6 +958,61 @@ def main(argv=None) -> int:
                   shape=first["shape"] + " (the LSTM gates)",
                   shapes=shapes[route, m], **extra)
 
+        # BUTD's three int8 step shapes, timed in turns as above; 10
+        # launches a reading, as torch._weight_int8pack_mm takes up to
+        # 50 ms a call at these shapes
+        for what, qp, m, k in k3_butd:
+            n = qp["s"].shape[0]
+            x = (0.5 * torch.randn(m, k, generator=gen, device=dev)).to(dtype)
+            nbytes = m * k * item + k * n + 2 * n * 4 + m * n * item
+            b_ms, b_by = bound(nbytes, 2 * m * k * n, rate)
+            scheme = ({"scheme_bound_ms": bound(nbytes, 2 * m * k * n,
+                                                "2xtf32")[0]}
+                      if tc_route == "tf32x2" else {})
+            plain_ms = time_ms(torch, lambda: quant.quant_matmul_plain(x, qp),
+                               flush)
+            q_t = qp["q"][:k, :n].t().contiguous()
+            s_x = qp["s"].to(dtype)
+            fns = {"old": lambda: quant._run_kernel(x, qp["q"], qp["s"],
+                                                    qp["b"], "cuda_core"),
+                   "new": lambda: quant.quant_matmul(x, qp),
+                   "lib": lambda: torch._weight_int8pack_mm(x, q_t, s_x)}
+            order = ["old", "new", "lib", "new", "old"]
+            turns = time_turns(torch, fns, flush, order, reps=10)
+            dev_turns = time_turns(torch, fns, flush, order, reps=10,
+                                   lead=DEVICE_LEAD)
+            err = case_err[what, m, tc_route]
+            entry("quant_matmul_%s_%s%s" % (tc_route, what.replace(".", "_"),
+                                            "_beam" if m == mb else ""), dn,
+                  source="simpleimagecaptionzoo_tpu_torch/csrc/quant_matmul.cu",
+                  replaces="simpleimagecaptionzoo_tpu/ops/quant.py:105",
+                  max_abs_err=err, max_err=err, ms=mean(turns["new"]),
+                  kernel_ms=mean(turns["new"]),
+                  device_ms=mean(dev_turns["new"]), plain_ms=plain_ms,
+                  bound_ms=b_ms, bound_by=b_by, **scheme,
+                  library_ms=mean(turns["lib"]),
+                  device_library_ms=mean(dev_turns["lib"]),
+                  kernel_route=tc_route, turns=turns["new"],
+                  device_turns=dev_turns["new"],
+                  old_route_ms=mean(turns["old"]),
+                  device_old_route_ms=mean(dev_turns["old"]),
+                  old_route_max_abs_err=case_err[what, m, "cuda_core"],
+                  shape="m=%d K=%d n=%d (%s)" % (m, k, n, what))
+            log("K3 %s %s m=%d K=%d n=%d timing in turns (%s): %s %s ms, "
+                "cuda_core %s ms, torch._weight_int8pack_mm %s ms; device "
+                "alone: %s %s, cuda_core %s, library %s ms; plain %.4f ms; "
+                "bound %.4f ms (%s%s)"
+                % (dn, what, m, k, n, ", ".join(order), tc_route,
+                   ["%.4f" % t for t in turns["new"]],
+                   ["%.4f" % t for t in turns["old"]],
+                   ["%.4f" % t for t in turns["lib"]], tc_route,
+                   ["%.4f" % t for t in dev_turns["new"]],
+                   ["%.4f" % t for t in dev_turns["old"]],
+                   ["%.4f" % t for t in dev_turns["lib"]], plain_ms, b_ms,
+                   b_by, "".join("; 2xTF32's %.4f" % v
+                                 for v in scheme.values())))
+
+    log("-- phase 6 at %.1f s" % (time.time() - t_start))
     # -- 6. K1-int8 against its plain version ---------------------------------
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
@@ -990,6 +1154,7 @@ def main(argv=None) -> int:
         log("K1-int8 tie across chunks, %s %s route: ids %s, lse finite"
             % (str(dtype).split(".")[1], route, ti[0].tolist()))
 
+    log("-- phase 7 at %.1f s" % (time.time() - t_start))
     # -- 7. K4 against its plain version --------------------------------------
     n_valid = 10 + torch.arange(B, device=dev) % (N_BOX - 9)   # 10..36 boxes
     box_mask = (torch.arange(N_BOX, device=dev)[None, :]
@@ -1108,33 +1273,10 @@ def main(argv=None) -> int:
                    ["%.4f" % v for v in t["dev_turns"]["old"]],
                    t["plain_ms"], t["bound"][0], t["bound"][1]))
 
-    # -- 8. the main path ------------------------------------------------------
-    visual = {
-        "bu_feats": torch.relu(torch.randn(B, N_BOX, FULL["enc_dim"],
-                                           generator=gen, device=dev)),
-        "bu_masks": box_mask,
-    }
-
-    calls = []
-    step_core = model.step_core
-
-    def counting_step_core(*a, **kw):
-        calls.append(1)
-        return step_core(*a, **kw)
-
-    kv_kinds = []
-    encode = model.encode
-
-    def recording_encode(*a, **kw):
-        enc, st = encode(*a, **kw)
-        kv_kinds.append(enc.extras["k_q" if "k_q" in enc.extras
-                                   else "k_proj"].dtype)
-        return enc, st
-
-    model.step_core = counting_step_core
-    model.encode = recording_encode
-    # int8 K/V at encode (the port reads the switch there); the float paths
-    # have no int8 head, so it does not touch them
+    # -- 8-11. the main paths ---------------------------------------------------
+    from simpleimagecaptionzoo_tpu_torch import END_ID, PAD_ID, STA_ID
+    # int8 K/V at encode (the port reads the switch there, AoA only); the
+    # float paths have no int8 head, so it does not touch them
     os.environ["SICZ_TPU_INT8_KV"] = "auto"
     counters = dict(fused_head_topk=fused_head.COUNT,
                     fused_head_topk_wgmma=fused_head.COUNT_WGMMA,
@@ -1148,250 +1290,379 @@ def main(argv=None) -> int:
                     fused_head_topk_tf32x2=fused_head.COUNT_TF32X2,
                     int8_attention=int8_attention.COUNT,
                     int8_attention_tma=int8_attention.COUNT_TMA)
-    # launches per step of each counter, and the kernels-line entry each
-    # counter's launches go to (COUNT is every launch of K1, K2, K3 or K4;
-    # the _wgmma, _tf32x3 and _tf32x2 counters those of a tensor-core route,
-    # _tma those of K4's "tma" route): every K1 and K2 launch of the float32
-    # decode on "tf32x3", of the bf16 decode on "wgmma", every K1-int8 and
-    # K3 launch of the int8 float32 decode on "tf32x2", of the int8 bf16
-    # decode on "wgmma", every K4 launch of the int8 decodes on "tma"
+    # launches per step of each counter (COUNT is every launch of K1, K2, K3
+    # or K4; the _wgmma, _tf32x3 and _tf32x2 counters those of a
+    # tensor-core route, _tma those of K4's "tma" route): every K1 and K2
+    # launch of a float32 decode on "tf32x3", of a bf16 decode on "wgmma",
+    # every K1-int8 and K3 launch of an int8 float32 decode on "tf32x2", of
+    # an int8 bf16 decode on "wgmma", every K4 launch on "tma".  AoA runs
+    # one cell a step and (int8) K4; BUTD two cells, K3 three times (its
+    # two cells and att_dec) and no K4
     nil = dict.fromkeys(counters, 0)
-    f32_path = dict(nil, fused_head_topk=1, fused_lstm_cell=1,
-                    fused_head_topk_tf32x3=1, fused_lstm_cell_tf32x3=1)
-    bf16_path = dict(nil, fused_head_topk=1, fused_lstm_cell=1,
-                     fused_head_topk_wgmma=1, fused_lstm_cell_wgmma=1)
-    int8_path = dict(nil, fused_head_topk=1, quant_matmul=3,
-                     int8_attention=1, int8_attention_tma=1)
-    int8_f32_path = dict(int8_path, fused_head_topk_tf32x2=1,
-                         quant_matmul_tf32x2=3)
-    int8_bf16_path = dict(int8_path, fused_head_topk_wgmma=1,
-                          quant_matmul_wgmma=3)
-    f32_entries = dict(fused_head_topk_tf32x3="fused_head_topk_tf32x3",
-                       fused_lstm_cell_tf32x3="fused_lstm_cell_tf32x3")
-    bf16_entries = dict(fused_head_topk_wgmma="fused_head_topk_wgmma",
-                        fused_lstm_cell_wgmma="fused_lstm_cell_wgmma")
-    int8_f32_entries = dict(fused_head_topk_tf32x2="fused_head_topk_tf32x2",
-                            quant_matmul_tf32x2="quant_matmul_tf32x2",
-                            int8_attention_tma="int8_attention_tma")
-    int8_bf16_entries = dict(
-        fused_head_topk_wgmma="fused_head_topk_int8_wgmma",
-        quant_matmul_wgmma="quant_matmul_wgmma",
-        int8_attention_tma="int8_attention_tma")
-    paths = [("float32", torch.float32, params, f32_path, f32_entries),
-             ("bfloat16", torch.bfloat16, params, bf16_path, bf16_entries),
-             ("int8/float32", torch.float32, qparams, int8_f32_path,
-              int8_f32_entries),
-             ("int8/bfloat16", torch.bfloat16, qparams, int8_bf16_path,
-              int8_bf16_entries)]
-    decode_results, float_ids, on_path = {}, {}, set()
-    for label, dtype, prm, per_step, entry_of in paths:
-        dn = str(dtype).split(".")[1]
-        int8 = label.startswith("int8")
-        fn = steps.make_greedy_decode(model, max_len=MAX_LEN,
-                                      return_alphas=True, dtype=dtype,
-                                      device="cuda")
-        with holds.plain_versions():
-            ref_ids, ref_al = fn(prm, {}, visual)
-        torch.cuda.synchronize()
-        times, launches = [], None
-        for _ in range(3):
-            calls.clear()
-            for c in counters.values():
-                c.n = 0
-            t0 = time.perf_counter()
-            ids, al = fn(prm, {}, visual)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            n_steps = len(calls)
-            launches = {kn: c.n for kn, c in counters.items()}
-            want = {kn: m * n_steps for kn, m in per_step.items()}
-            require(n_steps >= 1 and launches == want,
-                    "%s decode: %d steps, launches %s, expected %s"
-                    % (label, n_steps, launches, want))
-        require(kv_kinds[-1] == (torch.int8 if int8 else dtype),
-                "%s decode: encode stored its K/V as %s" % (label,
-                                                             kv_kinds[-1]))
-        require(ids.shape == (B, MAX_LEN) and al.shape == (B, MAX_LEN, N_BOX),
-                "%s decode shapes %s %s" % (label, tuple(ids.shape),
-                                            tuple(al.shape)))
-        require(int(ids.min()) >= 0 and int(ids.max()) < FULL["vocab_size"],
-                "%s decode ids out of range" % label)
-        require(bool(torch.isfinite(al).all()), "%s alphas not finite" % label)
-        live = al.sum(-1) > 0
-        require(bool(((al.sum(-1) - 1).abs()[live] < 1e-3).all()),
-                "%s alphas of live steps do not sum to 1" % label)
-        require(bool((al[~live] == 0).all()) and bool(
-            (al.masked_select((visual["bu_masks"][:, None, :] == 0)
-                              .expand_as(al)) == 0).all()),
-                "%s alphas nonzero on masked boxes" % label)
-        rows_same = float((ids == ref_ids).all(dim=1).float().mean())
-        first_same = float((ids[:, 0] == ref_ids[:, 0]).float().mean())
-        if label == "float32":
-            require(rows_same >= 0.99, "float32 decode: only %.4f of rows "
-                    "equal the plain run's" % rows_same)
-        else:
-            require(first_same >= 0.99, "%s decode: only %.4f of first "
-                    "ids equal the plain run's" % (label, first_same))
-        t_med = sorted(times)[1]
-        res = dict(steps=n_steps, launches=launches,
-                   rows_identical=rows_same, first_ids_identical=first_same,
-                   alphas_max_abs_diff=float((al - ref_al).abs().max()),
-                   seconds=times, captions_per_s=B / t_med)
-        extra = ""
+
+    def per_step(route, int8, cells=1, k4=0):
+        out = dict(nil, fused_head_topk=1, **{"fused_head_topk_" + route: 1})
         if int8:
-            # int8 is an approximation of the float decode, not a copy
-            fids = float_ids[dn]
-            res["first_ids_vs_float"] = float(
-                (ids[:, 0] == fids[:, 0]).float().mean())
-            res["rows_vs_float"] = float((ids == fids).all(dim=1).float()
-                                         .mean())
-            extra = ("; against the %s float decode: first ids %.4f, rows "
-                     "%.4f" % (dn, res["first_ids_vs_float"],
-                               res["rows_vs_float"]))
-        for kn, ename in entry_of.items():
-            kernels["%s/%s" % (ename, dn)]["launches"] = launches[kn]
-            on_path.add("%s/%s" % (ename, dn))
-        log("decode %s: B=%d, %d steps, launches %s; K/V stored %s; rows "
-            "identical to the plain run %.4f, first ids %.4f%s; %.1f "
-            "captions/s (median of %s s)"
-            % (label, B, n_steps, launches, kv_kinds[-1], rows_same,
-               first_same, extra, B / t_med, ["%.4f" % t for t in times]))
-        res["profile"] = profile_decode(
-            torch, lambda: fn(prm, {}, visual), label)
-        decode_results[label] = res
-        if not int8:
-            float_ids[dn] = ids
-    del model.step_core, model.encode
+            out.update(quant_matmul=3, **{"quant_matmul_" + route: 3},
+                       int8_attention=k4, int8_attention_tma=k4)
+        else:
+            out.update(fused_lstm_cell=cells,
+                       **{"fused_lstm_cell_" + route: cells})
+        return out
 
-    # -- 9. the main path, beam -----------------------------------------------
-    from simpleimagecaptionzoo_tpu_torch import END_ID, PAD_ID, STA_ID
-    lane_steps = []
-    step_lanes_core = model.step_lanes_core
+    def path_shapes(rows, k, route, dn, k1, k2=(), k3=(), k4=False,
+                    beam=False):
+        """Each launch shape (holds.recording_shapes) of a path -> the
+        kernels-line entry its launches go to: K1 at rows and k, K2 and K3
+        at rows and the width of x, K4 over B samples at k query rows."""
+        sfx = "_beam" if beam else ""
+        out = {("K1", route, rows, k): "%s%s/%s" % (k1, sfx, dn)}
+        for kn, widths in (("K2", k2), ("K3", k3)):
+            for w, ename in widths:
+                out[kn, route, rows, w] = "%s%s/%s" % (ename, sfx, dn)
+        if k4:
+            out["K4", "tma", B, k] = "int8_attention_tma%s/%s" % (sfx, dn)
+        return out
 
-    def counting_step_lanes_core(*a, **kw):
-        lane_steps.append(1)
-        return step_lanes_core(*a, **kw)
+    def aoa_paths(rows, k, beam):
+        hd = FULL["hidden_dim"]
+        e_in = FULL["embed_dim"] + hd
+        k3 = lambda r: [(w, "quant_matmul_" + r)           # noqa: E731
+                        for w in (e_in + hd, hd, 2 * hd)]
+        return [
+            ("float32", torch.float32, params, per_step("tf32x3", False),
+             path_shapes(rows, k, "tf32x3", "float32",
+                         "fused_head_topk_tf32x3",
+                         k2=[(e_in, "fused_lstm_cell_tf32x3")], beam=beam)),
+            ("bfloat16", torch.bfloat16, params, per_step("wgmma", False),
+             path_shapes(rows, k, "wgmma", "bfloat16", "fused_head_topk_wgmma",
+                         k2=[(e_in, "fused_lstm_cell_wgmma")], beam=beam)),
+            ("int8/float32", torch.float32, qparams,
+             per_step("tf32x2", True, k4=1),
+             path_shapes(rows, k, "tf32x2", "float32",
+                         "fused_head_topk_tf32x2", k3=k3("tf32x2"), k4=True,
+                         beam=beam)),
+            ("int8/bfloat16", torch.bfloat16, qparams,
+             per_step("wgmma", True, k4=1),
+             path_shapes(rows, k, "wgmma", "bfloat16",
+                         "fused_head_topk_int8_wgmma", k3=k3("wgmma"),
+                         k4=True, beam=beam))]
 
-    shapes = []     # every launch's (kernel, route, rows, k)
-    # the shapes each path's launches must have: K1 over B*k rows at k, K2
-    # and K3 over B*k rows, K4 over B samples with k query rows
-    mk = B * BEAM
-    f32_shapes = {("K1", "tf32x3", mk, BEAM), ("K2", "tf32x3", mk, None)}
-    bf16_shapes = {("K1", "wgmma", mk, BEAM), ("K2", "wgmma", mk, None)}
-    int8_f32_shapes = {("K1", "tf32x2", mk, BEAM),
-                       ("K3", "tf32x2", mk, None), ("K4", "tma", B, BEAM)}
-    int8_bf16_shapes = {("K1", "wgmma", mk, BEAM), ("K3", "wgmma", mk, None),
-                        ("K4", "tma", B, BEAM)}
-    beam_paths = [
-        (label, dtype, prm, per_step, entry_of, want_shapes)
-        for (label, dtype, prm, per_step, entry_of), want_shapes in zip(
-            paths, (f32_shapes, bf16_shapes, int8_f32_shapes,
-                    int8_bf16_shapes))]
-    model.step_lanes_core = counting_step_lanes_core
-    beam_results = {}
-    for label, dtype, prm, per_step, entry_of, want_shapes in beam_paths:
-        dn = str(dtype).split(".")[1]
-        fn = steps.make_beam_decode(model, beam_size=BEAM, max_steps=MAX_LEN,
-                                    dtype=dtype, device="cuda")
-        with holds.plain_versions():
-            ref_ids = fn(prm, {}, visual)
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(3):
-            lane_steps.clear()
-            shapes.clear()
-            for c in counters.values():
-                c.n = 0
-            t0 = time.perf_counter()
-            with holds.recording_shapes(shapes):
-                ids = fn(prm, {}, visual)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            n_steps = len(lane_steps)
-            launches = {kn: c.n for kn, c in counters.items()}
-            want = {kn: m * n_steps for kn, m in per_step.items()}
-            require(n_steps >= 1 and launches == want,
-                    "beam %s decode: %d steps, launches %s, expected %s"
-                    % (label, n_steps, launches, want))
-            require(set(shapes) == want_shapes,
-                    "beam %s decode: launch shapes %s, expected %s"
-                    % (label, sorted(set(shapes), key=str),
-                       sorted(want_shapes, key=str)))
-        require(ids.shape == (B, MAX_LEN + 1) and ids.dtype == torch.long,
-                "beam %s ids %s %s" % (label, tuple(ids.shape), ids.dtype))
-        require(bool((ids[:, 0] == STA_ID).all()) and int(ids.min()) >= 0
-                and int(ids.max()) < FULL["vocab_size"],
-                "beam %s ids: column 0 not <sta>, or out of range" % label)
-        ended = (ids[:, 1:] == END_ID).cumsum(dim=1) > 0
-        after = torch.cat([torch.zeros_like(ended[:, :1]), ended[:, :-1]], 1)
-        require(bool((ids[:, 1:][after] == PAD_ID).all()),
-                "beam %s ids: not <pad> after <end>" % label)
-        # the alphas of one more run: finite, summing to 1 on live steps,
-        # 0 on masked boxes
-        _, al = steps.make_beam_decode(model, beam_size=BEAM,
-                                       max_steps=MAX_LEN, return_alphas=True,
-                                       dtype=dtype, device="cuda")(
-            prm, {}, visual)
+    def butd_paths(rows, k, beam):
+        k2 = lambda r: [(e, "fused_lstm_cell_%s_butd_%s" % (r, tag))  # noqa
+                        for tag, _, e in butd_k2]
+        k3 = lambda r: [(w, "quant_matmul_%s_butd_%s" % (r, tag))     # noqa
+                        for tag, _, w in butd_k3]
+        return [
+            ("float32", torch.float32, bparams,
+             per_step("tf32x3", False, cells=2),
+             path_shapes(rows, k, "tf32x3", "float32",
+                         "fused_head_topk_tf32x3", k2=k2("tf32x3"),
+                         beam=beam)),
+            ("bfloat16", torch.bfloat16, bparams,
+             per_step("wgmma", False, cells=2),
+             path_shapes(rows, k, "wgmma", "bfloat16", "fused_head_topk_wgmma",
+                         k2=k2("wgmma"), beam=beam)),
+            ("int8/float32", torch.float32, bq, per_step("tf32x2", True),
+             path_shapes(rows, k, "tf32x2", "float32",
+                         "fused_head_topk_tf32x2", k3=k3("tf32x2"),
+                         beam=beam)),
+            ("int8/bfloat16", torch.bfloat16, bq, per_step("wgmma", True),
+             path_shapes(rows, k, "wgmma", "bfloat16",
+                         "fused_head_topk_int8_wgmma", k3=k3("wgmma"),
+                         beam=beam))]
+
+    on_path = set()
+
+    def credit(label, shapes, n_steps, shape_entries):
+        """Every launch of one reading run at the shape its path expects,
+        each shape once a step; each entry's ``launches`` is the sum over
+        the main paths' reading runs (``launches_by_path`` per path)."""
+        got = {}
+        for shp in shapes:
+            got[shp] = got.get(shp, 0) + 1
+        require(set(got) == set(shape_entries)
+                and all(v == n_steps for v in got.values()),
+                "%s: launch shapes %s, expected each of %s once a step (%d "
+                "steps)" % (label, sorted(got.items(), key=str),
+                            sorted(shape_entries, key=str), n_steps))
+        for shp, ename in shape_entries.items():
+            by_path = kernels[ename].setdefault("launches_by_path", {})
+            by_path[label] = by_path.get(label, 0) + got[shp]
+            kernels[ename]["launches"] = sum(by_path.values())
+            on_path.add(ename)
+
+    def feat_rows(visual):
+        return (visual["bu_feats"] if "bu_feats" in visual
+                else visual["spatial_feats"]).shape[1]
+
+    def alpha_tol(family, dtype):
+        """How far a live step's alphas may sum from 1: AoA's are float32
+        whatever the dtype; BUTD's come from a softmax in the compute
+        dtype, and bf16 rounds each to within 2^-9 of itself, so their sum
+        to within 2^-9 of 1 (2^-8 is held)."""
+        return 2.0 ** -8 if (family.startswith("BUTD")
+                             and dtype == torch.bfloat16) else 1e-3
+
+    def check_alphas(tag, al, visual, n_rows, tol):
         live = al.sum(-1) > 0
-        require(al.shape == (B, MAX_LEN, N_BOX)
+        mask = visual.get("bu_masks")
+        require(al.shape == (B, n_rows, feat_rows(visual))
                 and bool(torch.isfinite(al).all())
-                and bool(((al.sum(-1) - 1).abs()[live] < 1e-3).all())
-                and bool((al.masked_select(
-                    (visual["bu_masks"][:, None, :] == 0).expand_as(al))
-                    == 0).all()),
-                "beam %s alphas: shape %s, or not finite, or not summing to 1 "
-                "on live steps, or nonzero on masked boxes"
-                % (label, tuple(al.shape)))
-        # one more run with every kernel call held against its plain
-        # version on the same inputs, to the kernel's own tolerance
-        broken = []
-        with holds.held_calls(broken):
-            fn(prm, {}, visual)
-        torch.cuda.synchronize()
-        require(not broken, "beam %s decode: %d kernel calls broke their "
-                "hold (first: %s)" % (label, len(broken), broken[:1]))
-        # rescore both runs' winners with the plain step in this dtype
-        margin = holds.rescored_margin(model, prm, visual, ids, ref_ids,
-                                       dtype, dev)
-        tol = holds.beam_tol(dtype, MAX_LEN)
-        passed, rows_same = holds.beam_gate(label == "float32", ids, ref_ids,
-                                            margin, tol)
-        first_same = float((ids[:, 1] == ref_ids[:, 1]).float().mean())
-        require(passed, "beam %s decode: rows identical to the plain run's "
-                "%.4f (gate %.2f in float32); a row's winner scores %.4f "
-                "below the plain run's winner (tol %.4f)"
-                % (label, rows_same, holds.ROWS_IDENTICAL,
-                   -float(margin.min()), tol))
-        t_med = sorted(times)[1]
-        res = dict(steps=n_steps, launches=launches,
-                   launch_shapes=sorted([list(x) for x in set(shapes)],
-                                        key=str),
-                   rows_identical=rows_same, first_ids_identical=first_same,
-                   rescored_min_margin=float(margin.min()),
-                   rescored_rows_below=int((margin < 0).sum()),
-                   rescore_tol=tol, seconds=times, captions_per_s=B / t_med,
-                   rows_ended=int(ended[:, -1].sum()))
-        for kn, ename in entry_of.items():
-            beam_name = "%s_beam/%s" % (ename, dn)
-            kernels[beam_name]["launches"] = launches[kn]
-            on_path.add(beam_name)
-        log("beam %s decode: B=%d, beam %d, %d steps, launches %s, shapes "
-            "%s; every kernel call of a run held against its plain version; "
-            "rows identical to the plain run %.4f, first ids %.4f; "
-            "rescored by the plain step, the kernel run's winner minus the "
-            "plain run's: min %.4f (%s %.4f), %d rows below 0; %d rows "
-            "ended; %.1f captions/s (median of %s s)"
-            % (label, B, BEAM, n_steps, launches, res["launch_shapes"],
-               rows_same, first_same, float(margin.min()),
-               "ungated, tol" if label == "float32" else "tol", tol,
-               res["rescored_rows_below"], res["rows_ended"], B / t_med,
-               ["%.4f" % t for t in times]))
-        res["profile"] = profile_decode(
-            torch, lambda: fn(prm, {}, visual), "beam " + label)
-        beam_results[label] = res
-    del model.step_lanes_core
-    results["beam"] = beam_results
+                and bool(((al.sum(-1) - 1).abs()[live] < tol).all())
+                and bool((al[~live] == 0).all())
+                and (mask is None or bool((al.masked_select(
+                    (mask[:, None, :] == 0).expand_as(al)) == 0).all())),
+                "%s alphas: shape %s, or not finite, or not summing to 1 "
+                "within %g on live steps (off by up to %.3g), or nonzero on "
+                "masked boxes" % (tag, tuple(al.shape), tol,
+                                  float((al.sum(-1) - 1).abs()[live].max())))
 
+    def drive_greedy(family, model, visual, paths, kv=False):
+        """Phases 8 and 10: greedy decode of ``model`` on each path, once
+        through the plain versions and three times through the kernels
+        (launches per step, route and shape exact), then profiled."""
+        calls, kv_kinds, shapes = [], [], []
+        step_core, encode = model.step_core, model.encode
+
+        def counting_step_core(*a, **kw):
+            calls.append(1)
+            return step_core(*a, **kw)
+
+        def recording_encode(*a, **kw):
+            enc, st = encode(*a, **kw)
+            if kv:
+                kv_kinds.append(enc.extras["k_q" if "k_q" in enc.extras
+                                           else "k_proj"].dtype)
+            return enc, st
+
+        model.step_core = counting_step_core
+        model.encode = recording_encode
+        out, float_ids = {}, {}
+        for label, dtype, prm, step_launches, shape_entries in paths:
+            dn = str(dtype).split(".")[1]
+            int8 = label.startswith("int8")
+            tag = "%s %s" % (family, label)
+            fn = steps.make_greedy_decode(model, max_len=MAX_LEN,
+                                          return_alphas=True, dtype=dtype,
+                                          device="cuda")
+            with holds.plain_versions():
+                ref_ids, ref_al = fn(prm, {}, visual)
+            torch.cuda.synchronize()
+            times, launches = [], None
+            for _ in range(3):
+                calls.clear()
+                shapes.clear()
+                for c in counters.values():
+                    c.n = 0
+                t0 = time.perf_counter()
+                with holds.recording_shapes(shapes):
+                    ids, al = fn(prm, {}, visual)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                n_steps = len(calls)
+                launches = {kn: c.n for kn, c in counters.items()}
+                want = {kn: m * n_steps for kn, m in step_launches.items()}
+                require(n_steps >= 1 and launches == want,
+                        "%s decode: %d steps, launches %s, expected %s"
+                        % (tag, n_steps, launches, want))
+            if kv:
+                require(kv_kinds[-1] == (torch.int8 if int8 else dtype),
+                        "%s decode: encode stored its K/V as %s"
+                        % (tag, kv_kinds[-1]))
+            require(ids.shape == (B, MAX_LEN), "%s decode shape %s"
+                    % (tag, tuple(ids.shape)))
+            require(int(ids.min()) >= 0
+                    and int(ids.max()) < FULL["vocab_size"],
+                    "%s decode ids out of range" % tag)
+            check_alphas(tag + " decode", al, visual, MAX_LEN,
+                         alpha_tol(family, dtype))
+            rows_same = float((ids == ref_ids).all(dim=1).float().mean())
+            first_same = float((ids[:, 0] == ref_ids[:, 0]).float().mean())
+            if label == "float32":
+                require(rows_same >= 0.99, "%s decode: only %.4f of rows "
+                        "equal the plain run's" % (tag, rows_same))
+            else:
+                require(first_same >= 0.99, "%s decode: only %.4f of first "
+                        "ids equal the plain run's" % (tag, first_same))
+            t_med = sorted(times)[1]
+            res = dict(steps=n_steps, launches=launches,
+                       launch_shapes=sorted([list(x) for x in set(shapes)],
+                                            key=str),
+                       rows_identical=rows_same,
+                       first_ids_identical=first_same,
+                       alphas_max_abs_diff=float((al - ref_al).abs().max()),
+                       seconds=times, captions_per_s=B / t_med)
+            extra = ""
+            if int8:
+                # int8 is an approximation of the float decode, not a copy
+                fids = float_ids[dn]
+                res["first_ids_vs_float"] = float(
+                    (ids[:, 0] == fids[:, 0]).float().mean())
+                res["rows_vs_float"] = float((ids == fids).all(dim=1).float()
+                                             .mean())
+                extra = ("; against the %s float decode: first ids %.4f, "
+                         "rows %.4f" % (dn, res["first_ids_vs_float"],
+                                        res["rows_vs_float"]))
+            credit(tag + " greedy", shapes, n_steps, shape_entries)
+            log("decode %s: B=%d, %d steps, launches %s, shapes %s%s; rows "
+                "identical to the plain run %.4f, first ids %.4f%s; %.1f "
+                "captions/s (median of %s s)"
+                % (tag, B, n_steps, launches, res["launch_shapes"],
+                   "; K/V stored %s" % kv_kinds[-1] if kv else "", rows_same,
+                   first_same, extra, B / t_med,
+                   ["%.4f" % t for t in times]))
+            res["profile"] = profile_decode(
+                torch, lambda: fn(prm, {}, visual), tag)
+            out[label] = res
+            if not int8:
+                float_ids[dn] = ids
+        del model.step_core, model.encode
+        return out
+
+    def drive_beam(family, model, visual, paths):
+        """Phases 9, 10 and 11: beam-3 decode of ``model`` on each path,
+        once through the plain versions, three times through the kernels
+        (timed; launches per step, route and shape exact), once with
+        alphas, once with every kernel call held against its plain version,
+        then the end-to-end gate against the plain run, then profiled."""
+        lane_steps, shapes = [], []
+        step_lanes_core = model.step_lanes_core
+
+        def counting_step_lanes_core(*a, **kw):
+            lane_steps.append(1)
+            return step_lanes_core(*a, **kw)
+
+        model.step_lanes_core = counting_step_lanes_core
+        out = {}
+        for label, dtype, prm, step_launches, shape_entries in paths:
+            tag = "beam %s %s" % (family, label)
+            fn = steps.make_beam_decode(model, beam_size=BEAM,
+                                        max_steps=MAX_LEN, dtype=dtype,
+                                        device="cuda")
+            with holds.plain_versions():
+                ref_ids = fn(prm, {}, visual)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(3):
+                lane_steps.clear()
+                shapes.clear()
+                for c in counters.values():
+                    c.n = 0
+                t0 = time.perf_counter()
+                with holds.recording_shapes(shapes):
+                    ids = fn(prm, {}, visual)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                n_steps = len(lane_steps)
+                launches = {kn: c.n for kn, c in counters.items()}
+                want = {kn: m * n_steps for kn, m in step_launches.items()}
+                require(n_steps >= 1 and launches == want,
+                        "%s decode: %d steps, launches %s, expected %s"
+                        % (tag, n_steps, launches, want))
+            require(ids.shape == (B, MAX_LEN + 1) and ids.dtype == torch.long,
+                    "%s ids %s %s" % (tag, tuple(ids.shape), ids.dtype))
+            require(bool((ids[:, 0] == STA_ID).all()) and int(ids.min()) >= 0
+                    and int(ids.max()) < FULL["vocab_size"],
+                    "%s ids: column 0 not <sta>, or out of range" % tag)
+            ended = (ids[:, 1:] == END_ID).cumsum(dim=1) > 0
+            after = torch.cat([torch.zeros_like(ended[:, :1]),
+                               ended[:, :-1]], 1)
+            require(bool((ids[:, 1:][after] == PAD_ID).all()),
+                    "%s ids: not <pad> after <end>" % tag)
+            # the alphas of one more run: finite, summing to 1 on live
+            # steps, 0 on masked boxes
+            _, al = steps.make_beam_decode(model, beam_size=BEAM,
+                                           max_steps=MAX_LEN,
+                                           return_alphas=True, dtype=dtype,
+                                           device="cuda")(prm, {}, visual)
+            check_alphas(tag, al, visual, MAX_LEN, alpha_tol(family, dtype))
+            # one more run with every kernel call held against its plain
+            # version on the same inputs, to the kernel's own tolerance
+            broken = []
+            with holds.held_calls(broken):
+                fn(prm, {}, visual)
+            torch.cuda.synchronize()
+            require(not broken, "%s decode: %d kernel calls broke their "
+                    "hold (first: %s)" % (tag, len(broken), broken[:1]))
+            # rescore both runs' winners with the plain step in this dtype
+            margin = holds.rescored_margin(model, prm, visual, ids, ref_ids,
+                                           dtype, dev)
+            tol = holds.beam_tol(dtype, MAX_LEN)
+            passed, rows_same = holds.beam_gate(label == "float32", ids,
+                                                ref_ids, margin, tol)
+            first_same = float((ids[:, 1] == ref_ids[:, 1]).float().mean())
+            require(passed, "%s decode: rows identical to the plain run's "
+                    "%.4f (gate %.2f in float32); a row's winner scores %.4f "
+                    "below the plain run's winner (tol %.4f)"
+                    % (tag, rows_same, holds.ROWS_IDENTICAL,
+                       -float(margin.min()), tol))
+            t_med = sorted(times)[1]
+            res = dict(steps=n_steps, launches=launches,
+                       launch_shapes=sorted([list(x) for x in set(shapes)],
+                                            key=str),
+                       rows_identical=rows_same,
+                       first_ids_identical=first_same,
+                       rescored_min_margin=float(margin.min()),
+                       rescored_rows_below=int((margin < 0).sum()),
+                       rescore_tol=tol, seconds=times,
+                       captions_per_s=B / t_med,
+                       rows_ended=int(ended[:, -1].sum()))
+            credit(tag, shapes, n_steps, shape_entries)
+            log("%s decode: B=%d, beam %d, %d steps, launches %s, shapes "
+                "%s; every kernel call of a run held against its plain "
+                "version; rows identical to the plain run %.4f, first ids "
+                "%.4f; rescored by the plain step, the kernel run's winner "
+                "minus the plain run's: min %.4f (%s %.4f), %d rows below 0; "
+                "%d rows ended; %.1f captions/s (median of %s s)"
+                % (tag, B, BEAM, n_steps, launches, res["launch_shapes"],
+                   rows_same, first_same, float(margin.min()),
+                   "ungated, tol" if label == "float32" else "tol", tol,
+                   res["rescored_rows_below"], res["rows_ended"], B / t_med,
+                   ["%.4f" % t for t in times]))
+            res["profile"] = profile_decode(
+                torch, lambda: fn(prm, {}, visual), tag)
+            out[label] = res
+        del model.step_lanes_core
+        return out
+
+    log("-- phase 8 at %.1f s" % (time.time() - t_start))
+    # -- 8. the main path: AoADetection greedy ---------------------------------
+    visual = {
+        "bu_feats": torch.relu(torch.randn(B, N_BOX, FULL["enc_dim"],
+                                           generator=gen, device=dev)),
+        "bu_masks": box_mask,
+    }
+    mk = B * BEAM
+    results["decode"] = drive_greedy("AoADetection", model, visual,
+                                     aoa_paths(B, 1, False), kv=True)
+    log("-- phase 9 at %.1f s" % (time.time() - t_start))
+    # -- 9. the main path, beam: AoADetection beam 3 -----------------------------
+    results["beam"] = drive_beam("AoADetection", model, visual,
+                                 aoa_paths(mk, BEAM, True))
+    log("-- phase 10 at %.1f s" % (time.time() - t_start))
+    # -- 10. BUTDDetection, greedy and beam 3, on the four paths --------------
+    bu_visual = {
+        "bu_feats": torch.relu(torch.randn(B, N_BOX, bcfg.enc_dim,
+                                           generator=gen, device=dev)),
+        "bu_masks": box_mask,
+    }
+    results["butd_detection"] = dict(
+        decode=drive_greedy("BUTDDetection", butd, bu_visual,
+                            butd_paths(B, 1, False)),
+        beam=drive_beam("BUTDDetection", butd, bu_visual,
+                        butd_paths(mk, BEAM, True)))
+    log("-- phase 11 at %.1f s" % (time.time() - t_start))
+    # -- 11. BUTDSpatial, beam 3 in bf16 and int8 bf16 -------------------------
+    sp_visual = {"spatial_feats": torch.relu(torch.randn(
+        B, N_GRID, bcfg.enc_dim, generator=gen, device=dev))}
+    results["butd_spatial"] = dict(beam=drive_beam(
+        "BUTDSpatial", butd_sp, sp_visual,
+        [p for p in butd_paths(mk, BEAM, True)
+         if p[0] in ("bfloat16", "int8/bfloat16")]))
+
+    results["seconds"] = time.time() - t_start
+    log("-- phases 2-11 took %.1f s" % results["seconds"])
     missing = [k for k in on_path if not kernels[k].get("launches")]
     require(not missing, "kernels not launched on the main path: %s"
             % missing)
@@ -1400,7 +1671,6 @@ def main(argv=None) -> int:
     for k, v in kernels.items():
         v.setdefault("launches", 0)
 
-    results["decode"] = decode_results
     results["kernels"] = list(kernels.values())
     if args.out:
         with open(args.out, "w") as f:

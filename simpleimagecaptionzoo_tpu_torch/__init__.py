@@ -15,7 +15,10 @@ kernel (``ops/fused_head.py``) and the fused LSTM cell forward
 (``ops/fused_lstm.py``); and its int8 serving form
 (``model.quantize_decode_params``) through the int8 dequantizing product
 (``ops/quant.py``), the fused head over int8 weights and, with
-``SICZ_TPU_INT8_KV`` on, the int8 K/V attention (``ops/int8_attention.py``).
+``SICZ_TPU_INT8_KV`` on, the int8 K/V attention (``ops/int8_attention.py``);
+beam search (``engine.steps.make_beam_decode``) of the same; and both
+decodes of BUTDDetection and BUTDSpatial in feature mode
+(``models/butd.py``), in float32, bf16 and int8 serving form.
 ``ROADMAP.md`` lists what follows.
 
 Token id conventions follow the reference (Build_caption_vocab.py:37-40):

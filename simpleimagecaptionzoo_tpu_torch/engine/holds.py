@@ -162,21 +162,24 @@ def held_calls(failures: list):
             setattr(mod, name, fn)
 
 
-# each module's _run_kernel arguments -> (kernel, route, rows, query rows)
+# each module's _run_kernel arguments -> (kernel, route, rows, last): last
+# is K1's k, K4's query rows, and the width of x for K2 and K3
 _SHAPE_OF = {
     fused_head: lambda head, x, k, route: ("K1", route, x.shape[0], k),
     fused_lstm: lambda w_cat, b_sum, x, h, c, route, split=None: (
-        "K2", route, x.shape[0], None),
-    quant: lambda x2, q, s, b, route: ("K3", route, x2.shape[0], None),
+        "K2", route, x.shape[0], x.shape[1]),
+    quant: lambda x2, q, s, b, route: ("K3", route, x2.shape[0],
+                                       x2.shape[1]),
     int8_attention: lambda q, kq, ks, vq, vs, mask_f, heads, route: (
         "K4", route, q.shape[0], q.shape[1])}
 
 
 @contextlib.contextmanager
 def recording_shapes(shapes: list):
-    """Appends (kernel, route, rows, k) to ``shapes`` at every launch of K1
-    (rows x and its k), K2, K3 (rows of x; k None) and K4 (samples and
-    query rows), where each wrapper reaches its kernel."""
+    """Appends (kernel, route, rows, last) to ``shapes`` at every launch of
+    K1 (rows of x, and k), K2 (rows and width of x: E, the cell's input
+    without h), K3 (rows and width of x: K) and K4 (samples and query
+    rows), where each wrapper reaches its kernel."""
     saved = {mod: mod._run_kernel for mod in _SHAPE_OF}
 
     def recorder(mod):

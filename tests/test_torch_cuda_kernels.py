@@ -100,7 +100,13 @@ def test_head_kernel_matches_plain(dev, dtype, m, k):
 @pytest.mark.parametrize("b,e,h,route", [(1152, 2048, 1024, "wgmma"),
                                          (256, 2048, 1024, "wgmma"),
                                          (37, 200, 128, "wgmma"),
-                                         (37, 70, 128, "cuda_core")])
+                                         (37, 70, 128, "cuda_core"),
+                                         # BUTD's attention and language
+                                         # cells, greedy and beam rows
+                                         (384, 4096, 1024, "wgmma"),
+                                         (1152, 4096, 1024, "wgmma"),
+                                         (384, 3072, 1024, "wgmma"),
+                                         (1152, 3072, 1024, "wgmma")])
 def test_lstm_bf16_routes_match_plain(dev, b, e, h, route):
     """K2 in bf16 at the beam shape (B=1,152: 9 row tiles), at B=256 (2) and
     ragged B=37 with a k-step that straddles E=200 (one row tile) on the
@@ -400,7 +406,11 @@ def test_int8_attention_misaligned_kv_takes_cuda_core(dev, dtype):
                                    (384, 1024, 1024),    # aoa_dec.q
                                    (384, 2048, 2048),    # aoa_dec.aoa
                                    (1152, 3072, 4096),   # the beam rows
-                                   (37, 200, 700)])      # ragged m, K, n
+                                   (37, 200, 700),       # ragged m, K, n
+                                   (384, 5120, 4096),    # BUTD's cells
+                                   (1152, 5120, 4096),
+                                   (384, 4096, 4096),
+                                   (1152, 4096, 4096)])
 def test_quant_matmul_bf16_routes_match_plain(dev, route, m, k, n):
     """K3 in bf16 on the tensor-core route (quant_route's pick) and on the
     CUDA-core route (forced) at the int8 decode step's shapes, at the beam
@@ -506,7 +516,13 @@ def _lstm_weights(rng, e, h, dev):
                                          (1152, 2048, 1024, "tf32x3"),
                                          (37, 200, 128, "tf32x3"),
                                          (384, 2048, 1024, "cuda_core"),
-                                         (37, 70, 128, "cuda_core")])
+                                         (37, 70, 128, "cuda_core"),
+                                         # BUTD's attention and language
+                                         # cells, greedy and beam rows
+                                         (384, 4096, 1024, "tf32x3"),
+                                         (1152, 4096, 1024, "tf32x3"),
+                                         (384, 3072, 1024, "tf32x3"),
+                                         (1152, 3072, 1024, "tf32x3")])
 def test_lstm_f32_routes_match_plain(dev, b, e, h, route):
     """K2 in float32 at the decode shape (B=384), the beam shape (B=1,152)
     and ragged B=37 with a k-step that straddles E=200 on the tf32x3 route,
@@ -603,7 +619,11 @@ def _k3_f32_hold(got, want, x, qp):
                                    (1152, 3072, 4096),   # the beam rows
                                    (1152, 1024, 1024),
                                    (1152, 2048, 2048),
-                                   (37, 200, 700)])      # ragged m, K, n
+                                   (37, 200, 700),       # ragged m, K, n
+                                   (384, 5120, 4096),    # BUTD's cells
+                                   (1152, 5120, 4096),
+                                   (384, 4096, 4096),
+                                   (1152, 4096, 4096)])
 def test_quant_matmul_f32_routes_match_plain(dev, route, m, k, n):
     """K3 in float32 on the 2xTF32 tensor-core route (quant_route's pick)
     at the int8 decode step's three shapes, over the greedy and the beam
@@ -760,14 +780,81 @@ def test_beam_decode_through_the_kernels_matches_plain(dev, path,
     torch.cuda.synchronize()
     assert broken == []
     mk, tc = b * beam, dtype == torch.bfloat16
+    r3 = "wgmma" if tc else "tf32x2"
+    # K2 and K3 by the width of x: the cell's [emb, ctx] (512), K3's [x, h]
+    # (768), aoa_dec.q's 256 and aoa_dec.aoa's 512
     want = {"float32": {("K1", "tf32x3", mk, beam),
-                        ("K2", "tf32x3", mk, None)},
+                        ("K2", "tf32x3", mk, 512)},
             "bfloat16": {("K1", "wgmma", mk, beam),
-                         ("K2", "wgmma", mk, None)}}.get(
-        path, {("K1", "wgmma" if tc else "tf32x2", mk, beam),
-               ("K3", "wgmma" if tc else "tf32x2", mk, None),
-               ("K4", "tma", b, beam)})
+                         ("K2", "wgmma", mk, 512)}}.get(
+        path, {("K1", r3, mk, beam), ("K3", r3, mk, 768), ("K3", r3, mk, 256),
+               ("K3", r3, mk, 512), ("K4", "tma", b, beam)})
     assert set(shapes) == want
+    assert ids.shape == ref.shape == (b, max_steps + 1)
+    if path == "float32":
+        assert int((ids != ref).any(dim=1).sum()) <= 1
+        return
+    margin = holds.rescored_margin(model, params, visual, ids, ref, dtype, dev)
+    assert float(margin.min()) >= -holds.beam_tol(dtype, max_steps)
+
+
+@pytest.mark.parametrize("path", ["float32", "bfloat16", "int8/float32",
+                                  "int8/bfloat16"])
+@pytest.mark.parametrize("family", ["BUTDDetection", "BUTDSpatial"])
+def test_butd_beam_decode_through_the_kernels_matches_plain(dev, family,
+                                                            path):
+    """A small BUTD beam-3 decode (embed 64, hidden 128, atten 32, enc 48;
+    vocab 1,000; B=16, 8 steps; 5 boxes with 1-5 valid, or 9 unmasked
+    regions) through the kernels against the same decode through the plain
+    versions.  Every step launches K1 at m = 48, k = 3, and K2 twice (float
+    paths) or K3 three times (int8 paths), never K4, each on its
+    tensor-core route; every kernel call holds against its plain version.
+    float32 ids are identical in all but at most one row; in the other
+    paths each row's winner, rescored by the plain step, scores no lower
+    than the plain run's winner minus 2 x 8 steps x 4 x K1's value hold."""
+    from simpleimagecaptionzoo_tpu_torch.config import ModelConfig
+    from simpleimagecaptionzoo_tpu_torch.engine import holds, steps
+    from simpleimagecaptionzoo_tpu_torch.models.base import get_captioner
+    b, beam, max_steps = 16, 3, 8
+    cfg = dict(model_type=family, vocab_size=1000, embed_dim=64,
+               hidden_dim=128, atten_dim=32, enc_dim=48)
+    model = get_captioner(ModelConfig(**cfg))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init_params(gen)
+    if path.startswith("int8"):
+        params = model.quantize_decode_params(params)
+    dtype = torch.bfloat16 if path.endswith("bfloat16") else torch.float32
+    if family == "BUTDSpatial":
+        visual = {"spatial_feats": torch.relu(torch.randn(
+            b, 9, 48, generator=gen, device=dev))}
+    else:
+        valid = 1 + torch.arange(b, device=dev) % 5
+        visual = {"bu_feats": torch.relu(torch.randn(b, 5, 48, generator=gen,
+                                                     device=dev)),
+                  "bu_masks": (torch.arange(5, device=dev)[None]
+                               < valid[:, None]).float()}
+    fn = steps.make_beam_decode(model, beam_size=beam, max_steps=max_steps,
+                                dtype=dtype, device="cuda")
+    with holds.plain_versions():
+        ref = fn(params, {}, visual)
+    shapes, broken = [], []
+    with holds.recording_shapes(shapes), holds.held_calls(broken):
+        ids = fn(params, {}, visual)
+    torch.cuda.synchronize()
+    assert broken == []
+    mk, tc = b * beam, dtype == torch.bfloat16
+    route = "wgmma" if tc else ("tf32x2" if path.startswith("int8")
+                                else "tf32x3")
+    # K2 and K3 by the width of x: the attention cell's [h2, mean, emb]
+    # (240) and the language cell's [attended, h1] (176); K3's [x, h] of
+    # each (368, 304) and att_dec's h1 (128)
+    widths = ({("K3", 368), ("K3", 304), ("K3", 128)}
+              if path.startswith("int8") else {("K2", 240), ("K2", 176)})
+    assert set(shapes) == {("K1", route, mk, beam)} | {
+        (kn, route, mk, w) for kn, w in widths}
+    n_steps = sum(s[0] == "K1" for s in shapes)
+    assert all(sum(s[0] == kn and s[3] == w for s in shapes) == n_steps
+               for kn, w in widths)
     assert ids.shape == ref.shape == (b, max_steps + 1)
     if path == "float32":
         assert int((ids != ref).any(dim=1).sum()) <= 1
