@@ -21,31 +21,38 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      greedy shape on the CUDA-core route too, and on a cross-chunk tie on
      every route; each dtype timed in turns (old: CUDA cores, new, new,
      old) at m=384 and m=1,152, host-inclusive and device-only, beside
-     cuBLAS's bare x @ W;
+     cuBLAS's bare x @ W; and NIC's and AoASpatial's heads (H=512) at m=384
+     k=1 and m=1,152 k=3 on each dtype's tensor-core route, timed in turns
+     (new, x @ W, x @ W, new);
   4. K2, the fused LSTM cell, against its plain version (B=384, E=2048,
      H=1024, the unaligned E=200 and the beam rows B=1,152 on each dtype's
      tensor-core route; B=384 and E=200 on the CUDA-core route too); each
      dtype timed in turns against the CUDA-core route and torch.lstm_cell
-     at B=384 and B=1,152; and BUTD's two cells (E=4,096, the attention
-     cell's [h2, mean, emb]; E=3,072, the language cell's [attended, h1])
-     at B=384 and 1,152 on each dtype's tensor-core route, timed in turns
-     against torch.lstm_cell;
+     at B=384 and B=1,152; and the other families' cells at B=384 and
+     1,152 on each dtype's tensor-core route, timed in turns against
+     torch.lstm_cell: BUTD's two (E=4,096, the attention cell's [h2, mean,
+     emb]; E=3,072, the language cell's [attended, h1]; H=1,024), NIC's
+     (E=512, the word or image embedding; H=512) and AoASpatial's (E=1,024,
+     [emb, ctx]; H=512);
   5. K3, the int8 dequantizing product, against its plain version at the
      three shapes of the int8 decode step (the LSTM gates, aoa_dec.q,
      aoa_dec.aoa; m=384, and m=1,152 for the beam step), at BUTD's three
      (its cells' [x, h], K=5,120 and 4,096 to n=4,096; att_dec, 1,024 to
-     1,024; m=384 and 1,152) and a ragged one
+     1,024; m=384 and 1,152), at the 512-wide families' four (NIC's cell,
+     1,024 to 2,048; AoASpatial's cell, 1,536 to 2,048, aoa_dec.q, 512 to
+     512, aoa_dec.aoa, 1,024 to 1,024; m=384 and 1,152) and a ragged one
      (m=37, K=200, n=700) on each dtype's tensor-core route (bf16:
      "wgmma"; float32: "tf32x2", two TF32 products over q widened to
      float32 in shared memory), and at the same shapes on the CUDA-core
      route (forced); each step shape timed at both m in turns
      (old: CUDA cores, new, lib, lib, new, old), host-inclusive and
-     device-only, against torch._weight_int8pack_mm (BUTD's shapes in
-     turns of old, new, lib, new, old, 10 launches a reading);
+     device-only, against torch._weight_int8pack_mm (the other families'
+     shapes in turns of old, new, lib, new, old, 10 launches a reading);
   6. K1-int8, the fused head over the int8 head weight, as in 3, on each
      dtype's tensor-core route ("wgmma", "tf32x2") and on the CUDA-core
      route (forced), each also at m=1,152, k=3; timed in turns (old, new,
-     new, old); the cross-chunk tie with an int8 head on every route;
+     new, old); the cross-chunk tie with an int8 head on every route; and
+     NIC's and AoASpatial's int8 heads (H=512) as in 3;
   7. K4, the int8 K/V attention, against its plain version (B=384, k=1
      and k=3, 36 boxes with 10-36 valid, 8 heads, float32 and bf16) on
      both routes ("tma": a sample's K and V requested whole by TMA, every
@@ -95,12 +102,29 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      three times (K=5,120, 4,096 and att_dec's 1,024), K2 and K4 never, in
      int8 serving form; each on its dtype's tensor-core route;
  11. BUTDSpatial (49 unmasked grid regions, the same weights): beam 3 in
-     bf16 and in int8 bf16, as in 10.
+     bf16 and in int8 bf16, as in 10;
+ 12. NIC in feature mode at the width of Configs/Models/NIC.json (embed and
+     hidden 512, enc_dim 2048, vocab 10,102; random weights from --seed),
+     B=384, step cap 20: greedy as in 8 and beam 3 as in 9, on the same
+     four paths.  Per step K1 once and K2 once (E=512) in float32 and bf16,
+     K1-int8 once and K3 once (K=1,024) in int8 serving form, K4 never;
+     the step -1 cell is one more K2 (or K3) launch a decode, over 384 rows
+     in greedy and 1,152 (the broadcast lanes) in beam.  NIC has no
+     attention: greedy returns no alphas, beam's are zeros;
+ 13. AoASpatial in feature mode at the width of
+     Configs/Models/AoASpatial.json (embed and hidden 512, 8 heads of 64,
+     6 refine layers, 49 unmasked regions), greedy and beam 3 on the same
+     four paths, as in 8 and 9: K1 once and K2 once (E=1,024) a step; int8:
+     K1-int8 once and K3 three times (K=1,536, 512 and 1,024), K2 never,
+     and K4 never: the int8 K/V gate (dh % 128) refuses 64-wide heads, so
+     encode keeps float K/V with SICZ_TPU_INT8_KV=auto.
 Then it prints one JSON line of per-kernel results (the beam shapes'
 launches as entries of their own, named ``..._beam``; BUTD's K2 and K3
-shapes as ``..._butd_<layer>``; an entry's ``launches`` is the sum over the
-main paths' reading runs that launched it, ``launches_by_path`` per path)
-and, last, the ``{"ok": true, "device": ...}`` line.
+shapes as ``..._butd_<layer>``, NIC's and AoASpatial's K1, K2 and K3 shapes
+as ``..._nic[_<layer>]`` and ``..._aoasp[_<layer>]``; an entry's
+``launches`` is the sum over the main paths' reading runs that launched it,
+``launches_by_path`` per path) and, last, the ``{"ok": true, "device":
+...}`` line.
 
 Timings use CUDA events, with a 128 MB buffer written between launches so
 each launch finds the L2 cache cold (as in the decode, where the other
@@ -464,6 +488,19 @@ def main(argv=None) -> int:
     butd_k3 = (("td", "lstm_td", e_td + bcfg.hidden_dim),
                ("lang", "lstm_lang", e_lang + bcfg.hidden_dim),
                ("att_dec", "att_dec", bcfg.hidden_dim))
+    # NIC and AoASpatial at the width of their published configs (512)
+    nic, aoasp = (get_captioner(load_model_config(
+        os.path.join(HERE, "Configs", "Models", fam + ".json"),
+        vocab_size=FULL["vocab_size"])) for fam in ("NIC", "AoASpatial"))
+    nparams, aparams = nic.init_params(gen), aoasp.init_params(gen)
+    ncfg, acfg = nic.config, aoasp.config
+    e_nic = ncfg.embed_dim                       # the cell's x: an embedding
+    e_aoasp = acfg.embed_dim + acfg.hidden_dim   # [emb, ctx]
+    # K2 at the other families' cells: (entry tag, cell params, E, what)
+    more_k2 = [("butd_" + tag, bparams[cell], e, "BUTD's %s cell" % tag)
+               for tag, cell, e in butd_k2] + [
+        ("nic", nparams["lstm"], e_nic, "NIC's cell"),
+        ("aoasp", aparams["lstm"], e_aoasp, "AoASpatial's cell")]
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
     kernels = {}
 
@@ -471,9 +508,73 @@ def main(argv=None) -> int:
         kernels["%s/%s" % (kname, dtype_name)] = dict(
             name="%s/%s" % (kname, dtype_name), route="cuda", **kw)
 
+    mb = 3 * B                                      # beam rows: B x 3 beams
+
+    def head_at(fam, head, hd, dtype, tc_route, rate, ename):
+        """K1 (a float head) or K1-int8 (an int8 head) at another family's
+        head: held on the tensor-core route (k=1, k=3 and three rows at
+        m=B; k=3 at m=mb), then timed in turns (new, lib, lib, new),
+        host-inclusive and device-only, beside cuBLAS's bare x @ W (the
+        int8 W dequantized to x's type) at m=B, k=1 and m=mb, k=3; entries
+        <ename>_<fam> and <ename>_<fam>_beam."""
+        dn = str(dtype).split(".")[1]
+        int8 = head.w.dtype == torch.int8
+        tf32 = "tf32x2" if int8 else "tf32x3"
+        tol = 1e-4 if dtype == torch.float32 else 2e-3
+        x = (0.5 * torch.randn(B, hd, generator=gen, device=dev)).to(dtype)
+        xb = (0.5 * torch.randn(mb, hd, generator=gen, device=dev)).to(dtype)
+        route = fused_head.head_route(head.w, x)
+        require(route == tc_route, "K1 %s %s takes the %s route"
+                % (fam, dn, route))
+        tag = "K1%s/%s %s" % ("-int8" if int8 else "", route, fam)
+        before = counts(fused_head, tf32)
+        err = hold_head(torch, fused_head, tag, head, x, dn, tol,
+                        extra=[(xb, 3)])
+        delta = moved(counts(fused_head, tf32), before)
+        require(delta == launched(tc_route, 4, tf32=tf32),
+                "%s %s: the counters moved by %s" % (tag, dn, delta))
+        w_x = (head.w[:hd].float() * head.s).to(dtype)
+        item, w_item = x.element_size(), head.w.element_size()
+        for m, k, xs in ((B, 1, x), (mb, 3, xb)):
+            fns = {"new": lambda: fused_head.topk_head(head, xs, k),
+                   "lib": lambda: xs @ w_x}
+            order = ["new", "lib", "lib", "new"]
+            turns = time_turns(torch, fns, flush, order)
+            dev_turns = time_turns(torch, fns, flush, order,
+                                   lead=DEVICE_LEAD)
+            plain_ms = time_ms(
+                torch, lambda: fused_head.topk_head_plain(head, xs, k), flush)
+            nbytes = (m * hd * item + hd * head.v * w_item + 2 * head.v * 4
+                      + m * (k * 8 + 4))
+            nops = 2 * m * hd * head.v
+            b_ms, b_by = bound(nbytes, nops, rate)
+            scheme = ({"scheme_bound_ms": bound(nbytes, nops, "2xtf32")[0]}
+                      if tc_route == "tf32x2" else {})
+            entry("%s_%s%s" % (ename, fam, "_beam" if m == mb else ""), dn,
+                  max_abs_err=err, max_err=err, ms=mean(turns["new"]),
+                  kernel_ms=mean(turns["new"]),
+                  device_ms=mean(dev_turns["new"]), plain_ms=plain_ms,
+                  bound_ms=b_ms, bound_by=b_by, **scheme, library_ms=None,
+                  product_ms=mean(turns["lib"]),
+                  device_product_ms=mean(dev_turns["lib"]),
+                  kernel_route=tc_route, turns=turns, device_turns=dev_turns,
+                  shape="m=%d K=%d V=%d%s k=%d (%s's head)"
+                  % (m, hd, head.v, " int8 W" if int8 else "", k, fam),
+                  source="simpleimagecaptionzoo_tpu_torch/csrc/fused_head.cu",
+                  replaces="simpleimagecaptionzoo_tpu/ops/fused_head.py:155")
+            log("%s %s m=%d k=%d in turns (new, lib, lib, new): %s %s ms, x "
+                "@ W alone (cuBLAS) %s ms; device alone: %s %s, x @ W %s ms; "
+                "plain %.4f ms; bound %.4f ms (%s%s)"
+                % (tag, dn, m, k, tc_route,
+                   ["%.4f" % t for t in turns["new"]],
+                   ["%.4f" % t for t in turns["lib"]], tc_route,
+                   ["%.4f" % t for t in dev_turns["new"]],
+                   ["%.4f" % t for t in dev_turns["lib"]], plain_ms, b_ms,
+                   b_by, "".join("; 2xTF32's %.4f" % v
+                                 for v in scheme.values())))
+
     log("-- phase 3 at %.1f s" % (time.time() - t_start))
     # -- 3. K1 against its plain version --------------------------------------
-    mb = 3 * B                                      # beam rows: B x 3 beams
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         tc_route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
@@ -588,6 +689,13 @@ def main(argv=None) -> int:
                ["%.4f" % t for t in dev_turns["old"]], mb, tc_route,
                ["%.4f" % t for t in dev_beam["new"]],
                ["%.4f" % t for t in dev_beam["old"]]))
+        # the 512-wide families' heads
+        for fam, fparams, fcfg in (("nic", nparams, ncfg),
+                                   ("aoasp", aparams, acfg)):
+            head_at(fam, fused_head.prepare_head(
+                steps._cast_floats(fparams["predict"], dtype), dtype),
+                fcfg.hidden_dim, dtype, tc_route, rate,
+                "fused_head_topk_" + tc_route)
 
     # the tie across chunks, with chunks made only of pad columns, on each
     # route of each dtype (3.0 and 1.0 are exact in bf16 and TF32)
@@ -635,26 +743,28 @@ def main(argv=None) -> int:
                  - 1) * wb).to(dtype)
         split200 = (tf32.prepare_split(w200)
                     if dtype == torch.float32 else None)
-        # BUTD's two cells (phase 10's widths), each with its weights
-        bws = {}
-        for tag, cell, e in butd_k2:
-            lp = steps._cast_floats(bparams[cell], dtype)
-            bws[tag] = (lp, fused_lstm.prepare_lstm(lp), e)
+        # the other families' cells (phases 10-13), each with its weights:
+        # tag -> (cell params, prepared weights, E, H, what)
+        more = {}
+        for tag, lp, e, what in more_k2:
+            lp = steps._cast_floats(lp, dtype)
+            more[tag] = (lp, fused_lstm.prepare_lstm(lp), e,
+                         lp["w_hh"].shape[0], what)
         # the decode step, the unaligned E=200 and the beam rows on the
         # tensor-core route; the CUDA-core route, which shapes TMA cannot
-        # take go to, at the first two; BUTD's cells at the greedy and the
-        # beam rows on the tensor-core route
-        shapes = [(B, e_in, w_cat, b_sum, split, tc_route),
-                  (B, 200, w200, b_sum, split200, tc_route),
-                  (mb, e_in, w_cat, b_sum, split, tc_route),
-                  (B, e_in, w_cat, b_sum, split, "cuda_core"),
-                  (B, 200, w200, b_sum, split200, "cuda_core")] + [
-            (m, e, bw.w_cat, bw.b_sum, bw.split, tc_route)
-            for _, bw, e in bws.values() for m in (B, mb)]
-        case_err = {}          # (B, E) -> max |err| on the tensor-core route
-        for m, e, wc, bs, sp, route in shapes:
+        # take go to, at the first two; the other families' cells at the
+        # greedy and the beam rows on the tensor-core route
+        shapes = [(None, B, e_in, hd, w_cat, b_sum, split, tc_route),
+                  (None, B, 200, hd, w200, b_sum, split200, tc_route),
+                  (None, mb, e_in, hd, w_cat, b_sum, split, tc_route),
+                  (None, B, e_in, hd, w_cat, b_sum, split, "cuda_core"),
+                  (None, B, 200, hd, w200, b_sum, split200, "cuda_core")] + [
+            (tag, m, e, hh, bw.w_cat, bw.b_sum, bw.split, tc_route)
+            for tag, (_, bw, e, hh, _) in more.items() for m in (B, mb)]
+        case_err = {}          # (tag, B) -> max |err| on the tensor-core route
+        for tag, m, e, hh, wc, bs, sp, route in shapes:
             x, h, c = (torch.randn(m, n, generator=gen, device=dev).to(dtype)
-                       for n in (e, hd, hd))
+                       for n in (e, hh, hh))
             before = counts(fused_lstm)
             if route == tc_route:
                 got_route = fused_lstm.lstm_route(wc, x, h)
@@ -678,12 +788,12 @@ def main(argv=None) -> int:
                                      float(diff.max()), tol["rtol"],
                                      tol["atol"]))
                 err = max(err, float(diff.max()))
-            if e in (e_in, 200):
+            if tag is None:
                 errs[route] = max(errs[route], err)
             else:
-                case_err[m, e] = err
+                case_err[tag, m] = err
             log("K2 %s (%s) B=%d E=%d H=%d: max|err| %.3g (rtol %g atol %g)"
-                % (dn, route, m, e, hd, err, tol["rtol"], tol["atol"]))
+                % (dn, route, m, e, hh, err, tol["rtol"], tol["atol"]))
         err = errs[tc_route]
         # the library yardstick: torch.lstm_cell on weights transposed once
         lp = steps._cast_floats(params["lstm"], dtype)
@@ -771,15 +881,15 @@ def main(argv=None) -> int:
                    t["plain_ms"], t["bound"][0], t["bound"][1],
                    t["old_bound"][0]))
 
-        # BUTD's two cells, timed in turns beside torch.lstm_cell
-        for tag, (lp, bw, e) in bws.items():
+        # the other families' cells, timed in turns beside torch.lstm_cell
+        for tag, (lp, bw, e, hh, what) in more.items():
             w_ih_t = lp["w_ih"].t().contiguous()
             w_hh_t = lp["w_hh"].t().contiguous()
             for m in (B, mb):
                 x, h, c = (torch.randn(m, n, generator=gen,
                                        device=dev).to(dtype)
-                           for n in (e, hd, hd))
-                err = case_err[m, e]
+                           for n in (e, hh, hh))
+                err = case_err[tag, m]
                 fns = {"new": lambda: fused_lstm.lstm_cell_fused(
                            bw.w_cat, bw.b_sum, x, h, c, bw.split),
                        "lib": lambda: torch.lstm_cell(
@@ -791,10 +901,10 @@ def main(argv=None) -> int:
                                        lead=DEVICE_LEAD)
                 plain_ms = time_ms(torch, lambda: fused_lstm.lstm_cell_plain(
                     bw.w_cat, bw.b_sum, x, h, c), flush)
-                nbytes = ((m * (e + 2 * hd) + (e + hd) * 4 * hd + 4 * hd
-                           + 2 * m * hd) * item)
-                b_ms, b_by = bound(nbytes, 2 * m * (e + hd) * 4 * hd, rate)
-                entry("fused_lstm_cell_%s_butd_%s%s"
+                nbytes = ((m * (e + 2 * hh) + (e + hh) * 4 * hh + 4 * hh
+                           + 2 * m * hh) * item)
+                b_ms, b_by = bound(nbytes, 2 * m * (e + hh) * 4 * hh, rate)
+                entry("fused_lstm_cell_%s_%s%s"
                       % (tc_route, tag, "_beam" if m == mb else ""), dn,
                       max_abs_err=err, max_err=err, ms=mean(turns["new"]),
                       kernel_ms=mean(turns["new"]),
@@ -804,14 +914,14 @@ def main(argv=None) -> int:
                       device_library_ms=mean(dev_turns["lib"]),
                       kernel_route=tc_route, turns=turns,
                       device_turns=dev_turns,
-                      shape="B=%d E=%d H=%d (BUTD's %s cell)" % (m, e, hd,
-                                                                tag),
+                      shape="B=%d E=%d H=%d (%s)" % (m, e, hh, what),
                       source=common["source"], replaces=common["replaces"])
-                log("K2 %s BUTD %s cell B=%d E=%d: max|err| %.3g (rtol %g "
-                    "atol %g); in turns (new, lib, lib, new): %s %s ms, "
+                log("K2 %s %s B=%d E=%d H=%d: max|err| %.3g (rtol %g atol "
+                    "%g); in turns (new, lib, lib, new): %s %s ms, "
                     "torch.lstm_cell %s ms; device alone: %s %s, "
                     "torch.lstm_cell %s ms; plain %.4f ms; bound %.4f ms (%s)"
-                    % (dn, tag, m, e, err, tol["rtol"], tol["atol"], tc_route,
+                    % (dn, what, m, e, hh, err, tol["rtol"], tol["atol"],
+                       tc_route,
                        ["%.4f" % v for v in turns["new"]],
                        ["%.4f" % v for v in turns["lib"]], tc_route,
                        ["%.4f" % v for v in dev_turns["new"]],
@@ -832,8 +942,19 @@ def main(argv=None) -> int:
     k3_beam = [(what, qp, mb, k) for what, qp, _, k in k3_steps]
     k3_cases = k3_steps + [("ragged", ragged, 37, 200)]
     bq = butd.quantize_decode_params(bparams)
-    k3_butd = [("butd." + tag, bq[layer], m, k) for tag, layer, k in butd_k3
-               for m in (B, mb)]
+    nq = nic.quantize_decode_params(nparams)
+    aq = aoasp.quantize_decode_params(aparams)
+    # the other families' int8 step shapes (phases 10-13): (what, layer, K)
+    # with K the width of x: each cell's [x, h], BUTD's att_dec, AoASpatial's
+    # aoa_dec.q and aoa_dec.aoa
+    k3_more = [(what, qp, m, k) for what, qp, k in [
+        ("butd." + tag, bq[layer], k) for tag, layer, k in butd_k3] + [
+        ("nic.lstm", nq["lstm"], e_nic + ncfg.hidden_dim),
+        ("aoasp.lstm", aq["lstm"], e_aoasp + acfg.hidden_dim),
+        ("aoasp.q", aq["aoa_dec"]["q"], acfg.hidden_dim),
+        ("aoasp.aoa", aq["aoa_dec"]["aoa"], 2 * acfg.hidden_dim)]
+        for m in (B, mb)]
+    more_whats = {what for what, *_ in k3_more}
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         tc_route = "wgmma" if dtype == torch.bfloat16 else "tf32x2"
@@ -842,7 +963,7 @@ def main(argv=None) -> int:
         # CUDA-core route, which operands TMA cannot take go to, at every
         # shape: the greedy and beam rows and the ragged one
         cases = [c + (route,) for route in (tc_route, "cuda_core")
-                 for c in k3_cases + k3_beam + k3_butd]
+                 for c in k3_cases + k3_beam + k3_more]
         errs = {tc_route: 0.0, "cuda_core": 0.0}
         case_err = {}          # (what, m, route) -> max |err|
         for what, qp, m, k, route in cases:
@@ -877,7 +998,7 @@ def main(argv=None) -> int:
                     "K3 %s %s %s m=%d K=%d n=%d: max |err| %.3g beyond %s"
                     % (dn, route, what, m, k, n, float(diff.max()), tol_s))
             case_err[what, m, route] = float(diff.max())
-            if not what.startswith("butd."):
+            if what not in more_whats:
                 errs[route] = max(errs[route], float(diff.max()))
             log("K3 %s (%s) %s m=%d K=%d (Kp %d) n=%d (Np %d): max|err| %.3g "
                 "(%s; largest share of the hold %.3g)"
@@ -958,10 +1079,10 @@ def main(argv=None) -> int:
                   shape=first["shape"] + " (the LSTM gates)",
                   shapes=shapes[route, m], **extra)
 
-        # BUTD's three int8 step shapes, timed in turns as above; 10
-        # launches a reading, as torch._weight_int8pack_mm takes up to
-        # 50 ms a call at these shapes
-        for what, qp, m, k in k3_butd:
+        # the other families' int8 step shapes, timed in turns as above;
+        # 10 launches a reading, as torch._weight_int8pack_mm takes up to
+        # 50 ms a call at BUTD's shapes
+        for what, qp, m, k in k3_more:
             n = qp["s"].shape[0]
             x = (0.5 * torch.randn(m, k, generator=gen, device=dev)).to(dtype)
             nbytes = m * k * item + k * n + 2 * n * 4 + m * n * item
@@ -1126,6 +1247,10 @@ def main(argv=None) -> int:
                bb_by, "".join("; 2xTF32's %.4f" % scheme[k]
                               for k in ("beam_scheme_bound_ms",)
                               if k in scheme)))
+        # the 512-wide families' int8 heads
+        for fam, fq, fcfg in (("nic", nq, ncfg), ("aoasp", aq, acfg)):
+            head_at(fam, fused_head.prepare_head(fq["predict"], dtype),
+                    fcfg.hidden_dim, dtype, tc_route, rate, tc_name)
 
     # the tie across chunks with an int8 head, on both routes of each dtype
     # (3 and 1 are exact int8 values; scale 1, bias 0)
@@ -1273,7 +1398,7 @@ def main(argv=None) -> int:
                    ["%.4f" % v for v in t["dev_turns"]["old"]],
                    t["plain_ms"], t["bound"][0], t["bound"][1]))
 
-    # -- 8-11. the main paths ---------------------------------------------------
+    # -- 8-13. the main paths ---------------------------------------------------
     from simpleimagecaptionzoo_tpu_torch import END_ID, PAD_ID, STA_ID
     # int8 K/V at encode (the port reads the switch there, AoA only); the
     # float paths have no int8 head, so it does not touch them
@@ -1296,96 +1421,109 @@ def main(argv=None) -> int:
     # launch of a float32 decode on "tf32x3", of a bf16 decode on "wgmma",
     # every K1-int8 and K3 launch of an int8 float32 decode on "tf32x2", of
     # an int8 bf16 decode on "wgmma", every K4 launch on "tma".  AoA runs
-    # one cell a step and (int8) K4; BUTD two cells, K3 three times (its
-    # two cells and att_dec) and no K4
+    # one cell a step and, in int8, K3 three times and K4 (AoASpatial no
+    # K4); BUTD two cells, K3 three times (its two cells and att_dec) and
+    # no K4; NIC one cell (K3 once in int8), plus once more at init
     nil = dict.fromkeys(counters, 0)
+    kernel_counter = {"K2": "fused_lstm_cell", "K3": "quant_matmul"}
 
-    def per_step(route, int8, cells=1, k4=0):
-        out = dict(nil, fused_head_topk=1, **{"fused_head_topk_" + route: 1})
-        if int8:
-            out.update(quant_matmul=3, **{"quant_matmul_" + route: 3},
-                       int8_attention=k4, int8_attention_tma=k4)
-        else:
-            out.update(fused_lstm_cell=cells,
-                       **{"fused_lstm_cell_" + route: cells})
+    def once(init_shapes):
+        """How the counters move for the launches made once a decode, outside
+        its steps (NIC's step -1 cell): K2 or K3 at ``init_shapes``."""
+        out = {}
+        for kn, route, _, _ in init_shapes:
+            for name in (kernel_counter[kn], kernel_counter[kn] + "_" + route):
+                out[name] = out.get(name, 0) + 1
         return out
 
-    def path_shapes(rows, k, route, dn, k1, k2=(), k3=(), k4=False,
-                    beam=False):
-        """Each launch shape (holds.recording_shapes) of a path -> the
-        kernels-line entry its launches go to: K1 at rows and k, K2 and K3
-        at rows and the width of x, K4 over B samples at k query rows."""
+    def family_paths(rows, k, beam, prm, qprm, k2, k3, k1_tag="", k4=False,
+                     init_cell=False):
+        """A family's four paths (float32, bf16, int8 float32, int8 bf16) at
+        ``rows`` and k: (label, dtype, params, launches per step, each
+        launch shape (holds.recording_shapes) -> the kernels-line entry its
+        launches go to, the shapes launched once more a decode).  ``k2``
+        and ``k3``: (the width of x, entry name with "{}" for the route),
+        K2's on the float paths, K3's on the int8 paths; K1 at rows and k,
+        its entry ``fused_head_topk_<route>`` (int8 bf16:
+        ``fused_head_topk_int8_wgmma``) + ``k1_tag``; K4 (int8 only) over B
+        samples at k query rows; ``init_cell``: the first width of K2 (K3)
+        once more at init."""
         sfx = "_beam" if beam else ""
-        out = {("K1", route, rows, k): "%s%s/%s" % (k1, sfx, dn)}
-        for kn, widths in (("K2", k2), ("K3", k3)):
+        out = []
+        for label, dtype, route, int8 in (
+                ("float32", torch.float32, "tf32x3", False),
+                ("bfloat16", torch.bfloat16, "wgmma", False),
+                ("int8/float32", torch.float32, "tf32x2", True),
+                ("int8/bfloat16", torch.bfloat16, "wgmma", True)):
+            dn = str(dtype).split(".")[1]
+            k1 = ("fused_head_topk_int8_wgmma" if int8 and route == "wgmma"
+                  else "fused_head_topk_" + route) + k1_tag
+            kn, widths = ("K3", k3) if int8 else ("K2", k2)
+            step = dict(nil, fused_head_topk=1,
+                        **{"fused_head_topk_" + route: 1,
+                           kernel_counter[kn]: len(widths),
+                           kernel_counter[kn] + "_" + route: len(widths)})
+            shapes = {("K1", route, rows, k): "%s%s/%s" % (k1, sfx, dn)}
             for w, ename in widths:
-                out[kn, route, rows, w] = "%s%s/%s" % (ename, sfx, dn)
-        if k4:
-            out["K4", "tma", B, k] = "int8_attention_tma%s/%s" % (sfx, dn)
+                shapes[kn, route, rows, w] = "%s%s/%s" % (ename.format(route),
+                                                          sfx, dn)
+            if k4 and int8:
+                shapes["K4", "tma", B, k] = "int8_attention_tma%s/%s" % (sfx,
+                                                                         dn)
+                step.update(int8_attention=1, int8_attention_tma=1)
+            out.append((label, dtype, qprm if int8 else prm, step, shapes,
+                        [(kn, route, rows, widths[0][0])] if init_cell
+                        else []))
         return out
 
     def aoa_paths(rows, k, beam):
         hd = FULL["hidden_dim"]
         e_in = FULL["embed_dim"] + hd
-        k3 = lambda r: [(w, "quant_matmul_" + r)           # noqa: E731
-                        for w in (e_in + hd, hd, 2 * hd)]
-        return [
-            ("float32", torch.float32, params, per_step("tf32x3", False),
-             path_shapes(rows, k, "tf32x3", "float32",
-                         "fused_head_topk_tf32x3",
-                         k2=[(e_in, "fused_lstm_cell_tf32x3")], beam=beam)),
-            ("bfloat16", torch.bfloat16, params, per_step("wgmma", False),
-             path_shapes(rows, k, "wgmma", "bfloat16", "fused_head_topk_wgmma",
-                         k2=[(e_in, "fused_lstm_cell_wgmma")], beam=beam)),
-            ("int8/float32", torch.float32, qparams,
-             per_step("tf32x2", True, k4=1),
-             path_shapes(rows, k, "tf32x2", "float32",
-                         "fused_head_topk_tf32x2", k3=k3("tf32x2"), k4=True,
-                         beam=beam)),
-            ("int8/bfloat16", torch.bfloat16, qparams,
-             per_step("wgmma", True, k4=1),
-             path_shapes(rows, k, "wgmma", "bfloat16",
-                         "fused_head_topk_int8_wgmma", k3=k3("wgmma"),
-                         k4=True, beam=beam))]
+        return family_paths(rows, k, beam, params, qparams,
+                            k2=[(e_in, "fused_lstm_cell_{}")],
+                            k3=[(w, "quant_matmul_{}")
+                                for w in (e_in + hd, hd, 2 * hd)], k4=True)
 
     def butd_paths(rows, k, beam):
-        k2 = lambda r: [(e, "fused_lstm_cell_%s_butd_%s" % (r, tag))  # noqa
-                        for tag, _, e in butd_k2]
-        k3 = lambda r: [(w, "quant_matmul_%s_butd_%s" % (r, tag))     # noqa
-                        for tag, _, w in butd_k3]
-        return [
-            ("float32", torch.float32, bparams,
-             per_step("tf32x3", False, cells=2),
-             path_shapes(rows, k, "tf32x3", "float32",
-                         "fused_head_topk_tf32x3", k2=k2("tf32x3"),
-                         beam=beam)),
-            ("bfloat16", torch.bfloat16, bparams,
-             per_step("wgmma", False, cells=2),
-             path_shapes(rows, k, "wgmma", "bfloat16", "fused_head_topk_wgmma",
-                         k2=k2("wgmma"), beam=beam)),
-            ("int8/float32", torch.float32, bq, per_step("tf32x2", True),
-             path_shapes(rows, k, "tf32x2", "float32",
-                         "fused_head_topk_tf32x2", k3=k3("tf32x2"),
-                         beam=beam)),
-            ("int8/bfloat16", torch.bfloat16, bq, per_step("wgmma", True),
-             path_shapes(rows, k, "wgmma", "bfloat16",
-                         "fused_head_topk_int8_wgmma", k3=k3("wgmma"),
-                         beam=beam))]
+        return family_paths(
+            rows, k, beam, bparams, bq,
+            k2=[(e, "fused_lstm_cell_{}_butd_" + tag)
+                for tag, _, e in butd_k2],
+            k3=[(w, "quant_matmul_{}_butd_" + tag) for tag, _, w in butd_k3])
+
+    def nic_paths(rows, k, beam):
+        return family_paths(
+            rows, k, beam, nparams, nq, k1_tag="_nic",
+            k2=[(e_nic, "fused_lstm_cell_{}_nic")],
+            k3=[(e_nic + ncfg.hidden_dim, "quant_matmul_{}_nic_lstm")],
+            init_cell=True)
+
+    def aoasp_paths(rows, k, beam):
+        hd = acfg.hidden_dim
+        return family_paths(
+            rows, k, beam, aparams, aq, k1_tag="_aoasp",
+            k2=[(e_aoasp, "fused_lstm_cell_{}_aoasp")],
+            k3=[(e_aoasp + hd, "quant_matmul_{}_aoasp_lstm"),
+                (hd, "quant_matmul_{}_aoasp_q"),
+                (2 * hd, "quant_matmul_{}_aoasp_aoa")])
 
     on_path = set()
 
-    def credit(label, shapes, n_steps, shape_entries):
+    def credit(label, shapes, n_steps, shape_entries, init_shapes):
         """Every launch of one reading run at the shape its path expects,
-        each shape once a step; each entry's ``launches`` is the sum over
-        the main paths' reading runs (``launches_by_path`` per path)."""
+        each shape once a step and those of ``init_shapes`` once more; each
+        entry's ``launches`` is the sum over the main paths' reading runs
+        (``launches_by_path`` per path)."""
         got = {}
         for shp in shapes:
             got[shp] = got.get(shp, 0) + 1
         require(set(got) == set(shape_entries)
-                and all(v == n_steps for v in got.values()),
+                and all(v == n_steps + init_shapes.count(shp)
+                        for shp, v in got.items()),
                 "%s: launch shapes %s, expected each of %s once a step (%d "
-                "steps)" % (label, sorted(got.items(), key=str),
-                            sorted(shape_entries, key=str), n_steps))
+                "steps), and %s once more" % (
+                    label, sorted(got.items(), key=str),
+                    sorted(shape_entries, key=str), n_steps, init_shapes))
         for shp, ename in shape_entries.items():
             by_path = kernels[ename].setdefault("launches_by_path", {})
             by_path[label] = by_path.get(label, 0) + got[shp]
@@ -1393,6 +1531,8 @@ def main(argv=None) -> int:
             on_path.add(ename)
 
     def feat_rows(visual):
+        if "features" in visual:                 # NIC: one pooled feature
+            return 1
         return (visual["bu_feats"] if "bu_feats" in visual
                 else visual["spatial_feats"]).shape[1]
 
@@ -1405,6 +1545,12 @@ def main(argv=None) -> int:
                              and dtype == torch.bfloat16) else 1e-3
 
     def check_alphas(tag, al, visual, n_rows, tol):
+        if "features" in visual:
+            # NIC has no attention: beam search's alphas are zeros
+            require(al.shape == (B, n_rows, 1) and bool((al == 0).all()),
+                    "%s alphas: shape %s, or not zero" % (tag,
+                                                          tuple(al.shape)))
+            return
         live = al.sum(-1) > 0
         mask = visual.get("bu_masks")
         require(al.shape == (B, n_rows, feat_rows(visual))
@@ -1418,10 +1564,12 @@ def main(argv=None) -> int:
                 "masked boxes" % (tag, tuple(al.shape), tol,
                                   float((al.sum(-1) - 1).abs()[live].max())))
 
-    def drive_greedy(family, model, visual, paths, kv=False):
-        """Phases 8 and 10: greedy decode of ``model`` on each path, once
-        through the plain versions and three times through the kernels
-        (launches per step, route and shape exact), then profiled."""
+    def drive_greedy(family, model, visual, paths, kv_int8=None):
+        """Phases 8, 10, 12 and 13: greedy decode of ``model`` on each path,
+        once through the plain versions and three times through the kernels
+        (launches per step, route and shape exact), then profiled.
+        ``kv_int8``: None, or whether encode stores int8 K/V on the int8
+        paths (AoA; else K/V in the compute dtype)."""
         calls, kv_kinds, shapes = [], [], []
         step_core, encode = model.step_core, model.encode
 
@@ -1431,7 +1579,7 @@ def main(argv=None) -> int:
 
         def recording_encode(*a, **kw):
             enc, st = encode(*a, **kw)
-            if kv:
+            if kv_int8 is not None:
                 kv_kinds.append(enc.extras["k_q" if "k_q" in enc.extras
                                            else "k_proj"].dtype)
             return enc, st
@@ -1439,7 +1587,7 @@ def main(argv=None) -> int:
         model.step_core = counting_step_core
         model.encode = recording_encode
         out, float_ids = {}, {}
-        for label, dtype, prm, step_launches, shape_entries in paths:
+        for label, dtype, prm, step_launches, shape_entries, init in paths:
             dn = str(dtype).split(".")[1]
             int8 = label.startswith("int8")
             tag = "%s %s" % (family, label)
@@ -1462,12 +1610,14 @@ def main(argv=None) -> int:
                 times.append(time.perf_counter() - t0)
                 n_steps = len(calls)
                 launches = {kn: c.n for kn, c in counters.items()}
-                want = {kn: m * n_steps for kn, m in step_launches.items()}
+                want = {kn: m * n_steps + once(init).get(kn, 0)
+                        for kn, m in step_launches.items()}
                 require(n_steps >= 1 and launches == want,
                         "%s decode: %d steps, launches %s, expected %s"
                         % (tag, n_steps, launches, want))
-            if kv:
-                require(kv_kinds[-1] == (torch.int8 if int8 else dtype),
+            if kv_int8 is not None:
+                require(kv_kinds[-1] == (torch.int8 if int8 and kv_int8
+                                         else dtype),
                         "%s decode: encode stored its K/V as %s"
                         % (tag, kv_kinds[-1]))
             require(ids.shape == (B, MAX_LEN), "%s decode shape %s"
@@ -1475,8 +1625,13 @@ def main(argv=None) -> int:
             require(int(ids.min()) >= 0
                     and int(ids.max()) < FULL["vocab_size"],
                     "%s decode ids out of range" % tag)
-            check_alphas(tag + " decode", al, visual, MAX_LEN,
-                         alpha_tol(family, dtype))
+            if "features" in visual:
+                # NIC has no attention: greedy returns no alphas
+                require(al is None and ref_al is None,
+                        "%s decode returned alphas" % tag)
+            else:
+                check_alphas(tag + " decode", al, visual, MAX_LEN,
+                             alpha_tol(family, dtype))
             rows_same = float((ids == ref_ids).all(dim=1).float().mean())
             first_same = float((ids[:, 0] == ref_ids[:, 0]).float().mean())
             if label == "float32":
@@ -1491,7 +1646,8 @@ def main(argv=None) -> int:
                                             key=str),
                        rows_identical=rows_same,
                        first_ids_identical=first_same,
-                       alphas_max_abs_diff=float((al - ref_al).abs().max()),
+                       alphas_max_abs_diff=(None if al is None else float(
+                           (al - ref_al).abs().max())),
                        seconds=times, captions_per_s=B / t_med)
             extra = ""
             if int8:
@@ -1504,12 +1660,13 @@ def main(argv=None) -> int:
                 extra = ("; against the %s float decode: first ids %.4f, "
                          "rows %.4f" % (dn, res["first_ids_vs_float"],
                                         res["rows_vs_float"]))
-            credit(tag + " greedy", shapes, n_steps, shape_entries)
+            credit(tag + " greedy", shapes, n_steps, shape_entries, init)
             log("decode %s: B=%d, %d steps, launches %s, shapes %s%s; rows "
                 "identical to the plain run %.4f, first ids %.4f%s; %.1f "
                 "captions/s (median of %s s)"
                 % (tag, B, n_steps, launches, res["launch_shapes"],
-                   "; K/V stored %s" % kv_kinds[-1] if kv else "", rows_same,
+                   "; K/V stored %s" % kv_kinds[-1] if kv_int8 is not None
+                   else "", rows_same,
                    first_same, extra, B / t_med,
                    ["%.4f" % t for t in times]))
             res["profile"] = profile_decode(
@@ -1521,7 +1678,7 @@ def main(argv=None) -> int:
         return out
 
     def drive_beam(family, model, visual, paths):
-        """Phases 9, 10 and 11: beam-3 decode of ``model`` on each path,
+        """Phases 9-13: beam-3 decode of ``model`` on each path,
         once through the plain versions, three times through the kernels
         (timed; launches per step, route and shape exact), once with
         alphas, once with every kernel call held against its plain version,
@@ -1535,7 +1692,7 @@ def main(argv=None) -> int:
 
         model.step_lanes_core = counting_step_lanes_core
         out = {}
-        for label, dtype, prm, step_launches, shape_entries in paths:
+        for label, dtype, prm, step_launches, shape_entries, init in paths:
             tag = "beam %s %s" % (family, label)
             fn = steps.make_beam_decode(model, beam_size=BEAM,
                                         max_steps=MAX_LEN, dtype=dtype,
@@ -1556,7 +1713,8 @@ def main(argv=None) -> int:
                 times.append(time.perf_counter() - t0)
                 n_steps = len(lane_steps)
                 launches = {kn: c.n for kn, c in counters.items()}
-                want = {kn: m * n_steps for kn, m in step_launches.items()}
+                want = {kn: m * n_steps + once(init).get(kn, 0)
+                        for kn, m in step_launches.items()}
                 require(n_steps >= 1 and launches == want,
                         "%s decode: %d steps, launches %s, expected %s"
                         % (tag, n_steps, launches, want))
@@ -1608,7 +1766,7 @@ def main(argv=None) -> int:
                        rescore_tol=tol, seconds=times,
                        captions_per_s=B / t_med,
                        rows_ended=int(ended[:, -1].sum()))
-            credit(tag, shapes, n_steps, shape_entries)
+            credit(tag, shapes, n_steps, shape_entries, init)
             log("%s decode: B=%d, beam %d, %d steps, launches %s, shapes "
                 "%s; every kernel call of a run held against its plain "
                 "version; rows identical to the plain run %.4f, first ids "
@@ -1635,7 +1793,7 @@ def main(argv=None) -> int:
     }
     mk = B * BEAM
     results["decode"] = drive_greedy("AoADetection", model, visual,
-                                     aoa_paths(B, 1, False), kv=True)
+                                     aoa_paths(B, 1, False), kv_int8=True)
     log("-- phase 9 at %.1f s" % (time.time() - t_start))
     # -- 9. the main path, beam: AoADetection beam 3 -----------------------------
     results["beam"] = drive_beam("AoADetection", model, visual,
@@ -1660,9 +1818,25 @@ def main(argv=None) -> int:
         "BUTDSpatial", butd_sp, sp_visual,
         [p for p in butd_paths(mk, BEAM, True)
          if p[0] in ("bfloat16", "int8/bfloat16")]))
+    log("-- phase 12 at %.1f s" % (time.time() - t_start))
+    # -- 12. NIC, greedy and beam 3, on the four paths ------------------------
+    nic_visual = {"features": torch.relu(torch.randn(
+        B, ncfg.enc_dim, generator=gen, device=dev))}
+    results["nic"] = dict(
+        decode=drive_greedy("NIC", nic, nic_visual, nic_paths(B, 1, False)),
+        beam=drive_beam("NIC", nic, nic_visual, nic_paths(mk, BEAM, True)))
+    log("-- phase 13 at %.1f s" % (time.time() - t_start))
+    # -- 13. AoASpatial, greedy and beam 3, on the four paths -----------------
+    asp_visual = {"spatial_feats": torch.relu(torch.randn(
+        B, acfg.num_pixels, acfg.enc_dim, generator=gen, device=dev))}
+    results["aoa_spatial"] = dict(
+        decode=drive_greedy("AoASpatial", aoasp, asp_visual,
+                            aoasp_paths(B, 1, False), kv_int8=False),
+        beam=drive_beam("AoASpatial", aoasp, asp_visual,
+                        aoasp_paths(mk, BEAM, True)))
 
     results["seconds"] = time.time() - t_start
-    log("-- phases 2-11 took %.1f s" % results["seconds"])
+    log("-- phases 2-13 took %.1f s" % results["seconds"])
     missing = [k for k in on_path if not kernels[k].get("launches")]
     require(not missing, "kernels not launched on the main path: %s"
             % missing)

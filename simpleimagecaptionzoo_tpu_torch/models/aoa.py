@@ -1,4 +1,5 @@
-"""AoA ("Attention on Attention") captioner, Detection variant.
+"""AoA ("Attention on Attention") captioner, Detection and Spatial
+variants, in feature mode.
 
 Counterpart of the JAX package's ``models/aoa.py`` (reference
 Models/AoA_Model.py): multi-head scaled dot-product attention with a GLU
@@ -27,7 +28,11 @@ Beam search runs :meth:`_AoABase.step_lanes_core`: the k beams of a sample
 ride the AoA block's query axis, so each step reads the sample's K/V once,
 not once per beam, and the LSTM cell runs over B*k rows.
 
-AoASpatial (from pixels) and ``tf_inputs`` wait for later slices.
+AoASpatial takes the 7 x 7 ResNet grid (``visual["spatial_feats"]``, 49
+regions, no mask).  At its published width (hidden 512, 8 heads) a head is
+64 wide, which K4's gate refuses as the JAX package's does: its encode
+keeps float K/V whatever ``SICZ_TPU_INT8_KV`` says.  From pixels (its
+ResNet-101) and ``tf_inputs`` wait for later slices.
 """
 from __future__ import annotations
 
@@ -261,3 +266,15 @@ class AoADetectionCaptioner(_AoABase):
 
     def _raw_features(self, params, visual, model_state):
         return visual["bu_feats"], visual.get("bu_masks"), model_state
+
+
+@register("AoASpatial")
+class AoASpatialCaptioner(_AoABase):
+
+    def _raw_features(self, params, visual, model_state):
+        if "spatial_feats" not in visual:
+            raise NotImplementedError(
+                "AoASpatial from pixels (its ResNet-101) is not ported yet "
+                "(ROADMAP Queue 1, slice 5); pass precomputed "
+                "visual['spatial_feats'] (B, 49, 2048)")
+        return visual["spatial_feats"], None, model_state

@@ -186,6 +186,7 @@ def get_captioner(config: ModelConfig) -> Captioner:
     # importing registers the classes
     from simpleimagecaptionzoo_tpu_torch.models import aoa  # noqa: F401
     from simpleimagecaptionzoo_tpu_torch.models import butd  # noqa: F401
+    from simpleimagecaptionzoo_tpu_torch.models import nic  # noqa: F401
     if config.model_type not in _REGISTRY:
         raise ValueError("model_type %r is not ported yet (have %s)"
                          % (config.model_type, sorted(_REGISTRY)))

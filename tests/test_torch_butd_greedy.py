@@ -123,15 +123,17 @@ def test_model_config_loads_as_jax(family):
 
 
 def test_every_family_config_the_port_serves_is_registered():
+    """All five families of Configs/Models/*.json build through
+    ``get_captioner``."""
     served = []
     for path in sorted(glob.glob(os.path.join(ROOT, "Configs", "Models",
                                               "*.json"))):
         cfg = port_config.load_model_config(path, vocab_size=50)
-        if cfg.model_type in ("AoADetection",) + FAMILIES:
-            served.append(type(get_captioner(cfg)).__name__)
+        served.append(type(get_captioner(cfg)).__name__)
     assert sorted(served) == ["AoADetectionCaptioner",
+                              "AoASpatialCaptioner",
                               "BUTDDetectionCaptioner",
-                              "BUTDSpatialCaptioner"]
+                              "BUTDSpatialCaptioner", "NICCaptioner"]
 
 
 def test_init_params_tree_matches_jax(setup):

@@ -80,6 +80,46 @@ def test_butd_tree_carries_across(family, bf16):
         jax.tree_util.tree_structure(jax.tree_util.tree_map(lambda a: 0, ref))
 
 
+@pytest.mark.parametrize("family", ["NIC", "AoASpatial"])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_nic_and_aoa_spatial_trees_carry_across(family, bf16):
+    """A NIC tree (the weight-norm image embedding, the N(0, 1) embedding,
+    one cell) and an AoASpatial tree (the refiner's list, the decoder's AoA
+    block), built by the JAX package without ``cnn``, as float32 leaves or
+    as JAX's bf16 leaves, arrive with the same structure, shapes and bits;
+    the port's own init draws the same tree."""
+    from simpleimagecaptionzoo_tpu_torch.config import ModelConfig
+    from simpleimagecaptionzoo_tpu_torch.models.base import get_captioner
+    torch.set_num_threads(1)
+    dims = dict(model_type=family, vocab_size=30, embed_dim=16,
+                hidden_dim=24, enc_dim=12, num_heads=2, num_refine_layers=2)
+    ref = jax_get(JaxModelConfig(**dims)).init_params(jax.random.PRNGKey(7),
+                                                      include_cnn=False)
+    assert "cnn" not in ref
+    if bf16:
+        ref = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), ref)
+    tp = from_jax(ref)
+    if family == "NIC":
+        assert tp["img_embed"]["v"].shape == (12, 16)
+        assert tp["lstm"]["w_ih"].shape == (16, 4 * 24)
+    else:
+        assert isinstance(tp["refine"], list) and len(tp["refine"]) == 2
+        assert tp["lstm"]["w_ih"].shape == (16 + 24, 4 * 24)
+        assert tp["aoa_dec"]["aoa"]["w"].shape == (48, 48)
+    ref_leaves, ref_def = jax.tree_util.tree_flatten(ref)
+    leaves, tdef = jax.tree_util.tree_flatten(tp)
+    assert tdef == ref_def
+    for a, t in zip(ref_leaves, leaves):
+        assert t.dtype == (torch.bfloat16 if bf16 else torch.float32)
+        want = np.asarray(a.astype(jnp.float32))
+        np.testing.assert_array_equal(t.float().numpy(), want)
+    mine = get_captioner(ModelConfig(**dims)).init_params(
+        torch.Generator().manual_seed(0))
+    assert jax.tree_util.tree_structure(
+        jax.tree_util.tree_map(lambda t: 0, mine)) == \
+        jax.tree_util.tree_structure(jax.tree_util.tree_map(lambda a: 0, ref))
+
+
 def test_bf16_round_trip_comes_back_float32():
     torch.set_num_threads(1)
     tp = from_jax({"w": np.linspace(-1, 1, 7, dtype=np.float32)},
@@ -146,6 +186,7 @@ def test_no_port_file_imports_jax_or_the_jax_package():
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
     assert os.path.join(PORT, "models", "butd.py") in files
+    assert os.path.join(PORT, "models", "nic.py") in files
     bad = [(f, m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad

@@ -106,7 +106,13 @@ def test_head_kernel_matches_plain(dev, dtype, m, k):
                                          (384, 4096, 1024, "wgmma"),
                                          (1152, 4096, 1024, "wgmma"),
                                          (384, 3072, 1024, "wgmma"),
-                                         (1152, 3072, 1024, "wgmma")])
+                                         (1152, 3072, 1024, "wgmma"),
+                                         # NIC's cell (E=512) and
+                                         # AoASpatial's (E=1,024) at H=512
+                                         (384, 512, 512, "wgmma"),
+                                         (1152, 512, 512, "wgmma"),
+                                         (384, 1024, 512, "wgmma"),
+                                         (1152, 1024, 512, "wgmma")])
 def test_lstm_bf16_routes_match_plain(dev, b, e, h, route):
     """K2 in bf16 at the beam shape (B=1,152: 9 row tiles), at B=256 (2) and
     ragged B=37 with a k-step that straddles E=200 (one row tile) on the
@@ -410,7 +416,15 @@ def test_int8_attention_misaligned_kv_takes_cuda_core(dev, dtype):
                                    (384, 5120, 4096),    # BUTD's cells
                                    (1152, 5120, 4096),
                                    (384, 4096, 4096),
-                                   (1152, 4096, 4096)])
+                                   (1152, 4096, 4096),
+                                   # the 512-wide models: NIC's and
+                                   # AoASpatial's cells, aoa_dec.q (512)
+                                   # and aoa_dec.aoa (1,024, as above at
+                                   # m=384)
+                                   (384, 1024, 2048), (1152, 1024, 2048),
+                                   (384, 1536, 2048), (1152, 1536, 2048),
+                                   (384, 512, 512), (1152, 512, 512),
+                                   (1152, 1024, 1024)])
 def test_quant_matmul_bf16_routes_match_plain(dev, route, m, k, n):
     """K3 in bf16 on the tensor-core route (quant_route's pick) and on the
     CUDA-core route (forced) at the int8 decode step's shapes, at the beam
@@ -522,7 +536,13 @@ def _lstm_weights(rng, e, h, dev):
                                          (384, 4096, 1024, "tf32x3"),
                                          (1152, 4096, 1024, "tf32x3"),
                                          (384, 3072, 1024, "tf32x3"),
-                                         (1152, 3072, 1024, "tf32x3")])
+                                         (1152, 3072, 1024, "tf32x3"),
+                                         # NIC's cell (E=512) and
+                                         # AoASpatial's (E=1,024) at H=512
+                                         (384, 512, 512, "tf32x3"),
+                                         (1152, 512, 512, "tf32x3"),
+                                         (384, 1024, 512, "tf32x3"),
+                                         (1152, 1024, 512, "tf32x3")])
 def test_lstm_f32_routes_match_plain(dev, b, e, h, route):
     """K2 in float32 at the decode shape (B=384), the beam shape (B=1,152)
     and ragged B=37 with a k-step that straddles E=200 on the tf32x3 route,
@@ -582,6 +602,47 @@ def test_head_f32_routes_match_plain(dev, m, k, route):
     assert int(((ki != pi[:, :k]) & sure).sum()) == 0
 
 
+@pytest.mark.parametrize("m,k", [(384, 1), (1152, 3)])
+@pytest.mark.parametrize("weight", ["float", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_routes_at_512_wide_match_plain(dev, dtype, weight, m, k):
+    """K1 and K1-int8 at the 512-wide models' head (H 512, V 10,102),
+    greedy (m=384, k=1) and beam (m=1,152, k=3), on each dtype's
+    tensor-core route ("wgmma" in bf16; "tf32x3", or "tf32x2" with the
+    int8 head, in float32): values and lse within 1e-4 (float32) or 2e-3
+    (bf16), ids exact where the plain logits leave a gap above 1e-3 on
+    both sides."""
+    rng = np.random.default_rng(m * 5 + k)
+    if weight == "int8":
+        prep = _int8_head(rng, 512, 10102, dev)     # the same in any dtype
+        assert prep.w.dtype == torch.int8
+    else:
+        head = {"v": _t(rng.normal(size=(512, 10102)), dev, dtype),
+                "g": _t(rng.uniform(0.5, 2.0, 10102), dev, dtype),
+                "b": _t(rng.normal(size=10102), dev, dtype)}
+        prep = fused_head.prepare_head(head, dtype)
+    x = _t(0.5 * rng.normal(size=(m, 512)), dev, dtype)
+    route = ("wgmma" if dtype == torch.bfloat16 else
+             "tf32x2" if weight == "int8" else "tf32x3")
+    assert fused_head.head_route(prep.w, x) == route
+    counter = {"wgmma": fused_head.COUNT_WGMMA,
+               "tf32x3": fused_head.COUNT_TF32X3,
+               "tf32x2": fused_head.COUNT_TF32X2}[route]
+    before = fused_head.COUNT.n, counter.n
+    kv, ki, kl = fused_head.topk_head(prep, x, k)
+    torch.cuda.synchronize()
+    assert (fused_head.COUNT.n, counter.n) == (before[0] + 1, before[1] + 1)
+    pv, pi, pl = fused_head.topk_head_plain(prep, x, k + 1)
+    tol = 1e-4 if dtype == torch.float32 else 2e-3
+    torch.testing.assert_close(kv, pv[:, :k], rtol=0, atol=tol)
+    torch.testing.assert_close(kl, pl, rtol=0, atol=tol)
+    gaps = pv[:, :-1] - pv[:, 1:]
+    lo = torch.cat([torch.full_like(gaps[:, :1], float("inf")),
+                    gaps[:, :k - 1]], dim=1)
+    sure = (gaps[:, :k] > 1e-3) & (lo > 1e-3)
+    assert int(((ki != pi[:, :k]) & sure).sum()) == 0
+
+
 def test_tf32x3_routes_refuse_a_misaligned_x(dev):
     """The float32 tensor-core routes' C entries refuse a base TMA cannot
     take: no fallback."""
@@ -623,7 +684,13 @@ def _k3_f32_hold(got, want, x, qp):
                                    (384, 5120, 4096),    # BUTD's cells
                                    (1152, 5120, 4096),
                                    (384, 4096, 4096),
-                                   (1152, 4096, 4096)])
+                                   (1152, 4096, 4096),
+                                   # the 512-wide models: NIC's and
+                                   # AoASpatial's cells, aoa_dec.q (512)
+                                   # and aoa_dec.aoa (1,024, as above)
+                                   (384, 1024, 2048), (1152, 1024, 2048),
+                                   (384, 1536, 2048), (1152, 1536, 2048),
+                                   (384, 512, 512), (1152, 512, 512)])
 def test_quant_matmul_f32_routes_match_plain(dev, route, m, k, n):
     """K3 in float32 on the 2xTF32 tensor-core route (quant_route's pick)
     at the int8 decode step's three shapes, over the greedy and the beam
@@ -855,6 +922,78 @@ def test_butd_beam_decode_through_the_kernels_matches_plain(dev, family,
     n_steps = sum(s[0] == "K1" for s in shapes)
     assert all(sum(s[0] == kn and s[3] == w for s in shapes) == n_steps
                for kn, w in widths)
+    assert ids.shape == ref.shape == (b, max_steps + 1)
+    if path == "float32":
+        assert int((ids != ref).any(dim=1).sum()) <= 1
+        return
+    margin = holds.rescored_margin(model, params, visual, ids, ref, dtype, dev)
+    assert float(margin.min()) >= -holds.beam_tol(dtype, max_steps)
+
+
+@pytest.mark.parametrize("path", ["float32", "bfloat16", "int8/float32",
+                                  "int8/bfloat16"])
+@pytest.mark.parametrize("family", ["NIC", "AoASpatial"])
+def test_nic_and_aoa_spatial_beam_decode_through_the_kernels_matches_plain(
+        dev, family, path, monkeypatch):
+    """A small NIC or AoASpatial beam-3 decode (embed 64, hidden 128, enc
+    48; AoASpatial 2 heads of 64, one refine layer, 9 unmasked regions;
+    vocab 1,000; B=16, 8 steps) through the kernels against the same decode
+    through the plain versions, SICZ_TPU_INT8_KV=auto.  Every step launches
+    K1 at m = 48, k = 3, and the cell through K2 (float paths) or K3 (int8
+    paths); AoASpatial's int8 step also runs aoa_dec.q and aoa_dec.aoa
+    through K3; NIC's init cell is one more K2 or K3 launch over the 48
+    beam rows; K4 never (64-wide heads).  Each launch on its tensor-core
+    route; every kernel call holds against its plain version.  float32 ids
+    are identical in all but at most one row; in the other paths each
+    row's winner, rescored by the plain step, scores no lower than the
+    plain run's winner minus 2 x 8 steps x 4 x K1's value hold."""
+    from simpleimagecaptionzoo_tpu_torch.config import ModelConfig
+    from simpleimagecaptionzoo_tpu_torch.engine import holds, steps
+    from simpleimagecaptionzoo_tpu_torch.models.base import get_captioner
+    b, beam, max_steps = 16, 3, 8
+    monkeypatch.setenv("SICZ_TPU_INT8_KV", "auto")
+    cfg = dict(model_type=family, vocab_size=1000, embed_dim=64,
+               hidden_dim=128, enc_dim=48, enc_img_size=3, num_heads=2,
+               num_refine_layers=1)
+    model = get_captioner(ModelConfig(**cfg))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init_params(gen)
+    if path.startswith("int8"):
+        params = model.quantize_decode_params(params)
+    dtype = torch.bfloat16 if path.endswith("bfloat16") else torch.float32
+    if family == "NIC":
+        visual = {"features": torch.relu(torch.randn(
+            b, 48, generator=gen, device=dev))}
+    else:
+        visual = {"spatial_feats": torch.relu(torch.randn(
+            b, 9, 48, generator=gen, device=dev))}
+    fn = steps.make_beam_decode(model, beam_size=beam, max_steps=max_steps,
+                                dtype=dtype, device="cuda")
+    with holds.plain_versions():
+        ref = fn(params, {}, visual)
+    shapes, broken = [], []
+    with holds.recording_shapes(shapes), holds.held_calls(broken):
+        ids = fn(params, {}, visual)
+    torch.cuda.synchronize()
+    assert broken == []
+    mk, tc = b * beam, dtype == torch.bfloat16
+    route = "wgmma" if tc else ("tf32x2" if path.startswith("int8")
+                                else "tf32x3")
+    # K2 and K3 by the width of x: NIC's cell [emb] (64) and its [x, h]
+    # (192); AoASpatial's cell [emb, ctx] (192), its [x, h] (320),
+    # aoa_dec.q's 128 and aoa_dec.aoa's 256
+    widths = {("NIC", False): {("K2", 64)}, ("NIC", True): {("K3", 192)},
+              ("AoASpatial", False): {("K2", 192)},
+              ("AoASpatial", True): {("K3", 320), ("K3", 128),
+                                     ("K3", 256)}}[
+        family, path.startswith("int8")]
+    assert set(shapes) == {("K1", route, mk, beam)} | {
+        (kn, route, mk, w) for kn, w in widths}
+    # each width once a step, NIC's cell once more (its step -1 cell)
+    n_steps = sum(s[0] == "K1" for s in shapes)
+    init = int(family == "NIC")
+    assert all(sum(s[0] == kn and s[3] == w for s in shapes)
+               == n_steps + init for kn, w in widths)
     assert ids.shape == ref.shape == (b, max_steps + 1)
     if path == "float32":
         assert int((ids != ref).any(dim=1).sum()) <= 1
