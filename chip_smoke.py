@@ -33,7 +33,17 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      torch.lstm_cell: BUTD's two (E=4,096, the attention cell's [h2, mean,
      emb]; E=3,072, the language cell's [attended, h1]; H=1,024), NIC's
      (E=512, the word or image embedding; H=512) and AoASpatial's (E=1,024,
-     [emb, ctx]; H=512);
+     [emb, ctx]; H=512); and, for XE training, K2 at the training rows
+     (B=128) on each dtype's tensor-core route, and K2's backward (the gate
+     recompute and the gate gradients, fused_lstm_cell_bwd) against
+     lstm_cell_bwd_plain on each route ("wgmma", "tf32x3", and
+     "cuda_core" forced) at B=128 and 384 (E=2048, H=1024) and at E=200,
+     d_gates and dc to K2's holds (1e-5 float32, rtol and atol 1e-2
+     bf16); at B=128 the backward kernel, the whole backward through
+     LstmCell (the kernel and its three float32 products), torch.lstm_cell's
+     backward through autograd (which keeps its gates instead of
+     recomputing them), the forward and torch.lstm_cell's forward, timed in
+     turns, host-inclusive and device-only;
   5. K3, the int8 dequantizing product, against its plain version at the
      three shapes of the int8 decode step (the LSTM gates, aoa_dec.q,
      aoa_dec.aoa; m=384, and m=1,152 for the beam step), at BUTD's three
@@ -117,11 +127,27 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      four paths, as in 8 and 9: K1 once and K2 once (E=1,024) a step; int8:
      K1-int8 once and K3 three times (K=1,536, 512 and 1,024), K2 never,
      and K4 never: the int8 K/V gate (dh % 128) refuses 64-wide heads, so
-     encode keeps float K/V with SICZ_TPU_INT8_KV=auto.
+     encode keeps float K/V with SICZ_TPU_INT8_KV=auto;
+ 14. XE training of AoADetection at the same width through
+     engine.steps.make_xe_train_step: B=128 with 36 valid boxes, captions
+     padded to 22 (21 teacher-forced steps) from a seeded numpy draw, Adam
+     at lr 2e-4, value clamp 0.1, label smoothing 0.1, in float32 and in
+     bf16 over float32 master weights, scheduled sampling off and on at
+     0.25.  In each of the four: the first step's loss and gradient norms
+     through the kernels against the plain versions (the same generator
+     seeds give both the same dropout masks and draws), one step through
+     the plain versions and 8 through the kernels (per step K2's forward
+     and backward 21 times each on the dtype's tensor-core route at B=128,
+     exactly; the loss falling; ms a step, samples/s, peak memory, TMA map
+     encodes), one step with every K2 call, forward and backward, held
+     against its plain version (engine/holds.held_calls), and one step
+     under torch.profiler (device time by part, idle share).
 Then it prints one JSON line of per-kernel results (the beam shapes'
 launches as entries of their own, named ``..._beam``; BUTD's K2 and K3
 shapes as ``..._butd_<layer>``, NIC's and AoASpatial's K1, K2 and K3 shapes
-as ``..._nic[_<layer>]`` and ``..._aoasp[_<layer>]``; an entry's
+as ``..._nic[_<layer>]`` and ``..._aoasp[_<layer>]``; K2's backward as
+``fused_lstm_cell_bwd[_<route>]`` and its forward at the training rows as
+``fused_lstm_cell_<route>_train``; an entry's
 ``launches`` is the sum over the main paths' reading runs that launched it,
 ``launches_by_path`` per path) and, last, the ``{"ok": true, "device":
 ...}`` line.
@@ -170,6 +196,9 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12,
                   "tf32x3": 494.7e12 / 3, "tf32x2": 989e12 / 3,
                   "2xtf32": 494.7e12 / 2}
 B, MAX_LEN, N_BOX, BEAM = 384, 20, 36, 3
+# XE training (phase 14): TrainConfig.train_batch_size, captions padded to
+# max_caption_len 22 (21 teacher-forced steps), Adam at the model json's lr
+TRAIN_B, TRAIN_T, TRAIN_LR, TRAIN_SS = 128, 22, 2e-4, 0.25
 N_GRID = 49                   # BUTDSpatial: a 7 x 7 grid of ResNet features
 HERE = os.path.dirname(os.path.abspath(__file__))
 FULL = dict(model_type="AoADetection", vocab_size=10102, embed_dim=1024,
@@ -354,6 +383,16 @@ def hold_head(torch, fused_head, tag, head, x, dn, tol, extra=(),
     return err
 
 
+def _busy(spans):
+    """Device-busy microseconds of sorted (start, end, name) spans: their
+    union's length."""
+    busy, end = 0.0, spans[0][0]
+    for s, e, _ in spans:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+    return busy
+
+
 def profile_decode(torch, run, dn, top=16):
     """Device time of one decode by kernel name, and the device's busy
     share of the traced span, from torch.profiler."""
@@ -368,11 +407,9 @@ def profile_decode(torch, run, dn, top=16):
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     require(spans, "profile %s: the trace holds no device time" % dn)
-    busy, end = 0.0, spans[0][0]
+    busy = _busy(spans)
     by_name = {}
     for s, e, n in spans:
-        busy += max(0.0, e - max(s, end))
-        end = max(end, e)
         tot, cnt = by_name.get(n, (0.0, 0))
         by_name[n] = (tot + (e - s), cnt + 1)
     span_ms = (spans[-1][1] - spans[0][0]) / 1e3
@@ -386,6 +423,326 @@ def profile_decode(torch, run, dn, top=16):
             :top]:
         out["kernels"].append(dict(name=n, ms=tot / 1e3, count=cnt))
         log("  %8.3f ms %5d x  %s" % (tot / 1e3, cnt, n[:90]))
+    return out
+
+
+# the ranges chip_smoke wraps around the XE step's parts (phase 14), in the
+# order a step runs them
+XE_RANGES = ("xe:encode", "xe:teacher_forcing", "xe:loss", "xe:optimizer")
+
+
+def profile_step(torch, run, tag):
+    """One XE step under torch.profiler: the device's busy share of the
+    traced span, and device time by part.  A kernel counts to the K2
+    forward or backward kernel by its name, to "K2 backward's float32
+    products" when autograd's LstmCellBackward launched it, to the other
+    backward when another autograd node did, and otherwise to the
+    innermost of XE_RANGES around its launch (wrapped around the parts by
+    the caller)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    # kernels and copies on the card; the trace also places each
+    # record_function range (XE_RANGES) on the device's timeline, which is
+    # no device work
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and e.name not in XE_RANGES)
+    require(spans, "profile %s: the trace holds no device time" % tag)
+    busy = _busy(spans) / 1e3
+    span_ms = (spans[-1][1] - spans[0][0]) / 1e3
+    parts = {}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        label, anc = "other", e
+        while anc is not None:
+            if anc.name in XE_RANGES:
+                label = anc.name
+                break
+            if anc.name.startswith("autograd::engine::evaluate_function"):
+                label = ("K2 backward's float32 products"
+                         if "LstmCellBackward" in anc.name
+                         else "backward, other")
+                break
+            anc = anc.cpu_parent
+        for k in e.kernels:
+            part = label
+            if "lstm_cell" in k.name:
+                part = ("K2 backward kernel"
+                        if "<true>" in k.name or "Lb1E" in k.name
+                        else "K2 forward kernel")
+            parts[part] = parts.get(part, 0.0) + k.duration / 1e3
+    # kernels the trace links to no CPU operation
+    parts["unattributed"] = (sum(e - s for s, e, _ in spans) / 1e3
+                             - sum(parts.values()))
+    by_name = {}
+    for s, e, n in spans:
+        tot, cnt = by_name.get(n, (0.0, 0))
+        by_name[n] = (tot + (e - s) / 1e3, cnt + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    out = dict(wall_ms=wall_ms, device_span_ms=span_ms, device_busy_ms=busy,
+               idle_share_of_span=1 - busy / span_ms,
+               kernel_launches=len(spans), parts_ms=parts,
+               kernels=[dict(name=n, ms=t, count=c) for n, (t, c) in top])
+    log("profile %s: host wall %.2f ms, device span %.2f ms, busy %.2f ms "
+        "(idle %.1f%% of the span), %d kernel launches; device ms by part: "
+        "%s" % (tag, wall_ms, span_ms, busy, 100 * (1 - busy / span_ms),
+                len(spans), ", ".join("%s %.3f" % kv for kv in sorted(
+                    parts.items(), key=lambda kv: -kv[1]))))
+    for n, (t, c) in top:
+        log("  %8.3f ms %5d x  %s" % (t, c, n[:90]))
+    return out
+
+
+XE_STEPS = 8                  # steps through the kernels per variant
+
+
+def _paths(tree, prefix=""):
+    """The same structure with each leaf replaced by its path, e.g.
+    "refine[2].aoa.k.b"."""
+    if isinstance(tree, dict):
+        return {k: _paths(v, "%s.%s" % (prefix, k) if prefix else k)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_paths(v, "%s[%d]" % (prefix, i))
+                          for i, v in enumerate(tree))
+    return prefix
+
+
+def drive_xe(torch, args, dev, model, params, cfg, kernels, on_path):
+    """Phase 14: XE training of the full-width AoADetection model through
+    engine.steps.make_xe_train_step, B=128 with 36 valid boxes and captions
+    padded to 22 (21 teacher-forced steps), Adam at lr 2e-4 with the value
+    clamp 0.1 and label smoothing 0.1; float32 and bf16 (mixed precision),
+    scheduled sampling off and on at 0.25.  In each variant: the first
+    step's loss and every leaf's gradient norm through the kernels against
+    the plain versions (the same generator seeds, so the same dropout
+    masks and draws); one step through the plain versions, then XE_STEPS
+    through the kernels from the same state (the first one's loss against
+    the plain step's; K2's forward and backward 21 times a step each, all
+    on the dtype's tensor-core route at B=128, E=2,048; the loss falling;
+    ms per step, samples/s, peak memory, TMA map encodes); one step with
+    every K2 call, forward and backward, held against its plain version;
+    one step under torch.profiler."""
+    import numpy as np
+    from simpleimagecaptionzoo_tpu_torch.engine import holds, optim, steps
+    from simpleimagecaptionzoo_tpu_torch.engine.state import TrainState
+    from simpleimagecaptionzoo_tpu_torch.ops import decode, fused_lstm
+    v, hd = cfg["vocab_size"], cfg["hidden_dim"]
+    e_in = cfg["embed_dim"] + hd
+    n_steps = TRAIN_T - 1
+    rng = np.random.default_rng(args.seed)
+    caps = rng.integers(4, v, size=(TRAIN_B, TRAIN_T))
+    caps[:, 0] = 1
+    lens = rng.integers(8, TRAIN_T, size=(TRAIN_B,))
+    for i, n in enumerate(lens):
+        caps[i, n - 1] = 2
+        caps[i, n:] = 0
+    g0 = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    batch = {"visual": {
+        "bu_feats": torch.relu(torch.randn(TRAIN_B, N_BOX, cfg["enc_dim"],
+                                           generator=g0, device=dev)),
+        "bu_masks": torch.ones(TRAIN_B, N_BOX, device=dev)},
+        "captions": torch.from_numpy(caps).to(dev),
+        "lengths": torch.from_numpy(lens).to(dev)}
+    labels = model.param_labels(params)
+    counters = dict(fused_lstm_cell=fused_lstm.COUNT,
+                    fused_lstm_cell_wgmma=fused_lstm.COUNT_WGMMA,
+                    fused_lstm_cell_tf32x3=fused_lstm.COUNT_TF32X3,
+                    fused_lstm_cell_bwd=fused_lstm.COUNT_BWD,
+                    fused_lstm_cell_bwd_wgmma=fused_lstm.COUNT_BWD_WGMMA,
+                    fused_lstm_cell_bwd_tf32x3=fused_lstm.COUNT_BWD_TF32X3)
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(args.seed + 2)
+
+    # the parts the profile names (XE_RANGES)
+    from torch.profiler import record_function
+
+    def ranged(name, fn):
+        def run(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return run
+
+    saved = (model.encode, decode.teacher_forced_logits,
+             steps.label_smoothing_loss, steps.apply_updates_partitioned)
+    model.encode = ranged("xe:encode", saved[0])
+    decode.teacher_forced_logits = ranged("xe:teacher_forcing", saved[1])
+    steps.label_smoothing_loss = ranged("xe:loss", saved[2])
+    steps.apply_updates_partitioned = ranged("xe:optimizer", saved[3])
+    out = {}
+    try:
+        for label, cdtype in (("float32", None),
+                              ("bfloat16", torch.bfloat16)):
+            dn = label
+            route = "tf32x3" if cdtype is None else "wgmma"
+            f32 = cdtype is None
+            # the first step against the plain versions: float32 holds each
+            # leaf's gradient (the norm of the difference) to 1e-4 of its
+            # norm; bf16 holds each leaf's gradient norm to 2e-2 and reports
+            # the difference: there K2's h' may round to the other side of
+            # a bf16 boundary than the plain version's (K2's hold is 1e-2),
+            # which moves a leaf's gradient by about 1 % (0.0097 measured),
+            # and with scheduled sampling on such a flip can change a drawn
+            # token, which moves gradient to another row of the embedding
+            # table (0.031 of its norm measured)
+            loss_tol, grad_tol = (1e-5, 1e-4) if f32 else (1e-2, 2e-2)
+            for ss in (False, True):
+                tag = "xe %s, scheduled sampling %s" % (
+                    label, "on at %g" % TRAIN_SS if ss else "off")
+                ss_prob = TRAIN_SS if ss else 0.0
+                adam = optim.make_grad_transform("Adam", 0.1)
+                tx = optim.GradientTransformation(
+                    adam.init, ranged("xe:optimizer", adam.update))
+                step = steps.make_xe_train_step(
+                    model, tx, labels, smoothing=0.1, compute_dtype=cdtype,
+                    ss_active=ss, device="cuda")
+                state0 = TrainState.create(params, tx)
+
+                def loss_grads():
+                    leaves = [p.detach().requires_grad_()
+                              for p in optim.tree_leaves(params)]
+                    loss, _, _ = steps.xe_loss(
+                        model, optim.tree_unflatten(params, leaves), {},
+                        batch, gen(), ss_prob, smoothing=0.1,
+                        compute_dtype=cdtype, ss_active=ss,
+                        ss_generator=steps.ss_generator_for(gen(), 0, dev))
+                    grads = torch.autograd.grad(loss, leaves)
+                    return float(loss.detach()), grads
+
+                with holds.plain_versions():
+                    p_loss, p_grads = loss_grads()
+                k_loss, k_grads = loss_grads()
+                # each leaf's gradient against the plain run's: the norm of
+                # the difference over the plain gradient's norm, floored at
+                # 1e-3 of the largest leaf's (the key biases' true gradient
+                # is 0: a softmax does not see a constant added to a
+                # query's scores, so theirs is rounding alone)
+                p_norms = [float(g.float().norm()) for g in p_grads]
+                k_norms = [float(g.float().norm()) for g in k_grads]
+                floor = 1e-3 * max(p_norms)
+                rel = [float((a.float() - b.float()).norm()) / max(n, floor)
+                       for a, b, n in zip(k_grads, p_grads, p_norms)]
+                rel_norm = [abs(a - b) / max(b, floor)
+                            for a, b in zip(k_norms, p_norms)]
+                worst = sorted(zip(rel, optim.tree_leaves(
+                    _paths(params))))[-3:]
+                del p_grads, k_grads
+                held = max(rel) if f32 else max(rel_norm)
+                require(all(np.isfinite(k_norms)) and held <= grad_tol
+                        and abs(k_loss - p_loss) <= loss_tol * p_loss,
+                        "%s: the first step's loss %.6f against the plain "
+                        "run's %.6f (tol %g); a leaf's gradient off by %.3g "
+                        "of its norm (the worst %s), its norm by %.3g (tol "
+                        "%g on the %s)" % (tag, k_loss, p_loss, loss_tol,
+                                           max(rel), worst, max(rel_norm),
+                                           grad_tol, "first" if f32
+                                           else "second"))
+                with holds.plain_versions():
+                    _, met_p = step(state0, batch, gen(), ss_prob, TRAIN_LR,
+                                    0.0)
+                plain_loss = float(met_p["loss"])
+                # XE_STEPS through the kernels, from the same state
+                st, g_run = state0, gen()
+                want_launch = dict.fromkeys(counters, 0)
+                for name in ("fused_lstm_cell", "fused_lstm_cell_bwd"):
+                    want_launch[name] = n_steps
+                    want_launch[name + "_" + route] = n_steps
+                want_shapes = {("K2", route, TRAIN_B, e_in): n_steps,
+                               ("K2bwd", route, TRAIN_B, e_in): n_steps}
+                losses, times, encodes, shapes = [], [], [], []
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for _ in range(XE_STEPS):
+                    shapes.clear()
+                    for c in counters.values():
+                        c.n = 0
+                    enc0 = fused_lstm.map_encodes()
+                    t0 = time.perf_counter()
+                    with holds.recording_shapes(shapes):
+                        st, met = step(st, batch, g_run, ss_prob, TRAIN_LR,
+                                       0.0)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    encodes.append(fused_lstm.map_encodes() - enc0)
+                    losses.append(float(met["loss"]))
+                    launches = {kn: c.n for kn, c in counters.items()}
+                    got = {}
+                    for shp in shapes:
+                        got[shp] = got.get(shp, 0) + 1
+                    require(launches == want_launch and got == want_shapes,
+                            "%s: launches %s, shapes %s; expected %s and %s"
+                            % (tag, launches, got, want_launch, want_shapes))
+                peak = torch.cuda.max_memory_allocated()
+                require(all(np.isfinite(losses)) and
+                        abs(losses[0] - plain_loss) <= loss_tol * plain_loss,
+                        "%s: the first step's loss %.6f through the kernels, "
+                        "%.6f through the plain versions (tol %g)"
+                        % (tag, losses[0], plain_loss, loss_tol))
+                require(losses[-1] < losses[0], "%s: the loss did not fall "
+                        "over %d steps: %s" % (tag, XE_STEPS, losses))
+                # one step with every K2 call held against its plain version
+                broken, held_shapes = [], []
+                with holds.held_calls(broken), \
+                        holds.recording_shapes(held_shapes):
+                    step(st, batch, gen(), ss_prob, TRAIN_LR, 0.0)
+                torch.cuda.synchronize()
+                require(not broken and len(held_shapes) == 2 * n_steps,
+                        "%s: %d K2 calls broke their hold (first: %s), %d of "
+                        "%d launched" % (tag, len(broken), broken[:1],
+                                         len(held_shapes), 2 * n_steps))
+                t_med = sorted(times[1:])[len(times[1:]) // 2]
+                res = dict(
+                    first_loss=losses[0], plain_first_loss=plain_loss,
+                    grad_max_rel_diff=max(rel), grad_worst_leaves=worst,
+                    grad_norm_max_rel_diff=max(rel_norm),
+                    grad_norm_total=sum(n * n for n in k_norms) ** 0.5,
+                    plain_grad_norm_total=sum(n * n for n in p_norms) ** 0.5,
+                    losses=losses,
+                    seconds=times, ms_per_step=t_med * 1e3,
+                    samples_per_s=TRAIN_B / t_med, peak_memory_gib=peak
+                    / 2 ** 30, map_encodes_per_step=encodes,
+                    launches_per_step=want_launch, k2_calls_held=2 * n_steps,
+                    tokens=float(met["tokens"]))
+                log("%s: first loss %.6f (plain %.6f), every leaf's gradient "
+                    "within %.3g of the plain run's, its norm within %.3g "
+                    "(tol %g on the %s; worst %s), gradient norm %.6g (plain "
+                    "%.6g); %d steps, losses %s; "
+                    "per step K2 forward %d and backward %d on %s at B=%d "
+                    "E=%d, every call of a further step held; %.2f ms a "
+                    "step (median of %d), %.1f samples/s, peak memory %.2f "
+                    "GiB, TMA map encodes a step %s"
+                    % (tag, losses[0], plain_loss, max(rel), max(rel_norm),
+                       grad_tol, "difference" if f32 else "norm", worst,
+                       res["grad_norm_total"],
+                       res["plain_grad_norm_total"], XE_STEPS, ["%.4f" % x for x in losses], n_steps,
+                       n_steps, route, TRAIN_B, e_in, t_med * 1e3,
+                       len(times) - 1, TRAIN_B / t_med, peak / 2 ** 30,
+                       encodes))
+                res["profile"] = profile_step(
+                    torch, lambda: step(st, batch, gen(), ss_prob, TRAIN_LR,
+                                        0.0), tag)
+                out["%s/ss_%s" % (label, "on" if ss else "off")] = res
+                for ename in ("fused_lstm_cell_bwd_%s/%s" % (route, dn),
+                              "fused_lstm_cell_%s_train/%s" % (route, dn)):
+                    by_path = kernels[ename].setdefault("launches_by_path",
+                                                        {})
+                    by_path[tag] = n_steps * XE_STEPS
+                    kernels[ename]["launches"] = sum(by_path.values())
+                    on_path.add(ename)
+    finally:
+        del model.encode
+        (decode.teacher_forced_logits, steps.label_smoothing_loss,
+         steps.apply_updates_partitioned) = saved[1:]
     return out
 
 
@@ -927,6 +1284,194 @@ def main(argv=None) -> int:
                        ["%.4f" % v for v in dev_turns["new"]],
                        ["%.4f" % v for v in dev_turns["lib"]], plain_ms,
                        b_ms, b_by))
+
+    # -- 4, training: K2 at the XE step's rows (B=128) and its backward ------
+    hd = FULL["hidden_dim"]
+    e_in = FULL["embed_dim"] + hd
+
+    def bwd_counts():
+        return (fused_lstm.COUNT_BWD.n, fused_lstm.COUNT_BWD_WGMMA.n,
+                fused_lstm.COUNT_BWD_TF32X3.n)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        tc_route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+        rate = dn if tc_route == "wgmma" else tc_route
+        tol = 1e-5 if dtype == torch.float32 else 1e-2
+        lp = steps._cast_floats(params["lstm"], dtype)
+        w_cat, b_sum, split = fused_lstm.prepare_lstm(lp)
+        w200 = ((torch.rand(200 + hd, 4 * hd, generator=gen, device=dev) * 2
+                 - 1) / hd ** 0.5).to(dtype)
+        split200 = (tf32.prepare_split(w200)
+                    if dtype == torch.float32 else None)
+
+        def beyond(got, want, what):
+            diff = (got.float() - want.float()).abs()
+            require(bool((diff <= tol + tol * want.float().abs()).all()),
+                    "%s %s: max |err| %.3g beyond rtol and atol %g"
+                    % (what, dn, float(diff.max()), tol))
+            return float(diff.max())
+
+        # the forward at the training rows, on the tensor-core route
+        x, h, c = (torch.randn(TRAIN_B, n, generator=gen, device=dev)
+                   .to(dtype) for n in (e_in, hd, hd))
+        require(fused_lstm.lstm_route(w_cat, x, h) == tc_route,
+                "K2 %s B=%d takes another route" % (dn, TRAIN_B))
+        before = counts(fused_lstm)
+        kh, kc = fused_lstm.lstm_cell_fused(w_cat, b_sum, x, h, c, split)
+        torch.cuda.synchronize()
+        require(moved(counts(fused_lstm), before) == launched(tc_route),
+                "K2 %s B=%d: the counters moved by %s"
+                % (dn, TRAIN_B, moved(counts(fused_lstm), before)))
+        ph, pc = fused_lstm.lstm_cell_plain(w_cat, b_sum, x, h, c)
+        fwd_err = max(beyond(kh, ph, "K2 B=%d h'" % TRAIN_B),
+                      beyond(kc, pc, "K2 B=%d c'" % TRAIN_B))
+        log("K2 %s (%s) B=%d E=%d H=%d: max|err| %.3g (rtol %g atol %g)"
+            % (dn, tc_route, TRAIN_B, e_in, hd, fwd_err, tol, tol))
+        # the backward on each route at the training rows, the decode rows
+        # and the unaligned E=200
+        bwd_err = {tc_route: 0.0, "cuda_core": 0.0}
+        for m, e, wc, sp in ((TRAIN_B, e_in, w_cat, split),
+                             (B, e_in, w_cat, split),
+                             (TRAIN_B, 200, w200, split200)):
+            x, h, c, dh, dc = (torch.randn(m, n, generator=gen,
+                                           device=dev).to(dtype)
+                               for n in (e, hd, hd, hd, hd))
+            pdg, pdc = fused_lstm.lstm_cell_bwd_plain(wc, b_sum, x, h, c, dh,
+                                                      dc)
+            for route in (tc_route, "cuda_core"):
+                before = bwd_counts()
+                if route == tc_route:
+                    got_route = fused_lstm.lstm_bwd_route(wc, x, h, c, b_sum,
+                                                          dh, dc)
+                    require(got_route == route, "K2 backward %s B=%d E=%d "
+                            "takes the %s route" % (dn, m, e, got_route))
+                    dg, kdc = fused_lstm.lstm_cell_bwd(wc, b_sum, x, h, c,
+                                                       dh, dc, sp)
+                else:
+                    dg, kdc = fused_lstm._run_bwd_kernel(wc, b_sum, x, h, c,
+                                                         dh, dc, route)
+                torch.cuda.synchronize()
+                require(moved(bwd_counts(), before) == launched(route),
+                        "K2 backward %s %s B=%d E=%d: the counters moved by "
+                        "%s" % (dn, route, m, e, moved(bwd_counts(), before)))
+                what = "K2 backward (%s) B=%d E=%d" % (route, m, e)
+                err = max(beyond(dg, pdg, what + " d_gates"),
+                          beyond(kdc, pdc, what + " dc"))
+                bwd_err[route] = max(bwd_err[route], err)
+                log("K2 backward %s (%s) B=%d E=%d H=%d: d_gates and dc "
+                    "max|err| %.3g (rtol %g atol %g)"
+                    % (dn, route, m, e, hd, err, tol, tol))
+        # timing at the training rows, in turns, host-inclusive and
+        # device-only: the backward kernel on its route and on the CUDA
+        # cores, the whole backward through LstmCell (the kernel and the
+        # three float32 products), torch.lstm_cell's backward through
+        # autograd (which keeps the gates from its forward), and the
+        # forward beside torch.lstm_cell's forward
+        x, h, c, dh, dc = (torch.randn(TRAIN_B, n, generator=gen,
+                                       device=dev).to(dtype)
+                           for n in (e_in, hd, hd, hd, hd))
+        ours = [t.clone().requires_grad_() for t in (w_cat, b_sum, x, h, c)]
+        hn, cn = fused_lstm.LstmCell.apply(*ours, *(split or (None, None)))
+        lib_w = [t.clone().requires_grad_() for t in (
+            lp["w_ih"].t().contiguous(), lp["w_hh"].t().contiguous(),
+            lp["b_ih"], lp["b_hh"])]
+        lib_in = [t.clone().requires_grad_() for t in (x, h, c)]
+        lh, lc = torch.lstm_cell(lib_in[0], tuple(lib_in[1:]), *lib_w)
+        fixed_w = [t.detach() for t in lib_w]
+        fns = {"new": lambda: fused_lstm.lstm_cell_bwd(
+                   w_cat, b_sum, x, h, c, dh, dc, split),
+               "old": lambda: fused_lstm._run_bwd_kernel(
+                   w_cat, b_sum, x, h, c, dh, dc, "cuda_core"),
+               "full": lambda: torch.autograd.grad(
+                   (hn, cn), ours, (dh, dc), retain_graph=True),
+               "lib": lambda: torch.autograd.grad(
+                   (lh, lc), lib_in + lib_w, (dh, dc), retain_graph=True),
+               "fwd": lambda: fused_lstm.lstm_cell_fused(
+                   w_cat, b_sum, x, h, c, split),
+               "lib_fwd": lambda: torch.lstm_cell(x, (h, c), *fixed_w)}
+        order = ["new", "old", "full", "lib", "fwd", "lib_fwd", "lib_fwd",
+                 "fwd", "lib", "full", "old", "new"]
+        turns = time_turns(torch, fns, flush, order)
+        # autograd's engine takes the host up to about a millisecond to
+        # issue a backward: eight times the usual lead keeps the card busy
+        # through it, so these readings are the device's alone too
+        dev_turns = time_turns(torch, fns, flush, order,
+                               lead=8 * DEVICE_LEAD)
+        bwd_plain_ms = time_ms(torch, lambda: fused_lstm.lstm_cell_bwd_plain(
+            w_cat, b_sum, x, h, c, dh, dc), flush)
+        fwd_plain_ms = time_ms(torch, lambda: fused_lstm.lstm_cell_plain(
+            w_cat, b_sum, x, h, c), flush)
+        item = x.element_size()
+        nops = 2 * TRAIN_B * (e_in + hd) * 4 * hd
+        wbytes = ((e_in + hd) * 4 * hd + 4 * hd) * item
+        bwd_b = bound(TRAIN_B * (e_in + 4 * hd) * item + wbytes
+                      + TRAIN_B * 4 * hd * 4 + TRAIN_B * hd * item, nops,
+                      rate)
+        fwd_b = bound(TRAIN_B * (e_in + 4 * hd) * item + wbytes, nops, rate)
+        old_b = bound(TRAIN_B * (e_in + 4 * hd) * item + wbytes
+                      + TRAIN_B * 4 * hd * 4 + TRAIN_B * hd * item, nops, dn)
+        m_ = lambda name, t=turns: mean(t[name])          # noqa: E731
+        common = dict(
+            source="simpleimagecaptionzoo_tpu_torch/csrc/fused_lstm.cu",
+            shape="B=%d E=%d H=%d (the XE step)" % (TRAIN_B, e_in, hd))
+        bwd_common = dict(
+            common, replaces="simpleimagecaptionzoo_tpu/ops/pallas_lstm.py:455",
+            plain_ms=bwd_plain_ms, library_ms=m_("lib"),
+            device_library_ms=m_("lib", dev_turns),
+            full_backward_ms=m_("full"),
+            device_full_backward_ms=m_("full", dev_turns),
+            library_is="torch.lstm_cell's backward through autograd (dx, "
+                       "dh, dc, dW, db; it keeps the gates from its "
+                       "forward and does not recompute them); "
+                       "full_backward_ms is this cell's backward through "
+                       "LstmCell (the kernel and the three float32 "
+                       "products)")
+        entry("fused_lstm_cell_bwd_" + tc_route, dn,
+              max_abs_err=bwd_err[tc_route], max_err=bwd_err[tc_route],
+              ms=m_("new"), kernel_ms=m_("new"),
+              device_ms=m_("new", dev_turns), bound_ms=bwd_b[0],
+              bound_by=bwd_b[1], kernel_route=tc_route,
+              old_route_ms=m_("old"),
+              device_old_route_ms=m_("old", dev_turns), turns=turns,
+              device_turns=dev_turns, **bwd_common)
+        entry("fused_lstm_cell_bwd", dn, max_abs_err=bwd_err["cuda_core"],
+              max_err=bwd_err["cuda_core"], ms=m_("old"),
+              kernel_ms=m_("old"), device_ms=m_("old", dev_turns),
+              bound_ms=old_b[0], bound_by=old_b[1], kernel_route="cuda_core",
+              **bwd_common)
+        entry("fused_lstm_cell_%s_train" % tc_route, dn, max_abs_err=fwd_err,
+              max_err=fwd_err, ms=m_("fwd"), kernel_ms=m_("fwd"),
+              device_ms=m_("fwd", dev_turns), plain_ms=fwd_plain_ms,
+              bound_ms=fwd_b[0], bound_by=fwd_b[1],
+              library_ms=m_("lib_fwd"),
+              device_library_ms=m_("lib_fwd", dev_turns),
+              kernel_route=tc_route,
+              replaces="simpleimagecaptionzoo_tpu/ops/pallas_lstm.py:166",
+              **common)
+        log("K2 backward %s B=%d in turns (new, old, full, lib, fwd, "
+            "lib_fwd, then back): %s %s ms, cuda_core %s, the whole backward "
+            "through LstmCell %s, torch.lstm_cell's backward %s; device "
+            "alone: %s %s, cuda_core %s, whole %s, torch.lstm_cell's %s ms; "
+            "plain %.4f ms; bound %.4f ms (%s)"
+            % (dn, TRAIN_B, tc_route, ["%.4f" % v for v in turns["new"]],
+               ["%.4f" % v for v in turns["old"]],
+               ["%.4f" % v for v in turns["full"]],
+               ["%.4f" % v for v in turns["lib"]], tc_route,
+               ["%.4f" % v for v in dev_turns["new"]],
+               ["%.4f" % v for v in dev_turns["old"]],
+               ["%.4f" % v for v in dev_turns["full"]],
+               ["%.4f" % v for v in dev_turns["lib"]], bwd_plain_ms,
+               bwd_b[0], bwd_b[1]))
+        log("K2 %s B=%d forward in the same turns: %s %s ms, torch.lstm_cell "
+            "%s; device alone: %s, torch.lstm_cell %s ms; plain %.4f ms; "
+            "bound %.4f ms (%s)"
+            % (dn, TRAIN_B, tc_route, ["%.4f" % v for v in turns["fwd"]],
+               ["%.4f" % v for v in turns["lib_fwd"]],
+               ["%.4f" % v for v in dev_turns["fwd"]],
+               ["%.4f" % v for v in dev_turns["lib_fwd"]], fwd_plain_ms,
+               fwd_b[0], fwd_b[1]))
+        del hn, cn, lh, lc, ours, lib_in, lib_w
 
     log("-- phase 5 at %.1f s" % (time.time() - t_start))
     # -- 5. K3 against its plain version --------------------------------------
@@ -1835,8 +2380,13 @@ def main(argv=None) -> int:
         beam=drive_beam("AoASpatial", aoasp, asp_visual,
                         aoasp_paths(mk, BEAM, True)))
 
+    log("-- phase 14 at %.1f s" % (time.time() - t_start))
+    # -- 14. XE training of AoADetection, through make_xe_train_step ---------
+    results["xe"] = drive_xe(torch, args, dev, model, params, FULL, kernels,
+                             on_path)
+
     results["seconds"] = time.time() - t_start
-    log("-- phases 2-13 took %.1f s" % results["seconds"])
+    log("-- phases 2-14 took %.1f s" % results["seconds"])
     missing = [k for k in on_path if not kernels[k].get("launches")]
     require(not missing, "kernels not launched on the main path: %s"
             % missing)

@@ -16,10 +16,16 @@ kernel (``ops/fused_head.py``) and the fused LSTM cell forward
 (``model.quantize_decode_params``) through the int8 dequantizing product
 (``ops/quant.py``), the fused head over int8 weights and, with
 ``SICZ_TPU_INT8_KV`` on, the int8 K/V attention (``ops/int8_attention.py``);
-beam search (``engine.steps.make_beam_decode``) of the same; and both
-decodes of BUTDDetection and BUTDSpatial in feature mode
-(``models/butd.py``), in float32, bf16 and int8 serving form.
-``ROADMAP.md`` lists what follows.
+beam search (``engine.steps.make_beam_decode``) of the same; both
+decodes of BUTDDetection, BUTDSpatial (``models/butd.py``), NIC
+(``models/nic.py``) and AoASpatial in feature mode, in float32, bf16 and
+int8 serving form; and XE training of AoADetection
+(``engine.steps.make_xe_train_step``, ``make_xe_eval_loss``; the
+optimizers in ``engine/optim.py``, the state in ``engine/state.py``, the
+loss in ``ops/losses.py``, teacher forcing with scheduled sampling in
+``ops/decode.py``), the LSTM cell's gradient through the backward kernel
+of ``ops/fused_lstm.py`` (an autograd Function), in float32 and in bf16
+over float32 master weights.  ``ROADMAP.md`` lists what follows.
 
 Token id conventions follow the reference (Build_caption_vocab.py:37-40):
 ``<pad>``=0, ``<sta>``=1, ``<end>``=2, ``<unk>``=3.  Importing the package has

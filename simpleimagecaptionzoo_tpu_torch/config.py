@@ -1,6 +1,7 @@
-"""Model configuration: the ``.data`` key=value parser and the static model
-hyperparameters, kept field for field with the JAX package's ``config.py`` so
-one model json configures both."""
+"""Model and training configuration: the ``.data`` key=value parser, the
+static model hyperparameters and the training knobs with their LR and
+scheduled-sampling schedules, kept field for field with the JAX package's
+``config.py`` so one model json configures both."""
 from __future__ import annotations
 
 import dataclasses
@@ -95,3 +96,91 @@ def load_model_config(path: str, vocab_size: int, **overrides) -> ModelConfig:
             kwargs[key] = val
     kwargs.update(overrides)
     return ModelConfig(**kwargs)
+
+
+@dataclasses.dataclass(frozen=True)
+class LrOpts:
+    """Staircase LR decay + staged CNN finetune schedule
+    (reference Engine.py:126-138, Main.py:163-172 defaults)."""
+
+    learning_rate: float = 4e-4
+    cnn_finetune_learning_rate: float = 1e-4
+    cnn_finetune_start: int = 8
+    lr_dec_start_epoch: int = 0
+    lr_dec_every: int = 3
+    lr_dec_rate: float = 0.8
+
+    def decay_factor(self, epoch: int) -> float:
+        if epoch > self.lr_dec_start_epoch and self.lr_dec_start_epoch >= 0:
+            frac = (epoch - self.lr_dec_start_epoch) // self.lr_dec_every
+            return self.lr_dec_rate ** frac
+        return 1.0
+
+    def lrs_for_epoch(self, epoch: int, cnn_ft_model: bool,
+                      cnn_ft_enabled: bool) -> tuple:
+        """(main lr, cnn finetune lr) for this epoch (Engine.py:135)."""
+        lr = self.learning_rate * self.decay_factor(epoch)
+        cnn_lr = min(self.cnn_finetune_learning_rate
+                     * (1.0 if cnn_ft_model else 0.0), lr)
+        return lr, cnn_lr * (1.0 if cnn_ft_enabled else 0.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class SsOpts:
+    """Scheduled sampling schedule (reference Engine.py:140-144,
+    Main.py:166-169 defaults)."""
+
+    ss_start_epoch: int = 0
+    ss_inc_every: int = 5
+    ss_inc_prob: float = 0.05
+    ss_max_prob: float = 0.5
+
+    def prob_for_epoch(self, epoch: int) -> float:
+        if epoch > self.ss_start_epoch and self.ss_start_epoch >= 0:
+            frac = (epoch - self.ss_start_epoch) // self.ss_inc_every
+            return min(self.ss_inc_prob * frac, self.ss_max_prob)
+        return 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Top-level training knobs, defaults matching Main.py:140-195.  The
+    port has the XE step (``engine/steps.make_xe_train_step``); the epoch
+    loop, SCST and from-pixels input that read the other fields follow in
+    later slices."""
+
+    num_epochs: int = 30
+    train_batch_size: int = 128
+    label_smoothing: float = 0.1
+    optimizer: str = "Adam"
+    grad_clip: float = 0.1              # XE hard value clip (Engine.py:187)
+    lr_opts: LrOpts = dataclasses.field(default_factory=LrOpts)
+    ss_opts: SsOpts = dataclasses.field(default_factory=SsOpts)
+    # sequence geometry
+    max_caption_len: int = 22           # <sta> + 20 words + <end>
+    decode_max_len: int = 20            # Engine.py:260,286
+    beam_max_steps: int = 50            # NIC_Model.py:169
+    # input resolution for from-pixels models (reference --img_size)
+    img_size: int = 224
+    # from-pixels host ingest: "parity", "fast" or "device" (the JAX
+    # package's config.py documents each)
+    image_ingest: str = "parity"
+    # SCST
+    scst_num_epochs: int = 50
+    scst_train_batch_size: int = 128
+    scst_learning_rate: float = 1e-5
+    scst_cnn_finetune_learning_rate: float = 1e-5
+    scst_grad_clip: float = 0.25        # Engine.py:271
+    # on-device reward geometry: references per image, tokens per reference
+    scst_num_refs: int = 7
+    scst_max_ref_len: int = 32
+    # eval
+    eval_batch_size: int = 64
+    eval_beam_size: int = 3
+    decode_dtype: str = "float32"   # "bfloat16" halves decode traffic
+    train_dtype: str = "float32"    # "bfloat16" = mixed precision (f32
+                                    # master params/opt, bf16 compute)
+    # crash tolerance: save params+opt_state+resume-point every N steps
+    # (0 = epoch-boundary only, the reference's behavior)
+    midepoch_save_steps: int = 0
+    seed: int = 0

@@ -87,6 +87,30 @@
 //    common.cuh's tile product (fmaf in float32, at least 144 us at the
 //    decode shape).  K, B and H may be ragged: loads outside the operands
 //    read 0 and stores outside the outputs are skipped.
+//
+// The backward (fused_lstm_cell_bwd*): the JAX package's custom VJP of the
+// cell (pallas_lstm.py:445-491 _cell_bwd, jnp around the Pallas forward)
+// recomputes the gates with one product of the forward's shape, forms the
+// gate gradients elementwise, and finishes with three plain products
+// (dxh = d_gates W^T, dW = [x, h]^T d_gates, db = sum d_gates).  Here the
+// recompute and the gate gradients are one kernel: each route above runs
+// its own product on its own tiles, and its epilogue (BWD = true) takes
+// dh' and dc' of the thread's rows and columns beside c and the biases,
+// and writes, in place of h' and c',
+//
+//   dc_total = dc' + dh' o (1 - tanh(c')^2)
+//   d_gates  = [dc_total g i (1-i), dc_total c f (1-f),
+//               dc_total i (1-g^2), dh' tanh(c') o (1-o)]   (float32)
+//   dc       = dc_total f                                 (c's dtype)
+//
+// so the (B, 4H) gates never reach memory; d_gates does, in float32, for
+// the three products, which stay cuBLAS float32 calls (ops/fused_lstm.py),
+// as the JAX package leaves them to XLA.  The recompute is in float32 as
+// the forward's epilogue is (in bf16 the JAX package's recompute rounds
+// the gates to bf16 first).  Bound: the forward's product, plus d_gates
+// written (B x 4H float32): at the training shape (B=128, E=2048, H=1024)
+// 3.22 GFLOP against 25.2 MB of w_cat in bf16 (bytes), three times the
+// operations at the 3xTF32 rate in float32 (operations).
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -107,12 +131,52 @@ static_assert(CX * 2 == BH, "a thread's two hidden columns are tx, tx + CX");
 
 __device__ __forceinline__ float sigmoidf_(float z) { return 1.f / (1.f + expf(-z)); }
 
+// The epilogue's tensors.  The forward reads c and b and writes h' and c';
+// the backward reads c, b and the cotangents dh' and dc', and writes
+// d_gates and dc.
 template <typename T>
+struct Epi {
+  const T* c;          // (B, H)
+  const T* b;          // (4H,)
+  T* h_out;            // forward: h' (B, H)
+  T* c_out;            // forward: c' (B, H)
+  const T* dh;         // backward: the cotangent of h' (B, H)
+  const T* dc;         // backward: the cotangent of c' (B, H)
+  float* d_gates;      // backward: (B, 4H) float32, gates i, f, g, o
+  T* dc_out;           // backward: the cotangent of c (B, H)
+};
+
+// one hidden column of the cell, float32: the forward's (h', c')
+__device__ __forceinline__ void cell_fwd(float zi, float zf, float zg, float zo, float c,
+                                         float& hn, float& cn) {
+  cn = sigmoidf_(zf) * c + sigmoidf_(zi) * tanhf(zg);
+  hn = sigmoidf_(zo) * tanhf(cn);
+}
+
+// ... and the backward's gate gradients dz (i, f, g, o) and dc
+struct CellGrad {
+  float dz[4];
+  float dc;
+};
+
+__device__ __forceinline__ CellGrad cell_bwd(float zi, float zf, float zg, float zo,
+                                             float c, float dh, float dc) {
+  const float i = sigmoidf_(zi), f = sigmoidf_(zf), g = tanhf(zg), o = sigmoidf_(zo);
+  const float tc = tanhf(f * c + i * g);
+  const float dct = dc + dh * o * (1.f - tc * tc);
+  CellGrad r;
+  r.dz[0] = dct * g * i * (1.f - i);
+  r.dz[1] = dct * c * f * (1.f - f);
+  r.dz[2] = dct * i * (1.f - g * g);
+  r.dz[3] = dh * tc * o * (1.f - o);
+  r.dc = dct * f;
+  return r;
+}
+
+template <typename T, bool BWD>
 __global__ void __launch_bounds__(NT)
 lstm_cell_kernel(const T* __restrict__ x, const T* __restrict__ h,
-                 const T* __restrict__ c, const T* __restrict__ w,
-                 const T* __restrict__ b, T* __restrict__ h_out,
-                 T* __restrict__ c_out, int B, int E, int H) {
+                 const T* __restrict__ w, const Epi<T> ep, int B, int E, int H) {
   __shared__ float As[BK * (BM + 1)];
   __shared__ float Bs[BK * BN];
   const int row0 = blockIdx.y * BM;
@@ -144,15 +208,24 @@ lstm_cell_kernel(const T* __restrict__ x, const T* __restrict__ h,
     for (int jj = 0; jj < 2; ++jj) {
       const int j = j0 + tx + CX * jj;
       if (j >= H) continue;
-      const float zi = acc[i][0 + jj] + to_f(b[j]);
-      const float zf = acc[i][2 + jj] + to_f(b[H + j]);
-      const float zg = acc[i][4 + jj] + to_f(b[2 * H + j]);
-      const float zo = acc[i][6 + jj] + to_f(b[3 * H + j]);
+      const float zi = acc[i][0 + jj] + to_f(ep.b[j]);
+      const float zf = acc[i][2 + jj] + to_f(ep.b[H + j]);
+      const float zg = acc[i][4 + jj] + to_f(ep.b[2 * H + j]);
+      const float zo = acc[i][6 + jj] + to_f(ep.b[3 * H + j]);
       const size_t o = (size_t)row * H + j;
-      const float cn = sigmoidf_(zf) * to_f(c[o]) + sigmoidf_(zi) * tanhf(zg);
-      const float hn = sigmoidf_(zo) * tanhf(cn);
-      h_out[o] = from_f<T>(hn);
-      c_out[o] = from_f<T>(cn);
+      if constexpr (BWD) {
+        const CellGrad gr = cell_bwd(zi, zf, zg, zo, to_f(ep.c[o]), to_f(ep.dh[o]),
+                                     to_f(ep.dc[o]));
+        float* const dg = ep.d_gates + (size_t)row * n4 + j;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) dg[(size_t)q * H] = gr.dz[q];
+        ep.dc_out[o] = from_f<T>(gr.dc);
+      } else {
+        float hn, cn;
+        cell_fwd(zi, zf, zg, zo, to_f(ep.c[o]), hn, cn);
+        ep.h_out[o] = from_f<T>(hn);
+        ep.c_out[o] = from_f<T>(cn);
+      }
     }
   }
 }
@@ -204,9 +277,9 @@ template <> struct Pair<float> {
   }
 };
 
-// The epilogue's operands, loaded before the k-loop so their latency hides
-// behind the products: for this thread's hidden columns j, j+1 (one pair
-// each) the four gate biases, and c of its two rows (0 outside).
+// The epilogue's operands: for this thread's hidden columns j, j+1 (one
+// pair each) the four gate biases, and c of its two rows (0 outside).
+// The backward's dh' and dc' are read in the epilogue (below).
 template <typename T>
 struct EpiIn {
   typename Pair<T>::Raw bias[4][4];    // [gate][jj]
@@ -218,10 +291,10 @@ struct EpiIn {
 // column 8 ((i/4) % 4) + 2 (l%4) + i%2; rows from r64 on, hidden columns
 // from j0 on
 template <typename T>
-__device__ __forceinline__ void epilogue_load(EpiIn<T>& in, const T* __restrict__ c,
-                                              const T* __restrict__ b, int B, int H, int r64,
-                                              int j0) {
+__device__ __forceinline__ void epilogue_load(EpiIn<T>& in, const Epi<T>& ep, int B, int H,
+                                              int r64, int j0) {
   using P = Pair<T>;
+  using Raw = typename P::Raw;
   const int l = threadIdx.x % 32;
   const int rbase = r64 + (threadIdx.x / 32 % 4) * 16 + l / 4;
 #pragma unroll
@@ -229,23 +302,44 @@ __device__ __forceinline__ void epilogue_load(EpiIn<T>& in, const T* __restrict_
     const int j = j0 + 8 * jj + 2 * (l % 4);   // even; H is even, so j + 1 < H too
     const bool jin = j < H;
 #pragma unroll
-    for (int g = 0; g < 4; ++g) in.bias[g][jj] = jin ? P::load(b + g * H + j) : typename P::Raw{};
+    for (int g = 0; g < 4; ++g) in.bias[g][jj] = jin ? P::load(ep.b + g * H + j) : Raw{};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = rbase + 8 * r;
-      in.c[r][jj] = jin && row < B ? P::load(c + (size_t)row * H + j) : typename P::Raw{};
+      in.c[r][jj] = jin && row < B ? P::load(ep.c + (size_t)row * H + j) : Raw{};
     }
   }
 }
 
-// h' and c' of the warpgroup's 64 rows and 32 hidden columns
-template <typename T>
+// h' and c' (the backward: d_gates and dc) of the warpgroup's 64 rows and
+// 32 hidden columns
+template <typename T, bool BWD>
 __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], const EpiIn<T>& in,
-                                         T* __restrict__ h_out, T* __restrict__ c_out,
-                                         int B, int H, int r64, int j0) {
+                                         const Epi<T>& ep, int B, int H, int r64, int j0) {
   using P = Pair<T>;
+  using Raw = typename P::Raw;
   const int l = threadIdx.x % 32;
   const int rbase = r64 + (threadIdx.x / 32 % 4) * 16 + l / 4;
+  // The backward's dh' and dc': route 2 (float32) requests all of the
+  // thread's pairs together, ahead of the arithmetic (read pair by pair
+  // its backward took 0.140 ms against 0.108 at B=128); route 1 (bf16)
+  // reads them pair by pair (held together from before or after the
+  // k-loop, ptxas spilled 28 or 46 bytes there; this way 150 registers
+  // and no spill).
+  constexpr bool grads_ahead = BWD && sizeof(T) == 4;
+  Raw gdh[2][4], gdc[2][4];
+  if constexpr (grads_ahead) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int row = rbase + 8 * r, j = j0 + 8 * jj + 2 * (l % 4);
+        const size_t o = (size_t)row * H + j;
+        const bool in_ = row < B && j < H;
+        gdh[r][jj] = in_ ? P::load(ep.dh + o) : Raw{};
+        gdc[r][jj] = in_ ? P::load(ep.dc + o) : Raw{};
+      }
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = rbase + 8 * r;
@@ -258,31 +352,42 @@ __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], const EpiIn
       const float2 bg = P::get(in.bias[2][jj]), bo = P::get(in.bias[3][jj]);
       const float2 cv = P::get(in.c[r][jj]);
       const int i0 = 4 * jj + 2 * r;           // gate 0's registers: i0, i0 + 1
-      float hn[2], cn[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float zi = acc[i0 + e] + (e ? bi.y : bi.x);
-        const float zf = acc[i0 + e + 16] + (e ? bf.y : bf.x);
-        const float zg = acc[i0 + e + 32] + (e ? bg.y : bg.x);
-        const float zo = acc[i0 + e + 48] + (e ? bo.y : bo.x);
-        cn[e] = sigmoidf_(zf) * (e ? cv.y : cv.x) + sigmoidf_(zi) * tanhf(zg);
-        hn[e] = sigmoidf_(zo) * tanhf(cn[e]);
-      }
       const size_t o = (size_t)row * H + j;
-      P::store(h_out + o, hn[0], hn[1]);
-      P::store(c_out + o, cn[0], cn[1]);
+      if constexpr (BWD) {
+        const float2 dhv = P::get(grads_ahead ? gdh[r][jj] : P::load(ep.dh + o));
+        const float2 dcv = P::get(grads_ahead ? gdc[r][jj] : P::load(ep.dc + o));
+        CellGrad gr[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          gr[e] = cell_bwd(acc[i0 + e] + (e ? bi.y : bi.x), acc[i0 + e + 16] + (e ? bf.y : bf.x),
+                           acc[i0 + e + 32] + (e ? bg.y : bg.x),
+                           acc[i0 + e + 48] + (e ? bo.y : bo.x), e ? cv.y : cv.x,
+                           e ? dhv.y : dhv.x, e ? dcv.y : dcv.x);
+        float* const dg = ep.d_gates + (size_t)row * 4 * H + j;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          *(float2*)(dg + (size_t)q * H) = make_float2(gr[0].dz[q], gr[1].dz[q]);
+        P::store(ep.dc_out + o, gr[0].dc, gr[1].dc);
+      } else {
+        float hn[2], cn[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          cell_fwd(acc[i0 + e] + (e ? bi.y : bi.x), acc[i0 + e + 16] + (e ? bf.y : bf.x),
+                   acc[i0 + e + 32] + (e ? bg.y : bg.x), acc[i0 + e + 48] + (e ? bo.y : bo.x),
+                   e ? cv.y : cv.x, hn[e], cn[e]);
+        P::store(ep.h_out + o, hn[0], hn[1]);
+        P::store(ep.c_out + o, cn[0], cn[1]);
+      }
     }
   }
 }
 
+template <bool BWD>
 __global__ void __launch_bounds__(NT, 1)
 lstm_cell_wgmma(const __grid_constant__ CUtensorMap map_x,
                 const __grid_constant__ CUtensorMap map_h,
-                const __grid_constant__ CUtensorMap map_w,
-                const __nv_bfloat16* __restrict__ c,
-                const __nv_bfloat16* __restrict__ b,
-                __nv_bfloat16* __restrict__ h_out,
-                __nv_bfloat16* __restrict__ c_out, int B, int E, int H) {
+                const __grid_constant__ CUtensorMap map_w, const Epi<__nv_bfloat16> ep,
+                int B, int E, int H) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* const sa = smem_1024(smem_raw);
   uint8_t* const sb = sa + STAGES * A_BYTES;
@@ -324,7 +429,7 @@ lstm_cell_wgmma(const __grid_constant__ CUtensorMap map_x,
   } else {                             // consumers: warpgroup wg takes rows row0 + 64 wg ..
     const int wg = warp / 4;
     EpiIn<__nv_bfloat16> in;
-    epilogue_load(in, c, b, B, H, row0 + wg * 64, j0);
+    epilogue_load(in, ep, B, H, row0 + wg * 64, j0);
     float acc[BN / 2];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
@@ -347,7 +452,7 @@ lstm_cell_wgmma(const __grid_constant__ CUtensorMap map_x,
       if (threadIdx.x % 128 == 0) mbar_arrive(&empty[s]);
     }
     fence_regs(acc);
-    epilogue(acc, in, h_out, c_out, B, H, row0 + wg * 64, j0);
+    epilogue<__nv_bfloat16, BWD>(acc, in, ep, B, H, row0 + wg * 64, j0);
   }
 }
 
@@ -356,13 +461,13 @@ lstm_cell_wgmma(const __grid_constant__ CUtensorMap map_x,
 static_assert(tf32x3::BN == BN && tf32x3::BM == BM,
               "route 2 keeps route 1's tile and epilogue");
 
+template <bool BWD>
 __global__ void __launch_bounds__(tf32x3::NT, 1)
 lstm_cell_tf32x3(const __grid_constant__ CUtensorMap map_x,
                  const __grid_constant__ CUtensorMap map_h,
                  const __grid_constant__ CUtensorMap map_hi,
-                 const __grid_constant__ CUtensorMap map_lo,
-                 const float* __restrict__ c, const float* __restrict__ b,
-                 float* __restrict__ h_out, float* __restrict__ c_out, int B, int E, int H) {
+                 const __grid_constant__ CUtensorMap map_lo, const Epi<float> ep, int B,
+                 int E, int H) {
   extern __shared__ uint8_t smem_raw[];
   const tf32x3::Ring r = tf32x3::ring_init(smem_raw);
   const int row0 = blockIdx.y * BM;
@@ -382,53 +487,54 @@ lstm_cell_tf32x3(const __grid_constant__ CUtensorMap map_x,
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
     tf32x3::consume(r, acc, nk, wg);
     EpiIn<float> in;
-    epilogue_load(in, c, b, B, H, row0 + wg * 64, j0);
-    epilogue(acc, in, h_out, c_out, B, H, row0 + wg * 64, j0);
+    epilogue_load(in, ep, B, H, row0 + wg * 64, j0);
+    epilogue<float, BWD>(acc, in, ep, B, H, row0 + wg * 64, j0);
   }
 }
 
 }  // namespace tc
 
 template <typename T>
-void launch(const void* x, const void* h, const void* c, const void* w,
-            const void* b, void* h_out, void* c_out, int B, int E, int H,
-            cudaStream_t stream) {
-  dim3 grid((H + BH - 1) / BH, (B + BM - 1) / BM);
-  lstm_cell_kernel<T><<<grid, NT, 0, stream>>>(
-      (const T*)x, (const T*)h, (const T*)c, (const T*)w, (const T*)b,
-      (T*)h_out, (T*)c_out, B, E, H);
+Epi<T> fwd_epi(const void* c, const void* b, void* h_out, void* c_out) {
+  return Epi<T>{(const T*)c, (const T*)b, (T*)h_out, (T*)c_out, nullptr, nullptr, nullptr,
+                nullptr};
 }
 
-}  // namespace
+template <typename T>
+Epi<T> bwd_epi(const void* c, const void* b, const void* dh, const void* dc, void* d_gates,
+               void* dc_out) {
+  return Epi<T>{(const T*)c, (const T*)b, nullptr, nullptr, (const T*)dh, (const T*)dc,
+                (float*)d_gates, (T*)dc_out};
+}
 
-extern "C" int fused_lstm_cell(const void* x, const void* h, const void* c,
-                               const void* w_cat, const void* b_sum,
-                               void* h_out, void* c_out, int B, int E, int H,
-                               int dtype, void* stream) {
+// True when an epilogue operand breaks the tensor-core epilogue's pairs:
+// c, b and the outputs (and dh', dc') `mask + 1`-byte aligned, d_gates
+// 8-byte aligned (float2).
+template <typename T>
+bool pairs_misaligned(const Epi<T>& ep, uintptr_t mask) {
+  const uintptr_t a = (uintptr_t)ep.c | (uintptr_t)ep.b | (uintptr_t)ep.h_out |
+                      (uintptr_t)ep.c_out | (uintptr_t)ep.dh | (uintptr_t)ep.dc |
+                      (uintptr_t)ep.dc_out;
+  return (a & mask) != 0 || ((uintptr_t)ep.d_gates & 7) != 0;
+}
+
+template <typename T, bool BWD>
+int run_cuda_core(const void* x, const void* h, const void* w, const Epi<T>& ep, int B,
+                  int E, int H, void* stream) {
   if (B <= 0 || E < 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == sicz::kF32) {
-    launch<float>(x, h, c, w_cat, b_sum, h_out, c_out, B, E, H, s);
-  } else if (dtype == sicz::kBF16) {
-    launch<__nv_bfloat16>(x, h, c, w_cat, b_sum, h_out, c_out, B, E, H, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  dim3 grid((H + BH - 1) / BH, (B + BM - 1) / BM);
+  lstm_cell_kernel<T, BWD><<<grid, NT, 0, (cudaStream_t)stream>>>(
+      (const T*)x, (const T*)h, (const T*)w, ep, B, E, H);
   return (int)cudaGetLastError();
 }
 
-// The tensor-core route: bf16 only, E and H multiples of 8, x, h and w_cat
-// 16-byte aligned (TMA), c, b_sum, h_out and c_out 4-byte aligned (pairs);
-// cudaErrorMisalignedAddress if a pointer is not.
-extern "C" int fused_lstm_cell_wgmma(const void* x, const void* h, const void* c,
-                                     const void* w_cat, const void* b_sum,
-                                     void* h_out, void* c_out, int B, int E,
-                                     int H, void* stream) {
+template <bool BWD>
+int run_wgmma(const void* x, const void* h, const void* w_cat,
+              const Epi<__nv_bfloat16>& ep, int B, int E, int H, void* stream) {
   if (B <= 0 || E <= 0 || H <= 0 || E % 8 != 0 || H % 8 != 0)
     return (int)cudaErrorInvalidValue;
-  if (((uintptr_t)c | (uintptr_t)b_sum | (uintptr_t)h_out | (uintptr_t)c_out) & 3 ||
-      !sicz::hopper::aligned16(x) || !sicz::hopper::aligned16(h) ||
-      !sicz::hopper::aligned16(w_cat))
+  if (pairs_misaligned(ep, 3) || !sicz::hopper::aligned16(x) ||
+      !sicz::hopper::aligned16(h) || !sicz::hopper::aligned16(w_cat))
     return (int)cudaErrorMisalignedAddress;
   CUtensorMap mx, mh, mw;
   if (!sicz::hopper::tensor_map_bf16(&mx, x, B, E, E, tc::BM, 64, 128) ||
@@ -438,13 +544,65 @@ extern "C" int fused_lstm_cell_wgmma(const void* x, const void* h, const void* c
     return (int)cudaErrorInvalidValue;
   static std::atomic<uint64_t> smem_set{0};
   const cudaError_t err =
-      sicz::hopper::allow_smem((const void*)tc::lstm_cell_wgmma, tc::SMEM, smem_set);
+      sicz::hopper::allow_smem((const void*)tc::lstm_cell_wgmma<BWD>, tc::SMEM, smem_set);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((H + tc::BH - 1) / tc::BH, (B + tc::BM - 1) / tc::BM);
-  tc::lstm_cell_wgmma<<<grid, tc::NT, tc::SMEM, (cudaStream_t)stream>>>(
-      mx, mh, mw, (const __nv_bfloat16*)c, (const __nv_bfloat16*)b_sum,
-      (__nv_bfloat16*)h_out, (__nv_bfloat16*)c_out, B, E, H);
+  tc::lstm_cell_wgmma<BWD><<<grid, tc::NT, tc::SMEM, (cudaStream_t)stream>>>(mx, mh, mw, ep,
+                                                                              B, E, H);
   return (int)cudaGetLastError();
+}
+
+template <bool BWD>
+int run_tf32x3(const void* x, const void* h, const void* w_hi, const void* w_lo,
+               const Epi<float>& ep, int B, int E, int H, void* stream) {
+  namespace t3 = sicz::hopper::tf32x3;
+  if (B <= 0 || E <= 0 || H <= 0 || E % 4 != 0 || H % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (pairs_misaligned(ep, 7) || !sicz::hopper::aligned16(x) ||
+      !sicz::hopper::aligned16(h) || !sicz::hopper::aligned16(w_hi) ||
+      !sicz::hopper::aligned16(w_lo))
+    return (int)cudaErrorMisalignedAddress;
+  const uint64_t kt = (uint64_t)E + H, n4 = 4 * (uint64_t)H;
+  CUtensorMap mx, mh, mhi, mlo;
+  if (!sicz::hopper::tensor_map_f32(&mx, x, B, E, E, t3::BM) ||
+      !sicz::hopper::tensor_map_f32(&mh, h, B, H, H, t3::BM) ||
+      !sicz::hopper::tensor_map_f32(&mhi, w_hi, n4, kt, kt, t3::BOX_N) ||
+      !sicz::hopper::tensor_map_f32(&mlo, w_lo, n4, kt, kt, t3::BOX_N))
+    return (int)cudaErrorInvalidValue;
+  static std::atomic<uint64_t> smem_set{0};
+  const cudaError_t err =
+      sicz::hopper::allow_smem((const void*)tc::lstm_cell_tf32x3<BWD>, t3::SMEM, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((H + tc::BH - 1) / tc::BH, (B + t3::BM - 1) / t3::BM);
+  tc::lstm_cell_tf32x3<BWD><<<grid, t3::NT, t3::SMEM, (cudaStream_t)stream>>>(
+      mx, mh, mhi, mlo, ep, B, E, H);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int fused_lstm_cell(const void* x, const void* h, const void* c,
+                               const void* w_cat, const void* b_sum,
+                               void* h_out, void* c_out, int B, int E, int H,
+                               int dtype, void* stream) {
+  if (dtype == sicz::kF32)
+    return run_cuda_core<float, false>(x, h, w_cat, fwd_epi<float>(c, b_sum, h_out, c_out),
+                                       B, E, H, stream);
+  if (dtype == sicz::kBF16)
+    return run_cuda_core<__nv_bfloat16, false>(
+        x, h, w_cat, fwd_epi<__nv_bfloat16>(c, b_sum, h_out, c_out), B, E, H, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core route: bf16 only, E and H multiples of 8, x, h and w_cat
+// 16-byte aligned (TMA), c, b_sum, h_out and c_out 4-byte aligned (pairs);
+// cudaErrorMisalignedAddress if a pointer is not.
+extern "C" int fused_lstm_cell_wgmma(const void* x, const void* h, const void* c,
+                                     const void* w_cat, const void* b_sum,
+                                     void* h_out, void* c_out, int B, int E,
+                                     int H, void* stream) {
+  return run_wgmma<false>(x, h, w_cat, fwd_epi<__nv_bfloat16>(c, b_sum, h_out, c_out), B, E,
+                          H, stream);
 }
 
 // The float32 tensor-core route (3xTF32): E and H multiples of 4; w_hi and
@@ -456,27 +614,48 @@ extern "C" int fused_lstm_cell_tf32x3(const void* x, const void* h, const void* 
                                       const void* w_hi, const void* w_lo,
                                       const void* b_sum, void* h_out, void* c_out, int B,
                                       int E, int H, void* stream) {
-  namespace t3 = sicz::hopper::tf32x3;
-  if (B <= 0 || E <= 0 || H <= 0 || E % 4 != 0 || H % 4 != 0)
-    return (int)cudaErrorInvalidValue;
-  if (((uintptr_t)c | (uintptr_t)b_sum | (uintptr_t)h_out | (uintptr_t)c_out) & 7 ||
-      !sicz::hopper::aligned16(x) || !sicz::hopper::aligned16(h) ||
-      !sicz::hopper::aligned16(w_hi) || !sicz::hopper::aligned16(w_lo))
-    return (int)cudaErrorMisalignedAddress;
-  const uint64_t kt = (uint64_t)E + H, n4 = 4 * (uint64_t)H;
-  CUtensorMap mx, mh, mhi, mlo;
-  if (!sicz::hopper::tensor_map_f32(&mx, x, B, E, E, t3::BM) ||
-      !sicz::hopper::tensor_map_f32(&mh, h, B, H, H, t3::BM) ||
-      !sicz::hopper::tensor_map_f32(&mhi, w_hi, n4, kt, kt, t3::BOX_N) ||
-      !sicz::hopper::tensor_map_f32(&mlo, w_lo, n4, kt, kt, t3::BOX_N))
-    return (int)cudaErrorInvalidValue;
-  static std::atomic<uint64_t> smem_set{0};
-  const cudaError_t err =
-      sicz::hopper::allow_smem((const void*)tc::lstm_cell_tf32x3, t3::SMEM, smem_set);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((H + tc::BH - 1) / tc::BH, (B + t3::BM - 1) / t3::BM);
-  tc::lstm_cell_tf32x3<<<grid, t3::NT, t3::SMEM, (cudaStream_t)stream>>>(
-      mx, mh, mhi, mlo, (const float*)c, (const float*)b_sum, (float*)h_out, (float*)c_out,
-      B, E, H);
-  return (int)cudaGetLastError();
+  return run_tf32x3<false>(x, h, w_hi, w_lo, fwd_epi<float>(c, b_sum, h_out, c_out), B, E, H,
+                           stream);
+}
+
+// The backward of each route: the same operands as its forward, with dh'
+// and dc' (c's dtype, laid out as c) in, and d_gates ((B, 4H) float32)
+// and dc (c's dtype) out in place of h' and c'.  The tensor-core routes
+// take the forward's conditions, d_gates 8-byte aligned.
+extern "C" int fused_lstm_cell_bwd(const void* x, const void* h, const void* c,
+                                   const void* w_cat, const void* b_sum, const void* dh,
+                                   const void* dc, void* d_gates, void* dc_out, int B,
+                                   int E, int H, int dtype, void* stream) {
+  if (dtype == sicz::kF32)
+    return run_cuda_core<float, true>(
+        x, h, w_cat, bwd_epi<float>(c, b_sum, dh, dc, d_gates, dc_out), B, E, H, stream);
+  if (dtype == sicz::kBF16)
+    return run_cuda_core<__nv_bfloat16, true>(
+        x, h, w_cat, bwd_epi<__nv_bfloat16>(c, b_sum, dh, dc, d_gates, dc_out), B, E, H,
+        stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int fused_lstm_cell_bwd_wgmma(const void* x, const void* h, const void* c,
+                                         const void* w_cat, const void* b_sum,
+                                         const void* dh, const void* dc, void* d_gates,
+                                         void* dc_out, int B, int E, int H, void* stream) {
+  return run_wgmma<true>(x, h, w_cat,
+                         bwd_epi<__nv_bfloat16>(c, b_sum, dh, dc, d_gates, dc_out), B, E, H,
+                         stream);
+}
+
+extern "C" int fused_lstm_cell_bwd_tf32x3(const void* x, const void* h, const void* c,
+                                          const void* w_hi, const void* w_lo,
+                                          const void* b_sum, const void* dh, const void* dc,
+                                          void* d_gates, void* dc_out, int B, int E, int H,
+                                          void* stream) {
+  return run_tf32x3<true>(x, h, w_hi, w_lo,
+                          bwd_epi<float>(c, b_sum, dh, dc, d_gates, dc_out), B, E, H, stream);
+}
+
+// TMA tensor maps this library has encoded so far, on every host thread
+// (the forward's and autograd's): what the map cache missed.
+extern "C" unsigned long long fused_lstm_map_encodes() {
+  return (unsigned long long)sicz::hopper::map_encodes().load();
 }

@@ -111,6 +111,26 @@ inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 // allocator hands out another buffer.
 constexpr int MAP_CACHE = 16;
 
+// How many maps this library has encoded (cache misses, each a driver call
+// on the host), over all host threads: the timing scripts read it.
+inline std::atomic<uint64_t>& map_encodes() {
+  static std::atomic<uint64_t> n{0};
+  return n;
+}
+
+// cuTensorMapEncodeTiled needs a current context.  A host thread that
+// has launched nothing yet has none: autograd's device thread, whose first
+// work in a backward may be a kernel of this port, or any new thread.  So
+// before encoding, the primary context of the device that holds `base` is
+// made current, as a launch there would make it.
+inline void bind_device_of(const void* base) {
+  cudaPointerAttributes a;
+  if (cudaPointerGetAttributes(&a, base) == cudaSuccess && a.type == cudaMemoryTypeDevice)
+    cudaSetDevice(a.device);
+  else
+    cudaGetLastError();                  // clear what the query left
+}
+
 inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType dtype, const void* base,
                        uint64_t rows, uint64_t cols, uint64_t pitch, uint32_t box_rows,
                        uint32_t box_cols, int swizzle_bytes) {
@@ -137,6 +157,7 @@ inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType dtype, const void* 
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr || item == 0 || !aligned16(base) || (pitch * item) % 16 != 0)
     return false;
+  bind_device_of(base);
   const cuuint64_t dims[2] = {cols, rows};
   const cuuint64_t strides[1] = {pitch * item};
   const cuuint32_t box[2] = {box_cols, box_rows};
@@ -148,6 +169,7 @@ inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType dtype, const void* 
          CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return false;
+  map_encodes().fetch_add(1, std::memory_order_relaxed);
   cache[next] = {*map, dtype, base, rows, cols, pitch, box_rows, box_cols, swizzle_bytes};
   next = (next + 1) % MAP_CACHE;
   return true;

@@ -1,11 +1,12 @@
-"""Holding a decode through the kernels against the same decode through
-their plain versions.
+"""Holding a decode or a training step through the kernels against the
+same run through their plain versions.
 
-:func:`plain_versions` swaps every kernel wrapper a decode calls for its
-plain PyTorch version (the reference run); :func:`held_calls` holds every
-kernel call of a decode against its plain version on the same inputs, to
-the kernel's own tolerance; :func:`recording_shapes` records each launch's
-kernel, route and shape where the wrapper reaches its kernel;
+:func:`plain_versions` swaps every kernel wrapper a decode or an XE step
+calls (K2's backward included) for its plain PyTorch version (the
+reference run); :func:`held_calls` holds every kernel call of a run
+against its plain version on the same inputs, to the kernel's own
+tolerance; :func:`recording_shapes` records each launch's kernel, route
+and shape where the wrapper reaches its kernel;
 :func:`beam_tol`, :func:`rescored_margin` and :func:`beam_gate` are the
 beam decode's end-to-end gate: a winner hangs on every step's sums, so no
 id is a sound gate where the kernels round differently from their plain
@@ -35,11 +36,18 @@ def _lstm_plain(w_cat, b_sum, x, h, c, split=None):
     return fused_lstm.lstm_cell_plain(w_cat, b_sum, x, h, c)
 
 
+def _lstm_bwd_plain(w_cat, b_sum, x, h, c, dh_new, dc_new, split=None):
+    return fused_lstm.lstm_cell_bwd_plain(w_cat, b_sum, x, h, c, dh_new,
+                                          dc_new)
+
+
 def plain_swaps() -> List[Tuple[object, str, Callable]]:
     """(module, wrapper's name, plain version) of every kernel wrapper a
-    decode calls: K1 (and K1-int8), K2, K3 and K4."""
+    decode or an XE step calls: K1 (and K1-int8), K2 and its backward, K3
+    and K4."""
     return [(fused_head, "topk_head", fused_head.topk_head_plain),
             (fused_lstm, "lstm_cell_fused", _lstm_plain),
+            (fused_lstm, "lstm_cell_bwd", _lstm_bwd_plain),
             (quant, "quant_matmul", quant.quant_matmul_plain),
             (int8_attention, "lanes_attention_int8",
              int8_attention.lanes_attention_int8_plain)]
@@ -95,6 +103,16 @@ def _hold_k2(plain, a, got):
     return None
 
 
+def _hold_k2_bwd(plain, a, got):
+    want = plain(*a[:7])
+    tol = 1e-5 if a[2].dtype == torch.float32 else 1e-2
+    err = max(_beyond(g, w, tol, tol) for g, w in zip(got, want))
+    if err:
+        return "d_gates or dc off by %.3g beyond rtol and atol %g" % (err,
+                                                                      tol)
+    return None
+
+
 def _hold_k3(plain, a, got):
     x, qp = a
     want = plain(x, qp)
@@ -131,6 +149,7 @@ def _hold_k4(plain, a, got):
 # each wrapper's hold: (its plain version, its arguments, what it returned)
 # -> None, or what broke (the tolerances of chip_smoke.py phases 3-7)
 _HOLDS = {"topk_head": _hold_k1, "lstm_cell_fused": _hold_k2,
+          "lstm_cell_bwd": _hold_k2_bwd,
           "quant_matmul": _hold_k3, "lanes_attention_int8": _hold_k4}
 
 
@@ -162,39 +181,43 @@ def held_calls(failures: list):
             setattr(mod, name, fn)
 
 
-# each module's _run_kernel arguments -> (kernel, route, rows, last): last
-# is K1's k, K4's query rows, and the width of x for K2 and K3
-_SHAPE_OF = {
-    fused_head: lambda head, x, k, route: ("K1", route, x.shape[0], k),
-    fused_lstm: lambda w_cat, b_sum, x, h, c, route, split=None: (
-        "K2", route, x.shape[0], x.shape[1]),
-    quant: lambda x2, q, s, b, route: ("K3", route, x2.shape[0],
-                                       x2.shape[1]),
-    int8_attention: lambda q, kq, ks, vq, vs, mask_f, heads, route: (
-        "K4", route, q.shape[0], q.shape[1])}
+# (module, launching function, its arguments -> (kernel, route, rows,
+# last)): last is K1's k, K4's query rows, and the width of x for K2, K2's
+# backward and K3
+_SHAPE_OF = [
+    (fused_head, "_run_kernel", lambda head, x, k, route: (
+        "K1", route, x.shape[0], k)),
+    (fused_lstm, "_run_kernel", lambda w_cat, b_sum, x, h, c, route,
+     split=None: ("K2", route, x.shape[0], x.shape[1])),
+    (fused_lstm, "_run_bwd_kernel", lambda w_cat, b_sum, x, h, c, dh, dc,
+     route, split=None: ("K2bwd", route, x.shape[0], x.shape[1])),
+    (quant, "_run_kernel", lambda x2, q, s, b, route: (
+        "K3", route, x2.shape[0], x2.shape[1])),
+    (int8_attention, "_run_kernel", lambda q, kq, ks, vq, vs, mask_f, heads,
+     route: ("K4", route, q.shape[0], q.shape[1]))]
 
 
 @contextlib.contextmanager
 def recording_shapes(shapes: list):
     """Appends (kernel, route, rows, last) to ``shapes`` at every launch of
-    K1 (rows of x, and k), K2 (rows and width of x: E, the cell's input
-    without h), K3 (rows and width of x: K) and K4 (samples and query
-    rows), where each wrapper reaches its kernel."""
-    saved = {mod: mod._run_kernel for mod in _SHAPE_OF}
+    K1 (rows of x, and k), K2 and its backward ("K2bwd"; rows and width of
+    x: E, the cell's input without h), K3 (rows and width of x: K) and K4
+    (samples and query rows), where each wrapper reaches its kernel."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in _SHAPE_OF]
 
-    def recorder(mod):
-        def run(*a, **kw):
-            shapes.append(_SHAPE_OF[mod](*a, **kw))
-            return saved[mod](*a, **kw)
-        return run
+    def recorder(shape_of, run):
+        def rec(*a, **kw):
+            shapes.append(shape_of(*a, **kw))
+            return run(*a, **kw)
+        return rec
 
-    for mod in _SHAPE_OF:
-        mod._run_kernel = recorder(mod)
+    for (mod, name, shape_of), (_, _, run) in zip(_SHAPE_OF, saved):
+        setattr(mod, name, recorder(shape_of, run))
     try:
         yield
     finally:
-        for mod, fn in saved.items():
-            mod._run_kernel = fn
+        for mod, name, run in saved:
+            setattr(mod, name, run)
 
 
 def beam_tol(dtype: torch.dtype, max_steps: int) -> float:

@@ -1,20 +1,28 @@
-"""Decode entry points.
+"""Train and decode entry points.
 
 Counterpart of the JAX package's ``engine/steps.py``.  The port has the
-two eval decodes: :func:`make_beam_decode` (the engine's default,
-``eval_beam_size`` 3) and :func:`make_greedy_decode` (``eval_beam_size ==
--1``), each in float32, bf16 and int8 serving form.  PyTorch runs eagerly,
-so there is no ``jit``: the returned function runs the decode when called.
+XE training step (:func:`make_xe_train_step`, reference Engine.py:175-188:
+forward, label smoothing, backward, the value clamp, the optimizer step)
+with its validation loss (:func:`make_xe_eval_loss`), and the two eval
+decodes: :func:`make_beam_decode` (the engine's default, ``eval_beam_size``
+3) and :func:`make_greedy_decode` (``eval_beam_size == -1``), each in
+float32, bf16 and int8 serving form.  PyTorch runs eagerly, so there is no
+``jit``: the returned function runs the step or the decode when called.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 
 from simpleimagecaptionzoo_tpu_torch.device import resolve_device
+from simpleimagecaptionzoo_tpu_torch.engine.optim import (
+    apply_updates_partitioned, tree_leaves, tree_map, tree_unflatten)
+from simpleimagecaptionzoo_tpu_torch.engine.state import TrainState
 from simpleimagecaptionzoo_tpu_torch.models.base import Captioner
 from simpleimagecaptionzoo_tpu_torch.ops import decode
+from simpleimagecaptionzoo_tpu_torch.ops.losses import (label_smoothing_loss,
+                                                        xe_mask_from_lengths)
 
 
 def _cast_floats(tree, dtype: Optional[torch.dtype], device=None):
@@ -91,5 +99,136 @@ def make_beam_decode(model: Captioner, beam_size: int = 3,
                               model_state=model_state)
         return decode.beam_search(model, params, enc, beam_size, max_steps,
                                   return_alphas=return_alphas)
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# XE training
+# ---------------------------------------------------------------------------
+
+def _stop_cnn_grads(params, freeze_cnn: bool):
+    """``params`` with its ``cnn`` subtree detached when ``freeze_cnn``
+    (no ported family has one yet)."""
+    if not freeze_cnn or "cnn" not in params:
+        return params
+    return dict(params, cnn=tree_map(lambda t: t.detach(), params["cnn"]))
+
+
+def xe_loss(model: Captioner, params, model_state, batch: Dict[str, Any],
+            generator: Optional[torch.Generator], ss_prob, *,
+            smoothing: float = 0.1, compute_dtype=None,
+            ss_active: Optional[bool] = True, train: bool = True,
+            ss_generator: Optional[torch.Generator] = None):
+    """The XE loss of one batch: (loss (float32 scalar), valid tokens,
+    new model_state).  ``batch``: ``visual`` (a dict), ``captions`` (B, T)
+    int, ``lengths`` (B,) caption lengths and an optional
+    ``sample_weight`` (B,) 0/1 marking the real rows of a padded batch.
+    ``compute_dtype`` casts params and visual (differentiably, so the
+    gradients of float32 params arrive in float32); the loss is float32.
+    ``generator`` draws dropout (train mode), ``ss_generator`` the
+    scheduled sampling (``decode.teacher_forced_logits``)."""
+    captions = batch["captions"]
+    mask = xe_mask_from_lengths(batch["lengths"] - 1, captions.shape[1] - 1)
+    if "sample_weight" in batch:
+        mask = mask * batch["sample_weight"][:, None]
+    visual = _cast_floats(batch["visual"], compute_dtype)
+    params = _cast_floats(params, compute_dtype)
+    enc, new_ms = model.encode(params, visual, train=train,
+                               generator=generator, model_state=model_state)
+    logits = decode.teacher_forced_logits(
+        model, params, enc, captions, ss_prob, generator, train=train,
+        ss_active=ss_active, ss_generator=ss_generator)
+    loss = label_smoothing_loss(logits, captions[:, 1:], mask, smoothing)
+    return loss, mask.sum(), new_ms
+
+
+def _require_on(tree, dev: torch.device, what: str) -> None:
+    for t in tree_leaves(tree):
+        if isinstance(t, torch.Tensor) and t.device.type != dev.type:
+            raise ValueError("%s: a tensor lies on %s, the step runs on %s; "
+                             "move the state there first" % (what, t.device,
+                                                             dev))
+
+
+def ss_generator_for(generator: Optional[torch.Generator], step: int,
+                     device) -> torch.Generator:
+    """The scheduled-sampling generator of training step ``step``: seeded
+    from the step and ``generator``'s seed, apart from the dropout stream,
+    so the dropout masks are the same whether sampling runs or not."""
+    seed = generator.initial_seed() if generator is not None else 0
+    return torch.Generator(device=device).manual_seed(
+        (seed * 1_000_003 + step + 1) % (2 ** 63))
+
+
+def make_xe_train_step(model: Captioner, tx, labels, smoothing: float = 0.1,
+                       freeze_cnn: bool = False, compute_dtype=None,
+                       ss_active: bool = True, device="cuda"):
+    """Returns ``step(state, batch, generator, ss_prob, lr_main, lr_cnn)
+    -> (state, {"loss", "tokens"})``, one XE training
+    step on ``device`` (the GPU unless the caller asks for the CPU; the
+    state and ``generator`` must live there, and the batch moves there).
+
+    The step computes :func:`xe_loss` of the state's params, its gradient
+    by autograd (each LSTM cell's through K2's backward kernel on the
+    card), the update directions of ``tx`` (``engine/optim``) and the
+    partitioned update; it returns a new :class:`TrainState` with step + 1
+    and leaves the old one as it was.
+
+    ``compute_dtype=torch.bfloat16`` is mixed precision: bf16 compute over
+    the float32 master params and optimizer state, the loss float32.
+    ``ss_active=False`` leaves scheduled sampling's head calls and draws
+    out (the epochs before its schedule starts); with it on, the draws
+    come from :func:`ss_generator_for` the step.  ``freeze_cnn`` stops the
+    gradient at the ``cnn`` subtree."""
+    dev = resolve_device(device)
+
+    def step(state: TrainState, batch: Dict[str, Any],
+             generator: Optional[torch.Generator], ss_prob, lr_main, lr_cnn):
+        _require_on(state.params, dev, "make_xe_train_step")
+        if generator is not None and generator.device.type != dev.type:
+            raise ValueError("make_xe_train_step: the generator lies on %s, "
+                             "the step runs on %s" % (generator.device, dev))
+        ss_generator = (ss_generator_for(generator, state.step, dev)
+                        if ss_active else None)
+        batch = _cast_floats(batch, None, dev)
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_leaves(state.params)]
+        params = _stop_cnn_grads(tree_unflatten(state.params, leaves),
+                                 freeze_cnn)
+        loss, tokens, new_ms = xe_loss(
+            model, params, state.model_state, batch, generator, ss_prob,
+            smoothing=smoothing, compute_dtype=compute_dtype,
+            ss_active=ss_active, ss_generator=ss_generator)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = tree_unflatten(state.params, [
+            torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)])
+        with torch.no_grad():
+            updates, new_opt = tx.update(grads, state.opt_state,
+                                         state.params)
+            new_params = apply_updates_partitioned(
+                state.params, updates, labels, lr_main, lr_cnn)
+        new_state = state.replace(params=new_params, opt_state=new_opt,
+                                  model_state=new_ms, step=state.step + 1)
+        return new_state, {"loss": loss.detach(), "tokens": tokens}
+
+    return step
+
+
+def make_xe_eval_loss(model: Captioner, smoothing: float = 0.1,
+                      device="cuda"):
+    """Validation loss: ``fn(params, model_state, batch)`` -> the float32
+    XE loss with no dropout and no scheduled sampling.  Params and batch
+    move to ``device`` (the GPU unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def fn(params, model_state, batch):
+        loss, _, _ = xe_loss(model, _cast_floats(params, None, dev),
+                             model_state, _cast_floats(batch, None, dev),
+                             None, 0.0, smoothing=smoothing, ss_active=False,
+                             train=False)
+        return loss
 
     return fn

@@ -123,6 +123,27 @@ class Captioner:
         logits = self.predict(params, pre.reshape((b * k,) + pre.shape[2:]))
         return logits.reshape((b, k) + logits.shape[1:]), new_state, alpha
 
+    def param_labels(self, params) -> Any:
+        """Every leaf of ``params`` labelled 'main', 'cnn' or 'cnn_frozen'
+        for the two-LR optimizer partition (reference get_param_groups,
+        NIC_Model.py:221-231), the same structure of strings.  Leaves under
+        the top-level ``cnn`` are 'cnn' in its ``layer4`` (the only ResNet
+        stage the reference fine-tunes, NIC_Model.py:238) and 'cnn_frozen'
+        elsewhere; every other leaf is 'main'.
+        ``engine/optim.apply_updates_partitioned`` leaves 'cnn_frozen'
+        untouched."""
+        def label(node, path):
+            if isinstance(node, dict):
+                return {k: label(v, path + (k,)) for k, v in node.items()}
+            if isinstance(node, (list, tuple)):
+                return type(node)(label(v, path + (i,))
+                                  for i, v in enumerate(node))
+            if not path or path[0] != "cnn":
+                return "main"
+            return "cnn" if len(path) > 1 and path[1] == "layer4" \
+                else "cnn_frozen"
+        return label(params, ())
+
     #: the layer dicts every decode step reads (the quantizable hot set);
     #: layers that run once per batch in encode stay at full precision
     decode_quant_paths: Tuple[Tuple[str, ...], ...] = ()

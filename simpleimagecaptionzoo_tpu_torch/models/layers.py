@@ -118,6 +118,9 @@ def lstm_cell(params: dict, x: torch.Tensor, h: torch.Tensor,
     CUDA tensors, its plain version for CPU tensors.  ``prepared`` is
     ``fused_lstm.prepare_lstm(params)``, made once outside a decode loop;
     without it the weights are concatenated (and, in float32, split) here.
+    Where autograd needs a gradient (grad mode on and an input that
+    requires one) the step runs through ``fused_lstm.LstmCell``, whose
+    backward is K2's backward kernel; decode keeps the direct call.
 
     Int8 params (``ops/quant.quantize_lstm``) take the JAX package's int8
     cell instead: the gates come from K3, rounded to x's dtype, and the gate
@@ -126,18 +129,30 @@ def lstm_cell(params: dict, x: torch.Tensor, h: torch.Tensor,
         gates = quant.quant_matmul(torch.cat([x, h], dim=-1), params)
         return fused_lstm.gate_math(gates, c)
     w = prepared if prepared is not None else fused_lstm.prepare_lstm(params)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (w.w_cat, w.b_sum, x, h, c)):
+        return fused_lstm.lstm_cell_train(w, x, h, c)
     return fused_lstm.lstm_cell_fused(w.w_cat, w.b_sum, x, h, c, w.split)
 
 
 def layer_norm_std(params: dict, x: torch.Tensor,
                    eps: float = 1e-6) -> torch.Tensor:
     """AoA_Model.py:22-25: unbiased std, eps added to the std.  Statistics
-    in float32, result cast back to the input dtype."""
+    in float32, result cast back to the input dtype.
+
+    The variance is clamped to float32's smallest normal before the square
+    root.  A constant row (a padded box's, all zero, in AoA's refiner) has
+    variance 0, where sqrt's gradient is infinite: times the row's zero
+    upstream gradient it gives NaN, which the JAX package's LayerNorm (and
+    the reference's) spreads into every gradient of the feature
+    projection.  The clamp gives that row a zero gradient and changes no
+    value (the std moves by at most 1e-19 against eps 1e-6)."""
     xf = x.float()
     mean = xf.mean(dim=-1, keepdim=True)
     n = x.shape[-1]
     var = ((xf - mean) ** 2).sum(dim=-1, keepdim=True) / max(n - 1, 1)
-    out = (params["gain"].float() * (xf - mean) / (torch.sqrt(var) + eps)
+    std = torch.sqrt(var.clamp_min(torch.finfo(torch.float32).tiny))
+    out = (params["gain"].float() * (xf - mean) / (std + eps)
            + params["bias"].float())
     return out.to(x.dtype)
 

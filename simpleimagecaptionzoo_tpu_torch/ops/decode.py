@@ -11,9 +11,15 @@ Counterpart of the JAX package's ``ops/decode.py``:
   the best finished beam by raw cumulative log-probability (no length
   normalization), else the best live beam, as in the reference.
 
-The loops are eager Python: each step ends in one host sync, the test of
-whether any lane is still open.  The multinomial rollout and teacher
-forcing follow in later slices.
+* :func:`teacher_forced_logits` — the XE training forward: one step per
+  caption position with the ground truth (or, with scheduled sampling, a
+  draw from the model's own previous prediction) as input, the prediction
+  head hoisted out of the loop; :func:`_categorical` is its sampler.
+
+The decode loops are eager Python: each step ends in one host sync, the
+test of whether any lane is still open.  Teacher forcing runs a fixed
+number of steps and never syncs.  The SCST rollout follows in a later
+slice.
 """
 from __future__ import annotations
 
@@ -211,3 +217,77 @@ def beam_search(model: Captioner, params, encoded: Encoded,
     if not return_alphas:
         return ids
     return ids, pick(fin_alphas, alphas)
+
+
+# ---------------------------------------------------------------------------
+# teacher forcing (XE training forward)
+# ---------------------------------------------------------------------------
+
+def _uniform_open(shape, generator: Optional[torch.Generator],
+                  device) -> torch.Tensor:
+    """float32 uniforms strictly inside (0, 1) from ``generator``.
+    ``torch.rand`` gives k 2^-24 for k in [0, 2^24); k = 0 is raised to
+    2^-24, so both logs of the Gumbel transform stay finite.  (The JAX
+    package adds 2^-25 to its 24-bit uniform instead, which rounds the
+    largest to 1.0, whose Gumbel is +inf.)"""
+    u = torch.rand(shape, generator=generator, device=device,
+                   dtype=torch.float32)
+    return u.clamp_(min=2.0 ** -24)
+
+
+def _categorical(generator: Optional[torch.Generator],
+                 logits: torch.Tensor) -> torch.Tensor:
+    """One id per row of ``logits`` (..., V), drawn from softmax(logits)
+    by Gumbel-max on uniforms from ``generator`` (int64).  The Gumbel
+    noise is bounded (within [-2.8, 16.7]), so an id whose logit is -inf,
+    probability 0, is never drawn."""
+    u = _uniform_open(logits.shape, generator, logits.device)
+    g = -torch.log(-torch.log(u))
+    return torch.argmax(logits.float() + g, dim=-1)
+
+
+def teacher_forced_logits(model: Captioner, params, encoded: Encoded,
+                          captions: torch.Tensor, ss_prob,
+                          generator: Optional[torch.Generator],
+                          train: bool = True,
+                          ss_active: Optional[bool] = None,
+                          ss_generator: Optional[torch.Generator] = None
+                          ) -> torch.Tensor:
+    """captions (B, T) -> logits (B, T-1, V).
+
+    Step t consumes captions[:, t] (or, from t >= 2 with probability
+    ``ss_prob`` per sample, a draw from the previous step's predictions:
+    scheduled sampling, reference NIC_Model.py:79-90) and predicts token
+    t+1.  As in the JAX package the prediction head is hoisted out of the
+    loop: the loop keeps each step's pre-logit hidden and one
+    ``model.predict`` over (B, T-1, H) gives the logits.  The draws need
+    the previous step's logits; they run under ``torch.no_grad`` (sampling
+    has no gradient), and with ``ss_active=False`` they are left out
+    entirely.  ``ss_active=None`` samples when a generator is given.
+
+    ``generator`` draws the dropout masks of ``model.step_core`` (train
+    mode), ``ss_generator`` (default: ``generator``) the sampling's
+    uniforms and Gumbel noise.  With two generators the dropout masks do
+    not depend on whether sampling is active.  The JAX package also
+    hoists the ground-truth embedding's rows of ``w_ih`` out of its scan
+    when sampling is off (``Captioner.tf_inputs``); the port runs the cell
+    over the full [emb, ctx] input every step, the function of the JAX
+    package's ``interpret`` mode."""
+    b, t_total = captions.shape
+    use_ss = (generator is not None) if ss_active is None \
+        else bool(ss_active)
+    ss_gen = ss_generator if ss_generator is not None else generator
+    state = model.init_state(params, encoded)
+    hidden, hiddens = None, []
+    for t in range(t_total - 1):
+        tok = captions[:, t]
+        if use_ss and t >= 2:
+            with torch.no_grad():
+                use_model = _uniform_open((b,), ss_gen,
+                                          captions.device) < ss_prob
+                drawn = _categorical(ss_gen, model.predict(params, hidden))
+            tok = torch.where(use_model, drawn, tok.long())
+        hidden, state, _ = model.step_core(params, encoded, state, tok,
+                                           train=train, generator=generator)
+        hiddens.append(hidden)
+    return model.predict(params, torch.stack(hiddens, dim=1))

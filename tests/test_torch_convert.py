@@ -152,6 +152,11 @@ def test_bf16_leaf_carries_bit_for_bit(as_numpy):
     assert from_jax(leaf, dtype=torch.float32).dtype == torch.float32
 
 
+# the XE training slice's modules (engine/steps.py held decode before it)
+TRAINING_MODULES = ("engine.optim", "engine.state", "engine.steps",
+                    "ops.losses", "ops.decode", "ops.fused_lstm", "config")
+
+
 def test_import_leaves_jax_out_of_sys_modules():
     code = (
         "import sys, pkgutil, importlib\n"
@@ -159,13 +164,18 @@ def test_import_leaves_jax_out_of_sys_modules():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in %r)\n"
-        "print('BAD', bad)\n" % (FORBIDDEN,))
+        "print('BAD', bad)\n"
+        "print('HAVE', sorted(sys.modules))\n" % (FORBIDDEN,))
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+    # the training slice's modules are among those imported
+    for name in TRAINING_MODULES:
+        assert "'simpleimagecaptionzoo_tpu_torch.%s'" % name in out.stdout, \
+            name
 
 
 def _imports(path):
@@ -187,6 +197,8 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     assert len(files) > 10
     assert os.path.join(PORT, "models", "butd.py") in files
     assert os.path.join(PORT, "models", "nic.py") in files
+    for name in TRAINING_MODULES:
+        assert os.path.join(PORT, *name.split(".")) + ".py" in files, name
     bad = [(f, m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad

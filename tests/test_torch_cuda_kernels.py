@@ -569,6 +569,133 @@ def test_lstm_f32_routes_match_plain(dev, b, e, h, route):
     torch.testing.assert_close(kc, pc, rtol=1e-5, atol=1e-5)
 
 
+def _lstm_bwd_counts():
+    return (fused_lstm.COUNT_BWD.n, fused_lstm.COUNT_BWD_WGMMA.n,
+            fused_lstm.COUNT_BWD_TF32X3.n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,e,h,route", [(128, 2048, 1024, "tc"),
+                                         (384, 2048, 1024, "tc"),
+                                         (37, 200, 128, "tc"),
+                                         (128, 2048, 1024, "cuda_core"),
+                                         (37, 70, 96, "cuda_core")])
+def test_lstm_bwd_kernel_matches_plain(dev, dtype, b, e, h, route):
+    """K2's backward (gate recompute + gate gradients) at the XE training
+    shape (B=128, E=2048, H=1024), at B=384, at ragged B=37 with E=200 on
+    the dtype's tensor-core route ("tc": wgmma for bf16, tf32x3 for float32,
+    with prepare_lstm's split), and on the CUDA-core route, forced at
+    B=128 and taken at E=70.  d_gates and dc within K2's holds of
+    lstm_cell_bwd_plain: 1e-5 in float32, rtol and atol 1e-2 in bf16."""
+    rng = np.random.default_rng(b + e + 7)
+    wt = _lstm_weights(rng, e, h, dev)
+    w_cat, b_sum = wt.w_cat.to(dtype), wt.b_sum.to(dtype)
+    split = wt.split if dtype == torch.float32 else None
+    x, hh, c, dh, dc = (_t(rng.normal(size=(b, n)), dev, dtype)
+                        for n in (e, h, h, h, h))
+    tc_route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    picked = fused_lstm.lstm_bwd_route(w_cat, x, hh, c, b_sum, dh, dc)
+    assert picked == ("cuda_core" if e == 70 else tc_route)
+    want_route = tc_route if route == "tc" else route
+    before = _lstm_bwd_counts()
+    if want_route == picked:
+        dg, kdc = fused_lstm.lstm_cell_bwd(w_cat, b_sum, x, hh, c, dh, dc,
+                                           split)
+    else:
+        dg, kdc = fused_lstm._run_bwd_kernel(w_cat, b_sum, x, hh, c, dh, dc,
+                                             want_route)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_lstm_bwd_counts(), before)) == \
+        _moved(want_route)
+    pdg, pdc = fused_lstm.lstm_cell_bwd_plain(w_cat, b_sum, x, hh, c, dh, dc)
+    assert dg.dtype == torch.float32 and dg.shape == (b, 4 * h)
+    assert kdc.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(dg, pdg, rtol=tol, atol=tol)
+    torch.testing.assert_close(kdc, pdc, rtol=tol, atol=tol)
+
+
+def test_lstm_bwd_misaligned_cotangent_takes_cuda_core(dev):
+    """A cotangent that breaks the epilogue's pairs (a bf16 view at an odd
+    element) sends the backward to the CUDA-core route, not to the plain
+    version, and the result still holds."""
+    rng = np.random.default_rng(3)
+    b, e, h = 16, 256, 128
+    wt = _lstm_weights(rng, e, h, dev)
+    w_cat, b_sum = wt.w_cat.bfloat16(), wt.b_sum.bfloat16()
+    x, hh, c, dc = (_t(rng.normal(size=(b, n)), dev, torch.bfloat16)
+                    for n in (e, h, h, h))
+    dh = _t(rng.normal(size=(b * h + 1,)), dev, torch.bfloat16)[1:].view(b, h)
+    assert fused_lstm.lstm_bwd_route(w_cat, x, hh, c, b_sum, dh,
+                                     dc) == "cuda_core"
+    before = _lstm_bwd_counts()
+    dg, kdc = fused_lstm.lstm_cell_bwd(w_cat, b_sum, x, hh, c, dh, dc)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_lstm_bwd_counts(), before)) == \
+        _moved("cuda_core")
+    pdg, pdc = fused_lstm.lstm_cell_bwd_plain(w_cat, b_sum, x, hh, c, dh, dc)
+    torch.testing.assert_close(dg, pdg, rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(kdc, pdc, rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_cell_function_grads_match_plain_autograd(dev, dtype):
+    """LstmCell on the card at the XE training shape: the forward and the
+    backward each launch once on the dtype's tensor-core route, the
+    backward (on autograd's thread) on the stream the forward ran on, and
+    every gradient agrees with autograd through
+    lstm_cell_plain (float32 1e-5 of the largest gradient of the leaf;
+    bf16 2e-2)."""
+    rng = np.random.default_rng(5)
+    b, e, h = 128, 2048, 1024
+    bound = 1 / np.sqrt(h)
+    leaves = {k: _t(rng.uniform(-bound, bound, shape), dev,
+                    dtype).requires_grad_()
+              for k, shape in (("w_ih", (e, 4 * h)), ("w_hh", (h, 4 * h)),
+                               ("b_ih", (4 * h,)), ("b_hh", (4 * h,)))}
+    x, hh, c = (_t(rng.normal(size=(b, n)), dev, dtype).requires_grad_()
+                for n in (e, h, h))
+    names = list(leaves) + ["x", "h", "c"]
+    ins = list(leaves.values()) + [x, hh, c]
+    tc_route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    before, before_bwd = _lstm_counts(), _lstm_bwd_counts()
+    streams = []
+    run_bwd = fused_lstm._run_bwd_kernel
+
+    def recording(*a, **kw):
+        streams.append(torch.cuda.current_stream(dev))
+        return run_bwd(*a, **kw)
+
+    stream = torch.cuda.Stream()
+    fused_lstm._run_bwd_kernel = recording
+    try:
+        with torch.cuda.stream(stream):
+            w = fused_lstm.prepare_lstm(leaves)
+            hn, cn = fused_lstm.lstm_cell_train(w, x, hh, c)
+            got = torch.autograd.grad(
+                (1.3 * hn.float() + 0.7 * cn.float()).sum(), ins)
+    finally:
+        fused_lstm._run_bwd_kernel = run_bwd
+    torch.cuda.synchronize()
+    # autograd ran the backward on the stream the forward ran on
+    assert streams == [stream]
+    assert tuple(a - b for a, b in zip(_lstm_counts(), before)) == \
+        _moved(tc_route)
+    assert tuple(a - b for a, b in zip(_lstm_bwd_counts(), before_bwd)) == \
+        _moved(tc_route)
+    ph, pc = fused_lstm.lstm_cell_plain(
+        torch.cat([leaves["w_ih"], leaves["w_hh"]]),
+        leaves["b_ih"] + leaves["b_hh"], x, hh, c)
+    want = torch.autograd.grad((1.3 * ph.float() + 0.7 * pc.float()).sum(),
+                               ins)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for name, g, wg in zip(names, got, want):
+        assert g.dtype == dtype, name
+        scale = float(wg.float().abs().max())
+        err = float((g.float() - wg.float()).abs().max())
+        assert err <= tol * scale, (name, err, scale)
+
+
 @pytest.mark.parametrize("m,k,route", [(384, 1, "tf32x3"), (384, 3, "tf32x3"),
                                        (1152, 3, "tf32x3"), (45, 16, "tf32x3"),
                                        (384, 1, "cuda_core")])
@@ -1000,3 +1127,67 @@ def test_nic_and_aoa_spatial_beam_decode_through_the_kernels_matches_plain(
         return
     margin = holds.rescored_margin(model, params, visual, ids, ref, dtype, dev)
     assert float(margin.min()) >= -holds.beam_tol(dtype, max_steps)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_xe_step_through_kernels_matches_plain(dev, dtype):
+    """One AoADetection XE step on the card (embed and hidden 256, B=16,
+    T=8, dropout on, scheduled sampling at 0.25): through the kernels, K2's
+    forward and backward run T-1 = 7 times each on the dtype's tensor-core
+    route with every call held against its plain version, and the loss and
+    the updated params agree with the same step through the plain
+    versions (the same generator seeds, so the same dropout masks and
+    draws), after one SGD step at lr 0.05 (a param moves by lr times its
+    clamped gradient, so the params differ by lr times the gradients'
+    difference): the loss within 1e-5 in float32 and 1e-2 in bf16, each
+    param within 1e-6 and 1e-4 (a bf16 ulp of a gradient at the clamp,
+    0.1 x 2^-8, times lr is 2e-5)."""
+    from simpleimagecaptionzoo_tpu_torch.config import ModelConfig
+    from simpleimagecaptionzoo_tpu_torch.engine import holds, optim, steps
+    from simpleimagecaptionzoo_tpu_torch.engine.state import TrainState
+    from simpleimagecaptionzoo_tpu_torch.models.base import get_captioner
+    b, t, n = 16, 8, 6
+    model = get_captioner(ModelConfig(
+        model_type="AoADetection", vocab_size=300, embed_dim=256,
+        hidden_dim=256, enc_dim=128, num_heads=2, num_refine_layers=2,
+        max_bu_len=n))
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(1)
+    caps = rng.integers(4, 300, size=(b, t))
+    caps[:, 0] = 1
+    batch = {"visual": {"bu_feats": _t(rng.normal(size=(b, n, 128)), dev,
+                                       torch.float32)},
+             "captions": torch.from_numpy(caps).to(dev),
+             "lengths": torch.from_numpy(rng.integers(3, t + 1,
+                                                      size=(b,))).to(dev)}
+    tx = optim.make_grad_transform("SGD", 0.1)
+    step = steps.make_xe_train_step(
+        model, tx, model.param_labels(params),
+        compute_dtype=None if dtype == torch.float32 else dtype)
+
+    def run():
+        return step(TrainState.create(params, tx), batch,
+                    torch.Generator(device=dev).manual_seed(3), 0.25, 0.05,
+                    0.0)
+
+    with holds.plain_versions():
+        ref, ref_met = run()
+    tc_route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    before, before_bwd = _lstm_counts(), _lstm_bwd_counts()
+    broken = []
+    with holds.held_calls(broken):
+        got, met = run()
+    torch.cuda.synchronize()
+    assert not broken, broken[:2]
+    assert tuple(a - b for a, b in zip(_lstm_counts(), before)) == \
+        tuple(7 * v for v in _moved(tc_route))
+    assert tuple(a - b for a, b in zip(_lstm_bwd_counts(), before_bwd)) == \
+        tuple(7 * v for v in _moved(tc_route))
+    f32 = dtype == torch.float32
+    lt = 1e-5 if f32 else 1e-2
+    assert abs(float(met["loss"]) - float(ref_met["loss"])) <= \
+        lt * float(ref_met["loss"])
+    for p, q in zip(optim.tree_leaves(got.params),
+                    optim.tree_leaves(ref.params)):
+        assert p.dtype == torch.float32
+        torch.testing.assert_close(p, q, rtol=0, atol=1e-6 if f32 else 1e-4)
