@@ -21,7 +21,9 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      greedy shape on the CUDA-core route too, and on a cross-chunk tie on
      every route; each dtype timed in turns (old: CUDA cores, new, new,
      old) at m=384 and m=1,152, host-inclusive and device-only, beside
-     cuBLAS's bare x @ W; and NIC's and AoASpatial's heads (H=512) at m=384
+     cuBLAS's bare x @ W; at the SCST greedy baseline's rows (m=128, k=1)
+     on each dtype's tensor-core route, timed in turns (new, x @ W, x @ W,
+     new); and NIC's and AoASpatial's heads (H=512) at m=384
      k=1 and m=1,152 k=3 on each dtype's tensor-core route, timed in turns
      (new, x @ W, x @ W, new);
   4. K2, the fused LSTM cell, against its plain version (B=384, E=2048,
@@ -43,7 +45,10 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      LstmCell (the kernel and its three float32 products), torch.lstm_cell's
      backward through autograd (which keeps its gates instead of
      recomputing them), the forward and torch.lstm_cell's forward, timed in
-     turns, host-inclusive and device-only;
+     turns, host-inclusive and device-only; and the same forward and
+     backward at B=128 for BUTD's two cells (E=4,096 and 3,072), held on
+     each dtype's tensor-core route and timed in the same turns (without
+     the CUDA-core route);
   5. K3, the int8 dequantizing product, against its plain version at the
      three shapes of the int8 decode step (the LSTM gates, aoa_dec.q,
      aoa_dec.aoa; m=384, and m=1,152 for the beam step), at BUTD's three
@@ -141,13 +146,42 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      exactly; the loss falling; ms a step, samples/s, peak memory, TMA map
      encodes), one step with every K2 call, forward and backward, held
      against its plain version (engine/holds.held_calls), and one step
-     under torch.profiler (device time by part, idle share).
+     under torch.profiler (device time by part, idle share);
+ 15. SCST training of AoADetection at the same width through
+     engine.steps.make_scst_train_step: B=128 with 36 valid boxes, cap 20,
+     7 references an image padded to 32 (6-20 ids each), an idf table of
+     1.3M random keys and the references' own n-grams, the references'
+     norms precomputed, Adam at the model json's scst_lr 2e-5 with the
+     value clamp 0.25, float32 and bf16 over float32 masters.  In each: the
+     first step against the plain versions (the plain greedy baseline
+     against the kernel run's, 99 % of rows in float32, 99 % of first ids
+     in bf16; the kernel run's rollout and baseline ids replayed through
+     the plain versions: the rewards identical, the loss within 1e-5 /
+     1e-2 of its scale, each leaf's gradient as in 14); 8 steps through
+     the kernels (per step K1 once a greedy step taken at m=128, k=1, K2's
+     forward that many plus 20 times and its backward 20 times, every
+     launch on the dtype's tensor-core route, exactly; loss and reward
+     finite; ms a step, samples/s, peak memory); one step with every K1,
+     K2 and K2-backward call held; one step under torch.profiler (device
+     time by part: the two encodes, the greedy baseline, the rollout, the
+     hoisted head and its logprobs, the reward, the backward, K2's
+     backward and its products, Adam);
+ 16. BUTDDetection at examples/bench_train.py's shape (B=128, 36 boxes,
+     vocab 9,962, captions padded to 22; the width of
+     Configs/Models/BUTDDetection.json, random weights from --seed): XE
+     (as in 14, scheduled sampling on at 0.25, Adam at the json's lr
+     4e-4) and SCST (as in 15, the same references and table, scst_lr
+     2e-5), float32 and bf16, 4 timed steps each; per step K2's forward
+     and backward for both cells (E=4,096 and 3,072) on the tensor-core
+     route.
 Then it prints one JSON line of per-kernel results (the beam shapes'
 launches as entries of their own, named ``..._beam``; BUTD's K2 and K3
 shapes as ``..._butd_<layer>``, NIC's and AoASpatial's K1, K2 and K3 shapes
 as ``..._nic[_<layer>]`` and ``..._aoasp[_<layer>]``; K2's backward as
 ``fused_lstm_cell_bwd[_<route>]`` and its forward at the training rows as
-``fused_lstm_cell_<route>_train``; an entry's
+``fused_lstm_cell_<route>_train`` (BUTD's cells: ``..._butd_td`` and
+``..._butd_lang``); K1 at the training rows as
+``fused_head_topk_<route>_train``; an entry's
 ``launches`` is the sum over the main paths' reading runs that launched it,
 ``launches_by_path`` per path) and, last, the ``{"ok": true, "device":
 ...}`` line.
@@ -199,6 +233,9 @@ B, MAX_LEN, N_BOX, BEAM = 384, 20, 36, 3
 # XE training (phase 14): TrainConfig.train_batch_size, captions padded to
 # max_caption_len 22 (21 teacher-forced steps), Adam at the model json's lr
 TRAIN_B, TRAIN_T, TRAIN_LR, TRAIN_SS = 128, 22, 2e-4, 0.25
+# BUTDDetection training (phase 16) at examples/bench_train.py's shape:
+# its vocabulary, steps timed per variant
+BENCH_VOCAB, BENCH_STEPS = 9962, 4
 N_GRID = 49                   # BUTDSpatial: a 7 x 7 grid of ResNet features
 HERE = os.path.dirname(os.path.abspath(__file__))
 FULL = dict(model_type="AoADetection", vocab_size=10102, embed_dim=1024,
@@ -426,19 +463,22 @@ def profile_decode(torch, run, dn, top=16):
     return out
 
 
-# the ranges chip_smoke wraps around the XE step's parts (phase 14), in the
-# order a step runs them
+# the ranges chip_smoke wraps around the XE step's parts (phases 14 and
+# 16) and the SCST step's (phases 15 and 16), in the order a step runs them
 XE_RANGES = ("xe:encode", "xe:teacher_forcing", "xe:loss", "xe:optimizer")
+SCST_RANGES = ("scst:greedy_baseline", "scst:encode", "scst:rollout",
+               "scst:hoisted_head", "scst:reward", "scst:loss",
+               "scst:optimizer")
 
 
-def profile_step(torch, run, tag):
-    """One XE step under torch.profiler: the device's busy share of the
-    traced span, and device time by part.  A kernel counts to the K2
+def profile_step(torch, run, tag, ranges=XE_RANGES):
+    """One training step under torch.profiler: the device's busy share of
+    the traced span, and device time by part.  A kernel counts to the K2
     forward or backward kernel by its name, to "K2 backward's float32
     products" when autograd's LstmCellBackward launched it, to the other
     backward when another autograd node did, and otherwise to the
-    innermost of XE_RANGES around its launch (wrapped around the parts by
-    the caller)."""
+    innermost of ``ranges`` (XE_RANGES, SCST_RANGES) around its launch
+    (wrapped around the parts by the caller)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -448,13 +488,13 @@ def profile_step(torch, run, tag):
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
     # kernels and copies on the card; the trace also places each
-    # record_function range (XE_RANGES) on the device's timeline, which is
-    # no device work
+    # record_function range on the device's timeline, which is no device
+    # work
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in events
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False)
-                   and e.name not in XE_RANGES)
+                   and e.name not in ranges)
     require(spans, "profile %s: the trace holds no device time" % tag)
     busy = _busy(spans) / 1e3
     span_ms = (spans[-1][1] - spans[0][0]) / 1e3
@@ -464,7 +504,7 @@ def profile_step(torch, run, tag):
             continue
         label, anc = "other", e
         while anc is not None:
-            if anc.name in XE_RANGES:
+            if anc.name in ranges:
                 label = anc.name
                 break
             if anc.name.startswith("autograd::engine::evaluate_function"):
@@ -517,27 +557,39 @@ def _paths(tree, prefix=""):
     return prefix
 
 
-def drive_xe(torch, args, dev, model, params, cfg, kernels, on_path):
-    """Phase 14: XE training of the full-width AoADetection model through
-    engine.steps.make_xe_train_step, B=128 with 36 valid boxes and captions
-    padded to 22 (21 teacher-forced steps), Adam at lr 2e-4 with the value
-    clamp 0.1 and label smoothing 0.1; float32 and bf16 (mixed precision),
-    scheduled sampling off and on at 0.25.  In each variant: the first
-    step's loss and every leaf's gradient norm through the kernels against
-    the plain versions (the same generator seeds, so the same dropout
-    masks and draws); one step through the plain versions, then XE_STEPS
-    through the kernels from the same state (the first one's loss against
-    the plain step's; K2's forward and backward 21 times a step each, all
-    on the dtype's tensor-core route at B=128, E=2,048; the loss falling;
-    ms per step, samples/s, peak memory, TMA map encodes); one step with
-    every K2 call, forward and backward, held against its plain version;
-    one step under torch.profiler."""
+def credit_launches(kernels, on_path, tag, n, *enames):
+    """Adds ``n`` launches of path ``tag`` to each entry of ``enames`` (its
+    ``launches_by_path``, and ``launches`` their sum) and marks it as on
+    the main path."""
+    for ename in enames:
+        by_path = kernels[ename].setdefault("launches_by_path", {})
+        by_path[tag] = by_path.get(tag, 0) + n
+        kernels[ename]["launches"] = sum(by_path.values())
+        on_path.add(ename)
+
+
+def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
+             cells, lr, variants, n_timed=XE_STEPS):
+    """XE training through engine.steps.make_xe_train_step (phase 14:
+    AoADetection; phase 16: BUTDDetection), B=128 with 36 valid boxes and
+    captions padded to 22 (21 teacher-forced steps), Adam at ``lr`` with
+    the value clamp 0.1 and label smoothing 0.1; ``variants``: (dtype
+    name, compute dtype, scheduled sampling on at 0.25).  ``cells``: (entry
+    suffix, width of x) of each LSTM cell a step runs.  In each variant:
+    the first step's loss and every leaf's gradient norm through the
+    kernels against the plain versions (the same generator seeds, so the
+    same dropout masks and draws); one step through the plain versions,
+    then ``n_timed`` through the kernels from the same state (the first
+    one's loss against the plain step's; K2's forward and backward 21 times
+    a step per cell, all on the dtype's tensor-core route at B=128 and the
+    cell's E; the loss falling; ms per step, samples/s, peak memory, TMA
+    map encodes); one step with every K2 call, forward and backward, held
+    against its plain version; one step under torch.profiler."""
     import numpy as np
     from simpleimagecaptionzoo_tpu_torch.engine import holds, optim, steps
     from simpleimagecaptionzoo_tpu_torch.engine.state import TrainState
     from simpleimagecaptionzoo_tpu_torch.ops import decode, fused_lstm
-    v, hd = cfg["vocab_size"], cfg["hidden_dim"]
-    e_in = cfg["embed_dim"] + hd
+    v, enc_dim = model.config.vocab_size, model.config.enc_dim
     n_steps = TRAIN_T - 1
     rng = np.random.default_rng(args.seed)
     caps = rng.integers(4, v, size=(TRAIN_B, TRAIN_T))
@@ -548,7 +600,7 @@ def drive_xe(torch, args, dev, model, params, cfg, kernels, on_path):
         caps[i, n:] = 0
     g0 = torch.Generator(device=dev).manual_seed(args.seed + 1)
     batch = {"visual": {
-        "bu_feats": torch.relu(torch.randn(TRAIN_B, N_BOX, cfg["enc_dim"],
+        "bu_feats": torch.relu(torch.randn(TRAIN_B, N_BOX, enc_dim,
                                            generator=g0, device=dev)),
         "bu_masks": torch.ones(TRAIN_B, N_BOX, device=dev)},
         "captions": torch.from_numpy(caps).to(dev),
@@ -581,8 +633,7 @@ def drive_xe(torch, args, dev, model, params, cfg, kernels, on_path):
     steps.apply_updates_partitioned = ranged("xe:optimizer", saved[3])
     out = {}
     try:
-        for label, cdtype in (("float32", None),
-                              ("bfloat16", torch.bfloat16)):
+        for label, cdtype, ss in variants:
             dn = label
             route = "tf32x3" if cdtype is None else "wgmma"
             f32 = cdtype is None
@@ -596,153 +647,483 @@ def drive_xe(torch, args, dev, model, params, cfg, kernels, on_path):
             # token, which moves gradient to another row of the embedding
             # table (0.031 of its norm measured)
             loss_tol, grad_tol = (1e-5, 1e-4) if f32 else (1e-2, 2e-2)
-            for ss in (False, True):
-                tag = "xe %s, scheduled sampling %s" % (
-                    label, "on at %g" % TRAIN_SS if ss else "off")
-                ss_prob = TRAIN_SS if ss else 0.0
-                adam = optim.make_grad_transform("Adam", 0.1)
-                tx = optim.GradientTransformation(
-                    adam.init, ranged("xe:optimizer", adam.update))
-                step = steps.make_xe_train_step(
-                    model, tx, labels, smoothing=0.1, compute_dtype=cdtype,
-                    ss_active=ss, device="cuda")
-                state0 = TrainState.create(params, tx)
+            tag = "xe %s %s, scheduled sampling %s" % (
+                name, label, "on at %g" % TRAIN_SS if ss else "off")
+            ss_prob = TRAIN_SS if ss else 0.0
+            adam = optim.make_grad_transform("Adam", 0.1)
+            tx = optim.GradientTransformation(
+                adam.init, ranged("xe:optimizer", adam.update))
+            step = steps.make_xe_train_step(
+                model, tx, labels, smoothing=0.1, compute_dtype=cdtype,
+                ss_active=ss, device="cuda")
+            state0 = TrainState.create(params, tx)
 
-                def loss_grads():
-                    leaves = [p.detach().requires_grad_()
-                              for p in optim.tree_leaves(params)]
-                    loss, _, _ = steps.xe_loss(
-                        model, optim.tree_unflatten(params, leaves), {},
-                        batch, gen(), ss_prob, smoothing=0.1,
-                        compute_dtype=cdtype, ss_active=ss,
-                        ss_generator=steps.ss_generator_for(gen(), 0, dev))
-                    grads = torch.autograd.grad(loss, leaves)
-                    return float(loss.detach()), grads
+            def loss_grads():
+                leaves = [p.detach().requires_grad_()
+                          for p in optim.tree_leaves(params)]
+                loss, _, _ = steps.xe_loss(
+                    model, optim.tree_unflatten(params, leaves), {},
+                    batch, gen(), ss_prob, smoothing=0.1,
+                    compute_dtype=cdtype, ss_active=ss,
+                    ss_generator=steps.draw_generator_for(gen(), 0,
+                                                          dev))
+                grads = torch.autograd.grad(loss, leaves)
+                return float(loss.detach()), grads
 
-                with holds.plain_versions():
-                    p_loss, p_grads = loss_grads()
-                k_loss, k_grads = loss_grads()
-                # each leaf's gradient against the plain run's: the norm of
-                # the difference over the plain gradient's norm, floored at
-                # 1e-3 of the largest leaf's (the key biases' true gradient
-                # is 0: a softmax does not see a constant added to a
-                # query's scores, so theirs is rounding alone)
-                p_norms = [float(g.float().norm()) for g in p_grads]
-                k_norms = [float(g.float().norm()) for g in k_grads]
-                floor = 1e-3 * max(p_norms)
-                rel = [float((a.float() - b.float()).norm()) / max(n, floor)
-                       for a, b, n in zip(k_grads, p_grads, p_norms)]
-                rel_norm = [abs(a - b) / max(b, floor)
-                            for a, b in zip(k_norms, p_norms)]
-                worst = sorted(zip(rel, optim.tree_leaves(
-                    _paths(params))))[-3:]
-                del p_grads, k_grads
-                held = max(rel) if f32 else max(rel_norm)
-                require(all(np.isfinite(k_norms)) and held <= grad_tol
-                        and abs(k_loss - p_loss) <= loss_tol * p_loss,
-                        "%s: the first step's loss %.6f against the plain "
-                        "run's %.6f (tol %g); a leaf's gradient off by %.3g "
-                        "of its norm (the worst %s), its norm by %.3g (tol "
-                        "%g on the %s)" % (tag, k_loss, p_loss, loss_tol,
-                                           max(rel), worst, max(rel_norm),
-                                           grad_tol, "first" if f32
-                                           else "second"))
-                with holds.plain_versions():
-                    _, met_p = step(state0, batch, gen(), ss_prob, TRAIN_LR,
-                                    0.0)
-                plain_loss = float(met_p["loss"])
-                # XE_STEPS through the kernels, from the same state
-                st, g_run = state0, gen()
-                want_launch = dict.fromkeys(counters, 0)
-                for name in ("fused_lstm_cell", "fused_lstm_cell_bwd"):
-                    want_launch[name] = n_steps
-                    want_launch[name + "_" + route] = n_steps
-                want_shapes = {("K2", route, TRAIN_B, e_in): n_steps,
-                               ("K2bwd", route, TRAIN_B, e_in): n_steps}
-                losses, times, encodes, shapes = [], [], [], []
+            with holds.plain_versions():
+                p_loss, p_grads = loss_grads()
+            k_loss, k_grads = loss_grads()
+            # each leaf's gradient against the plain run's: the norm of
+            # the difference over the plain gradient's norm, floored at
+            # 1e-3 of the largest leaf's (the key biases' true gradient
+            # is 0: a softmax does not see a constant added to a
+            # query's scores, so theirs is rounding alone)
+            p_norms = [float(g.float().norm()) for g in p_grads]
+            k_norms = [float(g.float().norm()) for g in k_grads]
+            floor = 1e-3 * max(p_norms)
+            rel = [float((a.float() - b.float()).norm()) / max(n, floor)
+                   for a, b, n in zip(k_grads, p_grads, p_norms)]
+            rel_norm = [abs(a - b) / max(b, floor)
+                        for a, b in zip(k_norms, p_norms)]
+            worst = sorted(zip(rel, optim.tree_leaves(
+                _paths(params))))[-3:]
+            del p_grads, k_grads
+            held = max(rel) if f32 else max(rel_norm)
+            require(all(np.isfinite(k_norms)) and held <= grad_tol
+                    and abs(k_loss - p_loss) <= loss_tol * p_loss,
+                    "%s: the first step's loss %.6f against the plain "
+                    "run's %.6f (tol %g); a leaf's gradient off by %.3g "
+                    "of its norm (the worst %s), its norm by %.3g (tol "
+                    "%g on the %s)" % (tag, k_loss, p_loss, loss_tol,
+                                       max(rel), worst, max(rel_norm),
+                                       grad_tol, "first" if f32
+                                       else "second"))
+            with holds.plain_versions():
+                _, met_p = step(state0, batch, gen(), ss_prob, lr,
+                                0.0)
+            plain_loss = float(met_p["loss"])
+            # n_timed steps through the kernels, from the same state
+            st, g_run = state0, gen()
+            want_launch = dict.fromkeys(counters, 0)
+            for kn in ("fused_lstm_cell", "fused_lstm_cell_bwd"):
+                want_launch[kn] = n_steps * len(cells)
+                want_launch[kn + "_" + route] = n_steps * len(cells)
+            want_shapes = {(kn, route, TRAIN_B, e): n_steps
+                           for _, e in cells for kn in ("K2", "K2bwd")}
+            losses, times, encodes, shapes = [], [], [], []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(n_timed):
+                shapes.clear()
+                for c in counters.values():
+                    c.n = 0
+                enc0 = fused_lstm.map_encodes()
+                t0 = time.perf_counter()
+                with holds.recording_shapes(shapes):
+                    st, met = step(st, batch, g_run, ss_prob, lr,
+                                   0.0)
                 torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                for _ in range(XE_STEPS):
-                    shapes.clear()
-                    for c in counters.values():
-                        c.n = 0
-                    enc0 = fused_lstm.map_encodes()
-                    t0 = time.perf_counter()
-                    with holds.recording_shapes(shapes):
-                        st, met = step(st, batch, g_run, ss_prob, TRAIN_LR,
-                                       0.0)
-                    torch.cuda.synchronize()
-                    times.append(time.perf_counter() - t0)
-                    encodes.append(fused_lstm.map_encodes() - enc0)
-                    losses.append(float(met["loss"]))
-                    launches = {kn: c.n for kn, c in counters.items()}
-                    got = {}
-                    for shp in shapes:
-                        got[shp] = got.get(shp, 0) + 1
-                    require(launches == want_launch and got == want_shapes,
-                            "%s: launches %s, shapes %s; expected %s and %s"
-                            % (tag, launches, got, want_launch, want_shapes))
-                peak = torch.cuda.max_memory_allocated()
-                require(all(np.isfinite(losses)) and
-                        abs(losses[0] - plain_loss) <= loss_tol * plain_loss,
-                        "%s: the first step's loss %.6f through the kernels, "
-                        "%.6f through the plain versions (tol %g)"
-                        % (tag, losses[0], plain_loss, loss_tol))
-                require(losses[-1] < losses[0], "%s: the loss did not fall "
-                        "over %d steps: %s" % (tag, XE_STEPS, losses))
-                # one step with every K2 call held against its plain version
-                broken, held_shapes = [], []
-                with holds.held_calls(broken), \
-                        holds.recording_shapes(held_shapes):
-                    step(st, batch, gen(), ss_prob, TRAIN_LR, 0.0)
-                torch.cuda.synchronize()
-                require(not broken and len(held_shapes) == 2 * n_steps,
-                        "%s: %d K2 calls broke their hold (first: %s), %d of "
-                        "%d launched" % (tag, len(broken), broken[:1],
-                                         len(held_shapes), 2 * n_steps))
-                t_med = sorted(times[1:])[len(times[1:]) // 2]
-                res = dict(
-                    first_loss=losses[0], plain_first_loss=plain_loss,
-                    grad_max_rel_diff=max(rel), grad_worst_leaves=worst,
-                    grad_norm_max_rel_diff=max(rel_norm),
-                    grad_norm_total=sum(n * n for n in k_norms) ** 0.5,
-                    plain_grad_norm_total=sum(n * n for n in p_norms) ** 0.5,
-                    losses=losses,
-                    seconds=times, ms_per_step=t_med * 1e3,
-                    samples_per_s=TRAIN_B / t_med, peak_memory_gib=peak
-                    / 2 ** 30, map_encodes_per_step=encodes,
-                    launches_per_step=want_launch, k2_calls_held=2 * n_steps,
-                    tokens=float(met["tokens"]))
-                log("%s: first loss %.6f (plain %.6f), every leaf's gradient "
-                    "within %.3g of the plain run's, its norm within %.3g "
-                    "(tol %g on the %s; worst %s), gradient norm %.6g (plain "
-                    "%.6g); %d steps, losses %s; "
-                    "per step K2 forward %d and backward %d on %s at B=%d "
-                    "E=%d, every call of a further step held; %.2f ms a "
-                    "step (median of %d), %.1f samples/s, peak memory %.2f "
-                    "GiB, TMA map encodes a step %s"
-                    % (tag, losses[0], plain_loss, max(rel), max(rel_norm),
-                       grad_tol, "difference" if f32 else "norm", worst,
-                       res["grad_norm_total"],
-                       res["plain_grad_norm_total"], XE_STEPS, ["%.4f" % x for x in losses], n_steps,
-                       n_steps, route, TRAIN_B, e_in, t_med * 1e3,
-                       len(times) - 1, TRAIN_B / t_med, peak / 2 ** 30,
-                       encodes))
-                res["profile"] = profile_step(
-                    torch, lambda: step(st, batch, gen(), ss_prob, TRAIN_LR,
-                                        0.0), tag)
-                out["%s/ss_%s" % (label, "on" if ss else "off")] = res
-                for ename in ("fused_lstm_cell_bwd_%s/%s" % (route, dn),
-                              "fused_lstm_cell_%s_train/%s" % (route, dn)):
-                    by_path = kernels[ename].setdefault("launches_by_path",
-                                                        {})
-                    by_path[tag] = n_steps * XE_STEPS
-                    kernels[ename]["launches"] = sum(by_path.values())
-                    on_path.add(ename)
+                times.append(time.perf_counter() - t0)
+                encodes.append(fused_lstm.map_encodes() - enc0)
+                losses.append(float(met["loss"]))
+                launches = {kn: c.n for kn, c in counters.items()}
+                got = {}
+                for shp in shapes:
+                    got[shp] = got.get(shp, 0) + 1
+                require(launches == want_launch and got == want_shapes,
+                        "%s: launches %s, shapes %s; expected %s and %s"
+                        % (tag, launches, got, want_launch, want_shapes))
+            peak = torch.cuda.max_memory_allocated()
+            require(all(np.isfinite(losses)) and
+                    abs(losses[0] - plain_loss) <= loss_tol * plain_loss,
+                    "%s: the first step's loss %.6f through the kernels, "
+                    "%.6f through the plain versions (tol %g)"
+                    % (tag, losses[0], plain_loss, loss_tol))
+            require(losses[-1] < losses[0], "%s: the loss did not fall "
+                    "over %d steps: %s" % (tag, n_timed, losses))
+            # one step with every K2 call held against its plain version
+            broken, held_shapes = [], []
+            with holds.held_calls(broken), \
+                    holds.recording_shapes(held_shapes):
+                step(st, batch, gen(), ss_prob, lr, 0.0)
+            torch.cuda.synchronize()
+            n_held = 2 * n_steps * len(cells)
+            require(not broken and len(held_shapes) == n_held,
+                    "%s: %d K2 calls broke their hold (first: %s), %d of "
+                    "%d launched" % (tag, len(broken), broken[:1],
+                                     len(held_shapes), n_held))
+            t_med = sorted(times[1:])[len(times[1:]) // 2]
+            res = dict(
+                first_loss=losses[0], plain_first_loss=plain_loss,
+                grad_max_rel_diff=max(rel), grad_worst_leaves=worst,
+                grad_norm_max_rel_diff=max(rel_norm),
+                grad_norm_total=sum(n * n for n in k_norms) ** 0.5,
+                plain_grad_norm_total=sum(n * n for n in p_norms) ** 0.5,
+                losses=losses,
+                seconds=times, ms_per_step=t_med * 1e3,
+                samples_per_s=TRAIN_B / t_med, peak_memory_gib=peak
+                / 2 ** 30, map_encodes_per_step=encodes,
+                launches_per_step=want_launch, k2_calls_held=n_held,
+                tokens=float(met["tokens"]))
+            log("%s: first loss %.6f (plain %.6f), every leaf's gradient "
+                "within %.3g of the plain run's, its norm within %.3g "
+                "(tol %g on the %s; worst %s), gradient norm %.6g (plain "
+                "%.6g); %d steps, losses %s; "
+                "per step K2 forward %d and backward %d on %s at B=%d "
+                "E=%s, every call of a further step held; %.2f ms a "
+                "step (median of %d), %.1f samples/s, peak memory %.2f "
+                "GiB, TMA map encodes a step %s"
+                % (tag, losses[0], plain_loss, max(rel), max(rel_norm),
+                   grad_tol, "difference" if f32 else "norm", worst,
+                   res["grad_norm_total"],
+                   res["plain_grad_norm_total"], n_timed,
+                   ["%.4f" % x for x in losses], n_steps * len(cells),
+                   n_steps * len(cells), route, TRAIN_B,
+                   [e for _, e in cells], t_med * 1e3,
+                   len(times) - 1, TRAIN_B / t_med, peak / 2 ** 30,
+                   encodes))
+            res["profile"] = profile_step(
+                torch, lambda: step(st, batch, gen(), ss_prob, lr,
+                                    0.0), tag)
+            out["%s/ss_%s" % (label, "on" if ss else "off")] = res
+            for suffix, _ in cells:
+                credit_launches(
+                    kernels, on_path, tag, n_steps * n_timed,
+                    "fused_lstm_cell_bwd_%s%s/%s" % (route, suffix, dn),
+                    "fused_lstm_cell_%s_train%s/%s" % (route, suffix, dn))
     finally:
         del model.encode
         (decode.teacher_forced_logits, steps.label_smoothing_loss,
          steps.apply_updates_partitioned) = saved[1:]
+    return out
+
+
+SCST_STEPS = 8                # SCST steps through the kernels per variant
+SCST_NGRAMS = 1_300_000       # random idf keys (examples/bench_train.py)
+
+
+def scst_data(torch, args, dev, vocab):
+    """SCST's references and reward table (phases 15 and 16): R = 7
+    references an image (TrainConfig.scst_num_refs), padded to 32
+    (scst_max_ref_len), 6-20 ids each over ``vocab`` from a seeded numpy
+    draw; the idf table holds their n-grams (document frequency over the
+    batch's images) and SCST_NGRAMS random keys, as
+    examples/bench_train.py's COCO-sized table, so that the rollouts'
+    lookups both hit and miss; the references' norms are computed once, on
+    the card, as a trainer ships them.  -> (table on the card, probe,
+    ref_ids, ref_lens, ref_norms)."""
+    import numpy as np
+    from simpleimagecaptionzoo_tpu_torch.config import TrainConfig
+    from simpleimagecaptionzoo_tpu_torch.ops import cider
+    tc = TrainConfig()
+    r, lr = tc.scst_num_refs, tc.scst_max_ref_len
+    rng = np.random.default_rng(args.seed + 5)
+    lens = rng.integers(6, 21, size=(TRAIN_B, r))
+    ids = np.zeros((TRAIN_B, r, lr), np.int64)
+    refs = []
+    for i in range(TRAIN_B):
+        refs.append([])
+        for j in range(r):
+            ids[i, j, :lens[i, j]] = rng.integers(4, vocab, lens[i, j])
+            refs[-1].append(ids[i, j, :lens[i, j]].tolist())
+    own = cider.CiderDTable.from_ref_corpus(refs)
+    h = rng.integers(0, 2 ** 32, size=(2, SCST_NGRAMS), dtype=np.uint64)
+    table = cider.CiderDTable(
+        np.concatenate([own.h1, h[0].astype(np.uint32)]),
+        np.concatenate([own.h2, h[1].astype(np.uint32)]),
+        np.concatenate([own.df, rng.integers(1, 500, SCST_NGRAMS).astype(
+            np.float32)]), float(np.log(113_287)))
+    td = table.device_arrays(dev)
+    ref_ids = torch.from_numpy(ids).to(dev)
+    ref_lens = torch.from_numpy(lens).to(dev)
+    norms = cider.ref_norms_device(td, table.probe, ref_ids, ref_lens)
+    log("SCST references: B=%d, R=%d, padded to %d, lengths 6-20, %d own "
+        "n-grams; idf table %d keys, probe %d, bucket bits %d"
+        % (TRAIN_B, r, lr, len(own.h1), len(table.h1), table.probe,
+           table.bucket_bits))
+    return td, table.probe, ref_ids, ref_lens, norms
+
+
+def _steps_taken(ids):
+    """The greedy loop's steps for ids (B, MAX_LEN): it stops after the
+    step where the last open row emitted <end>, or at the cap."""
+    from simpleimagecaptionzoo_tpu_torch import END_ID
+    ended = ids == END_ID
+    if not bool(ended.any(dim=1).all()):
+        return ids.shape[1]
+    return int(ended.float().argmax(dim=1).max()) + 1
+
+
+def drive_scst(torch, args, dev, model, params, kernels, on_path, data, *,
+               name, cells, lr, variants, n_timed=SCST_STEPS):
+    """SCST training through engine.steps.make_scst_train_step (phase 15:
+    AoADetection at full width; phase 16: BUTDDetection), B=128 with 36
+    valid boxes, cap MAX_LEN, the references and table of
+    :func:`scst_data`, Adam at ``lr`` with the value clamp 0.25;
+    ``variants``: (dtype name, compute dtype).  ``cells``: (entry suffix,
+    width of x) of each LSTM cell a step runs.  In each variant:
+
+    1. the first step against the plain versions: the kernel run's greedy
+       baseline and rollout, then the plain versions' greedy baseline
+       (its ids against the kernel run's: 99 % of rows in float32, 99 % of
+       first ids in bf16) and a replay of the kernel run's rollout and
+       baseline ids through the plain versions: the rewards identical
+       (the same ids), some nonzero; the loss within 1e-5 (float32) or
+       1e-2 (bf16) of sum |logp| |reward| over the mask; each leaf's
+       gradient as phase 14 holds it;
+    2. ``n_timed`` steps through the kernels: per step K1 once a greedy
+       step taken (at m=128, k=1), K2's forward that many plus MAX_LEN
+       times per cell and its backward MAX_LEN times per cell, every
+       launch on the dtype's tensor-core route at its shape, exactly; the
+       loss and reward finite; ms a step, samples/s, peak memory;
+    3. one step with every K1, K2 and K2-backward call held against its
+       plain version (engine/holds.held_calls);
+    4. one step under torch.profiler, by part (SCST_RANGES)."""
+    import numpy as np
+    from torch.profiler import record_function
+    from simpleimagecaptionzoo_tpu_torch.engine import holds, optim, steps
+    from simpleimagecaptionzoo_tpu_torch.engine.state import TrainState
+    from simpleimagecaptionzoo_tpu_torch.ops import (decode, fused_head,
+                                                     fused_lstm)
+    td, probe, ref_ids, ref_lens, ref_norms = data
+    g0 = torch.Generator(device=dev).manual_seed(args.seed + 3)
+    batch = {"visual": {
+        "bu_feats": torch.relu(torch.randn(
+            TRAIN_B, N_BOX, model.config.enc_dim, generator=g0, device=dev)),
+        "bu_masks": torch.ones(TRAIN_B, N_BOX, device=dev)},
+        "ref_ids": ref_ids, "ref_lens": ref_lens, "ref_norms": ref_norms}
+    labels = model.param_labels(params)
+    counters = dict(fused_head_topk=fused_head.COUNT,
+                    fused_head_topk_wgmma=fused_head.COUNT_WGMMA,
+                    fused_head_topk_tf32x3=fused_head.COUNT_TF32X3,
+                    fused_lstm_cell=fused_lstm.COUNT,
+                    fused_lstm_cell_wgmma=fused_lstm.COUNT_WGMMA,
+                    fused_lstm_cell_tf32x3=fused_lstm.COUNT_TF32X3,
+                    fused_lstm_cell_bwd=fused_lstm.COUNT_BWD,
+                    fused_lstm_cell_bwd_wgmma=fused_lstm.COUNT_BWD_WGMMA,
+                    fused_lstm_cell_bwd_tf32x3=fused_lstm.COUNT_BWD_TF32X3)
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(args.seed + 4)
+
+    def ranged(rname, fn, keep=None):
+        def run(*a, **kw):
+            with record_function(rname):
+                out = fn(*a, **kw)
+            if keep is not None:
+                keep[:] = [a, out]
+            return out
+        return run
+
+    baseline, criterion = [], []
+    predict = model.predict
+
+    def head(params_, hidden):
+        # the hoisted head over (B, T, H); a rollout step's (B, H) head
+        # stays in the rollout's range
+        if hidden.dim() == 3:
+            with record_function("scst:hoisted_head"):
+                return predict(params_, hidden)
+        return predict(params_, hidden)
+
+    saved = (steps.greedy_baseline, decode.sample_rl, decode._token_logprobs,
+             steps.self_critical_reward, steps.reward_criterion,
+             steps.apply_updates_partitioned)
+    model.encode = ranged("scst:encode", model.encode)
+    model.predict = head
+    steps.greedy_baseline = ranged("scst:greedy_baseline", saved[0],
+                                   baseline)
+    decode.sample_rl = ranged("scst:rollout", saved[1])
+    decode._token_logprobs = ranged("scst:hoisted_head", saved[2])
+    steps.self_critical_reward = ranged("scst:reward", saved[3])
+    steps.reward_criterion = ranged("scst:loss", saved[4], criterion)
+    steps.apply_updates_partitioned = ranged("scst:optimizer", saved[5])
+    out = {}
+    try:
+        for label, cdtype in variants:
+            dn = label
+            route = "tf32x3" if cdtype is None else "wgmma"
+            f32 = cdtype is None
+            # the holds of phase 14's first step (the loss's against its
+            # own scale here: an SCST loss is a signed sum)
+            loss_tol, grad_tol = (1e-5, 1e-4) if f32 else (1e-2, 2e-2)
+            tag = "scst %s %s" % (name, label)
+            adam = optim.make_grad_transform("Adam", 0.25)
+            tx = optim.GradientTransformation(
+                adam.init, ranged("scst:optimizer", adam.update))
+            step = steps.make_scst_train_step(
+                model, tx, labels, td, probe, max_len=MAX_LEN,
+                compute_dtype=cdtype, device="cuda")
+            state0 = TrainState.create(params, tx)
+
+            def loss_grads(greedy_seq, replay=None):
+                leaves = [p.detach().requires_grad_()
+                          for p in optim.tree_leaves(params)]
+                loss, reward, _, seq, drawn = steps.scst_loss(
+                    model, optim.tree_unflatten(params, leaves), {}, batch,
+                    td, probe, greedy_seq, gen(),
+                    steps.draw_generator_for(gen(), 0, dev), max_len=MAX_LEN,
+                    compute_dtype=cdtype, replay=replay)
+                logp, seq_, reward_ = criterion[0][:3]
+                scale = float(steps.reward_criterion(
+                    -logp.detach().abs(), seq_, reward_.abs()))
+                grads = torch.autograd.grad(loss, leaves)
+                return (float(loss.detach()), reward.detach(), seq, drawn,
+                        grads, scale)
+
+            # 1. the first step: the kernels, then the plain versions on the
+            # kernel run's ids
+            g_k = steps.greedy_baseline(model, params, {}, batch["visual"],
+                                        MAX_LEN, cdtype)
+            k_loss, k_reward, seq_k, drawn_k, k_grads, _ = loss_grads(g_k)
+            with holds.plain_versions():
+                g_p = steps.greedy_baseline(model, params, {},
+                                            batch["visual"], MAX_LEN, cdtype)
+                p_loss, p_reward, _, _, p_grads, scale = loss_grads(
+                    g_k, replay=(seq_k, drawn_k))
+            rows_same = float((g_k == g_p).all(dim=1).float().mean())
+            first_same = float((g_k[:, 0] == g_p[:, 0]).float().mean())
+            p_norms = [float(g.float().norm()) for g in p_grads]
+            k_norms = [float(g.float().norm()) for g in k_grads]
+            floor = 1e-3 * max(p_norms)
+            rel = [float((a.float() - b.float()).norm()) / max(n, floor)
+                   for a, b, n in zip(k_grads, p_grads, p_norms)]
+            rel_norm = [abs(a - b) / max(b, floor)
+                        for a, b in zip(k_norms, p_norms)]
+            worst = sorted(zip(rel, optim.tree_leaves(_paths(params))))[-3:]
+            del p_grads, k_grads
+            held = max(rel) if f32 else max(rel_norm)
+            n_rewarded = int((k_reward != 0).sum())
+            require(torch.equal(k_reward, p_reward) and n_rewarded > 0,
+                    "%s: the rewards of the same ids differ (max %.3g) or "
+                    "are all 0 (%d nonzero)"
+                    % (tag, float((k_reward - p_reward).abs().max()),
+                       n_rewarded))
+            require((rows_same if f32 else first_same) >= 0.99,
+                    "%s: the greedy baseline's %s identical to the plain "
+                    "run's: %.4f (gate 0.99)"
+                    % (tag, "rows" if f32 else "first ids",
+                       rows_same if f32 else first_same))
+            require(all(np.isfinite(k_norms)) and held <= grad_tol
+                    and abs(k_loss - p_loss) <= loss_tol * scale,
+                    "%s: the first step's loss %.6g against the plain "
+                    "replay's %.6g (tol %g of its scale %.4g); a leaf's "
+                    "gradient off by %.3g of its norm (the worst %s), its "
+                    "norm by %.3g (tol %g on the %s)"
+                    % (tag, k_loss, p_loss, loss_tol, scale, max(rel),
+                       worst, max(rel_norm), grad_tol,
+                       "first" if f32 else "second"))
+            log("%s: first step through the kernels: loss %.6g (the plain "
+                "replay's %.6g, scale %.4g), mean reward %.5g, %d of %d "
+                "rewards nonzero and identical to the replay's; every "
+                "leaf's gradient within %.3g of the plain run's, its norm "
+                "within %.3g (tol %g on the %s; worst %s); greedy baseline "
+                "against the plain versions' rows %.4f, first ids %.4f"
+                % (tag, k_loss, p_loss, scale, float(k_reward.mean()),
+                   n_rewarded, TRAIN_B, max(rel), max(rel_norm), grad_tol,
+                   "difference" if f32 else "norm", worst, rows_same,
+                   first_same))
+            # 2. n_timed steps through the kernels
+            st, g_run = state0, gen()
+            losses, rewards, times, encodes, taken = [], [], [], [], []
+            shapes = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(n_timed):
+                shapes.clear()
+                for c in counters.values():
+                    c.n = 0
+                enc0 = fused_lstm.map_encodes()
+                t0 = time.perf_counter()
+                with holds.recording_shapes(shapes):
+                    st, met = step(st, batch, g_run, lr, 0.0)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                encodes.append(fused_lstm.map_encodes() - enc0)
+                losses.append(float(met["loss"]))
+                rewards.append(float(met["reward"]))
+                n_g = _steps_taken(baseline[1])
+                taken.append(n_g)
+                nc = len(cells)
+                want = {"fused_head_topk": n_g,
+                        "fused_head_topk_" + route: n_g,
+                        "fused_lstm_cell": nc * (n_g + MAX_LEN),
+                        "fused_lstm_cell_" + route: nc * (n_g + MAX_LEN),
+                        "fused_lstm_cell_bwd": nc * MAX_LEN,
+                        "fused_lstm_cell_bwd_" + route: nc * MAX_LEN}
+                want = {kn: want.get(kn, 0) for kn in counters}
+                want_shapes = {("K1", route, TRAIN_B, 1): n_g}
+                for _, e in cells:
+                    want_shapes[("K2", route, TRAIN_B, e)] = n_g + MAX_LEN
+                    want_shapes[("K2bwd", route, TRAIN_B, e)] = MAX_LEN
+                launches = {kn: c.n for kn, c in counters.items()}
+                got = {}
+                for shp in shapes:
+                    got[shp] = got.get(shp, 0) + 1
+                require(launches == want and got == want_shapes,
+                        "%s: launches %s, shapes %s; expected %s and %s "
+                        "(%d greedy steps)" % (tag, launches, got, want,
+                                               want_shapes, n_g))
+            peak = torch.cuda.max_memory_allocated()
+            require(all(np.isfinite(losses)) and all(np.isfinite(rewards)),
+                    "%s: losses %s, rewards %s" % (tag, losses, rewards))
+            # 3. one step with every kernel call held
+            broken, held_shapes = [], []
+            with holds.held_calls(broken), \
+                    holds.recording_shapes(held_shapes):
+                step(st, batch, gen(), lr, 0.0)
+            torch.cuda.synchronize()
+            n_g = _steps_taken(baseline[1])
+            n_held = n_g + len(cells) * (n_g + 2 * MAX_LEN)
+            require(not broken and len(held_shapes) == n_held,
+                    "%s: %d kernel calls broke their hold (first: %s), %d "
+                    "of %d launched" % (tag, len(broken), broken[:1],
+                                        len(held_shapes), n_held))
+            t_med = sorted(times[1:])[len(times[1:]) // 2]
+            res = dict(
+                first_loss=k_loss, plain_first_loss=p_loss,
+                loss_scale=scale, first_rewards_nonzero=n_rewarded,
+                first_mean_reward=float(k_reward.mean()),
+                greedy_rows_identical=rows_same,
+                greedy_first_ids_identical=first_same,
+                grad_max_rel_diff=max(rel), grad_worst_leaves=worst,
+                grad_norm_max_rel_diff=max(rel_norm),
+                grad_norm_total=sum(n * n for n in k_norms) ** 0.5,
+                plain_grad_norm_total=sum(n * n for n in p_norms) ** 0.5,
+                losses=losses, rewards=rewards, greedy_steps=taken,
+                seconds=times, ms_per_step=t_med * 1e3,
+                samples_per_s=TRAIN_B / t_med,
+                peak_memory_gib=peak / 2 ** 30, map_encodes_per_step=encodes,
+                launches_last_step=want, kernel_calls_held=n_held)
+            log("%s: %d steps, losses %s, mean rewards %s, greedy steps %s; "
+                "per step K1 once a greedy step, K2 forward (greedy steps + "
+                "%d) x %d and backward %d x %d on %s at B=%d E=%s, exactly; "
+                "every call of a further step held (%d); %.2f ms a step "
+                "(median of %d), %.1f samples/s, peak memory %.2f GiB, TMA "
+                "map encodes a step %s"
+                % (tag, n_timed, ["%.5g" % x for x in losses],
+                   ["%.5g" % x for x in rewards], taken, MAX_LEN, len(cells),
+                   MAX_LEN, len(cells), route, TRAIN_B,
+                   [e for _, e in cells], n_held, t_med * 1e3,
+                   len(times) - 1, TRAIN_B / t_med, peak / 2 ** 30, encodes))
+            res["profile"] = profile_step(
+                torch, lambda: step(st, batch, gen(), lr, 0.0), tag,
+                SCST_RANGES)
+            out[label] = res
+            credit_launches(kernels, on_path, tag, sum(taken),
+                            "fused_head_topk_%s_train/%s" % (route, dn))
+            for suffix, _ in cells:
+                credit_launches(
+                    kernels, on_path, tag, sum(taken) + MAX_LEN * n_timed,
+                    "fused_lstm_cell_%s_train%s/%s" % (route, suffix, dn))
+                credit_launches(
+                    kernels, on_path, tag, MAX_LEN * n_timed,
+                    "fused_lstm_cell_bwd_%s%s/%s" % (route, suffix, dn))
+    finally:
+        del model.encode, model.predict
+        (steps.greedy_baseline, decode.sample_rl, decode._token_logprobs,
+         steps.self_critical_reward, steps.reward_criterion,
+         steps.apply_updates_partitioned) = saved
     return out
 
 
@@ -1046,6 +1427,42 @@ def main(argv=None) -> int:
                ["%.4f" % t for t in dev_turns["old"]], mb, tc_route,
                ["%.4f" % t for t in dev_beam["new"]],
                ["%.4f" % t for t in dev_beam["old"]]))
+        # the SCST baseline's greedy rows (m=128, k=1), timed in turns
+        # beside cuBLAS's bare x @ W (the product alone)
+        x128 = (0.5 * torch.randn(TRAIN_B, hd, generator=gen,
+                                  device=dev)).to(dtype)
+        before = counts(fused_head)
+        err128 = hold_head(torch, fused_head, "K1/%s train" % tc_route, head,
+                           x128, dn, tol)
+        require(moved(counts(fused_head), before) == launched(tc_route, 3),
+                "K1 %s m=%d: the counters moved by %s"
+                % (dn, TRAIN_B, moved(counts(fused_head), before)))
+        fns128 = {"new": lambda: fused_head.topk_head(head, x128, 1),
+                  "lib": lambda: x128 @ head.w}
+        order128 = ["new", "lib", "lib", "new"]
+        t128 = time_turns(torch, fns128, flush, order128)
+        d128 = time_turns(torch, fns128, flush, order128, lead=DEVICE_LEAD)
+        plain128 = time_ms(
+            torch, lambda: fused_head.topk_head_plain(head, x128, 1), flush)
+        b128 = k1_bound(TRAIN_B, 1, rate)
+        entry("fused_head_topk_%s_train" % tc_route, dn, max_abs_err=err128,
+              max_err=err128, ms=mean(t128["new"]),
+              kernel_ms=mean(t128["new"]), device_ms=mean(d128["new"]),
+              plain_ms=plain128, bound_ms=b128[0], bound_by=b128[1],
+              library_ms=None, product_ms=mean(t128["lib"]),
+              device_product_ms=mean(d128["lib"]), kernel_route=tc_route,
+              turns=t128, device_turns=d128,
+              shape="m=%d K=%d V=%d k=1 (SCST's greedy baseline)"
+              % (TRAIN_B, hd, head.v), source=common["source"],
+              replaces=common["replaces"])
+        log("K1 %s m=%d k=1 in turns (new, lib, lib, new): %s %s ms, x @ W "
+            "alone (cuBLAS) %s ms; device alone: %s %s, x @ W %s ms; plain "
+            "%.4f ms; bound %.4f ms (%s)"
+            % (dn, TRAIN_B, tc_route, ["%.4f" % t for t in t128["new"]],
+               ["%.4f" % t for t in t128["lib"]], tc_route,
+               ["%.4f" % t for t in d128["new"]],
+               ["%.4f" % t for t in d128["lib"]], plain128, b128[0],
+               b128[1]))
         # the 512-wide families' heads
         for fam, fparams, fcfg in (("nic", nparams, ncfg),
                                    ("aoasp", aparams, acfg)):
@@ -1293,6 +1710,182 @@ def main(argv=None) -> int:
         return (fused_lstm.COUNT_BWD.n, fused_lstm.COUNT_BWD_WGMMA.n,
                 fused_lstm.COUNT_BWD_TF32X3.n)
 
+    def train_cell(lp, dtype, e_in, suffix, what, fwd_err=None,
+                   bwd_err=None):
+        """K2's forward and backward at the training rows (B=128) of one
+        cell (its params ``lp`` in ``dtype``, x ``e_in`` wide): held on the
+        tensor-core route unless the caller gives the errors of its own
+        holds, then timed in turns, host-inclusive and device-only: the
+        backward kernel (and, for AoADetection's cell, ``suffix`` "", on
+        the CUDA cores too), the whole backward through LstmCell (the
+        kernel and the three float32 products), torch.lstm_cell's backward
+        through autograd (which keeps the gates from its forward), and the
+        forward beside torch.lstm_cell's forward.  Entries
+        fused_lstm_cell_bwd_<route><suffix> and
+        fused_lstm_cell_<route>_train<suffix> (and fused_lstm_cell_bwd,
+        the CUDA-core backward, for suffix "")."""
+        dn = str(dtype).split(".")[1]
+        tc_route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+        rate = dn if tc_route == "wgmma" else tc_route
+        tol = 1e-5 if dtype == torch.float32 else 1e-2
+        w_cat, b_sum, split = fused_lstm.prepare_lstm(lp)
+        with_old = suffix == ""
+        if fwd_err is None:
+            x, h, c, dh, dc = (torch.randn(TRAIN_B, n, generator=gen,
+                                           device=dev).to(dtype)
+                               for n in (e_in, hd, hd, hd, hd))
+            require(fused_lstm.lstm_route(w_cat, x, h) == tc_route
+                    and fused_lstm.lstm_bwd_route(w_cat, x, h, c, b_sum, dh,
+                                                  dc) == tc_route,
+                    "K2 %s %s B=%d takes another route" % (what, dn,
+                                                           TRAIN_B))
+            before, before_bwd = counts(fused_lstm), bwd_counts()
+            kh, kc = fused_lstm.lstm_cell_fused(w_cat, b_sum, x, h, c, split)
+            dg, kdc = fused_lstm.lstm_cell_bwd(w_cat, b_sum, x, h, c, dh, dc,
+                                               split)
+            torch.cuda.synchronize()
+            require(moved(counts(fused_lstm), before) == launched(tc_route)
+                    and moved(bwd_counts(), before_bwd)
+                    == launched(tc_route),
+                    "K2 %s %s B=%d: the counters moved by %s and %s"
+                    % (what, dn, TRAIN_B, moved(counts(fused_lstm), before),
+                       moved(bwd_counts(), before_bwd)))
+            ph, pc = fused_lstm.lstm_cell_plain(w_cat, b_sum, x, h, c)
+            pdg, pdc = fused_lstm.lstm_cell_bwd_plain(w_cat, b_sum, x, h, c,
+                                                      dh, dc)
+            fwd_err = 0.0
+            for got, want, name in ((kh, ph, "h'"), (kc, pc, "c'")):
+                diff = (got.float() - want.float()).abs()
+                require(bool((diff <= tol + tol * want.float().abs()).all()),
+                        "K2 %s %s B=%d %s: max |err| %.3g beyond rtol and "
+                        "atol %g" % (what, dn, TRAIN_B, name,
+                                     float(diff.max()), tol))
+                fwd_err = max(fwd_err, float(diff.max()))
+            err = 0.0
+            for got, want, name in ((dg, pdg, "d_gates"), (kdc, pdc, "dc")):
+                diff = (got.float() - want.float()).abs()
+                require(bool((diff <= tol + tol * want.float().abs()).all()),
+                        "K2 backward %s %s B=%d %s: max |err| %.3g beyond "
+                        "rtol and atol %g" % (what, dn, TRAIN_B, name,
+                                              float(diff.max()), tol))
+                err = max(err, float(diff.max()))
+            bwd_err = {tc_route: err}
+            log("K2 %s (%s) %s B=%d E=%d H=%d: forward max|err| %.3g, "
+                "backward d_gates and dc %.3g (rtol %g atol %g)"
+                % (dn, tc_route, what, TRAIN_B, e_in, hd, fwd_err, err, tol,
+                   tol))
+        x, h, c, dh, dc = (torch.randn(TRAIN_B, n, generator=gen,
+                                       device=dev).to(dtype)
+                           for n in (e_in, hd, hd, hd, hd))
+        ours = [t.clone().requires_grad_() for t in (w_cat, b_sum, x, h, c)]
+        hn, cn = fused_lstm.LstmCell.apply(*ours, *(split or (None, None)))
+        lib_w = [t.clone().requires_grad_() for t in (
+            lp["w_ih"].t().contiguous(), lp["w_hh"].t().contiguous(),
+            lp["b_ih"], lp["b_hh"])]
+        lib_in = [t.clone().requires_grad_() for t in (x, h, c)]
+        lh, lc = torch.lstm_cell(lib_in[0], tuple(lib_in[1:]), *lib_w)
+        fixed_w = [t.detach() for t in lib_w]
+        fns = {"new": lambda: fused_lstm.lstm_cell_bwd(
+                   w_cat, b_sum, x, h, c, dh, dc, split),
+               "old": lambda: fused_lstm._run_bwd_kernel(
+                   w_cat, b_sum, x, h, c, dh, dc, "cuda_core"),
+               "full": lambda: torch.autograd.grad(
+                   (hn, cn), ours, (dh, dc), retain_graph=True),
+               "lib": lambda: torch.autograd.grad(
+                   (lh, lc), lib_in + lib_w, (dh, dc), retain_graph=True),
+               "fwd": lambda: fused_lstm.lstm_cell_fused(
+                   w_cat, b_sum, x, h, c, split),
+               "lib_fwd": lambda: torch.lstm_cell(x, (h, c), *fixed_w)}
+        order = ["new", "old", "full", "lib", "fwd", "lib_fwd", "lib_fwd",
+                 "fwd", "lib", "full", "old", "new"]
+        if not with_old:
+            order = [n for n in order if n != "old"]
+        turns = time_turns(torch, fns, flush, order)
+        # autograd's engine takes the host up to about a millisecond to
+        # issue a backward: eight times the usual lead keeps the card busy
+        # through it, so these readings are the device's alone too
+        dev_turns = time_turns(torch, fns, flush, order,
+                               lead=8 * DEVICE_LEAD)
+        bwd_plain_ms = time_ms(torch, lambda: fused_lstm.lstm_cell_bwd_plain(
+            w_cat, b_sum, x, h, c, dh, dc), flush)
+        fwd_plain_ms = time_ms(torch, lambda: fused_lstm.lstm_cell_plain(
+            w_cat, b_sum, x, h, c), flush)
+        item = x.element_size()
+        nops = 2 * TRAIN_B * (e_in + hd) * 4 * hd
+        wbytes = ((e_in + hd) * 4 * hd + 4 * hd) * item
+        bwd_bytes = (TRAIN_B * (e_in + 4 * hd) * item + wbytes
+                     + TRAIN_B * 4 * hd * 4 + TRAIN_B * hd * item)
+        bwd_b = bound(bwd_bytes, nops, rate)
+        fwd_b = bound(TRAIN_B * (e_in + 4 * hd) * item + wbytes, nops, rate)
+        m_ = lambda name, t=turns: mean(t[name])          # noqa: E731
+        common = dict(
+            source="simpleimagecaptionzoo_tpu_torch/csrc/fused_lstm.cu",
+            shape="B=%d E=%d H=%d (%s, training)" % (TRAIN_B, e_in, hd,
+                                                      what))
+        bwd_common = dict(
+            common,
+            replaces="simpleimagecaptionzoo_tpu/ops/pallas_lstm.py:455",
+            plain_ms=bwd_plain_ms, library_ms=m_("lib"),
+            device_library_ms=m_("lib", dev_turns),
+            full_backward_ms=m_("full"),
+            device_full_backward_ms=m_("full", dev_turns),
+            library_is="torch.lstm_cell's backward through autograd (dx, "
+                       "dh, dc, dW, db; it keeps the gates from its "
+                       "forward and does not recompute them); "
+                       "full_backward_ms is this cell's backward through "
+                       "LstmCell (the kernel and the three float32 "
+                       "products)")
+        old = {}
+        if with_old:
+            old_b = bound(bwd_bytes, nops, dn)
+            old = dict(old_route_ms=m_("old"),
+                       device_old_route_ms=m_("old", dev_turns))
+            entry("fused_lstm_cell_bwd", dn,
+                  max_abs_err=bwd_err["cuda_core"],
+                  max_err=bwd_err["cuda_core"], ms=m_("old"),
+                  kernel_ms=m_("old"), device_ms=m_("old", dev_turns),
+                  bound_ms=old_b[0], bound_by=old_b[1],
+                  kernel_route="cuda_core", **bwd_common)
+        entry("fused_lstm_cell_bwd_" + tc_route + suffix, dn,
+              max_abs_err=bwd_err[tc_route], max_err=bwd_err[tc_route],
+              ms=m_("new"), kernel_ms=m_("new"),
+              device_ms=m_("new", dev_turns), bound_ms=bwd_b[0],
+              bound_by=bwd_b[1], kernel_route=tc_route, turns=turns,
+              device_turns=dev_turns, **old, **bwd_common)
+        entry("fused_lstm_cell_%s_train%s" % (tc_route, suffix), dn,
+              max_abs_err=fwd_err, max_err=fwd_err, ms=m_("fwd"),
+              kernel_ms=m_("fwd"), device_ms=m_("fwd", dev_turns),
+              plain_ms=fwd_plain_ms, bound_ms=fwd_b[0], bound_by=fwd_b[1],
+              library_ms=m_("lib_fwd"),
+              device_library_ms=m_("lib_fwd", dev_turns),
+              kernel_route=tc_route,
+              replaces="simpleimagecaptionzoo_tpu/ops/pallas_lstm.py:166",
+              **common)
+        log("K2 backward %s %s B=%d E=%d in turns (%s): %s %s ms, cuda_core "
+            "%s, the whole backward through LstmCell %s, torch.lstm_cell's "
+            "backward %s; device alone: %s %s, cuda_core %s, whole %s, "
+            "torch.lstm_cell's %s ms; plain %.4f ms; bound %.4f ms (%s)"
+            % (what, dn, TRAIN_B, e_in, ", ".join(order), tc_route,
+               ["%.4f" % v for v in turns["new"]],
+               ["%.4f" % v for v in turns.get("old", [])],
+               ["%.4f" % v for v in turns["full"]],
+               ["%.4f" % v for v in turns["lib"]], tc_route,
+               ["%.4f" % v for v in dev_turns["new"]],
+               ["%.4f" % v for v in dev_turns.get("old", [])],
+               ["%.4f" % v for v in dev_turns["full"]],
+               ["%.4f" % v for v in dev_turns["lib"]], bwd_plain_ms,
+               bwd_b[0], bwd_b[1]))
+        log("K2 %s %s B=%d E=%d forward in the same turns: %s %s ms, "
+            "torch.lstm_cell %s; device alone: %s, torch.lstm_cell %s ms; "
+            "plain %.4f ms; bound %.4f ms (%s)"
+            % (what, dn, TRAIN_B, e_in, tc_route,
+               ["%.4f" % v for v in turns["fwd"]],
+               ["%.4f" % v for v in turns["lib_fwd"]],
+               ["%.4f" % v for v in dev_turns["fwd"]],
+               ["%.4f" % v for v in dev_turns["lib_fwd"]], fwd_plain_ms,
+               fwd_b[0], fwd_b[1]))
+        del hn, cn, lh, lc, ours, lib_in, lib_w
+
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         tc_route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
@@ -1362,116 +1955,12 @@ def main(argv=None) -> int:
                 log("K2 backward %s (%s) B=%d E=%d H=%d: d_gates and dc "
                     "max|err| %.3g (rtol %g atol %g)"
                     % (dn, route, m, e, hd, err, tol, tol))
-        # timing at the training rows, in turns, host-inclusive and
-        # device-only: the backward kernel on its route and on the CUDA
-        # cores, the whole backward through LstmCell (the kernel and the
-        # three float32 products), torch.lstm_cell's backward through
-        # autograd (which keeps the gates from its forward), and the
-        # forward beside torch.lstm_cell's forward
-        x, h, c, dh, dc = (torch.randn(TRAIN_B, n, generator=gen,
-                                       device=dev).to(dtype)
-                           for n in (e_in, hd, hd, hd, hd))
-        ours = [t.clone().requires_grad_() for t in (w_cat, b_sum, x, h, c)]
-        hn, cn = fused_lstm.LstmCell.apply(*ours, *(split or (None, None)))
-        lib_w = [t.clone().requires_grad_() for t in (
-            lp["w_ih"].t().contiguous(), lp["w_hh"].t().contiguous(),
-            lp["b_ih"], lp["b_hh"])]
-        lib_in = [t.clone().requires_grad_() for t in (x, h, c)]
-        lh, lc = torch.lstm_cell(lib_in[0], tuple(lib_in[1:]), *lib_w)
-        fixed_w = [t.detach() for t in lib_w]
-        fns = {"new": lambda: fused_lstm.lstm_cell_bwd(
-                   w_cat, b_sum, x, h, c, dh, dc, split),
-               "old": lambda: fused_lstm._run_bwd_kernel(
-                   w_cat, b_sum, x, h, c, dh, dc, "cuda_core"),
-               "full": lambda: torch.autograd.grad(
-                   (hn, cn), ours, (dh, dc), retain_graph=True),
-               "lib": lambda: torch.autograd.grad(
-                   (lh, lc), lib_in + lib_w, (dh, dc), retain_graph=True),
-               "fwd": lambda: fused_lstm.lstm_cell_fused(
-                   w_cat, b_sum, x, h, c, split),
-               "lib_fwd": lambda: torch.lstm_cell(x, (h, c), *fixed_w)}
-        order = ["new", "old", "full", "lib", "fwd", "lib_fwd", "lib_fwd",
-                 "fwd", "lib", "full", "old", "new"]
-        turns = time_turns(torch, fns, flush, order)
-        # autograd's engine takes the host up to about a millisecond to
-        # issue a backward: eight times the usual lead keeps the card busy
-        # through it, so these readings are the device's alone too
-        dev_turns = time_turns(torch, fns, flush, order,
-                               lead=8 * DEVICE_LEAD)
-        bwd_plain_ms = time_ms(torch, lambda: fused_lstm.lstm_cell_bwd_plain(
-            w_cat, b_sum, x, h, c, dh, dc), flush)
-        fwd_plain_ms = time_ms(torch, lambda: fused_lstm.lstm_cell_plain(
-            w_cat, b_sum, x, h, c), flush)
-        item = x.element_size()
-        nops = 2 * TRAIN_B * (e_in + hd) * 4 * hd
-        wbytes = ((e_in + hd) * 4 * hd + 4 * hd) * item
-        bwd_b = bound(TRAIN_B * (e_in + 4 * hd) * item + wbytes
-                      + TRAIN_B * 4 * hd * 4 + TRAIN_B * hd * item, nops,
-                      rate)
-        fwd_b = bound(TRAIN_B * (e_in + 4 * hd) * item + wbytes, nops, rate)
-        old_b = bound(TRAIN_B * (e_in + 4 * hd) * item + wbytes
-                      + TRAIN_B * 4 * hd * 4 + TRAIN_B * hd * item, nops, dn)
-        m_ = lambda name, t=turns: mean(t[name])          # noqa: E731
-        common = dict(
-            source="simpleimagecaptionzoo_tpu_torch/csrc/fused_lstm.cu",
-            shape="B=%d E=%d H=%d (the XE step)" % (TRAIN_B, e_in, hd))
-        bwd_common = dict(
-            common, replaces="simpleimagecaptionzoo_tpu/ops/pallas_lstm.py:455",
-            plain_ms=bwd_plain_ms, library_ms=m_("lib"),
-            device_library_ms=m_("lib", dev_turns),
-            full_backward_ms=m_("full"),
-            device_full_backward_ms=m_("full", dev_turns),
-            library_is="torch.lstm_cell's backward through autograd (dx, "
-                       "dh, dc, dW, db; it keeps the gates from its "
-                       "forward and does not recompute them); "
-                       "full_backward_ms is this cell's backward through "
-                       "LstmCell (the kernel and the three float32 "
-                       "products)")
-        entry("fused_lstm_cell_bwd_" + tc_route, dn,
-              max_abs_err=bwd_err[tc_route], max_err=bwd_err[tc_route],
-              ms=m_("new"), kernel_ms=m_("new"),
-              device_ms=m_("new", dev_turns), bound_ms=bwd_b[0],
-              bound_by=bwd_b[1], kernel_route=tc_route,
-              old_route_ms=m_("old"),
-              device_old_route_ms=m_("old", dev_turns), turns=turns,
-              device_turns=dev_turns, **bwd_common)
-        entry("fused_lstm_cell_bwd", dn, max_abs_err=bwd_err["cuda_core"],
-              max_err=bwd_err["cuda_core"], ms=m_("old"),
-              kernel_ms=m_("old"), device_ms=m_("old", dev_turns),
-              bound_ms=old_b[0], bound_by=old_b[1], kernel_route="cuda_core",
-              **bwd_common)
-        entry("fused_lstm_cell_%s_train" % tc_route, dn, max_abs_err=fwd_err,
-              max_err=fwd_err, ms=m_("fwd"), kernel_ms=m_("fwd"),
-              device_ms=m_("fwd", dev_turns), plain_ms=fwd_plain_ms,
-              bound_ms=fwd_b[0], bound_by=fwd_b[1],
-              library_ms=m_("lib_fwd"),
-              device_library_ms=m_("lib_fwd", dev_turns),
-              kernel_route=tc_route,
-              replaces="simpleimagecaptionzoo_tpu/ops/pallas_lstm.py:166",
-              **common)
-        log("K2 backward %s B=%d in turns (new, old, full, lib, fwd, "
-            "lib_fwd, then back): %s %s ms, cuda_core %s, the whole backward "
-            "through LstmCell %s, torch.lstm_cell's backward %s; device "
-            "alone: %s %s, cuda_core %s, whole %s, torch.lstm_cell's %s ms; "
-            "plain %.4f ms; bound %.4f ms (%s)"
-            % (dn, TRAIN_B, tc_route, ["%.4f" % v for v in turns["new"]],
-               ["%.4f" % v for v in turns["old"]],
-               ["%.4f" % v for v in turns["full"]],
-               ["%.4f" % v for v in turns["lib"]], tc_route,
-               ["%.4f" % v for v in dev_turns["new"]],
-               ["%.4f" % v for v in dev_turns["old"]],
-               ["%.4f" % v for v in dev_turns["full"]],
-               ["%.4f" % v for v in dev_turns["lib"]], bwd_plain_ms,
-               bwd_b[0], bwd_b[1]))
-        log("K2 %s B=%d forward in the same turns: %s %s ms, torch.lstm_cell "
-            "%s; device alone: %s, torch.lstm_cell %s ms; plain %.4f ms; "
-            "bound %.4f ms (%s)"
-            % (dn, TRAIN_B, tc_route, ["%.4f" % v for v in turns["fwd"]],
-               ["%.4f" % v for v in turns["lib_fwd"]],
-               ["%.4f" % v for v in dev_turns["fwd"]],
-               ["%.4f" % v for v in dev_turns["lib_fwd"]], fwd_plain_ms,
-               fwd_b[0], fwd_b[1]))
-        del hn, cn, lh, lc, ours, lib_in, lib_w
+        train_cell(lp, dtype, e_in, "", "AoADetection's cell", fwd_err,
+                   bwd_err)
+        # BUTD's two cells at the training rows (phase 16's shapes)
+        for ctag, cell, e in butd_k2:
+            train_cell(steps._cast_floats(bparams[cell], dtype), dtype, e,
+                       "_butd_" + ctag, "BUTD's %s cell" % ctag)
 
     log("-- phase 5 at %.1f s" % (time.time() - t_start))
     # -- 5. K3 against its plain version --------------------------------------
@@ -2382,11 +2871,51 @@ def main(argv=None) -> int:
 
     log("-- phase 14 at %.1f s" % (time.time() - t_start))
     # -- 14. XE training of AoADetection, through make_xe_train_step ---------
-    results["xe"] = drive_xe(torch, args, dev, model, params, FULL, kernels,
-                             on_path)
+    bf = torch.bfloat16
+    results["xe"] = drive_xe(
+        torch, args, dev, model, params, kernels, on_path,
+        name="AoADetection", cells=[("", FULL["embed_dim"]
+                                     + FULL["hidden_dim"])], lr=TRAIN_LR,
+        variants=[("float32", None, False), ("float32", None, True),
+                  ("bfloat16", bf, False), ("bfloat16", bf, True)])
+
+    log("-- phase 15 at %.1f s" % (time.time() - t_start))
+    # -- 15. SCST of AoADetection, through make_scst_train_step --------------
+    # the references' ids lie below the smaller vocabulary (phase 16's), so
+    # one table serves both phases
+    scst = scst_data(torch, args, dev, BENCH_VOCAB)
+    results["scst_table"] = dict(keys=int(scst[0]["h1"].shape[0]),
+                                 probe=scst[1])
+    aoa_json = load_model_config(os.path.join(
+        HERE, "Configs", "Models", "AoADetection.json"),
+        vocab_size=FULL["vocab_size"])
+    results["scst"] = drive_scst(
+        torch, args, dev, model, params, kernels, on_path, scst,
+        name="AoADetection", cells=[("", FULL["embed_dim"]
+                                     + FULL["hidden_dim"])],
+        lr=aoa_json.scst_lr, variants=[("float32", None), ("bfloat16", bf)])
+
+    log("-- phase 16 at %.1f s" % (time.time() - t_start))
+    # -- 16. BUTDDetection XE and SCST at examples/bench_train.py's shape ---
+    bench = get_captioner(load_model_config(
+        os.path.join(HERE, "Configs", "Models", "BUTDDetection.json"),
+        vocab_size=BENCH_VOCAB))
+    bench_params = bench.init_params(gen)
+    bench_cells = [("_butd_" + tag, e) for tag, _, e in butd_k2]
+    results["butd_train"] = dict(
+        xe=drive_xe(torch, args, dev, bench, bench_params, kernels, on_path,
+                    name="BUTDDetection", cells=bench_cells,
+                    lr=bench.config.lr, n_timed=BENCH_STEPS,
+                    variants=[("float32", None, True),
+                              ("bfloat16", bf, True)]),
+        scst=drive_scst(torch, args, dev, bench, bench_params, kernels,
+                        on_path, scst, name="BUTDDetection",
+                        cells=bench_cells, lr=bench.config.scst_lr,
+                        n_timed=BENCH_STEPS,
+                        variants=[("float32", None), ("bfloat16", bf)]))
 
     results["seconds"] = time.time() - t_start
-    log("-- phases 2-14 took %.1f s" % results["seconds"])
+    log("-- phases 2-16 took %.1f s" % results["seconds"])
     missing = [k for k in on_path if not kernels[k].get("launches")]
     require(not missing, "kernels not launched on the main path: %s"
             % missing)

@@ -25,7 +25,12 @@ optimizers in ``engine/optim.py``, the state in ``engine/state.py``, the
 loss in ``ops/losses.py``, teacher forcing with scheduled sampling in
 ``ops/decode.py``), the LSTM cell's gradient through the backward kernel
 of ``ops/fused_lstm.py`` (an autograd Function), in float32 and in bf16
-over float32 master weights.  ``ROADMAP.md`` lists what follows.
+over float32 master weights; the same XE training for the other four
+families; and SCST training of all five
+(``engine.steps.make_scst_train_step``: a greedy baseline, the rollout
+``ops/decode.sample_rl``, the CIDEr-D reward on the card, ``ops/cider.py``,
+and ``ops/losses.reward_criterion``).  ``ROADMAP.md`` lists what
+follows.
 
 Token id conventions follow the reference (Build_caption_vocab.py:37-40):
 ``<pad>``=0, ``<sta>``=1, ``<end>``=2, ``<unk>``=3.  Importing the package has

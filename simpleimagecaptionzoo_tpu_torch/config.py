@@ -145,9 +145,11 @@ class SsOpts:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Top-level training knobs, defaults matching Main.py:140-195.  The
-    port has the XE step (``engine/steps.make_xe_train_step``); the epoch
-    loop, SCST and from-pixels input that read the other fields follow in
-    later slices."""
+    port has the XE and SCST steps (``engine/steps.make_xe_train_step``,
+    ``make_scst_train_step``: the ``scst_*`` fields give its batch, its
+    clamp and the reward's reference geometry); the epoch loop and
+    from-pixels input that read the other fields follow in later
+    slices."""
 
     num_epochs: int = 30
     train_batch_size: int = 128

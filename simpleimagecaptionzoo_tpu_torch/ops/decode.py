@@ -15,11 +15,13 @@ Counterpart of the JAX package's ``ops/decode.py``:
   caption position with the ground truth (or, with scheduled sampling, a
   draw from the model's own previous prediction) as input, the prediction
   head hoisted out of the loop; :func:`_categorical` is its sampler.
+* :func:`sample_rl` — SCST's multinomial rollout, its head hoisted the
+  same way, and :func:`replay_logprobs`, the same rollout's log-probs
+  recomputed from its ids by teacher forcing.
 
 The decode loops are eager Python: each step ends in one host sync, the
-test of whether any lane is still open.  Teacher forcing runs a fixed
-number of steps and never syncs.  The SCST rollout follows in a later
-slice.
+test of whether any lane is still open.  Teacher forcing and the rollout
+run a fixed number of steps and never sync.
 """
 from __future__ import annotations
 
@@ -291,3 +293,75 @@ def teacher_forced_logits(model: Captioner, params, encoded: Encoded,
                                            train=train, generator=generator)
         hiddens.append(hidden)
     return model.predict(params, torch.stack(hiddens, dim=1))
+
+
+# ---------------------------------------------------------------------------
+# multinomial rollout (SCST)
+# ---------------------------------------------------------------------------
+
+def _token_logprobs(logits: torch.Tensor, drawn: torch.Tensor
+                    ) -> torch.Tensor:
+    """logits (B, T, V), drawn (B, T) -> (B, T) float32: each step's
+    log-probability of its drawn id, by a float32 log-softmax (REINFORCE
+    differentiates these; a bf16 log-softmax would lose the gradient's
+    precision)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return torch.gather(logp, -1, drawn[..., None])[..., 0]
+
+
+def sample_rl(model: Captioner, params, encoded: Encoded, max_len: int,
+              generator: Optional[torch.Generator] = None,
+              draw_generator: Optional[torch.Generator] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """SCST's rollout, in train mode: -> (seq (B, max_len), logprobs
+    (B, max_len) float32, drawn (B, max_len)), ids int64.
+
+    Each step draws an id from softmax of its logits (:func:`_categorical`).
+    ``seq`` holds the draws with everything from the ``<end>`` step on
+    zeroed, the ``<end>`` itself included, and a step feeds the next its
+    ``seq`` id; ``logprobs`` holds the drawn id's log-probability at every
+    step, and ``drawn`` the raw draws (the JAX package returns seq and
+    logprobs; the draws let :func:`replay_logprobs` recompute the
+    logprobs).  The reference's semantics (NIC_Model.py:134-150).
+
+    As in :func:`teacher_forced_logits` the head is hoisted: the draws come
+    from per-step logits under ``torch.no_grad`` (a draw has no gradient),
+    the logprobs from one head application over the stacked (B, T, H)
+    hiddens.  ``generator`` draws the dropout masks of ``model.step_core``,
+    ``draw_generator`` (default: ``generator``) the ids; with two
+    generators the dropout masks do not depend on the draws."""
+    b, dev = encoded.mean.shape[0], encoded.mean.device
+    draw_gen = draw_generator if draw_generator is not None else generator
+    state = model.init_state(params, encoded)
+    tok = torch.full((b,), STA_ID, dtype=torch.long, device=dev)
+    unfinished = torch.ones((b,), dtype=torch.bool, device=dev)
+    seq, drawn, hiddens = [], [], []
+    for _ in range(max_len):
+        hidden, state, _ = model.step_core(params, encoded, state, tok,
+                                           train=True, generator=generator)
+        with torch.no_grad():
+            d = _categorical(draw_gen, model.predict(params, hidden))
+        unfinished = unfinished & (d != END_ID)
+        tok = d * unfinished
+        seq.append(tok)
+        drawn.append(d)
+        hiddens.append(hidden)
+    drawn = torch.stack(drawn, dim=1)
+    logits = model.predict(params, torch.stack(hiddens, dim=1))
+    return torch.stack(seq, dim=1), _token_logprobs(logits, drawn), drawn
+
+
+def replay_logprobs(model: Captioner, params, encoded: Encoded,
+                    seq: torch.Tensor, drawn: torch.Tensor,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+    """The logprobs of :func:`sample_rl` from its ``seq`` and ``drawn``,
+    by teacher forcing: step t consumes ``<sta>`` then ``seq[:, t-1]``, as
+    the rollout fed itself.  With ``generator`` in the state the rollout's
+    started from, the dropout masks, the hiddens and the logprobs are the
+    rollout's exactly."""
+    sta = torch.full_like(seq[:, :1], STA_ID)
+    logits = teacher_forced_logits(model, params, encoded,
+                                   torch.cat([sta, seq], dim=1), 0.0,
+                                   generator, train=True, ss_active=False)
+    return _token_logprobs(logits, drawn)

@@ -8,12 +8,13 @@ over the valid tokens.  The reference packs variable-length sequences; here,
 as in the JAX package, the shapes stay fixed and a mask marks the valid
 tokens, which gives the same per-token terms and the same mean (their sum
 over the count, at least 1).  The constant entropy term ``sum td log td``
-is kept, so the loss values equal the reference's.  SCST's
-``reward_criterion`` follows with SCST.
+is kept, so the loss values equal the reference's.
+:func:`reward_criterion` is SCST's REINFORCE loss.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -47,3 +48,24 @@ def xe_mask_from_lengths(lengths: torch.Tensor, n_steps: int) -> torch.Tensor:
     (B, n_steps) float32 mask of the prediction steps to score."""
     steps = torch.arange(n_steps, device=lengths.device)
     return (steps[None, :] < lengths[:, None]).float()
+
+
+def reward_criterion(sample_logprobs: torch.Tensor, seq: torch.Tensor,
+                     reward: torch.Tensor,
+                     sample_weight: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """SCST's loss (the reference's RewardCriterion): sample_logprobs
+    (B, L) float32, seq (B, L) the rollout's ids (0 from ``<end>`` on),
+    reward (B, L) or (B,) -> scalar: the mean of -logp * reward over the
+    steps up to and including each row's ``<end>`` (the mask is ``seq > 0``
+    shifted right by one, its first column 1).  ``sample_weight`` (B,) 0/1
+    marks the real rows of a padded batch: the others leave both the sum
+    and the count."""
+    if reward.dim() == 1:
+        reward = reward[:, None].expand_as(sample_logprobs)
+    mask = (seq > 0).float()
+    mask = torch.cat([torch.ones_like(mask[:, :1]), mask[:, :-1]], dim=1)
+    if sample_weight is not None:
+        mask = mask * sample_weight[:, None]
+    out = -sample_logprobs * reward * mask
+    return out.sum() / mask.sum().clamp_min(1.0)

@@ -152,9 +152,11 @@ def test_bf16_leaf_carries_bit_for_bit(as_numpy):
     assert from_jax(leaf, dtype=torch.float32).dtype == torch.float32
 
 
-# the XE training slice's modules (engine/steps.py held decode before it)
+# the training slices' modules, XE's and SCST's (engine/steps.py held
+# decode before them; ops/cider.py is SCST's reward)
 TRAINING_MODULES = ("engine.optim", "engine.state", "engine.steps",
-                    "ops.losses", "ops.decode", "ops.fused_lstm", "config")
+                    "ops.losses", "ops.decode", "ops.fused_lstm", "config",
+                    "ops.cider", "ops.fused_head", "device")
 
 
 def test_import_leaves_jax_out_of_sys_modules():

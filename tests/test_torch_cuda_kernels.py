@@ -1191,3 +1191,87 @@ def test_xe_step_through_kernels_matches_plain(dev, dtype):
                     optim.tree_leaves(ref.params)):
         assert p.dtype == torch.float32
         torch.testing.assert_close(p, q, rtol=0, atol=1e-6 if f32 else 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scst_step_through_kernels_matches_plain(dev, dtype, monkeypatch):
+    """One AoADetection SCST step on the card (embed and hidden 256, B=16,
+    cap 6, dropout on, 3 references an image, the reward table on the
+    card): every K1, K2 and K2-backward call held against its plain
+    version; K1 once a greedy step taken, K2's forward that many plus 6
+    times and its backward 6 times, all on the dtype's tensor-core route.
+    Then the same rollout's ids replayed through the plain versions: the
+    reward identical (the same ids) and the loss within 1e-5 (float32) or
+    1e-2 (bf16) of the sum of |logp| |reward| over the mask."""
+    from simpleimagecaptionzoo_tpu_torch.config import ModelConfig
+    from simpleimagecaptionzoo_tpu_torch.engine import holds, optim, steps
+    from simpleimagecaptionzoo_tpu_torch.engine.state import TrainState
+    from simpleimagecaptionzoo_tpu_torch.models.base import get_captioner
+    from simpleimagecaptionzoo_tpu_torch.ops import cider
+    b, t, n, r = 16, 6, 6, 3
+    model = get_captioner(ModelConfig(
+        model_type="AoADetection", vocab_size=300, embed_dim=256,
+        hidden_dim=256, enc_dim=128, num_heads=2, num_refine_layers=2,
+        max_bu_len=n))
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(2)
+    lens = rng.integers(3, 10, size=(b, r))
+    ref_ids = np.zeros((b, r, 10), np.int64)
+    for i in range(b):
+        for j in range(r):
+            ref_ids[i, j, :lens[i, j]] = rng.integers(4, 300, lens[i, j])
+    table = cider.CiderDTable.from_ref_corpus(
+        [[list(ref_ids[i, j, :lens[i, j]]) for j in range(r)]
+         for i in range(b)])
+    td = table.device_arrays()
+    batch = {"visual": {"bu_feats": _t(rng.normal(size=(b, n, 128)), dev,
+                                       torch.float32)},
+             "ref_ids": torch.from_numpy(ref_ids).to(dev),
+             "ref_lens": torch.from_numpy(lens).to(dev)}
+    cdtype = None if dtype == torch.float32 else dtype
+    tx = optim.make_grad_transform("Adam", 0.25)
+    step = steps.make_scst_train_step(
+        model, tx, model.param_labels(params), td, table.probe, max_len=t,
+        compute_dtype=cdtype)
+    tc_route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    before = (_head_counts(), _lstm_counts(), _lstm_bwd_counts())
+    broken = []
+    with holds.held_calls(broken):
+        st, met = step(TrainState.create(params, tx), batch,
+                       torch.Generator(device=dev).manual_seed(3), 2e-5, 0.0)
+    torch.cuda.synchronize()
+    assert not broken, broken[:2]
+    n_head = fused_head.COUNT.n - before[0][0]
+    assert 1 <= n_head <= t
+    for now, was, n_calls in (
+            (_head_counts(), before[0], n_head),
+            (_lstm_counts(), before[1], n_head + t),
+            (_lstm_bwd_counts(), before[2], t)):
+        assert tuple(a - c for a, c in zip(now, was)) == \
+            tuple(n_calls * v for v in _moved(tc_route))
+    assert np.isfinite(float(met["loss"]))
+    assert all(p.dtype == torch.float32
+               for p in optim.tree_leaves(st.params))
+
+    greedy = steps.greedy_baseline(model, params, {}, batch["visual"], t,
+                                   cdtype)
+
+    def loss_of(replay=None):
+        return steps.scst_loss(
+            model, params, {}, batch, td, table.probe, greedy,
+            torch.Generator(device=dev).manual_seed(4),
+            torch.Generator(device=dev).manual_seed(5), max_len=t,
+            compute_dtype=cdtype, replay=replay)
+
+    seen, crit = [], steps.reward_criterion
+    monkeypatch.setattr(steps, "reward_criterion", lambda *a, **kw: (
+        seen.append(a), crit(*a, **kw))[1])
+    with torch.no_grad():
+        loss, reward, _, seq, drawn = loss_of()
+        with holds.plain_versions():
+            p_loss, p_reward, _, _, _ = loss_of((seq, drawn))
+    assert torch.equal(reward, p_reward)
+    logp, _, _ = seen[-1][:3]
+    scale = float(crit(-logp.abs(), seq, reward.abs()))
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert abs(float(loss) - float(p_loss)) <= tol * scale
