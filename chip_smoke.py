@@ -173,7 +173,25 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      4e-4) and SCST (as in 15, the same references and table, scst_lr
      2e-5), float32 and bf16, 4 timed steps each; per step K2's forward
      and backward for both cells (E=4,096 and 3,072) on the tensor-core
-     route.
+     route;
+ 17. captions from pixels: NIC, BUTDSpatial and AoASpatial at their
+     published widths (vocab 10,102), each with the full ResNet-101
+     (3, 4, 23, 3, random from --seed, one tree for the three), B=384
+     photo-like uint8 images at 224 x 224 staged on the card.  The trunk
+     on the card against the same resnet.apply on the CPU (4 images,
+     init's (0, 1) statistics): float32 within 1e-4 relative norm, bf16
+     within 2e-2.  Then its running statistics are set to a calibration
+     batch's own (64 other images, one train-mode apply at momentum 1),
+     the trunk is timed at B in bf16 beside its bound (7.8 G
+     multiply-adds an image), and per family beam 3 in bf16, float32 and
+     int8 bf16 and greedy in bf16 and float32 run as in 9-13 (routes,
+     launches per step and shapes exact, every kernel call of a beam
+     decode held, the greedy and beam gates), each plain reference on the
+     feature map of the kernel run it is held against; NIC also greedy
+     bf16 from a fast-ingest pad box (512, extents 112-512).  Every pooled
+     feature is float32, (B, 2048) or (B, 49, 2048), finite.  Printed:
+     captions/s from pixels, the encode's device ms and its share of the
+     decode's busy time, the idle share, the peak memory.
 Then it prints one JSON line of per-kernel results (the beam shapes'
 launches as entries of their own, named ``..._beam``; BUTD's K2 and K3
 shapes as ``..._butd_<layer>``, NIC's and AoASpatial's K1, K2 and K3 shapes
@@ -212,6 +230,7 @@ An int8 weight is counted at one byte; its product runs at x's type.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -432,10 +451,11 @@ def _busy(spans):
 
 def profile_decode(torch, run, dn, top=16):
     """Device time of one decode by kernel name, and the device's busy
-    share of the traced span, from torch.profiler."""
+    share of the traced span, from torch.profiler tracing the device alone
+    (host ops are not traced: a from-pixels decode's trunk adds thousands
+    of them, whose tracing slows the run and stretches the span)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -543,6 +563,317 @@ def profile_step(torch, run, tag, ranges=XE_RANGES):
 
 
 XE_STEPS = 8                  # steps through the kernels per variant
+
+
+# -- phase 17: captions from pixels --------------------------------------
+# ResNet-101's multiply-adds per 224 x 224 image (torchvision's published
+# figure), for the trunk's operation bound
+RESNET101_MACS = 7.8e9
+CAL_B = 64                   # the calibration batch (not the served one)
+TRUNK_F32_TOL = 1e-4         # the card's float32 trunk against the CPU's
+TRUNK_BF16_TOL = 2e-2        # bf16 (tests/test_torch_resnet.py's bound)
+
+
+def photo_batch(torch, gen, n, side, dev):
+    """``n`` photo-like uint8 images (n, side, side, 3) on ``dev``, drawn
+    from ``gen``: smoothed noise over a gradient and a checkerboard
+    (examples/bench_ingest.py's recipe), each image with its own gradient
+    angle, checker period and channel mix."""
+    import math
+    img = torch.randint(0, 255, (n, side, side, 3), generator=gen,
+                        device=dev).float()
+    for _ in range(3):
+        img = (img.roll(1, 1) + img.roll(-1, 1) + img.roll(1, 2)
+               + img.roll(-1, 2) + img) / 5
+    ax = torch.arange(side, device=dev, dtype=torch.float32) / side
+    angle = torch.rand(n, generator=gen, device=dev)[:, None, None] \
+        * (2 * math.pi)
+    ramp = (torch.cos(angle) * ax[None, None, :]
+            + torch.sin(angle) * ax[None, :, None] + 1) / 2
+    period = torch.tensor([8, 16, 32, 64], device=dev)[torch.randint(
+        0, 4, (n,), generator=gen, device=dev)][:, None, None]
+    idx = torch.arange(side, device=dev)
+    checker = ((idx[None, :, None] // period + idx[None, None, :] // period)
+               % 2).float()
+    mix = torch.rand(n, 1, 1, 3, 2, generator=gen, device=dev)
+    img = (img * 0.3 + mix[..., 0] * ramp[..., None] * 200
+           + mix[..., 1] * checker[..., None] * 120)
+    return img.clamp(0, 255).to(torch.uint8)
+
+
+def calibrated_stats(torch, cnn, stats, images):
+    """The ResNet's running statistics set to ``images``' own (uint8): one
+    train-mode ``apply`` in float32 with ``BN_MOMENTUM`` at 1.  Random
+    weights with ``init``'s (0, 1) statistics give features around 1e5,
+    where every decoder saturates; these keep them O(1), as a trained
+    backbone's are."""
+    from simpleimagecaptionzoo_tpu_torch.models import resnet
+    from simpleimagecaptionzoo_tpu_torch.ops import image
+    momentum, resnet.BN_MOMENTUM = resnet.BN_MOMENTUM, 1.0
+    try:
+        with torch.inference_mode():
+            _, cal = resnet.apply(cnn, stats, image.normalize(images),
+                                  dtype=torch.float32, train=True)
+    finally:
+        resnet.BN_MOMENTUM = momentum
+    return cal
+
+
+class TrunkMemo:
+    """Stands in for ``models.resnet.apply`` (which the models call through
+    the module) while phase 17 drives a path: in "record" mode it runs the
+    trunk and keeps the feature map, in "pass" it runs it, in "replay" it
+    returns the kept map without running.  So the plain reference run of a
+    decode reads the same encode's features as the kernel run it is held
+    against: with calibrated random weights the trunk amplifies any
+    difference between two encodes (an algorithm choice in cuDNN) far
+    enough to move ids, which would say nothing of K1-K3."""
+
+    def __init__(self, resnet):
+        self.resnet, self.apply = resnet, resnet.apply
+        self.mode, self.fmap = "record", None
+        resnet.apply = self
+
+    def __call__(self, *a, **kw):
+        if self.mode == "replay":
+            return self.fmap
+        out = self.apply(*a, **kw)
+        if self.mode == "record":
+            self.fmap = out
+        return out
+
+    def replaying(self):
+        import contextlib
+
+        @contextlib.contextmanager
+        def ctx():
+            mode, self.mode = self.mode, "replay"
+            try:
+                yield
+            finally:
+                self.mode = mode
+        return ctx()
+
+    def close(self):
+        self.resnet.apply = self.apply
+
+
+def rel_err(torch, got, want):
+    """Relative norm of got - want, in float64."""
+    got, want = got.double(), want.double()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+
+
+def trunk_breakdown(torch, run):
+    """Device ms and launches of one ``run()`` by kind of kernel, from
+    torch.profiler: "conv" (cuDNN's convolution kernels and their
+    layout transforms), "elementwise" (BatchNorm's scale and shift, ReLU,
+    the residual add, the weights' cast and relayout), "pool"."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name.lower()
+        kind = ("pool" if "pool" in name else
+                "elementwise" if "elementwise" in name else "conv")
+        k = out.setdefault(kind, {"ms": 0.0, "launches": 0})
+        k["ms"] += (e.time_range.end - e.time_range.start) / 1e3
+        k["launches"] += 1
+    require(out, "the trunk's trace holds no device time")
+    return out
+
+
+def drive_pixels(torch, dev, gen, smi, flush, steps, drive_greedy,
+                 drive_beam, families):
+    """Phase 17: captions from pixels.  One full ResNet-101 (3, 4, 23, 3)
+    drawn from ``gen`` serves NIC, BUTDSpatial and AoASpatial (each
+    family's feature-mode params plus ``cnn``).
+
+    Gate 1: the trunk on the card against the same ``resnet.apply`` on the
+    CPU, 4 images, ``init``'s (0, 1) running statistics: float32 (cuDNN,
+    TF32 off) within TRUNK_F32_TOL relative norm, bf16 within
+    TRUNK_BF16_TOL.  Then the running statistics are set to a calibration
+    batch's own (CAL_B other images, one train-mode apply at momentum 1),
+    so the features are O(1) as a trained backbone's are.  The ResNet is
+    timed at B in bf16 beside its operation bound, and the image ops
+    (normalize; fast ingest's resample of a 512 pad box) beside it.
+
+    Gate 2: per family beam 3 in bf16, float32 and int8 bf16 and greedy in
+    bf16 and float32 (``family_paths``: routes, launch counts and shapes
+    exact, every kernel call of a beam decode held, the greedy and beam
+    gates), each plain reference on the same encode's feature map as the
+    kernel run it is held against (TrunkMemo); NIC also greedy bf16 from a
+    fast-ingest pad box (extents 112-512).  Gate 3: every pooled feature
+    the decodes make is float32 of the family's shape, the last finite.
+    Printed: captions/s from pixels, the encode's device ms and its share
+    of the decode's busy time, the idle share, the peak memory."""
+    from simpleimagecaptionzoo_tpu_torch.engine.optim import tree_leaves
+    from simpleimagecaptionzoo_tpu_torch.models import resnet
+    from simpleimagecaptionzoo_tpu_torch.ops import image as image_ops
+    torch.cuda.reset_peak_memory_stats()
+    t17 = time.time()
+    out = {"card": smi, "seconds": {}}
+    cnn, stats0 = resnet.init(gen)
+    images = photo_batch(torch, gen, B, 224, dev)
+    torch.cuda.synchronize()
+
+    # gate 1: the card's trunk against the CPU's
+    x4 = image_ops.normalize(images[:4])
+    cnn_cpu, stats_cpu = (steps._cast_floats(t, None, "cpu")
+                          for t in (cnn, stats0))
+    out["trunk_hold"] = {}
+    for dt, tol in ((torch.float32, TRUNK_F32_TOL),
+                    (torch.bfloat16, TRUNK_BF16_TOL)):
+        dn = str(dt).split(".")[1]
+        with torch.inference_mode():
+            got = resnet.apply(cnn, stats0, x4, dtype=dt).float().cpu()
+            want = resnet.apply(cnn_cpu, stats_cpu, x4.cpu(),
+                                dtype=dt).float()
+        err = rel_err(torch, got, want)
+        out["trunk_hold"][dn] = err
+        require(bool(torch.isfinite(got).all()) and err < tol,
+                "ResNet-101 %s on the card against the CPU: relative error "
+                "%.3g (tol %g)" % (dn, err, tol))
+        log("ResNet-101 %s, 4 images, init's statistics: the card against "
+            "the CPU %.3g relative norm (tol %g); features up to %.3g"
+            % (dn, err, tol, float(want.abs().max())))
+    del cnn_cpu, stats_cpu
+    out["seconds"]["trunk_hold"] = time.time() - t17
+
+    cal = calibrated_stats(torch, cnn, stats0,
+                           photo_batch(torch, gen, CAL_B, 224, dev))
+    ms = {"cnn_stats": cal}
+
+    # the trunk and the image ops at B, bf16 (as a bf16 decode casts cnn)
+    visual = {"img_tensors": images}
+    box = photo_batch(torch, gen, B, image_ops.INGEST_PAD, dev)
+    fast = {"img_tensors": box, "img_hw": torch.randint(
+        112, image_ops.INGEST_PAD + 1, (B, 2), generator=gen, device=dev,
+        dtype=torch.int32)}
+    cnn_bf = steps._cast_floats(cnn, torch.bfloat16)
+    x = image_ops.normalize(images)
+    with torch.inference_mode():
+        fmap = resnet.apply(cnn_bf, cal, x)
+        trunk_ms = time_ms(torch, lambda: resnet.apply(cnn_bf, cal, x),
+                           flush, reps=5)
+        norm_ms = time_ms(torch, lambda: image_ops.prepare_images(visual),
+                          flush, reps=5)
+        resize_ms = time_ms(torch, lambda: image_ops.prepare_images(fast),
+                            flush, reps=5)
+    nbytes = (x.numel() * 4 + fmap.numel() * 2
+              + sum(t.numel() * 2 for t in tree_leaves(cnn_bf)))
+    b_ms, b_by = bound(nbytes, 2 * RESNET101_MACS * B, "bfloat16")
+    out["trunk"] = dict(ms=trunk_ms, images_per_s=B / trunk_ms * 1e3,
+                        bound_ms=b_ms, bound_by=b_by,
+                        share_of_bound=b_ms / trunk_ms,
+                        params=sum(t.numel() for t in tree_leaves(cnn)),
+                        normalize_ms=norm_ms, fast_ingest_resize_ms=resize_ms,
+                        fmap_abs_mean=float(fmap.float().abs().mean()))
+    log("ResNet-101 bf16 at B=%d (%s): %.3f ms, %.1f images/s; bound %.3f "
+        "ms (%s, %.3g MACs an image), %.1f %% of it; %d parameters; "
+        "normalize %.3f ms, fast-ingest resample (pad %d) %.3f ms; "
+        "calibrated features' mean |y| %.3f"
+        % (B, smi, trunk_ms, B / trunk_ms * 1e3, b_ms, b_by, RESNET101_MACS,
+           100 * b_ms / trunk_ms, out["trunk"]["params"], norm_ms,
+           image_ops.INGEST_PAD, resize_ms, out["trunk"]["fmap_abs_mean"]))
+    out["trunk"]["by_kind"] = trunk_breakdown(
+        torch, lambda: resnet.apply(cnn_bf, cal, x))
+    log("ResNet-101 bf16 at B=%d, device ms by kind of kernel (one traced "
+        "apply): %s" % (B, ", ".join(
+            "%s %.3f ms in %d launches" % (k, v["ms"], v["launches"])
+            for k, v in out["trunk"]["by_kind"].items())))
+    del x, fmap
+    out["seconds"]["trunk_timed"] = time.time() - t17
+
+    # gate 3's recorder: every pooled feature the decodes make
+    pooled, originals = [], {}
+    for fname in ("global_pool", "spatial_features"):
+        originals[fname] = orig = getattr(resnet, fname)
+
+        def rec(*a, _orig=orig, **kw):
+            y = _orig(*a, **kw)
+            pooled.append((tuple(y.shape), y.dtype, y))
+            return y
+        setattr(resnet, fname, rec)
+
+    def check_pooled(tag, shape):
+        require(pooled and all(s == shape and d == torch.float32
+                               for s, d, _ in pooled)
+                and bool(torch.isfinite(pooled[-1][2]).all()),
+                "%s: pooled features %s, expected %s float32, finite"
+                % (tag, sorted({(s, str(d)) for s, d, _ in pooled}), shape))
+        n = len(pooled)
+        pooled.clear()
+        return n
+
+    memo = TrunkMemo(resnet)
+    mk = B * BEAM
+    try:
+        for fam, model, base, paths_of, shape, kv in families:
+            name = fam + " from pixels"
+            prm = dict(base, cnn=cnn)
+            qprm = model.quantize_decode_params(prm)
+            require(qprm["cnn"] is cnn, "%s: int8 serving changed cnn" % fam)
+            r = out[fam] = {}
+            r["beam"] = drive_beam(
+                name, model, visual,
+                [p for p in paths_of(mk, BEAM, True, prm, qprm)
+                 if p[0] in ("bfloat16", "float32", "int8/bfloat16")],
+                model_state=ms, memo=memo)
+            r["pooled_checked"] = check_pooled(name + " beam", shape)
+            greedy = [p for p in paths_of(B, 1, False, prm, qprm)
+                      if p[0] in ("bfloat16", "float32")]
+            r["decode"] = drive_greedy(name, model, visual, greedy,
+                                       kv_int8=kv, model_state=ms,
+                                       memo=memo)
+            r["pooled_checked"] += check_pooled(name + " greedy", shape)
+            if fam == "NIC":
+                r["fast_ingest"] = drive_greedy(
+                    name + " (fast ingest)", model, fast,
+                    [p for p in greedy if p[0] == "bfloat16"],
+                    model_state=ms, memo=memo)
+                r["pooled_checked"] += check_pooled(name + " fast", shape)
+            r["encode_ms"] = {}
+            for dt in (torch.bfloat16, torch.float32):
+                dn = str(dt).split(".")[1]
+                p_c = steps._cast_floats(prm, dt, dev)
+                v_c = steps._cast_floats(visual, dt, dev)
+                with torch.inference_mode():
+                    r["encode_ms"][dn] = time_ms(
+                        torch, lambda: model.encode(p_c, v_c, model_state=ms),
+                        flush, reps=3)
+            pooled.clear()
+            out["seconds"][fam] = time.time() - t17
+            for kind in ("beam", "decode"):
+                for label, res in r[kind].items():
+                    dn = "float32" if label == "float32" else "bfloat16"
+                    busy = res["profile"]["device_busy_ms"]
+                    wall = sorted(res["seconds"])[1] * 1e3
+                    res["encode_ms"] = r["encode_ms"][dn]
+                    res["encode_share_of_busy"] = r["encode_ms"][dn] / busy
+                    res["idle_share_of_wall"] = 1 - busy / wall
+                    log("%s %s %s (%s): %.1f captions/s from pixels; encode "
+                        "%.2f ms, %.1f %% of the decode's %.2f ms busy; idle "
+                        "%.1f %% of the wall"
+                        % (name, "beam 3" if kind == "beam" else "greedy",
+                           label, smi, res["captions_per_s"],
+                           res["encode_ms"],
+                           100 * res["encode_share_of_busy"], busy,
+                           100 * res["idle_share_of_wall"]))
+    finally:
+        memo.close()
+        for fname, orig in originals.items():
+            setattr(resnet, fname, orig)
+    out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("phase 17 peak memory %.2f GiB (%s); seconds since its start %s"
+        % (out["peak_memory_gib"], smi,
+           {k: round(v, 1) for k, v in out["seconds"].items()}))
+    return out
 
 
 def _paths(tree, prefix=""):
@@ -2518,24 +2849,24 @@ def main(argv=None) -> int:
                             k3=[(w, "quant_matmul_{}")
                                 for w in (e_in + hd, hd, 2 * hd)], k4=True)
 
-    def butd_paths(rows, k, beam):
+    def butd_paths(rows, k, beam, prm=None, qprm=None):
         return family_paths(
-            rows, k, beam, bparams, bq,
+            rows, k, beam, prm or bparams, qprm or bq,
             k2=[(e, "fused_lstm_cell_{}_butd_" + tag)
                 for tag, _, e in butd_k2],
             k3=[(w, "quant_matmul_{}_butd_" + tag) for tag, _, w in butd_k3])
 
-    def nic_paths(rows, k, beam):
+    def nic_paths(rows, k, beam, prm=None, qprm=None):
         return family_paths(
-            rows, k, beam, nparams, nq, k1_tag="_nic",
+            rows, k, beam, prm or nparams, qprm or nq, k1_tag="_nic",
             k2=[(e_nic, "fused_lstm_cell_{}_nic")],
             k3=[(e_nic + ncfg.hidden_dim, "quant_matmul_{}_nic_lstm")],
             init_cell=True)
 
-    def aoasp_paths(rows, k, beam):
+    def aoasp_paths(rows, k, beam, prm=None, qprm=None):
         hd = acfg.hidden_dim
         return family_paths(
-            rows, k, beam, aparams, aq, k1_tag="_aoasp",
+            rows, k, beam, prm or aparams, qprm or aq, k1_tag="_aoasp",
             k2=[(e_aoasp, "fused_lstm_cell_{}_aoasp")],
             k3=[(e_aoasp + hd, "quant_matmul_{}_aoasp_lstm"),
                 (hd, "quant_matmul_{}_aoasp_q"),
@@ -2564,9 +2895,11 @@ def main(argv=None) -> int:
             kernels[ename]["launches"] = sum(by_path.values())
             on_path.add(ename)
 
-    def feat_rows(visual):
-        if "features" in visual:                 # NIC: one pooled feature
+    def feat_rows(model, visual):
+        if model.config.model_type == "NIC":      # one pooled feature
             return 1
+        if "img_tensors" in visual:              # from pixels: the grid
+            return model.config.num_pixels
         return (visual["bu_feats"] if "bu_feats" in visual
                 else visual["spatial_feats"]).shape[1]
 
@@ -2578,8 +2911,8 @@ def main(argv=None) -> int:
         return 2.0 ** -8 if (family.startswith("BUTD")
                              and dtype == torch.bfloat16) else 1e-3
 
-    def check_alphas(tag, al, visual, n_rows, tol):
-        if "features" in visual:
+    def check_alphas(tag, al, model, visual, n_rows, tol):
+        if model.config.model_type == "NIC":
             # NIC has no attention: beam search's alphas are zeros
             require(al.shape == (B, n_rows, 1) and bool((al == 0).all()),
                     "%s alphas: shape %s, or not zero" % (tag,
@@ -2587,7 +2920,7 @@ def main(argv=None) -> int:
             return
         live = al.sum(-1) > 0
         mask = visual.get("bu_masks")
-        require(al.shape == (B, n_rows, feat_rows(visual))
+        require(al.shape == (B, n_rows, feat_rows(model, visual))
                 and bool(torch.isfinite(al).all())
                 and bool(((al.sum(-1) - 1).abs()[live] < tol).all())
                 and bool((al[~live] == 0).all())
@@ -2598,12 +2931,16 @@ def main(argv=None) -> int:
                 "masked boxes" % (tag, tuple(al.shape), tol,
                                   float((al.sum(-1) - 1).abs()[live].max())))
 
-    def drive_greedy(family, model, visual, paths, kv_int8=None):
-        """Phases 8, 10, 12 and 13: greedy decode of ``model`` on each path,
-        once through the plain versions and three times through the kernels
-        (launches per step, route and shape exact), then profiled.
+    def drive_greedy(family, model, visual, paths, kv_int8=None,
+                     model_state=None, memo=None):
+        """Phases 8, 10, 12, 13 and 17: greedy decode of ``model`` on each
+        path, once through the plain versions and three times through the
+        kernels (launches per step, route and shape exact), then profiled.
         ``kv_int8``: None, or whether encode stores int8 K/V on the int8
-        paths (AoA; else K/V in the compute dtype)."""
+        paths (AoA; else K/V in the compute dtype).  From pixels (phase
+        17), ``memo`` (a TrunkMemo): the plain run comes after the kernel
+        runs, on the last one's feature map."""
+        ms = {} if model_state is None else model_state
         calls, kv_kinds, shapes = [], [], []
         step_core, encode = model.step_core, model.encode
 
@@ -2628,9 +2965,12 @@ def main(argv=None) -> int:
             fn = steps.make_greedy_decode(model, max_len=MAX_LEN,
                                           return_alphas=True, dtype=dtype,
                                           device="cuda")
-            with holds.plain_versions():
-                ref_ids, ref_al = fn(prm, {}, visual)
-            torch.cuda.synchronize()
+            if memo is None:
+                with holds.plain_versions():
+                    ref_ids, ref_al = fn(prm, ms, visual)
+                torch.cuda.synchronize()
+            else:
+                memo.mode = "record"
             times, launches = [], None
             for _ in range(3):
                 calls.clear()
@@ -2639,7 +2979,7 @@ def main(argv=None) -> int:
                     c.n = 0
                 t0 = time.perf_counter()
                 with holds.recording_shapes(shapes):
-                    ids, al = fn(prm, {}, visual)
+                    ids, al = fn(prm, ms, visual)
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
                 n_steps = len(calls)
@@ -2649,6 +2989,10 @@ def main(argv=None) -> int:
                 require(n_steps >= 1 and launches == want,
                         "%s decode: %d steps, launches %s, expected %s"
                         % (tag, n_steps, launches, want))
+            if memo is not None:
+                with memo.replaying(), holds.plain_versions():
+                    ref_ids, ref_al = fn(prm, ms, visual)
+                torch.cuda.synchronize()
             if kv_int8 is not None:
                 require(kv_kinds[-1] == (torch.int8 if int8 and kv_int8
                                          else dtype),
@@ -2659,12 +3003,12 @@ def main(argv=None) -> int:
             require(int(ids.min()) >= 0
                     and int(ids.max()) < FULL["vocab_size"],
                     "%s decode ids out of range" % tag)
-            if "features" in visual:
+            if model.config.model_type == "NIC":
                 # NIC has no attention: greedy returns no alphas
                 require(al is None and ref_al is None,
                         "%s decode returned alphas" % tag)
             else:
-                check_alphas(tag + " decode", al, visual, MAX_LEN,
+                check_alphas(tag + " decode", al, model, visual, MAX_LEN,
                              alpha_tol(family, dtype))
             rows_same = float((ids == ref_ids).all(dim=1).float().mean())
             first_same = float((ids[:, 0] == ref_ids[:, 0]).float().mean())
@@ -2704,19 +3048,23 @@ def main(argv=None) -> int:
                    first_same, extra, B / t_med,
                    ["%.4f" % t for t in times]))
             res["profile"] = profile_decode(
-                torch, lambda: fn(prm, {}, visual), tag)
+                torch, lambda: fn(prm, ms, visual), tag)
             out[label] = res
             if not int8:
                 float_ids[dn] = ids
         del model.step_core, model.encode
         return out
 
-    def drive_beam(family, model, visual, paths):
-        """Phases 9-13: beam-3 decode of ``model`` on each path,
+    def drive_beam(family, model, visual, paths, model_state=None,
+                   memo=None):
+        """Phases 9-13 and 17: beam-3 decode of ``model`` on each path,
         once through the plain versions, three times through the kernels
         (timed; launches per step, route and shape exact), once with
         alphas, once with every kernel call held against its plain version,
-        then the end-to-end gate against the plain run, then profiled."""
+        then the end-to-end gate against the plain run, then profiled.
+        From pixels (phase 17), ``memo`` (a TrunkMemo): the plain run and
+        the rescoring read the last timed run's feature map."""
+        ms = {} if model_state is None else model_state
         lane_steps, shapes = [], []
         step_lanes_core = model.step_lanes_core
 
@@ -2731,9 +3079,12 @@ def main(argv=None) -> int:
             fn = steps.make_beam_decode(model, beam_size=BEAM,
                                         max_steps=MAX_LEN, dtype=dtype,
                                         device="cuda")
-            with holds.plain_versions():
-                ref_ids = fn(prm, {}, visual)
-            torch.cuda.synchronize()
+            if memo is None:
+                with holds.plain_versions():
+                    ref_ids = fn(prm, ms, visual)
+                torch.cuda.synchronize()
+            else:
+                memo.mode = "record"
             times = []
             for _ in range(3):
                 lane_steps.clear()
@@ -2742,7 +3093,7 @@ def main(argv=None) -> int:
                     c.n = 0
                 t0 = time.perf_counter()
                 with holds.recording_shapes(shapes):
-                    ids = fn(prm, {}, visual)
+                    ids = fn(prm, ms, visual)
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
                 n_steps = len(lane_steps)
@@ -2752,6 +3103,11 @@ def main(argv=None) -> int:
                 require(n_steps >= 1 and launches == want,
                         "%s decode: %d steps, launches %s, expected %s"
                         % (tag, n_steps, launches, want))
+            if memo is not None:
+                memo.mode = "pass"
+                with memo.replaying(), holds.plain_versions():
+                    ref_ids = fn(prm, ms, visual)
+                torch.cuda.synchronize()
             require(ids.shape == (B, MAX_LEN + 1) and ids.dtype == torch.long,
                     "%s ids %s %s" % (tag, tuple(ids.shape), ids.dtype))
             require(bool((ids[:, 0] == STA_ID).all()) and int(ids.min()) >= 0
@@ -2767,19 +3123,22 @@ def main(argv=None) -> int:
             _, al = steps.make_beam_decode(model, beam_size=BEAM,
                                            max_steps=MAX_LEN,
                                            return_alphas=True, dtype=dtype,
-                                           device="cuda")(prm, {}, visual)
-            check_alphas(tag, al, visual, MAX_LEN, alpha_tol(family, dtype))
+                                           device="cuda")(prm, ms, visual)
+            check_alphas(tag, al, model, visual, MAX_LEN,
+                         alpha_tol(family, dtype))
             # one more run with every kernel call held against its plain
             # version on the same inputs, to the kernel's own tolerance
             broken = []
             with holds.held_calls(broken):
-                fn(prm, {}, visual)
+                fn(prm, ms, visual)
             torch.cuda.synchronize()
             require(not broken, "%s decode: %d kernel calls broke their "
                     "hold (first: %s)" % (tag, len(broken), broken[:1]))
             # rescore both runs' winners with the plain step in this dtype
-            margin = holds.rescored_margin(model, prm, visual, ids, ref_ids,
-                                           dtype, dev)
+            with (memo.replaying() if memo is not None
+                  else contextlib.nullcontext()):
+                margin = holds.rescored_margin(model, prm, visual, ids,
+                                               ref_ids, dtype, dev, ms)
             tol = holds.beam_tol(dtype, MAX_LEN)
             passed, rows_same = holds.beam_gate(label == "float32", ids,
                                                 ref_ids, margin, tol)
@@ -2813,7 +3172,7 @@ def main(argv=None) -> int:
                    res["rescored_rows_below"], res["rows_ended"], B / t_med,
                    ["%.4f" % t for t in times]))
             res["profile"] = profile_decode(
-                torch, lambda: fn(prm, {}, visual), tag)
+                torch, lambda: fn(prm, ms, visual), tag)
             out[label] = res
         del model.step_lanes_core
         return out
@@ -2914,8 +3273,18 @@ def main(argv=None) -> int:
                         n_timed=BENCH_STEPS,
                         variants=[("float32", None), ("bfloat16", bf)]))
 
+    log("-- phase 17 at %.1f s" % (time.time() - t_start))
+    # -- 17. captions from pixels: NIC, BUTDSpatial, AoASpatial --------------
+    results["pixels"] = drive_pixels(
+        torch, dev, gen, smi, flush, steps, drive_greedy, drive_beam,
+        [("NIC", nic, nparams, nic_paths, (B, ncfg.enc_dim), None),
+         ("BUTDSpatial", butd_sp, bparams, butd_paths,
+          (B, N_GRID, bcfg.enc_dim), None),
+         ("AoASpatial", aoasp, aparams, aoasp_paths,
+          (B, acfg.num_pixels, acfg.enc_dim), False)])
+
     results["seconds"] = time.time() - t_start
-    log("-- phases 2-16 took %.1f s" % results["seconds"])
+    log("-- phases 2-17 took %.1f s" % results["seconds"])
     missing = [k for k in on_path if not kernels[k].get("launches")]
     require(not missing, "kernels not launched on the main path: %s"
             % missing)

@@ -97,7 +97,12 @@ def planter(plant: str, gen):
                 return uniform(vals, h), ids, uniform(lse, h)
         elif plant == "noise" and name == "lstm_cell_fused":
             def fn(w_cat, b_sum, x, h, c, split=None):
-                h2, c2 = plain(w_cat, b_sum, x, h, c)
+                # in float32 the hold's reference is the function in
+                # float64 (engine/holds.py): the noise goes on that
+                args = (w_cat, b_sum, x, h, c)
+                if x.dtype == torch.float32:
+                    args = tuple(t.double() for t in args)
+                h2, c2 = (t.to(h.dtype) for t in plain(*args))
                 return (_one_ulp_or(h2, SIZE * 1e-5, gen),
                         _one_ulp_or(c2, SIZE * 1e-5, gen))
         elif plant == "noise" and name == "quant_matmul":

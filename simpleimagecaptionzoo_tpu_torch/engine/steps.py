@@ -60,10 +60,17 @@ def make_greedy_decode(model: Captioner, max_len: int = 20,
                        return_alphas: bool = False,
                        dtype: Optional[torch.dtype] = None, device="cuda"):
     """Eval decode: ``fn(params, model_state, visual)`` -> ids
-    (B, max_len) [, alphas].  Params and visual move to ``device`` (the GPU
-    unless the caller asks for the CPU); ``dtype=torch.bfloat16`` casts
-    both, so ``bu_masks`` becomes bf16 too, as in the JAX package.  The
-    top-k itself stays float32 (ops/fused_head.py).
+    (B, max_len) [, alphas].  Params, model_state and visual move to
+    ``device`` (the GPU unless the caller asks for the CPU);
+    ``dtype=torch.bfloat16`` casts params and visual, so ``bu_masks``
+    becomes bf16 too, and so do the ResNet's parameters and a float
+    ``img_tensors``, as in the JAX package; model_state (the ResNet's
+    running statistics) stays float32.  The top-k itself stays float32
+    (ops/fused_head.py).
+
+    From pixels (NIC, BUTDSpatial, AoASpatial with ``cnn`` in params and
+    ``img_tensors`` in visual), encode runs the ResNet in bf16 whatever
+    ``dtype`` is, as the JAX package's does (``resnet.apply``'s default).
 
     Int8 serving decode is this function with ``dtype=torch.bfloat16``
     called on ``model.quantize_decode_params(params)``, as the JAX package's
@@ -77,7 +84,8 @@ def make_greedy_decode(model: Captioner, max_len: int = 20,
         params = _cast_floats(params, dtype, dev)
         visual = _cast_floats(visual, dtype, dev)
         enc, _ = model.encode(params, visual, train=False,
-                              model_state=model_state)
+                              model_state=_cast_floats(model_state, None,
+                                                       dev))
         ids, alphas = decode.greedy(model, params, enc, max_len)
         return (ids, alphas) if return_alphas else ids
 
@@ -101,7 +109,8 @@ def make_beam_decode(model: Captioner, beam_size: int = 3,
         params = _cast_floats(params, dtype, dev)
         visual = _cast_floats(visual, dtype, dev)
         enc, _ = model.encode(params, visual, train=False,
-                              model_state=model_state)
+                              model_state=_cast_floats(model_state, None,
+                                                       dev))
         return decode.beam_search(model, params, enc, beam_size, max_steps,
                                   return_alphas=return_alphas)
 
@@ -113,11 +122,17 @@ def make_beam_decode(model: Captioner, beam_size: int = 3,
 # ---------------------------------------------------------------------------
 
 def _stop_cnn_grads(params, freeze_cnn: bool):
-    """``params`` with its ``cnn`` subtree detached when ``freeze_cnn``
-    (no ported family has one yet)."""
-    if not freeze_cnn or "cnn" not in params:
+    """The reference's fine-tune scope (NIC_Model.py:233-244): the ResNet's
+    stem and layers 1-3 are always detached, and ``layer4`` too when
+    ``freeze_cnn``.  Autograd then runs none of their backward, and their
+    gradients come back zero; the optimizer's 'cnn_frozen' partition keeps
+    them unchanged besides."""
+    if "cnn" not in params:
         return params
-    return dict(params, cnn=tree_map(lambda t: t.detach(), params["cnn"]))
+    detach = lambda tree: tree_map(lambda t: t.detach(), tree)  # noqa: E731
+    return dict(params, cnn={
+        k: v if k == "layer4" and not freeze_cnn else detach(v)
+        for k, v in params["cnn"].items()})
 
 
 def xe_loss(model: Captioner, params, model_state, batch: Dict[str, Any],
@@ -185,8 +200,9 @@ def make_xe_train_step(model: Captioner, tx, labels, smoothing: float = 0.1,
     the float32 master params and optimizer state, the loss float32.
     ``ss_active=False`` leaves scheduled sampling's head calls and draws
     out (the epochs before its schedule starts); with it on, the draws
-    come from :func:`draw_generator_for` the step.  ``freeze_cnn`` stops
-    the gradient at the ``cnn`` subtree."""
+    come from :func:`draw_generator_for` the step.  The ResNet's stem and
+    layers 1-3 get no gradient; ``freeze_cnn`` stops it at ``layer4`` too
+    (:func:`_stop_cnn_grads`)."""
     dev = resolve_device(device)
 
     def step(state: TrainState, batch: Dict[str, Any],
@@ -225,14 +241,16 @@ def make_xe_train_step(model: Captioner, tx, labels, smoothing: float = 0.1,
 def make_xe_eval_loss(model: Captioner, smoothing: float = 0.1,
                       device="cuda"):
     """Validation loss: ``fn(params, model_state, batch)`` -> the float32
-    XE loss with no dropout and no scheduled sampling.  Params and batch
-    move to ``device`` (the GPU unless the caller asks for the CPU)."""
+    XE loss with no dropout and no scheduled sampling.  Params,
+    model_state and batch move to ``device`` (the GPU unless the caller
+    asks for the CPU)."""
     dev = resolve_device(device)
 
     @torch.no_grad()
     def fn(params, model_state, batch):
         loss, _, _ = xe_loss(model, _cast_floats(params, None, dev),
-                             model_state, _cast_floats(batch, None, dev),
+                             _cast_floats(model_state, None, dev),
+                             _cast_floats(batch, None, dev),
                              None, 0.0, smoothing=smoothing, ss_active=False,
                              train=False)
         return loss
@@ -307,10 +325,12 @@ def make_scst_train_step(model: Captioner, tx, labels, cider_table: dict,
     card), then :func:`scst_loss` of the state's params, whose rollout
     runs each LSTM cell through K2 with its gradient, the draws from
     :func:`draw_generator_for` the step; the gradient by autograd (K2's
-    backward kernel on the card), the update directions of ``tx`` and the
-    partitioned update.  It returns a new :class:`TrainState` with step +
-    1 and the mean reward over the real rows.  ``compute_dtype=
-    torch.bfloat16`` is mixed precision, as in :func:`make_xe_train_step`."""
+    backward kernel on the card; the ResNet's only from ``layer4``, as
+    :func:`_stop_cnn_grads` with ``freeze_cnn`` off), the update directions
+    of ``tx`` and the partitioned update.  It returns a new
+    :class:`TrainState` with step + 1 and the mean reward over the real
+    rows.  ``compute_dtype=torch.bfloat16`` is mixed precision, as in
+    :func:`make_xe_train_step`."""
     dev = resolve_device(device)
 
     def step(state: TrainState, batch: Dict[str, Any],
@@ -327,7 +347,8 @@ def make_scst_train_step(model: Captioner, tx, labels, cider_table: dict,
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(state.params)]
         loss, reward, new_ms, _, _ = scst_loss(
-            model, tree_unflatten(state.params, leaves), state.model_state,
+            model, _stop_cnn_grads(tree_unflatten(state.params, leaves),
+                                   False), state.model_state,
             batch, cider_table, probe, greedy_seq, generator,
             draw_generator_for(generator, state.step, dev), max_len=max_len,
             compute_dtype=compute_dtype)

@@ -1,5 +1,5 @@
 """AoA ("Attention on Attention") captioner, Detection and Spatial
-variants, in feature mode.
+variants.
 
 Counterpart of the JAX package's ``models/aoa.py`` (reference
 Models/AoA_Model.py): multi-head scaled dot-product attention with a GLU
@@ -31,8 +31,11 @@ not once per beam, and the LSTM cell runs over B*k rows.
 AoASpatial takes the 7 x 7 ResNet grid (``visual["spatial_feats"]``, 49
 regions, no mask).  At its published width (hidden 512, 8 heads) a head is
 64 wide, which K4's gate refuses as the JAX package's does: its encode
-keeps float K/V whatever ``SICZ_TPU_INT8_KV`` says.  From pixels (its
-ResNet-101) and ``tf_inputs`` wait for later slices.
+keeps float K/V whatever ``SICZ_TPU_INT8_KV`` says.  From pixels
+(``visual["img_tensors"]``, with ``cnn`` in the params): ``prepare_images``,
+the ResNet-101, ``spatial_features`` to the ``enc_img_size`` grid (float32,
+cast to ``proj``'s dtype, ``models/base.py``).  ``tf_inputs`` is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from simpleimagecaptionzoo_tpu_torch.models import layers as L
+from simpleimagecaptionzoo_tpu_torch.models import resnet
 from simpleimagecaptionzoo_tpu_torch.models.base import (Captioner, Encoded,
                                                          register)
 from simpleimagecaptionzoo_tpu_torch.ops import fused_lstm
@@ -99,14 +103,16 @@ class _AoABase(Captioner):
     decode_quant_paths = (("lstm",), ("aoa_dec", "q"), ("aoa_dec", "aoa"),
                           ("predict",))
 
-    def init_params(self, gen: torch.Generator) -> dict:
-        """Parameters on ``gen.device``, drawn from ``gen``."""
+    def init_params(self, gen: torch.Generator,
+                    include_cnn: bool = False) -> dict:
+        """The JAX package's tree, drawn from ``gen`` on its device; with
+        ``cnn`` when ``include_cnn`` (``Captioner.init_params``)."""
         cfg = self.config
         d = cfg.hidden_dim                        # d_model == hidden_dim
         refine = [{"aoa": aoa_block_init(gen, d),
                    "ln": L.layer_norm_std_init(d, gen.device)}
                   for _ in range(cfg.num_refine_layers)]
-        return {
+        return self._add_cnn({
             "proj": L.dense_init(gen, cfg.enc_dim, d),
             "refine": refine,
             "refine_ln": L.layer_norm_std_init(d, gen.device),
@@ -117,9 +123,9 @@ class _AoABase(Captioner):
             "h_norm": L.layer_norm_std_init(d, gen.device),
             "predict": L.dense_wn_init(gen, d, cfg.vocab_size,
                                        zero_bias=True),
-        }
+        }, gen, include_cnn)
 
-    def _raw_features(self, params, visual, model_state):
+    def _raw_features(self, params, visual, model_state, train=False):
         """-> (feats, mask, model_state)."""
         raise NotImplementedError
 
@@ -129,7 +135,7 @@ class _AoABase(Captioner):
                ) -> Tuple[Encoded, Optional[dict]]:
         cfg = self.config
         feats, mask, model_state = self._raw_features(params, visual,
-                                                      model_state)
+                                                      model_state, train)
         # masked projection (pack_wrapper semantics): padded rows -> exactly 0
         x = torch.relu(L.dense(params["proj"], feats))
         x = L.dropout(x, cfg.dropout, train, generator)
@@ -264,17 +270,18 @@ class _AoABase(Captioner):
 @register("AoADetection")
 class AoADetectionCaptioner(_AoABase):
 
-    def _raw_features(self, params, visual, model_state):
+    def _raw_features(self, params, visual, model_state, train=False):
         return visual["bu_feats"], visual.get("bu_masks"), model_state
 
 
 @register("AoASpatial")
 class AoASpatialCaptioner(_AoABase):
+    has_cnn = True
 
-    def _raw_features(self, params, visual, model_state):
-        if "spatial_feats" not in visual:
-            raise NotImplementedError(
-                "AoASpatial from pixels (its ResNet-101) is not ported yet "
-                "(ROADMAP Queue 1, slice 5); pass precomputed "
-                "visual['spatial_feats'] (B, 49, 2048)")
-        return visual["spatial_feats"], None, model_state
+    def _raw_features(self, params, visual, model_state, train=False):
+        if "spatial_feats" in visual:             # precomputed (B, 49, 2048)
+            return visual["spatial_feats"], None, model_state
+        fmap, model_state = self._cnn_features(params, visual, model_state,
+                                               train)
+        feats = resnet.spatial_features(fmap, self.config.enc_img_size)
+        return feats.to(params["proj"]["w"].dtype), None, model_state

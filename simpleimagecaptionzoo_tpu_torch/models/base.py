@@ -6,6 +6,16 @@ Counterpart of the JAX package's ``models/base.py``.  A captioner defines
 apart.  Beam search runs the grouped-lanes form of the step
 (:meth:`Captioner.step_lanes_core`): the k beams of a sample are k lanes
 that share the sample's encoding.
+
+The from-pixels families (NIC, BUTDSpatial, AoASpatial: ``has_cnn``) run
+their ResNet-101 in :meth:`Captioner._cnn_features`, from ``img_tensors``
+(a uint8 or normalized batch, or a fast-ingest pad box with ``img_hw``).
+Their pooled features come out float32, as in the JAX package, and each
+family casts them to the dtype of the parameters they meet first.  That
+is a deliberate difference: JAX's type promotion would run a bf16 decode's
+decoder in float32 from there on (float32 features times bf16 weights),
+where a torch product refuses mixed types; the port's bf16 decode from
+pixels runs bf16 throughout, as its feature-mode decode does.
 """
 from __future__ import annotations
 
@@ -16,7 +26,8 @@ import torch
 
 from simpleimagecaptionzoo_tpu_torch.config import ModelConfig
 from simpleimagecaptionzoo_tpu_torch.models import layers as L
-from simpleimagecaptionzoo_tpu_torch.ops import quant
+from simpleimagecaptionzoo_tpu_torch.models import resnet
+from simpleimagecaptionzoo_tpu_torch.ops import image, quant
 
 
 @dataclasses.dataclass
@@ -43,17 +54,57 @@ class Captioner:
     """Base class: concrete models implement the methods below as functions
     of their parameter dicts."""
 
+    #: the family's reference encodes pixels through a ResNet-101
+    has_cnn = False
+
     def __init__(self, config: ModelConfig) -> None:
         self.config = config
+        # the side a fast-ingest batch (a visual dict with "img_hw") is
+        # resampled to on the device (ops/image.prepare_images); 224 is the
+        # reference's default img_size
+        self.ingest_out_size = 224
 
-    def init_params(self, gen: torch.Generator) -> Dict[str, Any]:
+    def init_params(self, gen: torch.Generator,
+                    include_cnn: bool = False) -> Dict[str, Any]:
+        """Parameters on ``gen.device``, drawn from ``gen``.  The port's
+        default is feature mode: ``include_cnn=True`` adds the ResNet-101
+        (``cnn``, drawn after the rest, so the other leaves do not depend
+        on it) and keeps its running statistics for
+        :meth:`init_model_state`.  (The JAX package's default is
+        ``has_cnn``, and True for NIC.)"""
         raise NotImplementedError
+
+    def _add_cnn(self, params: dict, gen: torch.Generator,
+                 include_cnn: bool) -> dict:
+        if include_cnn:
+            params["cnn"], self._cnn_stats = resnet.init(gen)
+        return params
+
+    def init_model_state(self) -> dict:
+        """``{"cnn_stats": ...}``: the running statistics of the ResNet the
+        last ``init_params(include_cnn=True)`` drew (None without one)."""
+        return {"cnn_stats": getattr(self, "_cnn_stats", None)}
+
+    def _cnn_features(self, params, visual, model_state, train: bool):
+        """Pixels -> (the ResNet's feature map (B, 7, 7, 2048) NHWC at 224,
+        model_state).  The trunk runs in ``resnet.apply``'s default dtype
+        (bf16) whatever the decode's; ``train=True`` normalizes with the
+        batch's statistics and returns ``model_state`` with the updated
+        ``cnn_stats``."""
+        images = image.prepare_images(visual, self.ingest_out_size)
+        stats = (model_state or {})["cnn_stats"]
+        if train:
+            fmap, new_stats = resnet.apply(params["cnn"], stats, images,
+                                           train=True)
+            return fmap, dict(model_state or {}, cnn_stats=new_stats)
+        return resnet.apply(params["cnn"], stats, images), model_state
 
     def encode(self, params, visual: Dict[str, torch.Tensor], *,
                train: bool = False, generator=None,
                model_state: Optional[dict] = None
                ) -> Tuple[Encoded, Optional[dict]]:
-        """visual dict -> (Encoded, model_state passed through)."""
+        """visual dict -> (Encoded, model_state: passed through, or with
+        the updated ``cnn_stats`` of a from-pixels encode in train mode)."""
         raise NotImplementedError
 
     def init_state(self, params, encoded: Encoded) -> Any:

@@ -1,5 +1,4 @@
-"""BUTD ("Bottom-Up Top-Down") captioner, Spatial and Detection variants,
-in feature mode.
+"""BUTD ("Bottom-Up Top-Down") captioner, Spatial and Detection variants.
 
 Counterpart of the JAX package's ``models/butd.py`` (reference
 Models/BUTD_Model.py): 7x7x2048 ResNet features (Spatial, 49 regions, no
@@ -32,8 +31,10 @@ Beam search runs :meth:`_BUTDBase.step_lanes_core`: each sample's keys and
 features are read once a step for its k lanes; only the concat attention's
 activation is per lane, (B, k, N, A), and both cells run over B*k rows.
 
-From pixels (BUTDSpatial's ResNet-101) and ``tf_inputs`` wait for later
-slices.
+BUTDSpatial from pixels (``visual["img_tensors"]``, with ``cnn`` in the
+params): ``prepare_images``, the ResNet-101, ``spatial_features`` to the
+``enc_img_size`` grid (float32, cast to ``att_enc``'s dtype,
+``models/base.py``).  ``tf_inputs`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from simpleimagecaptionzoo_tpu_torch.models import layers as L
+from simpleimagecaptionzoo_tpu_torch.models import resnet
 from simpleimagecaptionzoo_tpu_torch.models.base import (Captioner, Encoded,
                                                          register)
 from simpleimagecaptionzoo_tpu_torch.ops import fused_lstm, quant
@@ -53,10 +55,12 @@ class _BUTDBase(Captioner):
     decode_quant_paths = (("lstm_td",), ("lstm_lang",), ("att_dec",),
                           ("predict",))
 
-    def init_params(self, gen: torch.Generator) -> dict:
-        """Parameters on ``gen.device``, drawn from ``gen``."""
+    def init_params(self, gen: torch.Generator,
+                    include_cnn: bool = False) -> dict:
+        """The JAX package's tree, drawn from ``gen`` on its device; with
+        ``cnn`` when ``include_cnn`` (``Captioner.init_params``)."""
         cfg = self.config
-        return {
+        return self._add_cnn({
             "embed": L.embedding_init(gen, cfg.vocab_size, cfg.embed_dim,
                                       scale=0.1),
             "att_enc": L.dense_wn_init(gen, cfg.enc_dim, cfg.atten_dim),
@@ -69,9 +73,9 @@ class _BUTDBase(Captioner):
                                           cfg.hidden_dim),
             "predict": L.dense_wn_init(gen, cfg.hidden_dim, cfg.vocab_size,
                                        zero_bias=True),
-        }
+        }, gen, include_cnn)
 
-    def _features(self, params, visual, model_state):
+    def _features(self, params, visual, model_state, train=False):
         """-> (feats, mask, model_state)."""
         raise NotImplementedError
 
@@ -80,7 +84,7 @@ class _BUTDBase(Captioner):
                model_state: Optional[dict] = None
                ) -> Tuple[Encoded, Optional[dict]]:
         feats, mask, model_state = self._features(params, visual,
-                                                  model_state)
+                                                  model_state, train)
         if mask is None:
             mean = feats.mean(dim=1)
         else:
@@ -166,18 +170,19 @@ class _BUTDBase(Captioner):
 
 @register("BUTDSpatial")
 class BUTDSpatialCaptioner(_BUTDBase):
+    has_cnn = True
 
-    def _features(self, params, visual, model_state):
-        if "spatial_feats" not in visual:
-            raise NotImplementedError(
-                "BUTDSpatial from pixels (its ResNet-101) is not ported yet "
-                "(ROADMAP Queue 1, slice 5); pass precomputed "
-                "visual['spatial_feats'] (B, 49, 2048)")
-        return visual["spatial_feats"], None, model_state
+    def _features(self, params, visual, model_state, train=False):
+        if "spatial_feats" in visual:             # precomputed (B, 49, 2048)
+            return visual["spatial_feats"], None, model_state
+        fmap, model_state = self._cnn_features(params, visual, model_state,
+                                               train)
+        feats = resnet.spatial_features(fmap, self.config.enc_img_size)
+        return feats.to(params["att_enc"]["v"].dtype), None, model_state
 
 
 @register("BUTDDetection")
 class BUTDDetectionCaptioner(_BUTDBase):
 
-    def _features(self, params, visual, model_state):
+    def _features(self, params, visual, model_state, train=False):
         return visual["bu_feats"], visual.get("bu_masks"), model_state

@@ -1,4 +1,4 @@
-"""NIC ("Show and Tell") captioner, in feature mode.
+"""NIC ("Show and Tell") captioner.
 
 Counterpart of the JAX package's ``models/nic.py`` (reference
 Models/NIC_Model.py): a weight-norm linear embedding of the pooled
@@ -21,7 +21,10 @@ weight-only int8 (kernel K3 once a step and once in ``init_state``;
 K1-int8 for the head).  NIC has no K/V, so ``SICZ_TPU_INT8_KV`` does not
 apply.
 
-From pixels (the ResNet-101) and ``tf_inputs`` wait for later slices.
+From pixels (``visual["img_tensors"]``, with ``cnn`` in the params):
+``prepare_images``, the ResNet-101, its global average pool (float32,
+cast to the embedding's dtype, ``models/base.py``), then the embedding.
+``tf_inputs`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from simpleimagecaptionzoo_tpu_torch.models import layers as L
+from simpleimagecaptionzoo_tpu_torch.models import resnet
 from simpleimagecaptionzoo_tpu_torch.models.base import (Captioner, Encoded,
                                                          register)
 from simpleimagecaptionzoo_tpu_torch.ops import fused_lstm, quant
@@ -38,28 +42,32 @@ from simpleimagecaptionzoo_tpu_torch.ops import fused_lstm, quant
 @register("NIC")
 class NICCaptioner(Captioner):
     decode_quant_paths = (("lstm",), ("predict",))
+    has_cnn = True
 
-    def init_params(self, gen: torch.Generator) -> dict:
-        """Parameters on ``gen.device``, drawn from ``gen``: the JAX
-        package's tree without ``cnn``."""
+    def init_params(self, gen: torch.Generator,
+                    include_cnn: bool = False) -> dict:
+        """The JAX package's tree, drawn from ``gen`` on its device; with
+        ``cnn`` when ``include_cnn`` (``Captioner.init_params``)."""
         cfg = self.config
-        return {
+        return self._add_cnn({
             "img_embed": L.dense_wn_init(gen, cfg.enc_dim, cfg.embed_dim),
             "embed": L.embedding_init(gen, cfg.vocab_size, cfg.embed_dim),
             "lstm": L.lstm_cell_init(gen, cfg.embed_dim, cfg.hidden_dim),
             "predict": L.dense_wn_init(gen, cfg.hidden_dim, cfg.vocab_size),
-        }
+        }, gen, include_cnn)
 
     def encode(self, params, visual: Dict[str, torch.Tensor], *,
                train: bool = False, generator=None,
                model_state: Optional[dict] = None
                ) -> Tuple[Encoded, Optional[dict]]:
-        if "features" not in visual:
-            raise NotImplementedError(
-                "NIC from pixels (its ResNet-101) is not ported yet (ROADMAP "
-                "Queue 1, slice 5); pass precomputed visual['features'] "
-                "(B, 2048)")
-        emb = L.dense_wn(params["img_embed"], visual["features"])  # (B, E)
+        if "features" in visual:                   # precomputed (B, 2048)
+            feats = visual["features"]
+        else:
+            fmap, model_state = self._cnn_features(params, visual,
+                                                   model_state, train)
+            feats = resnet.global_pool(fmap).to(
+                params["img_embed"]["v"].dtype)
+        emb = L.dense_wn(params["img_embed"], feats)           # (B, E)
         extras = {}
         if not quant.is_quantized(params["lstm"]):
             extras["lstm_cat"] = fused_lstm.prepare_lstm(params["lstm"])

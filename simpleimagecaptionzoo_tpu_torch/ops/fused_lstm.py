@@ -82,10 +82,13 @@ def gate_math(gates: torch.Tensor, c: torch.Tensor):
 
 def lstm_cell_plain(w_cat: torch.Tensor, b_sum: torch.Tensor,
                     x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
-    """K2's function in plain PyTorch: float32 gates and epilogue."""
-    gates = (torch.cat([x, h], dim=-1).float() @ w_cat.float()
-             + b_sum.float())
-    h_new, c_new = gate_math(gates, c.float())
+    """K2's function in plain PyTorch: float32 gates and epilogue (float64
+    for float64 inputs, the exact reference ``engine/holds.py`` holds the
+    float32 kernel against)."""
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    gates = (torch.cat([x, h], dim=-1).to(acc) @ w_cat.to(acc)
+             + b_sum.to(acc))
+    h_new, c_new = gate_math(gates, c.to(acc))
     return h_new.to(h.dtype), c_new.to(c.dtype)
 
 

@@ -289,10 +289,17 @@ def test_greedy_runs_both_cells_through_k2_each_step(setup, monkeypatch):
 
 
 def test_spatial_from_pixels_is_not_ported():
+    """Pixels need the ResNet: the port's default ``init_params`` is
+    feature mode (no ``cnn``), and encoding ``img_tensors`` with it fails
+    for want of ``cnn``.  (The name is older than encode from pixels,
+    which tests/test_torch_pixels.py holds.)"""
     tm = get_captioner(ModelConfig(model_type="BUTDSpatial", **DIMS))
     p = tm.init_params(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tm.encode(p, {"images": torch.zeros(2, 3, 8, 8)})
+    assert "cnn" not in p and tm.has_cnn
+    with pytest.raises(KeyError, match="cnn"):
+        tm.encode(p, {"img_tensors": torch.zeros(2, 8, 8, 3,
+                                                 dtype=torch.uint8)},
+                  model_state={"cnn_stats": None})
 
 
 def test_entry_point_defaults_to_the_gpu(setup):

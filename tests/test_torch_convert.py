@@ -153,10 +153,12 @@ def test_bf16_leaf_carries_bit_for_bit(as_numpy):
 
 
 # the training slices' modules, XE's and SCST's (engine/steps.py held
-# decode before them; ops/cider.py is SCST's reward)
+# decode before them; ops/cider.py is SCST's reward), and the ResNet and
+# the image ops of encode from pixels
 TRAINING_MODULES = ("engine.optim", "engine.state", "engine.steps",
                     "ops.losses", "ops.decode", "ops.fused_lstm", "config",
-                    "ops.cider", "ops.fused_head", "device")
+                    "ops.cider", "ops.fused_head", "device", "models.resnet",
+                    "ops.image")
 
 
 def test_import_leaves_jax_out_of_sys_modules():

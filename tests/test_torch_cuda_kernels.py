@@ -1275,3 +1275,67 @@ def test_scst_step_through_kernels_matches_plain(dev, dtype, monkeypatch):
     scale = float(crit(-logp.abs(), seq, reward.abs()))
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     assert abs(float(loss) - float(p_loss)) <= tol * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("family", ["NIC", "BUTDSpatial", "AoASpatial"])
+def test_from_pixels_beam_decode_through_the_kernels_matches_plain(
+        dev, family, dtype, monkeypatch):
+    """Beam 3 from pixels (B=16 uint8 images at 224, the ResNet at block
+    counts (1, 1, 1, 1) with its running statistics set to another batch's
+    own; hidden 256, vocab 1,000, 8 steps) through the kernels against the
+    same decode through the plain versions on the same encode's feature
+    map (the second run reads the first's).  Every kernel call holds
+    against its plain version; K1 and K2 run on the dtype's tensor-core
+    route; float32 ids identical in all but at most one row, bf16 winners
+    rescored by the plain step within ``holds.beam_tol``."""
+    from simpleimagecaptionzoo_tpu_torch.config import ModelConfig
+    from simpleimagecaptionzoo_tpu_torch.engine import holds, steps
+    from simpleimagecaptionzoo_tpu_torch.models import resnet
+    from simpleimagecaptionzoo_tpu_torch.models.base import get_captioner
+    from simpleimagecaptionzoo_tpu_torch.ops import image
+    b, beam, max_steps = 16, 3, 8
+    monkeypatch.setattr(resnet, "BLOCK_COUNTS", (1, 1, 1, 1))
+    extra = {"BUTDSpatial": dict(atten_dim=128),
+             "AoASpatial": dict(num_heads=2, num_refine_layers=1)}
+    model = get_captioner(ModelConfig(
+        model_type=family, vocab_size=1000, embed_dim=256, hidden_dim=256,
+        enc_dim=2048, **extra.get(family, {})))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init_params(gen, include_cnn=True)
+    stats = model.init_model_state()["cnn_stats"]
+    images = torch.randint(0, 256, (2 * b, 224, 224, 3), generator=gen,
+                           device=dev, dtype=torch.uint8)
+    monkeypatch.setattr(resnet, "BN_MOMENTUM", 1.0)
+    with torch.no_grad():
+        _, cal = resnet.apply(params["cnn"], stats,
+                              image.normalize(images[b:]),
+                              dtype=torch.float32, train=True)
+    ms, visual = {"cnn_stats": cal}, {"img_tensors": images[:b]}
+    fmaps, apply = [], resnet.apply
+    monkeypatch.setattr(resnet, "apply", lambda *a, **kw: fmaps[0] if fmaps
+                        else fmaps.append(apply(*a, **kw)) or fmaps[0])
+    fn = steps.make_beam_decode(model, beam_size=beam, max_steps=max_steps,
+                                dtype=dtype, device="cuda")
+    route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    before = (_head_counts(), _lstm_counts())
+    shapes, broken = [], []
+    with holds.recording_shapes(shapes), holds.held_calls(broken):
+        ids = fn(params, ms, visual)
+    torch.cuda.synchronize()
+    assert broken == [] and len(fmaps) == 1
+    assert {s[:2] for s in shapes} == {("K1", route), ("K2", route)}
+    for now, was in ((_head_counts(), before[0]),
+                     (_lstm_counts(), before[1])):
+        moved = tuple(a - c for a, c in zip(now, was))
+        assert moved[0] > 0 and moved == tuple(
+            moved[0] * v for v in _moved(route))
+    with holds.plain_versions():
+        ref = fn(params, ms, visual)
+    assert ids.shape == ref.shape == (b, max_steps + 1)
+    if dtype == torch.float32:
+        assert int((ids != ref).any(dim=1).sum()) <= 1
+        return
+    margin = holds.rescored_margin(model, params, visual, ids, ref, dtype,
+                                   dev, ms)
+    assert float(margin.min()) >= -holds.beam_tol(dtype, max_steps)

@@ -480,9 +480,16 @@ def test_entry_points_default_to_the_gpu(setup, decoder):
 
 
 def test_from_pixels_is_not_ported(setup):
+    """Pixels need the ResNet: the port's default ``init_params`` is
+    feature mode (no ``cnn``), and encoding ``img_tensors`` with it fails
+    for want of ``cnn``.  (The name is older than encode from pixels,
+    which tests/test_torch_pixels.py holds.)"""
     p = setup["tm"].init_params(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        setup["tm"].encode(p, {"images": torch.zeros(2, 3, 8, 8)})
+    assert "cnn" not in p and setup["tm"].has_cnn
+    with pytest.raises(KeyError, match="cnn"):
+        setup["tm"].encode(p, {"img_tensors": torch.zeros(
+            2, 8, 8, 3, dtype=torch.uint8)},
+            model_state={"cnn_stats": None})
 
 
 # ---------------------------------------------------------------------------
