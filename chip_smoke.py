@@ -191,7 +191,37 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      bf16 from a fast-ingest pad box (512, extents 112-512).  Every pooled
      feature is float32, (B, 2048) or (B, 49, 2048), finite.  Printed:
      captions/s from pixels, the encode's device ms and its share of the
-     decode's busy time, the idle share, the peak memory.
+     decode's busy time, the idle share, the peak memory;
+ 18. the CLI on the card: ``main.main(build_argparser().parse_args(...))``
+     of the port, in-process, from a temporary directory holding a
+     synthetic dataset in the reference layout (a 10,102-entry vocabulary,
+     captions of 8-16 words from it, 36 x 2048 float32 bottom-up features
+     and boxes an image, a packed uint8 image shard at 224): AoADetection at
+     the width of Configs/Models/AoADetection.json (512 train, 128 val, 128
+     test images) trains 1 epoch at B=128 (4 XE steps, the val greedy in 2
+     batches of 64), resumes to epoch 2 in bf16 (--start_from checkpoint),
+     runs 1 SCST epoch (4 steps; the idf npz written), evaluates the test
+     split with beam 3 in float32, bf16 and int8 (K4 on) and samples one
+     image; NIC from pixels (Configs/Models/NIC.json, the full ResNet-101,
+     256 train images from the shard) trains 2 epochs with
+     --cnn_finetune_start 1 and evaluates 64 test images with beam 3.
+     Gates: every operation returns 0; the reference files exist
+     (checkpoints, histories of 1 then 2 epochs, the scst_ files,
+     metrics.jsonl, coco_caption/results/captions-generate.json); every
+     launch on its tensor-core route (K4 on "tma"); 21 K2 forward and 21
+     backward launches an AoADetection XE step, K1 and K2 once a step of
+     each greedy val batch; the first eval batch of each decode dtype, and
+     NIC's first XE step, with every kernel call held; the first epoch's
+     XE loss finite and falling; each checkpoint, read back on the CPU,
+     equal to the engine's tree bit for bit, all float32; NIC's ResNet
+     unchanged after epoch 1, and after epoch 2 changed in layer4 alone;
+     the sample's log with its caption and, without matplotlib, the line
+     that says so.  Every launch shape of the run gets an entry of the
+     kernels line (``<kernel>_<route>_cli_<shape>``), held and timed on the
+     arguments the path gave it.  Printed: the engine's XE and SCST steps/s
+     and its ms a step over phases 14-15's bare steps, eval captions/s per
+     decode dtype, coco_eval seconds, checkpoint save and load ms, the
+     phase's seconds (at most 90).
 Then it prints one JSON line of per-kernel results (the beam shapes'
 launches as entries of their own, named ``..._beam``; BUTD's K2 and K3
 shapes as ``..._butd_<layer>``, NIC's and AoASpatial's K1, K2 and K3 shapes
@@ -232,6 +262,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import re
 import shutil
@@ -1456,6 +1487,674 @@ def drive_scst(torch, args, dev, model, params, kernels, on_path, data, *,
          steps.self_critical_reward, steps.reward_criterion,
          steps.apply_updates_partitioned) = saved
     return out
+
+
+# -- phase 18: the CLI on the card --------------------------------------------
+CLI_VOCAB = 10102             # bench.py's production head
+CLI_SPLITS = (("train", 512), ("val", 128), ("test", 128))    # AoADetection
+NIC_SPLITS = (("train", 256), ("val", 64), ("test", 64))      # NIC, pixels
+CLI_B, CLI_EVAL_B, CLI_SIDE = 128, 64, 224
+CLI_PHASE_S = 90.0            # phase 18's share of the script's time limit
+CLI_BARE_STEPS = 4            # the bare replay of a training op's first step
+# the ops whose first decode batch (NIC's first XE step) is replayed with
+# every kernel call held
+CLI_HELD_OPS = ("eval_float32", "eval_bfloat16", "eval_int8", "nic_eval",
+                "nic_train")
+
+
+def write_cli_dataset(torch, root, seed, dev):
+    """Phase 18's dataset in the reference layout under ``root``, from
+    ``seed``: a vocabulary of CLI_VOCAB entries (Data/caption_vocab.pkl),
+    one caption of 8-16 words drawn from it per image, word i with
+    probability proportional to (i + 1)^-1.1 (captions' words are Zipfian,
+    so the commonest word outdraws <end> and a briefly trained model's
+    greedy and beam decodes run to their caps); Flickr8K (the
+    AoADetection run: CLI_SPLITS images, Data/fixed_bu_feat/<id>.npz with
+    36 x 2048 float32 features and Data/fixed_bu_bbox/<id>.npy boxes) and
+    Flickr30K (the NIC run: NIC_SPLITS images as one packed uint8 shard at
+    224, Data/images_224_packed.npy, the layout of
+    preprocess/pack_images.py), each with its Configs/Datasets/<ds>.data
+    and modified_annotations/<prefix>captions_<split>.json."""
+    import numpy as np
+    from simpleimagecaptionzoo_tpu_torch.vocab import build_vocab, save_vocab
+    rng = np.random.default_rng(seed + 18)
+    words = ["w%d" % i for i in range(CLI_VOCAB - 4)]
+    zipf = 1.0 / np.arange(1, len(words) + 1) ** 1.1
+    zipf /= zipf.sum()
+    data = os.path.join(root, "Data")
+    for d in ("fixed_bu_feat", "fixed_bu_bbox"):
+        os.makedirs(os.path.join(data, d))
+    os.makedirs(os.path.join(root, "modified_annotations"))
+    os.makedirs(os.path.join(root, "Configs", "Datasets"))
+    vocab = build_vocab([words], threshold=1)
+    require(len(vocab) == CLI_VOCAB, "phase 18: vocabulary of %d entries"
+            % len(vocab))
+    save_vocab(vocab, os.path.join(data, "caption_vocab.pkl"))
+
+    def splits(dataset, prefix, sizes, first, name):
+        ids, nid = {}, first
+        for split, n in sizes:
+            images, anns = [], []
+            for i in range(nid, nid + n):
+                toks = [words[j] for j in rng.choice(
+                    len(words), int(rng.integers(8, 17)), p=zipf)]
+                cap = " ".join(toks)
+                anns.append({"image_id": i, "id": i, "caption": cap,
+                             "tokens": toks, "file_name": name % i})
+                images.append({"id": i, "file_name": name % i,
+                               "sentids": [i], "sentences": [
+                                   {"tokens": toks, "raw": cap}]})
+            with open(os.path.join(root, "modified_annotations",
+                                   "%scaptions_%s.json" % (prefix, split)),
+                      "w") as f:
+                json.dump({"images": images, "annotations": anns}, f)
+            ids[split] = list(range(nid, nid + n))
+            nid += n
+        with open(os.path.join(root, "Configs", "Datasets",
+                               dataset + ".data"), "w") as f:
+            f.write("image_root=/images/\n" + "".join(
+                "%s_caption_path=/modified_annotations/%scaptions_%s.json\n"
+                % (s, prefix, s) for s, _ in sizes)
+                + "data_dir=/Data/\ncaption_vocab_path=/Data/"
+                  "caption_vocab.pkl\n")
+        return ids
+
+    aoa = splits("Flickr8K", "", CLI_SPLITS, 0, "img_%d.jpg")
+    nic = splits("Flickr30K", "nic_", NIC_SPLITS, 10_000, "nic_%d.jpg")
+    for i in (i for v in aoa.values() for i in v):
+        np.savez(os.path.join(data, "fixed_bu_feat", "%d.npz" % i),
+                 feat=np.abs(rng.standard_normal((N_BOX, 2048),
+                                                 dtype=np.float32)))
+        xy = rng.uniform(0, 400, (N_BOX, 2)).astype(np.float32)
+        np.save(os.path.join(data, "fixed_bu_bbox", "%d.npy" % i),
+                np.concatenate([xy, xy + rng.uniform(
+                    8, 200, (N_BOX, 2)).astype(np.float32)], 1))
+    names = ["nic_%d.jpg" % i for v in nic.values() for i in v]
+    gen = torch.Generator(device=dev).manual_seed(seed + 18)
+    np.save(os.path.join(data, "images_%d_packed.npy" % CLI_SIDE),
+            photo_batch(torch, gen, len(names), CLI_SIDE, dev).cpu().numpy())
+    with open(os.path.join(data, "images_%d_index.json" % CLI_SIDE),
+              "w") as f:
+        json.dump({"order": names, "size": CLI_SIDE}, f)
+    return aoa, nic
+
+
+class KernelCalls:
+    """Phase 18's record of every kernel launch, by (kernel, route, rows,
+    the width of x or k, x's dtype, what else fixes the shape): how often
+    each launched, and the wrapper's arguments at its CAPTURE_AT-th launch
+    (or its last, if fewer), so that the kernel can be held and timed
+    afterwards on inputs the path gave it.  The 21st launch: an XE step
+    runs each cell 21 times, so K2's backward is held at t=0, where every
+    row's cotangent is live, and not at the last step, where the rows that
+    ended are zero.  Tensors below 4M elements are cloned; larger ones (the
+    weights, which steps replace and never modify) are kept by
+    reference."""
+
+    CAPTURE_AT = 21
+
+    def __init__(self):
+        from simpleimagecaptionzoo_tpu_torch.ops import (fused_head,
+                                                         fused_lstm,
+                                                         int8_attention,
+                                                         quant)
+        self.wrappers = (("K1", fused_head, "topk_head"),
+                         ("K2", fused_lstm, "lstm_cell_fused"),
+                         ("K2bwd", fused_lstm, "lstm_cell_bwd"),
+                         ("K3", quant, "quant_matmul"),
+                         ("K4", int8_attention, "lanes_attention_int8"))
+        self.shapes, self.first, self.count = [], {}, {}
+        self._paused = False
+
+    @contextlib.contextmanager
+    def paused(self):
+        """Launches in the block are not the path's (comparisons)."""
+        self._paused = True
+        try:
+            yield
+        finally:
+            self._paused = False
+
+    @staticmethod
+    def _key(kind, shape, a):
+        _, route, rows, last = shape
+        x = a[0] if kind in ("K3", "K4") else a[1] if kind == "K1" else a[2]
+        extra = {"K1": lambda: (x.shape[1], a[0].v,
+                                str(a[0].w.dtype) == "torch.int8"),
+                 "K2": lambda: (a[3].shape[1],),
+                 "K2bwd": lambda: (a[3].shape[1],),
+                 "K3": lambda: (a[1]["s"].shape[0],),
+                 "K4": lambda: (a[1].shape[1], x.shape[2], a[6])}[kind]()
+        return (kind, route, rows, last, str(x.dtype).split(".")[1]) + extra
+
+    @contextlib.contextmanager
+    def recording(self, torch):
+        from simpleimagecaptionzoo_tpu_torch.engine import holds
+
+        def clone(v):
+            if isinstance(v, torch.Tensor) and v.numel() < 1 << 22:
+                return v.detach().clone()
+            return v
+
+        def wrap(kind, run):
+            def fn(*a, **kw):
+                if self._paused:
+                    return run(*a, **kw)
+                n = len(self.shapes)
+                out = run(*a, **kw)
+                if len(self.shapes) == n + 1:      # it launched its kernel
+                    key = self._key(kind, self.shapes[-1], a)
+                    self.count[key] = self.count.get(key, 0) + 1
+                    if self.count[key] <= self.CAPTURE_AT:
+                        self.first[key] = (run, [clone(v) for v in a], kw)
+                return out
+            return fn
+
+        saved = [(mod, name, getattr(mod, name))
+                 for _, mod, name in self.wrappers]
+        with holds.recording_shapes(self.shapes):
+            for (kind, _, _), (mod, name, run) in zip(self.wrappers, saved):
+                setattr(mod, name, wrap(kind, run))
+            try:
+                yield self
+            finally:
+                for mod, name, run in saved:
+                    setattr(mod, name, run)
+
+
+def cli_kernel_entries(torch, calls, kernels, on_path, flush, tag):
+    """An entry of the kernels line for every shape phase 18 launched: the
+    kernel held against its plain version (engine/holds' hold) on the
+    arguments KernelCalls kept, timed beside the plain version
+    and, for K2, K2's backward and K3, the library call that computes the
+    same function (torch.lstm_cell, its backward through autograd,
+    torch._weight_int8pack_mm); its bound; its launches in the run.  Named
+    <kernel>_<route>_cli_<shape>/<dtype>."""
+    from simpleimagecaptionzoo_tpu_torch.engine import holds
+    from simpleimagecaptionzoo_tpu_torch.ops import fused_head
+    plain_of = {name: plain for _, name, plain in holds.plain_swaps()}
+    rate_of = {"wgmma": "bfloat16", "tf32x3": "tf32x3", "tf32x2": "tf32x2",
+               "tma": "float32"}
+    src = "simpleimagecaptionzoo_tpu_torch/csrc/"
+    made = []
+    for key in sorted(calls.first, key=str):
+        run, a, kw = calls.first[key]
+        kind, route, rows, last, dn = key[:5]
+        name = dict((k, n) for k, _, n in calls.wrappers)[kind]
+        plain = plain_of[name]
+        got = run(*a, **kw)
+        want = plain(*a)
+        torch.cuda.synchronize()
+        why = holds._HOLDS[name](plain, a, got)
+        require(not why, "phase 18 %s: the kernel breaks its hold on the "
+                "path's own inputs: %s" % (str(key), why))
+        item = a[0 if kind in ("K3", "K4") else 1 if kind == "K1"
+                 else 2].element_size()
+        lib, extra = None, {}
+        if kind == "K1":
+            head, x, k = a[0], a[1], a[2]
+            hd, v, int8 = key[5:]
+            err = max(float((got[0] - want[0]).abs().max()),
+                      float((got[2] - want[2]).abs().max()))
+            nbytes = (rows * hd * item + hd * v * head.w.element_size()
+                      + 2 * v * 4 + rows * (k * 8 + 4))
+            nops = 2 * rows * hd * v
+            w_x = ((head.w[:hd].float() * head.s).to(x.dtype) if int8
+                   else head.w[:hd])
+            extra["product_ms"] = time_ms(torch, lambda: x @ w_x, flush)
+            ename = "fused_head_topk%s_%s_cli_m%dk%dH%d" % (
+                "_int8" if int8 else "", route, rows, k, hd)
+            shape = "m=%d K=%d V=%d%s k=%d" % (rows, hd, v,
+                                                " int8 W" if int8 else "", k)
+            where = ("fused_head.cu", "ops/fused_head.py:155")
+        elif kind in ("K2", "K2bwd"):
+            w_cat, b_sum, x, h, c = a[:5]
+            e, hd = x.shape[1], h.shape[1]
+            require(w_cat.shape == (e + hd, 4 * hd), "phase 18: K2's w_cat "
+                    "%s at E=%d H=%d" % (tuple(w_cat.shape), e, hd))
+            outs = [(got[i].float() - want[i].float()).abs().max()
+                    for i in range(2)]
+            err = float(max(outs))
+            wbytes = ((e + hd) * 4 * hd + 4 * hd) * item
+            nbytes = rows * (e + 4 * hd) * item + wbytes
+            nops = 2 * rows * (e + hd) * 4 * hd
+            lib_w = [w_cat[:e].t().contiguous(),
+                     w_cat[e:].t().contiguous(), b_sum,
+                     torch.zeros_like(b_sum)]
+            if kind == "K2":
+                lib = lambda: torch.lstm_cell(x, (h, c), *lib_w)  # noqa
+                ename = "fused_lstm_cell_%s_cli_B%dE%dH%d" % (route, rows,
+                                                               e, hd)
+                where = ("fused_lstm.cu", "ops/pallas_lstm.py:166")
+            else:
+                dh, dc = a[5], a[6]
+                nbytes += rows * 4 * hd * 4 + rows * hd * item
+                lw = [t.clone().requires_grad_() for t in lib_w]
+                li = [t.clone().requires_grad_() for t in (x, h, c)]
+                lh, lc = torch.lstm_cell(li[0], tuple(li[1:]), *lw)
+                lib = lambda: torch.autograd.grad(  # noqa: E731
+                    (lh, lc), li + lw, (dh.to(lh.dtype), dc.to(lc.dtype)),
+                    retain_graph=True)
+                ename = "fused_lstm_cell_bwd_%s_cli_B%dE%dH%d" % (
+                    route, rows, e, hd)
+                where = ("fused_lstm.cu", "ops/pallas_lstm.py:455")
+                extra["library_is"] = ("torch.lstm_cell's backward through "
+                                       "autograd (it keeps the gates from its "
+                                       "forward)")
+            shape = "B=%d E=%d H=%d" % (rows, e, hd)
+        elif kind == "K3":
+            x, qp = a[0], a[1]
+            x2 = x.reshape(-1, x.shape[-1])
+            kk, n = x2.shape[1], key[5]
+            err = float((got.float() - want.float()).abs().max())
+            nbytes = rows * kk * item + kk * n + 2 * n * 4 + rows * n * item
+            nops = 2 * rows * kk * n
+            q_t = qp["q"][:kk, :n].t().contiguous()
+            s_x = qp["s"].to(x.dtype)
+            lib = lambda: torch._weight_int8pack_mm(x2, q_t, s_x)  # noqa
+            ename = "quant_matmul_%s_cli_m%dK%dn%d" % (route, rows, kk, n)
+            shape = "m=%d K=%d n=%d" % (rows, kk, n)
+            where = ("quant_matmul.cu", "ops/quant.py:105")
+        else:
+            q = a[0]
+            nb, k, n, hd, heads = rows, last, key[5], key[6], key[7]
+            err = max(float((got[0].float() - want[0].float()).abs().max()),
+                      float((got[1] - want[1]).abs().max()))
+            nbytes = (2 * nb * k * hd * item + 2 * nb * n * hd
+                      + 3 * nb * n * 4 + nb * k * n * 4)
+            nops = 4 * nb * k * n * hd
+            ename = "int8_attention_%s_cli_B%dk%dN%d" % (route, nb, k, n)
+            shape = "B=%d k=%d N=%d D=%d heads=%d" % (nb, k, n, hd, heads)
+            where = ("int8_attention.cu", "ops/int8_attention.py:70")
+        ms = time_ms(torch, lambda: run(*a, **kw), flush)
+        device_ms = time_ms(torch, lambda: run(*a, **kw), flush,
+                            lead=8 * DEVICE_LEAD if kind == "K2bwd"
+                            else DEVICE_LEAD)
+        plain_ms = time_ms(torch, lambda: plain(*a), flush)
+        lib_ms = None if lib is None else time_ms(torch, lib, flush)
+        b_ms, b_by = bound(nbytes, nops, rate_of.get(route, dn))
+        full = "%s/%s" % (ename, dn)
+        kernels[full] = dict(
+            name=full, route="cuda", source=src + where[0],
+            replaces="simpleimagecaptionzoo_tpu/" + where[1],
+            launches=0, max_abs_err=err, max_err=err, ms=ms, kernel_ms=ms,
+            device_ms=device_ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms, kernel_route=route,
+            shape=shape + " (phase 18, the CLI's own inputs)", **extra)
+        credit_launches(kernels, on_path, tag, calls.count[key], full)
+        made.append(full)
+        log("phase 18 %s %s (%s) %s: %d launches, held (max|err| %.3g); "
+            "%.4f ms (device alone %.4f), plain %.4f, library %s, bound "
+            "%.4f ms (%s)" % (kind, dn, route, shape, calls.count[key], err,
+                              ms, device_ms, plain_ms,
+                              "none" if lib_ms is None else "%.4f ms"
+                              % lib_ms, b_ms, b_by))
+    return made
+
+
+def _tree_bits_equal(torch, a, b):
+    """Same structure, dtypes, shapes and bits (dict keys in any order)."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_tree_bits_equal(torch, a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (len(a) == len(b)
+                and all(_tree_bits_equal(torch, x, y) for x, y in zip(a, b)))
+    if a is None or b is None:
+        return a is None and b is None
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = a.view(ints[a.element_size()]), b.view(ints[b.element_size()])
+    return bool(torch.equal(a.cpu(), b.cpu()))
+
+
+def drive_cli(torch, args, dev, flush, kernels, on_path, bare):
+    """Phase 18: ``main.main(build_argparser().parse_args([...]))`` of the
+    port, in-process, from a temporary directory holding
+    :func:`write_cli_dataset`'s data (removed afterwards): (a)
+    AoADetection at the width of Configs/Models/AoADetection.json with
+    fixed bottom-up features: train 1 epoch at B=128 (4 XE steps, the val
+    greedy in 2 batches of 64), train --start_from checkpoint
+    --num_epochs 2 --train_dtype bfloat16, scst_train 1 epoch (4 steps),
+    eval --eval_split test --eval_beam_size 3 in float32, bfloat16 and int8
+    (SICZ_TPU_INT8_KV=auto: K4 runs), sample of one image; (b) NIC from
+    pixels (Configs/Models/NIC.json, the full ResNet-101, the packed shard):
+    train --cnn_finetune_start 1 --num_epochs 2 at B=128 (2 steps an
+    epoch), then eval --eval_beam_size 3 on 64 test images.  Each training
+    op's engine ms a step is set beside its own first step replayed bare
+    (the batch already on the card) and beside ``bare``, phases 14 and
+    15's ms a step at the same shapes."""
+    import tempfile
+    from simpleimagecaptionzoo_tpu_torch import main as cli
+    from simpleimagecaptionzoo_tpu_torch.engine import (holds,
+                                                        model_engines,
+                                                        steps)
+    from simpleimagecaptionzoo_tpu_torch.engine.checkpoint import \
+        CheckpointManager
+    from simpleimagecaptionzoo_tpu_torch.engine.optim import (tree_leaves,
+                                                              tree_map)
+    from simpleimagecaptionzoo_tpu_torch.ops import (fused_head, fused_lstm,
+                                                     int8_attention, quant)
+    t_phase = time.time()
+    models = os.path.join(HERE, "Configs", "Models") + os.sep
+    all_counters = {
+        "K1": (fused_head.COUNT, fused_head.COUNT_WGMMA,
+               fused_head.COUNT_TF32X3, fused_head.COUNT_TF32X2),
+        "K2": (fused_lstm.COUNT, fused_lstm.COUNT_WGMMA,
+               fused_lstm.COUNT_TF32X3),
+        "K2bwd": (fused_lstm.COUNT_BWD, fused_lstm.COUNT_BWD_WGMMA,
+                  fused_lstm.COUNT_BWD_TF32X3),
+        "K3": (quant.COUNT, quant.COUNT_WGMMA, quant.COUNT_TF32X2),
+        "K4": (int8_attention.COUNT, int8_attention.COUNT_TMA)}
+
+    def n(kind):
+        return all_counters[kind][0].n
+
+    state = {"op": None, "engine": None}
+    ckpt_saves, xe_steps, greedy_batches = [], [], []
+    first = {}                 # op -> the first step or decode call
+    held = {}                  # op -> kernel calls held in its replay
+    orig = (model_engines.get_engine, steps.make_xe_train_step,
+            steps.make_scst_train_step, steps.make_greedy_decode,
+            steps.make_beam_decode)
+
+    def cpu_tree(tree):
+        return tree_map(lambda t: None if t is None
+                        else t.detach().to("cpu", copy=True), tree)
+
+    def get_engine(*a, **kw):
+        eng = state["engine"] = orig[0](*a, **kw)
+        if eng.cfg.uses_cnn:
+            ckpt_saves.append(("init", cpu_tree(eng.tree["params"]["cnn"])))
+            save = eng.ckpt.save
+
+            def saving(tree, *sa, **skw):
+                ckpt_saves.append(("epoch", cpu_tree(tree["params"]["cnn"])))
+                return save(tree, *sa, **skw)
+            eng.ckpt.save = saving
+        return eng
+
+    def step_maker(i):
+        """make_xe_train_step (i=1) or make_scst_train_step (i=2): each
+        step's K2 launches counted, the op's first call kept for its
+        replay after the op."""
+        def make(*a, **kw):
+            step = orig[i](*a, **kw)
+            family = a[0].config.model_type
+
+            def run(*sa, **skw):
+                first.setdefault(state["op"], (step, sa, skw))
+                before = (n("K2"), n("K2bwd"))
+                out = step(*sa, **skw)
+                if i == 1:
+                    xe_steps.append((state["op"], family,
+                                     n("K2") - before[0],
+                                     n("K2bwd") - before[1]))
+                return out
+            return run
+        return make
+
+    def decode_maker(i):
+        def make(*a, **kw):
+            fn = orig[i](*a, **kw)
+            family = a[0].config.model_type
+
+            def run(*da, **dkw):
+                first.setdefault(state["op"], (fn, da, dkw))
+                before = (n("K1"), n("K2"))
+                out = fn(*da, **dkw)
+                if i == 3 and not isinstance(out, tuple):
+                    greedy_batches.append((state["op"], family,
+                                           _steps_taken(out),
+                                           n("K1") - before[0],
+                                           n("K2") - before[1]))
+                return out
+            return run
+        return make
+
+    def replay(op):
+        """After an op, with KernelCalls paused (these launches are
+        comparisons, not the path's): a training op's first step from its
+        own state and batch (already on the card) CLI_BARE_STEPS times,
+        timed as the bare step beside the engine's; an eval's first batch,
+        and NIC's first XE step, again with every kernel call held against
+        its plain version."""
+        fn, a, kw = first.pop(op)
+        with calls.paused():
+            if op in ("train", "train_resume_bf16", "scst_train"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st = a[0]
+                for _ in range(CLI_BARE_STEPS):
+                    st, _ = fn(st, *a[1:], **kw)
+                torch.cuda.synchronize()
+                return {"bare_ms_per_step": (time.perf_counter() - t0) * 1e3
+                        / CLI_BARE_STEPS}
+            if op not in CLI_HELD_OPS:
+                return {}
+            broken, shapes = [], []
+            with holds.held_calls(broken), holds.recording_shapes(shapes):
+                fn(*a, **kw)
+            torch.cuda.synchronize()
+            require(not broken and shapes and (
+                op != "nic_train" or any(s[0] == "K2bwd" for s in shapes)),
+                "phase 18 %s: %d of %d kernel calls broke their hold "
+                "(first: %s)" % (op, len(broken), len(shapes), broken[:1]))
+            held[op] = len(shapes)
+            return {"calls_held": len(shapes)}
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    cwd = os.getcwd()
+    calls = KernelCalls()
+    results, ops = {}, []
+    try:
+        os.chdir(root)
+        t0 = time.time()
+        aoa_ids, nic_ids = write_cli_dataset(torch, root, args.seed, dev)
+        results["dataset_s"] = time.time() - t0
+        (model_engines.get_engine, steps.make_xe_train_step,
+         steps.make_scst_train_step, steps.make_greedy_decode,
+         steps.make_beam_decode) = (get_engine, step_maker(1),
+                                    step_maker(2), decode_maker(3),
+                                    decode_maker(4))
+        for c in (c for cs in all_counters.values() for c in cs):
+            c.n = 0
+        aoa = ["--dataset", "Flickr8K", "--model_type", "AoADetection",
+               "--model_config_root", models, "--use_bu", "fixed",
+               "--train_batch_size", str(CLI_B), "--scst_train_batch_size",
+               str(CLI_B), "--eval_batch_size", str(CLI_EVAL_B),
+               "--tqdm_visible", "False", "--seed", str(args.seed)]
+        nic = ["--dataset", "Flickr30K", "--model_type", "NIC",
+               "--model_config_root", models, "--img_size", str(CLI_SIDE),
+               "--train_batch_size",
+               str(CLI_B), "--eval_batch_size", str(CLI_EVAL_B),
+               "--tqdm_visible", "False", "--seed", str(args.seed)]
+        plan = [
+            ("train", aoa + ["--operation", "train", "--num_epochs", "1"]),
+            ("train_resume_bf16", aoa + [
+                "--operation", "train", "--num_epochs", "2", "--start_from",
+                "checkpoint", "--train_dtype", "bfloat16"]),
+            ("scst_train", aoa + ["--operation", "scst_train",
+                                  "--scst_num_epochs", "1"]),
+            ("eval_float32", aoa + ["--operation", "eval", "--eval_split",
+                                    "test", "--eval_beam_size", "3"]),
+            ("eval_bfloat16", aoa + ["--operation", "eval", "--eval_split",
+                                     "test", "--eval_beam_size", "3",
+                                     "--decode_dtype", "bfloat16"]),
+            ("eval_int8", aoa + ["--operation", "eval", "--eval_split",
+                                 "test", "--eval_beam_size", "3",
+                                 "--decode_dtype", "int8"]),
+            ("sample", aoa + ["--operation", "sample", "--img_filename",
+                              "img_%d.jpg" % aoa_ids["val"][0]]),
+            ("nic_train", nic + ["--operation", "train", "--num_epochs", "2",
+                                 "--cnn_finetune_start", "1"]),
+            ("nic_eval", nic + ["--operation", "eval", "--eval_beam_size",
+                                "3"])]
+        require(os.environ.get("SICZ_TPU_INT8_KV") == "auto",
+                "phase 18 needs SICZ_TPU_INT8_KV=auto (set in phase 8)")
+        sample_log = None
+        with calls.recording(torch):
+            for op, argv in plan:
+                state["op"] = op
+                t0 = time.time()
+                if op == "sample":
+                    buf = __import__("io").StringIO()
+                    with contextlib.redirect_stdout(buf):
+                        rc = cli.main(cli.build_argparser().parse_args(argv))
+                    sample_log = buf.getvalue()
+                    sys.stdout.write(sample_log)
+                else:
+                    rc = cli.main(cli.build_argparser().parse_args(argv))
+                torch.cuda.synchronize()
+                ops.append(dict(op=op, rc=rc, seconds=time.time() - t0))
+                require(rc == 0, "phase 18 %s: main returned %s" % (op, rc))
+                eng, rec = state["engine"], ops[-1]
+                for attr in ("last_epoch", "last_eval", "last_save_s",
+                             "last_load_s", "last_coco_eval_s"):
+                    if hasattr(eng, attr):
+                        rec[attr] = getattr(eng, attr)
+                if op in ("train", "train_resume_bf16", "nic_train"):
+                    # the file on disk, read back on the CPU, is the
+                    # engine's tree bit for bit; masters stay float32
+                    host = cpu_tree(eng.tree)
+                    back, his, _ = CheckpointManager(
+                        eng.cfg.model_type, eng.data_cfg.dataset_name).load(
+                        host)
+                    require(back is not None
+                            and _tree_bits_equal(torch, back, host),
+                            "phase 18 %s: the checkpoint read back differs "
+                            "from the engine's tree" % op)
+                    require(all(t.dtype == torch.float32 for t in
+                                tree_leaves(back["params"])),
+                            "phase 18 %s: the saved params are not all "
+                            "float32" % op)
+                    rec["cider_his"] = his
+                    rec["losses"] = list(eng.epoch_losses)
+                rec.update(replay(op))
+        results["ops"] = ops
+
+        # -- gates
+        mdir = os.path.join("CheckPoints",
+                            "Model_AoADetection_Dataset_Flickr8K")
+        for path in ("cp/Captioner_cp.msgpack", "cp/state_histories.json",
+                     "cp/Captioner_scst_cp.msgpack",
+                     "cp/scst_state_histories.json", "metrics.jsonl"):
+            require(os.path.exists(os.path.join(mdir, path)),
+                    "phase 18: %s missing" % path)
+        require(os.path.exists("coco_caption/results/captions-generate.json")
+                and os.path.exists("Data/cider_idf_table.npz"),
+                "phase 18: the results json or the idf npz is missing")
+        his = [o.get("cider_his") for o in ops
+               if o["op"] in ("train", "train_resume_bf16")]
+        require([len(h) for h in his] == [1, 2], "phase 18: state_histories "
+                "after the two XE runs: %s" % his)
+        with open(os.path.join(mdir, "metrics.jsonl")) as f:
+            recs = [json.loads(x) for x in f]
+        phases = [(r["phase"], r.get("epoch")) for r in recs]
+        require(phases == [("xe", 1), ("xe", 2), ("scst", 1), ("eval", None),
+                           ("eval", None), ("eval", None)],
+                "phase 18: metrics.jsonl records %s" % phases)
+        losses = ops[0]["losses"]
+        require(len(losses) == 4 and all(map(math.isfinite, losses))
+                and losses[-1] < losses[0],
+                "phase 18: the first epoch's XE losses %s (finite, falling)"
+                % losses)
+        # routes: every launch on its tensor-core route (K4 on "tma")
+        for kind, cs in all_counters.items():
+            require(cs[0].n == sum(c.n for c in cs[1:]) and cs[0].n > 0,
+                    "phase 18 %s: %d launches, %s on the tensor-core routes"
+                    % (kind, cs[0].n, [c.n for c in cs[1:]]))
+        aoa_xe = [s for s in xe_steps if s[1] == "AoADetection"]
+        require(len(aoa_xe) == 8 and all(s[2:] == (21, 21) for s in aoa_xe),
+                "phase 18: AoADetection XE steps' K2 forward and backward "
+                "launches %s (21 and 21 each)" % aoa_xe)
+        for op, fam, steps_taken, k1, k2 in greedy_batches:
+            want_k2 = steps_taken + (fam == "NIC")
+            require(k1 == steps_taken and k2 == want_k2,
+                    "phase 18 %s %s greedy batch: K1 %d and K2 %d launches "
+                    "for %d steps" % (op, fam, k1, k2, steps_taken))
+        require(len([g for g in greedy_batches if g[1] == "AoADetection"])
+                == 2 * 2 + 2, "phase 18: AoADetection greedy val batches %s"
+                % greedy_batches)
+        require(set(held) == set(CLI_HELD_OPS), "phase 18: held %s" % held)
+        # without matplotlib (the card's machine has none) the hook says
+        # so in one line and draws nothing
+        import importlib.util
+        no_mpl = importlib.util.find_spec("matplotlib") is None
+        require(sample_log and "Generated caption:" in sample_log
+                and "ground-truth captions:" in sample_log
+                and (model_engines.NO_MATPLOTLIB in sample_log) == no_mpl,
+                "phase 18 sample: the log lacks the caption, or the "
+                "matplotlib line %s" % ("is missing" if no_mpl
+                                        else "appears with matplotlib"))
+        # NIC: epoch 1 leaves the ResNet as it was, epoch 2 fine-tunes
+        # layer4 alone
+        init = [t for k, t in ckpt_saves if k == "init"]
+        saved = [t for k, t in ckpt_saves if k == "epoch"]
+        require(len(init) >= 1 and len(saved) == 2,
+                "phase 18 NIC: %d inits and %d saves" % (len(init),
+                                                         len(saved)))
+        cnn0 = init[0]
+        require(_tree_bits_equal(torch, saved[0], cnn0),
+                "phase 18 NIC: epoch 1 moved the frozen ResNet")
+        for stage in cnn0:
+            same = _tree_bits_equal(torch, saved[1][stage], cnn0[stage])
+            require(same != (stage == "layer4"),
+                    "phase 18 NIC: after epoch 2 %s %s" % (
+                        stage, "is unchanged" if same else "changed"))
+        results["nic_xe_k2"] = [s[2:] for s in xe_steps if s[1] == "NIC"]
+        results["greedy_batches"] = greedy_batches
+        results["held_calls"] = held
+        results["aoa_xe_steps"] = len(aoa_xe)
+        results["kernel_entries"] = cli_kernel_entries(
+            torch, calls, kernels, on_path, flush, "phase 18 CLI")
+    finally:
+        (model_engines.get_engine, steps.make_xe_train_step,
+         steps.make_scst_train_step, steps.make_greedy_decode,
+         steps.make_beam_decode) = orig
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+
+    # -- measurements
+    by_op = {o["op"]: o for o in ops}
+    xe_f32 = by_op["train"]["last_epoch"]
+    xe_bf16 = by_op["train_resume_bf16"]["last_epoch"]
+    scst = by_op["scst_train"]["last_epoch"]
+    meas = dict(
+        xe_steps_per_s=xe_f32["steps_per_sec"],
+        xe_bf16_steps_per_s=xe_bf16["steps_per_sec"],
+        scst_steps_per_s=scst["steps_per_sec"])
+    for what, op, key in (("xe", "train", "xe/float32"),
+                          ("xe_bf16", "train_resume_bf16", "xe/bfloat16"),
+                          ("scst", "scst_train", "scst/float32")):
+        ms = 1e3 / by_op[op]["last_epoch"]["steps_per_sec"]
+        here = by_op[op]["bare_ms_per_step"]
+        meas[what + "_ms_per_step"] = ms
+        meas[what + "_bare_ms_per_step"] = here
+        meas[what + "_overhead_ms"] = ms - here
+        meas[what + "_phase14_15_bare_ms_per_step"] = bare[key]
+        meas[what + "_overhead_over_phase14_15_ms"] = ms - bare[key]
+    for op in ("eval_float32", "eval_bfloat16", "eval_int8", "nic_eval"):
+        ev = by_op[op]["last_eval"]
+        meas[op + "_captions_per_s"] = ev["captions"] / ev["seconds"]
+    meas["coco_eval_s"] = {o["op"]: o["last_coco_eval_s"] for o in ops
+                           if "last_coco_eval_s" in o}
+    meas["checkpoint_save_ms"] = {o["op"]: 1e3 * o["last_save_s"]
+                                  for o in ops if "last_save_s" in o}
+    meas["checkpoint_load_ms"] = {o["op"]: 1e3 * o["last_load_s"]
+                                  for o in ops if "last_load_s" in o}
+    results["measured"] = meas
+    results["seconds"] = time.time() - t_phase
+    log("phase 18: %s" % json.dumps(meas))
+    log("phase 18: ops %s" % ", ".join("%s %.1f s" % (o["op"], o["seconds"])
+                                       for o in ops))
+    log("phase 18 took %.1f s (dataset %.1f s)" % (results["seconds"],
+                                                   results["dataset_s"]))
+    require(results["seconds"] <= CLI_PHASE_S, "phase 18 took %.1f s, over "
+            "its %.0f s" % (results["seconds"], CLI_PHASE_S))
+    return results
 
 
 def main(argv=None) -> int:
@@ -3283,8 +3982,16 @@ def main(argv=None) -> int:
          ("AoASpatial", aoasp, aparams, aoasp_paths,
           (B, acfg.num_pixels, acfg.enc_dim), False)])
 
+    log("-- phase 18 at %.1f s" % (time.time() - t_start))
+    # -- 18. the CLI on the card: train, scst_train, eval, sample ------------
+    results["cli"] = drive_cli(
+        torch, args, dev, flush, kernels, on_path,
+        bare={"xe/float32": results["xe"]["float32/ss_off"]["ms_per_step"],
+              "xe/bfloat16": results["xe"]["bfloat16/ss_off"]["ms_per_step"],
+              "scst/float32": results["scst"]["float32"]["ms_per_step"]})
+
     results["seconds"] = time.time() - t_start
-    log("-- phases 2-17 took %.1f s" % results["seconds"])
+    log("-- phases 2-18 took %.1f s" % results["seconds"])
     missing = [k for k in on_path if not kernels[k].get("launches")]
     require(not missing, "kernels not launched on the main path: %s"
             % missing)

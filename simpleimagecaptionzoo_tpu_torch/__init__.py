@@ -29,8 +29,14 @@ over float32 master weights; the same XE training for the other four
 families; and SCST training of all five
 (``engine.steps.make_scst_train_step``: a greedy baseline, the rollout
 ``ops/decode.sample_rl``, the CIDEr-D reward on the card, ``ops/cider.py``,
-and ``ops/losses.reward_criterion``).  ``ROADMAP.md`` lists what
-follows.
+and ``ops/losses.reward_criterion``).  Around the models: the CLI
+(``python -m simpleimagecaptionzoo_tpu_torch.main --operation
+{train,scst_train,eval,sample}``, the JAX package's flags), the engine that
+runs the epochs, evaluations and samples (``engine/engine.py``,
+``model_engines.py``, ``sample.py``, ``observe.py``), the data layer
+(``data/``), checkpoints in the JAX package's flax msgpack layout, read
+and written without flax (``engine/checkpoint.py``), and the COCO-caption
+scorers (``evalcap/``).  ``ROADMAP.md`` lists what follows.
 
 Token id conventions follow the reference (Build_caption_vocab.py:37-40):
 ``<pad>``=0, ``<sta>``=1, ``<end>``=2, ``<unk>``=3.  Importing the package has

@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+from typing import Optional
 
 
 def parse_data_config(path: str, base_dir: str) -> dict:
@@ -144,12 +146,10 @@ class SsOpts:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Top-level training knobs, defaults matching Main.py:140-195.  The
-    port has the XE and SCST steps (``engine/steps.make_xe_train_step``,
-    ``make_scst_train_step``: the ``scst_*`` fields give its batch, its
-    clamp and the reward's reference geometry); the epoch loop and
-    from-pixels input that read the other fields follow in later
-    slices."""
+    """Top-level training knobs, defaults matching Main.py:140-195: the
+    steps (``engine/steps``), the epoch loops of ``engine/engine.Engine``
+    and the data layer read them.  ``midepoch_save_steps`` must stay 0:
+    the port has no step-level checkpoints (the engine refuses it)."""
 
     num_epochs: int = 30
     train_batch_size: int = 128
@@ -186,3 +186,32 @@ class TrainConfig:
     # (0 = epoch-boundary only, the reference's behavior)
     midepoch_save_steps: int = 0
     seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Resolved dataset paths (from a ``.data`` file)."""
+
+    dataset_name: str = "COCO14"
+    image_root: str = ""
+    train_caption_path: str = ""
+    val_caption_path: str = ""
+    test_caption_path: str = ""
+    data_dir: str = ""
+    caption_vocab_path: str = ""
+
+    @classmethod
+    def from_data_file(cls, path: str, base_dir: Optional[str] = None,
+                       dataset_name: Optional[str] = None) -> "DataConfig":
+        base_dir = base_dir or os.path.abspath(os.path.dirname(path) + "/../..")
+        opt = parse_data_config(path, base_dir)
+        name = dataset_name or os.path.splitext(os.path.basename(path))[0]
+        return cls(
+            dataset_name=name,
+            image_root=opt.get("image_root", ""),
+            train_caption_path=opt.get("train_caption_path", ""),
+            val_caption_path=opt.get("val_caption_path", ""),
+            test_caption_path=opt.get("test_caption_path", ""),
+            data_dir=opt.get("data_dir", ""),
+            caption_vocab_path=opt.get("caption_vocab_path", ""),
+        )

@@ -9,6 +9,7 @@ reference, by the JAX package or by this package all load through
 from __future__ import annotations
 
 import pickle
+from collections import Counter
 from typing import Iterable, List
 
 SPECIALS = ("<pad>", "<sta>", "<end>", "<unk>")
@@ -52,6 +53,32 @@ class Vocabulary:
             if word != "<sta>":
                 words.append(word)
         return words
+
+
+def build_vocab(token_lists: Iterable[Iterable[str]],
+                threshold: int = 5) -> Vocabulary:
+    """Build a vocabulary from an iterable of token lists.
+
+    Matches PreProcess/Build_caption_vocab.py:22-45: count train tokens, keep
+    words with count >= threshold (in first-seen order), specials first.
+    """
+    counter: Counter = Counter()
+    for tokens in token_lists:
+        counter.update(tokens)
+    vocab = Vocabulary()
+    for sp in SPECIALS:
+        vocab.add_word(sp)
+    for word, cnt in counter.items():
+        if cnt >= threshold:
+            vocab.add_word(word)
+    return vocab
+
+
+def save_vocab(vocab: Vocabulary, path: str) -> None:
+    """Pickle ``vocab``.  Either package's :func:`load_vocab` reads the
+    file: both unpicklers take a ``Vocabulary`` from any module."""
+    with open(path, "wb") as f:
+        pickle.dump(vocab, f)
 
 
 class _VocabUnpickler(pickle.Unpickler):

@@ -1339,3 +1339,63 @@ def test_from_pixels_beam_decode_through_the_kernels_matches_plain(
     margin = holds.rescored_margin(model, params, visual, ids, ref, dtype,
                                    dev, ms)
     assert float(margin.min()) >= -holds.beam_tol(dtype, max_steps)
+
+
+def _tiny_dataset(root, n_img=20, n_box=5, enc_dim=64):
+    """A reference-layout dataset (Flickr8K) of ``n_img`` test images with
+    fixed bottom-up features, without the JAX package."""
+    import json
+    from simpleimagecaptionzoo_tpu_torch.vocab import build_vocab, save_vocab
+    words = ["a", "dog", "cat", "runs", "sits", "on", "grass", "mat"]
+    rng = np.random.default_rng(21)
+    (root / "ann").mkdir()
+    (root / "Data" / "fixed_bu_feat").mkdir(parents=True)
+    images, anns = [], []
+    for i in range(n_img):
+        toks = [words[int(j)] for j in rng.integers(0, 8, 5)]
+        anns.append({"image_id": i, "id": i, "caption": " ".join(toks),
+                     "tokens": toks, "file_name": "%d.jpg" % i})
+        images.append({"id": i, "file_name": "%d.jpg" % i,
+                       "sentences": [{"tokens": toks}]})
+        np.savez(root / "Data" / "fixed_bu_feat" / ("%d.npz" % i),
+                 feat=np.abs(rng.normal(size=(n_box, enc_dim))).astype(
+                     np.float32))
+    with open(root / "ann" / "test.json", "w") as f:
+        json.dump({"images": images, "annotations": anns}, f)
+    save_vocab(build_vocab([words], threshold=1),
+               str(root / "Data" / "caption_vocab.pkl"))
+
+
+@pytest.mark.parametrize("beam", [-1, 3])
+def test_engine_eval_ids_match_the_plain_run(dev, tmp_path, monkeypatch,
+                                             beam):
+    """An eval through the Engine on the card (K1 and K2 on their
+    tensor-core routes, float32) gives the ids of the same eval with the
+    plain versions."""
+    from simpleimagecaptionzoo_tpu_torch.config import (DataConfig,
+                                                        ModelConfig,
+                                                        TrainConfig)
+    from simpleimagecaptionzoo_tpu_torch.engine import holds
+    from simpleimagecaptionzoo_tpu_torch.engine.model_engines import \
+        get_engine
+    from simpleimagecaptionzoo_tpu_torch.vocab import load_vocab
+    _tiny_dataset(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    vocab = load_vocab(str(tmp_path / "Data" / "caption_vocab.pkl"))
+    data = DataConfig(dataset_name="Flickr8K",
+                      test_caption_path=str(tmp_path / "ann" / "test.json"),
+                      data_dir=str(tmp_path / "Data"))
+    eng = get_engine(
+        ModelConfig(model_type="BUTDDetection", vocab_size=len(vocab),
+                    embed_dim=128, hidden_dim=128, atten_dim=128, enc_dim=64,
+                    max_bu_len=5),
+        data, vocab, train_config=TrainConfig(eval_batch_size=8),
+        use_bu="fixed", device="cuda", tqdm_visible=False)
+    before = (_head_counts(), _lstm_counts())
+    got = eng.eval_captions_json_generation("test", beam)
+    torch.cuda.synchronize()
+    assert _head_counts()[0] > before[0][0]
+    assert _lstm_counts()[0] > before[1][0]
+    with holds.plain_versions():
+        want = eng.eval_captions_json_generation("test", beam)
+    assert len(got) == 20 and got == want
