@@ -13,7 +13,10 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      UTMALDG (TMA loads) in libfused_lstm, libfused_head and
      libquant_matmul, the tf32 HGMMA and UTMALDG in each of the two
      "tf32x2" kernels (head_partial_tf32x2, quant_matmul_tf32x2) on its
-     own, and UTMALDG in libint8_attention;
+     own, in each of K2 backward's four product kernels (liblstm_bwd:
+     dx·dh and dW·db, the bf16 HGMMA in the wgmma pair, the tf32 one in
+     the tf32x3 pair) UTMALDG and its HGMMA, and UTMALDG in
+     libint8_attention;
   3. K1, the fused head top-k, against its plain PyTorch version on the card
      at the greedy decode shape (m=384, H=1024, V=10,102; k=1 and k=3), at
      m=3 and at the beam shape (m=1,152, k=3) on each dtype's tensor-core
@@ -36,19 +39,31 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      emb]; E=3,072, the language cell's [attended, h1]; H=1,024), NIC's
      (E=512, the word or image embedding; H=512) and AoASpatial's (E=1,024,
      [emb, ctx]; H=512); and, for XE training, K2 at the training rows
-     (B=128) on each dtype's tensor-core route, and K2's backward (the gate
-     recompute and the gate gradients, fused_lstm_cell_bwd) against
-     lstm_cell_bwd_plain on each route ("wgmma", "tf32x3", and
+     (B=128) on each dtype's tensor-core route, and K2's backward kernel
+     (the gate recompute and the gate gradients, fused_lstm_cell_bwd)
+     against lstm_cell_bwd_plain on each route ("wgmma", "tf32x3", and
      "cuda_core" forced) at B=128 and 384 (E=2048, H=1024) and at E=200,
      d_gates and dc to K2's holds (1e-5 float32, rtol and atol 1e-2
-     bf16); at B=128 the backward kernel, the whole backward through
-     LstmCell (the kernel and its three float32 products), torch.lstm_cell's
-     backward through autograd (which keeps its gates instead of
-     recomputing them), the forward and torch.lstm_cell's forward, timed in
-     turns, host-inclusive and device-only; and the same forward and
-     backward at B=128 for BUTD's two cells (E=4,096 and 3,072), held on
-     each dtype's tensor-core route and timed in the same turns (without
-     the CUDA-core route);
+     bf16); K2's whole backward (lstm_cell_bwd_full: the backward kernel,
+     then the dx·dh and dW·db kernels of csrc/lstm_bwd.cu) at each cell
+     the training paths run (AoADetection E=2,048 H=1,024, BUTD's td
+     E=4,096 and lang E=3,072, NIC E=512 H=512, AoASpatial E=1,024 H=512)
+     at B=128, 64 and 192 on each dtype's tensor-core route: three
+     launches, the same bits twice, its five outputs to
+     engine/holds.k2_bwd_full_errors (float32 against float64: dx, dh, dc
+     1e-5; dW and db 1e-5 of the sums of |[x, h]||d| and |d|; bf16 rtol and
+     atol 1e-2), the products' operands to their split's bound, and each
+     product kernel against its plain version on the same d_gates; at
+     E=200 the whole backward with float32 torch.matmul products and no
+     product kernel; then per cell at B=128, timed in turns, host-inclusive
+     and device-only: the whole backward through LstmCell, the matmul path
+     (the backward kernel and three float32 torch.matmul products,
+     composed here as a yardstick), torch.lstm_cell's backward through
+     autograd (which keeps its gates), the backward kernel, dx·dh (float32:
+     beside torch.mm(d_gates, w_cat^T)), dW·db, for AoADetection's cell
+     the backward kernel on the CUDA cores, and the forward beside
+     torch.lstm_cell's forward; each against its bound (the whole
+     backward: the recompute, dx·dh and dW·db, w_cat read twice);
   5. K3, the int8 dequantizing product, against its plain version at the
      three shapes of the int8 decode step (the LSTM gates, aoa_dec.q,
      aoa_dec.aoa; m=384, and m=1,152 for the beam step), at BUTD's three
@@ -140,13 +155,20 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      bf16 over float32 master weights, scheduled sampling off and on at
      0.25.  In each of the four: the first step's loss and gradient norms
      through the kernels against the plain versions (the same generator
-     seeds give both the same dropout masks and draws), one step through
+     seeds give both the same dropout masks and draws; in float32 each
+     leaf's gradient within 1e-4 of its norm beyond the plain float32
+     run's own distance from the same step in float64, since each rounds
+     its own products: chip_smoke.beyond_float64), one step through
      the plain versions and 8 through the kernels (per step K2's forward
-     and backward 21 times each on the dtype's tensor-core route at B=128,
-     exactly; the loss falling; ms a step, samples/s, peak memory, TMA map
-     encodes), one step with every K2 call, forward and backward, held
+     and whole backward 21 times each on the dtype's tensor-core route at
+     B=128, exactly, the backward's three kernels once each a call; the
+     loss falling; ms a step, samples/s, peak memory, TMA map encodes),
+     one step with every K2 call, forward and whole backward, held
      against its plain version (engine/holds.held_calls), and one step
-     under torch.profiler (device time by part, idle share);
+     under torch.profiler (device time by part, idle share; "K2 backward's
+     float32 products", anything LstmCellBackward launches but its
+     kernels, autograd's sums of its outputs and its cotangent copies,
+     must read 0 ms);
  15. SCST training of AoADetection at the same width through
      engine.steps.make_scst_train_step: B=128 with 36 valid boxes, cap 20,
      7 references an image padded to 32 (6-20 ids each), an idf table of
@@ -159,21 +181,23 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      the plain versions: the rewards identical, the loss within 1e-5 /
      1e-2 of its scale, each leaf's gradient as in 14); 8 steps through
      the kernels (per step K1 once a greedy step taken at m=128, k=1, K2's
-     forward that many plus 20 times and its backward 20 times, every
-     launch on the dtype's tensor-core route, exactly; loss and reward
-     finite; ms a step, samples/s, peak memory); one step with every K1,
-     K2 and K2-backward call held; one step under torch.profiler (device
-     time by part: the two encodes, the greedy baseline, the rollout, the
-     hoisted head and its logprobs, the reward, the backward, K2's
-     backward and its products, Adam);
+     forward that many plus 20 times and its whole backward 20 times
+     (three launches each), every launch on the dtype's tensor-core
+     route, exactly; loss and reward finite; ms a step, samples/s, peak
+     memory); one step with every K1, K2 and K2-backward call held; one
+     step under torch.profiler (device time by part: the two encodes, the
+     greedy baseline, the rollout, the hoisted head and its logprobs, the
+     reward, the backward, K2's backward kernel and its product kernels,
+     autograd's sums of their outputs, Adam; "K2 backward's float32
+     products" 0 ms, as in 14);
  16. BUTDDetection at examples/bench_train.py's shape (B=128, 36 boxes,
      vocab 9,962, captions padded to 22; the width of
      Configs/Models/BUTDDetection.json, random weights from --seed): XE
      (as in 14, scheduled sampling on at 0.25, Adam at the json's lr
      4e-4) and SCST (as in 15, the same references and table, scst_lr
      2e-5), float32 and bf16, 4 timed steps each; per step K2's forward
-     and backward for both cells (E=4,096 and 3,072) on the tensor-core
-     route;
+     and whole backward (three launches) for both cells (E=4,096 and
+     3,072) on the tensor-core route;
  17. captions from pixels: NIC, BUTDSpatial and AoASpatial at their
      published widths (vocab 10,102), each with the full ResNet-101
      (3, 4, 23, 3, random from --seed, one tree for the three), B=384
@@ -208,8 +232,9 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      Gates: every operation returns 0; the reference files exist
      (checkpoints, histories of 1 then 2 epochs, the scst_ files,
      metrics.jsonl, coco_caption/results/captions-generate.json); every
-     launch on its tensor-core route (K4 on "tma"); 21 K2 forward and 21
-     backward launches an AoADetection XE step, K1 and K2 once a step of
+     launch on its tensor-core route (K4 on "tma"); 21 K2 forward
+     launches an AoADetection XE step and 21 of each of the whole
+     backward's three kernels, K1 and K2 once a step of
      each greedy val batch; the first eval batch of each decode dtype, and
      NIC's first XE step, with every kernel call held; the first epoch's
      XE loss finite and falling; each checkpoint, read back on the CPU,
@@ -226,10 +251,11 @@ Then it prints one JSON line of per-kernel results (the beam shapes'
 launches as entries of their own, named ``..._beam``; BUTD's K2 and K3
 shapes as ``..._butd_<layer>``, NIC's and AoASpatial's K1, K2 and K3 shapes
 as ``..._nic[_<layer>]`` and ``..._aoasp[_<layer>]``; K2's backward as
-``fused_lstm_cell_bwd[_<route>]`` and its forward at the training rows as
+``fused_lstm_cell_bwd[_<route>]``, its products as ``lstm_bwd_dxh_<route>``
+and ``lstm_bwd_dw_<route>``, and its forward at the training rows as
 ``fused_lstm_cell_<route>_train`` (BUTD's cells: ``..._butd_td`` and
-``..._butd_lang``); K1 at the training rows as
-``fused_head_topk_<route>_train``; an entry's
+``..._butd_lang``; NIC's and AoASpatial's ``..._nic``, ``..._aoasp``);
+K1 at the training rows as ``fused_head_topk_<route>_train``; an entry's
 ``launches`` is the sum over the main paths' reading runs that launched it,
 ``launches_by_path`` per path) and, last, the ``{"ok": true, "device":
 ...}`` line.
@@ -433,6 +459,52 @@ def bound(nbytes, nops, rate):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+# K2's whole backward is held at the XE and SCST rows and at the engine's
+# eval rows (phase 18)
+K2_BWD_ROWS = (TRAIN_B, 64, 192)
+
+
+def product_counts(fused_lstm):
+    """(every launch, "wgmma" launches, "tf32x3" launches) of K2 backward's
+    dx·dh kernel, then the same of its dW·db kernel."""
+    return tuple(c.n for c in k2_product_counters(fused_lstm).values())
+
+
+def k2_bwd_bounds(rows, e, hd, item, route):
+    """Bounds of K2's backward at one shape, name -> (ms, "bytes" or
+    "operations", bytes, operations): "gate", the backward kernel writing
+    d_gates, dc and the products' operands (bf16: d's two bf16 parts;
+    float32: d^T's two TF32 parts); "gate_cc", the same without the
+    operands (the CUDA-core route); "dxh", dx·dh; "dw", dW·db; "full", the
+    whole backward (the inputs and cotangents read once, w_cat twice, the
+    five outputs written once); "saved", the whole backward had the
+    forward saved its gates (ROADMAP Queue 2: no recompute, w_cat read
+    once, the gates read).  P = 2 B (E+H) 4H, one product's operations:
+    the recompute is one, each of dx·dh and dW two (2xBF16) at the bf16
+    rate, or one at the 3xTF32 rate (a third of TF32's)."""
+    n4 = 4 * hd
+    p = 2 * rows * (e + hd) * n4
+    w = (e + hd) * n4 * item
+    bf = route == "wgmma"
+    rate = "bfloat16" if bf else "tf32x3"
+    prod_ops = (2 if bf else 1) * p
+    parts = 2 * rows * n4 * (2 if bf else 4)
+    ins = rows * (e + 4 * hd) * item                  # x, h, c, dh', dc'
+    gate_cc = ins + w + n4 * item + rows * n4 * 4 + rows * hd * item
+    sizes = dict(
+        gate=(gate_cc + parts, p), gate_cc=(gate_cc, p),
+        dxh=(w + (parts if bf else rows * n4 * 4) + rows * (e + hd) * item,
+             prod_ops),
+        dw=(rows * (e + hd) * item + parts + rows * n4 * 4 + w + n4 * item,
+            prod_ops),
+        full=(ins + 2 * w + n4 * item + w + n4 * item
+              + rows * (e + 2 * hd) * item, (5 if bf else 3) * p),
+        saved=(ins + rows * n4 * item + w + n4 * item + w + n4 * item
+               + rows * (e + 2 * hd) * item, (4 if bf else 2) * p))
+    return {k: bound(nb, no, rate) + (nb, no) for k, (nb, no) in
+            sizes.items()}
+
+
 def hold_head(torch, fused_head, tag, head, x, dn, tol, extra=(),
               route=None):
     """K1 (any weight type) against its plain version at k=1, k=3, on
@@ -522,14 +594,46 @@ SCST_RANGES = ("scst:greedy_baseline", "scst:encode", "scst:rollout",
                "scst:optimizer")
 
 
+# the parts of a training step's profile that K2's backward launches
+# besides its kernels: what autograd's LstmCellBackward node launched, by
+# the operation that launched it
+K2_PRODUCTS_PART = "K2 backward's float32 products"
+K2_BWD_OPS = {"aten::add": "autograd's sums of K2 backward's outputs",
+              "aten::add_": "autograd's sums of K2 backward's outputs",
+              "aten::copy_": "K2 backward's cotangent copies"}
+
+
+def k2_product_counters(fused_lstm):
+    """The counters of K2 backward's dx·dh and dW·db kernels, by the names
+    of a step's launch gates."""
+    return dict(lstm_bwd_dxh=fused_lstm.COUNT_DXH,
+                lstm_bwd_dxh_wgmma=fused_lstm.COUNT_DXH_WGMMA,
+                lstm_bwd_dxh_tf32x3=fused_lstm.COUNT_DXH_TF32X3,
+                lstm_bwd_dw=fused_lstm.COUNT_DW,
+                lstm_bwd_dw_wgmma=fused_lstm.COUNT_DW_WGMMA,
+                lstm_bwd_dw_tf32x3=fused_lstm.COUNT_DW_TF32X3)
+
+
+def require_no_products(profile, tag):
+    """On the tensor-core routes K2's backward is its three kernels: no
+    other product under LstmCellBackward."""
+    ms = profile["parts_ms"].get(K2_PRODUCTS_PART, 0.0)
+    require(ms == 0.0, "%s: %s read %.4f ms a step; the tensor-core "
+            "routes run none" % (tag, K2_PRODUCTS_PART, ms))
+
+
 def profile_step(torch, run, tag, ranges=XE_RANGES):
     """One training step under torch.profiler: the device's busy share of
     the traced span, and device time by part.  A kernel counts to the K2
-    forward or backward kernel by its name, to "K2 backward's float32
-    products" when autograd's LstmCellBackward launched it, to the other
-    backward when another autograd node did, and otherwise to the
-    innermost of ``ranges`` (XE_RANGES, SCST_RANGES) around its launch
-    (wrapped around the parts by the caller)."""
+    forward or backward kernel, or to K2 backward's product kernels (dx·dh,
+    dW·db), by its name; when autograd's LstmCellBackward launched another,
+    to autograd's sums of its outputs into their consumers' gradients
+    (aten::add), to its cotangent copies (aten::copy_) or to "K2
+    backward's float32 products" (the CUDA-core route's torch.matmul
+    products, and anything else); to the other backward when another
+    autograd node launched it, and otherwise to the innermost of
+    ``ranges`` (XE_RANGES, SCST_RANGES) around its launch (wrapped around
+    the parts by the caller)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -559,7 +663,7 @@ def profile_step(torch, run, tag, ranges=XE_RANGES):
                 label = anc.name
                 break
             if anc.name.startswith("autograd::engine::evaluate_function"):
-                label = ("K2 backward's float32 products"
+                label = (K2_BWD_OPS.get(e.name, K2_PRODUCTS_PART)
                          if "LstmCellBackward" in anc.name
                          else "backward, other")
                 break
@@ -570,10 +674,18 @@ def profile_step(torch, run, tag, ranges=XE_RANGES):
                 part = ("K2 backward kernel"
                         if "<true>" in k.name or "Lb1E" in k.name
                         else "K2 forward kernel")
+            elif "lstm_bwd_" in k.name:
+                part = "K2 backward's product kernels"
             parts[part] = parts.get(part, 0.0) + k.duration / 1e3
     # kernels the trace links to no CPU operation
     parts["unattributed"] = (sum(e - s for s, e, _ in spans) / 1e3
                              - sum(parts.values()))
+    # the host's time in K2's backward nodes (autograd's device thread)
+    k2_host_ms = sum(e.cpu_time_total for e in events
+                     if e.device_type == torch.autograd.DeviceType.CPU
+                     and e.name.startswith("autograd::engine::evaluate_"
+                                           "function: LstmCellBackward")
+                     ) / 1e3
     by_name = {}
     for s, e, n in spans:
         tot, cnt = by_name.get(n, (0.0, 0))
@@ -582,18 +694,47 @@ def profile_step(torch, run, tag, ranges=XE_RANGES):
     out = dict(wall_ms=wall_ms, device_span_ms=span_ms, device_busy_ms=busy,
                idle_share_of_span=1 - busy / span_ms,
                kernel_launches=len(spans), parts_ms=parts,
+               k2_backward_host_ms=k2_host_ms,
                kernels=[dict(name=n, ms=t, count=c) for n, (t, c) in top])
     log("profile %s: host wall %.2f ms, device span %.2f ms, busy %.2f ms "
-        "(idle %.1f%% of the span), %d kernel launches; device ms by part: "
-        "%s" % (tag, wall_ms, span_ms, busy, 100 * (1 - busy / span_ms),
-                len(spans), ", ".join("%s %.3f" % kv for kv in sorted(
-                    parts.items(), key=lambda kv: -kv[1]))))
+        "(idle %.1f%% of the span), %d kernel launches, the host in K2's "
+        "backward nodes %.2f ms; device ms by part: %s"
+        % (tag, wall_ms, span_ms, busy, 100 * (1 - busy / span_ms),
+           len(spans), k2_host_ms, ", ".join("%s %.3f" % kv for kv in sorted(
+               parts.items(), key=lambda kv: -kv[1]))))
     for n, (t, c) in top:
         log("  %8.3f ms %5d x  %s" % (t, c, n[:90]))
     return out
 
 
 XE_STEPS = 8                  # steps through the kernels per variant
+
+
+def beyond_float64(k_grads, p_grads, e_grads):
+    """The float32 first step's gradient gate, against the step in float64
+    (``e_grads``: the plain versions, params and features in float64).
+    Per leaf, the norm of the kernel run's difference from float64 and the
+    plain float32 run's, each over the float64 gradient's norm (floored at
+    1e-3 of the largest leaf's).  -> (the largest excess of the kernel
+    run's over the plain run's, the largest of each, the worst three
+    leaves by excess as (excess, kernel's, plain's, index)).  The kernel
+    run passes where no leaf lies more than the tolerance further from
+    float64 than the plain float32 run does: where both float32 runs share
+    a product, that is the old gate against the plain run (the triangle
+    inequality), and where each rounds its own products it still asks for
+    float32's accuracy: BUTDDetection's attention leaves are 7.8e-4 to
+    8.8e-4 of their norm from float64 in both runs
+    (scripts/probe_grads_f64.py)."""
+    norms = [float(t.double().norm()) for t in e_grads]
+    floor = 1e-3 * max(norms)
+
+    def rel(a):
+        return [float((x.double() - y.double()).norm()) / max(n, floor)
+                for x, y, n in zip(a, e_grads, norms)]
+    ek, ep = rel(k_grads), rel(p_grads)
+    excess = [a - b for a, b in zip(ek, ep)]
+    worst = sorted(zip(excess, ek, ep, range(len(ek))))[-3:]
+    return max(excess), max(ek), max(ep), worst
 
 
 # -- phase 17: captions from pixels --------------------------------------
@@ -973,7 +1114,8 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
                     fused_lstm_cell_tf32x3=fused_lstm.COUNT_TF32X3,
                     fused_lstm_cell_bwd=fused_lstm.COUNT_BWD,
                     fused_lstm_cell_bwd_wgmma=fused_lstm.COUNT_BWD_WGMMA,
-                    fused_lstm_cell_bwd_tf32x3=fused_lstm.COUNT_BWD_TF32X3)
+                    fused_lstm_cell_bwd_tf32x3=fused_lstm.COUNT_BWD_TF32X3,
+                    **k2_product_counters(fused_lstm))
 
     def gen():
         return torch.Generator(device=dev).manual_seed(args.seed + 2)
@@ -1000,8 +1142,10 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
             route = "tf32x3" if cdtype is None else "wgmma"
             f32 = cdtype is None
             # the first step against the plain versions: float32 holds each
-            # leaf's gradient (the norm of the difference) to 1e-4 of its
-            # norm; bf16 holds each leaf's gradient norm to 2e-2 and reports
+            # leaf's gradient to 1e-4 of its norm beyond the plain float32
+            # run's own distance from the step in float64 (beyond_float64;
+            # the loss to 1e-5 of the plain run's); bf16 holds each leaf's
+            # gradient norm to 2e-2 and reports
             # the difference: there K2's h' may round to the other side of
             # a bf16 boundary than the plain version's (K2's hold is 1e-2),
             # which moves a leaf's gradient by about 1 % (0.0097 measured),
@@ -1020,13 +1164,13 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
                 ss_active=ss, device="cuda")
             state0 = TrainState.create(params, tx)
 
-            def loss_grads():
+            def loss_grads(dtype=cdtype):
                 leaves = [p.detach().requires_grad_()
                           for p in optim.tree_leaves(params)]
                 loss, _, _ = steps.xe_loss(
                     model, optim.tree_unflatten(params, leaves), {},
                     batch, gen(), ss_prob, smoothing=0.1,
-                    compute_dtype=cdtype, ss_active=ss,
+                    compute_dtype=dtype, ss_active=ss,
                     ss_generator=steps.draw_generator_for(gen(), 0,
                                                           dev))
                 grads = torch.autograd.grad(loss, leaves)
@@ -1034,6 +1178,9 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
 
             with holds.plain_versions():
                 p_loss, p_grads = loss_grads()
+                # float32: the same step in float64, the gradients' own
+                # reference (beyond_float64)
+                e_grads = loss_grads(torch.float64)[1] if f32 else None
             k_loss, k_grads = loss_grads()
             # each leaf's gradient against the plain run's: the norm of
             # the difference over the plain gradient's norm, floored at
@@ -1047,19 +1194,26 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
                    for a, b, n in zip(k_grads, p_grads, p_norms)]
             rel_norm = [abs(a - b) / max(b, floor)
                         for a, b in zip(k_norms, p_norms)]
-            worst = sorted(zip(rel, optim.tree_leaves(
-                _paths(params))))[-3:]
-            del p_grads, k_grads
-            held = max(rel) if f32 else max(rel_norm)
+            leaf_names = optim.tree_leaves(_paths(params))
+            worst = sorted(zip(rel, leaf_names))[-3:]
+            f64 = None
+            if f32:
+                f64 = beyond_float64(k_grads, p_grads, e_grads)
+                f64 = f64[:3] + ([(x, a, b, leaf_names[i])
+                                  for x, a, b, i in f64[3]],)
+            del p_grads, k_grads, e_grads
+            held = f64[0] if f32 else max(rel_norm)
             require(all(np.isfinite(k_norms)) and held <= grad_tol
                     and abs(k_loss - p_loss) <= loss_tol * p_loss,
                     "%s: the first step's loss %.6f against the plain "
                     "run's %.6f (tol %g); a leaf's gradient off by %.3g "
-                    "of its norm (the worst %s), its norm by %.3g (tol "
-                    "%g on the %s)" % (tag, k_loss, p_loss, loss_tol,
-                                       max(rel), worst, max(rel_norm),
-                                       grad_tol, "first" if f32
-                                       else "second"))
+                    "of its norm (the worst %s), its norm by %.3g; %s (tol "
+                    "%g on the %s)"
+                    % (tag, k_loss, p_loss, loss_tol, max(rel), worst,
+                       max(rel_norm), "against float64 %.3g beyond the "
+                       "plain float32 run's (kernels %.3g, plain %.3g; the "
+                       "worst %s)" % f64 if f32 else "", grad_tol,
+                       "excess over float64" if f32 else "second"))
             with holds.plain_versions():
                 _, met_p = step(state0, batch, gen(), ss_prob, lr,
                                 0.0)
@@ -1067,11 +1221,13 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
             # n_timed steps through the kernels, from the same state
             st, g_run = state0, gen()
             want_launch = dict.fromkeys(counters, 0)
-            for kn in ("fused_lstm_cell", "fused_lstm_cell_bwd"):
+            for kn in ("fused_lstm_cell", "fused_lstm_cell_bwd",
+                       "lstm_bwd_dxh", "lstm_bwd_dw"):
                 want_launch[kn] = n_steps * len(cells)
                 want_launch[kn + "_" + route] = n_steps * len(cells)
             want_shapes = {(kn, route, TRAIN_B, e): n_steps
-                           for _, e in cells for kn in ("K2", "K2bwd")}
+                           for _, e in cells
+                           for kn in ("K2", "K2bwd", "K2dxh", "K2dw")}
             losses, times, encodes, shapes = [], [], [], []
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -1109,7 +1265,9 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
                     holds.recording_shapes(held_shapes):
                 step(st, batch, gen(), ss_prob, lr, 0.0)
             torch.cuda.synchronize()
-            n_held = 2 * n_steps * len(cells)
+            # each step of each cell: the forward, and the whole backward's
+            # three launches
+            n_held = 4 * n_steps * len(cells)
             require(not broken and len(held_shapes) == n_held,
                     "%s: %d K2 calls broke their hold (first: %s), %d of "
                     "%d launched" % (tag, len(broken), broken[:1],
@@ -1118,6 +1276,9 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
             res = dict(
                 first_loss=losses[0], plain_first_loss=plain_loss,
                 grad_max_rel_diff=max(rel), grad_worst_leaves=worst,
+                grad_float64=None if f64 is None else dict(
+                    excess=f64[0], kernels=f64[1], plain=f64[2],
+                    worst=f64[3]),
                 grad_norm_max_rel_diff=max(rel_norm),
                 grad_norm_total=sum(n * n for n in k_norms) ** 0.5,
                 plain_grad_norm_total=sum(n * n for n in p_norms) ** 0.5,
@@ -1129,14 +1290,19 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
                 tokens=float(met["tokens"]))
             log("%s: first loss %.6f (plain %.6f), every leaf's gradient "
                 "within %.3g of the plain run's, its norm within %.3g "
-                "(tol %g on the %s; worst %s), gradient norm %.6g (plain "
+                "(tol %g on the %s; worst %s)%s, gradient norm %.6g (plain "
                 "%.6g); %d steps, losses %s; "
-                "per step K2 forward %d and backward %d on %s at B=%d "
+                "per step K2 forward %d and backward %d (each three "
+                "launches) on %s at B=%d "
                 "E=%s, every call of a further step held; %.2f ms a "
                 "step (median of %d), %.1f samples/s, peak memory %.2f "
                 "GiB, TMA map encodes a step %s"
                 % (tag, losses[0], plain_loss, max(rel), max(rel_norm),
-                   grad_tol, "difference" if f32 else "norm", worst,
+                   grad_tol, "excess over float64" if f32 else "norm",
+                   worst, "; against float64 the kernels' %.3g, the plain "
+                   "float32 run's %.3g, excess %.3g" % (f64[1], f64[2],
+                                                        f64[0])
+                   if f32 else "",
                    res["grad_norm_total"],
                    res["plain_grad_norm_total"], n_timed,
                    ["%.4f" % x for x in losses], n_steps * len(cells),
@@ -1147,11 +1313,14 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
             res["profile"] = profile_step(
                 torch, lambda: step(st, batch, gen(), ss_prob, lr,
                                     0.0), tag)
+            require_no_products(res["profile"], tag)
             out["%s/ss_%s" % (label, "on" if ss else "off")] = res
             for suffix, _ in cells:
                 credit_launches(
                     kernels, on_path, tag, n_steps * n_timed,
                     "fused_lstm_cell_bwd_%s%s/%s" % (route, suffix, dn),
+                    "lstm_bwd_dxh_%s%s/%s" % (route, suffix, dn),
+                    "lstm_bwd_dw_%s%s/%s" % (route, suffix, dn),
                     "fused_lstm_cell_%s_train%s/%s" % (route, suffix, dn))
     finally:
         del model.encode
@@ -1263,7 +1432,8 @@ def drive_scst(torch, args, dev, model, params, kernels, on_path, data, *,
                     fused_lstm_cell_tf32x3=fused_lstm.COUNT_TF32X3,
                     fused_lstm_cell_bwd=fused_lstm.COUNT_BWD,
                     fused_lstm_cell_bwd_wgmma=fused_lstm.COUNT_BWD_WGMMA,
-                    fused_lstm_cell_bwd_tf32x3=fused_lstm.COUNT_BWD_TF32X3)
+                    fused_lstm_cell_bwd_tf32x3=fused_lstm.COUNT_BWD_TF32X3,
+                    **k2_product_counters(fused_lstm))
 
     def gen():
         return torch.Generator(device=dev).manual_seed(args.seed + 4)
@@ -1318,14 +1488,14 @@ def drive_scst(torch, args, dev, model, params, kernels, on_path, data, *,
                 compute_dtype=cdtype, device="cuda")
             state0 = TrainState.create(params, tx)
 
-            def loss_grads(greedy_seq, replay=None):
+            def loss_grads(greedy_seq, replay=None, dtype=cdtype):
                 leaves = [p.detach().requires_grad_()
                           for p in optim.tree_leaves(params)]
                 loss, reward, _, seq, drawn = steps.scst_loss(
                     model, optim.tree_unflatten(params, leaves), {}, batch,
                     td, probe, greedy_seq, gen(),
                     steps.draw_generator_for(gen(), 0, dev), max_len=MAX_LEN,
-                    compute_dtype=cdtype, replay=replay)
+                    compute_dtype=dtype, replay=replay)
                 logp, seq_, reward_ = criterion[0][:3]
                 scale = float(steps.reward_criterion(
                     -logp.detach().abs(), seq_, reward_.abs()))
@@ -1343,6 +1513,10 @@ def drive_scst(torch, args, dev, model, params, kernels, on_path, data, *,
                                             batch["visual"], MAX_LEN, cdtype)
                 p_loss, p_reward, _, _, p_grads, scale = loss_grads(
                     g_k, replay=(seq_k, drawn_k))
+                # float32: the same replay in float64 (beyond_float64)
+                e_grads = (loss_grads(g_k, replay=(seq_k, drawn_k),
+                                      dtype=torch.float64)[4]
+                           if f32 else None)
             rows_same = float((g_k == g_p).all(dim=1).float().mean())
             first_same = float((g_k[:, 0] == g_p[:, 0]).float().mean())
             p_norms = [float(g.float().norm()) for g in p_grads]
@@ -1352,9 +1526,15 @@ def drive_scst(torch, args, dev, model, params, kernels, on_path, data, *,
                    for a, b, n in zip(k_grads, p_grads, p_norms)]
             rel_norm = [abs(a - b) / max(b, floor)
                         for a, b in zip(k_norms, p_norms)]
-            worst = sorted(zip(rel, optim.tree_leaves(_paths(params))))[-3:]
-            del p_grads, k_grads
-            held = max(rel) if f32 else max(rel_norm)
+            leaf_names = optim.tree_leaves(_paths(params))
+            worst = sorted(zip(rel, leaf_names))[-3:]
+            f64 = None
+            if f32:
+                f64 = beyond_float64(k_grads, p_grads, e_grads)
+                f64 = f64[:3] + ([(x, a, b, leaf_names[i])
+                                  for x, a, b, i in f64[3]],)
+            del p_grads, k_grads, e_grads
+            held = f64[0] if f32 else max(rel_norm)
             n_rewarded = int((k_reward != 0).sum())
             require(torch.equal(k_reward, p_reward) and n_rewarded > 0,
                     "%s: the rewards of the same ids differ (max %.3g) or "
@@ -1371,20 +1551,25 @@ def drive_scst(torch, args, dev, model, params, kernels, on_path, data, *,
                     "%s: the first step's loss %.6g against the plain "
                     "replay's %.6g (tol %g of its scale %.4g); a leaf's "
                     "gradient off by %.3g of its norm (the worst %s), its "
-                    "norm by %.3g (tol %g on the %s)"
+                    "norm by %.3g; %s (tol %g on the %s)"
                     % (tag, k_loss, p_loss, loss_tol, scale, max(rel),
-                       worst, max(rel_norm), grad_tol,
-                       "first" if f32 else "second"))
+                       worst, max(rel_norm), "against float64 %.3g beyond "
+                       "the plain float32 run's (kernels %.3g, plain %.3g; "
+                       "the worst %s)" % f64 if f32 else "", grad_tol,
+                       "excess over float64" if f32 else "second"))
             log("%s: first step through the kernels: loss %.6g (the plain "
                 "replay's %.6g, scale %.4g), mean reward %.5g, %d of %d "
                 "rewards nonzero and identical to the replay's; every "
                 "leaf's gradient within %.3g of the plain run's, its norm "
-                "within %.3g (tol %g on the %s; worst %s); greedy baseline "
-                "against the plain versions' rows %.4f, first ids %.4f"
+                "within %.3g (tol %g on the %s; worst %s)%s; greedy "
+                "baseline against the plain versions' rows %.4f, first ids "
+                "%.4f"
                 % (tag, k_loss, p_loss, scale, float(k_reward.mean()),
                    n_rewarded, TRAIN_B, max(rel), max(rel_norm), grad_tol,
-                   "difference" if f32 else "norm", worst, rows_same,
-                   first_same))
+                   "excess over float64" if f32 else "norm", worst,
+                   "; against float64 the kernels' %.3g, the plain float32 "
+                   "run's %.3g, excess %.3g" % (f64[1], f64[2], f64[0])
+                   if f32 else "", rows_same, first_same))
             # 2. n_timed steps through the kernels
             st, g_run = state0, gen()
             losses, rewards, times, encodes, taken = [], [], [], [], []
@@ -1412,12 +1597,17 @@ def drive_scst(torch, args, dev, model, params, kernels, on_path, data, *,
                         "fused_lstm_cell": nc * (n_g + MAX_LEN),
                         "fused_lstm_cell_" + route: nc * (n_g + MAX_LEN),
                         "fused_lstm_cell_bwd": nc * MAX_LEN,
-                        "fused_lstm_cell_bwd_" + route: nc * MAX_LEN}
+                        "fused_lstm_cell_bwd_" + route: nc * MAX_LEN,
+                        "lstm_bwd_dxh": nc * MAX_LEN,
+                        "lstm_bwd_dxh_" + route: nc * MAX_LEN,
+                        "lstm_bwd_dw": nc * MAX_LEN,
+                        "lstm_bwd_dw_" + route: nc * MAX_LEN}
                 want = {kn: want.get(kn, 0) for kn in counters}
                 want_shapes = {("K1", route, TRAIN_B, 1): n_g}
                 for _, e in cells:
                     want_shapes[("K2", route, TRAIN_B, e)] = n_g + MAX_LEN
-                    want_shapes[("K2bwd", route, TRAIN_B, e)] = MAX_LEN
+                    for kn in ("K2bwd", "K2dxh", "K2dw"):
+                        want_shapes[(kn, route, TRAIN_B, e)] = MAX_LEN
                 launches = {kn: c.n for kn, c in counters.items()}
                 got = {}
                 for shp in shapes:
@@ -1436,7 +1626,10 @@ def drive_scst(torch, args, dev, model, params, kernels, on_path, data, *,
                 step(st, batch, gen(), lr, 0.0)
             torch.cuda.synchronize()
             n_g = _steps_taken(baseline[1])
-            n_held = n_g + len(cells) * (n_g + 2 * MAX_LEN)
+            # K1 a greedy step; per cell K2's forward a greedy and a
+            # rollout step, and the whole backward's three launches a
+            # rollout step
+            n_held = n_g + len(cells) * (n_g + 4 * MAX_LEN)
             require(not broken and len(held_shapes) == n_held,
                     "%s: %d kernel calls broke their hold (first: %s), %d "
                     "of %d launched" % (tag, len(broken), broken[:1],
@@ -1447,6 +1640,9 @@ def drive_scst(torch, args, dev, model, params, kernels, on_path, data, *,
                 loss_scale=scale, first_rewards_nonzero=n_rewarded,
                 first_mean_reward=float(k_reward.mean()),
                 greedy_rows_identical=rows_same,
+                grad_float64=None if f64 is None else dict(
+                    excess=f64[0], kernels=f64[1], plain=f64[2],
+                    worst=f64[3]),
                 greedy_first_ids_identical=first_same,
                 grad_max_rel_diff=max(rel), grad_worst_leaves=worst,
                 grad_norm_max_rel_diff=max(rel_norm),
@@ -1459,7 +1655,8 @@ def drive_scst(torch, args, dev, model, params, kernels, on_path, data, *,
                 launches_last_step=want, kernel_calls_held=n_held)
             log("%s: %d steps, losses %s, mean rewards %s, greedy steps %s; "
                 "per step K1 once a greedy step, K2 forward (greedy steps + "
-                "%d) x %d and backward %d x %d on %s at B=%d E=%s, exactly; "
+                "%d) x %d and backward %d x %d (three launches each) on %s "
+                "at B=%d E=%s, exactly; "
                 "every call of a further step held (%d); %.2f ms a step "
                 "(median of %d), %.1f samples/s, peak memory %.2f GiB, TMA "
                 "map encodes a step %s"
@@ -1471,6 +1668,7 @@ def drive_scst(torch, args, dev, model, params, kernels, on_path, data, *,
             res["profile"] = profile_step(
                 torch, lambda: step(st, batch, gen(), lr, 0.0), tag,
                 SCST_RANGES)
+            require_no_products(res["profile"], tag)
             out[label] = res
             credit_launches(kernels, on_path, tag, sum(taken),
                             "fused_head_topk_%s_train/%s" % (route, dn))
@@ -1480,7 +1678,9 @@ def drive_scst(torch, args, dev, model, params, kernels, on_path, data, *,
                     "fused_lstm_cell_%s_train%s/%s" % (route, suffix, dn))
                 credit_launches(
                     kernels, on_path, tag, MAX_LEN * n_timed,
-                    "fused_lstm_cell_bwd_%s%s/%s" % (route, suffix, dn))
+                    "fused_lstm_cell_bwd_%s%s/%s" % (route, suffix, dn),
+                    "lstm_bwd_dxh_%s%s/%s" % (route, suffix, dn),
+                    "lstm_bwd_dw_%s%s/%s" % (route, suffix, dn))
     finally:
         del model.encode, model.predict
         (steps.greedy_baseline, decode.sample_rl, decode._token_logprobs,
@@ -1584,7 +1784,9 @@ class KernelCalls:
     the width of x or k, x's dtype, what else fixes the shape): how often
     each launched, and the wrapper's arguments at its CAPTURE_AT-th launch
     (or its last, if fewer), so that the kernel can be held and timed
-    afterwards on inputs the path gave it.  The 21st launch: an XE step
+    afterwards on inputs the path gave it (K2's whole backward, three
+    launches a call, by its first: the backward kernel's).  The 21st
+    launch: an XE step
     runs each cell 21 times, so K2's backward is held at t=0, where every
     row's cotangent is live, and not at the last step, where the rows that
     ended are zero.  Tensors below 4M elements are cloned; larger ones (the
@@ -1600,7 +1802,7 @@ class KernelCalls:
                                                          quant)
         self.wrappers = (("K1", fused_head, "topk_head"),
                          ("K2", fused_lstm, "lstm_cell_fused"),
-                         ("K2bwd", fused_lstm, "lstm_cell_bwd"),
+                         ("K2bwd", fused_lstm, "lstm_cell_bwd_full"),
                          ("K3", quant, "quant_matmul"),
                          ("K4", int8_attention, "lanes_attention_int8"))
         self.shapes, self.first, self.count = [], {}, {}
@@ -1642,8 +1844,8 @@ class KernelCalls:
                     return run(*a, **kw)
                 n = len(self.shapes)
                 out = run(*a, **kw)
-                if len(self.shapes) == n + 1:      # it launched its kernel
-                    key = self._key(kind, self.shapes[-1], a)
+                if len(self.shapes) > n:           # it launched its kernels
+                    key = self._key(kind, self.shapes[n], a)
                     self.count[key] = self.count.get(key, 0) + 1
                     if self.count[key] <= self.CAPTURE_AT:
                         self.first[key] = (run, [clone(v) for v in a], kw)
@@ -1666,9 +1868,9 @@ def cli_kernel_entries(torch, calls, kernels, on_path, flush, tag):
     """An entry of the kernels line for every shape phase 18 launched: the
     kernel held against its plain version (engine/holds' hold) on the
     arguments KernelCalls kept, timed beside the plain version
-    and, for K2, K2's backward and K3, the library call that computes the
-    same function (torch.lstm_cell, its backward through autograd,
-    torch._weight_int8pack_mm); its bound; its launches in the run.  Named
+    and, for K2 and K3, the library call that computes the same function
+    (torch.lstm_cell, torch._weight_int8pack_mm); its bound; its launches
+    in the run (K2's whole backward: cli_k2_bwd_entries).  Named
     <kernel>_<route>_cli_<shape>/<dtype>."""
     from simpleimagecaptionzoo_tpu_torch.engine import holds
     from simpleimagecaptionzoo_tpu_torch.ops import fused_head
@@ -1680,6 +1882,11 @@ def cli_kernel_entries(torch, calls, kernels, on_path, flush, tag):
     for key in sorted(calls.first, key=str):
         run, a, kw = calls.first[key]
         kind, route, rows, last, dn = key[:5]
+        if kind == "K2bwd":
+            made += cli_k2_bwd_entries(torch, run, a, kw, key,
+                                       calls.count[key], kernels, on_path,
+                                       flush, tag)
+            continue
         name = dict((k, n) for k, _, n in calls.wrappers)[kind]
         plain = plain_of[name]
         got = run(*a, **kw)
@@ -1707,7 +1914,7 @@ def cli_kernel_entries(torch, calls, kernels, on_path, flush, tag):
             shape = "m=%d K=%d V=%d%s k=%d" % (rows, hd, v,
                                                 " int8 W" if int8 else "", k)
             where = ("fused_head.cu", "ops/fused_head.py:155")
-        elif kind in ("K2", "K2bwd"):
+        elif kind == "K2":
             w_cat, b_sum, x, h, c = a[:5]
             e, hd = x.shape[1], h.shape[1]
             require(w_cat.shape == (e + hd, 4 * hd), "phase 18: K2's w_cat "
@@ -1721,26 +1928,9 @@ def cli_kernel_entries(torch, calls, kernels, on_path, flush, tag):
             lib_w = [w_cat[:e].t().contiguous(),
                      w_cat[e:].t().contiguous(), b_sum,
                      torch.zeros_like(b_sum)]
-            if kind == "K2":
-                lib = lambda: torch.lstm_cell(x, (h, c), *lib_w)  # noqa
-                ename = "fused_lstm_cell_%s_cli_B%dE%dH%d" % (route, rows,
-                                                               e, hd)
-                where = ("fused_lstm.cu", "ops/pallas_lstm.py:166")
-            else:
-                dh, dc = a[5], a[6]
-                nbytes += rows * 4 * hd * 4 + rows * hd * item
-                lw = [t.clone().requires_grad_() for t in lib_w]
-                li = [t.clone().requires_grad_() for t in (x, h, c)]
-                lh, lc = torch.lstm_cell(li[0], tuple(li[1:]), *lw)
-                lib = lambda: torch.autograd.grad(  # noqa: E731
-                    (lh, lc), li + lw, (dh.to(lh.dtype), dc.to(lc.dtype)),
-                    retain_graph=True)
-                ename = "fused_lstm_cell_bwd_%s_cli_B%dE%dH%d" % (
-                    route, rows, e, hd)
-                where = ("fused_lstm.cu", "ops/pallas_lstm.py:455")
-                extra["library_is"] = ("torch.lstm_cell's backward through "
-                                       "autograd (it keeps the gates from its "
-                                       "forward)")
+            lib = lambda: torch.lstm_cell(x, (h, c), *lib_w)  # noqa
+            ename = "fused_lstm_cell_%s_cli_B%dE%dH%d" % (route, rows, e, hd)
+            where = ("fused_lstm.cu", "ops/pallas_lstm.py:166")
             shape = "B=%d E=%d H=%d" % (rows, e, hd)
         elif kind == "K3":
             x, qp = a[0], a[1]
@@ -1768,8 +1958,7 @@ def cli_kernel_entries(torch, calls, kernels, on_path, flush, tag):
             where = ("int8_attention.cu", "ops/int8_attention.py:70")
         ms = time_ms(torch, lambda: run(*a, **kw), flush)
         device_ms = time_ms(torch, lambda: run(*a, **kw), flush,
-                            lead=8 * DEVICE_LEAD if kind == "K2bwd"
-                            else DEVICE_LEAD)
+                            lead=DEVICE_LEAD)
         plain_ms = time_ms(torch, lambda: plain(*a), flush)
         lib_ms = None if lib is None else time_ms(torch, lib, flush)
         b_ms, b_by = bound(nbytes, nops, rate_of.get(route, dn))
@@ -1789,6 +1978,107 @@ def cli_kernel_entries(torch, calls, kernels, on_path, flush, tag):
                               ms, device_ms, plain_ms,
                               "none" if lib_ms is None else "%.4f ms"
                               % lib_ms, b_ms, b_by))
+    return made
+
+
+def cli_k2_bwd_entries(torch, run, a, kw, key, count, kernels, on_path,
+                       flush, tag):
+    """Phase 18's entries for K2's whole backward at one shape the CLI ran
+    (its first call's arguments, KernelCalls): the whole backward held on
+    them (holds.k2_bwd_full_errors), then each of its three kernels (the
+    backward kernel writing the products' operands, dx·dh, dW·db) on them,
+    against its plain version, timed (host-inclusive and device-only)
+    beside that plain version and its bound; the backward kernel's entry
+    also carries the whole backward's time, its bound and torch.lstm_cell's
+    backward through autograd.  Named <kernel>_<route>_cli_B<B>E<E>H<H>."""
+    from simpleimagecaptionzoo_tpu_torch.engine import holds
+    from simpleimagecaptionzoo_tpu_torch.ops import fused_lstm
+    _, route, rows, _, dn = key[:5]
+    w_cat, b_sum, x, h, c, dh, dc = a[:7]
+    split = a[7] if len(a) > 7 else kw.get("split")
+    e, hd = x.shape[1], h.shape[1]
+    got = run(*a, **kw)
+    torch.cuda.synchronize()
+    ferr = holds.k2_bwd_full_errors(a, got)
+    require(not max(ferr.values()), "phase 18 %s: K2's whole backward "
+            "breaks its hold on the path's own inputs: %s" % (str(key), ferr))
+    want = fused_lstm.lstm_cell_bwd_full_plain(*a[:7])
+    g, _ = fused_lstm._run_bwd_kernel(*a[:7], route, split, parts=True)
+    dx, dhh = fused_lstm._run_dxh_kernel(w_cat, g, x, h, route)
+    dw, db = fused_lstm._run_dw_kernel(x, h, g, w_cat, b_sum, route)
+    d_plain, _ = fused_lstm.lstm_cell_bwd_plain(*a[:7])
+    pdx, pdh = fused_lstm.lstm_bwd_dxh_plain(w_cat, g.d, e)
+    pdw, pdb = fused_lstm.lstm_bwd_dw_plain(x, h, g.d)
+    torch.cuda.synchronize()
+
+    def err(*pairs):
+        return max(float((p.float() - q.float()).abs().max())
+                   for p, q in pairs)
+
+    lw = [t.clone().requires_grad_() for t in (
+        w_cat[:e].t().contiguous(), w_cat[e:].t().contiguous(), b_sum,
+        torch.zeros_like(b_sum))]
+    li = [t.clone().requires_grad_() for t in (x, h, c)]
+    lh, lc = torch.lstm_cell(li[0], tuple(li[1:]), *lw)
+    cot = tuple(torch.zeros_like(o) if t is None else t.to(o.dtype)
+                for t, o in ((dh, lh), (dc, lc)))
+    bnd = k2_bwd_bounds(rows, e, hd, x.element_size(), route)
+    whole = dict(
+        full_backward_ms=time_ms(torch, lambda: run(*a, **kw), flush),
+        device_full_backward_ms=time_ms(torch, lambda: run(*a, **kw), flush,
+                                        lead=DEVICE_LEAD),
+        full_backward_plain_ms=time_ms(
+            torch, lambda: fused_lstm.lstm_cell_bwd_full_plain(*a[:7]),
+            flush),
+        full_backward_bound_ms=bnd["full"][0],
+        full_backward_bound_by=bnd["full"][1],
+        full_backward_max_abs_err=err(*zip(got, want)),
+        lstm_cell_backward_ms=time_ms(torch, lambda: torch.autograd.grad(
+            (lh, lc), li + lw, cot, retain_graph=True), flush),
+        whole_is="the whole backward (the backward kernel, dx·dh, dW·db); "
+                 "lstm_cell_backward: torch.lstm_cell's backward through "
+                 "autograd (it keeps its gates)")
+    parts = {
+        "fused_lstm_cell_bwd": (
+            lambda: fused_lstm._run_bwd_kernel(*a[:7], route, split,
+                                               parts=True),
+            lambda: fused_lstm.lstm_cell_bwd_plain(*a[:7]), "gate",
+            "fused_lstm.cu", err((g.d, d_plain))),
+        "lstm_bwd_dxh": (
+            lambda: fused_lstm._run_dxh_kernel(w_cat, g, x, h, route),
+            lambda: fused_lstm.lstm_bwd_dxh_plain(w_cat, g.d, e), "dxh",
+            "lstm_bwd.cu", err((dx, pdx), (dhh, pdh))),
+        "lstm_bwd_dw": (
+            lambda: fused_lstm._run_dw_kernel(x, h, g, w_cat, b_sum, route),
+            lambda: fused_lstm.lstm_bwd_dw_plain(x, h, g.d), "dw",
+            "lstm_bwd.cu", err((dw, pdw), (db, pdb)))}
+    made = []
+    for kname, (fn, plain, bk, src, e_k) in parts.items():
+        ms = time_ms(torch, fn, flush)
+        dev_ms = time_ms(torch, fn, flush, lead=DEVICE_LEAD)
+        plain_ms = time_ms(torch, plain, flush)
+        full = "%s_%s_cli_B%dE%dH%d/%s" % (kname, route, rows, e, hd, dn)
+        kernels[full] = dict(
+            name=full, route="cuda",
+            source="simpleimagecaptionzoo_tpu_torch/csrc/" + src,
+            replaces="simpleimagecaptionzoo_tpu/ops/pallas_lstm.py:455",
+            launches=0, max_abs_err=e_k, max_err=e_k, ms=ms, kernel_ms=ms,
+            device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bnd[bk][0],
+            bound_by=bnd[bk][1], library_ms=None, kernel_route=route,
+            shape="B=%d E=%d H=%d (phase 18, the CLI's own inputs)"
+            % (rows, e, hd), **(whole if bk == "gate" else {}))
+        credit_launches(kernels, on_path, tag, count, full)
+        made.append(full)
+        log("phase 18 K2 backward %s (%s) B=%d E=%d H=%d %s: %d launches, "
+            "max|err| %.3g; %.4f ms (device alone %.4f), plain %.4f, bound "
+            "%.4f ms (%s)" % (dn, route, rows, e, hd, kname, count, e_k, ms,
+                              dev_ms, plain_ms, bnd[bk][0], bnd[bk][1]))
+    log("phase 18 K2 backward %s (%s) B=%d E=%d H=%d, whole: held (%s); "
+        "%.4f ms (device alone %.4f), plain %.4f, torch.lstm_cell's "
+        "backward %.4f, bound %.4f ms (%s)"
+        % (dn, route, rows, e, hd, ferr, whole["full_backward_ms"],
+           whole["device_full_backward_ms"], whole["full_backward_plain_ms"],
+           whole["lstm_cell_backward_ms"], bnd["full"][0], bnd["full"][1]))
     return made
 
 
@@ -1846,6 +2136,10 @@ def drive_cli(torch, args, dev, flush, kernels, on_path, bare):
                fused_lstm.COUNT_TF32X3),
         "K2bwd": (fused_lstm.COUNT_BWD, fused_lstm.COUNT_BWD_WGMMA,
                   fused_lstm.COUNT_BWD_TF32X3),
+        "K2dxh": (fused_lstm.COUNT_DXH, fused_lstm.COUNT_DXH_WGMMA,
+                  fused_lstm.COUNT_DXH_TF32X3),
+        "K2dw": (fused_lstm.COUNT_DW, fused_lstm.COUNT_DW_WGMMA,
+                 fused_lstm.COUNT_DW_TF32X3),
         "K3": (quant.COUNT, quant.COUNT_WGMMA, quant.COUNT_TF32X2),
         "K4": (int8_attention.COUNT, int8_attention.COUNT_TMA)}
 
@@ -1886,12 +2180,12 @@ def drive_cli(torch, args, dev, flush, kernels, on_path, bare):
 
             def run(*sa, **skw):
                 first.setdefault(state["op"], (step, sa, skw))
-                before = (n("K2"), n("K2bwd"))
+                kinds = ("K2", "K2bwd", "K2dxh", "K2dw")
+                before = [n(k) for k in kinds]
                 out = step(*sa, **skw)
                 if i == 1:
-                    xe_steps.append((state["op"], family,
-                                     n("K2") - before[0],
-                                     n("K2bwd") - before[1]))
+                    xe_steps.append((state["op"], family) + tuple(
+                        n(k) - b for k, b in zip(kinds, before)))
                 return out
             return run
         return make
@@ -2067,9 +2361,10 @@ def drive_cli(torch, args, dev, flush, kernels, on_path, bare):
                     "phase 18 %s: %d launches, %s on the tensor-core routes"
                     % (kind, cs[0].n, [c.n for c in cs[1:]]))
         aoa_xe = [s for s in xe_steps if s[1] == "AoADetection"]
-        require(len(aoa_xe) == 8 and all(s[2:] == (21, 21) for s in aoa_xe),
-                "phase 18: AoADetection XE steps' K2 forward and backward "
-                "launches %s (21 and 21 each)" % aoa_xe)
+        require(len(aoa_xe) == 8
+                and all(s[2:] == (21, 21, 21, 21) for s in aoa_xe),
+                "phase 18: AoADetection XE steps' K2 forward, backward "
+                "kernel, dx·dh and dW·db launches %s (21 each)" % aoa_xe)
         for op, fam, steps_taken, k1, k2 in greedy_batches:
             want_k2 = steps_taken + (fam == "NIC")
             require(k1 == steps_taken and k2 == want_k2,
@@ -2192,7 +2487,8 @@ def main(argv=None) -> int:
 
     # -- 2. build -------------------------------------------------------------
     t0 = t_start = time.time()
-    libs = ["fused_head", "fused_lstm", "quant_matmul", "int8_attention"]
+    libs = ["fused_head", "fused_lstm", "lstm_bwd", "quant_matmul",
+            "int8_attention"]
     lib_paths = _build.build(libs)
     results["build_s"] = time.time() - t0
     log("build: %s from csrc in %.2f s" % (", ".join(libs),
@@ -2223,6 +2519,33 @@ def main(argv=None) -> int:
             log("  ptxas " + line)
     require(sum("tf32x2" in n for n in results["sass"]) == 2,
             "the SASS lacks a tf32x2 kernel: %s" % list(results["sass"]))
+    # K2 backward's products: each of the four kernels on its own, bf16 or
+    # tf32 HGMMA fed by UTMALDG
+    text = sass_text(_build, "lstm_bwd", lib_paths["lstm_bwd"])
+    results["ptxas"]["lstm_bwd"] = ptxas_lines(lib_paths["lstm_bwd"],
+                                               markers=("lstm_bwd",))
+    found = []
+    for fname, body in sass_functions(text).items():
+        if "lstm_bwd" not in fname:
+            continue
+        fops = sass_counts(body)
+        tf32_kernel = "tf32x3" in fname
+        ok = fops["UTMALDG"] > 0 and (
+            fops[SASS_OPS[2]] > 0 if tf32_kernel
+            else fops["HGMMA"] > 0 and fops[SASS_OPS[2]] == 0)
+        require(ok, "lstm_bwd: the SASS of %s holds %s; it needs %s HGMMA "
+                "and UTMALDG" % (fname, fops, "the tf32" if tf32_kernel
+                                 else "the bf16"))
+        results["sass"]["lstm_bwd:%s" % fname] = fops
+        found.append(fname)
+        log("SASS %s: %s" % (fname, ", ".join("%s x %d" % kv
+                                              for kv in fops.items())))
+    require(sorted(("tf32x3" in f, "dxh" in f) for f in found)
+            == [(False, False), (False, True), (True, False), (True, True)],
+            "lstm_bwd: the SASS holds the kernels %s, not dx·dh and dW·db "
+            "on both routes" % found)
+    for line in results["ptxas"]["lstm_bwd"]:
+        log("  ptxas " + line)
     # K4's "tma" route loads K and V with TMA (no tensor-core product)
     ops = sass_counts(sass_text(_build, "int8_attention",
                                 lib_paths["int8_attention"]),
@@ -2732,81 +3055,164 @@ def main(argv=None) -> int:
                        ["%.4f" % v for v in dev_turns["lib"]], plain_ms,
                        b_ms, b_by))
 
-    # -- 4, training: K2 at the XE step's rows (B=128) and its backward ------
+    # -- 4, training: K2 at the training rows and its whole backward ---------
     hd = FULL["hidden_dim"]
     e_in = FULL["embed_dim"] + hd
+    # the cells the training paths run: (entry suffix, params, E, H, what)
+    train_cells = (
+        [("", params["lstm"], e_in, hd, "AoADetection's cell")]
+        + [("_butd_" + tag, bparams[cell], e, bcfg.hidden_dim,
+            "BUTD's %s cell" % tag) for tag, cell, e in butd_k2]
+        + [("_nic", nparams["lstm"], e_nic, ncfg.hidden_dim, "NIC's cell"),
+           ("_aoasp", aparams["lstm"], e_aoasp, acfg.hidden_dim,
+            "AoASpatial's cell")])
 
     def bwd_counts():
         return (fused_lstm.COUNT_BWD.n, fused_lstm.COUNT_BWD_WGMMA.n,
                 fused_lstm.COUNT_BWD_TF32X3.n)
 
-    def train_cell(lp, dtype, e_in, suffix, what, fwd_err=None,
-                   bwd_err=None):
+    def abs_err(got, want):
+        return float((got.float() - want.float()).abs().max())
+
+    def hold_bwd_full(w_cat, b_sum, split, e, hh, m, dtype, what):
+        """K2's whole backward (lstm_cell_bwd_full) at B=m on the dtype's
+        tensor-core route: three launches (the backward kernel, dx·dh,
+        dW·db), the same bits twice, the five outputs within
+        holds.k2_bwd_full_errors; then on one backward kernel's output: the
+        products' operands (bf16: d_hi + d_lo within 2^-16 |d|; float32:
+        d^T's TF32 parts within 2^-21 |d|), and dx·dh and dW·db against
+        their plain versions on the same d_gates (float32 against the
+        products in float64: dx and dh 1e-5, dW and db 1e-5 of the sums of
+        |[x, h]||d| and |d| plus 1e-6; bf16 rtol and atol 1e-2).  -> the
+        largest |error| of dx·dh, of dW·db and of the whole backward."""
+        dn = str(dtype).split(".")[1]
+        route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+        tag = "K2 backward %s %s B=%d E=%d H=%d" % (dn, what, m, e, hh)
+        x, h, c, dh, dc = (torch.randn(m, n, generator=gen,
+                                       device=dev).to(dtype)
+                           for n in (e, hh, hh, hh, hh))
+        a7 = (w_cat, b_sum, x, h, c, dh, dc)
+        got_route = fused_lstm.lstm_bwd_products_route(w_cat, x, h, c, b_sum,
+                                                       dh, dc)
+        require(got_route == route, "%s: the products take the %s route"
+                % (tag, got_route))
+        before, before_p = bwd_counts(), product_counts(fused_lstm)
+        full = fused_lstm.lstm_cell_bwd_full(*a7, split)
+        torch.cuda.synchronize()
+        moved_b = moved(bwd_counts(), before)
+        moved_p = moved(product_counts(fused_lstm), before_p)
+        require(moved_b == launched(route) and moved_p == launched(route) * 2,
+                "%s: the counters moved by %s and %s" % (tag, moved_b,
+                                                         moved_p))
+        again = fused_lstm.lstm_cell_bwd_full(*a7, split)
+        torch.cuda.synchronize()
+        require(all(bool(torch.equal(a, b_)) for a, b_ in zip(full, again)),
+                "%s: two runs on the same inputs differ" % tag)
+        ferr = holds.k2_bwd_full_errors(a7, full)
+        require(not max(ferr.values()), "%s: beyond the whole backward's "
+                "holds by %s" % (tag, ferr))
+        g, _ = fused_lstm._run_bwd_kernel(*a7, route, split, parts=True)
+        dx, dhh = fused_lstm._run_dxh_kernel(w_cat, g, x, h, route)
+        dw, db = fused_lstm._run_dw_kernel(x, h, g, w_cat, b_sum, route)
+        torch.cuda.synchronize()
+        d = g.d
+        if route == "wgmma":
+            beyond_parts = float(((g.hi.float() + g.lo.float() - d).abs()
+                                  - 2.0 ** -16 * d.abs()).max())
+            dd, tol = d, 1e-2
+        else:
+            dt = d.t()
+            beyond_parts = float(((g.hi[:, :m] + g.lo[:, :m] - dt).abs()
+                                  - 2.0 ** -21 * dt.abs()).max())
+            dd, tol = d.double(), 1e-5
+        require(beyond_parts <= 0, "%s: the products' operands are %.3g "
+                "beyond their split's bound" % (tag, beyond_parts))
+        pdx, pdh = fused_lstm.lstm_bwd_dxh_plain(w_cat, dd, e)
+        pdw, pdb = fused_lstm.lstm_bwd_dw_plain(x, h, dd)
+        b_dxh = max(holds._beyond(dx, pdx, tol, tol),
+                    holds._beyond(dhh, pdh, tol, tol))
+        if route == "tf32x3":
+            lim = 1e-5 * (torch.cat([x, h], -1).double().abs().t()
+                          @ dd.abs()) + 1e-6
+            b_dw = max(holds._beyond(dw, pdw, lim),
+                       holds._beyond(db, pdb, 1e-5 * dd.abs().sum(0) + 1e-6))
+        else:
+            b_dw = max(holds._beyond(dw, pdw, tol, tol),
+                       holds._beyond(db, pdb, tol, tol))
+        require(not b_dxh and not b_dw, "%s: dx·dh %.3g and dW·db %.3g "
+                "beyond their holds" % (tag, b_dxh, b_dw))
+        out = dict(dxh=max(abs_err(dx, pdx), abs_err(dhh, pdh)),
+                   dw=max(abs_err(dw, pdw), abs_err(db, pdb)),
+                   full=max(abs_err(a, b_) for a, b_ in zip(
+                       full, fused_lstm.lstm_cell_bwd_full_plain(*a7))))
+        log("%s (%s): three launches, the same bits twice, within the "
+            "whole backward's holds; max|err| dx·dh %.3g, dW·db %.3g, whole "
+            "%.3g (against the float32 plain version)"
+            % (tag, route, out["dxh"], out["dw"], out["full"]))
+        return out
+
+    def train_cell(suffix, lp, dtype, e, hh, what, bwd_err, prod_err):
         """K2's forward and backward at the training rows (B=128) of one
-        cell (its params ``lp`` in ``dtype``, x ``e_in`` wide): held on the
-        tensor-core route unless the caller gives the errors of its own
-        holds, then timed in turns, host-inclusive and device-only: the
-        backward kernel (and, for AoADetection's cell, ``suffix`` "", on
-        the CUDA cores too), the whole backward through LstmCell (the
-        kernel and the three float32 products), torch.lstm_cell's backward
-        through autograd (which keeps the gates from its forward), and the
-        forward beside torch.lstm_cell's forward.  Entries
-        fused_lstm_cell_bwd_<route><suffix> and
-        fused_lstm_cell_<route>_train<suffix> (and fused_lstm_cell_bwd,
-        the CUDA-core backward, for suffix "")."""
+        cell (its params ``lp`` in ``dtype``, x ``e`` wide): the forward
+        and the backward kernel held on the tensor-core route (unless the
+        caller gives the backward kernel's errors, ``bwd_err``; the
+        products' errors ``prod_err`` come from hold_bwd_full), then timed
+        in turns, host-inclusive and device-only: the whole backward
+        through LstmCell (three launches), the matmul path (the backward
+        kernel and three float32 torch.matmul products, as before the
+        product kernels; composed here as a yardstick), torch.lstm_cell's
+        backward through autograd (which keeps its gates), the backward
+        kernel writing the products' operands, dx·dh, dW·db (float32:
+        beside torch.mm(d_gates, w_cat^T), one call of dx·dh's function),
+        for AoADetection's cell (suffix "")
+        the backward kernel on the CUDA cores, and the forward beside
+        torch.lstm_cell's forward.  Entries fused_lstm_cell_bwd_<route>,
+        lstm_bwd_dxh_<route>, lstm_bwd_dw_<route> and
+        fused_lstm_cell_<route>_train, each with ``suffix`` (and
+        fused_lstm_cell_bwd, the CUDA-core backward kernel, for suffix "")."""
         dn = str(dtype).split(".")[1]
         tc_route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
         rate = dn if tc_route == "wgmma" else tc_route
         tol = 1e-5 if dtype == torch.float32 else 1e-2
         w_cat, b_sum, split = fused_lstm.prepare_lstm(lp)
-        with_old = suffix == ""
-        if fwd_err is None:
-            x, h, c, dh, dc = (torch.randn(TRAIN_B, n, generator=gen,
-                                           device=dev).to(dtype)
-                               for n in (e_in, hd, hd, hd, hd))
-            require(fused_lstm.lstm_route(w_cat, x, h) == tc_route
-                    and fused_lstm.lstm_bwd_route(w_cat, x, h, c, b_sum, dh,
-                                                  dc) == tc_route,
-                    "K2 %s %s B=%d takes another route" % (what, dn,
-                                                           TRAIN_B))
-            before, before_bwd = counts(fused_lstm), bwd_counts()
-            kh, kc = fused_lstm.lstm_cell_fused(w_cat, b_sum, x, h, c, split)
-            dg, kdc = fused_lstm.lstm_cell_bwd(w_cat, b_sum, x, h, c, dh, dc,
-                                               split)
-            torch.cuda.synchronize()
-            require(moved(counts(fused_lstm), before) == launched(tc_route)
-                    and moved(bwd_counts(), before_bwd)
-                    == launched(tc_route),
-                    "K2 %s %s B=%d: the counters moved by %s and %s"
-                    % (what, dn, TRAIN_B, moved(counts(fused_lstm), before),
-                       moved(bwd_counts(), before_bwd)))
-            ph, pc = fused_lstm.lstm_cell_plain(w_cat, b_sum, x, h, c)
-            pdg, pdc = fused_lstm.lstm_cell_bwd_plain(w_cat, b_sum, x, h, c,
-                                                      dh, dc)
-            fwd_err = 0.0
-            for got, want, name in ((kh, ph, "h'"), (kc, pc, "c'")):
-                diff = (got.float() - want.float()).abs()
-                require(bool((diff <= tol + tol * want.float().abs()).all()),
-                        "K2 %s %s B=%d %s: max |err| %.3g beyond rtol and "
-                        "atol %g" % (what, dn, TRAIN_B, name,
-                                     float(diff.max()), tol))
-                fwd_err = max(fwd_err, float(diff.max()))
-            err = 0.0
-            for got, want, name in ((dg, pdg, "d_gates"), (kdc, pdc, "dc")):
-                diff = (got.float() - want.float()).abs()
-                require(bool((diff <= tol + tol * want.float().abs()).all()),
-                        "K2 backward %s %s B=%d %s: max |err| %.3g beyond "
-                        "rtol and atol %g" % (what, dn, TRAIN_B, name,
-                                              float(diff.max()), tol))
-                err = max(err, float(diff.max()))
-            bwd_err = {tc_route: err}
-            log("K2 %s (%s) %s B=%d E=%d H=%d: forward max|err| %.3g, "
-                "backward d_gates and dc %.3g (rtol %g atol %g)"
-                % (dn, tc_route, what, TRAIN_B, e_in, hd, fwd_err, err, tol,
-                   tol))
+        with_cc = suffix == ""
         x, h, c, dh, dc = (torch.randn(TRAIN_B, n, generator=gen,
                                        device=dev).to(dtype)
-                           for n in (e_in, hd, hd, hd, hd))
+                           for n in (e, hh, hh, hh, hh))
+        require(fused_lstm.lstm_route(w_cat, x, h) == tc_route
+                and fused_lstm.lstm_bwd_route(w_cat, x, h, c, b_sum, dh,
+                                              dc) == tc_route,
+                "K2 %s %s B=%d takes another route" % (what, dn, TRAIN_B))
+        before, before_bwd = counts(fused_lstm), bwd_counts()
+        kh, kc = fused_lstm.lstm_cell_fused(w_cat, b_sum, x, h, c, split)
+        dg, kdc = fused_lstm.lstm_cell_bwd(w_cat, b_sum, x, h, c, dh, dc,
+                                           split)
+        torch.cuda.synchronize()
+        require(moved(counts(fused_lstm), before) == launched(tc_route)
+                and moved(bwd_counts(), before_bwd) == launched(tc_route),
+                "K2 %s %s B=%d: the counters moved by %s and %s"
+                % (what, dn, TRAIN_B, moved(counts(fused_lstm), before),
+                   moved(bwd_counts(), before_bwd)))
+        ph, pc = fused_lstm.lstm_cell_plain(w_cat, b_sum, x, h, c)
+        pdg, pdc = fused_lstm.lstm_cell_bwd_plain(w_cat, b_sum, x, h, c, dh,
+                                                  dc)
+        fwd_err = 0.0
+        for got, want, name in ((kh, ph, "h'"), (kc, pc, "c'")):
+            require(not holds._beyond(got, want, tol, tol),
+                    "K2 %s %s B=%d %s: max |err| %.3g beyond rtol and atol "
+                    "%g" % (what, dn, TRAIN_B, name, abs_err(got, want), tol))
+            fwd_err = max(fwd_err, abs_err(got, want))
+        if bwd_err is None:
+            for got, want, name in ((dg, pdg, "d_gates"), (kdc, pdc, "dc")):
+                require(not holds._beyond(got, want, tol, tol),
+                        "K2 backward %s %s B=%d %s: max |err| %.3g beyond "
+                        "rtol and atol %g" % (what, dn, TRAIN_B, name,
+                                              abs_err(got, want), tol))
+            bwd_err = {tc_route: max(abs_err(dg, pdg), abs_err(kdc, pdc))}
+        log("K2 %s (%s) %s B=%d E=%d H=%d: forward max|err| %.3g, backward "
+            "kernel (d_gates and dc) %.3g (rtol and atol %g)"
+            % (dn, tc_route, what, TRAIN_B, e, hh, fwd_err,
+               bwd_err[tc_route], tol))
         ours = [t.clone().requires_grad_() for t in (w_cat, b_sum, x, h, c)]
         hn, cn = fused_lstm.LstmCell.apply(*ours, *(split or (None, None)))
         lib_w = [t.clone().requires_grad_() for t in (
@@ -2815,111 +3221,162 @@ def main(argv=None) -> int:
         lib_in = [t.clone().requires_grad_() for t in (x, h, c)]
         lh, lc = torch.lstm_cell(lib_in[0], tuple(lib_in[1:]), *lib_w)
         fixed_w = [t.detach() for t in lib_w]
-        fns = {"new": lambda: fused_lstm.lstm_cell_bwd(
-                   w_cat, b_sum, x, h, c, dh, dc, split),
-               "old": lambda: fused_lstm._run_bwd_kernel(
-                   w_cat, b_sum, x, h, c, dh, dc, "cuda_core"),
-               "full": lambda: torch.autograd.grad(
+        g, _ = fused_lstm._run_bwd_kernel(w_cat, b_sum, x, h, c, dh, dc,
+                                          tc_route, split, parts=True)
+
+        def matmul_path():
+            d_gates, kdc_ = fused_lstm._run_bwd_kernel(
+                w_cat, b_sum, x, h, c, dh, dc, tc_route, split)
+            return fused_lstm.lstm_bwd_products_plain(
+                w_cat, b_sum, x, h, d_gates) + (kdc_,)
+
+        fns = {"full": lambda: torch.autograd.grad(
                    (hn, cn), ours, (dh, dc), retain_graph=True),
+               "old": matmul_path,
                "lib": lambda: torch.autograd.grad(
                    (lh, lc), lib_in + lib_w, (dh, dc), retain_graph=True),
+               "gate": lambda: fused_lstm._run_bwd_kernel(
+                   w_cat, b_sum, x, h, c, dh, dc, tc_route, split,
+                   parts=True),
+               "dxh": lambda: fused_lstm._run_dxh_kernel(w_cat, g, x, h,
+                                                         tc_route),
+               "dw": lambda: fused_lstm._run_dw_kernel(x, h, g, w_cat, b_sum,
+                                                       tc_route),
+               "mm": lambda: torch.mm(g.d, w_cat.t()),
+               "cc": lambda: fused_lstm._run_bwd_kernel(
+                   w_cat, b_sum, x, h, c, dh, dc, "cuda_core"),
                "fwd": lambda: fused_lstm.lstm_cell_fused(
                    w_cat, b_sum, x, h, c, split),
                "lib_fwd": lambda: torch.lstm_cell(x, (h, c), *fixed_w)}
-        order = ["new", "old", "full", "lib", "fwd", "lib_fwd", "lib_fwd",
-                 "fwd", "lib", "full", "old", "new"]
-        if not with_old:
-            order = [n for n in order if n != "old"]
+        half = ["full", "old", "lib", "gate", "dxh", "dw"]
+        if tc_route == "tf32x3":
+            half.append("mm")
+        if with_cc:
+            half.append("cc")
+        order = half + ["fwd", "lib_fwd", "lib_fwd", "fwd"] + half[::-1]
         turns = time_turns(torch, fns, flush, order)
         # autograd's engine takes the host up to about a millisecond to
         # issue a backward: eight times the usual lead keeps the card busy
         # through it, so these readings are the device's alone too
         dev_turns = time_turns(torch, fns, flush, order,
                                lead=8 * DEVICE_LEAD)
-        bwd_plain_ms = time_ms(torch, lambda: fused_lstm.lstm_cell_bwd_plain(
-            w_cat, b_sum, x, h, c, dh, dc), flush)
-        fwd_plain_ms = time_ms(torch, lambda: fused_lstm.lstm_cell_plain(
-            w_cat, b_sum, x, h, c), flush)
+        plain = {"gate": time_ms(torch, lambda: fused_lstm.lstm_cell_bwd_plain(
+                     w_cat, b_sum, x, h, c, dh, dc), flush),
+                 "dxh": time_ms(torch, lambda: fused_lstm.lstm_bwd_dxh_plain(
+                     w_cat, g.d, e), flush),
+                 "dw": time_ms(torch, lambda: fused_lstm.lstm_bwd_dw_plain(
+                     x, h, g.d), flush),
+                 "full": time_ms(torch, lambda: fused_lstm
+                                 .lstm_cell_bwd_full_plain(
+                                     w_cat, b_sum, x, h, c, dh, dc), flush),
+                 "fwd": time_ms(torch, lambda: fused_lstm.lstm_cell_plain(
+                     w_cat, b_sum, x, h, c), flush)}
         item = x.element_size()
-        nops = 2 * TRAIN_B * (e_in + hd) * 4 * hd
-        wbytes = ((e_in + hd) * 4 * hd + 4 * hd) * item
-        bwd_bytes = (TRAIN_B * (e_in + 4 * hd) * item + wbytes
-                     + TRAIN_B * 4 * hd * 4 + TRAIN_B * hd * item)
-        bwd_b = bound(bwd_bytes, nops, rate)
-        fwd_b = bound(TRAIN_B * (e_in + 4 * hd) * item + wbytes, nops, rate)
+        bnd = k2_bwd_bounds(TRAIN_B, e, hh, item, tc_route)
+        wbytes = ((e + hh) * 4 * hh + 4 * hh) * item
+        fwd_b = bound(TRAIN_B * (e + 4 * hh) * item + wbytes,
+                      2 * TRAIN_B * (e + hh) * 4 * hh, rate)
         m_ = lambda name, t=turns: mean(t[name])          # noqa: E731
-        common = dict(
-            source="simpleimagecaptionzoo_tpu_torch/csrc/fused_lstm.cu",
-            shape="B=%d E=%d H=%d (%s, training)" % (TRAIN_B, e_in, hd,
-                                                      what))
-        bwd_common = dict(
-            common,
-            replaces="simpleimagecaptionzoo_tpu/ops/pallas_lstm.py:455",
-            plain_ms=bwd_plain_ms, library_ms=m_("lib"),
-            device_library_ms=m_("lib", dev_turns),
+        src = "simpleimagecaptionzoo_tpu_torch/csrc/"
+        rep = "simpleimagecaptionzoo_tpu/ops/pallas_lstm.py:455"
+        shape = "B=%d E=%d H=%d (%s, training)" % (TRAIN_B, e, hh, what)
+        whole = dict(
             full_backward_ms=m_("full"),
             device_full_backward_ms=m_("full", dev_turns),
-            library_is="torch.lstm_cell's backward through autograd (dx, "
-                       "dh, dc, dW, db; it keeps the gates from its "
-                       "forward and does not recompute them); "
-                       "full_backward_ms is this cell's backward through "
-                       "LstmCell (the kernel and the three float32 "
-                       "products)")
-        old = {}
-        if with_old:
-            old_b = bound(bwd_bytes, nops, dn)
-            old = dict(old_route_ms=m_("old"),
-                       device_old_route_ms=m_("old", dev_turns))
+            full_backward_plain_ms=plain["full"],
+            full_backward_bound_ms=bnd["full"][0],
+            full_backward_bound_by=bnd["full"][1],
+            saved_gates_bound_ms=bnd["saved"][0],
+            matmul_path_ms=m_("old"),
+            device_matmul_path_ms=m_("old", dev_turns),
+            lstm_cell_backward_ms=m_("lib"),
+            device_lstm_cell_backward_ms=m_("lib", dev_turns),
+            whole_is="the whole backward through LstmCell (the backward "
+                     "kernel, dx·dh and dW·db); matmul_path: the backward "
+                     "kernel and float32 torch.matmul products; "
+                     "lstm_cell_backward: torch.lstm_cell's backward "
+                     "through autograd (it keeps its gates)")
+        if with_cc:
+            cc_b = bound(bnd["gate_cc"][2], bnd["gate_cc"][3], dn)
             entry("fused_lstm_cell_bwd", dn,
                   max_abs_err=bwd_err["cuda_core"],
-                  max_err=bwd_err["cuda_core"], ms=m_("old"),
-                  kernel_ms=m_("old"), device_ms=m_("old", dev_turns),
-                  bound_ms=old_b[0], bound_by=old_b[1],
-                  kernel_route="cuda_core", **bwd_common)
+                  max_err=bwd_err["cuda_core"], ms=m_("cc"),
+                  kernel_ms=m_("cc"), device_ms=m_("cc", dev_turns),
+                  plain_ms=plain["gate"], bound_ms=cc_b[0],
+                  bound_by=cc_b[1], library_ms=None, kernel_route="cuda_core",
+                  source=src + "fused_lstm.cu", replaces=rep, shape=shape)
         entry("fused_lstm_cell_bwd_" + tc_route + suffix, dn,
               max_abs_err=bwd_err[tc_route], max_err=bwd_err[tc_route],
-              ms=m_("new"), kernel_ms=m_("new"),
-              device_ms=m_("new", dev_turns), bound_ms=bwd_b[0],
-              bound_by=bwd_b[1], kernel_route=tc_route, turns=turns,
-              device_turns=dev_turns, **old, **bwd_common)
+              ms=m_("gate"), kernel_ms=m_("gate"),
+              device_ms=m_("gate", dev_turns), plain_ms=plain["gate"],
+              bound_ms=bnd["gate"][0], bound_by=bnd["gate"][1],
+              library_ms=None, kernel_route=tc_route, turns=turns,
+              device_turns=dev_turns, source=src + "fused_lstm.cu",
+              replaces=rep, shape=shape, **whole)
+        entry("lstm_bwd_dxh_" + tc_route + suffix, dn,
+              max_abs_err=prod_err["dxh"], max_err=prod_err["dxh"],
+              ms=m_("dxh"), kernel_ms=m_("dxh"),
+              device_ms=m_("dxh", dev_turns), plain_ms=plain["dxh"],
+              bound_ms=bnd["dxh"][0], bound_by=bnd["dxh"][1],
+              library_ms=m_("mm") if tc_route == "tf32x3" else None,
+              device_library_ms=(m_("mm", dev_turns)
+                                 if tc_route == "tf32x3" else None),
+              library_is="torch.mm(d_gates, w_cat.t()), float32, TF32 off "
+                         "(bf16: none, no one call takes float32 d_gates "
+                         "and a bf16 w_cat)",
+              splits=fused_lstm.dxh_splits(TRAIN_B, e, hh,
+                                           fused_lstm._sms(dev), tc_route),
+              kernel_route=tc_route, source=src + "lstm_bwd.cu",
+              replaces=rep, shape=shape)
+        entry("lstm_bwd_dw_" + tc_route + suffix, dn,
+              max_abs_err=prod_err["dw"], max_err=prod_err["dw"],
+              ms=m_("dw"), kernel_ms=m_("dw"),
+              device_ms=m_("dw", dev_turns), plain_ms=plain["dw"],
+              bound_ms=bnd["dw"][0], bound_by=bnd["dw"][1], library_ms=None,
+              library_is="none: [x, h] is two tensors, and db a second "
+                         "output",
+              kernel_route=tc_route, source=src + "lstm_bwd.cu",
+              replaces=rep, shape=shape)
         entry("fused_lstm_cell_%s_train%s" % (tc_route, suffix), dn,
               max_abs_err=fwd_err, max_err=fwd_err, ms=m_("fwd"),
               kernel_ms=m_("fwd"), device_ms=m_("fwd", dev_turns),
-              plain_ms=fwd_plain_ms, bound_ms=fwd_b[0], bound_by=fwd_b[1],
+              plain_ms=plain["fwd"], bound_ms=fwd_b[0], bound_by=fwd_b[1],
               library_ms=m_("lib_fwd"),
               device_library_ms=m_("lib_fwd", dev_turns),
-              kernel_route=tc_route,
+              kernel_route=tc_route, source=src + "fused_lstm.cu",
               replaces="simpleimagecaptionzoo_tpu/ops/pallas_lstm.py:166",
-              **common)
-        log("K2 backward %s %s B=%d E=%d in turns (%s): %s %s ms, cuda_core "
-            "%s, the whole backward through LstmCell %s, torch.lstm_cell's "
-            "backward %s; device alone: %s %s, cuda_core %s, whole %s, "
-            "torch.lstm_cell's %s ms; plain %.4f ms; bound %.4f ms (%s)"
-            % (what, dn, TRAIN_B, e_in, ", ".join(order), tc_route,
-               ["%.4f" % v for v in turns["new"]],
-               ["%.4f" % v for v in turns.get("old", [])],
-               ["%.4f" % v for v in turns["full"]],
-               ["%.4f" % v for v in turns["lib"]], tc_route,
-               ["%.4f" % v for v in dev_turns["new"]],
-               ["%.4f" % v for v in dev_turns.get("old", [])],
-               ["%.4f" % v for v in dev_turns["full"]],
-               ["%.4f" % v for v in dev_turns["lib"]], bwd_plain_ms,
-               bwd_b[0], bwd_b[1]))
+              shape=shape)
+        fmt = lambda name, t: ["%.4f" % v for v in t.get(name, [])]  # noqa
+        log("K2 backward %s %s B=%d E=%d in turns (%s), device alone: the "
+            "whole backward %s ms, the matmul path %s, torch.lstm_cell's "
+            "backward %s; the backward kernel %s, dx·dh %s, dW·db %s%s%s; "
+            "host-inclusive: whole %s, matmul path %s, torch.lstm_cell's "
+            "%s; plain: whole %.4f, backward kernel %.4f, dx·dh %.4f, dW·db "
+            "%.4f ms; bounds: whole %.4f (%s), kernel %.4f, dx·dh %.4f, "
+            "dW·db %.4f ms"
+            % (what, dn, TRAIN_B, e, ", ".join(order),
+               fmt("full", dev_turns), fmt("old", dev_turns),
+               fmt("lib", dev_turns), fmt("gate", dev_turns),
+               fmt("dxh", dev_turns), fmt("dw", dev_turns),
+               ", torch.mm %s" % fmt("mm", dev_turns)
+               if tc_route == "tf32x3" else "",
+               ", the kernel on the CUDA cores %s" % fmt("cc", dev_turns)
+               if with_cc else "",
+               fmt("full", turns), fmt("old", turns), fmt("lib", turns),
+               plain["full"], plain["gate"], plain["dxh"], plain["dw"],
+               bnd["full"][0], bnd["full"][1], bnd["gate"][0],
+               bnd["dxh"][0], bnd["dw"][0]))
         log("K2 %s %s B=%d E=%d forward in the same turns: %s %s ms, "
             "torch.lstm_cell %s; device alone: %s, torch.lstm_cell %s ms; "
             "plain %.4f ms; bound %.4f ms (%s)"
-            % (what, dn, TRAIN_B, e_in, tc_route,
-               ["%.4f" % v for v in turns["fwd"]],
-               ["%.4f" % v for v in turns["lib_fwd"]],
-               ["%.4f" % v for v in dev_turns["fwd"]],
-               ["%.4f" % v for v in dev_turns["lib_fwd"]], fwd_plain_ms,
-               fwd_b[0], fwd_b[1]))
-        del hn, cn, lh, lc, ours, lib_in, lib_w
+            % (what, dn, TRAIN_B, e, tc_route, fmt("fwd", turns),
+               fmt("lib_fwd", turns), fmt("fwd", dev_turns),
+               fmt("lib_fwd", dev_turns), plain["fwd"], fwd_b[0], fwd_b[1]))
+        del hn, cn, lh, lc, ours, lib_in, lib_w, g
 
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         tc_route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
-        rate = dn if tc_route == "wgmma" else tc_route
         tol = 1e-5 if dtype == torch.float32 else 1e-2
         lp = steps._cast_floats(params["lstm"], dtype)
         w_cat, b_sum, split = fused_lstm.prepare_lstm(lp)
@@ -2929,30 +3386,13 @@ def main(argv=None) -> int:
                     if dtype == torch.float32 else None)
 
         def beyond(got, want, what):
-            diff = (got.float() - want.float()).abs()
-            require(bool((diff <= tol + tol * want.float().abs()).all()),
+            require(not holds._beyond(got, want, tol, tol),
                     "%s %s: max |err| %.3g beyond rtol and atol %g"
-                    % (what, dn, float(diff.max()), tol))
-            return float(diff.max())
+                    % (what, dn, abs_err(got, want), tol))
+            return abs_err(got, want)
 
-        # the forward at the training rows, on the tensor-core route
-        x, h, c = (torch.randn(TRAIN_B, n, generator=gen, device=dev)
-                   .to(dtype) for n in (e_in, hd, hd))
-        require(fused_lstm.lstm_route(w_cat, x, h) == tc_route,
-                "K2 %s B=%d takes another route" % (dn, TRAIN_B))
-        before = counts(fused_lstm)
-        kh, kc = fused_lstm.lstm_cell_fused(w_cat, b_sum, x, h, c, split)
-        torch.cuda.synchronize()
-        require(moved(counts(fused_lstm), before) == launched(tc_route),
-                "K2 %s B=%d: the counters moved by %s"
-                % (dn, TRAIN_B, moved(counts(fused_lstm), before)))
-        ph, pc = fused_lstm.lstm_cell_plain(w_cat, b_sum, x, h, c)
-        fwd_err = max(beyond(kh, ph, "K2 B=%d h'" % TRAIN_B),
-                      beyond(kc, pc, "K2 B=%d c'" % TRAIN_B))
-        log("K2 %s (%s) B=%d E=%d H=%d: max|err| %.3g (rtol %g atol %g)"
-            % (dn, tc_route, TRAIN_B, e_in, hd, fwd_err, tol, tol))
-        # the backward on each route at the training rows, the decode rows
-        # and the unaligned E=200
+        # the backward kernel on each route at the training rows, the
+        # decode rows and the unaligned E=200
         bwd_err = {tc_route: 0.0, "cuda_core": 0.0}
         for m, e, wc, sp in ((TRAIN_B, e_in, w_cat, split),
                              (B, e_in, w_cat, split),
@@ -2985,12 +3425,44 @@ def main(argv=None) -> int:
                 log("K2 backward %s (%s) B=%d E=%d H=%d: d_gates and dc "
                     "max|err| %.3g (rtol %g atol %g)"
                     % (dn, route, m, e, hd, err, tol, tol))
-        train_cell(lp, dtype, e_in, "", "AoADetection's cell", fwd_err,
-                   bwd_err)
-        # BUTD's two cells at the training rows (phase 16's shapes)
-        for ctag, cell, e in butd_k2:
-            train_cell(steps._cast_floats(bparams[cell], dtype), dtype, e,
-                       "_butd_" + ctag, "BUTD's %s cell" % ctag)
+        # the whole backward where E=200 keeps its products off the tensor
+        # cores: the backward kernel on its own route, float32 torch.matmul
+        # products, no product kernel
+        x, h, c, dh, dc = (torch.randn(TRAIN_B, n, generator=gen,
+                                       device=dev).to(dtype)
+                           for n in (200, hd, hd, hd, hd))
+        a200 = (w200, b_sum, x, h, c, dh, dc)
+        require(fused_lstm.lstm_bwd_products_route(w200, x, h, c, b_sum, dh,
+                                                   dc) == "cuda_core",
+                "K2 backward %s E=200: the products take the tensor cores"
+                % dn)
+        before, before_p = bwd_counts(), product_counts(fused_lstm)
+        full = fused_lstm.lstm_cell_bwd_full(*a200, split200)
+        torch.cuda.synchronize()
+        require(moved(bwd_counts(), before) == launched(tc_route)
+                and moved(product_counts(fused_lstm), before_p) == (0,) * 6,
+                "K2 backward %s E=200: the counters moved by %s and %s"
+                % (dn, moved(bwd_counts(), before),
+                   moved(product_counts(fused_lstm), before_p)))
+        ferr = holds.k2_bwd_full_errors(a200, full)
+        require(not max(ferr.values()), "K2 backward %s E=200 (cuda_core "
+                "products): beyond the whole backward's holds by %s"
+                % (dn, ferr))
+        log("K2 backward %s B=%d E=200: the backward kernel on %s and "
+            "float32 torch.matmul products (route cuda_core), within the "
+            "whole backward's holds" % (dn, TRAIN_B, tc_route))
+        # the products at every training cell, at the XE and SCST rows and
+        # the engine's eval rows, then each cell timed at B=128
+        for suffix, cp, e, hh, what in train_cells:
+            lpc = steps._cast_floats(cp, dtype)
+            wc, bs, sp = (w_cat, b_sum, split) if suffix == "" else \
+                fused_lstm.prepare_lstm(lpc)
+            prod_err = dict(dxh=0.0, dw=0.0, full=0.0)
+            for m in K2_BWD_ROWS:
+                errs = hold_bwd_full(wc, bs, sp, e, hh, m, dtype, what)
+                prod_err = {k: max(v, errs[k]) for k, v in prod_err.items()}
+            train_cell(suffix, lpc, dtype, e, hh, what,
+                       bwd_err if suffix == "" else None, prod_err)
 
     log("-- phase 5 at %.1f s" % (time.time() - t_start))
     # -- 5. K3 against its plain version --------------------------------------

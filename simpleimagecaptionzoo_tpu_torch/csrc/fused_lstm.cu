@@ -95,22 +95,27 @@
 // (dxh = d_gates W^T, dW = [x, h]^T d_gates, db = sum d_gates).  Here the
 // recompute and the gate gradients are one kernel: each route above runs
 // its own product on its own tiles, and its epilogue (BWD = true) takes
-// dh' and dc' of the thread's rows and columns beside c and the biases,
-// and writes, in place of h' and c',
+// dh' and dc' of the thread's rows and columns (a null cotangent reads as
+// zero) beside c and the biases, and writes, in place of h' and c',
 //
 //   dc_total = dc' + dh' o (1 - tanh(c')^2)
 //   d_gates  = [dc_total g i (1-i), dc_total c f (1-f),
 //               dc_total i (1-g^2), dh' tanh(c') o (1-o)]   (float32)
 //   dc       = dc_total f                                 (c's dtype)
 //
-// so the (B, 4H) gates never reach memory; d_gates does, in float32, for
-// the three products, which stay cuBLAS float32 calls (ops/fused_lstm.py),
-// as the JAX package leaves them to XLA.  The recompute is in float32 as
-// the forward's epilogue is (in bf16 the JAX package's recompute rounds
-// the gates to bf16 first).  Bound: the forward's product, plus d_gates
-// written (B x 4H float32): at the training shape (B=128, E=2048, H=1024)
-// 3.22 GFLOP against 25.2 MB of w_cat in bf16 (bytes), three times the
-// operations at the 3xTF32 rate in float32 (operations).
+// so the (B, 4H) gates never reach memory; d_gates does, in float32, and
+// beside it, when the whole backward runs on the tensor cores, the
+// operands of its products (csrc/lstm_bwd.cu): route 1 writes d_hi =
+// bf16(d) and d_lo = bf16(d - d_hi) (B, 4H), route 2 d^T's TF32 parts
+// (4H, B rounded up to 4), the layout the dW product's K-major operand
+// needs.  On the CUDA-core route the products stay float32 torch.matmul
+// calls (ops/fused_lstm.py), as the JAX package leaves them to XLA.  The
+// recompute is in float32 as the forward's epilogue is (in bf16 the JAX
+// package's recompute rounds the gates to bf16 first).  Bound: the
+// forward's product, plus d_gates and the operands written: at the
+// training shape (B=128, E=2048, H=1024) 3.22 GFLOP against 25.2 MB of
+// w_cat in bf16 (bytes), three times the operations at the 3xTF32 rate in
+// float32 (operations).
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -132,18 +137,26 @@ static_assert(CX * 2 == BH, "a thread's two hidden columns are tx, tx + CX");
 __device__ __forceinline__ float sigmoidf_(float z) { return 1.f / (1.f + expf(-z)); }
 
 // The epilogue's tensors.  The forward reads c and b and writes h' and c';
-// the backward reads c, b and the cotangents dh' and dc', and writes
-// d_gates and dc.
+// the backward reads c, b and the cotangents dh' and dc' (null: zero, a
+// cotangent autograd did not form), and writes d_gates and dc, and, when
+// the whole backward runs on the tensor cores, d_gates again in the form
+// its products load (csrc/lstm_bwd.cu): in bf16 its two bf16 parts, in
+// float32 its transpose's two TF32 parts.
 template <typename T>
 struct Epi {
   const T* c;          // (B, H)
   const T* b;          // (4H,)
   T* h_out;            // forward: h' (B, H)
   T* c_out;            // forward: c' (B, H)
-  const T* dh;         // backward: the cotangent of h' (B, H)
-  const T* dc;         // backward: the cotangent of c' (B, H)
+  const T* dh;         // backward: the cotangent of h' (B, H), or null
+  const T* dc;         // backward: the cotangent of c' (B, H), or null
   float* d_gates;      // backward: (B, 4H) float32, gates i, f, g, o
   T* dc_out;           // backward: the cotangent of c (B, H)
+  __nv_bfloat16* d_hi; // backward, route 1, or null: bf16(d_gates) (B, 4H)
+  __nv_bfloat16* d_lo; //   and bf16(d_gates - d_hi)
+  float* dt_hi;        // backward, route 2, or null: rna_tf32(d_gates^T)
+  float* dt_lo;        //   and rna_tf32(d_gates^T - dt_hi), (4H, dt_pitch)
+  int dt_pitch;        //   row pitch of dt_hi and dt_lo, >= B
 };
 
 // one hidden column of the cell, float32: the forward's (h', c')
@@ -214,8 +227,9 @@ lstm_cell_kernel(const T* __restrict__ x, const T* __restrict__ h,
       const float zo = acc[i][6 + jj] + to_f(ep.b[3 * H + j]);
       const size_t o = (size_t)row * H + j;
       if constexpr (BWD) {
-        const CellGrad gr = cell_bwd(zi, zf, zg, zo, to_f(ep.c[o]), to_f(ep.dh[o]),
-                                     to_f(ep.dc[o]));
+        const CellGrad gr = cell_bwd(zi, zf, zg, zo, to_f(ep.c[o]),
+                                     ep.dh ? to_f(ep.dh[o]) : 0.f,
+                                     ep.dc ? to_f(ep.dc[o]) : 0.f);
         float* const dg = ep.d_gates + (size_t)row * n4 + j;
 #pragma unroll
         for (int q = 0; q < 4; ++q) dg[(size_t)q * H] = gr.dz[q];
@@ -336,8 +350,8 @@ __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], const EpiIn
         const int row = rbase + 8 * r, j = j0 + 8 * jj + 2 * (l % 4);
         const size_t o = (size_t)row * H + j;
         const bool in_ = row < B && j < H;
-        gdh[r][jj] = in_ ? P::load(ep.dh + o) : Raw{};
-        gdc[r][jj] = in_ ? P::load(ep.dc + o) : Raw{};
+        gdh[r][jj] = in_ && ep.dh ? P::load(ep.dh + o) : Raw{};
+        gdc[r][jj] = in_ && ep.dc ? P::load(ep.dc + o) : Raw{};
       }
   }
 #pragma unroll
@@ -354,8 +368,10 @@ __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], const EpiIn
       const int i0 = 4 * jj + 2 * r;           // gate 0's registers: i0, i0 + 1
       const size_t o = (size_t)row * H + j;
       if constexpr (BWD) {
-        const float2 dhv = P::get(grads_ahead ? gdh[r][jj] : P::load(ep.dh + o));
-        const float2 dcv = P::get(grads_ahead ? gdc[r][jj] : P::load(ep.dc + o));
+        const float2 dhv = P::get(grads_ahead ? gdh[r][jj]
+                                  : ep.dh ? P::load(ep.dh + o) : Raw{});
+        const float2 dcv = P::get(grads_ahead ? gdc[r][jj]
+                                  : ep.dc ? P::load(ep.dc + o) : Raw{});
         CellGrad gr[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e)
@@ -368,6 +384,35 @@ __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], const EpiIn
         for (int q = 0; q < 4; ++q)
           *(float2*)(dg + (size_t)q * H) = make_float2(gr[0].dz[q], gr[1].dz[q]);
         P::store(ep.dc_out + o, gr[0].dc, gr[1].dc);
+        if constexpr (sizeof(T) == 2) {
+          // the products' bf16 operands: d = d_hi + d_lo within 2^-16 |d|
+          if (ep.d_hi != nullptr) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const __nv_bfloat162 hi = __floats2bfloat162_rn(gr[0].dz[q], gr[1].dz[q]);
+              const float2 hf = __bfloat1622float2(hi);
+              const size_t at = (size_t)row * 4 * H + (size_t)q * H + j;
+              *(__nv_bfloat162*)(ep.d_hi + at) = hi;
+              *(__nv_bfloat162*)(ep.d_lo + at) =
+                  __floats2bfloat162_rn(gr[0].dz[q] - hf.x, gr[1].dz[q] - hf.y);
+            }
+          }
+        } else {
+          // the dW product's K-major TF32 operand: d^T, split as the
+          // forward splits x (cvt.rna.tf32.f32)
+          if (ep.dt_hi != nullptr) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float v = gr[e].dz[q];
+                const uint32_t hi = rna_tf32(v);
+                const size_t at = ((size_t)q * H + j + e) * ep.dt_pitch + row;
+                ep.dt_hi[at] = __uint_as_float(hi);
+                ep.dt_lo[at] = __uint_as_float(rna_tf32(v - __uint_as_float(hi)));
+              }
+          }
+        }
       } else {
         float hn[2], cn[2];
 #pragma unroll
@@ -497,25 +542,26 @@ lstm_cell_tf32x3(const __grid_constant__ CUtensorMap map_x,
 template <typename T>
 Epi<T> fwd_epi(const void* c, const void* b, void* h_out, void* c_out) {
   return Epi<T>{(const T*)c, (const T*)b, (T*)h_out, (T*)c_out, nullptr, nullptr, nullptr,
-                nullptr};
+                nullptr, nullptr, nullptr, nullptr, nullptr, 0};
 }
 
 template <typename T>
 Epi<T> bwd_epi(const void* c, const void* b, const void* dh, const void* dc, void* d_gates,
                void* dc_out) {
   return Epi<T>{(const T*)c, (const T*)b, nullptr, nullptr, (const T*)dh, (const T*)dc,
-                (float*)d_gates, (T*)dc_out};
+                (float*)d_gates, (T*)dc_out, nullptr, nullptr, nullptr, nullptr, 0};
 }
 
 // True when an epilogue operand breaks the tensor-core epilogue's pairs:
 // c, b and the outputs (and dh', dc') `mask + 1`-byte aligned, d_gates
-// 8-byte aligned (float2).
+// 8-byte aligned (float2), d_hi and d_lo 4-byte aligned (bf16x2).
 template <typename T>
 bool pairs_misaligned(const Epi<T>& ep, uintptr_t mask) {
   const uintptr_t a = (uintptr_t)ep.c | (uintptr_t)ep.b | (uintptr_t)ep.h_out |
                       (uintptr_t)ep.c_out | (uintptr_t)ep.dh | (uintptr_t)ep.dc |
                       (uintptr_t)ep.dc_out;
-  return (a & mask) != 0 || ((uintptr_t)ep.d_gates & 7) != 0;
+  return (a & mask) != 0 || ((uintptr_t)ep.d_gates & 7) != 0 ||
+         (((uintptr_t)ep.d_hi | (uintptr_t)ep.d_lo) & 3) != 0;
 }
 
 template <typename T, bool BWD>
@@ -619,9 +665,13 @@ extern "C" int fused_lstm_cell_tf32x3(const void* x, const void* h, const void* 
 }
 
 // The backward of each route: the same operands as its forward, with dh'
-// and dc' (c's dtype, laid out as c) in, and d_gates ((B, 4H) float32)
-// and dc (c's dtype) out in place of h' and c'.  The tensor-core routes
-// take the forward's conditions, d_gates 8-byte aligned.
+// and dc' (c's dtype, laid out as c; either may be null, read as zero) in,
+// and d_gates ((B, 4H) float32) and dc (c's dtype) out in place of h' and
+// c'.  The tensor-core routes take the forward's conditions, d_gates
+// 8-byte aligned; each also writes, where its pointers are not null, the
+// operands of the products of csrc/lstm_bwd.cu: the wgmma route d_hi and
+// d_lo (bf16, (B, 4H), 4-byte aligned), the tf32x3 route dt_hi and dt_lo
+// (float32, (4H, dt_pitch), dt_pitch >= B).
 extern "C" int fused_lstm_cell_bwd(const void* x, const void* h, const void* c,
                                    const void* w_cat, const void* b_sum, const void* dh,
                                    const void* dc, void* d_gates, void* dc_out, int B,
@@ -639,19 +689,28 @@ extern "C" int fused_lstm_cell_bwd(const void* x, const void* h, const void* c,
 extern "C" int fused_lstm_cell_bwd_wgmma(const void* x, const void* h, const void* c,
                                          const void* w_cat, const void* b_sum,
                                          const void* dh, const void* dc, void* d_gates,
-                                         void* dc_out, int B, int E, int H, void* stream) {
-  return run_wgmma<true>(x, h, w_cat,
-                         bwd_epi<__nv_bfloat16>(c, b_sum, dh, dc, d_gates, dc_out), B, E, H,
-                         stream);
+                                         void* dc_out, void* d_hi, void* d_lo, int B, int E,
+                                         int H, void* stream) {
+  Epi<__nv_bfloat16> ep = bwd_epi<__nv_bfloat16>(c, b_sum, dh, dc, d_gates, dc_out);
+  ep.d_hi = (__nv_bfloat16*)d_hi;
+  ep.d_lo = (__nv_bfloat16*)d_lo;
+  if ((d_hi == nullptr) != (d_lo == nullptr)) return (int)cudaErrorInvalidValue;
+  return run_wgmma<true>(x, h, w_cat, ep, B, E, H, stream);
 }
 
 extern "C" int fused_lstm_cell_bwd_tf32x3(const void* x, const void* h, const void* c,
                                           const void* w_hi, const void* w_lo,
                                           const void* b_sum, const void* dh, const void* dc,
-                                          void* d_gates, void* dc_out, int B, int E, int H,
+                                          void* d_gates, void* dc_out, void* dt_hi,
+                                          void* dt_lo, int dt_pitch, int B, int E, int H,
                                           void* stream) {
-  return run_tf32x3<true>(x, h, w_hi, w_lo,
-                          bwd_epi<float>(c, b_sum, dh, dc, d_gates, dc_out), B, E, H, stream);
+  Epi<float> ep = bwd_epi<float>(c, b_sum, dh, dc, d_gates, dc_out);
+  ep.dt_hi = (float*)dt_hi;
+  ep.dt_lo = (float*)dt_lo;
+  ep.dt_pitch = dt_pitch;
+  if ((dt_hi == nullptr) != (dt_lo == nullptr) || (dt_hi != nullptr && dt_pitch < B))
+    return (int)cudaErrorInvalidValue;
+  return run_tf32x3<true>(x, h, w_hi, w_lo, ep, B, E, H, stream);
 }
 
 // TMA tensor maps this library has encoded so far, on every host thread

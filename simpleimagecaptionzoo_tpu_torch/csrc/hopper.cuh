@@ -5,9 +5,12 @@
 // products, and the 3xTF32 and 2xTF32 pipelines of the float32 products.
 // Used by the bf16 routes of K1 (csrc/fused_head.cu, bf16 and int8
 // weights), K2 (csrc/fused_lstm.cu) and K3 (csrc/quant_matmul.cu), by the
-// float32 ("tf32x3") routes of K1 and K2, and by the float32 routes with an
-// int8 weight ("tf32x2") of K1 and K3; the CUDA-core tile product of
-// common.cuh stays for shapes and pointers TMA cannot take.
+// float32 ("tf32x3") routes of K1 and K2, by the float32 routes with an
+// int8 weight ("tf32x2") of K1 and K3, and by K2 backward's products on
+// both routes (csrc/lstm_bwd.cu: bf16 wgmma with either operand
+// transposed, wgmma_m64n128k16_t, and the tf32x3 products with the
+// weight split in shared memory or d^T as the weight); the CUDA-core tile
+// product of common.cuh stays for shapes and pointers TMA cannot take.
 //
 // Everything is inline PTX, so a kernel source still builds with one nvcc
 // call and no other headers than the toolkit's.  cuTensorMapEncodeTiled is
@@ -281,6 +284,24 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
 // proxy (wgmma, TMA) before it signals that they are there
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// TMA: shared memory at src into the box at (column c0, row c1) of `map`;
+// what lies outside the tensor is not written.  One thread issues; the
+// stores of a bulk group are awaited with bulk_wait_read.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+      :: "l"((uint64_t)map), "r"(smem_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// close this thread's bulk group, then wait until its stores have read
+// their shared memory (which may then be reused, or the block end)
+__device__ __forceinline__ void bulk_commit_wait_read() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // ---- device: the int8 -> bf16 widening stage -----------------------------------
@@ -572,10 +593,17 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uin
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// D (64 x 128, float32, the wgmma fragment) += A (64 x 16, K-major) *
-// B (16 x 128, MN-major: the weight's rows, N contiguous), bf16 operands.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
-                                                 int scale_d) {
+// D (64 x 128, float32, the wgmma fragment) += A (64 x 16) * B (16 x 128),
+// bf16 operands in shared memory, each K-major (TA or TB 0: 16 K-values a
+// 32-byte run of its rows, the desc_a layout) or MN-major (1: the matrix's
+// rows or columns contiguous, the desc_b layout; an A of 64 rows is one
+// 128-byte box wide).  16-bit wgmma takes the transpose bit on both
+// operands; wgmma_m64n128k16 below is <0, 1>.  K2's backward products use
+// <0, 0> (dx and dh: d_gates times w_cat as stored) and <1, 1> (dW: x and
+// h, and d_gates, as stored, the batch their K).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16_t(float (&d)[64], uint64_t da, uint64_t db,
+                                                   int scale_d) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -585,7 +613,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
       " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, 1;\n"
+      " %64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -595,7 +623,14 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D (64 x 128, float32, the wgmma fragment) += A (64 x 16, K-major) *
+// B (16 x 128, MN-major: the weight's rows, N contiguous), bf16 operands.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  wgmma_m64n128k16_t<0, 1>(d, da, db, scale_d);
 }
 
 // D (64 x 256, float32, the wgmma fragment) += A (64 x 16, K-major) *

@@ -41,13 +41,20 @@ def _lstm_bwd_plain(w_cat, b_sum, x, h, c, dh_new, dc_new, split=None):
                                           dc_new)
 
 
+def _lstm_bwd_full_plain(w_cat, b_sum, x, h, c, dh_new, dc_new, split=None):
+    return fused_lstm.lstm_cell_bwd_full_plain(w_cat, b_sum, x, h, c, dh_new,
+                                               dc_new)
+
+
 def plain_swaps() -> List[Tuple[object, str, Callable]]:
     """(module, wrapper's name, plain version) of every kernel wrapper a
-    decode or an XE step calls: K1 (and K1-int8), K2 and its backward, K3
-    and K4."""
+    decode or an XE step calls: K1 (and K1-int8), K2, its backward kernel
+    and its whole backward (the kernel and its products: what LstmCell
+    calls), K3 and K4."""
     return [(fused_head, "topk_head", fused_head.topk_head_plain),
             (fused_lstm, "lstm_cell_fused", _lstm_plain),
             (fused_lstm, "lstm_cell_bwd", _lstm_bwd_plain),
+            (fused_lstm, "lstm_cell_bwd_full", _lstm_bwd_full_plain),
             (quant, "quant_matmul", quant.quant_matmul_plain),
             (int8_attention, "lanes_attention_int8",
              int8_attention.lanes_attention_int8_plain)]
@@ -120,6 +127,47 @@ def _hold_k2_bwd(plain, a, got):
     return None
 
 
+def _double(t):
+    return None if t is None else t.double()
+
+
+def k2_bwd_full_errors(args, got) -> dict:
+    """How far K2's whole backward (dW, db, dx, dh, dc: ``got``, on the
+    forward's inputs and cotangents ``args``) lies beyond its holds, by
+    output name (0 where within).  float32, against the function in
+    float64: dx, dh and dc within 1e-5 (rtol and atol, K2's float32
+    hold); dW and db within 1e-5 of the sum over the batch of |[x, h]_b|
+    |d_b| (and |d_b|), plus 1e-6: B terms are summed, as K3's hold is
+    relative to the sum of |x q s|.  bf16: rtol and atol 1e-2 against the
+    plain version."""
+    names = ("dW", "db", "dx", "dh", "dc")
+    w_cat, b_sum, x, h, c, dh_new, dc_new = args[:7]
+    if x.dtype != torch.float32:
+        want = fused_lstm.lstm_cell_bwd_full_plain(*args[:7])
+        return {n: _beyond(g, w, 1e-2, 1e-2)
+                for n, g, w in zip(names, got, want)}
+    a64 = [_double(t) for t in args[:7]]
+    d, dc = fused_lstm.lstm_cell_bwd_plain(*a64)
+    want = fused_lstm.lstm_bwd_products_plain(*a64[:4], d) + (dc,)
+    err = {n: _beyond(g, w, 1e-5, 1e-5)
+           for n, g, w in zip(names[2:], got[2:], want[2:])}
+    da = d.abs()
+    lim_w = 1e-5 * (torch.cat([a64[2], a64[3]], dim=-1).abs().t() @ da) + 1e-6
+    err["dW"] = _beyond(got[0], want[0], lim_w)
+    err["db"] = _beyond(got[1], want[1], 1e-5 * da.sum(dim=0) + 1e-6)
+    return err
+
+
+def _hold_k2_bwd_full(plain, a, got):
+    # the plain version stands in for the function; in float32 the hold's
+    # reference is that function in float64 (k2_bwd_full_errors)
+    err = k2_bwd_full_errors(a, got)
+    if max(err.values()):
+        return "off beyond their holds: %s" % ", ".join(
+            "%s by %.3g" % kv for kv in err.items() if kv[1])
+    return None
+
+
 def _hold_k3(plain, a, got):
     x, qp = a
     want = plain(x, qp)
@@ -157,6 +205,7 @@ def _hold_k4(plain, a, got):
 # -> None, or what broke (the tolerances of chip_smoke.py phases 3-7)
 _HOLDS = {"topk_head": _hold_k1, "lstm_cell_fused": _hold_k2,
           "lstm_cell_bwd": _hold_k2_bwd,
+          "lstm_cell_bwd_full": _hold_k2_bwd_full,
           "quant_matmul": _hold_k3, "lanes_attention_int8": _hold_k4}
 
 
@@ -190,14 +239,19 @@ def held_calls(failures: list):
 
 # (module, launching function, its arguments -> (kernel, route, rows,
 # last)): last is K1's k, K4's query rows, and the width of x for K2, K2's
-# backward and K3
+# backward kernel and its products (dx·dh, dW·db) and K3
 _SHAPE_OF = [
     (fused_head, "_run_kernel", lambda head, x, k, route: (
         "K1", route, x.shape[0], k)),
     (fused_lstm, "_run_kernel", lambda w_cat, b_sum, x, h, c, route,
      split=None: ("K2", route, x.shape[0], x.shape[1])),
     (fused_lstm, "_run_bwd_kernel", lambda w_cat, b_sum, x, h, c, dh, dc,
-     route, split=None: ("K2bwd", route, x.shape[0], x.shape[1])),
+     route, split=None, parts=False: ("K2bwd", route, x.shape[0],
+                                      x.shape[1])),
+    (fused_lstm, "_run_dxh_kernel", lambda w_cat, g, x, h, route: (
+        "K2dxh", route, x.shape[0], x.shape[1])),
+    (fused_lstm, "_run_dw_kernel", lambda x, h, g, w_cat, b_sum, route: (
+        "K2dw", route, x.shape[0], x.shape[1])),
     (quant, "_run_kernel", lambda x2, q, s, b, route: (
         "K3", route, x2.shape[0], x2.shape[1])),
     (int8_attention, "_run_kernel", lambda q, kq, ks, vq, vs, mask_f, heads,
@@ -207,8 +261,9 @@ _SHAPE_OF = [
 @contextlib.contextmanager
 def recording_shapes(shapes: list):
     """Appends (kernel, route, rows, last) to ``shapes`` at every launch of
-    K1 (rows of x, and k), K2 and its backward ("K2bwd"; rows and width of
-    x: E, the cell's input without h), K3 (rows and width of x: K) and K4
+    K1 (rows of x, and k), K2 and its backward kernel ("K2bwd") and
+    products ("K2dxh", "K2dw"; rows and width of x: E, the cell's input
+    without h), K3 (rows and width of x: K) and K4
     (samples and query rows), where each wrapper reaches its kernel."""
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in _SHAPE_OF]
 

@@ -122,6 +122,12 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def ptr_or_null(t) -> ctypes.c_void_p:
+    """:func:`ptr`, or a null pointer for None (an operand the kernel may
+    go without)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
 def stream_of(t) -> ctypes.c_void_p:
     import torch
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

@@ -53,3 +53,14 @@ def prepare_split(w: torch.Tensor) -> Split:
     to (N, K) for the kernels."""
     hi, lo = split_tf32(w.t().contiguous())
     return Split(hi, lo)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The 3xTF32 product of the float32 kernels in plain PyTorch: both
+    float32 operands split (:func:`split_tf32`), a_lo b_hi + a_hi b_lo +
+    a_hi b_hi summed in float32.  A product of two TF32 values is exact in
+    float32, so this is a b within about 2^-20 of sum |a||b|, plus the
+    float32 sum's own rounding."""
+    a_hi, a_lo = split_tf32(a.contiguous())
+    b_hi, b_lo = split_tf32(b.contiguous())
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi

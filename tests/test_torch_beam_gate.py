@@ -82,6 +82,15 @@ def _call(name, dtype):
                                      "b_ih": t(128), "b_hh": t(128)})
         return fused_lstm, (w.w_cat.to(dtype), w.b_sum, t(8, 64).to(dtype),
                             t(8, 32).to(dtype), t(8, 32).to(dtype), w.split)
+    if name in ("lstm_cell_bwd", "lstm_cell_bwd_full"):
+        # K2's backward kernel and its whole backward (the kernel and its
+        # products): the forward's inputs and the cotangents dh', dc'
+        w = fused_lstm.prepare_lstm({"w_ih": 0.1 * t(64, 128),
+                                     "w_hh": 0.1 * t(32, 128),
+                                     "b_ih": t(128), "b_hh": t(128)})
+        return fused_lstm, (w.w_cat.to(dtype), w.b_sum.to(dtype),
+                            *(t(8, n).to(dtype) for n in (64, 32, 32, 32, 32)),
+                            w.split)
     if name == "quant_matmul":
         qp = quant.quantize_dense({"w": t(200, 300), "b": t(300)})
         return quant, (t(8, 200).to(dtype), qp)
@@ -104,6 +113,7 @@ def _off(got):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", ["topk_head", "lstm_cell_fused",
+                                  "lstm_cell_bwd", "lstm_cell_bwd_full",
                                   "quant_matmul", "lanes_attention_int8"])
 def test_each_hold_passes_the_plain_version_and_reports_an_error(name,
                                                                  dtype):

@@ -696,6 +696,67 @@ def test_lstm_cell_function_grads_match_plain_autograd(dev, dtype):
         assert err <= tol * scale, (name, err, scale)
 
 
+def _product_counts():
+    return tuple(c.n for c in (
+        fused_lstm.COUNT_DXH, fused_lstm.COUNT_DXH_WGMMA,
+        fused_lstm.COUNT_DXH_TF32X3, fused_lstm.COUNT_DW,
+        fused_lstm.COUNT_DW_WGMMA, fused_lstm.COUNT_DW_TF32X3))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,e,h", [(128, 2048, 1024), (64, 512, 512),
+                                   (69, 1024, 512), (192, 128, 96)])
+def test_lstm_bwd_full_matches_plain(dev, dtype, b, e, h):
+    """K2's whole backward (lstm_cell_bwd_full) on the card at the XE
+    shape, NIC's at the engine's 64 rows, AoASpatial's at ragged B=69 and
+    a narrow ragged one (H=96): the backward kernel, dx·dh and dW·db, once
+    each on the dtype's tensor-core route; the five outputs within
+    engine/holds.k2_bwd_full_errors of the plain version (float32 against
+    float64); the same bits on a second run."""
+    from simpleimagecaptionzoo_tpu_torch.engine import holds
+    rng = np.random.default_rng(b + e + h + 11)
+    wt = _lstm_weights(rng, e, h, dev)
+    w_cat, b_sum = wt.w_cat.to(dtype), wt.b_sum.to(dtype)
+    split = wt.split if dtype == torch.float32 else None
+    x, hh, c, dh, dc = (_t(rng.normal(size=(b, n)), dev, dtype)
+                        for n in (e, h, h, h, h))
+    args = (w_cat, b_sum, x, hh, c, dh, dc)
+    route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    assert fused_lstm.lstm_bwd_products_route(w_cat, x, hh, c, b_sum, dh,
+                                              dc) == route
+    before, before_p = _lstm_bwd_counts(), _product_counts()
+    got = fused_lstm.lstm_cell_bwd_full(*args, split)
+    torch.cuda.synchronize()
+    assert tuple(a - b_ for a, b_ in zip(_lstm_bwd_counts(), before)) == \
+        _moved(route)
+    assert tuple(a - b_ for a, b_ in zip(_product_counts(), before_p)) == \
+        _moved(route) * 2
+    assert [t.dtype for t in got] == [dtype] * 5
+    err = holds.k2_bwd_full_errors(args, got)
+    assert not max(err.values()), err
+    again = fused_lstm.lstm_cell_bwd_full(*args, split)
+    for a, b_ in zip(got, again):
+        assert torch.equal(a, b_)
+
+
+def test_lstm_bwd_full_e200_takes_matmul_products(dev):
+    """E=200 (not a multiple of 64): the backward kernel keeps its
+    tensor-core route and the products are float32 torch.matmul calls; no
+    product kernel launches, and the result holds."""
+    from simpleimagecaptionzoo_tpu_torch.engine import holds
+    rng = np.random.default_rng(200)
+    wt = _lstm_weights(rng, 200, 128, dev)
+    x, hh, c, dh, dc = (_t(rng.normal(size=(37, n)), dev, torch.float32)
+                        for n in (200, 128, 128, 128, 128))
+    args = (wt.w_cat, wt.b_sum, x, hh, c, dh, dc)
+    before_p = _product_counts()
+    got = fused_lstm.lstm_cell_bwd_full(*args, wt.split)
+    torch.cuda.synchronize()
+    assert _product_counts() == before_p
+    err = holds.k2_bwd_full_errors(args, got)
+    assert not max(err.values()), err
+
+
 @pytest.mark.parametrize("m,k,route", [(384, 1, "tf32x3"), (384, 3, "tf32x3"),
                                        (1152, 3, "tf32x3"), (45, 16, "tf32x3"),
                                        (384, 1, "cuda_core")])
