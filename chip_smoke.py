@@ -164,8 +164,10 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      B=128, exactly, the backward's three kernels once each a call; the
      loss falling; ms a step, samples/s, peak memory, TMA map encodes),
      one step with every K2 call, forward and whole backward, held
-     against its plain version (engine/holds.held_calls), and one step
-     under torch.profiler (device time by part, idle share; "K2 backward's
+     against its plain version (engine/holds.held_calls; in float32 also
+     K2's error shared by the batch's rows against float64, within
+     K2_BIAS_TOL times the plain version's: chip_smoke.k2_bias), and one
+     step under torch.profiler (device time by part, idle share; "K2 backward's
      float32 products", anything LstmCellBackward launches but its
      kernels, autograd's sums of its outputs and its cotangent copies,
      must read 0 ms);
@@ -246,7 +248,59 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      arguments the path gave it.  Printed: the engine's XE and SCST steps/s
      and its ms a step over phases 14-15's bare steps, eval captions/s per
      decode dtype, coco_eval seconds, checkpoint save and load ms, the
-     phase's seconds (at most 90).
+     phase's seconds (at most 90);
+ 19. serving on the card, from pixels, in a temporary directory: the
+     vocabulary of phase 18, a best checkpoint of BUTDSpatial at the width
+     of Configs/Models/BUTDSpatial.json with the full ResNet-101 (random
+     from --seed, statistics calibrated as in 17) saved by the port's
+     CheckpointManager, 512 photo-like JPEGs of 160-640 px a side and a
+     corrupt file.  ``tools.caption_images.main`` over the directory (beam
+     3, bf16 and int8, --batch 64); ``tools.caption_server`` built through
+     ``build_argparser().parse_args`` and ``build_server`` on port 0, beam
+     3 bf16 at --max_batch 16, 64 and 192 and at 64 int8 and greedy
+     float32 (--max_wait_ms 20), each under 1, max_batch and 4 x max_batch
+     concurrent client threads of a load generator in its own process
+     (scripts/serve_load.py) POSTing JPEG files over 127.0.0.1.  Gates:
+     every reply 200 with a caption, the corrupt upload 400 and skipped by
+     the directory run; /stats rows_decoded = batches x max_batch; read
+     after each server stopped,
+     every launch on its dtype's tensor-core route and, a step, K1 once at
+     m = 3 x max_batch (k=3) and K2 at E=4,096 and 3,072 (int8: K3 at
+     K=5,120, 4,096 and 1,024); each image's caption from the server and
+     from the directory run equal to that image's in-process decode by the
+     same bundle in full batches of max_batch; one padded batch of each
+     bundle with every kernel call held and its winners gated against the
+     plain versions (phase 17's gates).  Every launch shape gets an entry
+     ``<kernel>_<route>_serve_<shape>``.  Printed beside the card's name
+     and power limit: captions/s, mean batch fill and p50 / p99 latency
+     per max_batch and N, the bundle's offline rate (cap 50, no HTTP), the
+     host's ms per upload decode, the directory run's images/s, the idle
+     share of a profiled batch, the build and warm seconds, and K2's TMA
+     maps encoded by the warm decode and by the served batches after it;
+ 20. XE and SCST from pixels on the card: BUTDSpatial and AoASpatial at
+     their published widths (XE with layer4 fine-tuned at the json's
+     cnn_FT_lr, scheduled sampling at 0.25; SCST at scst_lr and
+     scst_cnn_FT_lr), NIC's SCST, each in float32 and bf16 over float32
+     masters, B=128 photo-like images at 224 with the full ResNet-101
+     (random, statistics calibrated): phases 14-15's gates (the first step
+     against the plain versions, the stem's and layers 1-3's gradients
+     exactly zero and layer4's not; 4 timed steps with K2's forward and
+     whole backward launches per step exact on the tensor-core route,
+     NIC's step -1 cell among them; a step with every kernel call held;
+     for the float32 variant of each run a profiled step whose parts hold
+     the trunk's forward and cuDNN's backward through layer4, "K2
+     backward's float32 products" 0 ms).  The ResNet's leaves come from
+     the bf16 trunk in every compute dtype, so the float32 first step
+     holds each by its difference from the plain run's (within 2e-2 of
+     its norm, TRUNK_GRAD_TOL) and beyond_float64 the rest; in
+     BUTDSpatial's float32 SCST the plain and float64 runs take the kernel
+     run's ReLU branches, each branch that differs lying within FLIP_TOL
+     of its tensor's largest |x| (chip_smoke.relu_branches: its attention
+     ReLU sends pre-activations within rounding of 0 either way); K1
+     at the 512-wide heads' training rows gets entries
+     ``..._px_train_...``.  A run that fails its gates fails the phase
+     after the other runs have run.  Phases 19 and 20 take at most 120 s
+     together.
 Then it prints one JSON line of per-kernel results (the beam shapes'
 launches as entries of their own, named ``..._beam``; BUTD's K2 and K3
 shapes as ``..._butd_<layer>``, NIC's and AoASpatial's K1, K2 and K3 shapes
@@ -614,6 +668,207 @@ def k2_product_counters(fused_lstm):
                 lstm_bwd_dw_tf32x3=fused_lstm.COUNT_DW_TF32X3)
 
 
+# the part of a from-pixels step's profile that autograd's convolution
+# nodes launch: cuDNN's backward through layer4 (the only convolutions with
+# a gradient: the stem and layers 1-3 are detached, the images need none)
+TRUNK_BWD_PART = "cuDNN's backward through layer4's convolutions"
+
+
+def require_trunk_parts(profile, tag, trunk_range):
+    """From pixels the profile holds the trunk's forward (``trunk_range``)
+    and cuDNN's backward through ``layer4``, each with device time."""
+    parts = profile["parts_ms"]
+    require(parts.get(trunk_range, 0.0) > 0
+            and parts.get(TRUNK_BWD_PART, 0.0) > 0,
+            "%s: the profile's parts %s lack the trunk's forward or "
+            "cuDNN's backward through layer4" % (tag, sorted(parts)))
+
+
+# the ResNet's gradients (layer4's, from pixels) come from the bf16 trunk
+# in every compute dtype (resnet.apply's default, as in the JAX package),
+# so a float32 step holds each of them by the norm of its difference from
+# the plain run's, over the plain gradient's norm, within 2e-2 (phase 14's
+# bf16 bound; 6.5e-3 to 6.9e-3 measured, PERF.md section 6); the float32
+# rule (beyond_float64) holds the rest
+TRUNK_GRAD_TOL = 2e-2
+
+
+def trunk_split(names, rel):
+    """-> (the indices of the ResNet's leaves, the largest of ``rel`` over
+    them (0 without one))."""
+    trunk = [i for i, n in enumerate(names) if n.startswith("cnn.")]
+    return trunk, max([rel[i] for i in trunk], default=0.0)
+
+
+# how near zero a ReLU's pre-activation may take the other branch in the
+# plain or the float64 replay than in the kernel run, over the largest |x|
+# of its tensor (relu_branches): above every sound run's flip (8.0e-8 the
+# largest over 12 draws of the data) and below what a shift of K2's h' by
+# 1e-5 of its largest |h'|, K2's hold, reads (8.2e-7; 1e-6 reads 7.4e-8);
+# scripts/probe_scst_pixels.py --relu --plant, PERF.md section 6
+FLIP_TOL = 2.5e-7
+
+
+@contextlib.contextmanager
+def relu_branches(torch, masks, flips=None, on=True):
+    """The first training step's gradients are a function of each ReLU's
+    branch, and a pre-activation within rounding of 0 takes either: the
+    kernel run and the plain or the float64 run would differ there by that
+    element's whole cotangent, which moves a small leaf by much more than
+    rounding (BUTD's attention biases, whose gradient is a thousandth of
+    the largest leaf's; scripts/probe_scst_pixels.py --relu).  So the
+    kernel run records each ``torch.relu`` call's branch (x > 0) into
+    ``masks`` (``flips`` None), and the replays take them in call order (x
+    times the mask), appending to ``flips`` each call's (elements whose
+    branch the replay's own x would have changed, their largest |x| over
+    the tensor's largest |x|).  Only ``torch.relu``'s call sites are
+    replayed (the trunk's ``F.relu`` is not: its leaves are held by
+    TRUNK_GRAD_TOL), and only where a run failed without it (``on``):
+    BUTDSpatial's float32 SCST from pixels (drive_scst's
+    ``relu_replay``)."""
+    if not on:
+        yield
+        return
+    relu = torch.relu
+    calls = iter(masks)
+
+    def record(x):
+        masks.append(x > 0)
+        return relu(x)
+
+    def replay(x):
+        m = next(calls)
+        require(m.shape == x.shape, "relu_branches: the replay's ReLU calls "
+                "differ from the kernel run's")
+        d = (x > 0) != m
+        n = int(d.sum())
+        top = float(x.detach().abs().max())
+        flips.append((n, float(x.detach().abs()[d].max()) / max(top, 1e-30)
+                      if n else 0.0))
+        return x * m.to(x.dtype)
+
+    torch.relu = record if flips is None else replay
+    try:
+        yield
+    finally:
+        torch.relu = relu
+
+
+def check_flips(flips, tag):
+    """Every flipped branch within FLIP_TOL of 0: a kernel that moved a
+    pre-activation further than rounding fails here.  -> (flips, the
+    largest relative |x| of one)."""
+    n = sum(k for k, _ in flips)
+    top = max([f for _, f in flips], default=0.0)
+    require(top <= FLIP_TOL, "%s: %d ReLU branches differ between the "
+            "kernel run and the plain or float64 replay, one at %.3g of its "
+            "tensor's largest |x| (tol %g)" % (tag, n, top, FLIP_TOL))
+    return n, top
+
+
+# K2's float32 error shared by the batch's rows (k2_bias): the kernel's
+# mean over columns of |its error's mean over rows| against float64, at
+# most this many times the plain float32 version's.  The tf32x3 route
+# reads 1.1x-5.5x (h') and 1.1x-7.3x (c') over the float32 held steps of
+# phases 14-16 and 20, and a copy that starts a fresh partial every k8
+# step 1.1x-1.2x (scripts/probe_scst_pixels.py --variants); PERF.md
+# sections 6-7
+K2_BIAS_TOL = 10.0
+
+
+@contextlib.contextmanager
+def k2_bias(torch, acc, on=True):
+    """Every float32 K2 forward call in the block is also run through its
+    plain version in float32 and in float64; ``acc`` gets, for h' and c',
+    the mean over calls of the mean over columns of |the error's mean over
+    the batch's rows| for the kernel and for the plain version: the part
+    of the error the batch's sums do not average out, which K2's hold
+    (each element within 1e-5) does not see."""
+    from simpleimagecaptionzoo_tpu_torch.ops import fused_lstm
+    if not on:
+        yield
+        return
+    run = fused_lstm.lstm_cell_fused
+    sums = {}
+
+    def measured(*a, **kw):
+        got = run(*a, **kw)
+        if a[2].dtype == torch.float32:
+            with torch.no_grad():
+                want = fused_lstm.lstm_cell_plain(*(t.double()
+                                                    for t in a[:5]))
+                plain = fused_lstm.lstm_cell_plain(*a[:5])
+                for how, out in (("kernel", got), ("plain", plain)):
+                    for nm, g, w in zip(("h", "c"), out, want):
+                        d = (g.detach().double() - w).reshape(-1, w.shape[-1])
+                        k = "%s_%s" % (how, nm)
+                        sums[k] = sums.get(k, 0.0) + float(
+                            d.mean(0).abs().mean())
+            sums["calls"] = sums.get("calls", 0) + 1
+        return got
+
+    fused_lstm.lstm_cell_fused = measured
+    try:
+        yield
+    finally:
+        fused_lstm.lstm_cell_fused = run
+        n = sums.pop("calls", 0)
+        acc.update({k: v / n for k, v in sums.items()}, calls=n)
+
+
+def check_k2_bias(bias, tag):
+    """The kernel's row-shared error within K2_BIAS_TOL times the plain
+    version's, for h' and c' (a no-op where :func:`k2_bias` was off)."""
+    if not bias:
+        return
+    ratio = {nm: bias["kernel_" + nm] / max(bias["plain_" + nm], 1e-30)
+             for nm in ("h", "c")}
+    bias["ratio"] = ratio
+    log("%s: K2's error shared by the batch's rows over %d calls, mean "
+        "over columns of |its mean over rows| against float64: h' %.3g "
+        "(plain %.3g, %.2fx), c' %.3g (plain %.3g, %.2fx; tol %gx)"
+        % (tag, bias["calls"], bias["kernel_h"], bias["plain_h"],
+           ratio["h"], bias["kernel_c"], bias["plain_c"], ratio["c"],
+           K2_BIAS_TOL))
+    require(bias["calls"] > 0 and max(ratio.values()) <= K2_BIAS_TOL,
+            "%s: K2's row-shared error %s times the plain version's "
+            "(tol %g) over %d calls" % (tag, ratio, K2_BIAS_TOL,
+                                        bias["calls"]))
+
+
+def check_fine_tune_scope(params, grads, tag):
+    """The first step's gradients (``grads``, in ``params``' leaf order):
+    the ResNet's stem and layers 1-3 exactly zero, ``layer4``'s not
+    (engine/steps._stop_cnn_grads, layer4 fine-tuned).  -> the count of
+    zero and nonzero ResNet leaves."""
+    from simpleimagecaptionzoo_tpu_torch.engine import optim
+    names = optim.tree_leaves(_paths(params))
+    stopped = [(n, g) for n, g in zip(names, grads)
+               if n.startswith("cnn.") and not n.startswith("cnn.layer4")]
+    tuned = [(n, g) for n, g in zip(names, grads)
+             if n.startswith("cnn.layer4")]
+    moving = [n for n, g in stopped if bool(g.any())]
+    require(stopped and tuned and not moving
+            and any(bool(g.any()) for _, g in tuned),
+            "%s: the fine-tune scope: %d stem/layers 1-3 leaves with a "
+            "gradient (%s), layer4's all zero: %s" % (
+                tag, len(moving), moving[:3],
+                not any(bool(g.any()) for _, g in tuned)))
+    return dict(zero_leaves=len(stopped), layer4_leaves=len(tuned),
+                layer4_nonzero=sum(bool(g.any()) for _, g in tuned))
+
+
+def part_seconds(stamps, tag):
+    """Seconds of a training variant's parts (the first step against the
+    plain versions, the timed steps, the held step and the profiled step),
+    from the times taken at their starts; logged."""
+    stamps = stamps + [time.time()]
+    out = dict(zip(("first_step", "timed", "held_and_profiled"),
+                   (b - a for a, b in zip(stamps, stamps[1:]))))
+    log("%s: seconds %s" % (tag, {k: round(v, 2) for k, v in out.items()}))
+    return out
+
+
 def require_no_products(profile, tag):
     """On the tensor-core routes K2's backward is its three kernels: no
     other product under LstmCellBackward."""
@@ -665,6 +920,8 @@ def profile_step(torch, run, tag, ranges=XE_RANGES):
             if anc.name.startswith("autograd::engine::evaluate_function"):
                 label = (K2_BWD_OPS.get(e.name, K2_PRODUCTS_PART)
                          if "LstmCellBackward" in anc.name
+                         else TRUNK_BWD_PART
+                         if "ConvolutionBackward" in anc.name
                          else "backward, other")
                 break
             anc = anc.cpu_parent
@@ -710,14 +967,15 @@ def profile_step(torch, run, tag, ranges=XE_RANGES):
 XE_STEPS = 8                  # steps through the kernels per variant
 
 
-def beyond_float64(k_grads, p_grads, e_grads):
+def beyond_float64(k_grads, p_grads, e_grads, skip=()):
     """The float32 first step's gradient gate, against the step in float64
     (``e_grads``: the plain versions, params and features in float64).
     Per leaf, the norm of the kernel run's difference from float64 and the
     plain float32 run's, each over the float64 gradient's norm (floored at
     1e-3 of the largest leaf's).  -> (the largest excess of the kernel
     run's over the plain run's, the largest of each, the worst three
-    leaves by excess as (excess, kernel's, plain's, index)).  The kernel
+    leaves by excess as (excess, kernel's, plain's, index)), over the
+    leaves not in ``skip`` (the floor is the whole tree's).  The kernel
     run passes where no leaf lies more than the tolerance further from
     float64 than the plain float32 run does: where both float32 runs share
     a product, that is the old gate against the plain run (the triangle
@@ -727,13 +985,14 @@ def beyond_float64(k_grads, p_grads, e_grads):
     (scripts/probe_grads_f64.py)."""
     norms = [float(t.double().norm()) for t in e_grads]
     floor = 1e-3 * max(norms)
+    held = [i for i in range(len(norms)) if i not in set(skip)]
 
     def rel(a):
-        return [float((x.double() - y.double()).norm()) / max(n, floor)
-                for x, y, n in zip(a, e_grads, norms)]
+        return [float((a[i].double() - e_grads[i].double()).norm())
+                / max(norms[i], floor) for i in held]
     ek, ep = rel(k_grads), rel(p_grads)
     excess = [a - b for a, b in zip(ek, ep)]
-    worst = sorted(zip(excess, ek, ep, range(len(ek))))[-3:]
+    worst = sorted(zip(excess, ek, ep, held))[-3:]
     return max(excess), max(ek), max(ep), worst
 
 
@@ -1072,7 +1331,8 @@ def credit_launches(kernels, on_path, tag, n, *enames):
 
 
 def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
-             cells, lr, variants, n_timed=XE_STEPS):
+             cells, lr, variants, n_timed=XE_STEPS, visual=None,
+             model_state=None, lr_cnn=0.0, profiled=None):
     """XE training through engine.steps.make_xe_train_step (phase 14:
     AoADetection; phase 16: BUTDDetection), B=128 with 36 valid boxes and
     captions padded to 22 (21 teacher-forced steps), Adam at ``lr`` with
@@ -1087,7 +1347,16 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
     a step per cell, all on the dtype's tensor-core route at B=128 and the
     cell's E; the loss falling; ms per step, samples/s, peak memory, TMA
     map encodes); one step with every K2 call, forward and backward, held
-    against its plain version; one step under torch.profiler."""
+    against its plain version; one step under torch.profiler.
+
+    From pixels (phase 20), ``visual`` holds ``img_tensors`` and
+    ``model_state`` the ResNet's running statistics: the step fine-tunes
+    ``layer4`` at ``lr_cnn`` (train-mode BN), the first step's gradients
+    of the stem and layers 1-3 must be exactly zero and ``layer4``'s not
+    (:func:`check_fine_tune_scope`), and the profile adds the trunk's
+    forward ("xe:trunk") and cuDNN's backward through ``layer4``.
+    ``profiled``: the dtype names of the variants profiled (all when
+    None)."""
     import numpy as np
     from simpleimagecaptionzoo_tpu_torch.engine import holds, optim, steps
     from simpleimagecaptionzoo_tpu_torch.engine.state import TrainState
@@ -1102,12 +1371,16 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
         caps[i, n - 1] = 2
         caps[i, n:] = 0
     g0 = torch.Generator(device=dev).manual_seed(args.seed + 1)
-    batch = {"visual": {
-        "bu_feats": torch.relu(torch.randn(TRAIN_B, N_BOX, enc_dim,
-                                           generator=g0, device=dev)),
-        "bu_masks": torch.ones(TRAIN_B, N_BOX, device=dev)},
-        "captions": torch.from_numpy(caps).to(dev),
-        "lengths": torch.from_numpy(lens).to(dev)}
+    if visual is None:
+        visual = {
+            "bu_feats": torch.relu(torch.randn(TRAIN_B, N_BOX, enc_dim,
+                                               generator=g0, device=dev)),
+            "bu_masks": torch.ones(TRAIN_B, N_BOX, device=dev)}
+    batch = {"visual": visual,
+             "captions": torch.from_numpy(caps).to(dev),
+             "lengths": torch.from_numpy(lens).to(dev)}
+    ms0 = {} if model_state is None else model_state
+    pixels = "img_tensors" in visual
     labels = model.param_labels(params)
     counters = dict(fused_lstm_cell=fused_lstm.COUNT,
                     fused_lstm_cell_wgmma=fused_lstm.COUNT_WGMMA,
@@ -1129,12 +1402,15 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
                 return fn(*a, **kw)
         return run
 
+    from simpleimagecaptionzoo_tpu_torch.models import resnet
     saved = (model.encode, decode.teacher_forced_logits,
-             steps.label_smoothing_loss, steps.apply_updates_partitioned)
+             steps.label_smoothing_loss, steps.apply_updates_partitioned,
+             resnet.apply)
     model.encode = ranged("xe:encode", saved[0])
     decode.teacher_forced_logits = ranged("xe:teacher_forcing", saved[1])
     steps.label_smoothing_loss = ranged("xe:loss", saved[2])
     steps.apply_updates_partitioned = ranged("xe:optimizer", saved[3])
+    resnet.apply = ranged("xe:trunk", saved[4])
     out = {}
     try:
         for label, cdtype, ss in variants:
@@ -1153,6 +1429,7 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
             # token, which moves gradient to another row of the embedding
             # table (0.031 of its norm measured)
             loss_tol, grad_tol = (1e-5, 1e-4) if f32 else (1e-2, 2e-2)
+            t_parts = [time.time()]
             tag = "xe %s %s, scheduled sampling %s" % (
                 name, label, "on at %g" % TRAIN_SS if ss else "off")
             ss_prob = TRAIN_SS if ss else 0.0
@@ -1162,26 +1439,31 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
             step = steps.make_xe_train_step(
                 model, tx, labels, smoothing=0.1, compute_dtype=cdtype,
                 ss_active=ss, device="cuda")
-            state0 = TrainState.create(params, tx)
+            state0 = TrainState.create(params, tx, ms0)
 
             def loss_grads(dtype=cdtype):
                 leaves = [p.detach().requires_grad_()
                           for p in optim.tree_leaves(params)]
                 loss, _, _ = steps.xe_loss(
-                    model, optim.tree_unflatten(params, leaves), {},
+                    model, steps._stop_cnn_grads(
+                        optim.tree_unflatten(params, leaves), False), ms0,
                     batch, gen(), ss_prob, smoothing=0.1,
                     compute_dtype=dtype, ss_active=ss,
                     ss_generator=steps.draw_generator_for(gen(), 0,
                                                           dev))
-                grads = torch.autograd.grad(loss, leaves)
-                return float(loss.detach()), grads
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+                return float(loss.detach()), [
+                    torch.zeros_like(p) if g is None else g
+                    for p, g in zip(leaves, grads)]
 
+            k_loss, k_grads = loss_grads()
+            scope = (check_fine_tune_scope(params, k_grads, tag) if pixels
+                     else None)
             with holds.plain_versions():
                 p_loss, p_grads = loss_grads()
                 # float32: the same step in float64, the gradients' own
                 # reference (beyond_float64)
                 e_grads = loss_grads(torch.float64)[1] if f32 else None
-            k_loss, k_grads = loss_grads()
             # each leaf's gradient against the plain run's: the norm of
             # the difference over the plain gradient's norm, floored at
             # 1e-3 of the largest leaf's (the key biases' true gradient
@@ -1197,12 +1479,16 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
             leaf_names = optim.tree_leaves(_paths(params))
             worst = sorted(zip(rel, leaf_names))[-3:]
             f64 = None
+            trunk, trunk_rel = trunk_split(leaf_names, rel)
             if f32:
-                f64 = beyond_float64(k_grads, p_grads, e_grads)
+                f64 = beyond_float64(k_grads, p_grads, e_grads, skip=trunk)
                 f64 = f64[:3] + ([(x, a, b, leaf_names[i])
                                   for x, a, b, i in f64[3]],)
             del p_grads, k_grads, e_grads
             held = f64[0] if f32 else max(rel_norm)
+            require(not f32 or trunk_rel <= TRUNK_GRAD_TOL, "%s: a ResNet "
+                    "leaf's gradient off by %.3g of its norm from the plain "
+                    "run's (tol %g)" % (tag, trunk_rel, TRUNK_GRAD_TOL))
             require(all(np.isfinite(k_norms)) and held <= grad_tol
                     and abs(k_loss - p_loss) <= loss_tol * p_loss,
                     "%s: the first step's loss %.6f against the plain "
@@ -1216,8 +1502,9 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
                        "excess over float64" if f32 else "second"))
             with holds.plain_versions():
                 _, met_p = step(state0, batch, gen(), ss_prob, lr,
-                                0.0)
+                                lr_cnn)
             plain_loss = float(met_p["loss"])
+            t_parts.append(time.time())
             # n_timed steps through the kernels, from the same state
             st, g_run = state0, gen()
             want_launch = dict.fromkeys(counters, 0)
@@ -1239,7 +1526,7 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
                 t0 = time.perf_counter()
                 with holds.recording_shapes(shapes):
                     st, met = step(st, batch, g_run, ss_prob, lr,
-                                   0.0)
+                                   lr_cnn)
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
                 encodes.append(fused_lstm.map_encodes() - enc0)
@@ -1259,12 +1546,15 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
                     % (tag, losses[0], plain_loss, loss_tol))
             require(losses[-1] < losses[0], "%s: the loss did not fall "
                     "over %d steps: %s" % (tag, n_timed, losses))
-            # one step with every K2 call held against its plain version
-            broken, held_shapes = [], []
-            with holds.held_calls(broken), \
+            t_parts.append(time.time())
+            # one step with every K2 call held against its plain version;
+            # float32: K2's error shared by the batch's rows (k2_bias)
+            broken, held_shapes, bias = [], [], {}
+            with k2_bias(torch, bias, on=f32), holds.held_calls(broken), \
                     holds.recording_shapes(held_shapes):
-                step(st, batch, gen(), ss_prob, lr, 0.0)
+                step(st, batch, gen(), ss_prob, lr, lr_cnn)
             torch.cuda.synchronize()
+            check_k2_bias(bias, tag)
             # each step of each cell: the forward, and the whole backward's
             # three launches
             n_held = 4 * n_steps * len(cells)
@@ -1280,6 +1570,7 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
                     excess=f64[0], kernels=f64[1], plain=f64[2],
                     worst=f64[3]),
                 grad_norm_max_rel_diff=max(rel_norm),
+                trunk_grad_max_rel_diff=trunk_rel, k2_bias=bias,
                 grad_norm_total=sum(n * n for n in k_norms) ** 0.5,
                 plain_grad_norm_total=sum(n * n for n in p_norms) ** 0.5,
                 losses=losses,
@@ -1287,7 +1578,7 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
                 samples_per_s=TRAIN_B / t_med, peak_memory_gib=peak
                 / 2 ** 30, map_encodes_per_step=encodes,
                 launches_per_step=want_launch, k2_calls_held=n_held,
-                tokens=float(met["tokens"]))
+                tokens=float(met["tokens"]), fine_tune_scope=scope)
             log("%s: first loss %.6f (plain %.6f), every leaf's gradient "
                 "within %.3g of the plain run's, its norm within %.3g "
                 "(tol %g on the %s; worst %s)%s, gradient norm %.6g (plain "
@@ -1310,10 +1601,15 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
                    [e for _, e in cells], t_med * 1e3,
                    len(times) - 1, TRAIN_B / t_med, peak / 2 ** 30,
                    encodes))
-            res["profile"] = profile_step(
-                torch, lambda: step(st, batch, gen(), ss_prob, lr,
-                                    0.0), tag)
-            require_no_products(res["profile"], tag)
+            if profiled is None or label in profiled:
+                res["profile"] = profile_step(
+                    torch, lambda: step(st, batch, gen(), ss_prob, lr,
+                                        lr_cnn), tag,
+                    XE_RANGES + ("xe:trunk",))
+                require_no_products(res["profile"], tag)
+                if pixels:
+                    require_trunk_parts(res["profile"], tag, "xe:trunk")
+            res["variant_seconds"] = part_seconds(t_parts, tag)
             out["%s/ss_%s" % (label, "on" if ss else "off")] = res
             for suffix, _ in cells:
                 credit_launches(
@@ -1325,7 +1621,7 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
     finally:
         del model.encode
         (decode.teacher_forced_logits, steps.label_smoothing_loss,
-         steps.apply_updates_partitioned) = saved[1:]
+         steps.apply_updates_partitioned, resnet.apply) = saved[1:]
     return out
 
 
@@ -1386,7 +1682,9 @@ def _steps_taken(ids):
 
 
 def drive_scst(torch, args, dev, model, params, kernels, on_path, data, *,
-               name, cells, lr, variants, n_timed=SCST_STEPS):
+               name, cells, lr, variants, n_timed=SCST_STEPS, visual=None,
+               model_state=None, lr_cnn=0.0, calls=None, init_cell=False,
+               profiled=None, relu_replay=False):
     """SCST training through engine.steps.make_scst_train_step (phase 15:
     AoADetection at full width; phase 16: BUTDDetection), B=128 with 36
     valid boxes, cap MAX_LEN, the references and table of
@@ -1409,7 +1707,20 @@ def drive_scst(torch, args, dev, model, params, kernels, on_path, data, *,
        loss and reward finite; ms a step, samples/s, peak memory;
     3. one step with every K1, K2 and K2-backward call held against its
        plain version (engine/holds.held_calls);
-    4. one step under torch.profiler, by part (SCST_RANGES)."""
+    4. one step under torch.profiler, by part (SCST_RANGES).
+
+    From pixels (phase 20), ``visual``, ``model_state`` and ``lr_cnn`` as
+    in :func:`drive_xe` (the fine-tune scope checked on the first step,
+    the trunk's forward as "scst:trunk" in the profile); ``calls`` (a
+    KernelCalls) records the timed steps' K1 launches for entries of
+    their own (K1 at a head other than phase 3's ``_train`` entry's).
+    ``init_cell``: the family runs its cell once more before each decode
+    (NIC's step -1 cell): one more K2 forward in the greedy baseline, one
+    more forward and whole backward in the rollout.  ``profiled``: the
+    dtype names of the variants profiled (all when None).
+    ``relu_replay``: the float32 first step's plain and float64 runs take
+    the kernel run's ReLU branches (:func:`relu_branches`; BUTDSpatial
+    from pixels, whose float32 gate failed without it)."""
     import numpy as np
     from torch.profiler import record_function
     from simpleimagecaptionzoo_tpu_torch.engine import holds, optim, steps
@@ -1418,11 +1729,17 @@ def drive_scst(torch, args, dev, model, params, kernels, on_path, data, *,
                                                      fused_lstm)
     td, probe, ref_ids, ref_lens, ref_norms = data
     g0 = torch.Generator(device=dev).manual_seed(args.seed + 3)
-    batch = {"visual": {
-        "bu_feats": torch.relu(torch.randn(
-            TRAIN_B, N_BOX, model.config.enc_dim, generator=g0, device=dev)),
-        "bu_masks": torch.ones(TRAIN_B, N_BOX, device=dev)},
-        "ref_ids": ref_ids, "ref_lens": ref_lens, "ref_norms": ref_norms}
+    if visual is None:
+        visual = {
+            "bu_feats": torch.relu(torch.randn(
+                TRAIN_B, N_BOX, model.config.enc_dim, generator=g0,
+                device=dev)),
+            "bu_masks": torch.ones(TRAIN_B, N_BOX, device=dev)}
+    batch = {"visual": visual, "ref_ids": ref_ids, "ref_lens": ref_lens,
+             "ref_norms": ref_norms}
+    ms0 = {} if model_state is None else model_state
+    pixels = "img_tensors" in visual
+    ic = 1 if init_cell else 0
     labels = model.param_labels(params)
     counters = dict(fused_head_topk=fused_head.COUNT,
                     fused_head_topk_wgmma=fused_head.COUNT_WGMMA,
@@ -1458,9 +1775,11 @@ def drive_scst(torch, args, dev, model, params, kernels, on_path, data, *,
                 return predict(params_, hidden)
         return predict(params_, hidden)
 
+    from simpleimagecaptionzoo_tpu_torch.models import resnet
     saved = (steps.greedy_baseline, decode.sample_rl, decode._token_logprobs,
              steps.self_critical_reward, steps.reward_criterion,
-             steps.apply_updates_partitioned)
+             steps.apply_updates_partitioned, resnet.apply)
+    resnet.apply = ranged("scst:trunk", saved[6])
     model.encode = ranged("scst:encode", model.encode)
     model.predict = head
     steps.greedy_baseline = ranged("scst:greedy_baseline", saved[0],
@@ -1479,6 +1798,7 @@ def drive_scst(torch, args, dev, model, params, kernels, on_path, data, *,
             # the holds of phase 14's first step (the loss's against its
             # own scale here: an SCST loss is a signed sum)
             loss_tol, grad_tol = (1e-5, 1e-4) if f32 else (1e-2, 2e-2)
+            t_parts = [time.time()]
             tag = "scst %s %s" % (name, label)
             adam = optim.make_grad_transform("Adam", 0.25)
             tx = optim.GradientTransformation(
@@ -1486,37 +1806,52 @@ def drive_scst(torch, args, dev, model, params, kernels, on_path, data, *,
             step = steps.make_scst_train_step(
                 model, tx, labels, td, probe, max_len=MAX_LEN,
                 compute_dtype=cdtype, device="cuda")
-            state0 = TrainState.create(params, tx)
+            state0 = TrainState.create(params, tx, ms0)
 
             def loss_grads(greedy_seq, replay=None, dtype=cdtype):
                 leaves = [p.detach().requires_grad_()
                           for p in optim.tree_leaves(params)]
                 loss, reward, _, seq, drawn = steps.scst_loss(
-                    model, optim.tree_unflatten(params, leaves), {}, batch,
-                    td, probe, greedy_seq, gen(),
+                    model, steps._stop_cnn_grads(
+                        optim.tree_unflatten(params, leaves), False), ms0,
+                    batch, td, probe, greedy_seq, gen(),
                     steps.draw_generator_for(gen(), 0, dev), max_len=MAX_LEN,
                     compute_dtype=dtype, replay=replay)
                 logp, seq_, reward_ = criterion[0][:3]
                 scale = float(steps.reward_criterion(
                     -logp.detach().abs(), seq_, reward_.abs()))
-                grads = torch.autograd.grad(loss, leaves)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
                 return (float(loss.detach()), reward.detach(), seq, drawn,
-                        grads, scale)
+                        [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(leaves, grads)], scale)
 
             # 1. the first step: the kernels, then the plain versions on the
             # kernel run's ids
-            g_k = steps.greedy_baseline(model, params, {}, batch["visual"],
+            g_k = steps.greedy_baseline(model, params, ms0, batch["visual"],
                                         MAX_LEN, cdtype)
-            k_loss, k_reward, seq_k, drawn_k, k_grads, _ = loss_grads(g_k)
+            # with relu_replay (float32), the kernel run's ReLU branches
+            # kept for the replays (relu_branches)
+            replay_on = f32 and relu_replay
+            masks, flips = [], []
+            with relu_branches(torch, masks, on=replay_on):
+                k_loss, k_reward, seq_k, drawn_k, k_grads, _ = loss_grads(
+                    g_k)
+            scope = (check_fine_tune_scope(params, k_grads, tag) if pixels
+                     else None)
             with holds.plain_versions():
-                g_p = steps.greedy_baseline(model, params, {},
+                g_p = steps.greedy_baseline(model, params, ms0,
                                             batch["visual"], MAX_LEN, cdtype)
-                p_loss, p_reward, _, _, p_grads, scale = loss_grads(
-                    g_k, replay=(seq_k, drawn_k))
+                with relu_branches(torch, masks, flips, on=replay_on):
+                    p_loss, p_reward, _, _, p_grads, scale = loss_grads(
+                        g_k, replay=(seq_k, drawn_k))
                 # float32: the same replay in float64 (beyond_float64)
-                e_grads = (loss_grads(g_k, replay=(seq_k, drawn_k),
-                                      dtype=torch.float64)[4]
-                           if f32 else None)
+                if f32:
+                    with relu_branches(torch, masks, flips, on=replay_on):
+                        e_grads = loss_grads(g_k, replay=(seq_k, drawn_k),
+                                             dtype=torch.float64)[4]
+                else:
+                    e_grads = None
+            relu_flips = check_flips(flips, tag) if replay_on else None
             rows_same = float((g_k == g_p).all(dim=1).float().mean())
             first_same = float((g_k[:, 0] == g_p[:, 0]).float().mean())
             p_norms = [float(g.float().norm()) for g in p_grads]
@@ -1529,12 +1864,16 @@ def drive_scst(torch, args, dev, model, params, kernels, on_path, data, *,
             leaf_names = optim.tree_leaves(_paths(params))
             worst = sorted(zip(rel, leaf_names))[-3:]
             f64 = None
+            trunk, trunk_rel = trunk_split(leaf_names, rel)
             if f32:
-                f64 = beyond_float64(k_grads, p_grads, e_grads)
+                f64 = beyond_float64(k_grads, p_grads, e_grads, skip=trunk)
                 f64 = f64[:3] + ([(x, a, b, leaf_names[i])
                                   for x, a, b, i in f64[3]],)
             del p_grads, k_grads, e_grads
             held = f64[0] if f32 else max(rel_norm)
+            require(not f32 or trunk_rel <= TRUNK_GRAD_TOL, "%s: a ResNet "
+                    "leaf's gradient off by %.3g of its norm from the plain "
+                    "run's (tol %g)" % (tag, trunk_rel, TRUNK_GRAD_TOL))
             n_rewarded = int((k_reward != 0).sum())
             require(torch.equal(k_reward, p_reward) and n_rewarded > 0,
                     "%s: the rewards of the same ids differ (max %.3g) or "
@@ -1570,6 +1909,12 @@ def drive_scst(torch, args, dev, model, params, kernels, on_path, data, *,
                    "; against float64 the kernels' %.3g, the plain float32 "
                    "run's %.3g, excess %.3g" % (f64[1], f64[2], f64[0])
                    if f32 else "", rows_same, first_same))
+            if relu_flips is not None:
+                log("%s: the replays on the kernel run's ReLU branches: %d "
+                    "branches differ, the largest at %.3g of its tensor's "
+                    "largest |x| (tol %g)" % (tag, relu_flips[0],
+                                             relu_flips[1], FLIP_TOL))
+            t_parts.append(time.time())
             # 2. n_timed steps through the kernels
             st, g_run = state0, gen()
             losses, rewards, times, encodes, taken = [], [], [], [], []
@@ -1581,9 +1926,11 @@ def drive_scst(torch, args, dev, model, params, kernels, on_path, data, *,
                 for c in counters.values():
                     c.n = 0
                 enc0 = fused_lstm.map_encodes()
+                recording = (contextlib.nullcontext() if calls is None
+                             else calls.recording(torch))
                 t0 = time.perf_counter()
-                with holds.recording_shapes(shapes):
-                    st, met = step(st, batch, g_run, lr, 0.0)
+                with recording, holds.recording_shapes(shapes):
+                    st, met = step(st, batch, g_run, lr, lr_cnn)
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
                 encodes.append(fused_lstm.map_encodes() - enc0)
@@ -1592,22 +1939,25 @@ def drive_scst(torch, args, dev, model, params, kernels, on_path, data, *,
                 n_g = _steps_taken(baseline[1])
                 taken.append(n_g)
                 nc = len(cells)
+                fwd = nc * (n_g + MAX_LEN) + 2 * ic
+                bwd = nc * MAX_LEN + ic
                 want = {"fused_head_topk": n_g,
                         "fused_head_topk_" + route: n_g,
-                        "fused_lstm_cell": nc * (n_g + MAX_LEN),
-                        "fused_lstm_cell_" + route: nc * (n_g + MAX_LEN),
-                        "fused_lstm_cell_bwd": nc * MAX_LEN,
-                        "fused_lstm_cell_bwd_" + route: nc * MAX_LEN,
-                        "lstm_bwd_dxh": nc * MAX_LEN,
-                        "lstm_bwd_dxh_" + route: nc * MAX_LEN,
-                        "lstm_bwd_dw": nc * MAX_LEN,
-                        "lstm_bwd_dw_" + route: nc * MAX_LEN}
+                        "fused_lstm_cell": fwd,
+                        "fused_lstm_cell_" + route: fwd,
+                        "fused_lstm_cell_bwd": bwd,
+                        "fused_lstm_cell_bwd_" + route: bwd,
+                        "lstm_bwd_dxh": bwd,
+                        "lstm_bwd_dxh_" + route: bwd,
+                        "lstm_bwd_dw": bwd,
+                        "lstm_bwd_dw_" + route: bwd}
                 want = {kn: want.get(kn, 0) for kn in counters}
                 want_shapes = {("K1", route, TRAIN_B, 1): n_g}
                 for _, e in cells:
-                    want_shapes[("K2", route, TRAIN_B, e)] = n_g + MAX_LEN
+                    want_shapes[("K2", route, TRAIN_B, e)] = (
+                        n_g + MAX_LEN + 2 * ic)
                     for kn in ("K2bwd", "K2dxh", "K2dw"):
-                        want_shapes[(kn, route, TRAIN_B, e)] = MAX_LEN
+                        want_shapes[(kn, route, TRAIN_B, e)] = MAX_LEN + ic
                 launches = {kn: c.n for kn, c in counters.items()}
                 got = {}
                 for shp in shapes:
@@ -1619,17 +1969,20 @@ def drive_scst(torch, args, dev, model, params, kernels, on_path, data, *,
             peak = torch.cuda.max_memory_allocated()
             require(all(np.isfinite(losses)) and all(np.isfinite(rewards)),
                     "%s: losses %s, rewards %s" % (tag, losses, rewards))
-            # 3. one step with every kernel call held
-            broken, held_shapes = [], []
-            with holds.held_calls(broken), \
+            t_parts.append(time.time())
+            # 3. one step with every kernel call held; float32: K2's error
+            # shared by the batch's rows (k2_bias)
+            broken, held_shapes, bias = [], [], {}
+            with k2_bias(torch, bias, on=f32), holds.held_calls(broken), \
                     holds.recording_shapes(held_shapes):
-                step(st, batch, gen(), lr, 0.0)
+                step(st, batch, gen(), lr, lr_cnn)
             torch.cuda.synchronize()
+            check_k2_bias(bias, tag)
             n_g = _steps_taken(baseline[1])
             # K1 a greedy step; per cell K2's forward a greedy and a
             # rollout step, and the whole backward's three launches a
             # rollout step
-            n_held = n_g + len(cells) * (n_g + 4 * MAX_LEN)
+            n_held = n_g + len(cells) * (n_g + 4 * MAX_LEN) + 5 * ic
             require(not broken and len(held_shapes) == n_held,
                     "%s: %d kernel calls broke their hold (first: %s), %d "
                     "of %d launched" % (tag, len(broken), broken[:1],
@@ -1646,13 +1999,16 @@ def drive_scst(torch, args, dev, model, params, kernels, on_path, data, *,
                 greedy_first_ids_identical=first_same,
                 grad_max_rel_diff=max(rel), grad_worst_leaves=worst,
                 grad_norm_max_rel_diff=max(rel_norm),
+                trunk_grad_max_rel_diff=trunk_rel, k2_bias=bias,
+                relu_flips=relu_flips,
                 grad_norm_total=sum(n * n for n in k_norms) ** 0.5,
                 plain_grad_norm_total=sum(n * n for n in p_norms) ** 0.5,
                 losses=losses, rewards=rewards, greedy_steps=taken,
                 seconds=times, ms_per_step=t_med * 1e3,
                 samples_per_s=TRAIN_B / t_med,
                 peak_memory_gib=peak / 2 ** 30, map_encodes_per_step=encodes,
-                launches_last_step=want, kernel_calls_held=n_held)
+                launches_last_step=want, kernel_calls_held=n_held,
+                fine_tune_scope=scope)
             log("%s: %d steps, losses %s, mean rewards %s, greedy steps %s; "
                 "per step K1 once a greedy step, K2 forward (greedy steps + "
                 "%d) x %d and backward %d x %d (three launches each) on %s "
@@ -1665,19 +2021,25 @@ def drive_scst(torch, args, dev, model, params, kernels, on_path, data, *,
                    MAX_LEN, len(cells), route, TRAIN_B,
                    [e for _, e in cells], n_held, t_med * 1e3,
                    len(times) - 1, TRAIN_B / t_med, peak / 2 ** 30, encodes))
-            res["profile"] = profile_step(
-                torch, lambda: step(st, batch, gen(), lr, 0.0), tag,
-                SCST_RANGES)
-            require_no_products(res["profile"], tag)
+            if profiled is None or label in profiled:
+                res["profile"] = profile_step(
+                    torch, lambda: step(st, batch, gen(), lr, lr_cnn), tag,
+                    SCST_RANGES + ("scst:trunk",))
+                require_no_products(res["profile"], tag)
+                if pixels:
+                    require_trunk_parts(res["profile"], tag, "scst:trunk")
+            res["variant_seconds"] = part_seconds(t_parts, tag)
             out[label] = res
-            credit_launches(kernels, on_path, tag, sum(taken),
-                            "fused_head_topk_%s_train/%s" % (route, dn))
+            if calls is None:
+                credit_launches(kernels, on_path, tag, sum(taken),
+                                "fused_head_topk_%s_train/%s" % (route, dn))
             for suffix, _ in cells:
                 credit_launches(
-                    kernels, on_path, tag, sum(taken) + MAX_LEN * n_timed,
+                    kernels, on_path, tag,
+                    sum(taken) + (MAX_LEN + 2 * ic) * n_timed,
                     "fused_lstm_cell_%s_train%s/%s" % (route, suffix, dn))
                 credit_launches(
-                    kernels, on_path, tag, MAX_LEN * n_timed,
+                    kernels, on_path, tag, (MAX_LEN + ic) * n_timed,
                     "fused_lstm_cell_bwd_%s%s/%s" % (route, suffix, dn),
                     "lstm_bwd_dxh_%s%s/%s" % (route, suffix, dn),
                     "lstm_bwd_dw_%s%s/%s" % (route, suffix, dn))
@@ -1685,7 +2047,7 @@ def drive_scst(torch, args, dev, model, params, kernels, on_path, data, *,
         del model.encode, model.predict
         (steps.greedy_baseline, decode.sample_rl, decode._token_logprobs,
          steps.self_critical_reward, steps.reward_criterion,
-         steps.apply_updates_partitioned) = saved
+         steps.apply_updates_partitioned, resnet.apply) = saved
     return out
 
 
@@ -1702,6 +2064,21 @@ CLI_HELD_OPS = ("eval_float32", "eval_bfloat16", "eval_int8", "nic_eval",
                 "nic_train")
 
 
+def write_vocab(root):
+    """Phase 18's vocabulary (also phase 19's): CLI_VOCAB entries, the four
+    specials and the words w0, w1, ..., in Data/caption_vocab.pkl under
+    ``root``, with Configs/Datasets/ made beside it.  -> the words."""
+    from simpleimagecaptionzoo_tpu_torch.vocab import build_vocab, save_vocab
+    words = ["w%d" % i for i in range(CLI_VOCAB - 4)]
+    os.makedirs(os.path.join(root, "Data"), exist_ok=True)
+    os.makedirs(os.path.join(root, "Configs", "Datasets"), exist_ok=True)
+    vocab = build_vocab([words], threshold=1)
+    require(len(vocab) == CLI_VOCAB, "the vocabulary holds %d entries"
+            % len(vocab))
+    save_vocab(vocab, os.path.join(root, "Data", "caption_vocab.pkl"))
+    return words
+
+
 def write_cli_dataset(torch, root, seed, dev):
     """Phase 18's dataset in the reference layout under ``root``, from
     ``seed``: a vocabulary of CLI_VOCAB entries (Data/caption_vocab.pkl),
@@ -1716,20 +2093,14 @@ def write_cli_dataset(torch, root, seed, dev):
     preprocess/pack_images.py), each with its Configs/Datasets/<ds>.data
     and modified_annotations/<prefix>captions_<split>.json."""
     import numpy as np
-    from simpleimagecaptionzoo_tpu_torch.vocab import build_vocab, save_vocab
     rng = np.random.default_rng(seed + 18)
-    words = ["w%d" % i for i in range(CLI_VOCAB - 4)]
+    words = write_vocab(root)
     zipf = 1.0 / np.arange(1, len(words) + 1) ** 1.1
     zipf /= zipf.sum()
     data = os.path.join(root, "Data")
     for d in ("fixed_bu_feat", "fixed_bu_bbox"):
         os.makedirs(os.path.join(data, d))
     os.makedirs(os.path.join(root, "modified_annotations"))
-    os.makedirs(os.path.join(root, "Configs", "Datasets"))
-    vocab = build_vocab([words], threshold=1)
-    require(len(vocab) == CLI_VOCAB, "phase 18: vocabulary of %d entries"
-            % len(vocab))
-    save_vocab(vocab, os.path.join(data, "caption_vocab.pkl"))
 
     def splits(dataset, prefix, sizes, first, name):
         ids, nid = {}, first
@@ -1864,14 +2235,18 @@ class KernelCalls:
                     setattr(mod, name, run)
 
 
-def cli_kernel_entries(torch, calls, kernels, on_path, flush, tag):
-    """An entry of the kernels line for every shape phase 18 launched: the
+def cli_kernel_entries(torch, calls, kernels, on_path, flush, tag,
+                       where="cli", phase="phase 18", kinds=None):
+    """An entry of the kernels line for every shape phase 18 launched (or
+    another path recorded in ``calls``; ``kinds``, when given, the kinds
+    of kernel to make entries for): the
     kernel held against its plain version (engine/holds' hold) on the
     arguments KernelCalls kept, timed beside the plain version
     and, for K2 and K3, the library call that computes the same function
     (torch.lstm_cell, torch._weight_int8pack_mm); its bound; its launches
     in the run (K2's whole backward: cli_k2_bwd_entries).  Named
-    <kernel>_<route>_cli_<shape>/<dtype>."""
+    <kernel>_<route>_<where>_<shape>/<dtype> (phase 18: ``cli``; phase 19:
+    ``serve``; phase 20: ``px_train``)."""
     from simpleimagecaptionzoo_tpu_torch.engine import holds
     from simpleimagecaptionzoo_tpu_torch.ops import fused_head
     plain_of = {name: plain for _, name, plain in holds.plain_swaps()}
@@ -1882,10 +2257,12 @@ def cli_kernel_entries(torch, calls, kernels, on_path, flush, tag):
     for key in sorted(calls.first, key=str):
         run, a, kw = calls.first[key]
         kind, route, rows, last, dn = key[:5]
+        if kinds is not None and kind not in kinds:
+            continue
         if kind == "K2bwd":
             made += cli_k2_bwd_entries(torch, run, a, kw, key,
                                        calls.count[key], kernels, on_path,
-                                       flush, tag)
+                                       flush, tag, where, phase)
             continue
         name = dict((k, n) for k, _, n in calls.wrappers)[kind]
         plain = plain_of[name]
@@ -1893,8 +2270,8 @@ def cli_kernel_entries(torch, calls, kernels, on_path, flush, tag):
         want = plain(*a)
         torch.cuda.synchronize()
         why = holds._HOLDS[name](plain, a, got)
-        require(not why, "phase 18 %s: the kernel breaks its hold on the "
-                "path's own inputs: %s" % (str(key), why))
+        require(not why, "%s %s: the kernel breaks its hold on the "
+                "path's own inputs: %s" % (phase, str(key), why))
         item = a[0 if kind in ("K3", "K4") else 1 if kind == "K1"
                  else 2].element_size()
         lib, extra = None, {}
@@ -1909,16 +2286,16 @@ def cli_kernel_entries(torch, calls, kernels, on_path, flush, tag):
             w_x = ((head.w[:hd].float() * head.s).to(x.dtype) if int8
                    else head.w[:hd])
             extra["product_ms"] = time_ms(torch, lambda: x @ w_x, flush)
-            ename = "fused_head_topk%s_%s_cli_m%dk%dH%d" % (
-                "_int8" if int8 else "", route, rows, k, hd)
+            ename = "fused_head_topk%s_%s_%s_m%dk%dH%d" % (
+                "_int8" if int8 else "", route, where, rows, k, hd)
             shape = "m=%d K=%d V=%d%s k=%d" % (rows, hd, v,
                                                 " int8 W" if int8 else "", k)
             where = ("fused_head.cu", "ops/fused_head.py:155")
         elif kind == "K2":
             w_cat, b_sum, x, h, c = a[:5]
             e, hd = x.shape[1], h.shape[1]
-            require(w_cat.shape == (e + hd, 4 * hd), "phase 18: K2's w_cat "
-                    "%s at E=%d H=%d" % (tuple(w_cat.shape), e, hd))
+            require(w_cat.shape == (e + hd, 4 * hd), "%s: K2's w_cat %s at "
+                    "E=%d H=%d" % (phase, tuple(w_cat.shape), e, hd))
             outs = [(got[i].float() - want[i].float()).abs().max()
                     for i in range(2)]
             err = float(max(outs))
@@ -1929,7 +2306,8 @@ def cli_kernel_entries(torch, calls, kernels, on_path, flush, tag):
                      w_cat[e:].t().contiguous(), b_sum,
                      torch.zeros_like(b_sum)]
             lib = lambda: torch.lstm_cell(x, (h, c), *lib_w)  # noqa
-            ename = "fused_lstm_cell_%s_cli_B%dE%dH%d" % (route, rows, e, hd)
+            ename = "fused_lstm_cell_%s_%s_B%dE%dH%d" % (route, where, rows,
+                                                        e, hd)
             where = ("fused_lstm.cu", "ops/pallas_lstm.py:166")
             shape = "B=%d E=%d H=%d" % (rows, e, hd)
         elif kind == "K3":
@@ -1942,7 +2320,8 @@ def cli_kernel_entries(torch, calls, kernels, on_path, flush, tag):
             q_t = qp["q"][:kk, :n].t().contiguous()
             s_x = qp["s"].to(x.dtype)
             lib = lambda: torch._weight_int8pack_mm(x2, q_t, s_x)  # noqa
-            ename = "quant_matmul_%s_cli_m%dK%dn%d" % (route, rows, kk, n)
+            ename = "quant_matmul_%s_%s_m%dK%dn%d" % (route, where, rows, kk,
+                                                    n)
             shape = "m=%d K=%d n=%d" % (rows, kk, n)
             where = ("quant_matmul.cu", "ops/quant.py:105")
         else:
@@ -1953,7 +2332,8 @@ def cli_kernel_entries(torch, calls, kernels, on_path, flush, tag):
             nbytes = (2 * nb * k * hd * item + 2 * nb * n * hd
                       + 3 * nb * n * 4 + nb * k * n * 4)
             nops = 4 * nb * k * n * hd
-            ename = "int8_attention_%s_cli_B%dk%dN%d" % (route, nb, k, n)
+            ename = "int8_attention_%s_%s_B%dk%dN%d" % (route, where, nb, k,
+                                                      n)
             shape = "B=%d k=%d N=%d D=%d heads=%d" % (nb, k, n, hd, heads)
             where = ("int8_attention.cu", "ops/int8_attention.py:70")
         ms = time_ms(torch, lambda: run(*a, **kw), flush)
@@ -1969,12 +2349,13 @@ def cli_kernel_entries(torch, calls, kernels, on_path, flush, tag):
             launches=0, max_abs_err=err, max_err=err, ms=ms, kernel_ms=ms,
             device_ms=device_ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=lib_ms, kernel_route=route,
-            shape=shape + " (phase 18, the CLI's own inputs)", **extra)
+            shape=shape + " (%s, the path's own inputs)" % phase, **extra)
         credit_launches(kernels, on_path, tag, calls.count[key], full)
         made.append(full)
-        log("phase 18 %s %s (%s) %s: %d launches, held (max|err| %.3g); "
+        log("%s %s %s (%s) %s: %d launches, held (max|err| %.3g); "
             "%.4f ms (device alone %.4f), plain %.4f, library %s, bound "
-            "%.4f ms (%s)" % (kind, dn, route, shape, calls.count[key], err,
+            "%.4f ms (%s)" % (phase, kind, dn, route, shape,
+                              calls.count[key], err,
                               ms, device_ms, plain_ms,
                               "none" if lib_ms is None else "%.4f ms"
                               % lib_ms, b_ms, b_by))
@@ -1982,7 +2363,7 @@ def cli_kernel_entries(torch, calls, kernels, on_path, flush, tag):
 
 
 def cli_k2_bwd_entries(torch, run, a, kw, key, count, kernels, on_path,
-                       flush, tag):
+                       flush, tag, where="cli", phase="phase 18"):
     """Phase 18's entries for K2's whole backward at one shape the CLI ran
     (its first call's arguments, KernelCalls): the whole backward held on
     them (holds.k2_bwd_full_errors), then each of its three kernels (the
@@ -1990,7 +2371,7 @@ def cli_k2_bwd_entries(torch, run, a, kw, key, count, kernels, on_path,
     against its plain version, timed (host-inclusive and device-only)
     beside that plain version and its bound; the backward kernel's entry
     also carries the whole backward's time, its bound and torch.lstm_cell's
-    backward through autograd.  Named <kernel>_<route>_cli_B<B>E<E>H<H>."""
+    backward through autograd.  Named <kernel>_<route>_<where>_B<B>E<E>H<H>."""
     from simpleimagecaptionzoo_tpu_torch.engine import holds
     from simpleimagecaptionzoo_tpu_torch.ops import fused_lstm
     _, route, rows, _, dn = key[:5]
@@ -2000,8 +2381,9 @@ def cli_k2_bwd_entries(torch, run, a, kw, key, count, kernels, on_path,
     got = run(*a, **kw)
     torch.cuda.synchronize()
     ferr = holds.k2_bwd_full_errors(a, got)
-    require(not max(ferr.values()), "phase 18 %s: K2's whole backward "
-            "breaks its hold on the path's own inputs: %s" % (str(key), ferr))
+    require(not max(ferr.values()), "%s %s: K2's whole backward "
+            "breaks its hold on the path's own inputs: %s" % (phase, str(key),
+                                                              ferr))
     want = fused_lstm.lstm_cell_bwd_full_plain(*a[:7])
     g, _ = fused_lstm._run_bwd_kernel(*a[:7], route, split, parts=True)
     dx, dhh = fused_lstm._run_dxh_kernel(w_cat, g, x, h, route)
@@ -2057,7 +2439,8 @@ def cli_k2_bwd_entries(torch, run, a, kw, key, count, kernels, on_path,
         ms = time_ms(torch, fn, flush)
         dev_ms = time_ms(torch, fn, flush, lead=DEVICE_LEAD)
         plain_ms = time_ms(torch, plain, flush)
-        full = "%s_%s_cli_B%dE%dH%d/%s" % (kname, route, rows, e, hd, dn)
+        full = "%s_%s_%s_B%dE%dH%d/%s" % (kname, route, where, rows, e, hd,
+                                          dn)
         kernels[full] = dict(
             name=full, route="cuda",
             source="simpleimagecaptionzoo_tpu_torch/csrc/" + src,
@@ -2065,15 +2448,15 @@ def cli_k2_bwd_entries(torch, run, a, kw, key, count, kernels, on_path,
             launches=0, max_abs_err=e_k, max_err=e_k, ms=ms, kernel_ms=ms,
             device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bnd[bk][0],
             bound_by=bnd[bk][1], library_ms=None, kernel_route=route,
-            shape="B=%d E=%d H=%d (phase 18, the CLI's own inputs)"
-            % (rows, e, hd), **(whole if bk == "gate" else {}))
+            shape="B=%d E=%d H=%d (%s, the path's own inputs)"
+            % (rows, e, hd, phase), **(whole if bk == "gate" else {}))
         credit_launches(kernels, on_path, tag, count, full)
         made.append(full)
-        log("phase 18 K2 backward %s (%s) B=%d E=%d H=%d %s: %d launches, "
+        log(phase + " K2 backward %s (%s) B=%d E=%d H=%d %s: %d launches, "
             "max|err| %.3g; %.4f ms (device alone %.4f), plain %.4f, bound "
             "%.4f ms (%s)" % (dn, route, rows, e, hd, kname, count, e_k, ms,
                               dev_ms, plain_ms, bnd[bk][0], bnd[bk][1]))
-    log("phase 18 K2 backward %s (%s) B=%d E=%d H=%d, whole: held (%s); "
+    log(phase + " K2 backward %s (%s) B=%d E=%d H=%d, whole: held (%s); "
         "%.4f ms (device alone %.4f), plain %.4f, torch.lstm_cell's "
         "backward %.4f, bound %.4f ms (%s)"
         % (dn, route, rows, e, hd, ferr, whole["full_backward_ms"],
@@ -2450,6 +2833,587 @@ def drive_cli(torch, args, dev, flush, kernels, on_path, bare):
     require(results["seconds"] <= CLI_PHASE_S, "phase 18 took %.1f s, over "
             "its %.0f s" % (results["seconds"], CLI_PHASE_S))
     return results
+
+
+# -- phase 19: serving on the card -----------------------------------------
+SERVE_IMAGES = 512            # photo-like JPEGs, 160-640 px a side
+SERVE_SIDES = (160, 640)
+SERVE_FAMILY, SERVE_DATASET = "BUTDSpatial", "Serve"   # the tools' default
+# (--max_batch, --dtype, --beam) of each server: beam 3 bf16 at three
+# batch sizes, and at 64 int8 and greedy float32
+SERVE_RUNS = ((16, "bfloat16", 3), (64, "bfloat16", 3), (192, "bfloat16", 3),
+              (64, "int8", 3), (64, "float32", -1))
+SERVE_DIR_BATCH = 64          # the directory run's --batch
+PHASES_19_20_S = 120.0        # phases 19 and 20 together
+PX_STEPS = 4                  # phase 20's timed steps per variant
+# phase 20 profiles the float32 variant of each run (a profiled step from
+# pixels takes seconds: the trunk's thousands of launches traced)
+PX_PROFILED = ("float32",)
+
+
+def write_serve_layout(torch, root, seed, dev, gen):
+    """Phase 19's layout under ``root``: Phase 18's vocabulary
+    (:func:`write_vocab`), Configs/Datasets/Serve.data, a best checkpoint
+    of BUTDSpatial at the width of Configs/Models/BUTDSpatial.json with the
+    full ResNet-101 (random from ``gen``, running statistics calibrated as
+    phase 17's), saved by the port's CheckpointManager, and photos/: 512
+    photo-like JPEGs (PIL, quality 90) whose sides are drawn from 160-640
+    px, and one corrupt file.  -> (the tools' flags, the photos' directory,
+    the JPEGs' bytes in name order)."""
+    import io
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+    from PIL import Image
+    from simpleimagecaptionzoo_tpu_torch.config import load_model_config
+    from simpleimagecaptionzoo_tpu_torch.engine.checkpoint import \
+        CheckpointManager
+    from simpleimagecaptionzoo_tpu_torch.models.base import get_captioner
+    write_vocab(root)
+    with open(os.path.join(root, "Configs", "Datasets",
+                           SERVE_DATASET + ".data"), "w") as f:
+        f.write("image_root=/photos/\ndata_dir=/Data/\n"
+                "caption_vocab_path=/Data/caption_vocab.pkl\n")
+    models = os.path.join(HERE, "Configs", "Models") + os.sep
+    model = get_captioner(load_model_config(
+        models + SERVE_FAMILY + ".json", vocab_size=CLI_VOCAB))
+    params = model.init_params(gen, include_cnn=True)
+    cal = calibrated_stats(torch, params["cnn"],
+                           model.init_model_state()["cnn_stats"],
+                           photo_batch(torch, gen, CAL_B, 224, dev))
+    ck_root = os.path.join(root, "CheckPoints")
+    CheckpointManager(SERVE_FAMILY, SERVE_DATASET, root=ck_root).save_best(
+        {"params": params, "model_state": {"cnn_stats": cal}}, 0.0)
+    del params, cal
+    rng = np.random.default_rng(seed + 19)
+    hw = rng.integers(SERVE_SIDES[0], SERVE_SIDES[1] + 1,
+                      size=(SERVE_IMAGES, 2))
+    photos = os.path.join(root, "photos")
+    os.makedirs(photos)
+    jpegs = []
+    for i in range(0, SERVE_IMAGES, 128):
+        big = photo_batch(torch, gen, 128, SERVE_SIDES[1], dev).cpu().numpy()
+
+        def encode(j, big=big, i=i):
+            h, w = hw[i + j]
+            buf = io.BytesIO()
+            Image.fromarray(big[j, :h, :w]).save(buf, format="JPEG",
+                                                 quality=90)
+            return buf.getvalue()
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            jpegs += list(pool.map(encode, range(len(big))))
+    for i, data in enumerate(jpegs):
+        with open(os.path.join(photos, "img_%03d.jpg" % i), "wb") as f:
+            f.write(data)
+    with open(os.path.join(photos, "corrupt.jpg"), "wb") as f:
+        f.write(b"\xff\xd8\xff\xe0 not a jpeg")
+    flags = ["--dataset", SERVE_DATASET, "--model_type", SERVE_FAMILY,
+             "--dataset_config_root",
+             os.path.join(root, "Configs", "Datasets") + os.sep,
+             "--model_config_root", models, "--checkpoint_root", ck_root,
+             "--gpu_id", "0"]
+    return flags, photos, jpegs
+
+
+def _post(url, data, timeout=300):
+    """POST ``data`` to ``url`` -> (status, reply json, seconds)."""
+    import urllib.error
+    import urllib.request
+    t0 = time.perf_counter()
+    req = urllib.request.Request(url, data=data, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            code, body = r.status, json.load(r)
+    except urllib.error.HTTPError as e:
+        code, body = e.code, json.load(e)
+    return code, body, time.perf_counter() - t0
+
+
+def _get(url):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return json.load(r)
+
+
+def _load(url, n, paths):
+    """scripts/serve_load.py in a process of its own: ``n`` client threads
+    POST the files ``paths`` to ``url``, started together -> (the replies
+    as :func:`_post`'s, in order; the seconds from the first send to the
+    last reply, the load generator's clock)."""
+    res = subprocess.run(
+        [sys.executable, os.path.join(HERE, "scripts", "serve_load.py"), url,
+         str(n)], input="\n".join(paths), capture_output=True, text=True,
+        timeout=600)
+    require(res.returncode == 0, "the load generator exited %d: %s"
+            % (res.returncode, res.stderr[-500:]))
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    return [tuple(r) for r in out["replies"]], out["seconds"]
+
+
+def _percentile(xs, q):
+    import numpy as np
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def drive_serve(torch, args, dev, gen, smi, flush, kernels, on_path):
+    """Phase 19: the port's serving surface on the card, from pixels.  In a
+    temporary directory (removed afterwards) :func:`write_serve_layout`
+    writes a BUTDSpatial checkpoint and 512 JPEGs and a corrupt file.
+
+    (a) ``tools.caption_images.main`` over the directory, beam 3, bf16 and
+    int8, ``--batch 64``: the corrupt file reported and left out.  (b)
+    ``tools.caption_server``, built through ``build_argparser().parse_args``
+    and ``build_server`` on port 0, for each of SERVE_RUNS; per server a
+    load generator in a process of its own (scripts/serve_load.py) with N
+    client threads POSTs JPEG files to ``/caption`` on 127.0.0.1 at N = 1,
+    max_batch and 4 x max_batch (each request its own image, in turn),
+    and this process the corrupt bytes once.  Gates: every reply 200
+    with a string caption, the corrupt upload 400; ``/stats`` rows_decoded
+    = batches x max_batch; every
+    launch on its dtype's tensor-core route, exactly one K1 (m = k x
+    max_batch) and both BUTD cells (or int8: K3 three times) a step, read
+    from the counters after the server stopped; the ids hold: every
+    caption the server and the directory run gave equals the caption of
+    that image decoded in-process by the same bundle in full batches of
+    max_batch (other batch-mates, other positions); one padded batch of
+    each bundle decoded with every kernel call held and the winners gated
+    against the plain versions (beam_gate; greedy float32: rows
+    identical), the plain run on the same feature map (TrunkMemo).  Every
+    launch shape gets an entry ``<kernel>_<route>_serve_<shape>``."""
+    import io
+    import tempfile
+    import threading
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+    from simpleimagecaptionzoo_tpu_torch import inference
+    from simpleimagecaptionzoo_tpu_torch.data import _native_image
+    from simpleimagecaptionzoo_tpu_torch.engine import holds
+    from simpleimagecaptionzoo_tpu_torch.models import resnet
+    from simpleimagecaptionzoo_tpu_torch.ops import (fused_head, fused_lstm,
+                                                     int8_attention, quant)
+    from simpleimagecaptionzoo_tpu_torch.tools import caption_images as CI
+    from simpleimagecaptionzoo_tpu_torch.tools import caption_server as CS
+    t19 = time.time()
+    out = {"card": smi, "seconds": {}}
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    cwd = os.getcwd()
+    counters = {"K1": (fused_head.COUNT, fused_head.COUNT_WGMMA,
+                       fused_head.COUNT_TF32X3),
+                "K2": (fused_lstm.COUNT, fused_lstm.COUNT_WGMMA,
+                       fused_lstm.COUNT_TF32X3),
+                "K3": (quant.COUNT, quant.COUNT_WGMMA),
+                "K4": (int8_attention.COUNT,)}
+    calls = KernelCalls()
+    bundles = []
+    load = inference.load_inference_bundle
+
+    def keeping(**kw):
+        bundles.append(load(**kw))
+        return bundles[-1]
+
+    try:
+        os.chdir(root)
+        flags, photos, jpegs = write_serve_layout(torch, root, args.seed,
+                                                  dev, gen)
+        out["seconds"]["layout"] = time.time() - t19
+        # the host's upload decode, one thread: native (when built) and PIL
+        sample = jpegs[:64]
+        t0 = time.perf_counter()
+        for b in sample:
+            CS.decode_upload(b, 224)
+        up_ms = (time.perf_counter() - t0) * 1e3 / len(sample)
+        from PIL import Image
+        t0 = time.perf_counter()
+        for b in sample:
+            with Image.open(io.BytesIO(b)) as im:
+                np.asarray(im.convert("RGB").resize((224, 224),
+                                                    Image.BILINEAR))
+        pil_ms = (time.perf_counter() - t0) * 1e3 / len(sample)
+        out["upload_decode"] = dict(
+            native_built=_native_image.available(), decode_upload_ms=up_ms,
+            pil_ms=pil_ms)
+        log("phase 19 upload decode on the host (%s): decode_upload %.3f "
+            "ms an image (%s ran), PIL %.3f ms" % (
+                smi, up_ms, "native" if _native_image.available() else "PIL",
+                pil_ms))
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            pix = np.stack(list(pool.map(lambda b: CS.decode_upload(b, 224),
+                                         jpegs)))
+        inference.load_inference_bundle = keeping
+        runs, dir_caps = {}, {}
+        with calls.recording(torch):
+            # (a) the directory run, bf16 and int8
+            for dt in ("bfloat16", "int8"):
+                cap_out = os.path.join(root, "caps_%s.json" % dt)
+                so, se = io.StringIO(), io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(so), \
+                        contextlib.redirect_stderr(se):
+                    rc = CI.main(["--image_dir", photos] + flags + [
+                        "--beam", "3", "--batch", str(SERVE_DIR_BATCH),
+                        "--dtype", dt, "--out", cap_out])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                with open(cap_out) as f:
+                    res = json.load(f)
+                rate = re.search(r"\(([0-9.]+) images/sec\)", so.getvalue())
+                require(rc == 0 and len(res) == SERVE_IMAGES
+                        and "corrupt.jpg" not in {r["file_name"] for r in res}
+                        and "skipping unreadable image 'corrupt.jpg'"
+                        in se.getvalue() and rate is not None,
+                        "phase 19 caption_images %s: rc %s, %d results, the "
+                        "corrupt file not reported and skipped: %s"
+                        % (dt, rc, len(res), se.getvalue()[-300:]))
+                dir_caps[dt] = {int(r["file_name"][4:7]): r["caption"]
+                                for r in res}
+                runs["dir/" + dt] = dict(images_per_s=float(rate.group(1)),
+                                         wall_s=wall, bundle=bundles[-1])
+                log("phase 19 caption_images beam 3 %s --batch %d (%s): %d "
+                    "images, corrupt.jpg skipped; %.1f images/s (the tool's "
+                    "own clock), %.2f s with the bundle's load"
+                    % (dt, SERVE_DIR_BATCH, smi, len(res),
+                       float(rate.group(1)), wall))
+            # (b) the servers
+            nxt = 0
+            for mb, dt, beam in SERVE_RUNS:
+                key = "%s/beam%d/mb%d" % (dt, beam, mb)
+                for cs in counters.values():
+                    for c in cs:
+                        c.n = 0
+                shapes0 = len(calls.shapes)
+                sargs = CS.build_argparser().parse_args(flags + [
+                    "--beam", str(beam), "--max_batch", str(mb), "--dtype",
+                    dt, "--port", "0", "--max_wait_ms", "20"])
+                enc0 = fused_lstm.map_encodes()
+                t0 = time.perf_counter()
+                httpd, batcher = CS.build_server(sargs)
+                build_s = time.perf_counter() - t0
+                enc_warm = fused_lstm.map_encodes()
+                thread = threading.Thread(target=httpd.serve_forever,
+                                          daemon=True)
+                thread.start()
+                url = "http://127.0.0.1:%d" % httpd.server_address[1]
+                code, body, _ = _post(url + "/caption", b"\xff\xd8\xff\xe0 "
+                                      b"not a jpeg")
+                require(code == 400, "phase 19 %s: the corrupt upload gave "
+                        "%d %s" % (key, code, body))
+                served, loads = {}, []
+                try:
+                    for n in (1, mb, 4 * mb):
+                        idx = [(nxt + i) % SERVE_IMAGES for i in range(n)]
+                        nxt += n
+                        before = _get(url + "/stats")
+                        got, wall = _load(url + "/caption", n, [
+                            os.path.join(photos, "img_%03d.jpg" % i)
+                            for i in idx])
+                        st = _get(url + "/stats")
+                        bad = [(c, b) for c, b, _ in got if c != 200
+                               or not isinstance(b.get("caption"), str)]
+                        require(not bad, "phase 19 %s N=%d: %d replies not "
+                                "200 with a caption (first: %s)"
+                                % (key, n, len(bad), bad[:1]))
+                        for i, (_, b, _) in zip(idx, got):
+                            served.setdefault(i, set()).add(b["caption"])
+                        lat = [t * 1e3 for _, _, t in got]
+                        nb = st["batches"] - before["batches"]
+                        loads.append(dict(
+                            n=n, seconds=wall, captions_per_s=n / wall,
+                            batches=nb,
+                            mean_batch_fill=(st["requests"]
+                                             - before["requests"]) / nb,
+                            client_p50_ms=_percentile(lat, 50),
+                            client_p99_ms=_percentile(lat, 99),
+                            stats_p50_ms=st.get("latency_ms_p50"),
+                            stats_p99_ms=st.get("latency_ms_p99")))
+                        log("phase 19 server %s N=%d (%s): %.1f captions/s, "
+                            "%d batches, mean fill %.2f of %d; latency p50 "
+                            "%.1f ms, p99 %.1f ms (clients); /stats since "
+                            "the start: p50 %s ms, p99 %s ms"
+                            % (key, n, smi, n / wall, nb,
+                               loads[-1]["mean_batch_fill"], mb,
+                               loads[-1]["client_p50_ms"],
+                               loads[-1]["client_p99_ms"],
+                               st.get("latency_ms_p50"),
+                               st.get("latency_ms_p99")))
+                    stats = _get(url + "/stats")
+                finally:
+                    httpd.shutdown()
+                    httpd.server_close()
+                    batcher.stop()
+                    thread.join(timeout=30)
+                torch.cuda.synchronize()
+                encodes = fused_lstm.map_encodes() - enc_warm
+                require(stats["rows_decoded"] == stats["batches"] * mb,
+                        "phase 19 %s: /stats %s (rows_decoded != batches x "
+                        "%d)" % (key, stats, mb))
+                # launches, read after the server stopped
+                route = "tf32x3" if dt == "float32" else "wgmma"
+                k = max(beam, 1)
+                got = {}
+                for s in calls.shapes[shapes0:]:
+                    got[s] = got.get(s, 0) + 1
+                n_steps = got.get(("K1", route, k * mb, k), 0)
+                rows = k * mb
+                if dt == "int8":
+                    want = {("K3", route, rows, w): n_steps
+                            for w in (5120, 4096, 1024)}
+                    kinds = ("K1", "K3")
+                else:
+                    want = {("K2", route, rows, w): n_steps
+                            for w in (4096, 3072)}
+                    kinds = ("K1", "K2")
+                want[("K1", route, rows, k)] = n_steps
+                cap = inference.BEAM_MAX_LEN if beam > 0 else \
+                    inference.GREEDY_MAX_LEN
+                n_dec = stats["batches"] + 1            # and the warm-up
+                require(got == want and n_dec <= n_steps <= cap * n_dec,
+                        "phase 19 %s: launches by shape %s, expected %s "
+                        "(%d decodes)" % (key, got, want, n_dec))
+                tc = 1 if route == "wgmma" else 2
+                for kind, cs in counters.items():
+                    on = kind in kinds
+                    require(cs[0].n == (n_steps * (3 if kind == "K3" else
+                                                   2 if kind == "K2" else 1)
+                                        if on else 0)
+                            and (not on or cs[min(tc, len(cs) - 1)].n
+                                 == cs[0].n),
+                            "phase 19 %s: %s launched %s (route counters)"
+                            % (key, kind, [c.n for c in cs]))
+                runs[key] = dict(
+                    max_batch=mb, dtype=dt, beam=beam, build_s=build_s,
+                    warm_s=batcher.warm_s, map_encodes_warm=enc_warm - enc0,
+                    map_encodes_after_warm=encodes,
+                    loads=loads, stats=stats, steps=n_steps,
+                    decodes=n_dec, served=served, bundle=bundles[-1])
+                log("phase 19 server %s: built and warmed in %.2f s (warm "
+                    "%.2f s on the batcher's thread); K2's TMA maps encoded "
+                    "by the warm decode %d, by the %d served batches after "
+                    "it %d (activations the allocator moved: a map is "
+                    "cached by its buffer); %d decodes, %d steps, per step "
+                    "%s on %s, exactly; /stats %s"
+                    % (key, build_s, batcher.warm_s, enc_warm - enc0,
+                       stats["batches"], encodes, n_dec,
+                       n_steps, ", ".join(sorted(
+                           "%s m=%d %s" % (s[0], s[2], s[3]) for s in want)),
+                       route, stats))
+        inference.load_inference_bundle = load
+        out["seconds"]["served"] = time.time() - t19
+
+        # the ids hold and the bundle's holds, after the servers stopped
+        def decode_all(b, idx, mb):
+            """{image: caption} of ``idx`` decoded by bundle ``b`` in full
+            batches of ``mb`` (the last padded), and each batch's
+            seconds."""
+            caps, secs = {}, []
+            for s in range(0, len(idx), mb):
+                chunk = idx[s:s + mb]
+                rows = chunk + [chunk[-1]] * (mb - len(chunk))
+                x = torch.from_numpy(pix[rows]).to(dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ids = b.decode(b.tree["params"], b.tree["model_state"],
+                               {"img_tensors": x}).cpu().numpy()
+                secs.append(time.perf_counter() - t0)
+                for i, row in zip(chunk, ids):
+                    caps[i] = " ".join(b.vocab.decode_ids(row))
+            return caps, secs
+
+        out["runs"] = {}
+        for key, r in runs.items():
+            b = r.pop("bundle")
+            if key.startswith("dir/"):
+                out["runs"][key] = r
+                continue
+            mb = r["max_batch"]
+            idx = sorted(r["served"])
+            if mb == SERVE_DIR_BATCH and r["dtype"] in dir_caps:
+                idx = list(range(SERVE_IMAGES))
+            ref, secs = decode_all(b, idx, mb)
+            served = r.pop("served")
+            differ = [i for i, cs in served.items() if cs != {ref[i]}]
+            require(not differ, "phase 19 %s: %d images' served captions "
+                    "differ from the in-process decode in full batches of "
+                    "%d (first: image %s, %s against %s)"
+                    % (key, len(differ), mb, differ[:1],
+                       [served[i] for i in differ[:1]],
+                       [ref[i] for i in differ[:1]]))
+            if mb == SERVE_DIR_BATCH and r["dtype"] in dir_caps:
+                dd = [i for i, c in dir_caps[r["dtype"]].items()
+                      if c != ref[i]]
+                require(not dd, "phase 19 caption_images %s: %d captions "
+                        "differ from the in-process decode (first: %s)"
+                        % (r["dtype"], len(dd), dd[:3]))
+                r["directory_ids_hold"] = len(dir_caps[r["dtype"]])
+            r["ids_held"] = len(idx)
+            t_med = sorted(secs)[len(secs) // 2]
+            r["offline_captions_per_s"] = mb / t_med
+            r["offline_batch_s"] = secs
+            # one padded batch: every kernel call held, the winners gated
+            # against the plain versions on the same feature map
+            chunk = idx[:mb]
+            rows = chunk + [chunk[-1]] * (mb - len(chunk))
+            vis = {"img_tensors": torch.from_numpy(pix[rows]).to(dev)}
+            prm, ms = b.tree["params"], b.tree["model_state"]
+            memo = TrunkMemo(resnet)
+            try:
+                ids = b.decode(prm, ms, vis)
+                memo.mode = "pass"
+                broken = []
+                with holds.held_calls(broken):
+                    b.decode(prm, ms, vis)
+                torch.cuda.synchronize()
+                require(not broken, "phase 19 %s: %d kernel calls of the "
+                        "bundle's decode broke their hold (first: %s)"
+                        % (key, len(broken), broken[:1]))
+                with memo.replaying(), holds.plain_versions():
+                    ref_ids = b.decode(prm, ms, vis)
+                dtype = (torch.float32 if r["dtype"] == "float32"
+                         else torch.bfloat16)
+                if r["beam"] > 0:
+                    with memo.replaying():
+                        margin = holds.rescored_margin(
+                            b.model, prm, vis, ids, ref_ids, dtype, dev, ms)
+                    tol = holds.beam_tol(dtype, inference.BEAM_MAX_LEN)
+                    passed, same = holds.beam_gate(False, ids, ref_ids,
+                                                   margin, tol)
+                    r["gate"] = dict(rows_identical=same,
+                                     min_margin=float(margin.min()), tol=tol)
+                else:
+                    passed, same = holds.beam_gate(True, ids, ref_ids, None,
+                                                   0.0)
+                    r["gate"] = dict(rows_identical=same)
+                require(passed, "phase 19 %s: the bundle's batch against "
+                        "the plain versions: %s" % (key, r["gate"]))
+            finally:
+                memo.close()
+            prof = profile_decode(torch, lambda: b.decode(prm, ms, vis),
+                                  "phase 19 " + key)
+            r["idle_share_of_span"] = 1 - (prof["device_busy_ms"]
+                                           / prof["device_span_ms"])
+            r["idle_share_of_wall"] = 1 - prof["device_busy_ms"] / (
+                t_med * 1e3)
+            out["runs"][key] = r
+            sat = r["loads"][-1]["captions_per_s"]
+            log("phase 19 %s (%s): every served caption of %d images equals "
+                "the in-process decode in full batches of %d; a padded "
+                "batch held (every kernel call) and gated %s; offline %.1f "
+                "captions/s (cap %d, no HTTP) against %.1f served at "
+                "N=%d; one profiled batch idle %.1f %% of its span, %.1f %% "
+                "of the unprofiled wall"
+                % (key, smi, len(idx), mb, r["gate"], mb / t_med,
+                   inference.BEAM_MAX_LEN if r["beam"] > 0
+                   else inference.GREEDY_MAX_LEN, sat,
+                   r["loads"][-1]["n"], 100 * r["idle_share_of_span"],
+                   100 * r["idle_share_of_wall"]))
+        del pix
+        out["kernel_entries"] = cli_kernel_entries(
+            torch, calls, kernels, on_path, flush, "phase 19 serving",
+            where="serve", phase="phase 19")
+    finally:
+        inference.load_inference_bundle = load
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"]["total"] = time.time() - t19
+    log("phase 19 took %.1f s (%s)" % (out["seconds"]["total"], {
+        k: round(v, 1) for k, v in out["seconds"].items()}))
+    return out
+
+
+def drive_pixel_training(torch, args, dev, gen, smi, flush, kernels,
+                         on_path, scst):
+    """Phase 20: training from pixels on the card.  BUTDSpatial and
+    AoASpatial at their published widths (vocab 10,102), XE with ``layer4``
+    fine-tuned (Adam at the json's lr and cnn_FT_lr, scheduled sampling at
+    0.25) and SCST (scst_lr, scst_cnn_FT_lr), each in float32 and in bf16
+    over float32 masters; NIC's SCST likewise.  One full ResNet-101 (random
+    from ``gen``, its statistics calibrated as phase 17's) serves the three;
+    B=128 photo-like uint8 images at 224 staged on the card, the captions
+    of phase 14 and the references and table of phase 15.  Each run is
+    :func:`drive_xe` or :func:`drive_scst` from pixels: the first step
+    against the plain versions with the fine-tune scope exact, PX_STEPS
+    timed steps with K2's forward and whole backward launches per step
+    exact, one step with every kernel call held, one profiled step (the
+    trunk's forward and cuDNN's backward through layer4 among its parts).
+    K1 at the 512-wide heads' training rows (m=128) gets entries of its own
+    (``..._px_train_...``)."""
+    from simpleimagecaptionzoo_tpu_torch.config import load_model_config
+    from simpleimagecaptionzoo_tpu_torch.models import resnet
+    from simpleimagecaptionzoo_tpu_torch.models.base import get_captioner
+    t20 = time.time()
+    out = {"card": smi}
+    cnn, stats0 = resnet.init(gen)
+    cal = calibrated_stats(torch, cnn, stats0,
+                           photo_batch(torch, gen, CAL_B, 224, dev))
+    visual = {"img_tensors": photo_batch(torch, gen, TRAIN_B, 224, dev)}
+    calls = KernelCalls()
+    bf = torch.bfloat16
+    models = os.path.join(HERE, "Configs", "Models")
+    failed = []
+    for fam in ("BUTDSpatial", "AoASpatial", "NIC"):
+        model = get_captioner(load_model_config(
+            os.path.join(models, fam + ".json"), vocab_size=CLI_VOCAB))
+        cfg = model.config
+        params = dict(model.init_params(gen), cnn=cnn)
+        if fam == "BUTDSpatial":
+            cells = [("_butd_td", cfg.hidden_dim + cfg.enc_dim
+                      + cfg.embed_dim),
+                     ("_butd_lang", cfg.enc_dim + cfg.hidden_dim)]
+        elif fam == "AoASpatial":
+            cells = [("_aoasp", cfg.embed_dim + cfg.hidden_dim)]
+        else:
+            cells = [("_nic", cfg.embed_dim)]
+        ms = {"cnn_stats": cal}
+        name = fam + " from pixels"
+        r = out[fam] = {}
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        if fam != "NIC":
+            runs.append(("xe", lambda: drive_xe(
+                torch, args, dev, model, params, kernels, on_path, name=name,
+                cells=cells, lr=cfg.lr, n_timed=PX_STEPS,
+                variants=[("float32", None, True), ("bfloat16", bf, True)],
+                visual=visual, model_state=ms, lr_cnn=cfg.cnn_ft_lr,
+                profiled=PX_PROFILED)))
+        runs.append(("scst", lambda: drive_scst(
+            torch, args, dev, model, params, kernels, on_path, scst,
+            name=name, cells=cells, lr=cfg.scst_lr, n_timed=PX_STEPS,
+            variants=[("float32", None), ("bfloat16", bf)], visual=visual,
+            model_state=ms, lr_cnn=cfg.scst_cnn_ft_lr,
+            calls=None if fam == "BUTDSpatial" else calls,
+            init_cell=fam == "NIC", profiled=PX_PROFILED,
+            relu_replay=fam == "BUTDSpatial")))
+        for kind, run in runs:
+            # a run that fails its gates fails the phase after the others
+            # ran, so that one failure does not hide the rest
+            try:
+                r[kind] = run()
+            except RuntimeError as e:
+                failed.append("%s %s: %s" % (fam, kind, e))
+                log("phase 20 %s %s FAILED, the phase fails after the "
+                    "other runs: %s" % (fam, kind, e))
+        for kind in ("xe", "scst"):
+            for label, res in r.get(kind, {}).items():
+                p = res.get("profile")
+                log("phase 20 %s %s %s (%s): %.2f ms a step, %.1f "
+                    "samples/s, peak memory %.2f GiB%s" % (
+                        fam, kind, label, smi, res["ms_per_step"],
+                        res["samples_per_s"], res["peak_memory_gib"],
+                        "" if p is None else
+                        "; profiled: idle %.1f %% of the span, the trunk's "
+                        "forward %.3f ms, cuDNN's backward through layer4 "
+                        "%.3f ms, K2 backward's float32 products %.3f ms"
+                        % (100 * p["idle_share_of_span"],
+                           p["parts_ms"].get("%s:trunk" % kind, 0.0),
+                           p["parts_ms"].get(TRUNK_BWD_PART, 0.0),
+                           p["parts_ms"].get(K2_PRODUCTS_PART, 0.0))))
+        del params
+    out["k1_entries"] = cli_kernel_entries(
+        torch, calls, kernels, on_path, flush, "phase 20 from pixels",
+        where="px_train", phase="phase 20", kinds=("K1",))
+    out["seconds"] = time.time() - t20
+    log("phase 20 took %.1f s" % out["seconds"])
+    require(not failed, "phase 20: %d of its runs failed: %s"
+            % (len(failed), " | ".join(failed)))
+    return out
 
 
 def main(argv=None) -> int:
@@ -4462,8 +5426,26 @@ def main(argv=None) -> int:
               "xe/bfloat16": results["xe"]["bfloat16/ss_off"]["ms_per_step"],
               "scst/float32": results["scst"]["float32"]["ms_per_step"]})
 
+    log("-- phase 19 at %.1f s" % (time.time() - t_start))
+    t19 = time.time()
+    # -- 19. serving on the card: the directory captioner and the server ----
+    results["serve"] = drive_serve(torch, args, dev, gen, smi, flush,
+                                   kernels, on_path)
+
+    log("-- phase 20 at %.1f s" % (time.time() - t_start))
+    # -- 20. XE and SCST from pixels: BUTDSpatial, AoASpatial; NIC's SCST ---
+    try:
+        results["pixel_training"] = drive_pixel_training(
+            torch, args, dev, gen, smi, flush, kernels, on_path, scst)
+    finally:
+        s1920 = time.time() - t19
+        log("-- phases 19-20 took %.1f s (phase 19 %.1f)"
+            % (s1920, results["serve"]["seconds"]["total"]))
+
     results["seconds"] = time.time() - t_start
-    log("-- phases 2-18 took %.1f s" % results["seconds"])
+    log("-- phases 2-20 took %.1f s" % results["seconds"])
+    require(s1920 <= PHASES_19_20_S, "phases 19-20 took %.1f s, over their "
+            "%.0f s" % (s1920, PHASES_19_20_S))
     missing = [k for k in on_path if not kernels[k].get("launches")]
     require(not missing, "kernels not launched on the main path: %s"
             % missing)

@@ -160,8 +160,10 @@ TRAINING_MODULES = ("engine.optim", "engine.state", "engine.steps",
                     "ops.cider", "ops.fused_head", "device", "models.resnet",
                     "ops.image")
 # the system around the models: the CLI, the engine, the data layer, the
-# checkpoints and the COCO-caption scorers
-SYSTEM_MODULES = ("main", "vocab", "engine.engine", "engine.model_engines",
+# checkpoints and the COCO-caption scorers; the inference bundle and the
+# serving tools (the directory captioner, the HTTP caption server)
+SYSTEM_MODULES = ("main", "vocab", "inference", "tools.caption_images",
+                  "tools.caption_server", "engine.engine", "engine.model_engines",
                   "engine.sample", "engine.observe", "engine.checkpoint",
                   "data.caption_data", "data.loader", "data.datasets",
                   "data._native_image", "evalcap.tokenizer", "evalcap._native",

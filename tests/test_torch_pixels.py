@@ -21,10 +21,17 @@ Two rules for the ids, float32 decode:
   bf16 rule of tests/test_torch_aoa_bf16.py).
 
 Also: the encode from uint8 pixels and from a fast-ingest pad box, int8
-serving of NIC from pixels, the fine-tune scope of XE training from pixels
-(engine/steps._stop_cnn_grads: the stem and layers 1-3 get no gradient,
-``layer4`` only when not frozen), and the GPU default of the entry points.
+serving of NIC from pixels, XE training from pixels of the three families
+with its fine-tune scope (engine/steps._stop_cnn_grads: the stem and
+layers 1-3 get no gradient, ``layer4`` only when not frozen), SCST from
+pixels of the three with JAX's draws replayed, and the GPU default of the
+entry points.  The training holds take every leaf's gradient within 1e-5
+of JAX's; in AoASpatial's XE with ``layer4`` fine-tuned, where that
+gradient is ill-conditioned in float32, a ``layer4`` leaf may instead lie
+no further from JAX's float64 gradient than JAX's float32 one
+(:func:`check_grads`).
 """
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -400,8 +407,12 @@ def test_bf16_decode_casts_cnn_but_not_its_stats(monkeypatch):
 XE_B, XE_T, XE_SIDE = 4, 6, 64
 
 
-def _xe_setup():
-    dims = dict(FAMILIES["NIC"], model_type="NIC", dropout=0.0)
+NO_DROPOUT = dict(dropout=0.0, dropout_aoa=0.0, dropout_sc=0.0,
+                  dropout_dot_atten=0.0)
+
+
+def _xe_setup(family="NIC"):
+    dims = dict(FAMILIES[family], model_type=family, **NO_DROPOUT)
     jm = jax_get(JaxModelConfig(**dims))
     tm = get_captioner(ModelConfig(**dims))
     p = _np(jm.init_params(jax.random.PRNGKey(1), include_cnn=True))
@@ -424,16 +435,107 @@ def _at(tree, path):
     return tree
 
 
-@pytest.mark.parametrize("freeze_cnn", [False, True])
-def test_xe_fine_tune_scope_matches_jax(freeze_cnn, monkeypatch):
-    """XE of NIC from pixels, float32 trunks, train-mode BN: the gradient
+class _Float64Names:
+    """``jax.numpy`` with ``float32`` read as ``float64``: the JAX
+    package's explicit float32 casts (the trunk's BN statistics and pooled
+    features, the pixels' normalisation, the loss's log-softmax) keep
+    float64 where its modules see this in place of ``jnp``."""
+    float32 = jnp.float64
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
+def jax_grads_f64(loss_fn, p):
+    """``jax.grad`` of the JAX package's ``loss_fn(params) -> (loss,
+    aux)`` in float64 throughout (x64 on, every float32 name of its
+    modules read as float64, the trunk's default dtype float64): the
+    reference an ill-conditioned float32 gradient is measured against."""
+    import sys
+    names = _Float64Names()
+    with jax.enable_x64(True), pytest.MonkeyPatch.context() as mp:
+        for name, mod in list(sys.modules.items()):
+            if (name.startswith("simpleimagecaptionzoo_tpu.")
+                    and getattr(mod, "jnp", None) is jnp):
+                mp.setattr(mod, "jnp", names)
+        mp.setattr(JR.apply, "__defaults__", (jnp.float64, False))
+        p64 = jax.tree_util.tree_map(
+            lambda a: jnp.asarray(a, jnp.float64)
+            if np.issubdtype(np.asarray(a).dtype, np.floating)
+            else jnp.asarray(a), p)
+        grads = jax.grad(lambda q: loss_fn(q)[0])(p64)
+        return _np(grads)
+
+
+def check_grads(jgrads, grads, f64_of=None):
+    """Every leaf within 1e-5 (rtol and atol) of JAX's.  ``f64_of`` is
+    given for one case alone, AoASpatial's XE with ``layer4`` fine-tuned:
+    there ``layer4``'s float32 gradient is ill-conditioned (the train-mode
+    BN over this test's 2 x 2 map, 16 values a channel, cancels most of
+    its cotangent, so two float32 orders of the same sums land up to
+    2.6e-3 apart).  A ``layer4`` leaf of that case off by more must lie no
+    further from JAX's float64 gradient (``f64_of()``, :func:`jax_grads_f64`)
+    than JAX's float32 gradient does, to 1e-5 of the leaf's norm."""
+    paths = jax.tree_util.tree_leaves_with_path(jgrads)
+    assert len(paths) == len(TO.tree_leaves(grads))
+    off = []
+    for path, want in paths:
+        got, want = _at(grads, path).numpy(), np.asarray(want)
+        if f64_of is None:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5,
+                                       err_msg=str(path))
+        elif not np.allclose(got, want, rtol=1e-5, atol=1e-5):
+            off.append((path, got, want))
+    if not off:
+        return
+    g64 = f64_of()
+    for path, got, want in off:
+        key = jax.tree_util.keystr(path)
+        assert "['layer4']" in key, (key, np.abs(got - want).max())
+        exact = np.asarray(_at(g64, path))
+        norm = np.linalg.norm(exact)
+        port = np.linalg.norm(got - exact) / norm
+        jax_ = np.linalg.norm(want - exact) / norm
+        assert port <= jax_ + 1e-5, (key, port, jax_)
+
+
+def check_scope(grads, freeze_cnn):
+    """The stem and layers 1-3 exactly zero, ``layer4`` zero too when
+    ``freeze_cnn`` and not otherwise."""
+    for key, got in zip(TO.tree_leaves(_paths(grads["cnn"])),
+                        TO.tree_leaves(grads["cnn"])):
+        if freeze_cnn or not key.startswith("layer4"):
+            assert not got.any(), key
+    assert bool(grads["cnn"]["layer4"][0]["conv3"].any()) != freeze_cnn
+
+
+def _paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k: _paths(v, "%s.%s" % (prefix, k) if prefix else k)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_paths(v, "%s[%d]" % (prefix, i))
+                          for i, v in enumerate(tree))
+    return prefix
+
+
+@pytest.mark.parametrize("family,freeze_cnn", [
+    pytest.param("NIC", False, id="False"),
+    pytest.param("NIC", True, id="True"),
+    pytest.param("BUTDSpatial", False, id="BUTDSpatial-False"),
+    pytest.param("BUTDSpatial", True, id="BUTDSpatial-True"),
+    pytest.param("AoASpatial", False, id="AoASpatial-False"),
+    pytest.param("AoASpatial", True, id="AoASpatial-True")])
+def test_xe_fine_tune_scope_matches_jax(family, freeze_cnn, monkeypatch):
+    """XE from pixels (NIC, BUTDSpatial, AoASpatial; dropout 0), float32
+    trunks, train-mode BN: the gradient
     tree ``make_xe_train_step`` hands its optimizer against
     ``jax.value_and_grad`` of the JAX package's loss under its
     ``_stop_cnn_grads``: the loss and every leaf within 1e-5, the stem and
     layers 1-3 exactly zero, ``layer4`` zero too when ``freeze_cnn`` and
     not otherwise; the new ``cnn_stats`` within 1e-6 of JAX's."""
     f32_trunks(monkeypatch)
-    jm, tm, p, stats, batch = _xe_setup()
+    jm, tm, p, stats, batch = _xe_setup(family)
     captions = jnp.asarray(batch["captions"])
     mask = JL.xe_mask_from_lengths(jnp.asarray(batch["lengths"]) - 1,
                                    XE_T - 1)
@@ -470,18 +572,144 @@ def test_xe_fine_tune_scope_matches_jax(freeze_cnn, monkeypatch):
                     0.0, 0.0)
     assert abs(float(met["loss"]) - float(jloss)) <= 1e-5 * float(jloss)
     grads = handed[0]
-    paths = jax.tree_util.tree_leaves_with_path(jgrads)
-    assert len(paths) == len(TO.tree_leaves(grads))
-    for path, want in paths:
-        got = _at(grads, path)
-        np.testing.assert_allclose(got.numpy(), np.asarray(want),
-                                   rtol=1e-5, atol=1e-5, err_msg=str(path))
-        key = jax.tree_util.keystr(path)
-        if key.startswith("['cnn']") and (freeze_cnn
-                                           or "layer4" not in key):
-            assert not got.any(), key
-    assert bool(grads["cnn"]["layer4"][0]["conv3"].any()) != freeze_cnn
+
+    # layer4's float32 gradient is ill-conditioned in this case alone
+    ill = family == "AoASpatial" and not freeze_cnn
+    check_grads(jgrads, grads,
+                (lambda: jax_grads_f64(loss_fn, p)) if ill else None)
+    check_scope(grads, freeze_cnn)
     for path, want in jax.tree_util.tree_leaves_with_path(jms["cnn_stats"]):
+        np.testing.assert_allclose(_at(new.model_state["cnn_stats"],
+                                       path).numpy(), np.asarray(want),
+                                   rtol=1e-6, atol=1e-6, err_msg=str(path))
+
+
+# ---------------------------------------------------------------------------
+# SCST from pixels: JAX's draws replayed
+# ---------------------------------------------------------------------------
+
+SCST_R, SCST_LR = 3, 8
+
+
+def _scst_refs():
+    """References (SCST_R an image, 3-7 ids over the first 30 of the
+    vocabulary, so that rollouts hit them) and both packages' tables (the
+    references' own n-grams and 500 random keys) with the precomputed
+    norms: -> (JAX batch extras, port batch extras, JAX table, port
+    table, probe)."""
+    from simpleimagecaptionzoo_tpu.ops import cider as JC
+    from simpleimagecaptionzoo_tpu_torch.ops import cider as TC
+    rng = np.random.default_rng(6)
+    refs = [[list(rng.integers(4, 30, int(rng.integers(3, SCST_LR))))
+             for _ in range(SCST_R)] for _ in range(XE_B)]
+    ref_ids = np.zeros((XE_B, SCST_R, SCST_LR), np.int32)
+    ref_lens = np.zeros((XE_B, SCST_R), np.int32)
+    for i, rr in enumerate(refs):
+        for r, ref in enumerate(rr):
+            ref_ids[i, r, :len(ref)] = ref
+            ref_lens[i, r] = len(ref)
+    base = JC.CiderDTable.from_ref_corpus(refs)
+    h = rng.integers(0, 2 ** 32, size=(2, 500), dtype=np.uint64)
+    args = (np.concatenate([base.h1, h[0].astype(np.uint32)]),
+            np.concatenate([base.h2, h[1].astype(np.uint32)]),
+            np.concatenate([base.df, np.full(500, 2.0, np.float32)]),
+            float(np.log(1000.0)))
+    jt, tt = JC.CiderDTable(*args), TC.CiderDTable(*args)
+    jd, td = jt.device_arrays(), tt.device_arrays("cpu")
+    jx = {"ref_ids": jnp.asarray(ref_ids), "ref_lens": jnp.asarray(ref_lens)}
+    jx["ref_norms"] = JC.ref_norms_device(jd, jt.probe, jx["ref_ids"],
+                                          jx["ref_lens"])
+    tx = {"ref_ids": torch.from_numpy(ref_ids).long(),
+          "ref_lens": torch.from_numpy(ref_lens).long()}
+    tx["ref_norms"] = TC.ref_norms_device(td, tt.probe, tx["ref_ids"],
+                                          tx["ref_lens"])
+    return jx, tx, jd, td, jt.probe
+
+
+def _jax_draws(monkeypatch, jm, params, enc, key, max_len):
+    """JAX's rollout with its draws recorded (tests/test_torch_scst.py):
+    (B, max_len) int64."""
+    rec, orig = [], JD._categorical
+
+    def recording(k, logits):
+        d = orig(k, logits)
+        jax.debug.callback(lambda x: rec.append(np.asarray(x)), d,
+                           ordered=True)
+        return d
+
+    with monkeypatch.context() as m:
+        m.setattr(JD, "_categorical", recording)
+        JD.sample_rl(jm, params, enc, max_len, key, train=True)
+        jax.effects_barrier()
+    assert len(rec) == max_len
+    return np.stack(rec, axis=1).astype(np.int64)
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_scst_from_pixels_matches_jax(family, monkeypatch):
+    """One SCST step from pixels (float32 trunks, train-mode BN, dropout
+    0) through both packages' make_scst_train_step, the port given the
+    JAX rollout's draws (tests/test_torch_scst.py's replay): the mean
+    reward within 1e-6, the loss within 1e-5 (relative), every leaf's
+    gradient within 1e-5 (:func:`check_grads`), the fine-tune scope exact
+    (the stem and layers 1-3 zero, ``layer4`` not), the new ``cnn_stats``
+    within 1e-6."""
+    import optax
+    from simpleimagecaptionzoo_tpu.engine.state import TrainState as JState
+    f32_trunks(monkeypatch)
+    jm, tm, p, stats, batch = _xe_setup(family)
+    jx, tx_refs, jd, td, probe = _scst_refs()
+    steps_t = XE_T
+    jbatch = dict(jx, visual=_j(batch["visual"]))
+    key = jax.random.PRNGKey(5)
+    r_enc, r_roll = jax.random.split(key)
+    jparams = _j(p)
+    jms = {"cnn_stats": _j(stats)}
+    enc, _ = jm.encode(JS._stop_cnn_grads(jparams, False), jbatch["visual"],
+                       train=True, rng=r_enc, model_state=jms)
+    drawn = _jax_draws(monkeypatch, jm, jparams, enc, r_roll, steps_t)
+
+    jrec = []
+
+    def jupdate(grads, state, params=None):
+        jax.debug.callback(lambda g: jrec.append(_np(g)), grads)
+        return jax.tree_util.tree_map(jnp.zeros_like, grads), state
+
+    jtx = optax.GradientTransformation(lambda params: optax.EmptyState(),
+                                       jupdate)
+    jstep = JS.make_scst_train_step(jm, jtx, jm.param_labels(jparams), jd,
+                                    probe, max_len=steps_t)
+    jst, jmet = jstep(JState.create(jparams, jtx, jms), jbatch, key, 0.0,
+                      0.0)
+    jax.effects_barrier()
+    jgrads = jrec[0]
+
+    handed = []
+
+    def update(grads, state, params):
+        handed.append(grads)
+        return TO.tree_map(torch.zeros_like, grads), state
+
+    ttx = TO.GradientTransformation(lambda params: (), update)
+    params = from_jax(p)
+    tbatch = dict(tx_refs, visual=from_jax(batch["visual"]))
+    step = TS.make_scst_train_step(tm, ttx, tm.param_labels(params), td,
+                                   probe, max_len=steps_t, device="cpu")
+    cols = iter(torch.from_numpy(drawn).unbind(1))
+    monkeypatch.setattr(decode, "_categorical", lambda gen, logits:
+                        next(cols))
+    state = TrainState.create(params, ttx, {"cnn_stats": from_jax(stats)})
+    new, met = step(state, tbatch, torch.Generator().manual_seed(5), 0.0,
+                    0.0)
+    assert abs(float(met["reward"]) - float(jmet["reward"])) <= 1e-6
+    assert float(jmet["loss"]) != 0.0
+    assert abs(float(met["loss"]) - float(jmet["loss"])) <= \
+        1e-5 * abs(float(jmet["loss"]))
+    grads = handed[0]
+    check_grads(jgrads, grads)
+    check_scope(grads, False)
+    for path, want in jax.tree_util.tree_leaves_with_path(
+            jst.model_state["cnn_stats"]):
         np.testing.assert_allclose(_at(new.model_state["cnn_stats"],
                                        path).numpy(), np.asarray(want),
                                    rtol=1e-6, atol=1e-6, err_msg=str(path))
