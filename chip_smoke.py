@@ -300,7 +300,35 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      at the 512-wide heads' training rows gets entries
      ``..._px_train_...``.  A run that fails its gates fails the phase
      after the other runs have run.  Phases 19 and 20 take at most 120 s
-     together.
+     together;
+ 21. mid-epoch resume, data parallel and reference checkpoints, within
+     120 s (drive_phase21; alone: scripts/probe_phase21.py, on the CPU at
+     small sizes: scripts/rehearse_phase21.py): (a) the CLI's XE (float32,
+     bf16) and SCST (float32) of AoADetection at full width, B=128,
+     --midepoch_save_steps 2, each run uninterrupted and SIGKILLed once
+     epoch 2's resume point after step 2 committed (children of this
+     script, all six at once), the killed one resumed here: params,
+     Adam's moments, the step count and the CIDEr history identical;
+     printed, each save's ms on the loop and in the background and its
+     bytes; (b) two processes sharing the card under gloo at 2 x 64
+     against one process at 128 (XE with scheduled sampling and dropout,
+     SCST; the first step's loss within 1e-5, its all-reduced gradient
+     within 1e-5 of the gradient's norm, the losses of 3 steps within
+     1e-4, the params identical on both processes), BUTDSpatial XE from
+     pixels at 2 x 32 (a float32 train-mode trunk: every BN layer's batch
+     statistics within 1e-5 of the float64 ones of its own activations
+     over both processes and within 1e-4 of one process's run on the 64,
+     the running statistics identical on both, the loss within 1e-5) and
+     eval beam 3 at 2 x 32 (the same ids on both processes, equal to one
+     process's), every kernel call of their first steps and decode held;
+     one process under NCCL, its first XE step bit-identical to the run
+     without a group; printed, steps/s of both and the all-reduce's ms a
+     step (torch.profiler); (c) a reference-shaped AoADetection
+     state_dict (random from --seed) through
+     tools.convert_reference_checkpoint, decoded beam 3 bf16 at B=384
+     with every kernel call held and phase 9's gate, and back through
+     tools.export_reference_checkpoint, the same bits.  Every launch
+     shape gets an entry ``<kernel>_<route>_{mid,dist,ref}_<shape>``.
 Then it prints one JSON line of per-kernel results (the beam shapes'
 launches as entries of their own, named ``..._beam``; BUTD's K2 and K3
 shapes as ``..._butd_<layer>``, NIC's and AoASpatial's K1, K2 and K3 shapes
@@ -2290,7 +2318,7 @@ def cli_kernel_entries(torch, calls, kernels, on_path, flush, tag,
                 "_int8" if int8 else "", route, where, rows, k, hd)
             shape = "m=%d K=%d V=%d%s k=%d" % (rows, hd, v,
                                                 " int8 W" if int8 else "", k)
-            where = ("fused_head.cu", "ops/fused_head.py:155")
+            files = ("fused_head.cu", "ops/fused_head.py:155")
         elif kind == "K2":
             w_cat, b_sum, x, h, c = a[:5]
             e, hd = x.shape[1], h.shape[1]
@@ -2308,7 +2336,7 @@ def cli_kernel_entries(torch, calls, kernels, on_path, flush, tag,
             lib = lambda: torch.lstm_cell(x, (h, c), *lib_w)  # noqa
             ename = "fused_lstm_cell_%s_%s_B%dE%dH%d" % (route, where, rows,
                                                         e, hd)
-            where = ("fused_lstm.cu", "ops/pallas_lstm.py:166")
+            files = ("fused_lstm.cu", "ops/pallas_lstm.py:166")
             shape = "B=%d E=%d H=%d" % (rows, e, hd)
         elif kind == "K3":
             x, qp = a[0], a[1]
@@ -2323,7 +2351,7 @@ def cli_kernel_entries(torch, calls, kernels, on_path, flush, tag,
             ename = "quant_matmul_%s_%s_m%dK%dn%d" % (route, where, rows, kk,
                                                     n)
             shape = "m=%d K=%d n=%d" % (rows, kk, n)
-            where = ("quant_matmul.cu", "ops/quant.py:105")
+            files = ("quant_matmul.cu", "ops/quant.py:105")
         else:
             q = a[0]
             nb, k, n, hd, heads = rows, last, key[5], key[6], key[7]
@@ -2335,7 +2363,7 @@ def cli_kernel_entries(torch, calls, kernels, on_path, flush, tag,
             ename = "int8_attention_%s_%s_B%dk%dN%d" % (route, where, nb, k,
                                                       n)
             shape = "B=%d k=%d N=%d D=%d heads=%d" % (nb, k, n, hd, heads)
-            where = ("int8_attention.cu", "ops/int8_attention.py:70")
+            files = ("int8_attention.cu", "ops/int8_attention.py:70")
         ms = time_ms(torch, lambda: run(*a, **kw), flush)
         device_ms = time_ms(torch, lambda: run(*a, **kw), flush,
                             lead=DEVICE_LEAD)
@@ -2344,8 +2372,8 @@ def cli_kernel_entries(torch, calls, kernels, on_path, flush, tag,
         b_ms, b_by = bound(nbytes, nops, rate_of.get(route, dn))
         full = "%s/%s" % (ename, dn)
         kernels[full] = dict(
-            name=full, route="cuda", source=src + where[0],
-            replaces="simpleimagecaptionzoo_tpu/" + where[1],
+            name=full, route="cuda", source=src + files[0],
+            replaces="simpleimagecaptionzoo_tpu/" + files[1],
             launches=0, max_abs_err=err, max_err=err, ms=ms, kernel_ms=ms,
             device_ms=device_ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=lib_ms, kernel_route=route,
@@ -2475,6 +2503,8 @@ def _tree_bits_equal(torch, a, b):
                 and all(_tree_bits_equal(torch, x, y) for x, y in zip(a, b)))
     if a is None or b is None:
         return a is None and b is None
+    if not hasattr(a, "dtype") or not hasattr(b, "dtype"):
+        return type(a) is type(b) and a == b         # a count, a step
     if a.dtype != b.dtype or a.shape != b.shape:
         return False
     if a.is_floating_point():
@@ -3414,6 +3444,868 @@ def drive_pixel_training(torch, args, dev, gen, smi, flush, kernels,
     require(not failed, "phase 20: %d of its runs failed: %s"
             % (len(failed), " | ".join(failed)))
     return out
+
+
+
+# -- phase 21: mid-epoch resume, data parallel, reference checkpoints ------
+PHASE21_S = 120.0             # phase 21's share of the script's time limit
+MID_SAVE_STEPS = 2            # --midepoch_save_steps of (a)
+MID_KILL = [2, 2]             # (a): killed once epoch 2's point after step 2
+DP_B, DP_PX_B, DP_EVAL_B = 128, 64, 64   # (b): global batches
+DP_STEPS = 3                  # (b): XE and SCST steps a run
+DP_TOL = 1e-5                 # (b): first step's loss, gradients, BN stats
+DP_LOSS3_TOL = 1e-4           # (b): the losses after DP_STEPS steps
+# (b) from pixels: each BN layer's statistics against one process's run
+# on the whole batch, whose convolutions round otherwise (at 2 x 32 against
+# 64 the gap grows with depth: 1.2e-7 at the stem, 1.2e-5 at the last
+# layer, measured on one H100); DP_TOL holds them against the float64
+# statistics of the same activations over both processes
+DP_PX_TOL = 1e-4
+DP_PARTS = ["xe", "scst", "px", "eval"]  # (b): the runs of the gloo pair
+REF_B = 384                   # (c): the converted checkpoint's beam decode
+CHILD_S = 240                 # the longest a child of phase 21 may take
+
+
+def _sync(torch):
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _host_bytes(torch, tree):
+    """A tree's tensors as one host bytes string (leaves in order)."""
+    import numpy as np
+    from simpleimagecaptionzoo_tpu_torch.engine.optim import tree_leaves
+    parts = []
+    for t in tree_leaves(tree):
+        if isinstance(t, torch.Tensor):
+            t = t.detach().cpu().contiguous()
+            if t.dtype == torch.bfloat16:
+                t = t.view(torch.int16)
+            parts.append(t.numpy().tobytes())
+        elif t is not None:
+            parts.append(np.asarray(t).tobytes())
+    return b"".join(parts)
+
+
+def _grad_gap(torch, got, want):
+    """(largest leaf's ||got - want||, the whole difference's norm) over
+    the norm of the whole ``want`` gradient (every leaf).  A leaf's own
+    norm is no yardstick: AoA's key-bias gradients are zero but for
+    rounding."""
+    from simpleimagecaptionzoo_tpu_torch.engine.optim import tree_leaves
+    norm2, diff2, worst = 0.0, 0.0, 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        d = float(((g.double() - w.double()) ** 2).sum())
+        norm2 += float((w.double() ** 2).sum())
+        diff2 += d
+        worst = max(worst, d)
+    return math.sqrt(worst / norm2), math.sqrt(diff2 / norm2)
+
+
+def dp_inputs(torch, seed, dev, dims):
+    """(b)'s model, params and global batches, the same on every process
+    (drawn from ``seed`` on ``dev``): AoADetection at ``dims`` (FULL on
+    the card), XE captions of 3-22 tokens with the last 3 rows fillers,
+    SCST references (7 of 6-20 ids an image) with their reward table (their
+    own n-grams), BUTDSpatial from pixels, and the eval's box features."""
+    import numpy as np
+    from simpleimagecaptionzoo_tpu_torch.config import (ModelConfig,
+                                                        TrainConfig,
+                                                        load_model_config)
+    from simpleimagecaptionzoo_tpu_torch.models.base import get_captioner
+    from simpleimagecaptionzoo_tpu_torch.ops import cider
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    rng = np.random.default_rng(seed + 21)
+    model = get_captioner(ModelConfig(**dims["aoa"]))
+    params = model.init_params(gen)
+    v, enc = model.config.vocab_size, model.config.enc_dim
+    nb, b, t = dims["n_box"], dims["b"], dims["t"]
+    caps = rng.integers(4, v, size=(b, t))
+    caps[:, 0] = 1
+    lens = rng.integers(3, t + 1, size=(b,))
+    for i, n in enumerate(lens):
+        caps[i, n - 1] = 2
+        caps[i, n:] = 0
+    weight = np.ones((b,), np.float32)
+    weight[-3:] = 0.0
+
+    def boxes(n):
+        return {"bu_feats": torch.relu(torch.randn(n, nb, enc, generator=gen,
+                                                   device=dev)),
+                "bu_masks": torch.ones(n, nb, device=dev)}
+    xe = {"visual": boxes(b), "captions": torch.from_numpy(caps).to(dev),
+          "lengths": torch.from_numpy(lens).to(dev),
+          "sample_weight": torch.from_numpy(weight).to(dev)}
+    tc = TrainConfig()
+    r, lr = tc.scst_num_refs, tc.scst_max_ref_len
+    rlens = rng.integers(6, 21, size=(b, r))
+    rids = np.zeros((b, r, lr), np.int64)
+    for i in range(b):
+        for j in range(r):
+            rids[i, j, :rlens[i, j]] = rng.integers(4, v, rlens[i, j])
+    table = cider.CiderDTable.from_ref_corpus(
+        [[rids[i, j, :rlens[i, j]].tolist() for j in range(r)]
+         for i in range(b)])
+    td = table.device_arrays(dev)
+    ref_ids = torch.from_numpy(rids).to(dev)
+    ref_lens = torch.from_numpy(rlens).to(dev)
+    scst = {"visual": boxes(b), "ref_ids": ref_ids, "ref_lens": ref_lens,
+            "ref_norms": cider.ref_norms_device(td, table.probe, ref_ids,
+                                                ref_lens),
+            "sample_weight": torch.from_numpy(weight).to(dev)}
+    px_model = get_captioner(load_model_config(
+        os.path.join(HERE, "Configs", "Models", "BUTDSpatial.json"),
+        vocab_size=v, **dims.get("px", {})))
+    px_params = px_model.init_params(gen, include_cnn=True)
+    px_state = px_model.init_model_state()
+    pb = dims["px_b"]
+    pcaps = torch.from_numpy(caps[:pb].copy()).to(dev)
+    px = {"visual": {"img_tensors": photo_batch(torch, gen, pb, dims["side"],
+                                                dev)},
+          "captions": pcaps, "lengths": torch.from_numpy(lens[:pb]).to(dev)}
+    ev = boxes(dims["eval_b"])
+    return dict(model=model, params=params, xe=xe, scst=scst, td=td,
+                probe=table.probe, px_model=px_model, px_params=px_params,
+                px_state=px_state, px=px, eval=ev)
+
+
+def _rows(torch, tree, rank, world):
+    if isinstance(tree, dict):
+        return {k: _rows(torch, v, rank, world) for k, v in tree.items()}
+    per = tree.shape[0] // world
+    return tree[rank * per:(rank + 1) * per]
+
+
+def dp_run(torch, inp, dev, rank, world, parts, lr=TRAIN_LR, held=None,
+           profiled=False, gate=None):
+    """(b)'s runs as process ``rank`` of ``world`` (a process group when
+    ``world`` > 1 or NCCL; none for the reference), each on this process's
+    rows of the global batches of :func:`dp_inputs`: ``xe`` (Adam, dropout
+    at the published rates, scheduled sampling at 0.25), ``scst`` (its
+    rollout draws), ``px`` (BUTDSpatial XE from pixels, a float32
+    train-mode trunk, BN_MOMENTUM 1 so the new statistics are the batch's;
+    each BN layer's beside the float64 statistics of its own activations
+    over every process),
+    ``eval`` (beam 3, float32, the ids all-gathered).  The first XE and
+    SCST step's gradient (as the step hands it to its optimizer) is kept;
+    ``held`` (a list) collects the calls of the first steps and the decode
+    that broke their hold (engine/holds.held_calls); with ``profiled`` the
+    last two steps run under torch.profiler.  The runs go px, eval, XE,
+    SCST; ``gate`` (a callable) is called once before the first timed
+    steps, which can so wait for a quiet card.  -> the readings."""
+    import zlib
+    import numpy as np
+    from simpleimagecaptionzoo_tpu_torch import parallel
+    from simpleimagecaptionzoo_tpu_torch.engine import holds, optim, steps
+    from simpleimagecaptionzoo_tpu_torch.engine.state import TrainState
+    from simpleimagecaptionzoo_tpu_torch.models import resnet
+    from torch.profiler import ProfilerActivity, profile
+    out = {"held_calls": 0}
+
+    def held_ctx(shapes):
+        if held is None:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(holds.held_calls(held))
+        stack.enter_context(holds.recording_shapes(shapes))
+        return stack
+
+    def capturing(tx):
+        handed = []
+
+        def update(g, s, p):
+            if not handed:
+                handed.append(optim.tree_map(lambda t: t.detach().clone(), g))
+            return tx.update(g, s, p)
+        return optim.GradientTransformation(tx.init, update), handed
+
+    def train(kind, make, batch, call):
+        tx, handed = capturing(optim.make_grad_transform("Adam", 0.1))
+        step = make(tx)
+        state = TrainState.create(inp["params"], tx)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        losses, shapes = [], []
+        with held_ctx(shapes):
+            state, met = call(step, state, batch, gen)
+        out["held_calls"] += len(shapes)
+        losses.append(float(met["loss"]))
+        _sync(torch)
+        if gate is not None and not out.get("gated"):
+            gate()
+            out["gated"] = True
+        prof = None
+        if profiled:
+            acts = [ProfilerActivity.CPU]
+            if dev.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            prof = profile(activities=acts)
+            prof.__enter__()
+        t0 = time.perf_counter()
+        for _ in range(DP_STEPS - 1):
+            state, met = call(step, state, batch, gen)
+            losses.append(float(met["loss"]))
+        _sync(torch)
+        secs = time.perf_counter() - t0
+        res = {"losses": losses, "grads": handed[0],
+               "ms_per_step": 1e3 * secs / (DP_STEPS - 1),
+               "params_crc": zlib.crc32(_host_bytes(torch, state.params))}
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            ev = [e for e in prof.key_averages()
+                  if e.key == "parallel.all_reduce_sum"]
+            res["all_reduce_ms_per_step"] = (
+                sum(e.cpu_time_total for e in ev) / 1e3 / (DP_STEPS - 1))
+        if world > 1 or parallel.process_count() > 1:
+            res["params_agree"] = parallel.processes_agree(np.array(
+                [res["params_crc"]], np.int64))
+        out[kind] = res
+
+    if "px" in parts:
+        saved = (resnet.BN_MOMENTUM, resnet.apply.__defaults__)
+        resnet.BN_MOMENTUM = 1.0
+        resnet.apply.__defaults__ = (torch.float32, False)
+        try:
+            m, p = inp["px_model"], inp["px_params"]
+            tx = optim.make_grad_transform("Adam", 0.1)
+            step = steps.make_xe_train_step(m, tx, m.param_labels(p), 0.1,
+                                            ss_active=False, device=dev)
+            shapes, exact = [], []
+            bn = resnet._bn
+
+            def exact_bn(x, pp, st, train=False):
+                """resnet._bn, and the gap of its statistics from the
+                float64 ones of the same activations over every process"""
+                y, new_st = bn(x, pp, st, train)
+                if train:
+                    with torch.no_grad():
+                        xd = x.detach().double()
+                        n = (x.shape[0] * x.shape[2] * x.shape[3]
+                             * parallel.process_count())
+                        mean = parallel.global_sum(xd.sum(dim=(0, 2, 3))) / n
+                        var = parallel.global_sum(((xd - mean[:, None, None])
+                                                   ** 2).sum(dim=(0, 2, 3)))
+                        var = var / max(n - 1, 1)      # the unbiased one
+                        exact.append(max(
+                            float((new_st[k].double() - w).norm() / w.norm())
+                            for k, w in (("mean", mean), ("var", var))))
+                return y, new_st
+            resnet._bn = exact_bn
+            try:
+                with held_ctx(shapes):
+                    new, met = step(TrainState.create(p, tx,
+                                                      inp["px_state"]),
+                                    _rows(torch, inp["px"], rank, world),
+                                    torch.Generator(device=dev).manual_seed(
+                                        7), 0.0, lr, lr)
+            finally:
+                resnet._bn = bn
+            out["held_calls"] += len(shapes)
+            out["px"] = {"loss": float(met["loss"]), "exact_gap": max(exact),
+                         "n_bn": len(exact),
+                         "stats": new.model_state["cnn_stats"]}
+            if world > 1:
+                out["px"]["stats_agree"] = parallel.processes_agree(
+                    np.array([zlib.crc32(_host_bytes(
+                        torch, new.model_state["cnn_stats"]))], np.int64))
+        finally:
+            resnet.BN_MOMENTUM, resnet.apply.__defaults__ = saved
+    if "eval" in parts:
+        fn = steps.make_beam_decode(inp["model"], beam_size=BEAM,
+                                    max_steps=MAX_LEN, device=dev)
+        shapes = []
+        with held_ctx(shapes):
+            ids = fn(inp["params"], {}, _rows(torch, inp["eval"], rank,
+                                              world))
+        out["held_calls"] += len(shapes)
+        ids = parallel.host_read(ids)
+        out["eval"] = {"ids": ids}
+        if world > 1:
+            out["eval"]["ids_agree"] = parallel.processes_agree(ids)
+    labels = inp["model"].param_labels(inp["params"])
+    if "xe" in parts:
+        train("xe", lambda tx: steps.make_xe_train_step(
+            inp["model"], tx, labels, 0.1, ss_active=True, device=dev),
+            _rows(torch, inp["xe"], rank, world),
+            lambda st, s, b, g: st(s, b, g, TRAIN_SS, lr, 0.0))
+    if "scst" in parts:
+        train("scst", lambda tx: steps.make_scst_train_step(
+            inp["model"], tx, labels, inp["td"], inp["probe"], MAX_LEN,
+            device=dev), _rows(torch, inp["scst"], rank, world),
+            lambda st, s, b, g: st(s, b, g, lr, 0.0))
+    return out
+
+
+def dp_compare(torch, got, ref, tag):
+    """(b)'s gates: ``got`` (a data-parallel run's readings on process 0)
+    against ``ref`` (one process on the whole batches)."""
+    meas = {}
+    for kind in ("xe", "scst"):
+        if kind not in got:
+            continue
+        g, r = got[kind], ref[kind]
+        worst, whole = _grad_gap(torch, g["grads"], r["grads"])
+        d1 = abs(g["losses"][0] - r["losses"][0])
+        d3 = max(abs(a - b) for a, b in zip(g["losses"], r["losses"]))
+        require(d1 <= DP_TOL * abs(r["losses"][0]) and worst <= DP_TOL
+                and d3 <= DP_LOSS3_TOL * abs(r["losses"][0])
+                and g.get("params_agree", True),
+                "%s %s: first loss %.7g against %.7g, a leaf's gradient %.3g "
+                "and the whole %.3g of the gradient's norm off (tol %g), the "
+                "losses of %d steps up to %.3g apart, params agree %s"
+                % (tag, kind, g["losses"][0], r["losses"][0], worst, whole,
+                   DP_TOL, DP_STEPS, d3, g.get("params_agree")))
+        meas[kind] = dict(first_loss=g["losses"][0],
+                          ref_first_loss=r["losses"][0],
+                          grad_leaf_gap=worst, grad_gap=whole,
+                          loss_gap_3=d3, ms_per_step=g["ms_per_step"],
+                          steps_per_s=1e3 / g["ms_per_step"],
+                          all_reduce_ms_per_step=g.get(
+                              "all_reduce_ms_per_step"))
+    if "px" in got:
+        from simpleimagecaptionzoo_tpu_torch.engine.optim import tree_leaves
+        gaps = []
+        for a, b in zip(tree_leaves(got["px"]["stats"]),
+                        tree_leaves(ref["px"]["stats"])):
+            gaps.append(float((a.double() - b.double()).norm()
+                              / b.double().norm().clamp_min(1e-30)))
+        dl = abs(got["px"]["loss"] - ref["px"]["loss"])
+        require(got["px"]["exact_gap"] <= DP_TOL and max(gaps) <= DP_PX_TOL
+                and dl <= DP_TOL * abs(ref["px"]["loss"])
+                and got["px"]["stats_agree"],
+                "%s px: BN batch statistics up to %.3g of their norm from the "
+                "float64 ones of the same activations (tol %g), up to %.3g "
+                "from one process's (tol %g; in the trunk's order: %s), loss "
+                "%.7g against %.7g, the processes' running statistics agree "
+                "%s" % (tag, got["px"]["exact_gap"], DP_TOL, max(gaps),
+                        DP_PX_TOL, ["%.2g" % g for g in gaps],
+                        got["px"]["loss"], ref["px"]["loss"],
+                        got["px"]["stats_agree"]))
+        meas["px"] = dict(exact_gap=got["px"]["exact_gap"],
+                          n_bn=got["px"]["n_bn"], stats_gap=max(gaps),
+                          stats_gap_first=gaps[0], n_stats=len(gaps),
+                          loss=got["px"]["loss"], ref_loss=ref["px"]["loss"])
+    if "eval" in got:
+        same = bool((got["eval"]["ids"] == ref["eval"]["ids"]).all())
+        require(got["eval"]["ids_agree"] and same,
+                "%s eval: the processes' captions agree %s, equal to one "
+                "process's %s" % (tag, got["eval"]["ids_agree"], same))
+        meas["eval"] = dict(rows=int(got["eval"]["ids"].shape[0]))
+    return meas
+
+
+def dp_child(argv):
+    """``chip_smoke.py --phase21-dp CASE RANK WORLD STORE OUT``: one
+    process of (b) on the card (cuda:0).  Process 0, before the group
+    starts, also runs the one-process reference on the whole batches (its
+    kernel calls recorded); then the group (CASE's backend, a FileStore at
+    STORE) runs the case's parts, every kernel call of the first steps and
+    the decode held against its plain version, its timed steps once the
+    parent has written CASE's ``go`` file, and process 0 gates them
+    against the reference, makes the recorded calls' entries of the
+    kernels line (``where`` dist) and writes its readings to OUT (json)."""
+    case_path, rank, world, store, out_path = argv
+    rank, world = int(rank), int(world)
+    with open(case_path) as f:
+        case = json.load(f)
+    import torch
+    from simpleimagecaptionzoo_tpu_torch import parallel
+    from simpleimagecaptionzoo_tpu_torch.device import resolve_device
+    dev = resolve_device(case["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    inp = dp_inputs(torch, case["seed"], dev, case["dims"])
+    ref, calls = None, KernelCalls()
+    if rank == 0:
+        with calls.recording(torch):
+            ref = dp_run(torch, inp, dev, 0, 1, case["parts"])
+    if case["profiled"]:
+        # the profiler's first start sets up its tracing for seconds: not
+        # inside a timed step, where the other process would wait for it
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                         if dev.type == "cuda" else [])
+        with profile(activities=acts):
+            torch.ones(1, device=dev).add_(1)
+    parallel.configure_collective_timeout(90)
+    parallel.init_process_group(case["backend"], world, rank,
+                                store=torch.distributed.FileStore(store,
+                                                                  world))
+    def gate():
+        """wait for the parent's word that the card is quiet"""
+        t0 = time.time()
+        while not os.path.exists(case["go"]):
+            require(time.time() - t0 < CHILD_S, "phase 21 (b): no word")
+            time.sleep(0.05)
+
+    broken = []
+    got = dp_run(torch, inp, dev, rank, world, case["parts"], held=broken,
+                 profiled=case["profiled"], gate=gate)
+    require(not broken, "phase 21 (b) process %d: %d kernel calls broke "
+            "their hold (first: %s)" % (rank, len(broken), broken[:1]))
+    res = {"held_calls": got["held_calls"], "rank": rank}
+    if rank == 0:
+        tag = "phase 21 (b) %s x %d" % (case["backend"], world)
+        if case.get("bits"):
+            # one process under the group against none: the same bits
+            for kind in ("xe",):
+                same = (got[kind]["losses"][0] == ref[kind]["losses"][0]
+                        and _tree_bits_equal(torch, got[kind]["grads"],
+                                             ref[kind]["grads"]))
+                require(same, "%s %s: the first step's loss or gradient "
+                        "differs from the run without a process group"
+                        % (tag, kind))
+            res["bit_identical"] = True
+        else:
+            res["measured"] = dp_compare(torch, got, ref, tag)
+    torch.distributed.destroy_process_group()
+    if rank == 0 and case.get("entries") and dev.type == "cuda":
+        # an entry for each K1 and K2 launch shape of the one-process run
+        # (K2's backward has (a)'s at these widths), made once the group's
+        # work is done
+        flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32,
+                            device=dev)
+        kernels, on_path = {}, set()
+        cli_kernel_entries(torch, calls, kernels, on_path, flush,
+                           "phase 21 dist", where="dist", phase="phase 21",
+                           kinds=("K1", "K2"))
+        res["kernels"] = kernels
+    with open(out_path, "w") as f:
+        json.dump(res, f, default=float)
+    return 0
+
+
+def _state_digest(torch, eng):
+    """What (a) compares of a finished run: sha1 of its params' bytes and
+    of its optimizer state's (the moments and the count, at the last
+    epoch's end), the step count, its CIDEr history and its resume
+    points' records."""
+    import hashlib
+    st = eng.last_state
+    with open(eng.ckpt._histories(eng._scst_run)) as f:
+        cider = json.load(f)["cider_his"]
+    return {"params": hashlib.sha1(_host_bytes(
+        torch, eng.tree["params"])).hexdigest(),
+        "opt": hashlib.sha1(_host_bytes(torch, st.opt_state)).hexdigest(),
+        "step": int(st.step), "cider": cider,
+        "saves": list(eng.midepoch_saves)}
+
+
+def run_cli(torch, argv, scst):
+    """The port's CLI in this process (the current directory holds the
+    dataset) -> its engine."""
+    from simpleimagecaptionzoo_tpu_torch import main as cli
+    from simpleimagecaptionzoo_tpu_torch.engine import model_engines
+    made, orig = [], model_engines.get_engine
+
+    def get_engine(*a, **kw):
+        made.append(orig(*a, **kw))
+        made[-1]._scst_run = scst
+        return made[-1]
+    model_engines.get_engine = get_engine
+    try:
+        rc = cli.main(cli.build_argparser().parse_args(argv))
+    finally:
+        model_engines.get_engine = orig
+    _sync(torch)
+    require(rc == 0 and made, "phase 21 (a): main returned %s" % rc)
+    return made[0]
+
+
+def cli_child(argv):
+    """``chip_smoke.py --phase21-cli SPEC``: the port's CLI (SPEC's argv, in
+    SPEC's directory).  With SPEC's ``kill`` (epoch, steps done) the process
+    SIGKILLs itself once that mid-epoch resume point has committed (its
+    background write joined): the interruption of (a); else it writes the
+    finished run's :func:`_state_digest` to SPEC's ``out``."""
+    import signal
+    with open(argv[0]) as f:
+        spec = json.load(f)
+    os.chdir(spec["cwd"])
+    import torch
+    from simpleimagecaptionzoo_tpu_torch.engine.engine import Engine
+    if spec.get("kill"):
+        save = Engine._save_midepoch
+
+        def save_then_die(self, state, epoch, steps_done, **kw):
+            save(self, state, epoch, steps_done, **kw)
+            if [epoch, steps_done] == spec["kill"]:
+                self._midepoch_join()
+                _sync(torch)
+                os.kill(os.getpid(), signal.SIGKILL)
+        Engine._save_midepoch = save_then_die
+    eng = run_cli(torch, spec["argv"], spec["scst"])
+    if spec.get("kill"):
+        return 3                 # the kill never came
+    with open(spec["out"], "w") as f:
+        json.dump(_state_digest(torch, eng), f)
+    return 0
+
+
+def _child(args, log_path):
+    """A child process of this script (its output to ``log_path``), two
+    host threads for its operators (phase 21 runs up to six at once on the
+    card's host)."""
+    with open(log_path, "w") as log_f:
+        return subprocess.Popen([sys.executable, os.path.abspath(__file__)]
+                                + args, stdout=log_f,
+                                stderr=subprocess.STDOUT, cwd=HERE,
+                                env=dict(os.environ, OMP_NUM_THREADS="2"))
+
+
+def _wait(proc, log_path, what, timeout, want=0):
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    if rc != want:
+        with open(log_path) as f:
+            sys.stdout.write(f.read()[-6000:])
+    require(rc == want, "phase 21 %s: the child exited %s, not %s"
+            % (what, rc, want))
+
+
+def _run_dir(root, name, ds):
+    """A directory for one CLI run of (a): the dataset's Configs, Data and
+    modified_annotations linked in; its own CheckPoints and results."""
+    d = os.path.join(root, name)
+    os.makedirs(d)
+    for sub in ("Configs", "Data", "modified_annotations"):
+        os.symlink(os.path.join(ds, sub), os.path.join(d, sub))
+    return d
+
+
+def drive_phase21(torch, args, dev, flush, kernels, on_path, model, params,
+                  dims=None, models=None, gpu="0"):
+    """Phase 21.  (a) Mid-epoch resume through the port's CLI (phase 18's
+    dataset, AoADetection at full width, B=128, 4 steps an epoch,
+    --midepoch_save_steps 2, 2 epochs): XE float32 and bf16 and SCST
+    float32, each run uninterrupted in a child process and again in another
+    one SIGKILLed once epoch 2's resume point after step 2 committed (the
+    six children at once), then resumed here with --start_from checkpoint:
+    the final params, the optimizer's moments and the step count
+    bit-identical (sha1 of their bytes, :func:`_state_digest`), the CIDEr
+    history equal; the saves' ms on the loop and in the background and
+    their bytes (the uninterrupted children's, six processes sharing the
+    card).  (b) Data parallel (children started once (a)'s are done,
+    sharing cuda:0 with (a)'s resumes and (c); their timed steps wait until
+    the parent is done with those and the entries, and has timed one
+    process's steps at (b)'s shapes alone): 2 processes under gloo at 2 x 64 against one
+    process x 128 (XE with scheduled sampling,
+    SCST; 3 steps each), BUTDSpatial XE from pixels at 2 x 32 and eval
+    beam 3 at 2 x 32 (:func:`dp_compare`); 1 process under NCCL, its first
+    XE step bit-identical to the run without a group.  (c) A
+    reference-shaped AoADetection state_dict (random weights from --seed)
+    through tools/convert_reference_checkpoint, decoded beam 3 bf16 at
+    B=384 with every kernel call held and phase 9's gate
+    (:func:`drive_reference`), and back through
+    tools/export_reference_checkpoint: the same bits.  Every kernel call
+    of the resumed runs, of (b)'s one-process run and of (c)'s decode is
+    recorded (``where`` mid, dist, ref) and gets its entry.
+
+    ``dims`` (the model, batch and image sizes of (b)), ``models`` (the
+    model configs of (a)) and ``gpu`` (--gpu_id of the CLI and the tools)
+    default to the card's run at full width; a rehearsal on the CPU at
+    small sizes passes its own."""
+    import signal
+    import tempfile
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="chip_smoke_p21_")
+    cwd = os.getcwd()
+    out = {"a": {}, "b": {}, "c": {}}
+    rec = {w: KernelCalls() for w in ("mid", "ref")}
+    models = models or os.path.join(HERE, "Configs", "Models") + os.sep
+    try:
+        ds = os.path.join(root, "ds")
+        os.makedirs(ds)
+        write_cli_dataset(torch, ds, args.seed, dev)
+        out["dataset_s"] = time.time() - t_phase
+
+        # -- (a): six children at once, then the resumes here
+        t_a = time.time()
+        base = ["--dataset", "Flickr8K", "--model_type", "AoADetection",
+                "--model_config_root", models, "--use_bu", "fixed",
+                "--train_batch_size", str(CLI_B), "--scst_train_batch_size",
+                str(CLI_B), "--eval_batch_size", str(CLI_EVAL_B),
+                "--tqdm_visible", "False", "--seed", str(args.seed),
+                "--midepoch_save_steps", str(MID_SAVE_STEPS), "--gpu_id",
+                gpu]
+        xe = ["--operation", "train", "--num_epochs", "2"]
+        runs = {"xe_f32": base + xe,
+                "xe_bf16": base + xe + ["--train_dtype", "bfloat16"],
+                "scst_f32": base + ["--operation", "scst_train",
+                                    "--scst_num_epochs", "2"]}
+        kids = []
+        for name in runs:
+            for kind in ("ref", "kill"):
+                d = _run_dir(root, "%s_%s" % (name, kind), ds)
+                spec = os.path.join(root, "%s_%s.json" % (name, kind))
+                with open(spec, "w") as f:
+                    json.dump({"cwd": d, "argv": runs[name],
+                               "scst": name.startswith("scst"),
+                               "kill": MID_KILL if kind == "kill" else None,
+                               "out": d + ".digest.json"}, f)
+                log_path = d + ".log"
+                kids.append((name, kind, d, log_path, _child(
+                    ["--phase21-cli", spec], log_path)))
+        for name, kind, d, log_path, proc in kids:
+            _wait(proc, log_path, "(a) %s %s" % (name, kind), CHILD_S,
+                  want=-signal.SIGKILL if kind == "kill" else 0)
+        # -- (b): the gloo pair and the NCCL process, started once (a)'s
+        # children are done, beside (a)'s resumes, (c) and the entries;
+        # their timed steps wait for the parent's word (a quiet card)
+        t_b = time.time()
+        go = os.path.join(root, "go")
+        dims = dims or dict(aoa=FULL, n_box=N_BOX, b=DP_B, t=TRAIN_T,
+                            px_b=DP_PX_B, side=224, eval_b=DP_EVAL_B)
+        groups = [("gloo", 2, DP_PARTS, False)]
+        if dev.type == "cuda":
+            groups.append(("nccl", 1, ["xe"], True))
+        procs = []
+        for name, world, parts, bits in groups:
+            case = os.path.join(root, name + ".json")
+            with open(case, "w") as f:
+                json.dump({"seed": args.seed, "dims": dims, "parts": parts,
+                           "backend": name, "bits": bits,
+                           "entries": name == "gloo",
+                           "device": "cuda:0" if dev.type == "cuda"
+                           else "cpu", "profiled": name == "gloo",
+                           "go": go}, f)
+            for r in range(world):
+                log_path = os.path.join(root, "%s%d.log" % (name, r))
+                res_path = os.path.join(root, "%s%d.json" % (name, r))
+                procs.append((name, r, res_path, log_path, _child(
+                    ["--phase21-dp", case, str(r), str(world),
+                     os.path.join(root, name + ".store"), res_path],
+                    log_path)))
+        for name, argv in runs.items():
+            scst = name.startswith("scst")
+            d = os.path.join(root, name + "_kill")
+            with open(os.path.join(
+                    d, "CheckPoints", "Model_AoADetection_Dataset_Flickr8K",
+                    "cp", "midepoch_%sstate.json" % ("scst_" if scst
+                                                     else ""))) as f:
+                m = json.load(f)
+            require([m["epoch"], m["steps_done"]] == MID_KILL,
+                    "phase 21 (a) %s: the resume point on disk is %s"
+                    % (name, m))
+            os.chdir(d)
+            try:
+                with rec["mid"].recording(torch):
+                    eng = run_cli(torch, argv + ["--start_from",
+                                                 "checkpoint"], scst)
+                got = _state_digest(torch, eng)
+            finally:
+                os.chdir(cwd)
+            del eng
+            with open(os.path.join(root, name + "_ref.digest.json")) as f:
+                want = json.load(f)
+            same = {k: got[k] == want[k]
+                    for k in ("params", "opt", "step", "cider")}
+            require(all(same.values()), "phase 21 (a) %s: the resumed run "
+                    "against the uninterrupted one, equal: %s" % (name, same))
+            saves = want["saves"]
+            out["a"][name] = dict(
+                resumed_bit_identical=True, steps=want["step"],
+                saves=saves, save_loop_ms=[x["loop_ms"] for x in saves],
+                save_background_ms=[x.get("background_ms") for x in saves],
+                checkpoint_bytes=[x.get("bytes") for x in saves])
+            log("phase 21 (a) %s: killed at epoch %d step %d, resumed: "
+                "params, moments, step %d and CIDEr history identical to "
+                "the uninterrupted run's; its saves %s" % (
+                    name, MID_KILL[0], MID_KILL[1], want["step"],
+                    json.dumps(saves)))
+        out["a"]["seconds"] = time.time() - t_a
+        log("phase 21 (a) took %.1f s" % out["a"]["seconds"])
+
+        # -- (c)
+        t_c = time.time()
+        with rec["ref"].recording(torch):
+            out["c"] = drive_reference(torch, args, dev, root, model, params,
+                                       rec["ref"], gpu)
+        out["c"]["seconds"] = time.time() - t_c
+
+        # every kernel call of (a)'s resumes and (c): an entry for each
+        # launch shape (kernels launch on the card alone)
+        out["kernel_entries"] = []
+        for where, calls in rec.items():
+            if dev.type != "cuda":
+                continue
+            require(calls.count, "phase 21: no kernel call recorded (%s)"
+                    % where)
+            out["kernel_entries"] += cli_kernel_entries(
+                torch, calls, kernels, on_path, flush, "phase 21 " + where,
+                where=where, phase="phase 21")
+        # one process's XE and SCST steps at (b)'s shapes, timed alone on
+        # the card, then the word: (b)'s timed steps run
+        inp = dp_inputs(torch, args.seed, dev, dims)
+        alone = dp_run(torch, inp, dev, 0, 1, ["xe", "scst"])
+        del inp
+        with open(go, "w"):
+            pass
+        for name, r, res_path, log_path, proc in procs:
+            _wait(proc, log_path, "(b) %s process %d" % (name, r),
+                  CHILD_S)
+            with open(res_path) as f:
+                got = json.load(f)
+            require(got["held_calls"] > 0 or dev.type != "cuda",
+                    "phase 21 (b) %s process %d held no kernel call"
+                    % (name, r))
+            for ename, entry in got.pop("kernels", {}).items():
+                kernels[ename] = entry
+                on_path.add(ename)
+            out["b"].setdefault(name, {})[r] = got
+        out["b"]["seconds"] = time.time() - t_b
+        for kind in ("xe", "scst"):
+            m = out["b"]["gloo"][0]["measured"][kind]
+            m["one_process_ms_per_step"] = alone[kind]["ms_per_step"]
+            m["two_over_one"] = (alone[kind]["ms_per_step"]
+                                 / m["ms_per_step"])
+        log("phase 21 (b): %s" % json.dumps(out["b"]))
+
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.time() - t_phase
+    log("phase 21 took %.1f s (dataset %.1f, a %.1f, b %.1f, c %.1f)"
+        % (out["seconds"], out["dataset_s"], out["a"]["seconds"],
+           out["b"]["seconds"], out["c"]["seconds"]))
+    require(out["seconds"] <= PHASE21_S, "phase 21 took %.1f s, over its "
+            "%.0f s" % (out["seconds"], PHASE21_S))
+    return out
+
+
+def reference_state_dict(torch, model, params, seed):
+    """A reference-shaped state_dict of ``model`` (the keys and shapes the
+    reference's modules hold, convert_reference.export_state_dict's) with
+    random float32 weights from ``seed``, drawn as the reference's modules
+    draw them at init: a Linear's weight and bias, and weight_norm's v,
+    U(-1/sqrt(in), 1/sqrt(in)) with g each row's norm; an LSTMCell's
+    U(-1/sqrt(H), 1/sqrt(H)); the embedding U(-0.1, 0.1) (AoA's re-init);
+    LayerNorm gains 1 and biases 0; the prediction head's bias 0."""
+    from simpleimagecaptionzoo_tpu_torch import convert_reference as CR
+    shapes = {k: v.shape for k, v in CR.export_state_dict(
+        params, None, model.config.model_type).items()}
+    gen = torch.Generator().manual_seed(seed + 2121)
+
+    def uniform(shape, bound):
+        return (torch.rand(shape, generator=gen) * 2 - 1) * bound
+
+    sd = {}
+    for k in sorted(shapes):
+        shape, pre = shapes[k], k.rsplit(".", 1)[0]
+        if k.endswith("weight_g"):
+            continue
+        if pre + ".gain" in shapes:                  # a LayerNorm
+            sd[k] = torch.ones(shape) if k.endswith(".gain") \
+                else torch.zeros(shape)
+        elif "embed" in k:
+            sd[k] = uniform(shape, 0.1)
+        elif k.endswith(("_ih", "_hh")):             # an LSTMCell
+            sd[k] = uniform(shape, 1 / math.sqrt(shape[0] // 4))
+        elif k == "decoder.predict.bias":
+            sd[k] = torch.zeros(shape)
+        else:                                        # a Linear
+            w = shapes.get(pre + ".weight", shapes.get(pre + ".weight_v"))
+            sd[k] = uniform(shape, 1 / math.sqrt(w[1]))
+    for k in shapes:
+        if k.endswith("weight_g"):
+            sd[k] = sd[k[:-1] + "v"].norm(dim=1, keepdim=True)
+    return sd
+
+
+def drive_reference(torch, args, dev, root, model, params, calls, gpu="0"):
+    """(c): :func:`reference_state_dict` of AoADetection at full width,
+    saved as a reference ``.pth``, through
+    ``tools.convert_reference_checkpoint.main`` (--gpu_id 0) into the
+    port's checkpoint, loaded onto the card, decoded beam 3 bf16 at B=384
+    (10-36 valid boxes) through the kernels: once with the plain versions,
+    once through the kernels (recorded in ``calls``), once with every kernel
+    call held against its plain version, and phase 9's gate (the kernel
+    run's winners rescored by the plain step within holds.beam_tol of the
+    plain run's); then ``tools.export_reference_checkpoint.main`` writes
+    it back, and the two state_dicts are the same bits."""
+    from simpleimagecaptionzoo_tpu_torch import STA_ID
+    from simpleimagecaptionzoo_tpu_torch.engine import holds, steps
+    from simpleimagecaptionzoo_tpu_torch.engine.checkpoint import \
+        CheckpointManager
+    from simpleimagecaptionzoo_tpu_torch.tools import (
+        convert_reference_checkpoint, export_reference_checkpoint)
+    sd = reference_state_dict(torch, model, params, args.seed)
+    src = os.path.join(root, "Captioner_cp.pth")
+    torch.save(sd, src)
+    ck = os.path.join(root, "ref_ckpt")
+    with calls.paused():
+        rc = convert_reference_checkpoint.main(
+            ["--pth", src, "--model_type", "AoADetection", "--dataset",
+             "Flickr8K", "--checkpoint_root", ck, "--gpu_id", gpu])
+    require(rc == 0, "phase 21 (c): the converter returned %s" % rc)
+    tree, _, _ = CheckpointManager("AoADetection", "Flickr8K",
+                                   root=ck).load(
+        {"params": params, "model_state": {"cnn_stats": None}})
+    require(tree is not None, "phase 21 (c): no converted checkpoint")
+    prm = tree["params"]
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 2122)
+    cfg = model.config
+    valid = torch.randint(min(10, cfg.max_bu_len), cfg.max_bu_len + 1,
+                          (REF_B,), generator=gen, device=dev)
+    masks = (torch.arange(cfg.max_bu_len, device=dev)[None]
+             < valid[:, None]).float()
+    visual = {"bu_feats": torch.relu(torch.randn(
+        REF_B, cfg.max_bu_len, cfg.enc_dim, generator=gen, device=dev))
+        * masks[..., None], "bu_masks": masks}
+    bf = torch.bfloat16
+    fn = steps.make_beam_decode(model, beam_size=BEAM, max_steps=MAX_LEN,
+                                dtype=bf, device=dev)
+    with calls.paused(), holds.plain_versions():
+        ref_ids = fn(prm, {}, visual)
+    t0 = time.perf_counter()
+    ids = fn(prm, {}, visual)
+    _sync(torch)
+    secs = time.perf_counter() - t0
+    broken = []
+    with calls.paused(), holds.held_calls(broken):
+        fn(prm, {}, visual)
+        margin = holds.rescored_margin(model, prm, visual, ids, ref_ids, bf,
+                                       dev, {})
+    _sync(torch)
+    require(not broken, "phase 21 (c): %d kernel calls of the converted "
+            "checkpoint's decode broke their hold (first: %s)"
+            % (len(broken), broken[:1]))
+    tol = holds.beam_tol(bf, MAX_LEN)
+    passed, rows_same = holds.beam_gate(False, ids, ref_ids, margin, tol)
+    require(passed and bool((ids[:, 0] == STA_ID).all()),
+            "phase 21 (c): the converted checkpoint's beam-3 bf16 winners "
+            "score %.4f below the plain run's (tol %.4f)"
+            % (-float(margin.min()), tol))
+    mc = os.path.join(root, "AoADetection.json")
+    with open(mc, "w") as f:
+        json.dump({k: getattr(cfg, k) for k in FULL if k != "vocab_size"}, f)
+    back_path = os.path.join(root, "back.pth")
+    with calls.paused():
+        rc = export_reference_checkpoint.main(
+            ["--model_config", mc, "--vocab_size", str(cfg.vocab_size),
+             "--dataset", "Flickr8K", "--checkpoint_root", ck, "--out",
+             back_path, "--gpu_id", gpu])
+    require(rc == 0, "phase 21 (c): the exporter returned %s" % rc)
+    back = torch.load(back_path, map_location="cpu", weights_only=True)
+    differ = [k for k in sd if k not in back or back[k].dtype != sd[k].dtype
+              or not torch.equal(back[k], sd[k])]
+    require(sorted(back) == sorted(sd) and not differ,
+            "phase 21 (c): the exported state_dict differs from the one "
+            "converted: %d keys differ (%s), %d keys against %d"
+            % (len(differ), differ[:3], len(back), len(sd)))
+    n = sum(int(v.numel()) for v in sd.values())
+    log("phase 21 (c): a reference state_dict of %d keys (%d parameters) "
+        "converted, beam 3 bf16 at B=%d: rows identical to the plain run "
+        "%.4f, the winners' least margin %.4f (tol %.4f), %.1f captions/s; "
+        "exported back, the same bits" % (len(sd), n, REF_B, rows_same,
+                                           float(margin.min()), tol,
+                                           REF_B / secs))
+    return dict(keys=len(sd), parameters=n, rows_identical=rows_same,
+                min_margin=float(margin.min()), tol=tol,
+                captions_per_s=REF_B / secs, round_trip_bit_identical=True)
 
 
 def main(argv=None) -> int:
@@ -5442,10 +6334,16 @@ def main(argv=None) -> int:
         log("-- phases 19-20 took %.1f s (phase 19 %.1f)"
             % (s1920, results["serve"]["seconds"]["total"]))
 
-    results["seconds"] = time.time() - t_start
-    log("-- phases 2-20 took %.1f s" % results["seconds"])
     require(s1920 <= PHASES_19_20_S, "phases 19-20 took %.1f s, over their "
             "%.0f s" % (s1920, PHASES_19_20_S))
+
+    log("-- phase 21 at %.1f s" % (time.time() - t_start))
+    # -- 21. mid-epoch resume, data parallel, reference checkpoints ---------
+    results["scale_out"] = drive_phase21(torch, args, dev, flush, kernels,
+                                         on_path, model, params)
+
+    results["seconds"] = time.time() - t_start
+    log("-- phases 2-21 took %.1f s" % results["seconds"])
     missing = [k for k in on_path if not kernels[k].get("launches")]
     require(not missing, "kernels not launched on the main path: %s"
             % missing)
@@ -5466,4 +6364,8 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--phase21-cli":
+        sys.exit(cli_child(sys.argv[2:]))
+    if len(sys.argv) > 1 and sys.argv[1] == "--phase21-dp":
+        sys.exit(dp_child(sys.argv[2:]))
     sys.exit(main())

@@ -375,9 +375,9 @@ class _ProcessShard:
 
     Every process walks the SAME epoch order (identical seeds) and
     materializes only rows ``[index*B/P, (index+1)*B/P)`` of each global
-    batch.  The port's engine runs one process (``count=1``, the plain
-    path); the partition is kept so its batches equal the JAX package's
-    per process."""
+    batch: the engine of a data-parallel run passes its process's index
+    and the process count (``parallel``), one process the plain path; its
+    batches equal the JAX package's per process."""
 
     def __init__(self, batch_size: int, index: int = 0, count: int = 1):
         if count < 1 or not (0 <= index < count):

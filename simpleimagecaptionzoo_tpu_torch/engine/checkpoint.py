@@ -12,11 +12,19 @@ the other's files:
 The SCST best record is ``best_scst_score_record.json`` on both sides, as in
 the JAX package (the reference writes one name and reads another,
 Engine.py:243 vs :77).  Only params and model_state are saved: the
-optimizer is rebuilt every epoch (Engine.py:135-138).  The JAX package's
-step-level (mid-epoch) checkpoints are not ported.
+optimizer is rebuilt every epoch (Engine.py:135-138).  The step-level
+(mid-epoch) resume point, with the JAX package's file names, also carries
+the optimizer's moments:
+
+        cp/midepoch_[scst_]cp.e<E>s<S>.msgpack  params, model_state, opt_state
+        cp/midepoch_[scst_]state.json           the resume point (epoch,
+                                                steps done, the generator's
+                                                state, the step count, the
+                                                run's fingerprint); its
+                                                rename is the commit point
 
 The weights file is flax's msgpack state dict, written and read here with
-``msgpack`` alone (:func:`to_bytes`, :func:`from_bytes`): a dict stays a map
+``msgpack`` alone (:func:`write_tree` / :func:`to_bytes`, :func:`from_bytes`): a dict stays a map
 keyed by its keys (sorted), a list becomes a map keyed ``"0"``, ``"1"``, ... (AoA's
 ``refine``), None is nil, and an array is ``ExtType(1, packb((shape,
 dtype name, C-order bytes)))``; a bf16 tensor is written under the name
@@ -37,23 +45,34 @@ _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3      # flax's _MsgpackExtType codes
 MAX_CHUNK_SIZE = 2 ** 30
 
 
-def _leaf_bytes(shape, name: str, raw: bytes) -> bytes:
+def _sized(small: int, codes, n: int) -> bytes:
+    """A msgpack length header: ``small`` byte-wide lengths from
+    ``codes[0]``, then 2 and 4 bytes (big-endian)."""
+    for code, width in zip(codes, (small, 2, 4)):
+        if n < 1 << (8 * width):
+            return bytes([code]) + n.to_bytes(width, "big")
+    raise ValueError("msgpack: %d bytes is too long" % n)
+
+
+def _write_leaf(f, code: int, a: np.ndarray, name: str) -> None:
+    """One array as flax writes it, ``ExtType(code, packb((shape, dtype
+    name, C-order bytes)))``, its bytes written straight from the array
+    (no copy of the data)."""
     import msgpack
-    if len(raw) > MAX_CHUNK_SIZE:
+    if a.nbytes > MAX_CHUNK_SIZE:
         raise ValueError(
             "a checkpoint leaf of shape %s (%d bytes) exceeds flax's chunk "
             "size %d; the port writes no chunked leaves"
-            % (tuple(shape), len(raw), MAX_CHUNK_SIZE))
-    return msgpack.packb((tuple(shape), name, raw), use_bin_type=True)
-
-
-def _tensor_bytes(t: torch.Tensor) -> bytes:
-    t = t.detach().cpu().contiguous()
-    if t.dtype == torch.bfloat16:       # numpy has no bf16: carry the bits
-        return _leaf_bytes(t.shape, "bfloat16",
-                           t.view(torch.int16).numpy().tobytes("C"))
-    a = t.numpy()
-    return _leaf_bytes(a.shape, a.dtype.name, a.tobytes("C"))
+            % (a.shape, a.nbytes, MAX_CHUNK_SIZE))
+    head = (b"\x93" + msgpack.packb(tuple(a.shape))
+            + msgpack.packb(name, use_bin_type=True)
+            + _sized(1, (0xc4, 0xc5, 0xc6), a.nbytes))
+    n = len(head) + a.nbytes
+    fixed = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+    ext = (bytes([fixed[n]]) if n in fixed
+           else _sized(1, (0xc7, 0xc8, 0xc9), n))
+    f.write(ext + bytes([code]) + head)
+    f.write(memoryview(a.reshape(-1).view(np.uint8)))
 
 
 def _state_dict(tree):
@@ -68,22 +87,47 @@ def _state_dict(tree):
     return tree
 
 
+def write_tree(f, tree: Any) -> None:
+    """Write to the binary file ``f`` the bytes
+    ``flax.serialization.to_bytes`` writes for ``tree`` (nested dicts and
+    lists of tensors, numpy arrays, ints or None), each array's data
+    straight from its host copy."""
+    import msgpack
+    packer = msgpack.Packer(strict_types=True)
+
+    def rec(x):
+        if isinstance(x, dict):
+            f.write(packer.pack_map_header(len(x)))
+            for k, v in x.items():
+                f.write(packer.pack(k))
+                rec(v)
+        elif isinstance(x, torch.Tensor):
+            t = x.detach().cpu().contiguous()
+            if t.dtype == torch.bfloat16:   # numpy has no bf16: the bits
+                _write_leaf(f, _EXT_NDARRAY, t.view(torch.int16).numpy(),
+                            "bfloat16")
+            else:
+                a = t.numpy()
+                _write_leaf(f, _EXT_NDARRAY, a, a.dtype.name)
+        elif isinstance(x, (np.ndarray, np.generic)):
+            a = np.ascontiguousarray(x)
+            _write_leaf(f, _EXT_NDARRAY if isinstance(x, np.ndarray)
+                        else _EXT_NPSCALAR, a, a.dtype.name)
+        elif x is None or type(x) in (bool, int, float, str):
+            f.write(packer.pack(x))
+        else:
+            raise TypeError("cannot write %r to a checkpoint" % type(x))
+
+    rec(_state_dict(tree))
+
+
 def to_bytes(tree: Any) -> bytes:
     """``tree`` (nested dicts and lists of tensors, numpy arrays or None)
     -> the bytes ``flax.serialization.to_bytes`` writes for it."""
-    import msgpack
-
-    def ext(x):
-        if isinstance(x, torch.Tensor):
-            return msgpack.ExtType(_EXT_NDARRAY, _tensor_bytes(x))
-        if isinstance(x, (np.ndarray, np.generic)):
-            a = np.ascontiguousarray(x)
-            return msgpack.ExtType(
-                _EXT_NDARRAY if isinstance(x, np.ndarray) else _EXT_NPSCALAR,
-                _leaf_bytes(a.shape, a.dtype.name, a.tobytes("C")))
-        raise TypeError("cannot write %r to a checkpoint" % type(x))
-
-    return msgpack.packb(_state_dict(tree), default=ext, strict_types=True)
+    import io
+    buf = io.BytesIO()
+    write_tree(buf, tree)
+    return buf.getvalue()
 
 
 def _leaf_from(data: bytes) -> torch.Tensor:
@@ -176,29 +220,33 @@ class CheckpointManager:
 
     # -- save ----------------------------------------------------------------
     @staticmethod
-    def _atomic_write(path: str, data, binary: bool) -> None:
+    def _atomic_write(path: str, data, binary: bool) -> int:
         """tmp + os.replace: a crash mid-write leaves the previous complete
-        file, not a truncated one."""
+        file, not a truncated one.  ``binary``: ``data`` is a tree, written
+        by :func:`write_tree`; else json.  -> the bytes written."""
         tmp = "%s.tmp.%d" % (path, os.getpid())
         if binary:
             with open(tmp, "wb") as f:
-                f.write(data)
+                write_tree(f, data)
+                n = f.tell()
         else:
             with open(tmp, "w") as f:
                 json.dump(data, f)
+                n = f.tell()
         os.replace(tmp, path)
+        return n
 
     def save(self, tree: Any, cider_history: list, scst: bool = False) -> None:
         """Latest checkpoint + cider history (reference save_checkpoint,
         Engine.py:81-88).  ``tree`` = {'params':..., 'model_state':...}."""
-        self._atomic_write(self._weights(self.cp_dir, scst), to_bytes(tree),
+        self._atomic_write(self._weights(self.cp_dir, scst), tree,
                            binary=True)
         self._atomic_write(self._histories(scst),
                            {"cider_his": list(map(float, cider_history))},
                            binary=False)
 
     def save_best(self, tree: Any, cider: float, scst: bool = False) -> None:
-        self._atomic_write(self._weights(self.best_dir, scst), to_bytes(tree),
+        self._atomic_write(self._weights(self.best_dir, scst), tree,
                            binary=True)
         self._atomic_write(self._best_record(scst), {"cider": float(cider)},
                            binary=False)
@@ -234,6 +282,82 @@ class CheckpointManager:
                   "proceeding with the CURRENT (e.g. freshly initialized) "
                   "weights." % ("scst " if scst else "", self.cp_dir))
         return tree, cider_his, len(cider_his) + 1
+
+    # -- mid-epoch (crash tolerance beyond the reference) --------------------
+    def _midepoch_prefix(self, scst: bool) -> str:
+        return "midepoch_%s" % ("scst_" if scst else "")
+
+    def _midepoch_meta(self, scst: bool) -> str:
+        return os.path.join(self.cp_dir,
+                            self._midepoch_prefix(scst) + "state.json")
+
+    def save_midepoch(self, tree: Any, meta: dict, scst: bool = False) -> int:
+        """tree = {'params', 'model_state', 'opt_state'}; meta = {'epoch',
+        'steps_done', ...} (json-serializable).  -> the weights file's bytes.
+
+        The weights land in a file of their own, named in the meta; the
+        meta's rename is the commit point, so a crash anywhere leaves the
+        previous meta naming its own complete weights."""
+        wname = "%scp.e%ds%d.msgpack" % (self._midepoch_prefix(scst),
+                                         int(meta["epoch"]),
+                                         int(meta["steps_done"]))
+        wpath = os.path.join(self.cp_dir, wname)
+        tmp = wpath + ".tmp"
+        with open(tmp, "wb") as f:
+            write_tree(f, tree)
+            n = f.tell()
+        os.replace(tmp, wpath)
+        mpath = self._midepoch_meta(scst)
+        tmp = mpath + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(dict(meta, weights=wname), f)
+        os.replace(tmp, mpath)          # commit point
+        self._prune_midepoch(scst, keep=wname)
+        return n
+
+    def _prune_midepoch(self, scst: bool, keep: Optional[str]) -> None:
+        """Remove the weights files of older resume points, and the
+        ``.msgpack.tmp`` left by a crash during a save."""
+        prefix = self._midepoch_prefix(scst) + "cp."
+        for name in os.listdir(self.cp_dir):
+            if (name.startswith(prefix)
+                    and (name.endswith(".msgpack")
+                         or name.endswith(".msgpack.tmp"))
+                    and name != keep):
+                try:
+                    os.remove(os.path.join(self.cp_dir, name))
+                except FileNotFoundError:
+                    pass
+
+    def midepoch_meta(self, scst: bool = False) -> Optional[dict]:
+        """The committed resume point's meta, or None."""
+        mpath = self._midepoch_meta(scst)
+        if not os.path.exists(mpath):
+            return None
+        with open(mpath) as f:
+            return json.load(f)
+
+    def load_midepoch(self, template: Any, scst: bool = False
+                      ) -> Tuple[Optional[Any], Optional[dict]]:
+        """(tree in ``template``'s structure, its tensors on the template
+        leaves' devices, meta), or (None, None) without a committed resume
+        point."""
+        meta = self.midepoch_meta(scst)
+        if meta is None:
+            return None, None
+        wpath = os.path.join(self.cp_dir, meta.get("weights", ""))
+        if not os.path.isfile(wpath):
+            return None, None
+        with open(wpath, "rb") as f:
+            tree = from_bytes(template, f.read())
+        return tree, meta
+
+    def clear_midepoch(self, scst: bool = False) -> None:
+        try:
+            os.remove(self._midepoch_meta(scst))
+        except FileNotFoundError:
+            pass                        # another process already cleared it
+        self._prune_midepoch(scst, keep=None)
 
     def history_best(self, scst: bool = False) -> float:
         """Best val CIDEr across all runs (reference load_history_best_score,

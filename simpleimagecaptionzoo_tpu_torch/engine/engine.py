@@ -13,9 +13,16 @@
 
 The steps and decodes are ``engine/steps``' (K1-K4 on the card).  The host
 loop schedules, feeds prefetched batches (pinned, copied without blocking),
-detokenizes and checkpoints.  The JAX package's multi-host and step-level
-(mid-epoch) machinery is not ported: one process drives one device, and
-``midepoch_save_steps`` must be 0.
+detokenizes and checkpoints.  Support machinery lives in mixins:
+``observe.py`` (logging, metrics, the profiler window), ``multihost.py``
+(the single writer and the checkpoint agreement of a data-parallel run),
+``midepoch.py`` (step-level resume points) and ``sample.py``.
+
+Data parallel (``parallel``): under a process group each process takes its
+rows of every global batch (the batchers' ``_ProcessShard``), the steps
+make the global batch's step of them, eval decodes its rows and all-gathers
+the ids so that every process scores the same result set, and process 0
+alone writes checkpoints and ``metrics.jsonl``, a barrier after each write.
 """
 from __future__ import annotations
 
@@ -37,10 +44,11 @@ from simpleimagecaptionzoo_tpu_torch.data.loader import Prefetcher
 from simpleimagecaptionzoo_tpu_torch.device import resolve_device
 from simpleimagecaptionzoo_tpu_torch.engine import steps as S
 from simpleimagecaptionzoo_tpu_torch.engine.checkpoint import CheckpointManager
+from simpleimagecaptionzoo_tpu_torch.engine.midepoch import MidEpochMixin
+from simpleimagecaptionzoo_tpu_torch.engine.multihost import MultiHostMixin
 from simpleimagecaptionzoo_tpu_torch.engine.observe import (
     ObservabilityMixin, sync)
-from simpleimagecaptionzoo_tpu_torch.engine.optim import (make_grad_transform,
-                                                          tree_map)
+from simpleimagecaptionzoo_tpu_torch.engine.optim import make_grad_transform
 from simpleimagecaptionzoo_tpu_torch.engine.sample import SampleMixin
 from simpleimagecaptionzoo_tpu_torch.engine.state import TrainState
 from simpleimagecaptionzoo_tpu_torch.evalcap.coco_eval import (
@@ -48,31 +56,24 @@ from simpleimagecaptionzoo_tpu_torch.evalcap.coco_eval import (
 from simpleimagecaptionzoo_tpu_torch.models.base import get_captioner
 from simpleimagecaptionzoo_tpu_torch.ops import cider as ops_cider
 from simpleimagecaptionzoo_tpu_torch.ops.cider import CiderDTable, RewardVocab
+from simpleimagecaptionzoo_tpu_torch.parallel import (barrier, get_mesh,
+                                                      host_read,
+                                                      place_params,
+                                                      process_count,
+                                                      process_index,
+                                                      replicate_tree,
+                                                      shard_batch, to_device)
 from simpleimagecaptionzoo_tpu_torch.vocab import Vocabulary
 
-
-def to_device(tree, device: torch.device):
-    """A host batch (nested dicts of numpy arrays) -> tensors on
-    ``device``: each array pinned and copied without blocking on a CUDA
-    device; integer arrays other than uint8 pixels become int64 (token ids,
-    lengths).  Lists (image ids) and scalars stay on the host."""
-    if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
-    if not isinstance(tree, np.ndarray):
-        return tree
-    a = np.ascontiguousarray(tree)
-    if a.dtype.kind in "iu" and a.dtype != np.uint8:
-        a = a.astype(np.int64)
-    t = torch.from_numpy(a)
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+__all__ = ["Engine", "to_device"]
 
 
-class Engine(ObservabilityMixin, SampleMixin):
+class Engine(ObservabilityMixin, MultiHostMixin, MidEpochMixin, SampleMixin):
     """One engine per (model config, dataset) on one device (``"cuda"`` by
     default; ``"cuda:<i>"`` picks a card, ``"cpu"`` runs the plain
-    versions of the kernels).  Subclasses override
+    versions of the kernels), and one per process of a data-parallel run
+    (``parallel.get_mesh``: the process group started before it).
+    Subclasses override
     :meth:`show_additional_rlt` for attention visualization — the
     reference's extension hook (Engine.py:341).
 
@@ -80,7 +81,10 @@ class Engine(ObservabilityMixin, SampleMixin):
     seconds, steps/sec without the first step), ``epoch_losses`` /
     ``epoch_rewards`` (per step), ``last_eval`` (captions, seconds of the
     decode loop), ``last_coco_eval_s``, ``last_save_s`` (the epoch's
-    checkpoint writes) and ``last_load_s``."""
+    checkpoint writes), ``last_load_s``, ``midepoch_saves`` (each
+    resume point's ms on the loop and in the background, and its bytes)
+    and ``last_state`` (the TrainState at the last epoch's end: params,
+    the optimizer's moments, the step count)."""
 
     def __init__(self, model_config: ModelConfig, data_config: DataConfig,
                  vocab: Vocabulary,
@@ -94,15 +98,10 @@ class Engine(ObservabilityMixin, SampleMixin):
         if self.device.type == "cuda" and self.device.index is not None:
             # the kernels launch on the current card's stream
             torch.cuda.set_device(self.device)
+        self.mesh = get_mesh(self.device)
         self.cfg = model_config
         self.data_cfg = data_config
         self.train_cfg = train_config or TrainConfig()
-        if self.train_cfg.midepoch_save_steps:
-            raise ValueError(
-                "midepoch_save_steps=%d: the port has no step-level "
-                "checkpoints yet (ROADMAP.md, slice 7: engine/midepoch.py); "
-                "use 0, epoch-boundary checkpoints"
-                % self.train_cfg.midepoch_save_steps)
         self.vocab = vocab
         self.use_bu = use_bu  # 'fixed' | 'adaptive' | None
         self.verbose = verbose
@@ -114,7 +113,9 @@ class Engine(ObservabilityMixin, SampleMixin):
                                       root=checkpoint_root)
         # one generator for the run: init's draws, then every step's
         # dropout; each step's sampling draws come from it and the step
-        # count (steps.draw_generator_for)
+        # count (steps.draw_generator_for).  Every process seeds it alike,
+        # and each draw takes the global batch's shape, so the processes'
+        # generators stay in step
         self._gen = torch.Generator(device=self.device).manual_seed(
             self.train_cfg.seed)
         params = self.model.init_params(self._gen,
@@ -125,11 +126,15 @@ class Engine(ObservabilityMixin, SampleMixin):
         self._decoders: dict = {}
         self._capdata_cache: dict = {}
         self.profile_dir = profile_dir or None
+        self.midepoch_saves: List[dict] = []
 
     # ------------------------------------------------------------------ utils
     def _place(self):
-        self.tree = tree_map(lambda t: t if t is None else t.to(self.device),
-                             self.tree)
+        """The tree on the engine's device, process 0's values on every
+        process."""
+        self.tree = {"params": place_params(self.mesh, self.tree["params"]),
+                     "model_state": replicate_tree(self.mesh,
+                                                   self.tree["model_state"])}
 
     def _visual_source(self, needs_images: Optional[bool] = None
                        ) -> _VisualSource:
@@ -228,7 +233,8 @@ class Engine(ObservabilityMixin, SampleMixin):
         capdata = self._capdata(split)
         batches = CaptionEvalBatches(
             capdata, self._visual_source(),
-            batch_size or self.train_cfg.eval_batch_size, split)
+            batch_size or self.train_cfg.eval_batch_size, split,
+            process_index=process_index(), process_count=process_count())
         decode = self._decoder(eval_beam_size)
         results: List[dict] = []
         n_captions = 0
@@ -240,7 +246,11 @@ class Engine(ObservabilityMixin, SampleMixin):
         def drain(entry):
             nonlocal n_captions
             ids, g_ids, g_real = entry
-            ids = ids.cpu().numpy()                  # sync point
+            # the global batch's ids on every process (this process's rows
+            # all-gathered), the image ids and the real-row count from the
+            # batcher's global_* fields, which every process derives alike;
+            # global row j is real iff j < global n_real
+            ids = host_read(ids)                     # sync point
             for j in range(int(g_real)):
                 words = self.vocab.decode_ids(ids[j])
                 results.append({"image_id": int(g_ids[j]),
@@ -250,7 +260,7 @@ class Engine(ObservabilityMixin, SampleMixin):
         decode_params = (self.tree["params"] if full_precision
                          else self._decode_params())
         for batch in Prefetcher(batches.epoch).epoch():
-            visual = to_device(batch["visual"], self.device)
+            visual = shard_batch(self.mesh, batch["visual"])
             ids_dev = decode(decode_params, self.tree["model_state"], visual)
             pending.append((ids_dev, batch["global_img_ids"],
                             batch["global_n_real"]))
@@ -274,22 +284,35 @@ class Engine(ObservabilityMixin, SampleMixin):
 
     def _save_epoch(self, cider: float, best_cider: float,
                     history_best: float, cider_scores: List[float],
-                    scst: bool) -> bool:
-        """The per-epoch checkpoint: best (when ``cider`` beats this run's
-        best and every run's), then latest.  True when ``cider`` is this
-        run's new best."""
+                    scst: bool, mid_on: bool) -> bool:
+        """The per-epoch checkpoint, by process 0: best (when ``cider``
+        beats this run's best and every run's), then latest; then the
+        epoch's resume point goes (after the save in flight, if any), and a
+        barrier makes the writes durable before any process reads them.
+        True when ``cider`` is this run's new best."""
         t0 = time.perf_counter()
         better = cider > best_cider
-        if better and cider > history_best:
-            self.ckpt.save_best(self.tree, cider, scst=scst)
-        self.ckpt.save(self.tree, cider_scores, scst=scst)
+        if self._is_writer:
+            host = self._host_tree()
+            if better and cider > history_best:
+                self.ckpt.save_best(host, cider, scst=scst)
+            self.ckpt.save(host, cider_scores, scst=scst)
+        if mid_on:
+            self._midepoch_join()       # never clear under a save in flight
+            if self._is_writer:
+                self.ckpt.clear_midepoch(scst=scst)
+        barrier("%s_epoch_ckpt" % ("scst" if scst else "xe"))
         self.last_save_s = time.perf_counter() - t0
         return better
 
-    def _load_into_tree(self, scst: bool, best: bool):
+    def _load_into_tree(self, scst: bool, best: bool, tag: str = "load"):
+        """Load a checkpoint into ``self.tree``; with several processes,
+        check that every process loaded the same one."""
         t0 = time.perf_counter()
         tree, cider_his, start_epoch = self.ckpt.load(self.tree, scst=scst,
                                                       best=best)
+        self._check_multihost_ckpt(
+            tree, () if best else (start_epoch, len(cider_his)), tag)
         if tree is not None:
             self.tree = tree
             self._place()
@@ -300,7 +323,20 @@ class Engine(ObservabilityMixin, SampleMixin):
     def training(self, start_from: str = "scratch",
                  num_epochs: Optional[int] = None,
                  eval_beam_size: int = -1) -> List[float]:
-        """XE training (reference Engine.py:91-167)."""
+        """XE training (reference Engine.py:91-167).  Every way out joins
+        the mid-epoch save in flight, so even an interrupt leaves the
+        newest completed resume point on disk."""
+        try:
+            out = self._training_impl(start_from, num_epochs,
+                                      eval_beam_size)
+        except BaseException:
+            self._midepoch_join(raise_error=False)
+            raise
+        self._midepoch_join()
+        return out
+
+    def _training_impl(self, start_from: str, num_epochs: Optional[int],
+                       eval_beam_size: int) -> List[float]:
         tc = self.train_cfg
         num_epochs = num_epochs or tc.num_epochs
         history_best = self.ckpt.history_best(scst=False)
@@ -309,8 +345,8 @@ class Engine(ObservabilityMixin, SampleMixin):
         cider_scores: List[float] = []
         start_epoch = 1
         if start_from == "checkpoint":
-            cider_scores, start_epoch = self._load_into_tree(scst=False,
-                                                             best=False)
+            cider_scores, start_epoch = self._load_into_tree(
+                scst=False, best=False, tag="XE resume")
         else:
             self._log("training from scratch")
         best_cider = max(cider_scores) if cider_scores else 0.0
@@ -335,12 +371,19 @@ class Engine(ObservabilityMixin, SampleMixin):
         batches = CaptionTrainBatches(capdata, self.vocab,
                                       self._visual_source(),
                                       tc.train_batch_size,
-                                      tc.max_caption_len, seed=tc.seed)
+                                      tc.max_caption_len, seed=tc.seed,
+                                      process_index=process_index(),
+                                      process_count=process_count())
+        mid_on = self._midepoch_enabled()
+        resume_opt, resume_skip, resume_step = self._midepoch_start(
+            start_from, tx, start_epoch, False, len(batches))
         state = TrainState.create(self.tree["params"], tx,
                                   model_state=self.tree["model_state"])
         # the step count seeds each step's sampling draws: a resumed run
-        # goes on from where the finished epochs left it
-        state = state.replace(step=(start_epoch - 1) * len(batches))
+        # goes on from where the finished epochs (or the resume point)
+        # left it
+        state = state.replace(step=(start_epoch - 1) * len(batches)
+                              if resume_step is None else resume_step)
 
         cnn_ft_enabled = False
         for epoch in range(start_epoch, num_epochs + 1):
@@ -354,28 +397,42 @@ class Engine(ObservabilityMixin, SampleMixin):
                                ss_prob > 0.0)
             self._log(f"— epoch {epoch}: lr={lr:.6f} cnn_ft_lr={cnn_lr:.6f} "
                       f"ss_prob={ss_prob:.2f}")
-            # fresh optimizer each epoch (reference Engine.py:135-138)
-            state = state.reset_optimizer(tx)
+            if resume_opt is not None and epoch == start_epoch:
+                # resumed mid-epoch: the saved moments replace the epoch's
+                # fresh optimizer
+                state = state.replace(opt_state=resume_opt)
+                resume_opt = None
+            else:
+                # fresh optimizer each epoch (reference Engine.py:135-138)
+                state = state.reset_optimizer(tx)
+            skip = resume_skip if epoch == start_epoch else 0
             t0 = time.perf_counter()
             t_work = None             # stamped after step 1 (kernel builds)
+            n_steps = skip            # the position within the epoch
             n_exec = 0
             self.epoch_losses = []
             monitor = self._monitor(
                 Prefetcher(functools.partial(batches.epoch,
-                                             epoch_index=epoch)).epoch(),
-                len(batches), f"XE epoch {epoch}")
+                                             epoch_index=epoch,
+                                             skip_batches=skip)).epoch(),
+                len(batches) - skip, f"XE epoch {epoch}")
             # loss readback lags 2 steps, so the host does not wait for the
             # device every step
             pending: List = []
             for batch in monitor:
-                batch = to_device(batch, self.device)
+                batch = shard_batch(self.mesh, batch)
                 state, metrics = step_fn(state, batch, self._gen,
                                          ss_prob, lr, cnn_lr)
                 if t_work is None:
                     sync(self.device)
                     t_work = time.perf_counter()
+                n_steps += 1
                 n_exec += 1
                 self._profile_window(n_exec)
+                if (mid_on and n_steps % tc.midepoch_save_steps == 0
+                        and n_steps < len(batches)):
+                    self._save_midepoch(state, epoch, n_steps, scst=False,
+                                        n_batches=len(batches))
                 pending.append(metrics["loss"])
                 if len(pending) > 2:
                     loss = float(pending.pop(0))
@@ -393,6 +450,7 @@ class Engine(ObservabilityMixin, SampleMixin):
             self._log(f"  {n_exec} steps in {dt:.1f}s "
                       f"({rate:.2f} steps/sec, first step excluded), "
                       f"mean loss {loss_sum / max(n_exec, 1):.4f}")
+            self.last_state = state
             self.tree = {"params": state.params,
                          "model_state": state.model_state}
             cider = self._score_val(eval_beam_size)
@@ -403,7 +461,7 @@ class Engine(ObservabilityMixin, SampleMixin):
                                "lr": lr, "cnn_lr": cnn_lr,
                                "ss_prob": ss_prob, "val_cider": cider})
             if self._save_epoch(cider, best_cider, history_best,
-                                cider_scores, scst=False):
+                                cider_scores, scst=False, mid_on=mid_on):
                 best_cider, best_epoch = cider, epoch
         self._log("Model of best epoch #:%d with CIDEr score %.3f"
                   % (best_epoch, best_cider))
@@ -413,7 +471,21 @@ class Engine(ObservabilityMixin, SampleMixin):
                       num_epochs: Optional[int] = None,
                       eval_beam_size: int = -1,
                       idf_cache: Optional[str] = None) -> List[float]:
-        """SCST self-critical fine-tune (reference Engine.py:191-249)."""
+        """SCST self-critical fine-tune (reference Engine.py:191-249).
+        Every way out joins the mid-epoch save in flight, as
+        :meth:`training`'s."""
+        try:
+            out = self._scst_training_impl(start_from, num_epochs,
+                                           eval_beam_size, idf_cache)
+        except BaseException:
+            self._midepoch_join(raise_error=False)
+            raise
+        self._midepoch_join()
+        return out
+
+    def _scst_training_impl(self, start_from: str,
+                            num_epochs: Optional[int], eval_beam_size: int,
+                            idf_cache: Optional[str]) -> List[float]:
         tc = self.train_cfg
         num_epochs = num_epochs or tc.scst_num_epochs
         history_best = self.ckpt.history_best(scst=True)
@@ -421,11 +493,12 @@ class Engine(ObservabilityMixin, SampleMixin):
         cider_scores: List[float] = []
         start_epoch = 1
         if start_from == "checkpoint":
-            cider_scores, start_epoch = self._load_into_tree(scst=True,
-                                                             best=False)
+            cider_scores, start_epoch = self._load_into_tree(
+                scst=True, best=False, tag="SCST resume")
         else:
             self._log("loading best XE checkpoint before SCST...")
-            self._load_into_tree(scst=False, best=True)
+            self._load_into_tree(scst=False, best=True,
+                                 tag="best-XE load before SCST")
         best_cider = max(cider_scores) if cider_scores else 0.0
         best_epoch = (cider_scores.index(best_cider) + 1) if cider_scores else 0
 
@@ -439,7 +512,9 @@ class Engine(ObservabilityMixin, SampleMixin):
                                           tc.scst_train_batch_size,
                                           num_refs=tc.scst_num_refs,
                                           max_ref_len=tc.scst_max_ref_len,
-                                          seed=tc.seed)
+                                          seed=tc.seed,
+                                          process_index=process_index(),
+                                          process_count=process_count())
         # the references' tf-idf norms are fixed per image: one device pass
         # here removes every reference idf lookup from the per-step reward
         # (ops/cider.py:ref_norms_device)
@@ -460,10 +535,17 @@ class Engine(ObservabilityMixin, SampleMixin):
                                          table.probe, tc.decode_max_len,
                                          compute_dtype=self._train_dtype(),
                                          device=self.device)
-        # SCST keeps ONE optimizer across epochs (Engine.py:211-217)
+        mid_on = self._midepoch_enabled()
+        resume_opt, resume_skip, resume_step = self._midepoch_start(
+            start_from, tx, start_epoch, True, len(batches))
+        # SCST keeps ONE optimizer across epochs (Engine.py:211-217), so
+        # the moments of a resume point simply replace the fresh ones
         state = TrainState.create(self.tree["params"], tx,
                                   model_state=self.tree["model_state"])
-        state = state.replace(step=(start_epoch - 1) * len(batches))
+        state = state.replace(step=(start_epoch - 1) * len(batches)
+                              if resume_step is None else resume_step)
+        if resume_opt is not None:
+            state = state.replace(opt_state=resume_opt)
         lr = tc.scst_learning_rate
         # SCST always finetunes the CNN (reference intent, Engine.py:208-209)
         cnn_lr = (tc.scst_cnn_finetune_learning_rate
@@ -472,23 +554,31 @@ class Engine(ObservabilityMixin, SampleMixin):
         for epoch in range(start_epoch, num_epochs + 1):
             self._log(f"— SCST epoch {epoch}: lr={lr:.6f} "
                       f"cnn_ft_lr={cnn_lr:.6f}")
+            skip = resume_skip if epoch == start_epoch else 0
             t0 = time.perf_counter()
             t_work = None
+            n_steps = skip
             n_exec = 0
             self.epoch_rewards = []
             monitor = self._monitor(
                 Prefetcher(functools.partial(batches.epoch,
-                                             epoch_index=epoch)).epoch(),
-                len(batches), f"SCST epoch {epoch}")
+                                             epoch_index=epoch,
+                                             skip_batches=skip)).epoch(),
+                len(batches) - skip, f"SCST epoch {epoch}")
             pending: List = []        # lagged readback (see the XE loop)
             for batch in monitor:
-                batch = to_device(batch, self.device)
+                batch = shard_batch(self.mesh, batch)
                 state, metrics = step_fn(state, batch, self._gen, lr, cnn_lr)
                 if t_work is None:
                     sync(self.device)
                     t_work = time.perf_counter()
+                n_steps += 1
                 n_exec += 1
                 self._profile_window(n_exec)
+                if (mid_on and n_steps % tc.midepoch_save_steps == 0
+                        and n_steps < len(batches)):
+                    self._save_midepoch(state, epoch, n_steps, scst=True,
+                                        n_batches=len(batches))
                 pending.append(metrics["reward"])
                 if len(pending) > 2:
                     reward = float(pending.pop(0))
@@ -506,6 +596,7 @@ class Engine(ObservabilityMixin, SampleMixin):
             self._log(f"  {n_exec} SCST steps in {dt:.1f}s "
                       f"({rate:.2f} steps/sec, first step excluded), "
                       f"mean reward {reward_sum / max(n_exec, 1):.4f}")
+            self.last_state = state
             self.tree = {"params": state.params,
                          "model_state": state.model_state}
             cider = self._score_val(eval_beam_size)
@@ -515,10 +606,25 @@ class Engine(ObservabilityMixin, SampleMixin):
                                "scst_steps_per_sec": rate,
                                "val_cider": cider})
             if self._save_epoch(cider, best_cider, history_best,
-                                cider_scores, scst=True):
+                                cider_scores, scst=True, mid_on=mid_on):
                 best_cider, best_epoch = cider, epoch
         self._log("Best SCST epoch #:%d CIDEr %.3f" % (best_epoch, best_cider))
         return cider_scores
+
+    def _midepoch_start(self, start_from: str, tx, start_epoch: int,
+                        scst: bool, n_batches: int):
+        """-> (opt_state or None, skip_batches, step or None): a resumed
+        run's resume point (:meth:`_try_resume_midepoch`); a run from
+        scratch clears a stale one first."""
+        if not self._midepoch_enabled():
+            return None, 0, None
+        if start_from == "checkpoint":
+            return self._try_resume_midepoch(tx, start_epoch, scst=scst,
+                                             n_batches=n_batches)
+        if self._is_writer:
+            self.ckpt.clear_midepoch(scst=scst)
+        barrier("%s_clear_midepoch" % ("scst" if scst else "xe"))
+        return None, 0, None
 
     def _cider_table(self, capdata: CaptionData, reward_vocab: RewardVocab,
                      cache: Optional[str]) -> CiderDTable:
@@ -548,8 +654,10 @@ class Engine(ObservabilityMixin, SampleMixin):
         table = CiderDTable.from_ref_corpus(corpus)
         if cache:
             os.makedirs(os.path.dirname(cache) or ".", exist_ok=True)
-            # atomic publish: np.savez truncates, then writes
-            tmp = cache + ".tmp.%d" % os.getpid()
+            # atomic publish: np.savez truncates, then writes, and every
+            # process of a data-parallel run writes (pids are unique per
+            # host only: the process index too)
+            tmp = cache + ".tmp.%d.%d" % (process_index(), os.getpid())
             with open(tmp, "wb") as f:
                 np.savez(f, h1=table.h1, h2=table.h2, df=table.df,
                          log_ref_len=table.log_ref_len,
@@ -562,7 +670,8 @@ class Engine(ObservabilityMixin, SampleMixin):
              eval_best: bool = True, eval_beam_size: int = -1,
              output_statics: bool = False) -> float:
         """(reference Engine.py:302-307)"""
-        self._load_into_tree(scst=eval_scst, best=eval_best)
+        self._load_into_tree(scst=eval_scst, best=eval_best,
+                             tag="eval checkpoint load")
         path = self._split_path(split)
         if not path:                      # validate BEFORE decoding the split
             raise ValueError(f"unknown or unconfigured eval split {split!r}")

@@ -3,7 +3,8 @@ window (the JAX package's ``engine/observe.py``).
 
 Everything here is host-side reporting around the training and eval loops,
 with no effect on the steps.  Mixin methods expect the Engine attributes
-``verbose`` / ``tqdm_visible`` / ``profile_dir`` / ``device`` / ``ckpt``.
+``verbose`` / ``tqdm_visible`` / ``profile_dir`` / ``device`` / ``ckpt``
+and ``_is_writer`` (``multihost.py``).
 """
 from __future__ import annotations
 
@@ -12,6 +13,9 @@ import os
 import time
 
 import torch
+
+from simpleimagecaptionzoo_tpu_torch.parallel import (process_count,
+                                                      process_index)
 
 
 def sync(device: torch.device) -> None:
@@ -41,7 +45,11 @@ class ObservabilityMixin:
             return iterable
 
     def _log_metrics(self, record: dict):
-        """Append a JSONL metrics record next to the checkpoints."""
+        """Append a JSONL metrics record next to the checkpoints (process 0
+        alone in a data-parallel run: every process holds the same
+        record)."""
+        if not self._is_writer:
+            return
         with open(os.path.join(self.ckpt.root_dir, "metrics.jsonl"),
                   "a") as f:
             f.write(json.dumps(record) + "\n")
@@ -65,7 +73,9 @@ class ObservabilityMixin:
         first training epoch that runs, written as a Chrome trace
         (``trace.json``).  Step 1 builds the kernels and step 2 is its warm
         shadow, so the window holds five steady steps; both boundaries wait
-        for the device, so no step's work leaks across them."""
+        for the device, so no step's work leaks across them.  With several
+        processes each writes into ``process_<index>/`` of the directory,
+        so that none overwrites another's trace."""
         if not self.profile_dir or self._profile_done:
             return
         if self._profiler is None and n_exec == 2:
@@ -87,8 +97,11 @@ class ObservabilityMixin:
         sync(self.device)
         prof, self._profiler = self._profiler, None
         prof.__exit__(None, None, None)
-        os.makedirs(self.profile_dir, exist_ok=True)
-        path = os.path.join(self.profile_dir, "trace.json")
+        out = self.profile_dir
+        if process_count() > 1:
+            out = os.path.join(out, "process_%d" % process_index())
+        os.makedirs(out, exist_ok=True)
+        path = os.path.join(out, "trace.json")
         prof.export_chrome_trace(path)
         self._profile_done = True
         self._log(f"  profiler trace (steps 3-7 or to the epoch's end) -> "

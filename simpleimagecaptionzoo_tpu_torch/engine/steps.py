@@ -28,6 +28,7 @@ from simpleimagecaptionzoo_tpu_torch.ops.cider import self_critical_reward
 from simpleimagecaptionzoo_tpu_torch.ops.losses import (label_smoothing_loss,
                                                         reward_criterion,
                                                         xe_mask_from_lengths)
+from simpleimagecaptionzoo_tpu_torch.parallel import all_reduce_sum
 
 
 def _cast_floats(tree, dtype: Optional[torch.dtype], device=None):
@@ -202,7 +203,14 @@ def make_xe_train_step(model: Captioner, tx, labels, smoothing: float = 0.1,
     out (the epochs before its schedule starts); with it on, the draws
     come from :func:`draw_generator_for` the step.  The ResNet's stem and
     layers 1-3 get no gradient; ``freeze_cnn`` stops it at ``layer4`` too
-    (:func:`_stop_cnn_grads`)."""
+    (:func:`_stop_cnn_grads`).
+
+    Under a process group ``batch`` is this process's rows of the global
+    batch (``parallel``): the loss divides by the global token count, every
+    draw is the global batch's, and one all-reduce a dtype sums the
+    gradients, the loss and the token count before the update, so every
+    process takes the step of the global batch and keeps the same params;
+    the returned loss and tokens are the global batch's."""
     dev = resolve_device(device)
 
     def step(state: TrainState, batch: Dict[str, Any],
@@ -223,9 +231,12 @@ def make_xe_train_step(model: Captioner, tx, labels, smoothing: float = 0.1,
             smoothing=smoothing, compute_dtype=compute_dtype,
             ss_active=ss_active, ss_generator=ss_generator)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = tree_unflatten(state.params, [
-            torch.zeros_like(p) if g is None else g
-            for p, g in zip(leaves, grads)])
+        # the global batch's gradient, loss and token count: summed over
+        # the processes in one buffer (the identity with one process)
+        *grads, loss, tokens = all_reduce_sum(
+            [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)] + [loss.detach(), tokens])
+        grads = tree_unflatten(state.params, grads)
         with torch.no_grad():
             updates, new_opt = tx.update(grads, state.opt_state,
                                          state.params)
@@ -233,7 +244,7 @@ def make_xe_train_step(model: Captioner, tx, labels, smoothing: float = 0.1,
                 state.params, updates, labels, lr_main, lr_cnn)
         new_state = state.replace(params=new_params, opt_state=new_opt,
                                   model_state=new_ms, step=state.step + 1)
-        return new_state, {"loss": loss.detach(), "tokens": tokens}
+        return new_state, {"loss": loss, "tokens": tokens}
 
     return step
 
@@ -330,7 +341,10 @@ def make_scst_train_step(model: Captioner, tx, labels, cider_table: dict,
     of ``tx`` and the partitioned update.  It returns a new
     :class:`TrainState` with step + 1 and the mean reward over the real
     rows.  ``compute_dtype=torch.bfloat16`` is mixed precision, as in
-    :func:`make_xe_train_step`."""
+    :func:`make_xe_train_step`.  Under a process group the step is the
+    global batch's, as :func:`make_xe_train_step`'s (the loss over the
+    global count, the draws the global batch's, the gradients, loss and
+    reward summed in one all-reduce a dtype)."""
     dev = resolve_device(device)
 
     def step(state: TrainState, batch: Dict[str, Any],
@@ -353,9 +367,16 @@ def make_scst_train_step(model: Captioner, tx, labels, cider_table: dict,
             draw_generator_for(generator, state.step, dev), max_len=max_len,
             compute_dtype=compute_dtype)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = tree_unflatten(state.params, [
-            torch.zeros_like(p) if g is None else g
-            for p, g in zip(leaves, grads)])
+        weight = batch.get("sample_weight")
+        n = (weight.sum() if weight is not None
+             else torch.tensor(float(reward.shape[0]), device=dev))
+        # the global batch's gradient, loss and reward: summed over the
+        # processes in one buffer (the identity with one process)
+        *grads, loss, reward_sum, n = all_reduce_sum(
+            [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+            + [loss.detach(), reward.detach().sum(), n.float()])
+        grads = tree_unflatten(state.params, grads)
         with torch.no_grad():
             updates, new_opt = tx.update(grads, state.opt_state,
                                          state.params)
@@ -363,10 +384,7 @@ def make_scst_train_step(model: Captioner, tx, labels, cider_table: dict,
                 state.params, updates, labels, lr_main, lr_cnn)
         new_state = state.replace(params=new_params, opt_state=new_opt,
                                   model_state=new_ms, step=state.step + 1)
-        weight = batch.get("sample_weight")
-        n = (weight.sum() if weight is not None
-             else torch.tensor(float(reward.shape[0]), device=dev))
-        return new_state, {"loss": loss.detach(),
-                           "reward": reward.detach().sum() / n.clamp_min(1.0)}
+        return new_state, {"loss": loss,
+                           "reward": reward_sum / n.clamp_min(1.0)}
 
     return step

@@ -31,6 +31,7 @@ from simpleimagecaptionzoo_tpu_torch.evalcap.meteor import Meteor
 from simpleimagecaptionzoo_tpu_torch.evalcap.rouge import Rouge
 from simpleimagecaptionzoo_tpu_torch.evalcap.spice import Spice
 from simpleimagecaptionzoo_tpu_torch.evalcap.tokenizer import PTBTokenizer
+from simpleimagecaptionzoo_tpu_torch.parallel import process_index
 
 
 class CocoEvalCap:
@@ -155,11 +156,11 @@ def coco_eval(results: List[dict], eval_caption_path: str,
     (COCO_Eval_Utils.py:15-35)."""
     os.makedirs(results_dir, exist_ok=True)
     res_file = os.path.join(results_dir, "captions-generate.json")
-    # atomic write: multi-host runs have every process score (identical)
+    # atomic write: a data-parallel run has every process score (identical)
     # results, so concurrent writers on a shared filesystem must not
-    # interleave partial contents; the port runs one process, whose index
-    # in the tmp name is 0 (the JAX package writes its process index there)
-    tmp = res_file + ".tmp.%d.%d" % (0, os.getpid())
+    # interleave partial contents; pids are unique per host only, so the
+    # tmp name carries the process index too
+    tmp = res_file + ".tmp.%d.%d" % (process_index(), os.getpid())
     with open(tmp, "w", encoding="utf-8") as f:
         json.dump(results, f)
     os.replace(tmp, res_file)

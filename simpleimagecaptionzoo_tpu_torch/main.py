@@ -10,6 +10,13 @@ same on-disk layout (``CheckPoints/``, ``coco_caption/results/``), so the
 two CLIs read each other's checkpoints.  ``--gpu_id`` picks the card as the
 reference does (``0`` is ``cuda:0``); ``--gpu_id cpu`` runs on the CPU with
 the kernels' plain versions.
+
+Data parallel over processes (``parallel``): under torchrun
+(``WORLD_SIZE`` > 1 in the environment) the process group starts before the
+engine is built, each process on ``cuda:$LOCAL_RANK`` under NCCL, or with
+``--gpu_id cpu`` every process on the CPU under gloo:
+
+    torchrun --nproc_per_node N -m simpleimagecaptionzoo_tpu_torch.main ...
 """
 from __future__ import annotations
 
@@ -49,6 +56,35 @@ def device_of(gpu_id: str) -> str:
     if index < 0:
         raise ValueError("--gpu_id must be >= 0, got %d" % index)
     return "cuda:%d" % index
+
+
+def start_process_group(gpu_id: str):
+    """-> (device, started): torchrun's ``WORLD_SIZE`` > 1 starts the
+    default process group (``env://``: ``RANK``, ``MASTER_ADDR``,
+    ``MASTER_PORT``), each process on ``cuda:$LOCAL_RANK`` under NCCL
+    (``--gpu_id`` left at its default), or on the CPU under gloo with
+    ``--gpu_id cpu``; any other ``--gpu_id`` is refused.  Without it, the
+    one process's device from ``--gpu_id`` and no group."""
+    import torch.distributed as dist
+    from simpleimagecaptionzoo_tpu_torch import parallel
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1 or dist.is_initialized():
+        return device_of(gpu_id), False
+    rank = int(os.environ["RANK"])
+    if gpu_id.strip().lower() == "cpu":
+        parallel.init_process_group("gloo", world, rank)
+        return "cpu", True
+    if gpu_id.strip() != "0":
+        raise ValueError(
+            "--gpu_id %s under WORLD_SIZE=%d: a data-parallel run takes "
+            "cuda:$LOCAL_RANK in each process (leave --gpu_id at its "
+            "default) or the CPU (--gpu_id cpu)" % (gpu_id, world))
+    import torch
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    device = "cuda:%d" % local
+    torch.cuda.set_device(torch.device(device))
+    parallel.init_process_group("nccl", world, rank)
+    return device, True
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -121,9 +157,12 @@ def build_argparser() -> argparse.ArgumentParser:
                         "stores the decode-step hot weights as weight-only "
                         "int8 (approximate; see ops/quant.py)")
     p.add_argument("--midepoch_save_steps", type=int, default=0,
-                   help="must be 0 (epoch-boundary checkpoints, like the "
-                        "reference): the port has no step-level "
-                        "checkpoints yet, and refuses any other value")
+                   help="N > 0: save a step-level resume point every N "
+                        "training steps (params, optimizer state and the "
+                        "exact stream position); --start_from checkpoint "
+                        "then resumes an interrupted epoch bit-identically. "
+                        "0 (default): epoch-boundary checkpoints only, like "
+                        "the reference")
     # sample
     p.add_argument("--img_filename", type=str, default="")
     p.add_argument("--seed", type=int, default=0)
@@ -131,9 +170,18 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def main(args) -> int:
+    device, started = start_process_group(args.gpu_id)
+    try:
+        return _main(args, device)
+    finally:
+        if started:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _main(args, device: str) -> int:
     from simpleimagecaptionzoo_tpu_torch.engine.model_engines import \
         get_engine
-    device = device_of(args.gpu_id)
     base_dir = os.path.abspath(os.getcwd())
     data_cfg = DataConfig.from_data_file(
         os.path.join(args.dataset_config_root, args.dataset + ".data"),

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from simpleimagecaptionzoo_tpu_torch.ops import fused_lstm, quant
+from simpleimagecaptionzoo_tpu_torch.parallel import global_rand
 
 
 # ---------------------------------------------------------------------------
@@ -161,11 +162,13 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Inverted dropout (torch semantics).  A no-op when not training or
     rate <= 0.  The mask comes from ``generator``: its bits differ from the
-    JAX package's, as the reference's torch stream did."""
+    JAX package's, as the reference's torch stream did.  Under a process
+    group the mask is the global batch's rows of this process (axis 0 is
+    the batch; ``parallel.global_rand``)."""
     if not train or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = global_rand(x.shape, generator, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 

@@ -36,6 +36,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from simpleimagecaptionzoo_tpu_torch import parallel
+
 BLOCK_COUNTS = (3, 4, 23, 3)           # ResNet-101
 WIDTHS = (64, 128, 256, 512)           # bottleneck mid widths; out = 4x
 BN_MOMENTUM = 0.1                      # torchvision BatchNorm2d default
@@ -112,7 +114,12 @@ def _conv(x, w, stride=1, padding=None):
 def _bn(x, p, s, train=False):
     """(out, new_stats).  Eval: the running statistics, new_stats = s.
     Train: the batch's (biased variance normalizes, the unbiased one
-    updates the running variance)."""
+    updates the running variance).  Under a process group the batch is
+    the global one, as the JAX package's global array is: the per-channel
+    sum and then the sum of squared deviations from the global mean are
+    summed over the processes with their gradients
+    (``parallel.all_reduce_sum_autograd``), so every process normalizes by
+    the same statistics and keeps the same running ones."""
     if not train:
         inv = torch.rsqrt(s["var"] + BN_EPS)
         scale = (p["scale"] * inv).to(x.dtype)
@@ -120,9 +127,16 @@ def _bn(x, p, s, train=False):
         return torch.addcmul(bias[:, None, None], x,
                              scale[:, None, None]), s
     xf = x.float()
-    mean = xf.mean(dim=(0, 2, 3))
-    var = ((xf - mean[:, None, None]) ** 2).mean(dim=(0, 2, 3))   # biased
     n = x.shape[0] * x.shape[2] * x.shape[3]
+    count = parallel.process_count()
+    if count == 1:
+        mean = xf.mean(dim=(0, 2, 3))
+        var = ((xf - mean[:, None, None]) ** 2).mean(dim=(0, 2, 3))  # biased
+    else:
+        n *= count                  # every process holds B / count rows
+        mean = parallel.all_reduce_sum_autograd(xf.sum(dim=(0, 2, 3))) / n
+        var = parallel.all_reduce_sum_autograd(
+            ((xf - mean[:, None, None]) ** 2).sum(dim=(0, 2, 3))) / n
     var_unbiased = var * (n / max(n - 1, 1))
     new_s = {"mean": ((1 - BN_MOMENTUM) * s["mean"]
                       + BN_MOMENTUM * mean).detach(),

@@ -33,6 +33,7 @@ from simpleimagecaptionzoo_tpu_torch import END_ID, PAD_ID, STA_ID
 from simpleimagecaptionzoo_tpu_torch.models.base import (Captioner, Encoded,
                                                          _tree_map)
 from simpleimagecaptionzoo_tpu_torch.ops import fused_head
+from simpleimagecaptionzoo_tpu_torch.parallel import global_rand
 
 _NEG = -1e18
 
@@ -231,9 +232,10 @@ def _uniform_open(shape, generator: Optional[torch.Generator],
     ``torch.rand`` gives k 2^-24 for k in [0, 2^24); k = 0 is raised to
     2^-24, so both logs of the Gumbel transform stay finite.  (The JAX
     package adds 2^-25 to its 24-bit uniform instead, which rounds the
-    largest to 1.0, whose Gumbel is +inf.)"""
-    u = torch.rand(shape, generator=generator, device=device,
-                   dtype=torch.float32)
+    largest to 1.0, whose Gumbel is +inf.)  Under a process group the
+    draw is the global batch's and this process keeps its rows (axis 0 is
+    the batch; ``parallel.global_rand``)."""
+    u = global_rand(shape, generator, device)
     return u.clamp_(min=2.0 ** -24)
 
 

@@ -10,6 +10,13 @@ tokens, which gives the same per-token terms and the same mean (their sum
 over the count, at least 1).  The constant entropy term ``sum td log td``
 is kept, so the loss values equal the reference's.
 :func:`reward_criterion` is SCST's REINFORCE loss.
+
+Both are means over the global batch, as in the JAX package (which computes
+them on the global array): under a process group each process divides its
+own sum by the count of valid tokens over all processes
+(``parallel.global_sum``, outside autograd), so the processes' losses, and
+their gradients, sum to the global batch's.  Averaging per-process means
+instead would weigh a token by its process's count.
 """
 from __future__ import annotations
 
@@ -18,13 +25,16 @@ from typing import Optional
 
 import torch
 
+from simpleimagecaptionzoo_tpu_torch.parallel import global_sum
+
 
 def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor,
                          mask: torch.Tensor, smoothing: float = 0.1
                          ) -> torch.Tensor:
     """logits (B, T, V) of any float dtype; targets (B, T) int; mask (B, T)
     0/1.  -> float32 scalar: mean KL(true_dist || softmax(logits)) over the
-    valid tokens.  The (B, T, V) smoothed one-hot is never made: the sum
+    valid tokens (of the global batch under a process group).  The
+    (B, T, V) smoothed one-hot is never made: the sum
     splits into the off-target mass times the sum of log p and the
     target's correction."""
     v = logits.shape[-1]
@@ -40,7 +50,8 @@ def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor,
     if confidence > 0:
         ent += confidence * math.log(confidence)
     mask = mask.float()
-    return (xent + ent).mul(mask).sum() / mask.sum().clamp_min(1.0)
+    return ((xent + ent).mul(mask).sum()
+            / global_sum(mask.sum()).clamp_min(1.0))
 
 
 def xe_mask_from_lengths(lengths: torch.Tensor, n_steps: int) -> torch.Tensor:
@@ -60,7 +71,8 @@ def reward_criterion(sample_logprobs: torch.Tensor, seq: torch.Tensor,
     steps up to and including each row's ``<end>`` (the mask is ``seq > 0``
     shifted right by one, its first column 1).  ``sample_weight`` (B,) 0/1
     marks the real rows of a padded batch: the others leave both the sum
-    and the count."""
+    and the count.  The count is the global batch's under a process
+    group."""
     if reward.dim() == 1:
         reward = reward[:, None].expand_as(sample_logprobs)
     mask = (seq > 0).float()
@@ -68,4 +80,4 @@ def reward_criterion(sample_logprobs: torch.Tensor, seq: torch.Tensor,
     if sample_weight is not None:
         mask = mask * sample_weight[:, None]
     out = -sample_logprobs * reward * mask
-    return out.sum() / mask.sum().clamp_min(1.0)
+    return out.sum() / global_sum(mask.sum()).clamp_min(1.0)

@@ -152,12 +152,41 @@ def test_cli_scst_and_int8_eval(ds):
     assert last["decode_dtype"] == "int8"
 
 
-def test_cli_refuses_midepoch_and_needs_the_vocab(ds):
-    with pytest.raises(ValueError, match="slice 7"):
-        _run("--operation", "train", "--midepoch_save_steps", "4")
+def test_cli_midepoch_and_needs_the_vocab(ds, monkeypatch):
+    """--midepoch_save_steps 4 writes a resume point within the epoch (5
+    steps at B=8, so after step 4; cleared at the epoch's end); a missing
+    vocab is still refused."""
+    from simpleimagecaptionzoo_tpu_torch.engine.checkpoint import \
+        CheckpointManager
+    metas = []
+    save = CheckpointManager.save_midepoch
+
+    def spy(self, tree, meta, scst=False):
+        metas.append(dict(meta))
+        return save(self, tree, meta, scst=scst)
+    monkeypatch.setattr(CheckpointManager, "save_midepoch", spy)
+    assert _run("--operation", "train", "--num_epochs", "1",
+                "--midepoch_save_steps", "4") == 0
+    assert [(m["epoch"], m["steps_done"]) for m in metas] == [(1, 4)]
+    assert not os.path.exists(CKPT + "cp/midepoch_state.json")
     assert _run("--operation", "sample") == 1      # no --img_filename
     os.remove("Data/caption_vocab.pkl")
     assert _run("--operation", "train") == 1
+
+
+def test_torchrun_env_picks_the_device_or_refuses(monkeypatch):
+    """Without WORLD_SIZE (or at 1) no process group starts and --gpu_id
+    picks the device; under WORLD_SIZE > 1 any --gpu_id other than the
+    default (cuda:$LOCAL_RANK, NCCL) and cpu (gloo) is refused."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    assert M.start_process_group("cpu") == ("cpu", False)
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    assert M.start_process_group("2") == ("cuda:2", False)
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "1")
+    with pytest.raises(ValueError, match="LOCAL_RANK"):
+        M.start_process_group("1")
+    assert not torch.distributed.is_initialized()
 
 
 def test_data_config_equals_jax(ds):

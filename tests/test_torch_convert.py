@@ -170,6 +170,13 @@ SYSTEM_MODULES = ("main", "vocab", "inference", "tools.caption_images",
                   "evalcap.bleu", "evalcap.rouge", "evalcap.cider_scorer",
                   "evalcap.meteor", "evalcap.spice", "evalcap.spice_lite",
                   "evalcap.coco_eval", "utils.visualize")
+# data parallelism, mid-epoch resume, reference checkpoints, and the FLOP
+# counts and profiling helpers
+SCALE_OUT_MODULES = ("parallel", "parallel.mesh", "engine.multihost",
+                    "engine.midepoch", "convert_reference",
+                    "tools.convert_reference_checkpoint",
+                    "tools.export_reference_checkpoint", "utils.flops",
+                    "utils.profiling")
 
 
 def test_import_leaves_jax_out_of_sys_modules():
@@ -188,7 +195,7 @@ def test_import_leaves_jax_out_of_sys_modules():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     # the training slice's modules and the system's are among those imported
-    for name in TRAINING_MODULES + SYSTEM_MODULES:
+    for name in TRAINING_MODULES + SYSTEM_MODULES + SCALE_OUT_MODULES:
         assert "'simpleimagecaptionzoo_tpu_torch.%s'" % name in out.stdout, \
             name
 
@@ -212,8 +219,10 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     assert len(files) > 10
     assert os.path.join(PORT, "models", "butd.py") in files
     assert os.path.join(PORT, "models", "nic.py") in files
-    for name in TRAINING_MODULES + SYSTEM_MODULES:
-        assert os.path.join(PORT, *name.split(".")) + ".py" in files, name
+    for name in TRAINING_MODULES + SYSTEM_MODULES + SCALE_OUT_MODULES:
+        path = os.path.join(PORT, *name.split("."))
+        assert path + ".py" in files or \
+            os.path.join(path, "__init__.py") in files, name
     bad = [(f, m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad

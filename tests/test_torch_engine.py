@@ -7,7 +7,7 @@ fixed boxes, dropout 0, no scheduled sampling, SGD, the port's tree set from
 JAX's init (convert.from_jax): one XE epoch of 2 steps and the greedy val
 give identical captions, cider_his within 1e-9 and saved params within
 1e-5.  Port only: the resume, bf16 training, one SCST epoch, beam-2 and
-int8 eval, sample (the matplotlib line), the refused mid-epoch option, and
+int8 eval, sample (the matplotlib line), the mid-epoch resume points, and
 NIC from pixels (ResNet at block counts (1, 1, 1, 1), cnn_finetune_start 1):
 epoch 1 leaves ``cnn`` as it was, epoch 2 changes only ``layer4``."""
 import json
@@ -67,9 +67,9 @@ def _port_engine(root, model=BUTD, device="cpu", **train):
                       checkpoint_root=str(root / "CheckPoints"))
 
 
-def _saved_params(root, model_type, engine):
+def _saved_params(root, model_type, engine, scst=False):
     tree, _, _ = CheckpointManager(model_type, "Flickr8K", root=str(
-        root / "CheckPoints")).load(engine.tree)
+        root / "CheckPoints")).load(engine.tree, scst=scst)
     return tree["params"]
 
 
@@ -118,6 +118,65 @@ def test_xe_epoch_matches_the_jax_engine(ds):
     jres = jeng.eval_captions_json_generation("val", -1, full_precision=True)
     assert tres == jres and len(tres) == 2
     assert all(r["caption"] for r in tres)
+
+
+def test_scst_epoch_matches_the_jax_engine(ds, monkeypatch):
+    """One SCST epoch through both engines from JAX's init (2 steps: 8
+    train images at B=4, JAX's engine on a mesh of one device; SGD at 0.05;
+    dropout 0), the port fed JAX's draws:
+    the JAX engine's rollout ids are recorded at each draw (a
+    jax.debug.callback around its ``_categorical``, as
+    tests/test_torch_scst.py does) and the port's sampler hands them back
+    in order.  cider_his within 1e-9, the val captions identical, the saved
+    params within 1e-5."""
+    from simpleimagecaptionzoo_tpu.ops import decode as JD
+    from simpleimagecaptionzoo_tpu_torch.ops import decode as TD
+    from simpleimagecaptionzoo_tpu.parallel import get_mesh as jget_mesh
+    tc = dict(scst_num_epochs=1, scst_train_batch_size=4,
+              eval_batch_size=8, optimizer="SGD", scst_learning_rate=0.05,
+              decode_max_len=8)
+    jvocab = jload_vocab(str(ds / "Data" / "caption_vocab.pkl"))
+    jdata = JDataConfig.from_data_file(str(ds) + DATA, base_dir=str(ds),
+                                       dataset_name="Flickr8K")
+    jeng = jget_engine(
+        JModelConfig(vocab_size=len(jvocab), **BUTD), jdata, jvocab,
+        train_config=JTrainConfig(**tc), use_bu="fixed", tqdm_visible=False,
+        checkpoint_root=str(ds / "jax_ckpt"),
+        mesh=jget_mesh(jax.devices()[:1]))
+    teng = _port_engine(ds, **tc)
+    init = jax.tree_util.tree_map(np.asarray, jeng.tree["params"])
+    teng.tree = {"params": from_jax(init),
+                 "model_state": teng.tree["model_state"]}
+    drawn, orig = [], JD._categorical
+
+    def recording(key, logits):
+        d = orig(key, logits)
+        jax.debug.callback(lambda x: drawn.append(np.asarray(x)), d,
+                           ordered=True)
+        return d
+    monkeypatch.setattr(JD, "_categorical", recording)
+    jcid = jeng.scst_training(num_epochs=1)
+    jax.effects_barrier()
+    monkeypatch.setattr(JD, "_categorical", orig)
+    assert len(drawn) == 2 * tc["decode_max_len"]
+    replay = iter(torch.from_numpy(d.astype(np.int64)) for d in drawn)
+    monkeypatch.setattr(TD, "_categorical", lambda gen, logits: next(replay))
+    tcid = teng.scst_training(num_epochs=1)
+    assert next(replay, None) is None            # every draw replayed
+    assert teng.last_epoch["steps"] == 2
+    assert len(tcid) == len(jcid) == 1 and abs(tcid[0] - jcid[0]) <= 1e-9
+    tparams = _saved_params(ds, "BUTDDetection", teng, scst=True)
+    jparams = from_jax(jax.tree_util.tree_map(np.asarray,
+                                              jeng.tree["params"]))
+    moved = tree_map(lambda a, b: float((a - b).abs().max()),
+                     from_jax(init), tparams)
+    assert max(jax.tree_util.tree_leaves(moved)) > 1e-4   # training moved
+    diff = tree_map(lambda a, b: float((a - b).abs().max()), tparams,
+                    {k: jparams[k] for k in tparams})
+    assert max(jax.tree_util.tree_leaves(diff)) <= 1e-5
+    tres = teng.eval_captions_json_generation("val", -1, full_precision=True)
+    jres = jeng.eval_captions_json_generation("val", -1, full_precision=True)
+    assert tres == jres and len(tres) == 2
 
 
 def test_resume_continues_from_the_history(ds):
@@ -198,9 +257,35 @@ def test_sample_without_matplotlib_says_so(ds, monkeypatch, capsys, beam):
     assert "ground-truth captions:" in out
 
 
-def test_midepoch_save_steps_refused(ds):
-    with pytest.raises(ValueError, match="slice 7"):
-        _port_engine(ds, midepoch_save_steps=5)
+def test_midepoch_save_steps_saves_and_clears_a_resume_point(ds):
+    """--midepoch_save_steps 2 over an epoch of 5 steps: resume points
+    after steps 2 and 4 (each committed with its weights, the older one
+    pruned), then cleared once the epoch's checkpoint is written."""
+    eng = _port_engine(ds, num_epochs=1, midepoch_save_steps=2)
+    cp = ds / "CheckPoints" / "Model_BUTDDetection_Dataset_Flickr8K" / "cp"
+    seen = []
+    save = eng.ckpt.save_midepoch
+
+    def spy(tree, meta, scst=False):
+        out = save(tree, meta, scst=scst)
+        with open(cp / "midepoch_state.json") as f:
+            seen.append((json.load(f), sorted(
+                p.name for p in cp.glob("midepoch_cp.*"))))
+        return out
+    eng.ckpt.save_midepoch = spy
+    eng.training()
+    assert [m["steps_done"] for m, _ in seen] == [2, 4]
+    for (meta, files), step in zip(seen, (2, 4)):
+        assert meta["epoch"] == 1 and meta["step"] == step
+        assert meta["package"] == "simpleimagecaptionzoo_tpu_torch"
+        assert files == ["midepoch_cp.e1s%d.msgpack" % step]
+        assert meta["weights"] == files[0]
+    assert [r["steps_done"] for r in eng.midepoch_saves] == [2, 4]
+    assert all(r["bytes"] > 0 and r["loop_ms"] >= 0
+               for r in eng.midepoch_saves)
+    assert not (cp / "midepoch_state.json").exists()
+    assert not list(cp.glob("midepoch_cp.*"))
+    assert (cp / "Captioner_cp.msgpack").exists()
 
 
 def _write_packed_images(root, size):
