@@ -128,7 +128,9 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      enc_dim 2048, vocab 10,102; 36 boxes with 10-36 valid; random weights
      from --seed), B=384, step cap 20: greedy as in 8 and beam 3 as in 9,
      on the same four paths.  Per step: K1 once and K2 twice (its two
-     cells, E=4,096 and 3,072) in float32 and bf16; K1-int8 once and K3
+     cells: the attention cell hoisted, as in the JAX package's default
+     mode, E=2,048, [h2, emb] with encode's td_mean_gates as its gate term;
+     the language cell E=3,072) in float32 and bf16; K1-int8 once and K3
      three times (K=5,120, 4,096 and att_dec's 1,024), K2 and K4 never, in
      int8 serving form; each on its dtype's tensor-core route;
  11. BUTDSpatial (49 unmasked grid regions, the same weights): beam 3 in
@@ -152,8 +154,10 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      engine.steps.make_xe_train_step: B=128 with 36 valid boxes, captions
      padded to 22 (21 teacher-forced steps) from a seeded numpy draw, Adam
      at lr 2e-4, value clamp 0.1, label smoothing 0.1, in float32 and in
-     bf16 over float32 master weights, scheduled sampling off and on at
-     0.25.  In each of the four: the first step's loss and gradient norms
+     bf16 over float32 master weights, scheduled sampling off (teacher
+     forcing hoisted: the cell over mean + ctx, E=1,024, its embedding's
+     projection the gate term) and on at 0.25 (E=2,048, [emb, mean +
+     ctx]).  In each of the four: the first step's loss and gradient norms
      through the kernels against the plain versions (the same generator
      seeds give both the same dropout masks and draws; in float32 each
      leaf's gradient within 1e-4 of its norm beyond the plain float32
@@ -198,8 +202,9 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      (as in 14, scheduled sampling on at 0.25, Adam at the json's lr
      4e-4) and SCST (as in 15, the same references and table, scst_lr
      2e-5), float32 and bf16, 4 timed steps each; per step K2's forward
-     and whole backward (three launches) for both cells (E=4,096 and
-     3,072) on the tensor-core route;
+     and whole backward (three launches) for both cells (the attention
+     cell hoisted, E=2,048 with td_mean_gates as its gate term; E=3,072)
+     on the tensor-core route;
  17. captions from pixels: NIC, BUTDSpatial and AoASpatial at their
      published widths (vocab 10,102), each with the full ResNet-101
      (3, 4, 23, 3, random from --seed, one tree for the three), B=384
@@ -265,7 +270,8 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      the directory run; /stats rows_decoded = batches x max_batch; read
      after each server stopped,
      every launch on its dtype's tensor-core route and, a step, K1 once at
-     m = 3 x max_batch (k=3) and K2 at E=4,096 and 3,072 (int8: K3 at
+     m = 3 x max_batch (k=3) and K2 at E=2,048 (the hoisted attention
+     cell) and 3,072 (int8: K3 at
      K=5,120, 4,096 and 1,024); each image's caption from the server and
      from the directory run equal to that image's in-process decode by the
      same bundle in full batches of max_batch; one padded batch of each
@@ -284,7 +290,7 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      masters, B=128 photo-like images at 224 with the full ResNet-101
      (random, statistics calibrated): phases 14-15's gates (the first step
      against the plain versions, the stem's and layers 1-3's gradients
-     exactly zero and layer4's not; 4 timed steps with K2's forward and
+     exactly zero and layer4's not; 2 timed steps with K2's forward and
      whole backward launches per step exact on the tensor-core route,
      NIC's step -1 cell among them; a step with every kernel call held;
      for the float32 variant of each run a profiled step whose parts hold
@@ -329,6 +335,39 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      with every kernel call held and phase 9's gate, and back through
      tools.export_reference_checkpoint, the same bits.  Every launch
      shape gets an entry ``<kernel>_<route>_{mid,dist,ref}_<shape>``.
+ 22. the JAX default mode's LSTM input hoists on K2, within 60 s
+     (drive_hoists; alone: scripts/probe_phase22.py): (a) K2 with its gate
+     term (row r adds term row r // lanes) against its plain version,
+     forward, backward kernel and whole backward, float32 against float64
+     (1e-5) and bf16 (1e-2), d_term held as d_gates, on each dtype's
+     tensor-core route and on the CUDA-core route, at BUTD's hoisted
+     attention cell (E=2,048, H=1,024; B=384, and B=1,152 with lanes 3),
+     BUTD's and AoA's teacher-forced cells (E=1,024, B=128), AoASpatial's
+     (E=512, H=512) and NIC's (E=0, H=512): timed beside the plain version
+     and torch.addmm + torch._thnn_fused_lstm_cell, bound, the backward's
+     three kernels at the training rows likewise; (b) BUTDDetection greedy
+     and beam 3 at B=384, float32 and bf16, the default mode against
+     ``interpret``: float32 rows 99 % identical (beam: winners rescored
+     within the beam gate's tol), bf16 beam within the beam gate (bf16
+     greedy: every kernel call held, its ids against interpret's
+     reported), every
+     attention-cell launch K2 on its tensor-core route at
+     E=2,048 (auto) or 4,096 (interpret), K2 twice a step in the trace
+     and at most 2 library products a decode more than interpret's (the
+     mean rows' projection in encode: none a step), auto's TMA map
+     encodes at most interpret's;
+     (c) XE at full width, B=128, scheduled sampling off, of
+     BUTDDetection, AoADetection and NIC, float32 and bf16, auto against
+     interpret: the same dropout masks, K2's launches by shape exact,
+     float32's first step against float64 (beyond_float64) in both modes,
+     bf16 each mode against its plain run by phase 14's hold; (d) the
+     device's ms by kind of (b) (K2, K1,
+     library products, the rest) and by part of a profiled XE step in each
+     mode, with the card's name and power limit.
+     Entries ``..._butd_td_hoist[_beam]``, ``..._train_butd_td_hoist``,
+     ``..._butd_td_tf``, ``..._tf`` (AoADetection), ``..._aoasp_tf``,
+     ``..._nic_tf``; phases 10-11, 14, 16-17 and 19-20 credit their
+     launches to them.
 Then it prints one JSON line of per-kernel results (the beam shapes'
 launches as entries of their own, named ``..._beam``; BUTD's K2 and K3
 shapes as ``..._butd_<layer>``, NIC's and AoASpatial's K1, K2 and K3 shapes
@@ -541,6 +580,40 @@ def bound(nbytes, nops, rate):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def k2_fwd_size(rows, e, hd, item, lanes=0):
+    """(bytes, operations) of K2's forward at one shape: x, h and c read,
+    w_cat and b_sum read once, h' and c' written; with a gate term (lanes
+    >= 1) its rows / lanes rows read once.  Operations: the product,
+    2 rows (E+H) 4H."""
+    n4 = 4 * hd
+    nbytes = (rows * (e + 4 * hd) + (e + hd) * n4 + n4) * item
+    if lanes:
+        nbytes += rows // lanes * n4 * item
+    return nbytes, 2 * rows * (e + hd) * n4
+
+
+def k2_library(torch, w_cat, b_sum, x, h, c, term=None, lanes=1):
+    """One call of PyTorch's own for K2's function on these operands:
+    torch.lstm_cell without a gate term; with one, the term's rows (made
+    once, outside the call) with x @ w_x added by torch.addmm, h @ w_hh,
+    then torch._thnn_fused_lstm_cell (the gate math CUDA's LSTMCell runs)."""
+    e = x.shape[1]
+    w_x, w_h = w_cat[:e], w_cat[e:]
+    if term is None:
+        lib_w = [w_x.t().contiguous(), w_h.t().contiguous(), b_sum,
+                 torch.zeros_like(b_sum)]
+        return lambda: torch.lstm_cell(x, (h, c), *lib_w)
+    rows_t = term if lanes == 1 else term.repeat_interleave(lanes, dim=0)
+    # the op takes both biases or neither
+    zero = torch.zeros_like(b_sum)
+
+    def lib():
+        ig = torch.addmm(rows_t, x, w_x) if e else rows_t
+        return torch.ops.aten._thnn_fused_lstm_cell(ig, h @ w_h, c, b_sum,
+                                                    zero)[:2]
+    return lib
+
+
 # K2's whole backward is held at the XE and SCST rows and at the engine's
 # eval rows (phase 18)
 K2_BWD_ROWS = (TRAIN_B, 64, 192)
@@ -552,7 +625,7 @@ def product_counts(fused_lstm):
     return tuple(c.n for c in k2_product_counters(fused_lstm).values())
 
 
-def k2_bwd_bounds(rows, e, hd, item, route):
+def k2_bwd_bounds(rows, e, hd, item, route, lanes=0):
     """Bounds of K2's backward at one shape, name -> (ms, "bytes" or
     "operations", bytes, operations): "gate", the backward kernel writing
     d_gates, dc and the products' operands (bf16: d's two bf16 parts;
@@ -563,7 +636,10 @@ def k2_bwd_bounds(rows, e, hd, item, route):
     forward saved its gates (ROADMAP Queue 2: no recompute, w_cat read
     once, the gates read).  P = 2 B (E+H) 4H, one product's operations:
     the recompute is one, each of dx·dh and dW two (2xBF16) at the bf16
-    rate, or one at the 3xTF32 rate (a third of TF32's)."""
+    rate, or one at the 3xTF32 rate (a third of TF32's).  With a gate term
+    (``lanes`` >= 1) the gate kernel also reads the term's rows / lanes
+    rows and, in bf16, writes d_term (B, 4H); in float32 d_term is
+    d_gates, already counted."""
     n4 = 4 * hd
     p = 2 * rows * (e + hd) * n4
     w = (e + hd) * n4 * item
@@ -572,17 +648,24 @@ def k2_bwd_bounds(rows, e, hd, item, route):
     prod_ops = (2 if bf else 1) * p
     parts = 2 * rows * n4 * (2 if bf else 4)
     ins = rows * (e + 4 * hd) * item                  # x, h, c, dh', dc'
+    if lanes:
+        ins += rows // lanes * n4 * item              # the term
     gate_cc = ins + w + n4 * item + rows * n4 * 4 + rows * hd * item
+    if lanes and bf:
+        gate_cc += rows * n4 * item                   # d_term
+    # the function's outputs: dW, db, dx, dh, dc, and the term's gradient
+    outs = rows * (e + 2 * hd) * item + (rows // lanes * n4 * item
+                                         if lanes else 0)
     sizes = dict(
         gate=(gate_cc + parts, p), gate_cc=(gate_cc, p),
         dxh=(w + (parts if bf else rows * n4 * 4) + rows * (e + hd) * item,
              prod_ops),
         dw=(rows * (e + hd) * item + parts + rows * n4 * 4 + w + n4 * item,
             prod_ops),
-        full=(ins + 2 * w + n4 * item + w + n4 * item
-              + rows * (e + 2 * hd) * item, (5 if bf else 3) * p),
+        full=(ins + 2 * w + n4 * item + w + n4 * item + outs,
+              (5 if bf else 3) * p),
         saved=(ins + rows * n4 * item + w + n4 * item + w + n4 * item
-               + rows * (e + 2 * hd) * item, (4 if bf else 2) * p))
+               + outs, (4 if bf else 2) * p))
     return {k: bound(nb, no, rate) + (nb, no) for k, (nb, no) in
             sizes.items()}
 
@@ -685,6 +768,13 @@ K2_BWD_OPS = {"aten::add": "autograd's sums of K2 backward's outputs",
               "aten::copy_": "K2 backward's cotangent copies"}
 
 
+# K2's backward kernel by its name, demangled or not: the tensor-core
+# kernels' first template argument (BWD; the second is TERM), the CUDA-core
+# kernel's second (its first is the type)
+K2_BWD_KERNEL = re.compile(r"lstm_cell_(?:wgmma|tf32x3)(?:<true|ILb1E)"
+                           r"|lstm_cell_kernel(?:<[^,<>]+, true|I\w+Lb1E)")
+
+
 def k2_product_counters(fused_lstm):
     """The counters of K2 backward's dx·dh and dW·db kernels, by the names
     of a step's launch gates."""
@@ -746,28 +836,38 @@ def relu_branches(torch, masks, flips=None, on=True):
     rounding (BUTD's attention biases, whose gradient is a thousandth of
     the largest leaf's; scripts/probe_scst_pixels.py --relu).  So the
     kernel run records each ``torch.relu`` call's branch (x > 0) into
-    ``masks`` (``flips`` None), and the replays take them in call order (x
-    times the mask), appending to ``flips`` each call's (elements whose
-    branch the replay's own x would have changed, their largest |x| over
-    the tensor's largest |x|).  Only ``torch.relu``'s call sites are
-    replayed (the trunk's ``F.relu`` is not: its leaves are held by
-    TRUNK_GRAD_TOL), and only where a run failed without it (``on``):
-    BUTDSpatial's float32 SCST from pixels (drive_scst's
-    ``relu_replay``)."""
+    ``masks`` (``flips`` None), and the replays take them, each call the
+    next recorded mask of its shape (x times the mask), appending to
+    ``flips`` each call's (elements whose branch the replay's own x would
+    have changed, their largest |x| over the tensor's largest |x|).  A
+    replay call of a shape the kernel run never made takes its own branch:
+    the SCST replay's teacher forcing, hoisted in the default mode, ReLUs
+    the embeddings of every step at once where the rollout ReLU'd one step
+    at a time, and an embedding (a table lookup) has the same bits in every
+    run.  Only ``torch.relu``'s call sites are replayed (the trunk's
+    ``F.relu`` is not: its leaves are held by TRUNK_GRAD_TOL), and only
+    where a run failed without it (``on``): BUTDSpatial's float32 SCST
+    from pixels (drive_scst's ``relu_replay``) and phase 22's float32 BUTD
+    XE."""
     if not on:
         yield
         return
     relu = torch.relu
-    calls = iter(masks)
+    queues = {}
+    for m in masks:
+        queues.setdefault(tuple(m.shape), []).append(m)
+    calls = {shape: iter(q) for shape, q in queues.items()}
 
     def record(x):
         masks.append(x > 0)
         return relu(x)
 
     def replay(x):
-        m = next(calls)
-        require(m.shape == x.shape, "relu_branches: the replay's ReLU calls "
-                "differ from the kernel run's")
+        if tuple(x.shape) not in calls:
+            return relu(x)
+        m = next(calls[tuple(x.shape)], None)
+        require(m is not None, "relu_branches: the replay makes more ReLU "
+                "calls of shape %s than the kernel run" % (tuple(x.shape),))
         d = (x > 0) != m
         n = int(d.sum())
         top = float(x.detach().abs().max())
@@ -822,10 +922,12 @@ def k2_bias(torch, acc, on=True):
     def measured(*a, **kw):
         got = run(*a, **kw)
         if a[2].dtype == torch.float32:
+            term, lanes = kw.get("term"), kw.get("lanes", 1)
             with torch.no_grad():
-                want = fused_lstm.lstm_cell_plain(*(t.double()
-                                                    for t in a[:5]))
-                plain = fused_lstm.lstm_cell_plain(*a[:5])
+                want = fused_lstm.lstm_cell_plain(
+                    *(t.double() for t in a[:5]),
+                    None if term is None else term.double(), lanes)
+                plain = fused_lstm.lstm_cell_plain(*a[:5], term, lanes)
                 for how, out in (("kernel", got), ("plain", plain)):
                     for nm, g, w in zip(("h", "c"), out, want):
                         d = (g.detach().double() - w).reshape(-1, w.shape[-1])
@@ -956,8 +1058,7 @@ def profile_step(torch, run, tag, ranges=XE_RANGES):
         for k in e.kernels:
             part = label
             if "lstm_cell" in k.name:
-                part = ("K2 backward kernel"
-                        if "<true>" in k.name or "Lb1E" in k.name
+                part = ("K2 backward kernel" if K2_BWD_KERNEL.search(k.name)
                         else "K2 forward kernel")
             elif "lstm_bwd_" in k.name:
                 part = "K2 backward's product kernels"
@@ -1347,12 +1448,21 @@ def _paths(tree, prefix=""):
     return prefix
 
 
+def stub_entry(kernels, ename):
+    """The entry ``ename`` of the kernels line, made bare (its name and
+    route) where a path launches a shape before the phase that holds and
+    times it (phase 22's hoisted cells); that phase fills in the rest, and
+    main() refuses an entry left without the contract's keys."""
+    return kernels.setdefault(ename, dict(name=ename, route="cuda"))
+
+
 def credit_launches(kernels, on_path, tag, n, *enames):
     """Adds ``n`` launches of path ``tag`` to each entry of ``enames`` (its
     ``launches_by_path``, and ``launches`` their sum) and marks it as on
     the main path."""
     for ename in enames:
-        by_path = kernels[ename].setdefault("launches_by_path", {})
+        by_path = stub_entry(kernels, ename).setdefault("launches_by_path",
+                                                       {})
         by_path[tag] = by_path.get(tag, 0) + n
         kernels[ename]["launches"] = sum(by_path.values())
         on_path.add(ename)
@@ -1360,14 +1470,18 @@ def credit_launches(kernels, on_path, tag, n, *enames):
 
 def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
              cells, lr, variants, n_timed=XE_STEPS, visual=None,
-             model_state=None, lr_cnn=0.0, profiled=None):
+             model_state=None, lr_cnn=0.0, profiled=None, tf_cells=None):
     """XE training through engine.steps.make_xe_train_step (phase 14:
     AoADetection; phase 16: BUTDDetection), B=128 with 36 valid boxes and
     captions padded to 22 (21 teacher-forced steps), Adam at ``lr`` with
     the value clamp 0.1 and label smoothing 0.1; ``variants``: (dtype
     name, compute dtype, scheduled sampling on at 0.25).  ``cells``: (entry
-    suffix, width of x) of each LSTM cell a step runs.  In each variant:
-    the first step's loss and every leaf's gradient norm through the
+    suffix, width of x) of each LSTM cell a step runs; ``tf_cells``, when
+    given, those of the variants with scheduled sampling off, where the
+    default mode hoists teacher forcing's input projections (each cell
+    then runs over what stays in the step, with its gate term).  In each
+    variant: the first step's loss and every leaf's gradient norm through
+    the
     kernels against the plain versions (the same generator seeds, so the
     same dropout masks and draws); one step through the plain versions,
     then ``n_timed`` through the kernels from the same state (the first
@@ -1457,6 +1571,7 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
             # token, which moves gradient to another row of the embedding
             # table (0.031 of its norm measured)
             loss_tol, grad_tol = (1e-5, 1e-4) if f32 else (1e-2, 2e-2)
+            vcells = cells if ss or tf_cells is None else tf_cells
             t_parts = [time.time()]
             tag = "xe %s %s, scheduled sampling %s" % (
                 name, label, "on at %g" % TRAIN_SS if ss else "off")
@@ -1538,10 +1653,10 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
             want_launch = dict.fromkeys(counters, 0)
             for kn in ("fused_lstm_cell", "fused_lstm_cell_bwd",
                        "lstm_bwd_dxh", "lstm_bwd_dw"):
-                want_launch[kn] = n_steps * len(cells)
-                want_launch[kn + "_" + route] = n_steps * len(cells)
+                want_launch[kn] = n_steps * len(vcells)
+                want_launch[kn + "_" + route] = n_steps * len(vcells)
             want_shapes = {(kn, route, TRAIN_B, e): n_steps
-                           for _, e in cells
+                           for _, e in vcells
                            for kn in ("K2", "K2bwd", "K2dxh", "K2dw")}
             losses, times, encodes, shapes = [], [], [], []
             torch.cuda.synchronize()
@@ -1585,7 +1700,7 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
             check_k2_bias(bias, tag)
             # each step of each cell: the forward, and the whole backward's
             # three launches
-            n_held = 4 * n_steps * len(cells)
+            n_held = 4 * n_steps * len(vcells)
             require(not broken and len(held_shapes) == n_held,
                     "%s: %d K2 calls broke their hold (first: %s), %d of "
                     "%d launched" % (tag, len(broken), broken[:1],
@@ -1624,9 +1739,9 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
                    if f32 else "",
                    res["grad_norm_total"],
                    res["plain_grad_norm_total"], n_timed,
-                   ["%.4f" % x for x in losses], n_steps * len(cells),
-                   n_steps * len(cells), route, TRAIN_B,
-                   [e for _, e in cells], t_med * 1e3,
+                   ["%.4f" % x for x in losses], n_steps * len(vcells),
+                   n_steps * len(vcells), route, TRAIN_B,
+                   [e for _, e in vcells], t_med * 1e3,
                    len(times) - 1, TRAIN_B / t_med, peak / 2 ** 30,
                    encodes))
             if profiled is None or label in profiled:
@@ -1639,7 +1754,7 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
                     require_trunk_parts(res["profile"], tag, "xe:trunk")
             res["variant_seconds"] = part_seconds(t_parts, tag)
             out["%s/ss_%s" % (label, "on" if ss else "off")] = res
-            for suffix, _ in cells:
+            for suffix, _ in vcells:
                 credit_launches(
                     kernels, on_path, tag, n_steps * n_timed,
                     "fused_lstm_cell_bwd_%s%s/%s" % (route, suffix, dn),
@@ -2217,13 +2332,15 @@ class KernelCalls:
             self._paused = False
 
     @staticmethod
-    def _key(kind, shape, a):
+    def _key(kind, shape, a, kw):
         _, route, rows, last = shape
         x = a[0] if kind in ("K3", "K4") else a[1] if kind == "K1" else a[2]
+        # K2 and its backward: H, and the gate term's lanes (0: no term)
+        lanes = 0 if kw.get("term") is None else kw.get("lanes", 1)
         extra = {"K1": lambda: (x.shape[1], a[0].v,
                                 str(a[0].w.dtype) == "torch.int8"),
-                 "K2": lambda: (a[3].shape[1],),
-                 "K2bwd": lambda: (a[3].shape[1],),
+                 "K2": lambda: (a[3].shape[1], lanes),
+                 "K2bwd": lambda: (a[3].shape[1], lanes),
                  "K3": lambda: (a[1]["s"].shape[0],),
                  "K4": lambda: (a[1].shape[1], x.shape[2], a[6])}[kind]()
         return (kind, route, rows, last, str(x.dtype).split(".")[1]) + extra
@@ -2244,7 +2361,7 @@ class KernelCalls:
                 n = len(self.shapes)
                 out = run(*a, **kw)
                 if len(self.shapes) > n:           # it launched its kernels
-                    key = self._key(kind, self.shapes[n], a)
+                    key = self._key(kind, self.shapes[n], a, kw)
                     self.count[key] = self.count.get(key, 0) + 1
                     if self.count[key] <= self.CAPTURE_AT:
                         self.first[key] = (run, [clone(v) for v in a], kw)
@@ -2295,9 +2412,9 @@ def cli_kernel_entries(torch, calls, kernels, on_path, flush, tag,
         name = dict((k, n) for k, _, n in calls.wrappers)[kind]
         plain = plain_of[name]
         got = run(*a, **kw)
-        want = plain(*a)
+        want = plain(*a, **kw)
         torch.cuda.synchronize()
-        why = holds._HOLDS[name](plain, a, got)
+        why = holds._HOLDS[name](plain, a, kw, got)
         require(not why, "%s %s: the kernel breaks its hold on the "
                 "path's own inputs: %s" % (phase, str(key), why))
         item = a[0 if kind in ("K3", "K4") else 1 if kind == "K1"
@@ -2322,22 +2439,23 @@ def cli_kernel_entries(torch, calls, kernels, on_path, flush, tag,
         elif kind == "K2":
             w_cat, b_sum, x, h, c = a[:5]
             e, hd = x.shape[1], h.shape[1]
+            lanes = key[6]
             require(w_cat.shape == (e + hd, 4 * hd), "%s: K2's w_cat %s at "
                     "E=%d H=%d" % (phase, tuple(w_cat.shape), e, hd))
             outs = [(got[i].float() - want[i].float()).abs().max()
                     for i in range(2)]
             err = float(max(outs))
-            wbytes = ((e + hd) * 4 * hd + 4 * hd) * item
-            nbytes = rows * (e + 4 * hd) * item + wbytes
-            nops = 2 * rows * (e + hd) * 4 * hd
-            lib_w = [w_cat[:e].t().contiguous(),
-                     w_cat[e:].t().contiguous(), b_sum,
-                     torch.zeros_like(b_sum)]
-            lib = lambda: torch.lstm_cell(x, (h, c), *lib_w)  # noqa
-            ename = "fused_lstm_cell_%s_%s_B%dE%dH%d" % (route, where, rows,
-                                                        e, hd)
+            nbytes, nops = k2_fwd_size(rows, e, hd, item, lanes)
+            lib = k2_library(torch, w_cat, b_sum, x, h, c, kw.get("term"),
+                             max(lanes, 1))
+            tsfx = "" if not lanes else "_term" + (
+                "" if lanes == 1 else "x%d" % lanes)
+            ename = "fused_lstm_cell_%s_%s_B%dE%dH%d%s" % (
+                route, where, rows, e, hd, tsfx)
             files = ("fused_lstm.cu", "ops/pallas_lstm.py:166")
-            shape = "B=%d E=%d H=%d" % (rows, e, hd)
+            shape = "B=%d E=%d H=%d%s" % (
+                rows, e, hd, "" if not lanes
+                else " with a gate term (lanes %d)" % lanes)
         elif kind == "K3":
             x, qp = a[0], a[1]
             x2 = x.reshape(-1, x.shape[-1])
@@ -2367,7 +2485,7 @@ def cli_kernel_entries(torch, calls, kernels, on_path, flush, tag,
         ms = time_ms(torch, lambda: run(*a, **kw), flush)
         device_ms = time_ms(torch, lambda: run(*a, **kw), flush,
                             lead=DEVICE_LEAD)
-        plain_ms = time_ms(torch, lambda: plain(*a), flush)
+        plain_ms = time_ms(torch, lambda: plain(*a, **kw), flush)
         lib_ms = None if lib is None else time_ms(torch, lib, flush)
         b_ms, b_by = bound(nbytes, nops, rate_of.get(route, dn))
         full = "%s/%s" % (ename, dn)
@@ -2391,7 +2509,8 @@ def cli_kernel_entries(torch, calls, kernels, on_path, flush, tag,
 
 
 def cli_k2_bwd_entries(torch, run, a, kw, key, count, kernels, on_path,
-                       flush, tag, where="cli", phase="phase 18"):
+                       flush, tag, where="cli", phase="phase 18",
+                       name_of=None):
     """Phase 18's entries for K2's whole backward at one shape the CLI ran
     (its first call's arguments, KernelCalls): the whole backward held on
     them (holds.k2_bwd_full_errors), then each of its three kernels (the
@@ -2399,60 +2518,72 @@ def cli_k2_bwd_entries(torch, run, a, kw, key, count, kernels, on_path,
     against its plain version, timed (host-inclusive and device-only)
     beside that plain version and its bound; the backward kernel's entry
     also carries the whole backward's time, its bound and torch.lstm_cell's
-    backward through autograd.  Named <kernel>_<route>_<where>_B<B>E<E>H<H>."""
+    backward through autograd.  Named <kernel>_<route>_<where>_B<B>E<E>H<H>,
+    or ``name_of(<kernel>)`` (phase 22: the names the paths credited);
+    an entry that exists keeps its launches."""
     from simpleimagecaptionzoo_tpu_torch.engine import holds
     from simpleimagecaptionzoo_tpu_torch.ops import fused_lstm
     _, route, rows, _, dn = key[:5]
     w_cat, b_sum, x, h, c, dh, dc = a[:7]
     split = a[7] if len(a) > 7 else kw.get("split")
+    term, lanes = kw.get("term"), kw.get("lanes", 1)
+    tkw = dict(term=term, lanes=lanes)
     e, hd = x.shape[1], h.shape[1]
     got = run(*a, **kw)
     torch.cuda.synchronize()
-    ferr = holds.k2_bwd_full_errors(a, got)
+    ferr = holds.k2_bwd_full_errors(a, got, term, lanes)
     require(not max(ferr.values()), "%s %s: K2's whole backward "
             "breaks its hold on the path's own inputs: %s" % (phase, str(key),
                                                               ferr))
-    want = fused_lstm.lstm_cell_bwd_full_plain(*a[:7])
-    g, _ = fused_lstm._run_bwd_kernel(*a[:7], route, split, parts=True)
+    want = fused_lstm.lstm_cell_bwd_full_plain(*a[:7], **tkw)
+    g = fused_lstm._run_bwd_kernel(*a[:7], route, split, parts=True,
+                                   **tkw)[0]
     dx, dhh = fused_lstm._run_dxh_kernel(w_cat, g, x, h, route)
     dw, db = fused_lstm._run_dw_kernel(x, h, g, w_cat, b_sum, route)
-    d_plain, _ = fused_lstm.lstm_cell_bwd_plain(*a[:7])
+    d_plain = fused_lstm.lstm_cell_bwd_plain(*a[:7], **tkw)[0]
     pdx, pdh = fused_lstm.lstm_bwd_dxh_plain(w_cat, g.d, e)
     pdw, pdb = fused_lstm.lstm_bwd_dw_plain(x, h, g.d)
     torch.cuda.synchronize()
 
     def err(*pairs):
+        # dx of a cell whose E is 0 is empty
         return max(float((p.float() - q.float()).abs().max())
-                   for p, q in pairs)
+                   for p, q in pairs if p.numel())
 
-    lw = [t.clone().requires_grad_() for t in (
-        w_cat[:e].t().contiguous(), w_cat[e:].t().contiguous(), b_sum,
-        torch.zeros_like(b_sum))]
+    # the library's backward: autograd through k2_library's calls
+    lw = [t.clone().requires_grad_() for t in (w_cat, b_sum)]
     li = [t.clone().requires_grad_() for t in (x, h, c)]
-    lh, lc = torch.lstm_cell(li[0], tuple(li[1:]), *lw)
+    lt = None if term is None else term.clone().requires_grad_()
+    lh, lc = k2_library(torch, lw[0], lw[1], *li, lt, lanes)()
+    # x is no input of a cell whose E is 0
+    lib_ins = lw + li[int(e == 0):] + ([] if lt is None else [lt])
     cot = tuple(torch.zeros_like(o) if t is None else t.to(o.dtype)
                 for t, o in ((dh, lh), (dc, lc)))
-    bnd = k2_bwd_bounds(rows, e, hd, x.element_size(), route)
+    bnd = k2_bwd_bounds(rows, e, hd, x.element_size(), route,
+                        0 if term is None else lanes)
     whole = dict(
         full_backward_ms=time_ms(torch, lambda: run(*a, **kw), flush),
         device_full_backward_ms=time_ms(torch, lambda: run(*a, **kw), flush,
                                         lead=DEVICE_LEAD),
         full_backward_plain_ms=time_ms(
-            torch, lambda: fused_lstm.lstm_cell_bwd_full_plain(*a[:7]),
+            torch, lambda: fused_lstm.lstm_cell_bwd_full_plain(*a[:7],
+                                                               **tkw),
             flush),
         full_backward_bound_ms=bnd["full"][0],
         full_backward_bound_by=bnd["full"][1],
         full_backward_max_abs_err=err(*zip(got, want)),
         lstm_cell_backward_ms=time_ms(torch, lambda: torch.autograd.grad(
-            (lh, lc), li + lw, cot, retain_graph=True), flush),
+            (lh, lc), lib_ins, cot, retain_graph=True), flush),
         whole_is="the whole backward (the backward kernel, dx·dh, dW·db); "
-                 "lstm_cell_backward: torch.lstm_cell's backward through "
-                 "autograd (it keeps its gates)")
+                 "lstm_cell_backward: the library's backward through "
+                 "autograd (torch.lstm_cell's, or with a gate term "
+                 "torch.addmm's and torch._thnn_fused_lstm_cell's; it keeps "
+                 "its gates)")
     parts = {
         "fused_lstm_cell_bwd": (
             lambda: fused_lstm._run_bwd_kernel(*a[:7], route, split,
-                                               parts=True),
-            lambda: fused_lstm.lstm_cell_bwd_plain(*a[:7]), "gate",
+                                               parts=True, **tkw),
+            lambda: fused_lstm.lstm_cell_bwd_plain(*a[:7], **tkw), "gate",
             "fused_lstm.cu", err((g.d, d_plain))),
         "lstm_bwd_dxh": (
             lambda: fused_lstm._run_dxh_kernel(w_cat, g, x, h, route),
@@ -2467,25 +2598,30 @@ def cli_k2_bwd_entries(torch, run, a, kw, key, count, kernels, on_path,
         ms = time_ms(torch, fn, flush)
         dev_ms = time_ms(torch, fn, flush, lead=DEVICE_LEAD)
         plain_ms = time_ms(torch, plain, flush)
-        full = "%s_%s_%s_B%dE%dH%d/%s" % (kname, route, where, rows, e, hd,
-                                          dn)
-        kernels[full] = dict(
+        full = name_of(kname) if name_of else "%s_%s_%s_B%dE%dH%d%s/%s" % (
+            kname, route, where, rows, e, hd,
+            "" if term is None else "_term" + (
+                "" if lanes == 1 else "x%d" % lanes), dn)
+        stub_entry(kernels, full).update(
             name=full, route="cuda",
             source="simpleimagecaptionzoo_tpu_torch/csrc/" + src,
             replaces="simpleimagecaptionzoo_tpu/ops/pallas_lstm.py:455",
-            launches=0, max_abs_err=e_k, max_err=e_k, ms=ms, kernel_ms=ms,
+            max_abs_err=e_k, max_err=e_k, ms=ms, kernel_ms=ms,
             device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bnd[bk][0],
             bound_by=bnd[bk][1], library_ms=None, kernel_route=route,
-            shape="B=%d E=%d H=%d (%s, the path's own inputs)"
-            % (rows, e, hd, phase), **(whole if bk == "gate" else {}))
-        credit_launches(kernels, on_path, tag, count, full)
+            shape="B=%d E=%d H=%d%s (%s, the path's own inputs)"
+            % (rows, e, hd, "" if term is None else " with a gate term",
+               phase), **(whole if bk == "gate" else {}))
+        kernels[full].setdefault("launches", 0)
+        if count:
+            credit_launches(kernels, on_path, tag, count, full)
         made.append(full)
         log(phase + " K2 backward %s (%s) B=%d E=%d H=%d %s: %d launches, "
             "max|err| %.3g; %.4f ms (device alone %.4f), plain %.4f, bound "
             "%.4f ms (%s)" % (dn, route, rows, e, hd, kname, count, e_k, ms,
                               dev_ms, plain_ms, bnd[bk][0], bnd[bk][1]))
     log(phase + " K2 backward %s (%s) B=%d E=%d H=%d, whole: held (%s); "
-        "%.4f ms (device alone %.4f), plain %.4f, torch.lstm_cell's "
+        "%.4f ms (device alone %.4f), plain %.4f, the library's "
         "backward %.4f, bound %.4f ms (%s)"
         % (dn, route, rows, e, hd, ferr, whole["full_backward_ms"],
            whole["device_full_backward_ms"], whole["full_backward_plain_ms"],
@@ -2875,7 +3011,9 @@ SERVE_RUNS = ((16, "bfloat16", 3), (64, "bfloat16", 3), (192, "bfloat16", 3),
               (64, "int8", 3), (64, "float32", -1))
 SERVE_DIR_BATCH = 64          # the directory run's --batch
 PHASES_19_20_S = 120.0        # phases 19 and 20 together
-PX_STEPS = 4                  # phase 20's timed steps per variant
+# phase 20's timed steps per variant (with 4, phases 19-20 read up to 122
+# s on the H100, and with 3 up to 127.5 s on a slow host, over their 120 s)
+PX_STEPS = 2
 # phase 20 profiles the float32 variant of each run (a profiled step from
 # pixels takes seconds: the trunk's thousands of launches traced)
 PX_PROFILED = ("float32",)
@@ -3188,8 +3326,10 @@ def drive_serve(torch, args, dev, gen, smi, flush, kernels, on_path):
                             for w in (5120, 4096, 1024)}
                     kinds = ("K1", "K3")
                 else:
+                    # the attention cell hoisted ([h2, emb], 2,048), the
+                    # language cell [attended, h1] (3,072)
                     want = {("K2", route, rows, w): n_steps
-                            for w in (4096, 3072)}
+                            for w in (2048, 3072)}
                     kinds = ("K1", "K2")
                 want[("K1", route, rows, k)] = n_steps
                 cap = inference.BEAM_MAX_LEN if beam > 0 else \
@@ -3384,8 +3524,9 @@ def drive_pixel_training(torch, args, dev, gen, smi, flush, kernels,
         cfg = model.config
         params = dict(model.init_params(gen), cnn=cnn)
         if fam == "BUTDSpatial":
-            cells = [("_butd_td", cfg.hidden_dim + cfg.enc_dim
-                      + cfg.embed_dim),
+            # the attention cell hoisted: x = [h2, emb], td_mean_gates its
+            # gate term (phase 22's entries ..._butd_td_hoist)
+            cells = [("_butd_td_hoist", cfg.hidden_dim + cfg.embed_dim),
                      ("_butd_lang", cfg.enc_dim + cfg.hidden_dim)]
         elif fam == "AoASpatial":
             cells = [("_aoasp", cfg.embed_dim + cfg.hidden_dim)]
@@ -4308,6 +4449,691 @@ def drive_reference(torch, args, dev, root, model, params, calls, gpu="0"):
                 captions_per_s=REF_B / secs, round_trip_bit_identical=True)
 
 
+# -- phase 22: the JAX default mode's LSTM input hoists on K2 ---------------
+HOIST_PHASE_S = 60.0          # phase 22's share of the script's time limit
+LSTM_MODE = "SICZ_TPU_PALLAS_LSTM"
+
+
+@contextlib.contextmanager
+def lstm_mode(mode):
+    """``SICZ_TPU_PALLAS_LSTM`` set to ``mode`` in the block (None: unset,
+    the default ``auto``), restored after."""
+    saved = os.environ.get(LSTM_MODE)
+    if mode is None:
+        os.environ.pop(LSTM_MODE, None)
+    else:
+        os.environ[LSTM_MODE] = mode
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(LSTM_MODE, None)
+        else:
+            os.environ[LSTM_MODE] = saved
+
+
+def hoist_cells(bcfg, acfg, ncfg):
+    """Phase 22's K2 shapes with a gate term: (forward entry stem, the
+    training entries' suffix or None, E, H, rows, lanes, what).  The stems
+    are the names the paths credit (phases 10-11, 14, 16-17, 19-20, and
+    22's own XE)."""
+    hd, d = bcfg.hidden_dim, bcfg.embed_dim
+    return [
+        ("butd_td_hoist", None, hd + d, hd, B, 1,
+         "BUTD's hoisted attention cell [h2, emb], greedy"),
+        ("butd_td_hoist_beam", None, hd + d, hd, B * BEAM, BEAM,
+         "BUTD's hoisted attention cell, beam 3, the term read by 3 lanes"),
+        ("train_butd_td_hoist", "_butd_td_hoist", hd + d, hd, TRAIN_B, 1,
+         "BUTD's hoisted attention cell, XE with sampling and SCST"),
+        ("train_butd_td_tf", "_butd_td_tf", hd, hd, TRAIN_B, 1,
+         "BUTD's teacher-forced attention cell [h2]"),
+        ("train_tf", "_tf", FULL["hidden_dim"], FULL["hidden_dim"], TRAIN_B,
+         1, "AoADetection's teacher-forced cell [mean + ctx]"),
+        ("train_aoasp_tf", "_aoasp_tf", acfg.hidden_dim, acfg.hidden_dim,
+         TRAIN_B, 1, "AoASpatial's teacher-forced cell [mean + ctx]"),
+        ("train_nic_tf", "_nic_tf", 0, ncfg.hidden_dim, TRAIN_B, 1,
+         "NIC's teacher-forced cell, E = 0")]
+
+
+def hold_hoisted_k2(torch, dev, gen, flush, kernels, on_path, cells):
+    """(a) K2 with the gate term at each of ``cells``, in each dtype: the
+    forward on the dtype's tensor-core route and on the CUDA-core route
+    (forced) within engine/holds' K2 hold (float32 against float64, rtol
+    and atol 1e-5; bf16 against the plain version, 1e-2); the backward
+    kernel on both routes, d_gates, dc and d_term within the same; the
+    whole backward (three launches) within holds.k2_bwd_full_errors, d_term
+    (its lanes summed) included; four new term slices, forward and
+    backward kernel, encode no TMA map.  Then the forward timed in turns (new,
+    library, library, new), host-inclusive and device-only, beside its
+    plain version and its bound; the library is torch.addmm of x @ w_x
+    into the term's rows, h @ w_hh, then torch._thnn_fused_lstm_cell
+    (k2_library).  At the training rows each of the backward's three
+    kernels is held and timed too (cli_k2_bwd_entries).  Fills the
+    entries the paths credited."""
+    from simpleimagecaptionzoo_tpu_torch.engine import holds
+    from simpleimagecaptionzoo_tpu_torch.ops import fused_lstm
+    out = {}
+    src = "simpleimagecaptionzoo_tpu_torch/csrc/fused_lstm.cu"
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+        rate = dn if route == "wgmma" else route
+        item = torch.tensor([], dtype=dtype).element_size()
+        for stem, sfx, e, hd, rows, lanes, what in cells:
+            bw = 1 / hd ** 0.5
+            u = lambda *s: ((torch.rand(s, generator=gen, device=dev) * 2  # noqa
+                             - 1) * bw).to(dtype)
+            w = fused_lstm.prepare_lstm(
+                {"w_ih": u(e, 4 * hd), "w_hh": u(hd, 4 * hd),
+                 "b_ih": u(4 * hd), "b_hh": u(4 * hd)}, keep=((0, e),))
+            x, h, c, dh, dc = (torch.randn(rows, n, generator=gen,
+                                           device=dev).to(dtype)
+                               for n in (e, hd, hd, hd, hd))
+            term = (0.5 * torch.randn(rows // lanes, 4 * hd, generator=gen,
+                                      device=dev)).to(dtype)
+            kw = dict(term=term, lanes=lanes)
+            a5 = (w.w_cat, w.b_sum, x, h, c)
+            a7 = a5 + (dh, dc)
+            tag = "phase 22 K2 %s %s B=%d E=%d H=%d lanes %d" % (
+                dn, what, rows, e, hd, lanes)
+            got_route = fused_lstm.lstm_route(w.w_cat, x, h)
+            prod_route = fused_lstm.lstm_bwd_products_route(
+                w.w_cat, x, h, c, w.b_sum, term, dh, dc)
+            require(got_route == route and prod_route == route,
+                    "%s: takes the %s route, its backward's products the %s"
+                    % (tag, got_route, prod_route))
+            errs = {}
+            for r in (route, "cuda_core"):
+                before = counts(fused_lstm)
+                got = (fused_lstm.lstm_cell_fused(*a5, w.split, **kw)
+                       if r == route
+                       else fused_lstm._run_kernel(*a5, "cuda_core", **kw))
+                torch.cuda.synchronize()
+                require(moved(counts(fused_lstm), before) == launched(r),
+                        "%s %s: the counters moved by %s" % (
+                            tag, r, moved(counts(fused_lstm), before)))
+                why = holds._hold_k2(holds._lstm_plain, a5, kw, got)
+                require(why is None, "%s %s forward: %s" % (tag, r, why))
+                ref = fused_lstm.lstm_cell_plain(
+                    *(t.double() if dtype == torch.float32 else t
+                      for t in a5), term.double()
+                    if dtype == torch.float32 else term, lanes)
+                errs[r] = max(float((g.double() - v.double()).abs().max())
+                              for g, v in zip(got, ref))
+                bwd = fused_lstm._run_bwd_kernel(*a7, r, w.split, **kw)
+                torch.cuda.synchronize()
+                why = holds._hold_k2_bwd(holds._lstm_bwd_plain, a7, kw, bwd)
+                require(why is None, "%s %s backward kernel: %s"
+                        % (tag, r, why))
+            full = fused_lstm.lstm_cell_bwd_full(*a7, w.split, **kw)
+            torch.cuda.synchronize()
+            ferr = holds.k2_bwd_full_errors(a7, full, term, lanes)
+            require(not max(ferr.values()) and full[5].shape == term.shape,
+                    "%s: the whole backward beyond its holds by %s" % (
+                        tag, ferr))
+            # the term takes no tensor map: a step's new slice (teacher
+            # forcing's) encodes none, forward or backward kernel, once
+            # x's, h's and w_cat's maps are cached
+            slices = (0.5 * torch.randn(4, rows // lanes, 4 * hd,
+                                        generator=gen, device=dev)).to(dtype)
+            enc0 = fused_lstm.map_encodes()
+            for t in slices.unbind(0):
+                fused_lstm.lstm_cell_fused(*a5, w.split, term=t, lanes=lanes)
+                fused_lstm._run_bwd_kernel(*a7, route, w.split, term=t,
+                                           lanes=lanes)
+            torch.cuda.synchronize()
+            term_encodes = fused_lstm.map_encodes() - enc0
+            require(term_encodes == 0, "%s: %d TMA maps encoded over 4 new "
+                    "term slices" % (tag, term_encodes))
+            lib = k2_library(torch, *a5, term, lanes)
+            fns = {"new": lambda: fused_lstm.lstm_cell_fused(
+                       *a5, w.split, **kw), "lib": lib}
+            order = ["new", "lib", "lib", "new"]
+            turns = time_turns(torch, fns, flush, order, reps=20)
+            dev_turns = time_turns(torch, fns, flush, order, reps=20,
+                                   lead=DEVICE_LEAD)
+            plain_ms = time_ms(torch, lambda: fused_lstm.lstm_cell_plain(
+                *a5, term, lanes), flush)
+            nbytes, nops = k2_fwd_size(rows, e, hd, item, lanes)
+            b_ms, b_by = bound(nbytes, nops, rate)
+            ename = "fused_lstm_cell_%s_%s/%s" % (route, stem, dn)
+            stub_entry(kernels, ename).update(
+                source=src,
+                replaces="simpleimagecaptionzoo_tpu/ops/pallas_lstm.py:166",
+                max_abs_err=errs[route], max_err=errs[route],
+                cuda_core_max_abs_err=errs["cuda_core"],
+                ms=mean(turns["new"]), kernel_ms=mean(turns["new"]),
+                device_ms=mean(dev_turns["new"]), plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=mean(turns["lib"]),
+                device_library_ms=mean(dev_turns["lib"]),
+                library_is="torch.addmm of x @ w_x into the term's rows, "
+                           "h @ w_hh, torch._thnn_fused_lstm_cell",
+                kernel_route=route, turns=turns, device_turns=dev_turns,
+                whole_backward_errors=ferr,
+                shape="B=%d E=%d H=%d with a gate term, lanes %d (%s)"
+                % (rows, e, hd, lanes, what))
+            kernels[ename].setdefault("launches", 0)
+            log("%s: held on %s and cuda_core (max|err| %.3g, %.3g), the "
+                "backward kernel on both, the whole backward (%s); in turns "
+                "(new, lib, lib, new): %s %s ms, the library %s ms; device "
+                "alone: %s, the library %s ms; plain %.4f ms; bound %.4f ms "
+                "(%s)" % (tag, route, errs[route], errs["cuda_core"],
+                          ", ".join("%s %.3g" % kv for kv in ferr.items()),
+                          route, ["%.4f" % v for v in turns["new"]],
+                          ["%.4f" % v for v in turns["lib"]],
+                          ["%.4f" % v for v in dev_turns["new"]],
+                          ["%.4f" % v for v in dev_turns["lib"]], plain_ms,
+                          b_ms, b_by))
+            out["%s/%s" % (stem, dn)] = dict(
+                max_abs_err=errs, whole_backward=ferr, bound_ms=b_ms,
+                ms=mean(turns["new"]), device_ms=mean(dev_turns["new"]),
+                library_ms=mean(turns["lib"]), plain_ms=plain_ms)
+            if sfx is not None:
+                names = {"fused_lstm_cell_bwd": "fused_lstm_cell_bwd_%s%s/%s",
+                         "lstm_bwd_dxh": "lstm_bwd_dxh_%s%s/%s",
+                         "lstm_bwd_dw": "lstm_bwd_dw_%s%s/%s"}
+                cli_k2_bwd_entries(
+                    torch, fused_lstm.lstm_cell_bwd_full,
+                    a7 + (w.split,), kw,
+                    ("K2bwd", route, rows, e, dn, hd, lanes), 0, kernels,
+                    on_path, flush, "phase 22", where="hoist",
+                    phase="phase 22",
+                    name_of=lambda k: names[k] % (route, sfx, dn))
+    return out
+
+
+# a device kernel's kind by its name: the port's own (K1, K2) or a library
+# product (cuBLAS, whose Hopper kernels include nvjet_*, and CUTLASS)
+LIBRARY_PRODUCT = re.compile(r"gemm|gemv|xmma|cutlass|nvjet", re.I)
+
+
+def device_kinds(torch, run):
+    """One ``run()`` with the device traced (torch.profiler, CUDA alone):
+    kind -> [device ms, launches] for "K2" (the fused LSTM cell), "K1"
+    (the fused head), "library products" (LIBRARY_PRODUCT) and "other"."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n = ev.name
+        kind = ("K2" if "lstm_cell" in n else "K1" if "head_" in n
+                else "library products" if LIBRARY_PRODUCT.search(n)
+                else "other")
+        got = out.setdefault(kind, [0.0, 0])
+        got[0] += (ev.time_range.end - ev.time_range.start) / 1e3
+        got[1] += 1
+    require(out, "the trace holds no device time")
+    return out
+
+
+def hoist_decodes(torch, dev, gen, smi, butd, bparams, bcfg, kernels,
+                  on_path):
+    """(b) BUTDDetection at full width, B=384, greedy and beam 3, float32
+    and bf16, the default mode (``auto``: the attention cell hoisted)
+    against ``interpret`` (its whole concat every step), each timed run
+    after a warm one: every K2 launch on the dtype's tensor-core route,
+    the attention cell's at E = 2,048 (E+H = 3,072) with the term in auto
+    and at 4,096 in interpret, the language cell's at 3,072, once a step
+    each; the TMA map encodes of auto's decode at most interpret's; in
+    float32 99 % of rows identical (the float32 gate of phases 8-9: the
+    modes sum the gates in another order, and a near tie of the random
+    weights can flip a row) and beam 3's winners rescored within the beam
+    gate's tol, in bf16 beam 3 within the beam gate (holds.beam_gate on
+    holds.rescored_margin, auto's winners against interpret's) and
+    greedy's every kernel call held against its plain version (auto rounds
+    the term to bf16, interpret does not: its first ids are reported);
+    then each decode
+    with the device traced: its ms and launches by kind (K2, K1, library
+    products, the rest; device_kinds).  No library product computes the
+    attention cell a step: auto's decode launches at most 2 library
+    products more than interpret's (encode's projection of the mean rows,
+    split-K's second kernel) while both run the same steps (float32), and
+    K2 twice a step.
+    Each timed run's launches are credited to its cells' entries (auto's
+    attention cell: ``..._butd_td_hoist``)."""
+    from simpleimagecaptionzoo_tpu_torch.engine import holds, steps
+    from simpleimagecaptionzoo_tpu_torch.ops import fused_lstm
+    visual = {"bu_feats": torch.relu(torch.randn(
+        B, N_BOX, bcfg.enc_dim, generator=gen, device=dev)),
+        "bu_masks": torch.ones(B, N_BOX, device=dev)}
+    e_hoist = bcfg.hidden_dim + bcfg.embed_dim
+    e_full = e_hoist + bcfg.enc_dim
+    e_lang = bcfg.enc_dim + bcfg.hidden_dim
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+        for kind in ("greedy", "beam"):
+            k = BEAM if kind == "beam" else 1
+            rows = B * k
+            fn = (steps.make_beam_decode(butd, beam_size=BEAM,
+                                         max_steps=MAX_LEN, dtype=dtype,
+                                         device="cuda")
+                  if kind == "beam" else
+                  steps.make_greedy_decode(butd, max_len=MAX_LEN,
+                                           dtype=dtype, device="cuda"))
+            res, ids = {}, {}
+            for mode in ("auto", "interpret"):
+                tag = "phase 22 BUTDDetection %s %s %s" % (kind, dn, mode)
+                with lstm_mode(mode):
+                    fn(bparams, {}, visual)                    # warm
+                    torch.cuda.synchronize()
+                    shapes, t0 = [], time.perf_counter()
+                    fused_lstm.COUNT.n = fused_lstm.COUNT_WGMMA.n = 0
+                    fused_lstm.COUNT_TF32X3.n = 0
+                    enc0 = fused_lstm.map_encodes()
+                    with holds.recording_shapes(shapes):
+                        got = fn(bparams, {}, visual)
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3
+                    encodes = fused_lstm.map_encodes() - enc0
+                    n_k2 = (fused_lstm.COUNT.n, fused_lstm.COUNT_WGMMA.n,
+                            fused_lstm.COUNT_TF32X3.n)
+                    kinds = device_kinds(torch, lambda: fn(bparams, {},
+                                                           visual))
+                ids[mode] = got[0] if isinstance(got, tuple) else got
+                k2 = {}
+                for shp in shapes:
+                    if shp[0] == "K2":
+                        k2[shp] = k2.get(shp, 0) + 1
+                n_steps = sum(1 for shp in shapes if shp[0] == "K1")
+                e_td = e_hoist if mode == "auto" else e_full
+                want = {("K2", route, rows, e_td): n_steps,
+                        ("K2", route, rows, e_lang): n_steps}
+                require(n_steps >= 1 and k2 == want
+                        and n_k2 == launched(route, 2 * n_steps),
+                        "%s: K2 launches %s (counters %s), expected %s"
+                        % (tag, k2, n_k2, want))
+                require(kinds.get("K2", [0, 0])[1] == 2 * n_steps,
+                        "%s: the trace holds %s K2 launches for %d steps"
+                        % (tag, kinds.get("K2"), n_steps))
+                res[mode] = dict(steps=n_steps, wall_ms=wall,
+                                 map_encodes=encodes, launches=n_k2,
+                                 device_by_kind=kinds,
+                                 device_ms=sum(v[0] for v in kinds.values()))
+                log("%s (%s): %d steps, %.2f ms wall, K2 %s, TMA map "
+                    "encodes %d; device ms (launches) by kind: %s; all %.3f"
+                    % (tag, smi, n_steps, wall, n_k2, encodes,
+                       ", ".join("%s %.3f (%d)" % (k, v[0], v[1])
+                                 for k, v in sorted(kinds.items())),
+                       res[mode]["device_ms"]))
+                bsfx = "_beam" if kind == "beam" else ""
+                credit_launches(
+                    kernels, on_path, tag, n_steps,
+                    "fused_lstm_cell_%s_butd_%s%s/%s" % (
+                        route, "td_hoist" if mode == "auto" else "td",
+                        bsfx, dn),
+                    "fused_lstm_cell_%s_butd_lang%s/%s" % (route, bsfx, dn))
+            require(res["auto"]["map_encodes"]
+                    <= res["interpret"]["map_encodes"],
+                    "phase 22 BUTD %s %s: %d TMA map encodes in auto, %d in "
+                    "interpret" % (kind, dn, res["auto"]["map_encodes"],
+                                   res["interpret"]["map_encodes"]))
+            a, b_ = ids["auto"], ids["interpret"]
+            same = float((a == b_).all(dim=1).float().mean())
+            res["rows_identical"] = same
+            if dtype == torch.float32:
+                # the two modes sum the attention cell's gates in another
+                # order (the mean rows' product apart, then K2's epilogue),
+                # so a near tie of the random weights can flip a row: the
+                # float32 gate of phases 8-9 (99 % of rows identical), and
+                # in beam search every row's winner rescored by the plain
+                # step within the beam gate's tol of interpret's
+                rows_ok = same >= holds.ROWS_IDENTICAL
+                if kind == "beam":
+                    margin = holds.rescored_margin(butd, bparams, visual, a,
+                                                   b_, dtype, dev)
+                    res["rescored_min_margin"] = float(margin.min())
+                    rows_ok = rows_ok and float(margin.min()) >= \
+                        -holds.beam_tol(dtype, MAX_LEN)
+                require(rows_ok, "phase 22 BUTD %s float32: %.4f of auto's "
+                        "rows identical to interpret's (gate %.2f)%s"
+                        % (kind, same, holds.ROWS_IDENTICAL,
+                           "; rescored margin %.4f (tol %.4f)" % (
+                               res["rescored_min_margin"],
+                               holds.beam_tol(dtype, MAX_LEN))
+                           if kind == "beam" else ""))
+                extra = (res["auto"]["device_by_kind"].get(
+                    "library products", [0, 0])[1]
+                    - res["interpret"]["device_by_kind"].get(
+                        "library products", [0, 0])[1])
+                res["library_products_over_interpret"] = extra
+                # a product a step would add one for each of the steps
+                require(extra <= 2, "phase 22 BUTD %s float32: auto "
+                        "launches %d library products more than interpret "
+                        "over the same %d steps" % (
+                            kind, extra, res["auto"]["steps"]))
+            elif kind == "beam":
+                margin = holds.rescored_margin(butd, bparams, visual, a, b_,
+                                               dtype, dev)
+                tol = holds.beam_tol(dtype, MAX_LEN)
+                passed, _ = holds.beam_gate(False, a, b_, margin, tol)
+                res["rescored_min_margin"] = float(margin.min())
+                require(passed, "phase 22 BUTD beam bf16: auto's winner "
+                        "scores %.4f below interpret's (tol %.4f)"
+                        % (-float(margin.min()), tol))
+            else:
+                # auto rounds the hoisted term to bf16 (the params' dtype,
+                # as the JAX package's hoisted cell does), interpret sums
+                # the mean rows in K2's float32 accumulator: another
+                # function in bf16, so greedy's ids are reported, not held
+                # to interpret's; each kernel call of auto's decode is held
+                res["first_ids_identical"] = float(
+                    (a[:, 0] == b_[:, 0]).float().mean())
+                broken = []
+                with holds.held_calls(broken):
+                    fn(bparams, {}, visual)
+                torch.cuda.synchronize()
+                require(not broken, "phase 22 BUTD greedy bf16: %d kernel "
+                        "calls broke their hold (first: %s)"
+                        % (len(broken), broken[:1]))
+            log("phase 22 BUTDDetection %s %s: rows identical to interpret's "
+                "%.4f%s%s; device ms %.3f (auto) against %.3f (interpret)"
+                % (kind, dn, same,
+                   "; rescored margin %.4f" % res["rescored_min_margin"]
+                   if "rescored_min_margin" in res else "",
+                   "; first ids %.4f" % res["first_ids_identical"]
+                   if "first_ids_identical" in res else "",
+                   res["auto"]["device_ms"], res["interpret"]["device_ms"]))
+            out["%s/%s" % (kind, dn)] = res
+    return out
+
+
+@contextlib.contextmanager
+def xe_ranges(torch, model):
+    """The XE step's parts wrapped in profiler ranges (XE_RANGES), as
+    drive_xe wraps them."""
+    from torch.profiler import record_function
+    from simpleimagecaptionzoo_tpu_torch.engine import steps
+    from simpleimagecaptionzoo_tpu_torch.ops import decode
+
+    def ranged(name, fn):
+        def run(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return run
+
+    saved = (model.encode, decode.teacher_forced_logits,
+             steps.label_smoothing_loss, steps.apply_updates_partitioned)
+    model.encode = ranged("xe:encode", saved[0])
+    decode.teacher_forced_logits = ranged("xe:teacher_forcing", saved[1])
+    steps.label_smoothing_loss = ranged("xe:loss", saved[2])
+    steps.apply_updates_partitioned = ranged("xe:optimizer", saved[3])
+    try:
+        yield
+    finally:
+        del model.encode
+        (decode.teacher_forced_logits, steps.label_smoothing_loss,
+         steps.apply_updates_partitioned) = saved[1:]
+
+
+def hoist_xe(torch, args, dev, gen, smi, families, kernels, on_path):
+    """(c) XE at full width, B=128 (21 teacher-forced steps), scheduled
+    sampling off, dropout at each family's published rates, for
+    ``families`` ((name, model, params, cells: mode -> (entry suffix, E)
+    of each cell a step runs, init: the E of the cell NIC runs once more,
+    its entries' suffix "_nic")), float32 and
+    bf16, auto against interpret, one generator seed for both: the first
+    step's loss and every gradient through the kernels; in float32 each
+    mode held against the same step in float64 (beyond_float64, 1e-4 of
+    each leaf's norm beyond the plain float32 run's own distance, the
+    references on that mode's ReLU branches for BUTD, relu_branches; the
+    losses within 1e-5 of the plain run's and of each other), in bf16 each mode against its own plain run by phase
+    14's bf16 hold (each leaf's gradient norm within 2e-2, the loss within
+    1e-2), auto against interpret reported; every
+    dropout mask drawn identical in the two modes; K2's
+    launches by shape exact (auto: the hoisted cells, with their terms);
+    then one XE training step (make_xe_train_step, Adam) in each mode
+    profiled by part (profile_step).  The first steps' launches are
+    credited to their cells' entries (auto's hoisted cells: ``..._tf``,
+    ``..._butd_td_tf``, ``..._nic_tf``)."""
+    import numpy as np
+    from simpleimagecaptionzoo_tpu_torch.engine import holds, optim, steps
+    from simpleimagecaptionzoo_tpu_torch.engine.state import TrainState
+    from simpleimagecaptionzoo_tpu_torch.models import layers
+    from simpleimagecaptionzoo_tpu_torch.ops import fused_lstm
+    rng = np.random.default_rng(args.seed + 22)
+    n_steps = TRAIN_T - 1
+    init_sfx = "_nic"
+    out = {}
+    for name, model, params, cells, init in families:
+        cfg = model.config
+        caps = rng.integers(4, cfg.vocab_size, size=(TRAIN_B, TRAIN_T))
+        caps[:, 0] = 1
+        lens = rng.integers(8, TRAIN_T, size=(TRAIN_B,))
+        for i, n in enumerate(lens):
+            caps[i, n - 1] = 2
+            caps[i, n:] = 0
+        visual = ({"features": torch.relu(torch.randn(
+            TRAIN_B, cfg.enc_dim, generator=gen, device=dev))}
+            if name == "NIC" else
+            {"bu_feats": torch.relu(torch.randn(
+                TRAIN_B, N_BOX, cfg.enc_dim, generator=gen, device=dev)),
+             "bu_masks": torch.ones(TRAIN_B, N_BOX, device=dev)})
+        batch = {"visual": visual,
+                 "captions": torch.from_numpy(caps).to(dev),
+                 "lengths": torch.from_numpy(lens).to(dev)}
+        labels = model.param_labels(params)
+        leaf_names = optim.tree_leaves(_paths(params))
+
+        def first_step(dtype, masks=None, shapes=None):
+            draw = layers.dropout_mask
+
+            def recording(*a, **kw):
+                m = draw(*a, **kw)
+                if m is not None and masks is not None:
+                    masks.append(m)
+                return m
+
+            leaves = [p.detach().requires_grad_()
+                      for p in optim.tree_leaves(params)]
+            layers.dropout_mask = recording
+            try:
+                with (holds.recording_shapes(shapes) if shapes is not None
+                      else contextlib.nullcontext()):
+                    loss, _, _ = steps.xe_loss(
+                        model, optim.tree_unflatten(params, leaves), {},
+                        batch, torch.Generator(device=dev).manual_seed(
+                            args.seed + 23), 0.0, smoothing=0.1,
+                        compute_dtype=dtype, ss_active=False)
+                    grads = torch.autograd.grad(loss, leaves,
+                                                allow_unused=True)
+            finally:
+                layers.dropout_mask = draw
+            return float(loss.detach()), [
+                torch.zeros_like(p) if g is None else g
+                for p, g in zip(leaves, grads)]
+
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+            f32 = dtype == torch.float32
+            cdtype = None if f32 else dtype
+            tag = "phase 22 XE %s %s" % (name, dn)
+            run, branches = {}, {}
+            # float32 BUTD: the references replay each kernel run's ReLU
+            # branches (relu_branches; its concat attention's ReLU sends
+            # pre-activations within rounding of 0 either way, which moves
+            # the attention's small leaves by their whole cotangent)
+            replay = f32 and name.startswith("BUTD")
+            for mode in ("auto", "interpret"):
+                masks, shapes = [], []
+                branches[mode] = []
+                with lstm_mode(mode), relu_branches(torch, branches[mode],
+                                                    on=replay):
+                    loss, grads = first_step(cdtype, masks, shapes)
+                got = {}
+                for shp in shapes:
+                    got[shp] = got.get(shp, 0) + 1
+                want = {}
+                for _, e in cells[mode]:
+                    for kn in ("K2", "K2bwd", "K2dxh", "K2dw"):
+                        want[(kn, route, TRAIN_B, e)] = n_steps
+                if init is not None:
+                    for kn in ("K2", "K2bwd", "K2dxh", "K2dw"):
+                        key = (kn, route, TRAIN_B, init)
+                        want[key] = want.get(key, 0) + 1
+                require(got == want, "%s %s: K2 launches by shape %s, "
+                        "expected %s" % (tag, mode, got, want))
+                run[mode] = (loss, grads, masks)
+                runs = [(sfx, n_steps) for sfx, _ in cells[mode]]
+                if init is not None:
+                    runs.append((init_sfx, 1))
+                for sfx, n in runs:
+                    credit_launches(
+                        kernels, on_path, tag, n,
+                        "fused_lstm_cell_%s_train%s/%s" % (route, sfx, dn),
+                        "fused_lstm_cell_bwd_%s%s/%s" % (route, sfx, dn),
+                        "lstm_bwd_dxh_%s%s/%s" % (route, sfx, dn),
+                        "lstm_bwd_dw_%s%s/%s" % (route, sfx, dn))
+            (la, ga, ma), (li, gi, mi) = run["auto"], run["interpret"]
+            require(len(ma) == len(mi) > 0 and all(
+                bool(torch.equal(x, y)) for x, y in zip(ma, mi)),
+                "%s: the dropout masks differ between auto and interpret "
+                "(%d and %d masks)" % (tag, len(ma), len(mi)))
+            res = dict(loss=dict(auto=la, interpret=li), masks=len(ma))
+            if f32:
+                # each mode against the same step in float64 through the
+                # plain versions (the same function in both modes up to
+                # rounding), on that mode's ReLU branches where replayed
+                for mode, (lk, gk, _) in run.items():
+                    flips = []
+                    with lstm_mode(mode), holds.plain_versions():
+                        with relu_branches(torch, branches[mode], flips,
+                                           on=replay):
+                            lp, gp = first_step(None)
+                        with relu_branches(torch, branches[mode], flips,
+                                           on=replay):
+                            ge = first_step(torch.float64)[1]
+                    if replay:
+                        res["relu_flips_" + mode] = check_flips(
+                            flips, "%s %s" % (tag, mode))
+                    ex = beyond_float64(gk, gp, ge)
+                    res.update({"plain_loss_" + mode: lp,
+                                "excess_" + mode: ex[0],
+                                "kernels_" + mode: ex[1],
+                                "plain_" + mode: ex[2]})
+                    require(ex[0] <= 1e-4 and abs(lk - lp) <= 1e-5 * lp,
+                            "%s %s: the loss %.6f against the plain run's "
+                            "%.6f (tol 1e-5); gradients beyond float64 by "
+                            "%.3g of a leaf's norm past the plain run's (tol "
+                            "1e-4; worst %s)" % (
+                                tag, mode, lk, lp, ex[0],
+                                [(x, leaf_names[j])
+                                 for x, _, _, j in ex[3]][:2]))
+                    del gp, ge
+                require(abs(la - li) <= 1e-5 * li, "%s: the losses %.6f "
+                        "(auto) and %.6f (interpret) differ beyond 1e-5"
+                        % (tag, la, li))
+            else:
+                # phase 14's bf16 hold, each mode against its own plain
+                # run: each leaf's gradient norm within 2e-2 (floored at
+                # 1e-3 of the largest leaf's), the loss within 1e-2; auto
+                # against interpret is reported (auto rounds the hoisted
+                # term to bf16, the params' dtype, as the JAX package's
+                # hoisted cell does: another function in bf16)
+                def norm_gap(ks, ps):
+                    pn = [float(g.float().norm()) for g in ps]
+                    floor = 1e-3 * max(pn)
+                    return [abs(float(k.float().norm()) - p) / max(p, floor)
+                            for k, p in zip(ks, pn)]
+
+                for mode, (lk, gk, _) in run.items():
+                    with lstm_mode(mode), holds.plain_versions():
+                        lp, gp = first_step(cdtype)
+                    rel = norm_gap(gk, gp)
+                    res["grad_norm_vs_plain_%s" % mode] = max(rel)
+                    require(max(rel) <= 2e-2 and abs(lk - lp) <= 1e-2 * lp,
+                            "%s %s: against its plain run the losses %.6f "
+                            "and %.6f (tol 1e-2), a leaf's gradient norm off "
+                            "by %.3g (tol 2e-2; %s)" % (
+                                tag, mode, lk, lp, max(rel),
+                                leaf_names[int(np.argmax(rel))]))
+                    del gp
+                res["grad_norm_max_rel_diff"] = max(norm_gap(ga, gi))
+            del ga, gi
+            # one training step in each mode, profiled by part
+            tx = optim.make_grad_transform("Adam", 0.1)
+            step = steps.make_xe_train_step(
+                model, tx, labels, smoothing=0.1, compute_dtype=cdtype,
+                ss_active=False, device="cuda")
+            st = TrainState.create(params, tx, {})
+            res["profile"] = {}
+            for mode in ("auto", "interpret"):
+                with lstm_mode(mode), xe_ranges(torch, model):
+                    g = torch.Generator(device=dev).manual_seed(args.seed)
+                    step(st, batch, g, 0.0, TRAIN_LR, 0.0)     # warm
+                    p = profile_step(torch, lambda: step(
+                        st, batch, g, 0.0, TRAIN_LR, 0.0),
+                        "%s %s (%s)" % (tag, mode, smi))
+                require_no_products(p, "%s %s" % (tag, mode))
+                res["profile"][mode] = p
+            log("%s: auto and interpret draw the same %d masks; losses "
+                "%.6f and %.6f%s; device ms a step (busy) %.3f (auto) "
+                "against %.3f (interpret), K2 forward %.3f / %.3f, K2 "
+                "backward kernel %.3f / %.3f, its products %.3f / %.3f (%s)"
+                % (tag, len(ma), la, li,
+                   "; beyond float64 %.3g and %.3g" % (
+                       res["excess_auto"], res["excess_interpret"])
+                   if f32 else "; gradient norms within %.3g of each other"
+                   % res["grad_norm_max_rel_diff"],
+                   *(res["profile"][m]["device_busy_ms"]
+                     for m in ("auto", "interpret")),
+                   *(res["profile"][m]["parts_ms"].get(part, 0.0)
+                     for part in ("K2 forward kernel", "K2 backward kernel",
+                                  "K2 backward's product kernels")
+                     for m in ("auto", "interpret")), smi))
+            out["%s/%s" % (name, dn)] = res
+    return out
+
+
+def drive_hoists(torch, args, dev, gen, smi, flush, kernels, on_path, *,
+                 butd, bparams, aoa, aparams, nic, nparams, acfg_sp):
+    """Phase 22: the JAX default mode's LSTM input hoists on K2 with its
+    gate term, within HOIST_PHASE_S: (a) :func:`hold_hoisted_k2` at
+    :func:`hoist_cells`' shapes; (b) :func:`hoist_decodes`, BUTDDetection
+    greedy and beam 3; (c) :func:`hoist_xe`, the XE of BUTDDetection,
+    AoADetection and NIC; (d) the device's ms by part of (b) and (c), auto
+    against interpret, with the card's name and power limit."""
+    t22 = time.time()
+    bcfg, ncfg = butd.config, nic.config
+    out = {"card": smi}
+    out["k2"] = hold_hoisted_k2(torch, dev, gen, flush, kernels, on_path,
+                                hoist_cells(bcfg, acfg_sp, ncfg))
+    t_a = time.time()
+    out["decode"] = hoist_decodes(torch, dev, gen, smi, butd, bparams, bcfg,
+                                  kernels, on_path)
+    t_b = time.time()
+    hd, d, e = bcfg.hidden_dim, bcfg.embed_dim, bcfg.enc_dim
+    families = [
+        ("BUTDDetection", butd, bparams,
+         {"auto": [("_butd_td_tf", hd), ("_butd_lang", e + hd)],
+          "interpret": [("_butd_td", hd + e + d), ("_butd_lang", e + hd)]},
+         None),
+        ("AoADetection", aoa, aparams,
+         {"auto": [("_tf", FULL["hidden_dim"])],
+          "interpret": [("", FULL["embed_dim"] + FULL["hidden_dim"])]},
+         None),
+        ("NIC", nic, nparams,
+         {"auto": [("_nic_tf", 0)], "interpret": [("_nic", ncfg.embed_dim)]},
+         ncfg.embed_dim)]
+    out["xe"] = hoist_xe(torch, args, dev, gen, smi, families, kernels,
+                         on_path)
+    out["seconds"] = dict(total=time.time() - t22, k2=t_a - t22,
+                          decode=t_b - t_a, xe=time.time() - t_b)
+    log("phase 22 took %.1f s (K2 %.1f, decode %.1f, XE %.1f)"
+        % (out["seconds"]["total"], out["seconds"]["k2"],
+           out["seconds"]["decode"], out["seconds"]["xe"]))
+    require(out["seconds"]["total"] <= HOIST_PHASE_S, "phase 22 took %.1f s, "
+            "over its %.0f s" % (out["seconds"]["total"], HOIST_PHASE_S))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4432,6 +5258,12 @@ def main(argv=None) -> int:
     e_td = bcfg.hidden_dim + bcfg.enc_dim + bcfg.embed_dim
     e_lang = bcfg.enc_dim + bcfg.hidden_dim
     butd_k2 = (("td", "lstm_td", e_td), ("lang", "lstm_lang", e_lang))
+    # the paths' cells in the default mode: the attention cell hoisted
+    # (x = [h2, emb], td_mean_gates its gate term; phase 22 holds and times
+    # it, entries ..._butd_td_hoist)
+    e_td_hoist = bcfg.hidden_dim + bcfg.embed_dim
+    butd_k2_path = (("td_hoist", "lstm_td", e_td_hoist),
+                    ("lang", "lstm_lang", e_lang))
     butd_k3 = (("td", "lstm_td", e_td + bcfg.hidden_dim),
                ("lang", "lstm_lang", e_lang + bcfg.hidden_dim),
                ("att_dec", "att_dec", bcfg.hidden_dim))
@@ -5880,7 +6712,7 @@ def main(argv=None) -> int:
         return family_paths(
             rows, k, beam, prm or bparams, qprm or bq,
             k2=[(e, "fused_lstm_cell_{}_butd_" + tag)
-                for tag, _, e in butd_k2],
+                for tag, _, e in butd_k2_path],
             k3=[(w, "quant_matmul_{}_butd_" + tag) for tag, _, w in butd_k3])
 
     def nic_paths(rows, k, beam, prm=None, qprm=None):
@@ -5917,7 +6749,8 @@ def main(argv=None) -> int:
                     label, sorted(got.items(), key=str),
                     sorted(shape_entries, key=str), n_steps, init_shapes))
         for shp, ename in shape_entries.items():
-            by_path = kernels[ename].setdefault("launches_by_path", {})
+            by_path = stub_entry(kernels, ename).setdefault(
+                "launches_by_path", {})
             by_path[label] = by_path.get(label, 0) + got[shp]
             kernels[ename]["launches"] = sum(by_path.values())
             on_path.add(ename)
@@ -6263,7 +7096,10 @@ def main(argv=None) -> int:
         name="AoADetection", cells=[("", FULL["embed_dim"]
                                      + FULL["hidden_dim"])], lr=TRAIN_LR,
         variants=[("float32", None, False), ("float32", None, True),
-                  ("bfloat16", bf, False), ("bfloat16", bf, True)])
+                  ("bfloat16", bf, False), ("bfloat16", bf, True)],
+        # scheduled sampling off: teacher forcing hoisted, the cell over
+        # mean + ctx alone (phase 22's entries ..._tf)
+        tf_cells=[("_tf", FULL["hidden_dim"])])
 
     log("-- phase 15 at %.1f s" % (time.time() - t_start))
     # -- 15. SCST of AoADetection, through make_scst_train_step --------------
@@ -6287,7 +7123,7 @@ def main(argv=None) -> int:
         os.path.join(HERE, "Configs", "Models", "BUTDDetection.json"),
         vocab_size=BENCH_VOCAB))
     bench_params = bench.init_params(gen)
-    bench_cells = [("_butd_" + tag, e) for tag, _, e in butd_k2]
+    bench_cells = [("_butd_" + tag, e) for tag, _, e in butd_k2_path]
     results["butd_train"] = dict(
         xe=drive_xe(torch, args, dev, bench, bench_params, kernels, on_path,
                     name="BUTDDetection", cells=bench_cells,
@@ -6342,8 +7178,15 @@ def main(argv=None) -> int:
     results["scale_out"] = drive_phase21(torch, args, dev, flush, kernels,
                                          on_path, model, params)
 
+    log("-- phase 22 at %.1f s" % (time.time() - t_start))
+    # -- 22. the JAX default mode's LSTM input hoists on K2 ------------------
+    results["hoists"] = drive_hoists(
+        torch, args, dev, gen, smi, flush, kernels, on_path, butd=butd,
+        bparams=bparams, aoa=model, aparams=params, nic=nic, nparams=nparams,
+        acfg_sp=acfg)
+
     results["seconds"] = time.time() - t_start
-    log("-- phases 2-21 took %.1f s" % results["seconds"])
+    log("-- phases 2-22 took %.1f s" % results["seconds"])
     missing = [k for k in on_path if not kernels[k].get("launches")]
     require(not missing, "kernels not launched on the main path: %s"
             % missing)
@@ -6351,6 +7194,13 @@ def main(argv=None) -> int:
     # above but no decode runs them: operands TMA cannot take go there
     for k, v in kernels.items():
         v.setdefault("launches", 0)
+    # every entry carries the kernels line's keys (a shape a path credited
+    # before phase 22 measured it included)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    bare = {k: [key for key in keys if key not in v]
+            for k, v in kernels.items() if any(key not in v for key in keys)}
+    require(not bare, "kernels line entries without their keys: %s" % bare)
 
     results["kernels"] = list(kernels.values())
     if args.out:

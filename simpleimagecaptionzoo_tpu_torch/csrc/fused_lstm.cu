@@ -12,6 +12,25 @@
 // w_cat is (E + H, 4H) row-major, gates packed i,f,g,o on the columns;
 // b_sum is (4H,).  All tensors share one dtype, float32 or bf16.
 //
+// The gate term (the JAX package's default mode, models/layers.py:162
+// lstm_cell_gates): a part of the cell's input that does not change from
+// step to step, or is known for every step before the loop, is projected
+// once outside it and arrives as a per-row term (R, 4H) in the cell's
+// dtype.  Row r of the cell reads term row r / lanes (beam search: lanes =
+// k, so the k lanes of a sample read encode's (B, 4H) in place):
+//
+//   gates = [x, h] @ w_cat + b_sum + term[r / lanes]   (float32)
+//
+// w_cat then holds only the rows of w_ih that stay in the step, and w_hh;
+// b_sum is b_hh (b_ih rides in the term).  Every route adds the term in
+// its epilogue, after the product and the bias, with plain loads (no
+// tensor map: a teacher-forced step passes another slice of one buffer
+// each step, and a map is cached by its base address).  The tensor-core
+// routes take the term in kernel instances of their own (TERM), so a cell
+// without one runs the code it ran before the term existed.  E may be 0
+// (NIC's teacher-forced cell, whose whole input is hoisted): the k-loop
+// then runs over h alone, and x gets no tensor map.
+//
 // What bounds it on an H100 SXM at the decode shape (B=384, E=2048,
 // H=1024): in bf16, 9.66 GFLOP against 989 TFLOP/s of bf16 tensor cores is
 // 9.8 us; the 25.2 MB of w_cat against 3.35 TB/s is 7.5 us.  In float32,
@@ -103,12 +122,16 @@
 //               dc_total i (1-g^2), dh' tanh(c') o (1-o)]   (float32)
 //   dc       = dc_total f                                 (c's dtype)
 //
-// so the (B, 4H) gates never reach memory; d_gates does, in float32, and
+// (with the term added in the recompute as the forward adds it) so the
+// (B, 4H) gates never reach memory; d_gates does, in float32, and
 // beside it, when the whole backward runs on the tensor cores, the
 // operands of its products (csrc/lstm_bwd.cu): route 1 writes d_hi =
 // bf16(d) and d_lo = bf16(d - d_hi) (B, 4H), route 2 d^T's TF32 parts
 // (4H, B rounded up to 4), the layout the dW product's K-major operand
-// needs.  On the CUDA-core route the products stay float32 torch.matmul
+// needs.  The term's gradient is d_gates in the term's dtype: in float32
+// d_gates itself; in bf16 every route's epilogue also writes d_term =
+// bf16(d_gates) (B, 4H) when asked.  On the CUDA-core route the products
+// stay float32 torch.matmul
 // calls (ops/fused_lstm.py), as the JAX package leaves them to XLA.  The
 // recompute is in float32 as the forward's epilogue is (in bf16 the JAX
 // package's recompute rounds the gates to bf16 first).  Bound: the
@@ -157,6 +180,9 @@ struct Epi {
   float* dt_hi;        // backward, route 2, or null: rna_tf32(d_gates^T)
   float* dt_lo;        //   and rna_tf32(d_gates^T - dt_hi), (4H, dt_pitch)
   int dt_pitch;        //   row pitch of dt_hi and dt_lo, >= B
+  const T* term;       // the gate term (R, 4H), or null
+  int lanes;           //   rows of the cell a term row serves, >= 1
+  T* d_term;           // backward, bf16, or null: d_gates in T (B, 4H)
 };
 
 // one hidden column of the cell, float32: the forward's (h', c')
@@ -221,10 +247,16 @@ lstm_cell_kernel(const T* __restrict__ x, const T* __restrict__ h,
     for (int jj = 0; jj < 2; ++jj) {
       const int j = j0 + tx + CX * jj;
       if (j >= H) continue;
-      const float zi = acc[i][0 + jj] + to_f(ep.b[j]);
-      const float zf = acc[i][2 + jj] + to_f(ep.b[H + j]);
-      const float zg = acc[i][4 + jj] + to_f(ep.b[2 * H + j]);
-      const float zo = acc[i][6 + jj] + to_f(ep.b[3 * H + j]);
+      float t[4] = {0.f, 0.f, 0.f, 0.f};
+      if (ep.term != nullptr) {
+        const T* const tr = ep.term + (size_t)(row / ep.lanes) * n4 + j;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) t[q] = to_f(tr[(size_t)q * H]);
+      }
+      const float zi = acc[i][0 + jj] + to_f(ep.b[j]) + t[0];
+      const float zf = acc[i][2 + jj] + to_f(ep.b[H + j]) + t[1];
+      const float zg = acc[i][4 + jj] + to_f(ep.b[2 * H + j]) + t[2];
+      const float zo = acc[i][6 + jj] + to_f(ep.b[3 * H + j]) + t[3];
       const size_t o = (size_t)row * H + j;
       if constexpr (BWD) {
         const CellGrad gr = cell_bwd(zi, zf, zg, zo, to_f(ep.c[o]),
@@ -233,6 +265,11 @@ lstm_cell_kernel(const T* __restrict__ x, const T* __restrict__ h,
         float* const dg = ep.d_gates + (size_t)row * n4 + j;
 #pragma unroll
         for (int q = 0; q < 4; ++q) dg[(size_t)q * H] = gr.dz[q];
+        if (ep.d_term != nullptr) {
+          T* const dt = ep.d_term + (size_t)row * n4 + j;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) dt[(size_t)q * H] = from_f<T>(gr.dz[q]);
+        }
         ep.dc_out[o] = from_f<T>(gr.dc);
       } else {
         float hn, cn;
@@ -326,8 +363,9 @@ __device__ __forceinline__ void epilogue_load(EpiIn<T>& in, const Epi<T>& ep, in
 }
 
 // h' and c' (the backward: d_gates and dc) of the warpgroup's 64 rows and
-// 32 hidden columns
-template <typename T, bool BWD>
+// 32 hidden columns; TERM: with the gate term (a kernel of its own, so the
+// cell without one runs the code it ran before the term existed)
+template <typename T, bool BWD, bool TERM>
 __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], const EpiIn<T>& in,
                                          const Epi<T>& ep, int B, int H, int r64, int j0) {
   using P = Pair<T>;
@@ -365,8 +403,27 @@ __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], const EpiIn
       const float2 bi = P::get(in.bias[0][jj]), bf = P::get(in.bias[1][jj]);
       const float2 bg = P::get(in.bias[2][jj]), bo = P::get(in.bias[3][jj]);
       const float2 cv = P::get(in.c[r][jj]);
+      // the gate term of the pair, added after the bias
+      float2 ti, tf, tg, to;
+      if constexpr (TERM) {
+        const T* const tr = ep.term + (size_t)(row / ep.lanes) * 4 * H + j;
+        ti = P::get(P::load(tr));
+        tf = P::get(P::load(tr + H));
+        tg = P::get(P::load(tr + 2 * H));
+        to = P::get(P::load(tr + 3 * H));
+      }
       const int i0 = 4 * jj + 2 * r;           // gate 0's registers: i0, i0 + 1
       const size_t o = (size_t)row * H + j;
+      // the four pre-activations of hidden column j + e
+      auto z = [&](int e, int q) -> float {
+        const float2 b = q == 0 ? bi : q == 1 ? bf : q == 2 ? bg : bo;
+        float v = acc[i0 + e + 16 * q] + (e ? b.y : b.x);
+        if constexpr (TERM) {
+          const float2 t = q == 0 ? ti : q == 1 ? tf : q == 2 ? tg : to;
+          v += e ? t.y : t.x;
+        }
+        return v;
+      };
       if constexpr (BWD) {
         const float2 dhv = P::get(grads_ahead ? gdh[r][jj]
                                   : ep.dh ? P::load(ep.dh + o) : Raw{});
@@ -375,15 +432,21 @@ __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], const EpiIn
         CellGrad gr[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e)
-          gr[e] = cell_bwd(acc[i0 + e] + (e ? bi.y : bi.x), acc[i0 + e + 16] + (e ? bf.y : bf.x),
-                           acc[i0 + e + 32] + (e ? bg.y : bg.x),
-                           acc[i0 + e + 48] + (e ? bo.y : bo.x), e ? cv.y : cv.x,
+          gr[e] = cell_bwd(z(e, 0), z(e, 1), z(e, 2), z(e, 3), e ? cv.y : cv.x,
                            e ? dhv.y : dhv.x, e ? dcv.y : dcv.x);
         float* const dg = ep.d_gates + (size_t)row * 4 * H + j;
 #pragma unroll
         for (int q = 0; q < 4; ++q)
           *(float2*)(dg + (size_t)q * H) = make_float2(gr[0].dz[q], gr[1].dz[q]);
         P::store(ep.dc_out + o, gr[0].dc, gr[1].dc);
+        if constexpr (TERM) {
+          if (ep.d_term != nullptr) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              P::store(ep.d_term + (size_t)row * 4 * H + (size_t)q * H + j, gr[0].dz[q],
+                       gr[1].dz[q]);
+          }
+        }
         if constexpr (sizeof(T) == 2) {
           // the products' bf16 operands: d = d_hi + d_lo within 2^-16 |d|
           if (ep.d_hi != nullptr) {
@@ -417,9 +480,7 @@ __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], const EpiIn
         float hn[2], cn[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e)
-          cell_fwd(acc[i0 + e] + (e ? bi.y : bi.x), acc[i0 + e + 16] + (e ? bf.y : bf.x),
-                   acc[i0 + e + 32] + (e ? bg.y : bg.x), acc[i0 + e + 48] + (e ? bo.y : bo.x),
-                   e ? cv.y : cv.x, hn[e], cn[e]);
+          cell_fwd(z(e, 0), z(e, 1), z(e, 2), z(e, 3), e ? cv.y : cv.x, hn[e], cn[e]);
         P::store(ep.h_out + o, hn[0], hn[1]);
         P::store(ep.c_out + o, cn[0], cn[1]);
       }
@@ -427,7 +488,7 @@ __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], const EpiIn
   }
 }
 
-template <bool BWD>
+template <bool BWD, bool TERM>
 __global__ void __launch_bounds__(NT, 1)
 lstm_cell_wgmma(const __grid_constant__ CUtensorMap map_x,
                 const __grid_constant__ CUtensorMap map_h,
@@ -497,7 +558,7 @@ lstm_cell_wgmma(const __grid_constant__ CUtensorMap map_x,
       if (threadIdx.x % 128 == 0) mbar_arrive(&empty[s]);
     }
     fence_regs(acc);
-    epilogue<__nv_bfloat16, BWD>(acc, in, ep, B, H, row0 + wg * 64, j0);
+    epilogue<__nv_bfloat16, BWD, TERM>(acc, in, ep, B, H, row0 + wg * 64, j0);
   }
 }
 
@@ -506,7 +567,7 @@ lstm_cell_wgmma(const __grid_constant__ CUtensorMap map_x,
 static_assert(tf32x3::BN == BN && tf32x3::BM == BM,
               "route 2 keeps route 1's tile and epilogue");
 
-template <bool BWD>
+template <bool BWD, bool TERM>
 __global__ void __launch_bounds__(tf32x3::NT, 1)
 lstm_cell_tf32x3(const __grid_constant__ CUtensorMap map_x,
                  const __grid_constant__ CUtensorMap map_h,
@@ -533,33 +594,36 @@ lstm_cell_tf32x3(const __grid_constant__ CUtensorMap map_x,
     tf32x3::consume(r, acc, nk, wg);
     EpiIn<float> in;
     epilogue_load(in, ep, B, H, row0 + wg * 64, j0);
-    epilogue<float, BWD>(acc, in, ep, B, H, row0 + wg * 64, j0);
+    epilogue<float, BWD, TERM>(acc, in, ep, B, H, row0 + wg * 64, j0);
   }
 }
 
 }  // namespace tc
 
 template <typename T>
-Epi<T> fwd_epi(const void* c, const void* b, void* h_out, void* c_out) {
+Epi<T> fwd_epi(const void* c, const void* b, const void* term, int lanes, void* h_out,
+               void* c_out) {
   return Epi<T>{(const T*)c, (const T*)b, (T*)h_out, (T*)c_out, nullptr, nullptr, nullptr,
-                nullptr, nullptr, nullptr, nullptr, nullptr, 0};
+                nullptr, nullptr, nullptr, nullptr, nullptr, 0, (const T*)term, lanes, nullptr};
 }
 
 template <typename T>
-Epi<T> bwd_epi(const void* c, const void* b, const void* dh, const void* dc, void* d_gates,
-               void* dc_out) {
+Epi<T> bwd_epi(const void* c, const void* b, const void* term, int lanes, const void* dh,
+               const void* dc, void* d_gates, void* dc_out, void* d_term) {
   return Epi<T>{(const T*)c, (const T*)b, nullptr, nullptr, (const T*)dh, (const T*)dc,
-                (float*)d_gates, (T*)dc_out, nullptr, nullptr, nullptr, nullptr, 0};
+                (float*)d_gates, (T*)dc_out, nullptr, nullptr, nullptr, nullptr, 0,
+                (const T*)term, lanes, (T*)d_term};
 }
 
 // True when an epilogue operand breaks the tensor-core epilogue's pairs:
-// c, b and the outputs (and dh', dc') `mask + 1`-byte aligned, d_gates
-// 8-byte aligned (float2), d_hi and d_lo 4-byte aligned (bf16x2).
+// c, b, the term and the outputs (and dh', dc', d_term) `mask + 1`-byte
+// aligned, d_gates 8-byte aligned (float2), d_hi and d_lo 4-byte aligned
+// (bf16x2).
 template <typename T>
 bool pairs_misaligned(const Epi<T>& ep, uintptr_t mask) {
   const uintptr_t a = (uintptr_t)ep.c | (uintptr_t)ep.b | (uintptr_t)ep.h_out |
                       (uintptr_t)ep.c_out | (uintptr_t)ep.dh | (uintptr_t)ep.dc |
-                      (uintptr_t)ep.dc_out;
+                      (uintptr_t)ep.dc_out | (uintptr_t)ep.term | (uintptr_t)ep.d_term;
   return (a & mask) != 0 || ((uintptr_t)ep.d_gates & 7) != 0 ||
          (((uintptr_t)ep.d_hi | (uintptr_t)ep.d_lo) & 3) != 0;
 }
@@ -567,131 +631,167 @@ bool pairs_misaligned(const Epi<T>& ep, uintptr_t mask) {
 template <typename T, bool BWD>
 int run_cuda_core(const void* x, const void* h, const void* w, const Epi<T>& ep, int B,
                   int E, int H, void* stream) {
-  if (B <= 0 || E < 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || E < 0 || H <= 0 || ep.lanes < 1) return (int)cudaErrorInvalidValue;
   dim3 grid((H + BH - 1) / BH, (B + BM - 1) / BM);
   lstm_cell_kernel<T, BWD><<<grid, NT, 0, (cudaStream_t)stream>>>(
       (const T*)x, (const T*)h, (const T*)w, ep, B, E, H);
   return (int)cudaGetLastError();
 }
 
+// one kernel instance's launch (each raises its shared-memory limit once)
+template <bool BWD, bool TERM>
+int launch_wgmma(const CUtensorMap& mx, const CUtensorMap& mh, const CUtensorMap& mw,
+                 const Epi<__nv_bfloat16>& ep, int B, int E, int H, void* stream) {
+  static std::atomic<uint64_t> smem_set{0};
+  const cudaError_t err = sicz::hopper::allow_smem(
+      (const void*)tc::lstm_cell_wgmma<BWD, TERM>, tc::SMEM, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((H + tc::BH - 1) / tc::BH, (B + tc::BM - 1) / tc::BM);
+  tc::lstm_cell_wgmma<BWD, TERM><<<grid, tc::NT, tc::SMEM, (cudaStream_t)stream>>>(
+      mx, mh, mw, ep, B, E, H);
+  return (int)cudaGetLastError();
+}
+
+template <bool BWD, bool TERM>
+int launch_tf32x3(const CUtensorMap& mx, const CUtensorMap& mh, const CUtensorMap& mhi,
+                  const CUtensorMap& mlo, const Epi<float>& ep, int B, int E, int H,
+                  void* stream) {
+  namespace t3 = sicz::hopper::tf32x3;
+  static std::atomic<uint64_t> smem_set{0};
+  const cudaError_t err = sicz::hopper::allow_smem(
+      (const void*)tc::lstm_cell_tf32x3<BWD, TERM>, t3::SMEM, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((H + tc::BH - 1) / tc::BH, (B + t3::BM - 1) / t3::BM);
+  tc::lstm_cell_tf32x3<BWD, TERM><<<grid, t3::NT, t3::SMEM, (cudaStream_t)stream>>>(
+      mx, mh, mhi, mlo, ep, B, E, H);
+  return (int)cudaGetLastError();
+}
+
 template <bool BWD>
 int run_wgmma(const void* x, const void* h, const void* w_cat,
               const Epi<__nv_bfloat16>& ep, int B, int E, int H, void* stream) {
-  if (B <= 0 || E <= 0 || H <= 0 || E % 8 != 0 || H % 8 != 0)
+  if (B <= 0 || E < 0 || H <= 0 || E % 8 != 0 || H % 8 != 0 || ep.lanes < 1)
     return (int)cudaErrorInvalidValue;
-  if (pairs_misaligned(ep, 3) || !sicz::hopper::aligned16(x) ||
+  if (pairs_misaligned(ep, 3) || (E > 0 && !sicz::hopper::aligned16(x)) ||
       !sicz::hopper::aligned16(h) || !sicz::hopper::aligned16(w_cat))
     return (int)cudaErrorMisalignedAddress;
+  // E = 0: no step reads x, which gets no map (h's fills its slot)
   CUtensorMap mx, mh, mw;
-  if (!sicz::hopper::tensor_map_bf16(&mx, x, B, E, E, tc::BM, 64, 128) ||
-      !sicz::hopper::tensor_map_bf16(&mh, h, B, H, H, tc::BM, 64, 128) ||
+  if (!sicz::hopper::tensor_map_bf16(&mh, h, B, H, H, tc::BM, 64, 128) ||
+      (E > 0 && !sicz::hopper::tensor_map_bf16(&mx, x, B, E, E, tc::BM, 64, 128)) ||
       !sicz::hopper::tensor_map_bf16(&mw, w_cat, (uint64_t)E + H, 4 * (uint64_t)H,
                        4 * (uint64_t)H, tc::BK, tc::BH, tc::SWB))
     return (int)cudaErrorInvalidValue;
-  static std::atomic<uint64_t> smem_set{0};
-  const cudaError_t err =
-      sicz::hopper::allow_smem((const void*)tc::lstm_cell_wgmma<BWD>, tc::SMEM, smem_set);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((H + tc::BH - 1) / tc::BH, (B + tc::BM - 1) / tc::BM);
-  tc::lstm_cell_wgmma<BWD><<<grid, tc::NT, tc::SMEM, (cudaStream_t)stream>>>(mx, mh, mw, ep,
-                                                                              B, E, H);
-  return (int)cudaGetLastError();
+  if (E == 0) mx = mh;
+  return ep.term != nullptr ? launch_wgmma<BWD, true>(mx, mh, mw, ep, B, E, H, stream)
+                            : launch_wgmma<BWD, false>(mx, mh, mw, ep, B, E, H, stream);
 }
 
 template <bool BWD>
 int run_tf32x3(const void* x, const void* h, const void* w_hi, const void* w_lo,
                const Epi<float>& ep, int B, int E, int H, void* stream) {
   namespace t3 = sicz::hopper::tf32x3;
-  if (B <= 0 || E <= 0 || H <= 0 || E % 4 != 0 || H % 4 != 0)
+  if (B <= 0 || E < 0 || H <= 0 || E % 4 != 0 || H % 4 != 0 || ep.lanes < 1)
     return (int)cudaErrorInvalidValue;
-  if (pairs_misaligned(ep, 7) || !sicz::hopper::aligned16(x) ||
+  if (pairs_misaligned(ep, 7) || (E > 0 && !sicz::hopper::aligned16(x)) ||
       !sicz::hopper::aligned16(h) || !sicz::hopper::aligned16(w_hi) ||
       !sicz::hopper::aligned16(w_lo))
     return (int)cudaErrorMisalignedAddress;
   const uint64_t kt = (uint64_t)E + H, n4 = 4 * (uint64_t)H;
+  // E = 0: no step reads x, which gets no map (h's fills its slot)
   CUtensorMap mx, mh, mhi, mlo;
-  if (!sicz::hopper::tensor_map_f32(&mx, x, B, E, E, t3::BM) ||
-      !sicz::hopper::tensor_map_f32(&mh, h, B, H, H, t3::BM) ||
+  if (!sicz::hopper::tensor_map_f32(&mh, h, B, H, H, t3::BM) ||
+      (E > 0 && !sicz::hopper::tensor_map_f32(&mx, x, B, E, E, t3::BM)) ||
       !sicz::hopper::tensor_map_f32(&mhi, w_hi, n4, kt, kt, t3::BOX_N) ||
       !sicz::hopper::tensor_map_f32(&mlo, w_lo, n4, kt, kt, t3::BOX_N))
     return (int)cudaErrorInvalidValue;
-  static std::atomic<uint64_t> smem_set{0};
-  const cudaError_t err =
-      sicz::hopper::allow_smem((const void*)tc::lstm_cell_tf32x3<BWD>, t3::SMEM, smem_set);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((H + tc::BH - 1) / tc::BH, (B + t3::BM - 1) / t3::BM);
-  tc::lstm_cell_tf32x3<BWD><<<grid, t3::NT, t3::SMEM, (cudaStream_t)stream>>>(
-      mx, mh, mhi, mlo, ep, B, E, H);
-  return (int)cudaGetLastError();
+  if (E == 0) mx = mh;
+  return ep.term != nullptr
+             ? launch_tf32x3<BWD, true>(mx, mh, mhi, mlo, ep, B, E, H, stream)
+             : launch_tf32x3<BWD, false>(mx, mh, mhi, mlo, ep, B, E, H, stream);
 }
 
 }  // namespace
 
+// Every entry takes the gate term after b_sum: term (R, 4H) in the cell's
+// dtype, or null for none, and lanes >= 1 (row r reads term row r / lanes).
+// E may be 0.
 extern "C" int fused_lstm_cell(const void* x, const void* h, const void* c,
-                               const void* w_cat, const void* b_sum,
-                               void* h_out, void* c_out, int B, int E, int H,
+                               const void* w_cat, const void* b_sum, const void* term,
+                               int lanes, void* h_out, void* c_out, int B, int E, int H,
                                int dtype, void* stream) {
   if (dtype == sicz::kF32)
-    return run_cuda_core<float, false>(x, h, w_cat, fwd_epi<float>(c, b_sum, h_out, c_out),
-                                       B, E, H, stream);
+    return run_cuda_core<float, false>(
+        x, h, w_cat, fwd_epi<float>(c, b_sum, term, lanes, h_out, c_out), B, E, H, stream);
   if (dtype == sicz::kBF16)
     return run_cuda_core<__nv_bfloat16, false>(
-        x, h, w_cat, fwd_epi<__nv_bfloat16>(c, b_sum, h_out, c_out), B, E, H, stream);
+        x, h, w_cat, fwd_epi<__nv_bfloat16>(c, b_sum, term, lanes, h_out, c_out), B, E, H,
+        stream);
   return (int)cudaErrorInvalidValue;
 }
 
-// The tensor-core route: bf16 only, E and H multiples of 8, x, h and w_cat
-// 16-byte aligned (TMA), c, b_sum, h_out and c_out 4-byte aligned (pairs);
-// cudaErrorMisalignedAddress if a pointer is not.
+// The tensor-core route: bf16 only, E and H multiples of 8, x (when E > 0),
+// h and w_cat 16-byte aligned (TMA), c, b_sum, the term, h_out and c_out
+// 4-byte aligned (pairs); cudaErrorMisalignedAddress if a pointer is not.
 extern "C" int fused_lstm_cell_wgmma(const void* x, const void* h, const void* c,
-                                     const void* w_cat, const void* b_sum,
-                                     void* h_out, void* c_out, int B, int E,
-                                     int H, void* stream) {
-  return run_wgmma<false>(x, h, w_cat, fwd_epi<__nv_bfloat16>(c, b_sum, h_out, c_out), B, E,
+                                     const void* w_cat, const void* b_sum, const void* term,
+                                     int lanes, void* h_out, void* c_out, int B, int E, int H,
+                                     void* stream) {
+  return run_wgmma<false>(x, h, w_cat,
+                          fwd_epi<__nv_bfloat16>(c, b_sum, term, lanes, h_out, c_out), B, E,
                           H, stream);
 }
 
 // The float32 tensor-core route (3xTF32): E and H multiples of 4; w_hi and
 // w_lo are w_cat's TF32 parts, each (4H, E+H) row-major (ops/tf32.py);
-// x, h, w_hi and w_lo 16-byte aligned (TMA), c, b_sum, h_out and c_out
-// 8-byte aligned (float2 pairs); cudaErrorMisalignedAddress if a pointer
-// is not.
+// x (when E > 0), h, w_hi and w_lo 16-byte aligned (TMA), c, b_sum, the
+// term, h_out and c_out 8-byte aligned (float2 pairs);
+// cudaErrorMisalignedAddress if a pointer is not.
 extern "C" int fused_lstm_cell_tf32x3(const void* x, const void* h, const void* c,
                                       const void* w_hi, const void* w_lo,
-                                      const void* b_sum, void* h_out, void* c_out, int B,
-                                      int E, int H, void* stream) {
-  return run_tf32x3<false>(x, h, w_hi, w_lo, fwd_epi<float>(c, b_sum, h_out, c_out), B, E, H,
+                                      const void* b_sum, const void* term, int lanes,
+                                      void* h_out, void* c_out, int B, int E, int H,
+                                      void* stream) {
+  return run_tf32x3<false>(x, h, w_hi, w_lo,
+                           fwd_epi<float>(c, b_sum, term, lanes, h_out, c_out), B, E, H,
                            stream);
 }
 
 // The backward of each route: the same operands as its forward, with dh'
 // and dc' (c's dtype, laid out as c; either may be null, read as zero) in,
 // and d_gates ((B, 4H) float32) and dc (c's dtype) out in place of h' and
-// c'.  The tensor-core routes take the forward's conditions, d_gates
-// 8-byte aligned; each also writes, where its pointers are not null, the
+// c', and d_term (B, 4H) in the cell's dtype where it is not null (bf16:
+// the term's gradient; in float32 that is d_gates itself).  The
+// tensor-core routes take the forward's conditions, d_gates 8-byte
+// aligned; each also writes, where its pointers are not null, the
 // operands of the products of csrc/lstm_bwd.cu: the wgmma route d_hi and
 // d_lo (bf16, (B, 4H), 4-byte aligned), the tf32x3 route dt_hi and dt_lo
 // (float32, (4H, dt_pitch), dt_pitch >= B).
 extern "C" int fused_lstm_cell_bwd(const void* x, const void* h, const void* c,
-                                   const void* w_cat, const void* b_sum, const void* dh,
-                                   const void* dc, void* d_gates, void* dc_out, int B,
-                                   int E, int H, int dtype, void* stream) {
+                                   const void* w_cat, const void* b_sum, const void* term,
+                                   int lanes, const void* dh, const void* dc, void* d_gates,
+                                   void* dc_out, void* d_term, int B, int E, int H, int dtype,
+                                   void* stream) {
   if (dtype == sicz::kF32)
     return run_cuda_core<float, true>(
-        x, h, w_cat, bwd_epi<float>(c, b_sum, dh, dc, d_gates, dc_out), B, E, H, stream);
+        x, h, w_cat, bwd_epi<float>(c, b_sum, term, lanes, dh, dc, d_gates, dc_out, d_term),
+        B, E, H, stream);
   if (dtype == sicz::kBF16)
     return run_cuda_core<__nv_bfloat16, true>(
-        x, h, w_cat, bwd_epi<__nv_bfloat16>(c, b_sum, dh, dc, d_gates, dc_out), B, E, H,
-        stream);
+        x, h, w_cat,
+        bwd_epi<__nv_bfloat16>(c, b_sum, term, lanes, dh, dc, d_gates, dc_out, d_term), B, E,
+        H, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int fused_lstm_cell_bwd_wgmma(const void* x, const void* h, const void* c,
                                          const void* w_cat, const void* b_sum,
-                                         const void* dh, const void* dc, void* d_gates,
-                                         void* dc_out, void* d_hi, void* d_lo, int B, int E,
+                                         const void* term, int lanes, const void* dh,
+                                         const void* dc, void* d_gates, void* dc_out,
+                                         void* d_term, void* d_hi, void* d_lo, int B, int E,
                                          int H, void* stream) {
-  Epi<__nv_bfloat16> ep = bwd_epi<__nv_bfloat16>(c, b_sum, dh, dc, d_gates, dc_out);
+  Epi<__nv_bfloat16> ep =
+      bwd_epi<__nv_bfloat16>(c, b_sum, term, lanes, dh, dc, d_gates, dc_out, d_term);
   ep.d_hi = (__nv_bfloat16*)d_hi;
   ep.d_lo = (__nv_bfloat16*)d_lo;
   if ((d_hi == nullptr) != (d_lo == nullptr)) return (int)cudaErrorInvalidValue;
@@ -700,11 +800,12 @@ extern "C" int fused_lstm_cell_bwd_wgmma(const void* x, const void* h, const voi
 
 extern "C" int fused_lstm_cell_bwd_tf32x3(const void* x, const void* h, const void* c,
                                           const void* w_hi, const void* w_lo,
-                                          const void* b_sum, const void* dh, const void* dc,
-                                          void* d_gates, void* dc_out, void* dt_hi,
+                                          const void* b_sum, const void* term, int lanes,
+                                          const void* dh, const void* dc, void* d_gates,
+                                          void* dc_out, void* d_term, void* dt_hi,
                                           void* dt_lo, int dt_pitch, int B, int E, int H,
                                           void* stream) {
-  Epi<float> ep = bwd_epi<float>(c, b_sum, dh, dc, d_gates, dc_out);
+  Epi<float> ep = bwd_epi<float>(c, b_sum, term, lanes, dh, dc, d_gates, dc_out, d_term);
   ep.dt_hi = (float*)dt_hi;
   ep.dt_lo = (float*)dt_lo;
   ep.dt_pitch = dt_pitch;

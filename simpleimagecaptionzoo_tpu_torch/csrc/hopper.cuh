@@ -111,8 +111,12 @@ inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 // A map is a function of these arguments alone, so each host thread keeps
 // the last MAP_CACHE maps it encoded and copies one out on a repeat: a
 // weight's map is encoded once, and x's or h's again only when the
-// allocator hands out another buffer.
-constexpr int MAP_CACHE = 16;
+// allocator hands out a buffer the cache has not seen.  A decode step
+// maps about five new activations (K2's x and h of two cells, K1's x),
+// and the allocator cycles each through a few blocks of its size (blocks
+// a size class shares with other activations): 64 entries hold the
+// cycles of several steps, where 16 missed on every alternation.
+constexpr int MAP_CACHE = 64;
 
 // How many maps this library has encoded (cache misses, each a driver call
 // on the host), over all host threads: the timing scripts read it.

@@ -8,6 +8,11 @@
 //   dW  = [x, h]^T @ d_gates    (E+H, 4H)
 //   db  = sum over B of d_gates (4H,)
 //
+// A cell whose input is hoisted runs these over its smaller w_cat (the
+// rows of w_ih that stay in the step, then w_hh): E may be 0 (NIC's
+// teacher-forced cell), where dx is empty, dW has H rows and x gets no
+// tensor map.
+//
 // d_gates is float32 in both dtypes, so both products are float32 products
 // there: a bf16 product of bf16 operands would be another function.
 // fused_lstm.cu's backward kernel (the gate recompute and gradients) writes
@@ -671,7 +676,7 @@ lstm_bwd_dw_tf32x3_kernel(const __grid_constant__ CUtensorMap map_x,
 // ---- host ----------------------------------------------------------------------
 
 bool shape_ok(int B, int E, int H, int align) {
-  return B > 0 && E > 0 && H > 0 && E % 64 == 0 && H % align == 0;
+  return B > 0 && E >= 0 && H > 0 && E % 64 == 0 && H % align == 0;
 }
 
 template <typename T>
@@ -758,17 +763,19 @@ extern "C" int lstm_bwd_dw_wgmma(const void* x, const void* h, const void* d_hi,
                                  int E, int H, void* stream) {
   using namespace dw_bf16;
   if (!shape_ok(B, E, H, 8)) return (int)cudaErrorInvalidValue;
-  if (!aligned16(x) || !aligned16(h) || !aligned16(d_hi) || !aligned16(d_lo) ||
+  if ((E > 0 && !aligned16(x)) || !aligned16(h) || !aligned16(d_hi) || !aligned16(d_lo) ||
       !aligned16(dw) || ((uintptr_t)db & 3) != 0)
     return (int)cudaErrorMisalignedAddress;
   const uint64_t n4 = 4 * (uint64_t)H, kt = (uint64_t)E + H;
+  // E = 0: no box lies in x, which gets no map (h's fills its slot)
   CUtensorMap mx, mh, mhi, mlo, mdw;
-  if (!tensor_map_bf16(&mx, x, B, E, E, BK, 64, 128) ||
+  if ((E > 0 && !tensor_map_bf16(&mx, x, B, E, E, BK, 64, 128)) ||
       !tensor_map_bf16(&mh, h, B, H, H, BK, 64, 128) ||
       !tensor_map_bf16(&mhi, d_hi, B, n4, n4, BK, 64, 128) ||
       !tensor_map_bf16(&mlo, d_lo, B, n4, n4, BK, 64, 128) ||
       !tensor_map_bf16(&mdw, dw, kt, n4, n4, BM, 64, 128))
     return (int)cudaErrorInvalidValue;
+  if (E == 0) mx = mh;
   static std::atomic<uint64_t> smem_set{0};
   const cudaError_t err = allow_smem((const void*)lstm_bwd_dw_wgmma_kernel, SMEM, smem_set);
   if (err != cudaSuccess) return (int)err;
@@ -792,16 +799,18 @@ extern "C" int lstm_bwd_dw_tf32x3(const void* x, const void* h, const void* dt_h
                                   void* db, int B, int E, int H, void* stream) {
   using namespace dw_tf32;
   if (!shape_ok(B, E, H, 4) || dt_pitch < B) return (int)cudaErrorInvalidValue;
-  if (!aligned16(x) || !aligned16(h) || !aligned16(dt_hi) || !aligned16(dt_lo) ||
+  if ((E > 0 && !aligned16(x)) || !aligned16(h) || !aligned16(dt_hi) || !aligned16(dt_lo) ||
       !aligned16(dw) || ((uintptr_t)db & 3) != 0)
     return (int)cudaErrorMisalignedAddress;
   const uint64_t n4 = 4 * (uint64_t)H, kt = (uint64_t)E + H;
   CUtensorMap mx, mh, mthi, mtlo, mdw;
-  if (!tensor_map_f32(&mx, x, B, E, E, BK) || !tensor_map_f32(&mh, h, B, H, H, BK) ||
+  if ((E > 0 && !tensor_map_f32(&mx, x, B, E, E, BK)) ||
+      !tensor_map_f32(&mh, h, B, H, H, BK) ||
       !tensor_map_f32(&mthi, dt_hi, n4, B, dt_pitch, 32) ||
       !tensor_map_f32(&mtlo, dt_lo, n4, B, dt_pitch, 32) ||
       !tensor_map_f32(&mdw, dw, kt, n4, n4, BM))
     return (int)cudaErrorInvalidValue;
+  if (E == 0) mx = mh;
   static std::atomic<uint64_t> smem_set{0};
   const cudaError_t err = allow_smem((const void*)lstm_bwd_dw_tf32x3_kernel, SMEM, smem_set);
   if (err != cudaSuccess) return (int)err;

@@ -31,19 +31,30 @@ K1_VALUE_HOLD = {torch.float32: 1e-4, torch.bfloat16: 2e-3}
 ROWS_IDENTICAL = 0.99            # the float32 beam gate: rows as the plain run
 
 
-def _lstm_plain(w_cat, b_sum, x, h, c, split=None):
+def _lstm_plain(w_cat, b_sum, x, h, c, split=None, term=None, lanes=1):
     # the plain cell takes the unsplit w_cat, not the TF32 split
-    return fused_lstm.lstm_cell_plain(w_cat, b_sum, x, h, c)
+    return fused_lstm.lstm_cell_plain(w_cat, b_sum, x, h, c, term, lanes)
 
 
-def _lstm_bwd_plain(w_cat, b_sum, x, h, c, dh_new, dc_new, split=None):
-    return fused_lstm.lstm_cell_bwd_plain(w_cat, b_sum, x, h, c, dh_new,
-                                          dc_new)
+def _lstm_bwd_plain(w_cat, b_sum, x, h, c, dh_new, dc_new, split=None,
+                    term=None, lanes=1):
+    d_gates, dc = fused_lstm.lstm_cell_bwd_plain(w_cat, b_sum, x, h, c,
+                                                 dh_new, dc_new, term, lanes)
+    if term is None:
+        return d_gates, dc
+    return d_gates, dc, d_gates.to(term.dtype)
 
 
-def _lstm_bwd_full_plain(w_cat, b_sum, x, h, c, dh_new, dc_new, split=None):
+def _lstm_bwd_full_plain(w_cat, b_sum, x, h, c, dh_new, dc_new, split=None,
+                         term=None, lanes=1):
     return fused_lstm.lstm_cell_bwd_full_plain(w_cat, b_sum, x, h, c, dh_new,
-                                               dc_new)
+                                               dc_new, term, lanes)
+
+
+def _term(kw):
+    """The gate term and lanes of a K2 call's keywords (the port passes
+    them by keyword only)."""
+    return kw.get("term"), kw.get("lanes", 1)
 
 
 def plain_swaps() -> List[Tuple[object, str, Callable]]:
@@ -78,12 +89,15 @@ def plain_versions(wrap: Optional[Callable[[str, Callable], Callable]] = None):
 
 
 def _beyond(got, want, atol, rtol=0.0) -> float:
-    """Largest |got - want| beyond atol + rtol |want| (0 when within)."""
+    """Largest |got - want| beyond atol + rtol |want| (0 when within, and
+    for an empty tensor: dx of a cell whose E is 0)."""
     diff = (got.float() - want.float()).abs()
+    if diff.numel() == 0:
+        return 0.0
     return float((diff - atol - rtol * want.float().abs()).clamp_min(0).max())
 
 
-def _hold_k1(plain, a, got):
+def _hold_k1(plain, a, kw, got):
     head, x, k = a
     vals, ids, lse = got
     pv, pi, pl = plain(head, x, k + 1)
@@ -101,29 +115,32 @@ def _hold_k1(plain, a, got):
     return "%d ids differ where the gap exceeds 1e-3" % bad if bad else None
 
 
-def _hold_k2(plain, a, got):
+def _hold_k2(plain, a, kw, got):
+    term, lanes = _term(kw)
     if a[3].dtype == torch.float32:
         # against the plain version's function in float64: from pixels,
         # BUTD's cells sum |x||w| up to 250 a gate, where cuBLAS's float32
         # product (the plain version in float32) is itself off by up to
         # 1.45e-5 and the kernel by 5.56e-6 (PERF.md section 6;
         # scripts/probe_lstm_f64.py)
-        want, tol = plain(*(t.double() for t in a[:5])), 1e-5
+        want, tol = plain(*(t.double() for t in a[:5]), term=_double(term),
+                          lanes=lanes), 1e-5
     else:
-        want, tol = plain(*a[:5]), 1e-2
+        want, tol = plain(*a[:5], term=term, lanes=lanes), 1e-2
     err = max(_beyond(g, w, tol, tol) for g, w in zip(got, want))
     if err:
         return "h' or c' off by %.3g beyond rtol and atol %g" % (err, tol)
     return None
 
 
-def _hold_k2_bwd(plain, a, got):
-    want = plain(*a[:7])
+def _hold_k2_bwd(plain, a, kw, got):
+    term, lanes = _term(kw)
+    want = plain(*a[:7], term=term, lanes=lanes)
     tol = 1e-5 if a[2].dtype == torch.float32 else 1e-2
     err = max(_beyond(g, w, tol, tol) for g, w in zip(got, want))
     if err:
-        return "d_gates or dc off by %.3g beyond rtol and atol %g" % (err,
-                                                                      tol)
+        return ("d_gates, dc or d_term off by %.3g beyond rtol and atol %g"
+                % (err, tol))
     return None
 
 
@@ -131,24 +148,27 @@ def _double(t):
     return None if t is None else t.double()
 
 
-def k2_bwd_full_errors(args, got) -> dict:
-    """How far K2's whole backward (dW, db, dx, dh, dc: ``got``, on the
-    forward's inputs and cotangents ``args``) lies beyond its holds, by
-    output name (0 where within).  float32, against the function in
-    float64: dx, dh and dc within 1e-5 (rtol and atol, K2's float32
+def k2_bwd_full_errors(args, got, term=None, lanes=1) -> dict:
+    """How far K2's whole backward (dW, db, dx, dh, dc and, with a gate
+    term, d_term: ``got``, on the forward's inputs and cotangents
+    ``args``) lies beyond its holds, by output name (0 where within).
+    float32, against the function in float64: dx, dh, dc and d_term (which
+    is d_gates, lanes summed) within 1e-5 (rtol and atol, K2's float32
     hold); dW and db within 1e-5 of the sum over the batch of |[x, h]_b|
     |d_b| (and |d_b|), plus 1e-6: B terms are summed, as K3's hold is
     relative to the sum of |x q s|.  bf16: rtol and atol 1e-2 against the
     plain version."""
-    names = ("dW", "db", "dx", "dh", "dc")
+    names = ("dW", "db", "dx", "dh", "dc", "d_term")
     w_cat, b_sum, x, h, c, dh_new, dc_new = args[:7]
     if x.dtype != torch.float32:
-        want = fused_lstm.lstm_cell_bwd_full_plain(*args[:7])
+        want = fused_lstm.lstm_cell_bwd_full_plain(*args[:7], term, lanes)
         return {n: _beyond(g, w, 1e-2, 1e-2)
                 for n, g, w in zip(names, got, want)}
     a64 = [_double(t) for t in args[:7]]
-    d, dc = fused_lstm.lstm_cell_bwd_plain(*a64)
+    d, dc = fused_lstm.lstm_cell_bwd_plain(*a64, _double(term), lanes)
     want = fused_lstm.lstm_bwd_products_plain(*a64[:4], d) + (dc,)
+    if term is not None:
+        want = want + (fused_lstm.term_grad(d, term, lanes),)
     err = {n: _beyond(g, w, 1e-5, 1e-5)
            for n, g, w in zip(names[2:], got[2:], want[2:])}
     da = d.abs()
@@ -158,17 +178,17 @@ def k2_bwd_full_errors(args, got) -> dict:
     return err
 
 
-def _hold_k2_bwd_full(plain, a, got):
+def _hold_k2_bwd_full(plain, a, kw, got):
     # the plain version stands in for the function; in float32 the hold's
     # reference is that function in float64 (k2_bwd_full_errors)
-    err = k2_bwd_full_errors(a, got)
+    err = k2_bwd_full_errors(a, got, *_term(kw))
     if max(err.values()):
         return "off beyond their holds: %s" % ", ".join(
             "%s by %.3g" % kv for kv in err.items() if kv[1])
     return None
 
 
-def _hold_k3(plain, a, got):
+def _hold_k3(plain, a, kw, got):
     x, qp = a
     want = plain(x, qp)
     if x.dtype == torch.float32:
@@ -184,7 +204,7 @@ def _hold_k3(plain, a, got):
     return "off by %.3g beyond its hold" % err if err else None
 
 
-def _hold_k4(plain, a, got):
+def _hold_k4(plain, a, kw, got):
     q, mask = a[0], a[5]
     out, pm = got
     want, pwant = plain(*a)
@@ -222,7 +242,7 @@ def held_calls(failures: list):
     def held(name, run, plain):
         def fn(*a, **kw):
             got = run(*a, **kw)
-            why = _HOLDS[name](plain, a, got)
+            why = _HOLDS[name](plain, a, kw, got)
             if why:
                 failures.append((name, why))
             return got
@@ -244,10 +264,10 @@ _SHAPE_OF = [
     (fused_head, "_run_kernel", lambda head, x, k, route: (
         "K1", route, x.shape[0], k)),
     (fused_lstm, "_run_kernel", lambda w_cat, b_sum, x, h, c, route,
-     split=None: ("K2", route, x.shape[0], x.shape[1])),
+     split=None, term=None, lanes=1: ("K2", route, x.shape[0], x.shape[1])),
     (fused_lstm, "_run_bwd_kernel", lambda w_cat, b_sum, x, h, c, dh, dc,
-     route, split=None, parts=False: ("K2bwd", route, x.shape[0],
-                                      x.shape[1])),
+     route, split=None, parts=False, term=None, lanes=1: (
+         "K2bwd", route, x.shape[0], x.shape[1])),
     (fused_lstm, "_run_dxh_kernel", lambda w_cat, g, x, h, route: (
         "K2dxh", route, x.shape[0], x.shape[1])),
     (fused_lstm, "_run_dw_kernel", lambda x, h, g, w_cat, b_sum, route: (

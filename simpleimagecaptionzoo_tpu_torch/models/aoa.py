@@ -34,8 +34,16 @@ regions, no mask).  At its published width (hidden 512, 8 heads) a head is
 keeps float K/V whatever ``SICZ_TPU_INT8_KV`` says.  From pixels
 (``visual["img_tensors"]``, with ``cnn`` in the params): ``prepare_images``,
 the ResNet-101, ``spatial_features`` to the ``enc_img_size`` grid (float32,
-cast to ``proj``'s dtype, ``models/base.py``).  ``tf_inputs`` is not
-ported yet.
+cast to ``proj``'s dtype, ``models/base.py``).
+
+Teacher forcing's hoist, as in the JAX package's default mode
+(``SICZ_TPU_PALLAS_LSTM`` ``auto`` or ``off``): with scheduled sampling
+off, :meth:`_AoABase.tf_inputs` projects the embeddings of all steps by the
+emb rows of the cell's ``w_ih`` (plus ``b_ih``) before the loop, and each
+step runs K2 over ``mean + ctx`` alone (the ctx rows of ``w_ih`` and
+``w_hh``, b_hh) with that step's projection as its gate term.  Under
+``interpret``, with scheduled sampling on, and in decode the cell takes
+[emb, mean + ctx] every step, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -218,17 +226,41 @@ class _AoABase(Captioner):
                         device=encoded.mean.device)
         return {"h": z, "m": z, "ctx": z}
 
+    def tf_inputs(self, params, encoded: Encoded, tokens: torch.Tensor,
+                  emb_masks):
+        """Teacher forcing's hoist (the JAX package's ``tf_inputs``,
+        ``models/aoa.py:275``): the embeddings of all steps, ReLU'd and
+        dropped out with ``emb_masks``, times the emb rows of ``w_ih``,
+        plus ``b_ih``: {"term": (T, B, 4H), "cell": the cell's weights
+        keeping the ctx rows}.  None where the cell is not hoisted."""
+        lstm = params["lstm"]
+        if not L.hoist_lstm_inputs(lstm):
+            return None
+        e_dim = self.config.embed_dim
+        emb = torch.relu(L.embedding(params["embed"], tokens))   # (T,B,E)
+        emb = L.apply_dropout(emb, emb_masks, self.config.dropout)
+        term = emb @ lstm["w_ih"][:e_dim] + lstm["b_ih"]
+        return {"term": term.contiguous(),
+                "cell": fused_lstm.prepare_lstm(
+                    lstm, keep=((e_dim, lstm["w_ih"].shape[0]),))}
+
     def step_core(self, params, encoded: Encoded, state,
                   tokens: torch.Tensor, *, train: bool = False,
-                  generator=None):
+                  generator=None, tf_input=None, emb_mask=None):
         cfg = self.config
         ctx_in = encoded.mean + L.dropout(state["ctx"], cfg.dropout, train,
                                           generator)
-        emb = torch.relu(L.embedding(params["embed"], tokens))
-        emb = L.dropout(emb, cfg.dropout, train, generator)
-        h, m = L.lstm_cell(params["lstm"], torch.cat([emb, ctx_in], dim=-1),
-                           state["h"], state["m"],
-                           prepared=(encoded.extras or {}).get("lstm_cat"))
+        if tf_input is not None:
+            # teacher forcing's hoist: the embedding's gates in the term
+            h, m = L.lstm_cell(params["lstm"], ctx_in, state["h"], state["m"],
+                               prepared=tf_input["cell"],
+                               term=tf_input["term"])
+        else:
+            emb = torch.relu(L.embedding(params["embed"], tokens))
+            emb = L.dropout(emb, cfg.dropout, train, generator, emb_mask)
+            h, m = L.lstm_cell(
+                params["lstm"], torch.cat([emb, ctx_in], dim=-1), state["h"],
+                state["m"], prepared=(encoded.extras or {}).get("lstm_cat"))
         q = L.layer_norm_std(params["h_norm"], h)[:, None, :]    # (B,1,D)
         ctx, alpha = self._attend(params, q, encoded, train=train,
                                   generator=generator)

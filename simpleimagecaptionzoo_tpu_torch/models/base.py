@@ -112,10 +112,44 @@ class Captioner:
 
     def step_core(self, params, encoded: Encoded, state,
                   tokens: torch.Tensor, *, train: bool = False,
-                  generator=None):
+                  generator=None, tf_input=None, emb_mask=None):
         """One decode step up to, not including, the prediction head:
-        (pre_logits (B, H), new_state, alpha (B, N) or None)."""
+        (pre_logits (B, H), new_state, alpha (B, N) or None).
+
+        ``tf_input``: this step's share of :meth:`tf_inputs` (the hoisted
+        input's gate term and the cell's kept weights), which the step
+        uses in place of its tokens' embedding.  ``emb_mask``: this step's
+        row of :meth:`emb_dropout_masks`, drawn before the loop; without
+        one a step in train mode draws its embedding's mask itself."""
         raise NotImplementedError
+
+    def emb_dropout_masks(self, n_steps: int, b: int, train: bool,
+                          generator, device) -> Optional[torch.Tensor]:
+        """The word embedding's dropout masks of ``n_steps`` steps, (T, B,
+        embed_dim) bool, drawn from ``generator`` one step after another
+        before a teacher-forced or rollout loop, or None where dropout is
+        off.  Teacher forcing draws them whether or not it hoists
+        (:meth:`tf_inputs`), so both forms see the same masks in the same
+        order of draws.  The families whose embedding has dropout (BUTD,
+        AoA) use this; NIC's has none."""
+        cfg = self.config
+        if not train or cfg.dropout <= 0.0:
+            return None
+        return torch.stack([L.dropout_mask((b, cfg.embed_dim), cfg.dropout,
+                                           True, generator, device)
+                            for _ in range(n_steps)])
+
+    def tf_inputs(self, params, encoded: Encoded, tokens: torch.Tensor,
+                  emb_masks: Optional[torch.Tensor]):
+        """Teacher forcing's input hoist (the JAX package's
+        ``Captioner.tf_inputs``, ``models/base.py:95``): with every step's
+        input token known before the loop (scheduled sampling off), the
+        embedding rows of the cell's ``w_ih`` project all ``tokens`` (T, B)
+        at once, dropped out with ``emb_masks``.  -> {"term": (T, B, 4H),
+        "cell": the cell's weights without those rows
+        (``fused_lstm.prepare_lstm(..., keep=...)``)}, or None where the
+        cell is not hoisted (``layers.hoist_lstm_inputs``)."""
+        return None
 
     def predict(self, params, pre_logits: torch.Tensor) -> torch.Tensor:
         """Prediction head: pre_logits (..., H) -> logits (..., V), the

@@ -15,12 +15,19 @@ masked attention (-1e9) is always on.  Both cells' concatenated weights
 (``extras["td_cat"]``, ``extras["lang_cat"]``, with their TF32 split in
 float32) are made once in encode, as AoA's ``lstm_cat``.
 
-The td-cell hoist is not ported: the JAX package's default mode projects
-the 2,048 ``mean`` rows of the attention cell's ``w_ih`` once in encode
-(``td_mean_gates``) and runs that cell outside its kernel.  Here both cells
-run kernel K2 over the full concat every step, the function the JAX
-package's kernel computes in its ``interpret`` mode; the two agree to
-float32 rounding.
+The attention cell's hoists, as in the JAX package's default mode
+(``SICZ_TPU_PALLAS_LSTM`` ``auto`` or ``off``; ``layers.hoist_lstm_inputs``):
+encode projects the 2,048 ``mean`` rows of its ``w_ih`` once,
+``td_mean_gates`` = mean @ w_ih[H:H+enc] + b_ih (B, 4H), and keeps only
+the ``h2`` and ``emb`` rows in ``td_cat`` (3,072 rows at the published
+width, b_hh alone).  Every step then runs K2 over [h2, emb] with
+``td_mean_gates`` as its gate term: greedy, beam search (the k lanes of a
+sample read its row in place), XE with scheduled sampling, SCST.  Teacher
+forcing with scheduled sampling off (:meth:`_BUTDBase.tf_inputs`) also
+projects the embeddings of all steps before the loop, and the step runs K2
+over h2 alone.  Under ``interpret`` the cell takes [h2, mean, emb] every
+step, the function of the JAX package's ``interpret`` mode.  Int8 cells
+are never hoisted.
 
 Int8 serving (``quantize_decode_params``): both cells, ``att_dec`` and the
 head are weight-only int8 (kernel K3 three times a step; K1-int8 for the
@@ -34,7 +41,7 @@ activation is per lane, (B, k, N, A), and both cells run over B*k rows.
 BUTDSpatial from pixels (``visual["img_tensors"]``, with ``cnn`` in the
 params): ``prepare_images``, the ResNet-101, ``spatial_features`` to the
 ``enc_img_size`` grid (float32, cast to ``att_enc``'s dtype,
-``models/base.py``).  ``tf_inputs`` is not ported yet.
+``models/base.py``).
 """
 from __future__ import annotations
 
@@ -91,11 +98,41 @@ class _BUTDBase(Captioner):
             mean = ((feats * mask[..., None]).sum(dim=1)
                     / torch.clamp(mask.sum(dim=1, keepdim=True), min=1.0))
         extras = {"att_keys": L.dense_wn(params["att_enc"], feats)}
-        for name, key in (("lstm_td", "td_cat"), ("lstm_lang", "lang_cat")):
-            if not quant.is_quantized(params[name]):
-                extras[key] = fused_lstm.prepare_lstm(params[name])
+        td = params["lstm_td"]
+        if L.hoist_lstm_inputs(td):
+            # the mean rows of w_ih, projected once (b_ih rides along);
+            # the step keeps the h2 and emb rows
+            h_dim, e_dim = self.config.hidden_dim, feats.shape[-1]
+            extras["td_mean_gates"] = (
+                mean @ td["w_ih"][h_dim:h_dim + e_dim]
+                + td["b_ih"]).contiguous()
+            extras["td_cat"] = fused_lstm.prepare_lstm(
+                td, keep=((0, h_dim), (h_dim + e_dim, td["w_ih"].shape[0])))
+        elif not quant.is_quantized(td):
+            extras["td_cat"] = fused_lstm.prepare_lstm(td)
+        if not quant.is_quantized(params["lstm_lang"]):
+            extras["lang_cat"] = fused_lstm.prepare_lstm(params["lstm_lang"])
         return (Encoded(features=feats, mean=mean, mask=mask,
                         extras=extras), model_state)
+
+    def tf_inputs(self, params, encoded: Encoded, tokens: torch.Tensor,
+                  emb_masks):
+        """Teacher forcing's hoist (the JAX package's ``tf_inputs``,
+        ``models/butd.py:164``): the embeddings of all steps, ReLU'd and
+        dropped out with ``emb_masks``, projected by the emb rows of the
+        attention cell's ``w_ih`` before the loop, plus ``td_mean_gates``:
+        {"term": (T, B, 4H), "cell": the cell's weights keeping only the
+        h2 rows}.  None where encode did not hoist."""
+        ex = encoded.extras
+        td = params["lstm_td"]
+        if "td_mean_gates" not in ex:
+            return None
+        h_dim, e_dim = self.config.hidden_dim, encoded.features.shape[-1]
+        emb = torch.relu(L.embedding(params["embed"], tokens))   # (T,B,D)
+        emb = L.apply_dropout(emb, emb_masks, self.config.dropout)
+        term = emb @ td["w_ih"][h_dim + e_dim:] + ex["td_mean_gates"]
+        return {"term": term.contiguous(),
+                "cell": fused_lstm.prepare_lstm(td, keep=((0, h_dim),))}
 
     def init_state(self, params, encoded: Encoded):
         b = encoded.mean.shape[0]
@@ -105,15 +142,29 @@ class _BUTDBase(Captioner):
 
     def step_core(self, params, encoded: Encoded, state,
                   tokens: torch.Tensor, *, train: bool = False,
-                  generator=None):
+                  generator=None, tf_input=None, emb_mask=None):
         cfg = self.config
         ex = encoded.extras
-        emb = torch.relu(L.embedding(params["embed"], tokens))
-        emb = L.dropout(emb, cfg.dropout, train, generator)
-        h1, c1 = L.lstm_cell(
-            params["lstm_td"],
-            torch.cat([state["h2"], encoded.mean, emb], dim=-1),
-            state["h1"], state["c1"], prepared=ex.get("td_cat"))
+        td = params["lstm_td"]
+        if tf_input is not None:
+            # teacher forcing's hoist: the embedding's and mean's gates in
+            # the term, the h2 rows of w_ih in the step
+            h1, c1 = L.lstm_cell(td, state["h2"], state["h1"], state["c1"],
+                                 prepared=tf_input["cell"],
+                                 term=tf_input["term"])
+        else:
+            emb = torch.relu(L.embedding(params["embed"], tokens))
+            emb = L.dropout(emb, cfg.dropout, train, generator, emb_mask)
+            if "td_mean_gates" in ex:
+                # mean's gates from encode, the h2 and emb rows in the step
+                h1, c1 = L.lstm_cell(
+                    td, torch.cat([state["h2"], emb], dim=-1), state["h1"],
+                    state["c1"], prepared=ex["td_cat"],
+                    term=ex["td_mean_gates"])
+            else:
+                h1, c1 = L.lstm_cell(
+                    td, torch.cat([state["h2"], encoded.mean, emb], dim=-1),
+                    state["h1"], state["c1"], prepared=ex.get("td_cat"))
         # concat SoftAttention (BUTD_Model.py:49-62)
         dec_ctx = L.dense_wn(params["att_dec"], h1)               # (B, A)
         act = torch.relu(ex["att_keys"] + dec_ctx[:, None, :])
@@ -140,18 +191,27 @@ class _BUTDBase(Captioner):
         attention keys (B, N, A) and features (B, N, E) are read once per
         sample a step; only the concat attention's activation (B, k, N, A)
         is per lane, and both cells run over B*k rows with encode's
-        prepared weights.  The state stays contiguous (B, k, H), which the
-        tensor-core routes need.  Returns the pre-logit h2 (B, k, H); the
-        caller applies the head."""
+        prepared weights; the attention cell's ``td_mean_gates``, where
+        encode hoisted it, is its gate term with lanes = k (each sample's
+        row read in place by its k lanes).  The state stays contiguous
+        (B, k, H), which the tensor-core routes need.  Returns the
+        pre-logit h2 (B, k, H); the caller applies the head."""
         b, k = tokens.shape
         ex = encoded.extras
         flat = lambda x: x.reshape(b * k, -1)                 # noqa: E731
         emb = torch.relu(L.embedding(params["embed"], tokens))   # (B,k,E)
-        mean = encoded.mean[:, None, :].to(emb.dtype).expand(b, k, -1)
-        h1, c1 = L.lstm_cell(
-            params["lstm_td"],
-            flat(torch.cat([state["h2"], mean, emb], dim=-1)),
-            flat(state["h1"]), flat(state["c1"]), prepared=ex.get("td_cat"))
+        if "td_mean_gates" in ex:
+            h1, c1 = L.lstm_cell(
+                params["lstm_td"], flat(torch.cat([state["h2"], emb], dim=-1)),
+                flat(state["h1"]), flat(state["c1"]), prepared=ex["td_cat"],
+                term=ex["td_mean_gates"], lanes=k)
+        else:
+            mean = encoded.mean[:, None, :].to(emb.dtype).expand(b, k, -1)
+            h1, c1 = L.lstm_cell(
+                params["lstm_td"],
+                flat(torch.cat([state["h2"], mean, emb], dim=-1)),
+                flat(state["h1"]), flat(state["c1"]),
+                prepared=ex.get("td_cat"))
         dec_ctx = L.dense_wn(params["att_dec"], h1).reshape(b, k, 1, -1)
         act = torch.relu(ex["att_keys"][:, None] + dec_ctx)   # (B,k,N,A)
         scores = L.dense_wn(params["att_affine"], act)[..., 0]   # (B,k,N)

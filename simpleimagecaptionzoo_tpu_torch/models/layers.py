@@ -16,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from simpleimagecaptionzoo_tpu_torch.ops import fused_lstm, quant
+from simpleimagecaptionzoo_tpu_torch.ops import dispatch, fused_lstm, quant
 from simpleimagecaptionzoo_tpu_torch.parallel import global_rand
 
 
@@ -114,7 +114,8 @@ def embedding(params: dict, ids: torch.Tensor) -> torch.Tensor:
 
 def lstm_cell(params: dict, x: torch.Tensor, h: torch.Tensor,
               c: torch.Tensor,
-              prepared: Optional[fused_lstm.LstmWeights] = None):
+              prepared: Optional[fused_lstm.LstmWeights] = None,
+              term: Optional[torch.Tensor] = None, lanes: int = 1):
     """torch nn.LSTMCell step -> (h', c') through kernel K2: launched for
     CUDA tensors, its plain version for CPU tensors.  ``prepared`` is
     ``fused_lstm.prepare_lstm(params)``, made once outside a decode loop;
@@ -123,17 +124,42 @@ def lstm_cell(params: dict, x: torch.Tensor, h: torch.Tensor,
     requires one) the step runs through ``fused_lstm.LstmCell``, whose
     backward is K2's backward kernel; decode keeps the direct call.
 
+    A hoisted cell (the JAX package's ``lstm_cell_gates``, guarded by
+    :func:`hoist_lstm_inputs`): ``prepared`` is
+    ``prepare_lstm(params, keep=...)``, x holds only the inputs whose rows
+    of ``w_ih`` it kept, and ``term`` (rows / lanes, 4H) is the rest of the
+    input's projection plus ``b_ih``, added by K2 in its epilogue.
+
     Int8 params (``ops/quant.quantize_lstm``) take the JAX package's int8
     cell instead: the gates come from K3, rounded to x's dtype, and the gate
-    math runs in that dtype.  K2 does not run then."""
+    math runs in that dtype.  K2 does not run then, and nothing is
+    hoisted."""
     if "q" in params:
+        if term is not None:
+            raise ValueError("lstm_cell: an int8 cell takes the whole input, "
+                             "not a gate term")
         gates = quant.quant_matmul(torch.cat([x, h], dim=-1), params)
         return fused_lstm.gate_math(gates, c)
     w = prepared if prepared is not None else fused_lstm.prepare_lstm(params)
     if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (w.w_cat, w.b_sum, x, h, c)):
-        return fused_lstm.lstm_cell_train(w, x, h, c)
-    return fused_lstm.lstm_cell_fused(w.w_cat, w.b_sum, x, h, c, w.split)
+            t is not None and t.requires_grad
+            for t in (w.w_cat, w.b_sum, x, h, c, term)):
+        return fused_lstm.lstm_cell_train(w, x, h, c, term, lanes)
+    if term is None:
+        return fused_lstm.lstm_cell_fused(w.w_cat, w.b_sum, x, h, c, w.split)
+    return fused_lstm.lstm_cell_fused(w.w_cat, w.b_sum, x, h, c, w.split,
+                                      term=term, lanes=lanes)
+
+
+def hoist_lstm_inputs(params: dict) -> bool:
+    """Whether a cell's input projections leave the step loop (the JAX
+    package's ``layers.hoist_lstm_inputs``, ``models/layers.py:178-190``):
+    under ``SICZ_TPU_PALLAS_LSTM`` ``auto`` (the default) and ``off``, and
+    never for an int8 cell (its K3 product takes the whole concat) or under
+    ``interpret``, which runs the whole concat every step.  In every mode
+    the cell runs on K2 on the card (``ops/dispatch.py``)."""
+    return ("q" not in params
+            and dispatch.kernel_mode("SICZ_TPU_PALLAS_LSTM") != "interpret")
 
 
 def layer_norm_std(params: dict, x: torch.Tensor,
@@ -159,16 +185,36 @@ def layer_norm_std(params: dict, x: torch.Tensor,
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Inverted dropout (torch semantics).  A no-op when not training or
     rate <= 0.  The mask comes from ``generator``: its bits differ from the
     JAX package's, as the reference's torch stream did.  Under a process
     group the mask is the global batch's rows of this process (axis 0 is
-    the batch; ``parallel.global_rand``)."""
+    the batch; ``parallel.global_rand``).  ``mask``, when given, is one
+    :func:`dropout_mask` drew earlier, and nothing is drawn here."""
+    if mask is None:
+        mask = dropout_mask(x.shape, rate, train, generator, x.device)
+    return apply_dropout(x, mask, rate)
+
+
+def dropout_mask(shape, rate: float, train: bool,
+                 generator: Optional[torch.Generator],
+                 device) -> Optional[torch.Tensor]:
+    """The keep mask :func:`dropout` draws for a tensor of ``shape``
+    (bool), or None where dropout is a no-op; drawn apart from its tensor,
+    so a caller can draw it before the tensor exists."""
     if not train or rate <= 0.0:
+        return None
+    return global_rand(shape, generator, device) < 1.0 - rate
+
+
+def apply_dropout(x: torch.Tensor, mask: Optional[torch.Tensor],
+                  rate: float) -> torch.Tensor:
+    """``x`` through a keep mask of :func:`dropout_mask` (None: x)."""
+    if mask is None:
         return x
     keep = 1.0 - rate
-    mask = global_rand(x.shape, generator, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 

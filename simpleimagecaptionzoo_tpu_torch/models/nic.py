@@ -24,7 +24,16 @@ apply.
 From pixels (``visual["img_tensors"]``, with ``cnn`` in the params):
 ``prepare_images``, the ResNet-101, its global average pool (float32,
 cast to the embedding's dtype, ``models/base.py``), then the embedding.
-``tf_inputs`` is not ported yet.
+
+Teacher forcing's hoist, as in the JAX package's default mode
+(``SICZ_TPU_PALLAS_LSTM`` ``auto`` or ``off``): the cell's input is the
+word embedding alone, so with scheduled sampling off
+:meth:`NICCaptioner.tf_inputs` projects all of it before the loop (emb @
+w_ih + b_ih) and each step runs K2 at E = 0 (``w_hh`` and b_hh alone) with
+that step's projection as its gate term.  Under ``interpret``, with
+scheduled sampling on, and in decode the cell takes the embedding every
+step.  The embedding has no dropout (NIC_Model.py:58-60), so NIC draws no
+embedding masks.
 """
 from __future__ import annotations
 
@@ -84,11 +93,36 @@ class NICCaptioner(Captioner):
                            prepared=(encoded.extras or {}).get("lstm_cat"))
         return {"h": h, "c": c}
 
+    def emb_dropout_masks(self, n_steps, b, train, generator, device):
+        """None: NIC's embedding has no dropout."""
+        return None
+
+    def tf_inputs(self, params, encoded: Encoded, tokens: torch.Tensor,
+                  emb_masks):
+        """Teacher forcing's hoist (the JAX package's ``tf_inputs``,
+        ``models/nic.py:91``): {"term": emb @ w_ih + b_ih (T, B, 4H),
+        "cell": ``w_hh`` and b_hh alone}.  None where the cell is not
+        hoisted."""
+        lstm = params["lstm"]
+        if not L.hoist_lstm_inputs(lstm):
+            return None
+        emb = L.embedding(params["embed"], tokens)               # (T,B,E)
+        return {"term": (emb @ lstm["w_ih"] + lstm["b_ih"]).contiguous(),
+                "cell": fused_lstm.prepare_lstm(lstm, keep=())}
+
     def step_core(self, params, encoded: Encoded, state,
                   tokens: torch.Tensor, *, train: bool = False,
-                  generator=None):
-        emb = L.embedding(params["embed"], tokens)
-        h, c = L.lstm_cell(params["lstm"], emb, state["h"], state["c"],
-                           prepared=(encoded.extras or {}).get("lstm_cat"))
+                  generator=None, tf_input=None, emb_mask=None):
+        if tf_input is not None:
+            # teacher forcing's hoist: the whole input in the term, E = 0
+            x = state["h"].new_empty((state["h"].shape[0], 0))
+            h, c = L.lstm_cell(params["lstm"], x, state["h"], state["c"],
+                               prepared=tf_input["cell"],
+                               term=tf_input["term"])
+        else:
+            emb = L.embedding(params["embed"], tokens)
+            h, c = L.lstm_cell(params["lstm"], emb, state["h"], state["c"],
+                               prepared=(encoded.extras or {}).get(
+                                   "lstm_cat"))
         out = L.dropout(h, self.config.dropout, train, generator)
         return out, {"h": h, "c": c}, None

@@ -272,18 +272,37 @@ def teacher_forced_logits(model: Captioner, params, encoded: Encoded,
     ``generator`` draws the dropout masks of ``model.step_core`` (train
     mode), ``ss_generator`` (default: ``generator``) the sampling's
     uniforms and Gumbel noise.  With two generators the dropout masks do
-    not depend on whether sampling is active.  The JAX package also
-    hoists the ground-truth embedding's rows of ``w_ih`` out of its scan
-    when sampling is off (``Captioner.tf_inputs``); the port runs the cell
-    over the full [emb, ctx] input every step, the function of the JAX
-    package's ``interpret`` mode."""
+    not depend on whether sampling is active.  The word embedding's masks
+    of every step are drawn first, before the loop
+    (``Captioner.emb_dropout_masks``), then each step's other masks in
+    step order, whatever the mode.
+
+    With sampling off, every step's input token is known before the loop,
+    and the input hoist of the JAX package's default mode applies
+    (``Captioner.tf_inputs``; on under ``SICZ_TPU_PALLAS_LSTM`` ``auto``
+    and ``off``): the embedding rows of the cell's ``w_ih`` project all
+    steps at once, and step t runs kernel K2 over the rest of the input
+    with its slice of that projection as the gate term.  Under
+    ``interpret`` each step takes its whole input, as the JAX package's
+    ``interpret`` mode does; both modes draw the same masks."""
     b, t_total = captions.shape
+    n_steps = t_total - 1
     use_ss = (generator is not None) if ss_active is None \
         else bool(ss_active)
     ss_gen = ss_generator if ss_generator is not None else generator
     state = model.init_state(params, encoded)
+    masks = model.emb_dropout_masks(n_steps, b, train, generator,
+                                    captions.device)
+    tf_steps = None
+    if not use_ss:
+        tf = model.tf_inputs(params, encoded, captions[:, :-1].t(), masks)
+        if tf is not None:
+            # one slice a step (unbind: its backward stacks the slices'
+            # gradients once)
+            tf_steps = [{"cell": tf["cell"], "term": term}
+                        for term in tf["term"].unbind(0)]
     hidden, hiddens = None, []
-    for t in range(t_total - 1):
+    for t in range(n_steps):
         tok = captions[:, t]
         if use_ss and t >= 2:
             with torch.no_grad():
@@ -291,8 +310,10 @@ def teacher_forced_logits(model: Captioner, params, encoded: Encoded,
                                           captions.device) < ss_prob
                 drawn = _categorical(ss_gen, model.predict(params, hidden))
             tok = torch.where(use_model, drawn, tok.long())
-        hidden, state, _ = model.step_core(params, encoded, state, tok,
-                                           train=train, generator=generator)
+        hidden, state, _ = model.step_core(
+            params, encoded, state, tok, train=train, generator=generator,
+            tf_input=None if tf_steps is None else tf_steps[t],
+            emb_mask=None if masks is None else masks[t])
         hiddens.append(hidden)
     return model.predict(params, torch.stack(hiddens, dim=1))
 
@@ -329,18 +350,22 @@ def sample_rl(model: Captioner, params, encoded: Encoded, max_len: int,
     As in :func:`teacher_forced_logits` the head is hoisted: the draws come
     from per-step logits under ``torch.no_grad`` (a draw has no gradient),
     the logprobs from one head application over the stacked (B, T, H)
-    hiddens.  ``generator`` draws the dropout masks of ``model.step_core``,
-    ``draw_generator`` (default: ``generator``) the ids; with two
-    generators the dropout masks do not depend on the draws."""
+    hiddens.  ``generator`` draws the dropout masks of ``model.step_core``
+    (the embedding's of every step first, as teacher forcing draws them,
+    so :func:`replay_logprobs` sees the same masks), ``draw_generator``
+    (default: ``generator``) the ids; with two generators the dropout
+    masks do not depend on the draws."""
     b, dev = encoded.mean.shape[0], encoded.mean.device
     draw_gen = draw_generator if draw_generator is not None else generator
     state = model.init_state(params, encoded)
+    masks = model.emb_dropout_masks(max_len, b, True, generator, dev)
     tok = torch.full((b,), STA_ID, dtype=torch.long, device=dev)
     unfinished = torch.ones((b,), dtype=torch.bool, device=dev)
     seq, drawn, hiddens = [], [], []
-    for _ in range(max_len):
-        hidden, state, _ = model.step_core(params, encoded, state, tok,
-                                           train=True, generator=generator)
+    for t in range(max_len):
+        hidden, state, _ = model.step_core(
+            params, encoded, state, tok, train=True, generator=generator,
+            emb_mask=None if masks is None else masks[t])
         with torch.no_grad():
             d = _categorical(draw_gen, model.predict(params, hidden))
         unfinished = unfinished & (d != END_ID)

@@ -7,7 +7,18 @@ nn.LSTMCell::
     h' = sig(o)*tanh(c')
 
 with float32 accumulation and a float32 epilogue, h' and c' cast back to
-their dtype: the Pallas kernel's semantics.  In bf16 that differs from the
+their dtype: the Pallas kernel's semantics.
+
+The gate term (the JAX package's default mode, ``models/layers.py:162``
+``lstm_cell_gates``): the part of a cell's input that is projected once
+outside the step loop arrives as ``term`` (R, 4H) in x's dtype, and the
+kernel computes ``[x, h] @ w_cat + b_sum + term[row // lanes]`` with the
+term added in its float32 epilogue, after the bias.  ``lanes`` is k in beam
+search (the k lanes of a sample read one row in place) and 1 elsewhere.
+``w_cat`` then holds only the rows of ``w_ih`` that stay in the step, then
+``w_hh``, and ``b_sum`` is ``b_hh`` (:func:`prepare_lstm` with ``keep``);
+E may be 0 (NIC's teacher-forced cell).  The term is read by plain loads,
+so a new slice each step costs no tensor map.  In bf16 that differs from the
 JAX package's jnp fallback cell (``layers.py:148-150``), whose bf16 matmuls
 round the gates to bf16 before the nonlinearities; the port follows the
 kernel, and so does its plain version, which upcasts before its matmul.
@@ -96,16 +107,46 @@ class LstmWeights(NamedTuple):
     split: Optional[tf32.Split]
 
 
-def prepare_lstm(params: dict) -> LstmWeights:
+def prepare_lstm(params: dict, keep=None) -> LstmWeights:
     """LSTM param dict -> :class:`LstmWeights`.  Loop-invariant: compute
     once per decode (or training step), not per step.  w_cat and b_sum
     carry autograd's graph to the params; the TF32 split is made from a
-    detached w_cat, so autograd neither tracks nor keeps it."""
-    w_cat = torch.cat([params["w_ih"], params["w_hh"]], dim=0).contiguous()
+    detached w_cat, so autograd neither tracks nor keeps it.
+
+    ``keep``: None for the whole cell (w_cat = [w_ih; w_hh], b_sum = b_ih
+    + b_hh); else the hoisted form, a sequence of (start, stop) row ranges
+    of ``w_ih`` that stay in the step (possibly none): w_cat = those rows
+    of w_ih, then w_hh, and b_sum = b_hh alone (``b_ih`` rides in the gate
+    term)."""
+    if keep is None:
+        w_cat = torch.cat([params["w_ih"], params["w_hh"]], dim=0)
+        b_sum = params["b_ih"] + params["b_hh"]
+    else:
+        w_cat = torch.cat([params["w_ih"][a:b] for a, b in keep]
+                          + [params["w_hh"]], dim=0)
+        b_sum = params["b_hh"]
+    w_cat = w_cat.contiguous()
     split = (tf32.prepare_split(w_cat.detach())
              if w_cat.dtype == torch.float32 else None)
-    return LstmWeights(w_cat, (params["b_ih"] + params["b_hh"]).contiguous(),
-                       split)
+    return LstmWeights(w_cat, b_sum.contiguous(), split)
+
+
+def _term_rows(term: Optional[torch.Tensor], lanes: int, acc):
+    """The term's row for each row of the cell, in ``acc``: row r reads
+    term row r // lanes (None stays None)."""
+    if term is None:
+        return None
+    t = term.to(acc)
+    return t if lanes == 1 else t.repeat_interleave(lanes, dim=0)
+
+
+def _gates_plain(w_cat, b_sum, x, h, term, lanes, acc):
+    """[x, h] @ w_cat + b_sum (+ the term's rows) in ``acc``, the kernel's
+    order: the product, then the bias, then the term."""
+    gates = torch.cat([x, h], dim=-1).to(acc) @ w_cat.to(acc) + b_sum.to(acc)
+    if term is not None:
+        gates = gates + _term_rows(term, lanes, acc)
+    return gates
 
 
 def gate_math(gates: torch.Tensor, c: torch.Tensor):
@@ -117,13 +158,13 @@ def gate_math(gates: torch.Tensor, c: torch.Tensor):
 
 
 def lstm_cell_plain(w_cat: torch.Tensor, b_sum: torch.Tensor,
-                    x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
+                    x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+                    term: Optional[torch.Tensor] = None, lanes: int = 1):
     """K2's function in plain PyTorch: float32 gates and epilogue (float64
     for float64 inputs, the exact reference ``engine/holds.py`` holds the
-    float32 kernel against)."""
+    float32 kernel against), with the gate term where one is given."""
     acc = torch.float64 if x.dtype == torch.float64 else torch.float32
-    gates = (torch.cat([x, h], dim=-1).to(acc) @ w_cat.to(acc)
-             + b_sum.to(acc))
+    gates = _gates_plain(w_cat, b_sum, x, h, term, lanes, acc)
     h_new, c_new = gate_math(gates, c.to(acc))
     return h_new.to(h.dtype), c_new.to(c.dtype)
 
@@ -131,17 +172,18 @@ def lstm_cell_plain(w_cat: torch.Tensor, b_sum: torch.Tensor,
 def lstm_cell_bwd_plain(w_cat: torch.Tensor, b_sum: torch.Tensor,
                         x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
                         dh_new: Optional[torch.Tensor],
-                        dc_new: Optional[torch.Tensor]):
+                        dc_new: Optional[torch.Tensor],
+                        term: Optional[torch.Tensor] = None, lanes: int = 1):
     """K2 backward's function in plain PyTorch: the gates recomputed in
-    float32 as the forward computes them, then the gate gradients of
-    JAX's ``_cell_bwd`` (``pallas_lstm.py:455-491``).  A cotangent of None
-    (one autograd did not form) is zero.  -> (d_gates (B, 4H) float32,
-    gates i, f, g, o; dc in c's dtype); float64 throughout for float64
-    inputs, the exact reference ``engine/holds.py`` holds the float32
-    kernels against."""
+    float32 as the forward computes them (with the gate term where one is
+    given), then the gate gradients of JAX's ``_cell_bwd``
+    (``pallas_lstm.py:455-491``).  A cotangent of None (one autograd did
+    not form) is zero.  -> (d_gates (B, 4H) float32, gates i, f, g, o; dc
+    in c's dtype); float64 throughout for float64 inputs, the exact
+    reference ``engine/holds.py`` holds the float32 kernels against.  The
+    term's gradient is d_gates (:func:`term_grad`)."""
     acc = torch.float64 if x.dtype == torch.float64 else torch.float32
-    gates = (torch.cat([x, h], dim=-1).to(acc) @ w_cat.to(acc)
-             + b_sum.to(acc))
+    gates = _gates_plain(w_cat, b_sum, x, h, term, lanes, acc)
     zi, zf, zg, zo = torch.chunk(gates, 4, dim=-1)
     i, f, o = torch.sigmoid(zi), torch.sigmoid(zf), torch.sigmoid(zo)
     g = torch.tanh(zg)
@@ -156,6 +198,18 @@ def lstm_cell_bwd_plain(w_cat: torch.Tensor, b_sum: torch.Tensor,
                          dc_total * i * (1.0 - g * g),
                          dh * tc * o * (1.0 - o)], dim=-1)
     return d_gates, (dc_total * f).to(c.dtype)
+
+
+def term_grad(d: torch.Tensor, term: torch.Tensor, lanes: int = 1):
+    """The gate term's gradient from the rows' gate gradients ``d`` (B, 4H)
+    (float32 d_gates, or the backward kernel's d_term): each term row's
+    lanes summed (in float32, float64 for float64), in the term's dtype
+    (float64 stays float64)."""
+    if lanes > 1:
+        acc = torch.float64 if d.dtype == torch.float64 else torch.float32
+        d = d.to(acc).reshape(-1, lanes, d.shape[-1]).sum(dim=1)
+    out = term.dtype if d.dtype != torch.float64 else torch.float64
+    return d.to(out)
 
 
 def split_bf16(d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -213,27 +267,36 @@ def lstm_bwd_dw_plain(x: torch.Tensor, h: torch.Tensor,
 def lstm_cell_bwd_full_plain(w_cat: torch.Tensor, b_sum: torch.Tensor,
                              x: torch.Tensor, h: torch.Tensor,
                              c: torch.Tensor, dh_new: Optional[torch.Tensor],
-                             dc_new: Optional[torch.Tensor]):
+                             dc_new: Optional[torch.Tensor],
+                             term: Optional[torch.Tensor] = None,
+                             lanes: int = 1):
     """The whole of K2's backward in plain PyTorch: JAX's ``_cell_bwd``
     with float32 products (:func:`lstm_cell_bwd_plain`, then
     :func:`lstm_bwd_products_plain`; float64 for float64 inputs) -> (dW,
-    db, dx, dh, dc), each in its primal's dtype."""
-    d_gates, dc = lstm_cell_bwd_plain(w_cat, b_sum, x, h, c, dh_new, dc_new)
-    return lstm_bwd_products_plain(w_cat, b_sum, x, h, d_gates) + (dc,)
+    db, dx, dh, dc), each in its primal's dtype; with a gate term, then
+    d_term (:func:`term_grad`)."""
+    d_gates, dc = lstm_cell_bwd_plain(w_cat, b_sum, x, h, c, dh_new, dc_new,
+                                      term, lanes)
+    out = lstm_bwd_products_plain(w_cat, b_sum, x, h, d_gates) + (dc,)
+    if term is None:
+        return out
+    return out + (term_grad(d_gates, term, lanes),)
 
 
 def lstm_route(w_cat: torch.Tensor, x: torch.Tensor, h: torch.Tensor) -> str:
     """The kernel route for these operands, when E and H make 16-byte rows
     (TMA) and x, h and w_cat start on 16-byte boundaries: ``"wgmma"`` when
     all are bf16, ``"tf32x3"`` when all are float32; else
-    ``"cuda_core"``."""
+    ``"cuda_core"``.  E = 0 (a cell whose whole input is hoisted into the
+    gate term) takes the tensor-core routes: no step reads x, and x needs
+    no alignment."""
     e, hidden = x.shape[1], h.shape[1]
     dtype = x.dtype
     if (dtype in (torch.bfloat16, torch.float32)
-            and w_cat.dtype == dtype and h.dtype == dtype and e > 0
+            and w_cat.dtype == dtype and h.dtype == dtype
             and (e * x.element_size()) % 16 == 0
             and (hidden * x.element_size()) % 16 == 0
-            and _build.tma_aligned(w_cat, x, h)):
+            and _build.tma_aligned(w_cat, h, *((x,) if e else ()))):
         return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     return "cuda_core"
 
@@ -241,8 +304,8 @@ def lstm_route(w_cat: torch.Tensor, x: torch.Tensor, h: torch.Tensor) -> str:
 def lstm_bwd_route(w_cat: torch.Tensor, x: torch.Tensor, h: torch.Tensor,
                    *epilogue: torch.Tensor) -> str:
     """The backward's route: the forward's (:func:`lstm_route`), unless an
-    operand of the epilogue (c, b_sum, dh', dc'; a cotangent may be None)
-    breaks the tensor-core
+    operand of the epilogue (c, b_sum, the term, dh', dc'; the term and a
+    cotangent may be None) breaks the tensor-core
     epilogue's pairs (two elements at once: 4-byte alignment in bf16,
     8-byte in float32), which goes to ``"cuda_core"``."""
     route = lstm_route(w_cat, x, h)
@@ -257,7 +320,8 @@ def lstm_bwd_products_route(w_cat: torch.Tensor, x: torch.Tensor,
                             h: torch.Tensor, *epilogue: torch.Tensor) -> str:
     """The route of the backward's products: the backward kernel's
     (:func:`lstm_bwd_route`) when that is a tensor-core route and E is a
-    multiple of 64 (dW's boxes of x and h then never straddle the two):
+    multiple of 64, 0 included (dW's boxes of x and h then never straddle
+    the two):
     ``"wgmma"`` (2xBF16) or ``"tf32x3"`` (3xTF32), kernels of
     ``csrc/lstm_bwd.cu``; else ``"cuda_core"``, where they are float32
     ``torch.matmul`` products, as the JAX package leaves them to XLA."""
@@ -282,9 +346,29 @@ def dxh_splits(b: int, e: int, hidden: int, sms: int, route: str) -> int:
     return max(1, min(cap, stages // 4, sms // tiles))
 
 
-def _check(ts, x, h, c, w_cat, b_sum, more=()):
+def _check_term(term, lanes, x, hidden):
+    """The gate term: (rows / lanes, 4H), contiguous, in x's dtype, on x's
+    device, lanes >= 1 dividing the rows; None passes."""
+    if term is None:
+        return
+    b = x.shape[0]
+    if not (isinstance(lanes, int) and lanes >= 1 and b % lanes == 0
+            and term.shape == (b // lanes, 4 * hidden)
+            and term.is_contiguous() and term.dtype == x.dtype
+            and term.device == x.device):
+        raise ValueError(
+            "fused_lstm: the gate term must be a contiguous (rows / lanes, "
+            "4H) tensor of x's dtype on x's device, lanes dividing the rows; "
+            "got %s %s%s for %d rows, H=%d, lanes %r"
+            % (tuple(term.shape), term.dtype,
+               "" if term.is_contiguous() else " (not contiguous)", b,
+               hidden, lanes))
+
+
+def _check(ts, x, h, c, w_cat, b_sum, more=(), term=None, lanes=1):
     b, e = x.shape
     hidden = h.shape[1]
+    _check_term(term, lanes, x, hidden)
     ts = tuple(t for t in ts if t is not None)
     more = tuple(t for t in more if t is not None)
     if not all(t.is_cuda and t.device == x.device for t in ts):
@@ -316,14 +400,17 @@ def _check_split(split, x, e, hidden):
                          "float32 (4H, E+H) tensors on x's device")
 
 
-def _run_kernel(w_cat, b_sum, x, h, c, route, split=None):
+def _run_kernel(w_cat, b_sum, x, h, c, route, split=None, term=None,
+                lanes=1):
     b, e = x.shape
     hidden = h.shape[1]
-    _check((w_cat, b_sum, x, h, c), x, h, c, w_cat, b_sum)
+    _check((w_cat, b_sum, x, h, c), x, h, c, w_cat, b_sum, term=term,
+           lanes=lanes)
     lib = _build.load("fused_lstm", _declare)
     h_out = torch.empty_like(h)
     c_out = torch.empty_like(c)
     p = _build.ptr
+    t = (_build.ptr_or_null(term), lanes)
     if route == "wgmma":
         # alignment: lstm_route checked it, and the C entry refuses a
         # misaligned pointer (CUDA error 716)
@@ -332,8 +419,8 @@ def _run_kernel(w_cat, b_sum, x, h, c, route, split=None):
                              "and H multiples of 8; got %s, E=%d, H=%d"
                              % (x.dtype, e, hidden))
         code = lib.fused_lstm_cell_wgmma(
-            p(x), p(h), p(c), p(w_cat), p(b_sum), p(h_out), p(c_out), b, e,
-            hidden, _build.stream_of(x))
+            p(x), p(h), p(c), p(w_cat), p(b_sum), *t, p(h_out), p(c_out), b,
+            e, hidden, _build.stream_of(x))
         _build.check(code, "fused_lstm_cell_wgmma")
         COUNT_WGMMA.n += 1
     elif route == "tf32x3":
@@ -345,14 +432,14 @@ def _run_kernel(w_cat, b_sum, x, h, c, route, split=None):
             split = tf32.prepare_split(w_cat)
         _check_split(split, x, e, hidden)
         code = lib.fused_lstm_cell_tf32x3(
-            p(x), p(h), p(c), p(split.hi), p(split.lo), p(b_sum), p(h_out),
-            p(c_out), b, e, hidden, _build.stream_of(x))
+            p(x), p(h), p(c), p(split.hi), p(split.lo), p(b_sum), *t,
+            p(h_out), p(c_out), b, e, hidden, _build.stream_of(x))
         _build.check(code, "fused_lstm_cell_tf32x3")
         COUNT_TF32X3.n += 1
     elif route == "cuda_core":
         code = lib.fused_lstm_cell(
-            p(x), p(h), p(c), p(w_cat), p(b_sum), p(h_out), p(c_out), b, e,
-            hidden, 0 if x.dtype == torch.float32 else 1,
+            p(x), p(h), p(c), p(w_cat), p(b_sum), *t, p(h_out), p(c_out), b,
+            e, hidden, 0 if x.dtype == torch.float32 else 1,
             _build.stream_of(x))
         _build.check(code, "fused_lstm_cell")
     else:
@@ -373,15 +460,16 @@ class GateGrads(NamedTuple):
 
 
 def _run_bwd_kernel(w_cat, b_sum, x, h, c, dh_new, dc_new, route,
-                    split=None, parts=False):
+                    split=None, parts=False, term=None, lanes=1):
     """The backward kernel on ``route`` -> (d_gates (B, 4H) float32, dc);
     with ``parts`` (a tensor-core route) -> (:class:`GateGrads`, dc), the
     products' operands written beside d_gates.  A cotangent may be None
-    (zero)."""
+    (zero).  With a gate term, a third value: d_term (B, 4H) in the term's
+    dtype, d_gates itself in float32, written by the kernel in bf16."""
     b, e = x.shape
     hidden = h.shape[1]
     _check((w_cat, b_sum, x, h, c, dh_new, dc_new), x, h, c, w_cat, b_sum,
-           more=(dh_new, dc_new))
+           more=(dh_new, dc_new), term=term, lanes=lanes)
     if parts and route == "cuda_core":
         raise ValueError("fused_lstm: the products' operands come from a "
                          "tensor-core route")
@@ -389,9 +477,13 @@ def _run_bwd_kernel(w_cat, b_sum, x, h, c, dh_new, dc_new, route,
     d_gates = torch.empty((b, 4 * hidden), dtype=torch.float32,
                           device=x.device)
     dc = torch.empty_like(c)
+    d_term = (None if term is None or x.dtype == torch.float32
+              else torch.empty((b, 4 * hidden), dtype=x.dtype,
+                               device=x.device))
     hi = lo = None
     p, opt = _build.ptr, _build.ptr_or_null
-    epi = (opt(dh_new), opt(dc_new), p(d_gates), p(dc))
+    epi = (opt(term), lanes, opt(dh_new), opt(dc_new), p(d_gates), p(dc),
+           opt(d_term))
     dims = (b, e, hidden)
     if route == "wgmma":
         if x.dtype != torch.bfloat16 or e % 8 or hidden % 8:
@@ -433,9 +525,10 @@ def _run_bwd_kernel(w_cat, b_sum, x, h, c, dh_new, dc_new, route,
     else:
         raise ValueError("fused_lstm: unknown route %r" % (route,))
     COUNT_BWD.n += 1
-    if parts:
-        return GateGrads(d_gates, hi, lo), dc
-    return d_gates, dc
+    g = GateGrads(d_gates, hi, lo) if parts else d_gates
+    if term is None:
+        return g, dc
+    return g, dc, d_gates if d_term is None else d_term
 
 
 _SMS = {}           # device index -> its SM count
@@ -471,7 +564,8 @@ def _check_products(w_cat, x, h, route):
             or e % 64 or hidden % (8 if route == "wgmma" else 4)
             or w_cat.shape != (e + hidden, 4 * hidden)):
         raise ValueError("fused_lstm: the %s products take %s x, h and "
-                         "w_cat, E a multiple of 64; got %s, E=%d, H=%d"
+                         "w_cat, E a multiple of 64 (0 included); got %s, "
+                         "E=%d, H=%d"
                          % (route, want, x.dtype, e, hidden))
 
 
@@ -544,17 +638,24 @@ def map_encodes() -> int:
 
 def _declare(lib) -> None:
     vp_, i_ = ctypes.c_void_p, ctypes.c_int
-    lib.fused_lstm_cell.argtypes = [vp_] * 7 + [i_] * 4 + [vp_]
+    # every entry: ..., b_sum, term, lanes, ...
+    lib.fused_lstm_cell.argtypes = ([vp_] * 6 + [i_] + [vp_] * 2 + [i_] * 4
+                                    + [vp_])
     lib.fused_lstm_cell.restype = i_
-    lib.fused_lstm_cell_wgmma.argtypes = [vp_] * 7 + [i_] * 3 + [vp_]
+    lib.fused_lstm_cell_wgmma.argtypes = ([vp_] * 6 + [i_] + [vp_] * 2
+                                          + [i_] * 3 + [vp_])
     lib.fused_lstm_cell_wgmma.restype = i_
-    lib.fused_lstm_cell_tf32x3.argtypes = [vp_] * 8 + [i_] * 3 + [vp_]
+    lib.fused_lstm_cell_tf32x3.argtypes = ([vp_] * 7 + [i_] + [vp_] * 2
+                                           + [i_] * 3 + [vp_])
     lib.fused_lstm_cell_tf32x3.restype = i_
-    lib.fused_lstm_cell_bwd.argtypes = [vp_] * 9 + [i_] * 4 + [vp_]
+    lib.fused_lstm_cell_bwd.argtypes = ([vp_] * 6 + [i_] + [vp_] * 5
+                                        + [i_] * 4 + [vp_])
     lib.fused_lstm_cell_bwd.restype = i_
-    lib.fused_lstm_cell_bwd_wgmma.argtypes = [vp_] * 11 + [i_] * 3 + [vp_]
+    lib.fused_lstm_cell_bwd_wgmma.argtypes = ([vp_] * 6 + [i_] + [vp_] * 7
+                                              + [i_] * 3 + [vp_])
     lib.fused_lstm_cell_bwd_wgmma.restype = i_
-    lib.fused_lstm_cell_bwd_tf32x3.argtypes = [vp_] * 12 + [i_] * 4 + [vp_]
+    lib.fused_lstm_cell_bwd_tf32x3.argtypes = ([vp_] * 7 + [i_] + [vp_] * 7
+                                               + [i_] * 4 + [vp_])
     lib.fused_lstm_cell_bwd_tf32x3.restype = i_
     lib.fused_lstm_map_encodes.argtypes = []
     lib.fused_lstm_map_encodes.restype = ctypes.c_ulonglong
@@ -577,61 +678,90 @@ def _declare_products(lib) -> None:
 
 def lstm_cell_fused(w_cat: torch.Tensor, b_sum: torch.Tensor,
                     x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
-                    split: Optional[tf32.Split] = None):
+                    split: Optional[tf32.Split] = None,
+                    term: Optional[torch.Tensor] = None, lanes: int = 1):
     """(h', c') of one cell step from :func:`prepare_lstm`'s weights.  A
     CUDA ``x`` launches the kernel on :func:`lstm_route`'s route; a CPU
     ``x`` takes the plain version (on the unsplit w_cat).  ``split`` is
     :func:`prepare_lstm`'s; without it the "tf32x3" route splits w_cat for
-    this call."""
+    this call.  ``term`` (rows / lanes, 4H) in x's dtype, or None: the gate
+    term, row r of the cell adding term row r // lanes."""
     if x.device.type == "cpu":
-        return lstm_cell_plain(w_cat, b_sum, x, h, c)
-    return _run_kernel(w_cat, b_sum, x, h, c, lstm_route(w_cat, x, h), split)
+        _check_term(term, lanes, x, h.shape[1])
+        return lstm_cell_plain(w_cat, b_sum, x, h, c, term, lanes)
+    return _run_kernel(w_cat, b_sum, x, h, c, lstm_route(w_cat, x, h), split,
+                       term, lanes)
 
 
 def lstm_cell_bwd(w_cat: torch.Tensor, b_sum: torch.Tensor, x: torch.Tensor,
                   h: torch.Tensor, c: torch.Tensor,
                   dh_new: Optional[torch.Tensor],
                   dc_new: Optional[torch.Tensor],
-                  split: Optional[tf32.Split] = None):
+                  split: Optional[tf32.Split] = None,
+                  term: Optional[torch.Tensor] = None, lanes: int = 1):
     """K2's backward kernel: (d_gates (B, 4H) float32, dc) from the
     forward's inputs and the cotangents dh', dc' (c's dtype, contiguous;
-    None is zero).  A CUDA ``x`` launches ``fused_lstm_cell_bwd`` on
-    :func:`lstm_bwd_route`'s route; a CPU ``x`` takes
-    :func:`lstm_cell_bwd_plain`."""
+    None is zero); with a gate term, then d_term (B, 4H) in the term's
+    dtype, each row's own (:func:`term_grad` sums a term row's lanes).  A
+    CUDA ``x`` launches ``fused_lstm_cell_bwd`` on :func:`lstm_bwd_route`'s
+    route; a CPU ``x`` takes :func:`lstm_cell_bwd_plain`."""
     if x.device.type == "cpu":
-        return lstm_cell_bwd_plain(w_cat, b_sum, x, h, c, dh_new, dc_new)
+        _check_term(term, lanes, x, h.shape[1])
+        d_gates, dc = lstm_cell_bwd_plain(w_cat, b_sum, x, h, c, dh_new,
+                                          dc_new, term, lanes)
+        if term is None:
+            return d_gates, dc
+        return d_gates, dc, d_gates.to(term.dtype)
     return _run_bwd_kernel(w_cat, b_sum, x, h, c, dh_new, dc_new,
-                           lstm_bwd_route(w_cat, x, h, c, b_sum, dh_new,
-                                          dc_new), split)
+                           lstm_bwd_route(w_cat, x, h, c, b_sum, term,
+                                          dh_new, dc_new), split,
+                           term=term, lanes=lanes)
 
 
 def lstm_cell_bwd_full(w_cat: torch.Tensor, b_sum: torch.Tensor,
                        x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
                        dh_new: Optional[torch.Tensor],
                        dc_new: Optional[torch.Tensor],
-                       split: Optional[tf32.Split] = None):
+                       split: Optional[tf32.Split] = None,
+                       term: Optional[torch.Tensor] = None, lanes: int = 1):
     """The whole of K2's backward, what :class:`LstmCell` calls: (dW, db,
     dx, dh, dc), each in its primal's dtype, from the forward's inputs and
-    the cotangents (as :func:`lstm_cell_bwd`).  A CPU ``x`` takes
+    the cotangents (as :func:`lstm_cell_bwd`); with a gate term, then
+    d_term (the term's shape and dtype, lanes summed).  A CPU ``x`` takes
     :func:`lstm_cell_bwd` (there its plain version) and the plain
     products.  A CUDA ``x`` launches the backward kernel and, on
     :func:`lstm_bwd_products_route`'s tensor-core routes, the dx·dh and
     dW·db kernels (three launches, no library call); on ``"cuda_core"``
-    the products are float32 ``torch.matmul`` calls."""
+    the products are float32 ``torch.matmul`` calls.  The term adds no
+    launch: its gradient is the kernel's d_gates (float32) or d_term
+    (bf16)."""
     if x.device.type == "cpu":
-        d_gates, dc = lstm_cell_bwd(w_cat, b_sum, x, h, c, dh_new, dc_new)
-        return lstm_bwd_products_plain(w_cat, b_sum, x, h, d_gates) + (dc,)
-    epilogue = (c, b_sum, dh_new, dc_new)
-    route = lstm_bwd_route(w_cat, x, h, *epilogue)
-    if lstm_bwd_products_route(w_cat, x, h, *epilogue) == "cuda_core":
-        d_gates, dc = _run_bwd_kernel(w_cat, b_sum, x, h, c, dh_new, dc_new,
-                                      route, split)
-        return lstm_bwd_products_plain(w_cat, b_sum, x, h, d_gates) + (dc,)
-    g, dc = _run_bwd_kernel(w_cat, b_sum, x, h, c, dh_new, dc_new, route,
-                            split, parts=True)
-    dx, dh = _run_dxh_kernel(w_cat, g, x, h, route)
-    dw, db = _run_dw_kernel(x, h, g, w_cat, b_sum, route)
-    return dw, db, dx, dh, dc
+        out = lstm_cell_bwd(w_cat, b_sum, x, h, c, dh_new, dc_new,
+                            term=term, lanes=lanes)
+        grads = lstm_bwd_products_plain(w_cat, b_sum, x, h, out[0]) + (
+            out[1],)
+    else:
+        epilogue = (c, b_sum, term, dh_new, dc_new)
+        route = lstm_bwd_route(w_cat, x, h, *epilogue)
+        if lstm_bwd_products_route(w_cat, x, h, *epilogue) == "cuda_core":
+            out = _run_bwd_kernel(w_cat, b_sum, x, h, c, dh_new, dc_new,
+                                  route, split, term=term, lanes=lanes)
+            grads = lstm_bwd_products_plain(w_cat, b_sum, x, h, out[0]) + (
+                out[1],)
+        else:
+            out = _run_bwd_kernel(w_cat, b_sum, x, h, c, dh_new, dc_new,
+                                  route, split, parts=True, term=term,
+                                  lanes=lanes)
+            g = out[0]
+            dx, dh = _run_dxh_kernel(w_cat, g, x, h, route)
+            dw, db = _run_dw_kernel(x, h, g, w_cat, b_sum, route)
+            grads = (dw, db, dx, dh, out[1])
+    if term is None:
+        return grads
+    # one row a term row: the term's dtype as written; else the lanes'
+    # float32 sum, rounded once
+    d32 = out[0].d if isinstance(out[0], GateGrads) else out[0]
+    return grads + (term_grad(out[2] if lanes == 1 else d32, term, lanes),)
 
 
 def _cotangent(g: Optional[torch.Tensor], like: torch.Tensor):
@@ -640,34 +770,44 @@ def _cotangent(g: Optional[torch.Tensor], like: torch.Tensor):
 
 class LstmCell(torch.autograd.Function):
     """One cell step under autograd: (w_cat, b_sum, x, h, c, split_hi,
-    split_lo) -> (h', c').  The forward runs :func:`lstm_cell_fused` and
-    saves its inputs; the backward runs :func:`lstm_cell_bwd_full`.
-    Autograd does not fill a missing cotangent with zeros (the last step's
-    c' has none): the backward kernel reads it as zero.  The TF32 split
-    (float32 only, else None) is a detached input that gets no
-    gradient."""
+    split_lo[, term, lanes]) -> (h', c').  The forward runs
+    :func:`lstm_cell_fused` and saves its inputs; the backward runs
+    :func:`lstm_cell_bwd_full` and returns the term's gradient beside the
+    others (its lanes summed).  Autograd does not fill a missing cotangent
+    with zeros (the last step's c' has none): the backward kernel reads it
+    as zero.  The term may be None; the TF32 split (float32 only, else
+    None) is a detached input that gets no gradient."""
 
     @staticmethod
-    def forward(ctx, w_cat, b_sum, x, h, c, split_hi, split_lo):
+    def forward(ctx, w_cat, b_sum, x, h, c, split_hi, split_lo, term=None,
+                lanes=1):
         split = None if split_hi is None else tf32.Split(split_hi, split_lo)
-        h_new, c_new = lstm_cell_fused(w_cat, b_sum, x, h, c, split)
-        ctx.save_for_backward(x, h, c, w_cat, b_sum, split_hi, split_lo)
+        # the term by keyword, as every caller passes it (engine/holds
+        # reads it there)
+        tkw = {} if term is None else dict(term=term, lanes=lanes)
+        h_new, c_new = lstm_cell_fused(w_cat, b_sum, x, h, c, split, **tkw)
+        ctx.save_for_backward(x, h, c, w_cat, b_sum, term, split_hi,
+                              split_lo)
+        ctx.lanes = lanes
         ctx.set_materialize_grads(False)
         return h_new, c_new
 
     @staticmethod
     def backward(ctx, dh_new, dc_new):
-        x, h, c, w_cat, b_sum, hi, lo = ctx.saved_tensors
+        x, h, c, w_cat, b_sum, term, hi, lo = ctx.saved_tensors
         split = None if hi is None else tf32.Split(hi, lo)
-        dw, db, dx, dh, dc = lstm_cell_bwd_full(
+        grads = lstm_cell_bwd_full(
             w_cat, b_sum, x, h, c, _cotangent(dh_new, h),
-            _cotangent(dc_new, c), split)
-        return dw, db, dx, dh, dc, None, None
+            _cotangent(dc_new, c), split, term=term, lanes=ctx.lanes)
+        dw, db, dx, dh, dc = grads[:5]
+        d_term = grads[5] if term is not None else None
+        return dw, db, dx, dh, dc, None, None, d_term, None
 
 
 def lstm_cell_train(w: LstmWeights, x: torch.Tensor, h: torch.Tensor,
-                    c: torch.Tensor):
+                    c: torch.Tensor, term: Optional[torch.Tensor] = None,
+                    lanes: int = 1):
     """(h', c') of one cell step through :class:`LstmCell`, for a step
     whose gradient autograd needs."""
     hi, lo = w.split if w.split is not None else (None, None)
-    return LstmCell.apply(w.w_cat, w.b_sum, x, h, c, hi, lo)
+    return LstmCell.apply(w.w_cat, w.b_sum, x, h, c, hi, lo, term, lanes)

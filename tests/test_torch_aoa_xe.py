@@ -260,10 +260,15 @@ def test_xe_eval_loss_matches_jax(setup, monkeypatch):
     assert abs(float(got) - want) <= 1e-5 * abs(want)
 
 
-def test_ss_active_at_prob_0_equals_ss_inactive():
+def test_ss_active_at_prob_0_equals_ss_inactive(monkeypatch):
     """With dropout on (the published rates), scheduled sampling active at
     ss_prob 0 gives exactly the loss and gradients of sampling left out:
-    the draws take their own generator, so the dropout masks agree."""
+    the draws take their own generator, so the dropout masks agree.  Under
+    ``interpret``, where teacher forcing does not hoist the embedding's
+    projection, both run the same cell; in the default mode sampling left
+    out hoists it, which changes the rounding alone
+    (tests/test_torch_hoists.py holds that within 1e-6)."""
+    monkeypatch.setenv("SICZ_TPU_PALLAS_LSTM", "interpret")
     tm = get_captioner(ModelConfig(**CFG))
     params = tm.init_params(torch.Generator().manual_seed(7))
     tb = _t(_batch(2, padded=True))

@@ -155,13 +155,22 @@ def test_encode_matches_jax(setup, mode):
     family, jm, tm, p, vis = setup
     jenc, _ = jm.encode(_jax_tree(p), _jax_tree(vis))
     tenc, _ = tm.encode(from_jax(p), from_jax(vis))
+    # each package hoists the attention cell's mean rows in auto mode
+    # alone, into td_mean_gates, and the port keeps the rest of the cell
     assert ("td_mean_gates" in jenc.extras) == (mode == "auto")
-    assert set(tenc.extras) == {"att_keys", "td_cat", "lang_cat"}
+    assert set(tenc.extras) == {"att_keys", "td_cat", "lang_cat"} | (
+        {"td_mean_gates"} if mode == "auto" else set())
+    d, e, h = DIMS["embed_dim"], DIMS["enc_dim"], DIMS["hidden_dim"]
+    assert tuple(tenc.extras["td_cat"].w_cat.shape) == (
+        (d + 2 * h if mode == "auto" else d + e + 2 * h), 4 * h)
     assert (tenc.mask is None) == (family == "BUTDSpatial")
-    for name, j, t in (("features", jenc.features, tenc.features),
-                       ("mean", jenc.mean, tenc.mean),
-                       ("att_keys", jenc.extras["att_keys"],
-                        tenc.extras["att_keys"])):
+    pairs = [("features", jenc.features, tenc.features),
+             ("mean", jenc.mean, tenc.mean),
+             ("att_keys", jenc.extras["att_keys"], tenc.extras["att_keys"])]
+    if mode == "auto":
+        pairs.append(("td_mean_gates", jenc.extras["td_mean_gates"],
+                      tenc.extras["td_mean_gates"]))
+    for name, j, t in pairs:
         assert t.shape == j.shape, name
         _close(t, j, 1e-5, name)
 
@@ -269,22 +278,28 @@ def test_greedy_early_exit_and_padding(setup, mode):
 
 def test_greedy_runs_both_cells_through_k2_each_step(setup, monkeypatch):
     """Each float step calls K2's wrapper twice, at the attention cell's
-    and the language cell's widths (x of embed + enc + hidden and of enc +
-    hidden), with encode's prepared weights; the CPU launches nothing."""
+    and the language cell's widths, with encode's prepared weights; the
+    CPU launches nothing.  In the default mode the attention cell is
+    hoisted: x is [h2, emb] (embed + hidden) with encode's td_mean_gates
+    as its gate term (one row a sample); the language cell's x is [attended,
+    h1] (enc + hidden), with no term."""
     _, _, tm, p, vis = setup
     seen = []
     fused = fused_lstm.lstm_cell_fused
-    monkeypatch.setattr(fused_lstm, "lstm_cell_fused",
-                        lambda w, b, x, h, c, split=None: seen.append(
-                            (tuple(w.shape), x.shape[1]))
-                        or fused(w, b, x, h, c, split))
+
+    def spy(w, b, x, h, c, split=None, term=None, lanes=1):
+        seen.append((tuple(w.shape), x.shape[1],
+                     None if term is None else (tuple(term.shape), lanes)))
+        return fused(w, b, x, h, c, split, term=term, lanes=lanes)
+
+    monkeypatch.setattr(fused_lstm, "lstm_cell_fused", spy)
     before = fused_lstm.COUNT.n, fused_head.COUNT.n
     ids = TS.make_greedy_decode(tm, max_len=3, device="cpu")(
         from_jax(p), {}, from_jax(vis))
     d, e, h = DIMS["embed_dim"], DIMS["enc_dim"], DIMS["hidden_dim"]
     steps = int((ids != PAD_ID).any(dim=0).sum())
-    assert seen == [((d + e + 2 * h, 4 * h), d + e + h),
-                    ((e + 2 * h, 4 * h), e + h)] * steps
+    assert seen == [((d + 2 * h, 4 * h), d + h, ((B, 4 * h), 1)),
+                    ((e + 2 * h, 4 * h), e + h, None)] * steps
     assert (fused_lstm.COUNT.n, fused_head.COUNT.n) == before
 
 

@@ -757,6 +757,146 @@ def test_lstm_bwd_full_e200_takes_matmul_products(dev):
     assert not max(err.values()), err
 
 
+def _hoisted_cell(rng, b, e, h, lanes, dev, dtype):
+    """A hoisted cell's operands: prepare_lstm's weights over E kept rows
+    (b_sum = b_hh), x, h, c, the cotangents, and a gate term of b / lanes
+    rows."""
+    bound = 1 / np.sqrt(h)
+    u = lambda *shape: _t(rng.uniform(-bound, bound, shape), dev,  # noqa
+                          torch.float32)
+    wt = fused_lstm.prepare_lstm({"w_ih": u(e, 4 * h), "w_hh": u(h, 4 * h),
+                                  "b_ih": u(4 * h), "b_hh": u(4 * h)},
+                                 keep=((0, e),))
+    x, hh, c, dh, dc = (_t(rng.normal(size=(b, n)), dev, dtype)
+                        for n in (e, h, h, h, h))
+    term = _t(0.5 * rng.normal(size=(b // lanes, 4 * h)), dev, dtype)
+    return (wt.w_cat.to(dtype), wt.b_sum.to(dtype),
+            wt.split if dtype == torch.float32 else None, x, hh, c, dh, dc,
+            term)
+
+
+@pytest.mark.parametrize("route", ["tc", "cuda_core"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,e,h,lanes", [(128, 1024, 256, 1),
+                                         (96, 512, 128, 3),
+                                         (128, 0, 512, 1), (37, 0, 128, 1),
+                                         (111, 192, 128, 3)])
+def test_lstm_term_matches_plain(dev, dtype, b, e, h, lanes, route):
+    """K2 with a gate term (row r adding term row r // lanes), E = 0
+    included, on the dtype's tensor-core route ("tc") and on the CUDA-core
+    route: the forward within engine/holds' K2 hold (float32 against
+    float64, 1e-5; bf16 rtol and atol 1e-2), the backward kernel's d_gates,
+    dc and d_term within the same, and on "tc" the whole backward (three
+    launches) within holds.k2_bwd_full_errors, d_term included (its lanes
+    summed)."""
+    from simpleimagecaptionzoo_tpu_torch.engine import holds
+    rng = np.random.default_rng(b + e + h + lanes)
+    w_cat, b_sum, split, x, hh, c, dh, dc, term = _hoisted_cell(
+        rng, b, e, h, lanes, dev, dtype)
+    kw = dict(term=term, lanes=lanes)
+    tc_route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    want_route = tc_route if route == "tc" else "cuda_core"
+    assert fused_lstm.lstm_route(w_cat, x, hh) == tc_route
+    before = _lstm_counts()
+    if route == "tc":
+        got = fused_lstm.lstm_cell_fused(w_cat, b_sum, x, hh, c, split, **kw)
+    else:
+        got = fused_lstm._run_kernel(w_cat, b_sum, x, hh, c, "cuda_core",
+                                     **kw)
+    torch.cuda.synchronize()
+    assert tuple(a - b_ for a, b_ in zip(_lstm_counts(), before)) == \
+        _moved(want_route)
+    a5 = (w_cat, b_sum, x, hh, c)
+    assert holds._hold_k2(holds._lstm_plain, a5, kw, got) is None
+    a7 = a5 + (dh, dc)
+    before = _lstm_bwd_counts()
+    bwd = fused_lstm._run_bwd_kernel(*a7, want_route, split, **kw)
+    torch.cuda.synchronize()
+    assert tuple(a - b_ for a, b_ in zip(_lstm_bwd_counts(), before)) == \
+        _moved(want_route)
+    assert len(bwd) == 3 and bwd[2].dtype == dtype
+    assert bwd[2].shape == (b, 4 * h)
+    assert holds._hold_k2_bwd(holds._lstm_bwd_plain, a7, kw, bwd) is None
+    if route == "tc":
+        assert fused_lstm.lstm_bwd_products_route(
+            w_cat, x, hh, c, b_sum, term, dh, dc) == tc_route
+        before_p = _product_counts()
+        full = fused_lstm.lstm_cell_bwd_full(*a7, split, **kw)
+        torch.cuda.synchronize()
+        assert tuple(a - b_ for a, b_ in zip(_product_counts(),
+                                             before_p)) == _moved(tc_route) * 2
+        assert len(full) == 6 and full[5].shape == term.shape
+        assert full[2].shape == (b, e)
+        err = holds.k2_bwd_full_errors(a7, full, term, lanes)
+        assert not max(err.values()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_term_slices_encode_no_maps(dev, dtype):
+    """Teacher forcing passes another slice of one (T, B, 4H) buffer as
+    the term each step: the term takes no tensor map, so once x's, h's and
+    w_cat's maps are cached, the steps encode none, in the forward or in
+    the backward kernel (whose other operands, like the forward's, are
+    plain pointers)."""
+    rng = np.random.default_rng(4)
+    b, e, h, steps = 128, 256, 256, 6
+    w_cat, b_sum, split, x, hh, c, dh, dc, _ = _hoisted_cell(
+        rng, b, e, h, 1, dev, dtype)
+    terms = _t(0.5 * rng.normal(size=(steps, b, 4 * h)), dev, dtype)
+    fused_lstm.lstm_cell_fused(w_cat, b_sum, x, hh, c, split, term=terms[0])
+    fused_lstm.lstm_cell_bwd(w_cat, b_sum, x, hh, c, dh, dc, split,
+                             term=terms[0])
+    torch.cuda.synchronize()
+    before = fused_lstm.map_encodes()
+    for t in terms.unbind(0):
+        fused_lstm.lstm_cell_fused(w_cat, b_sum, x, hh, c, split, term=t)
+        fused_lstm.lstm_cell_bwd(w_cat, b_sum, x, hh, c, dh, dc, split,
+                                 term=t)
+    torch.cuda.synchronize()
+    assert fused_lstm.map_encodes() == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hoisted_cell_grads_match_plain_autograd(dev, dtype):
+    """LstmCell with a term at NIC's teacher-forced cell (E = 0, H = 512,
+    B = 128): one forward and one whole backward on the tensor-core route,
+    and every gradient (w_hh, b_hh, h, c and the term) against autograd
+    through lstm_cell_plain (float32 1e-5 of the leaf's largest gradient;
+    bf16 2e-2)."""
+    rng = np.random.default_rng(6)
+    b, h = 128, 512
+    bound = 1 / np.sqrt(h)
+    w = _t(rng.uniform(-bound, bound, (h, 4 * h)), dev, dtype).requires_grad_()
+    bias = _t(rng.uniform(-bound, bound, 4 * h), dev,
+              dtype).requires_grad_()
+    hh, c = (_t(rng.normal(size=(b, h)), dev, dtype).requires_grad_()
+             for _ in range(2))
+    term = _t(0.5 * rng.normal(size=(b, 4 * h)), dev,
+              dtype).requires_grad_()
+    x = torch.empty((b, 0), device=dev, dtype=dtype)
+    ins = [w, bias, hh, c, term]
+    tc_route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    before, before_bwd = _lstm_counts(), _lstm_bwd_counts()
+    wt = fused_lstm.LstmWeights(w, bias, None)
+    hn, cn = fused_lstm.lstm_cell_train(wt, x, hh, c, term)
+    got = torch.autograd.grad((1.3 * hn.float() + 0.7 * cn.float()).sum(),
+                              ins)
+    torch.cuda.synchronize()
+    assert tuple(a - b_ for a, b_ in zip(_lstm_counts(), before)) == \
+        _moved(tc_route)
+    assert tuple(a - b_ for a, b_ in zip(_lstm_bwd_counts(), before_bwd)) \
+        == _moved(tc_route)
+    ph, pc = fused_lstm.lstm_cell_plain(w, bias, x, hh, c, term)
+    want = torch.autograd.grad((1.3 * ph.float() + 0.7 * pc.float()).sum(),
+                               ins)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for name, g, wg in zip(("w_hh", "b_hh", "h", "c", "term"), got, want):
+        assert g.dtype == dtype, name
+        scale = float(wg.float().abs().max())
+        err = float((g.float() - wg.float()).abs().max())
+        assert err <= tol * scale, (name, err, scale)
+
+
 @pytest.mark.parametrize("m,k,route", [(384, 1, "tf32x3"), (384, 3, "tf32x3"),
                                        (1152, 3, "tf32x3"), (45, 16, "tf32x3"),
                                        (384, 1, "cuda_core")])
@@ -1062,7 +1202,8 @@ def test_butd_beam_decode_through_the_kernels_matches_plain(dev, family,
     vocab 1,000; B=16, 8 steps; 5 boxes with 1-5 valid, or 9 unmasked
     regions) through the kernels against the same decode through the plain
     versions.  Every step launches K1 at m = 48, k = 3, and K2 twice (float
-    paths) or K3 three times (int8 paths), never K4, each on its
+    paths: the attention cell hoisted, as in the default mode) or K3 three
+    times (int8 paths), never K4, each on its
     tensor-core route; every kernel call holds against its plain version.
     float32 ids are identical in all but at most one row; in the other
     paths each row's winner, rescored by the plain step, scores no lower
@@ -1100,11 +1241,13 @@ def test_butd_beam_decode_through_the_kernels_matches_plain(dev, family,
     mk, tc = b * beam, dtype == torch.bfloat16
     route = "wgmma" if tc else ("tf32x2" if path.startswith("int8")
                                 else "tf32x3")
-    # K2 and K3 by the width of x: the attention cell's [h2, mean, emb]
-    # (240) and the language cell's [attended, h1] (176); K3's [x, h] of
-    # each (368, 304) and att_dec's h1 (128)
+    # K2 and K3 by the width of x: the attention cell's [h2, emb] (192;
+    # hoisted in the default mode, encode's td_mean_gates its gate term,
+    # read by the beam's lanes) and the language cell's [attended, h1]
+    # (176); int8 cells are not hoisted: K3's [x, h] of each (368, 304)
+    # and att_dec's h1 (128)
     widths = ({("K3", 368), ("K3", 304), ("K3", 128)}
-              if path.startswith("int8") else {("K2", 240), ("K2", 176)})
+              if path.startswith("int8") else {("K2", 192), ("K2", 176)})
     assert set(shapes) == {("K1", route, mk, beam)} | {
         (kn, route, mk, w) for kn, w in widths}
     n_steps = sum(s[0] == "K1" for s in shapes)
