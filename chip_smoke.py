@@ -357,17 +357,48 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      mean rows' projection in encode: none a step), auto's TMA map
      encodes at most interpret's;
      (c) XE at full width, B=128, scheduled sampling off, of
-     BUTDDetection, AoADetection and NIC, float32 and bf16, auto against
+     BUTDDetection, AoADetection, AoASpatial (49 regions) and NIC,
+     float32 and bf16, auto against
      interpret: the same dropout masks, K2's launches by shape exact,
      float32's first step against float64 (beyond_float64) in both modes,
      bf16 each mode against its plain run by phase 14's hold; (d) the
      device's ms by kind of (b) (K2, K1,
      library products, the rest) and by part of a profiled XE step in each
-     mode, with the card's name and power limit.
+     mode (not AoASpatial's), with the card's name and power limit.
      Entries ``..._butd_td_hoist[_beam]``, ``..._train_butd_td_hoist``,
      ``..._butd_td_tf``, ``..._tf`` (AoADetection), ``..._aoasp_tf``,
      ``..._nic_tf``; phases 10-11, 14, 16-17 and 19-20 credit their
-     launches to them.
+     launches to them;
+ 23. the COCO14 dry run through the port and the mesh's model axis, within
+     90 s (drive_phase23; alone: scripts/probe_phase23.py, on the CPU at
+     small sizes: scripts/rehearse_phase23.py): (a)
+     ``tools/reproduce_coco14.dry_run`` in this process, on the card, of
+     AoADetection (bottom-up features: the TSV through
+     ``preprocess/generate_bottom_up_features`` generate and pack) and NIC
+     (pixels: ``preprocess/pack_images`` at 224, the full ResNet-101), each
+     at the width of its Configs/Models json: the fixture
+     (tools/make_coco14_fixture.py, 16 JPEGs, Karpathy json), the port's
+     preprocessing, its CLI's XE, SCST and eval at the shell script's tiny
+     run's flags, every file the shell script's dry run asserts and every
+     CLI's exit code 0; K1, K2 and K2's backward launched, each launch
+     shape an entry (``..._dry_aoadet_...``, ``..._dry_nic_...``) held
+     against its plain version on the path's own inputs; (b) two processes
+     under gloo sharing the card (children ``--phase23-mp``), the
+     (data, model) mesh with a model axis of 2: AoADetection at full width,
+     each process's vocab shard of the head (5,051 columns, K1 at Vp=5,120)
+     and its top-k merged across the two (parallel/vocab_shard.py): greedy
+     and beam 3 at B=384, cap 20, float32 and bf16, against one process on
+     the whole head (float32 greedy ids identical, float32 beam by phases
+     8-9's float32 gate, bf16 beam by the beam gate; K1 once a greedy step
+     taken and as often as one process in beam search, every call on the
+     shard), one XE step at B=128 float32 (Adam, dropout on: the loss
+     within 1e-5 of one process's, the updated head's shards within 1e-5
+     of its update), every K1 call of a float32 greedy and a bf16 beam
+     decode held; printed beside the card's name and power limit: each
+     process's K1 on its shard (device-only), the merge's ms a greedy step
+     (its ``vocab_shard.topk_merge`` span), captions/s of the two against
+     one process.  K1's launch shapes of (b) get entries
+     ``fused_head_topk_<route>_shard_<shape>``.
 Then it prints one JSON line of per-kernel results (the beam shapes'
 launches as entries of their own, named ``..._beam``; BUTD's K2 and K3
 shapes as ``..._butd_<layer>``, NIC's and AoASpatial's K1, K2 and K3 shapes
@@ -3605,6 +3636,7 @@ DP_PX_TOL = 1e-4
 DP_PARTS = ["xe", "scst", "px", "eval"]  # (b): the runs of the gloo pair
 REF_B = 384                   # (c): the converted checkpoint's beam decode
 CHILD_S = 240                 # the longest a child of phase 21 may take
+CHILD_THREADS = 2             # host threads of each child of phases 21, 23
 
 
 def _sync(torch):
@@ -4083,17 +4115,18 @@ def cli_child(argv):
 
 
 def _child(args, log_path):
-    """A child process of this script (its output to ``log_path``), two
-    host threads for its operators (phase 21 runs up to six at once on the
-    card's host)."""
+    """A child process of this script (its output to ``log_path``),
+    CHILD_THREADS host threads for its operators (phase 21 runs up to six
+    at once on the card's host)."""
     with open(log_path, "w") as log_f:
         return subprocess.Popen([sys.executable, os.path.abspath(__file__)]
                                 + args, stdout=log_f,
                                 stderr=subprocess.STDOUT, cwd=HERE,
-                                env=dict(os.environ, OMP_NUM_THREADS="2"))
+                                env=dict(os.environ,
+                                         OMP_NUM_THREADS=str(CHILD_THREADS)))
 
 
-def _wait(proc, log_path, what, timeout, want=0):
+def _wait(proc, log_path, what, timeout, want=0, phase="phase 21"):
     try:
         rc = proc.wait(timeout=timeout)
     except subprocess.TimeoutExpired:
@@ -4103,8 +4136,8 @@ def _wait(proc, log_path, what, timeout, want=0):
     if rc != want:
         with open(log_path) as f:
             sys.stdout.write(f.read()[-6000:])
-    require(rc == want, "phase 21 %s: the child exited %s, not %s"
-            % (what, rc, want))
+    require(rc == want, "%s %s: the child exited %s, not %s"
+            % (phase, what, rc, want))
 
 
 def _run_dir(root, name, ds):
@@ -4451,6 +4484,9 @@ def drive_reference(torch, args, dev, root, model, params, calls, gpu="0"):
 
 # -- phase 22: the JAX default mode's LSTM input hoists on K2 ---------------
 HOIST_PHASE_S = 60.0          # phase 22's share of the script's time limit
+# (c)'s families held without the profiled training steps (d): the first
+# steps' holds and launches alone, within HOIST_PHASE_S
+HOIST_XE_UNPROFILED = ("AoASpatial",)
 LSTM_MODE = "SICZ_TPU_PALLAS_LSTM"
 
 
@@ -4889,9 +4925,10 @@ def hoist_xe(torch, args, dev, gen, smi, families, kernels, on_path):
     dropout mask drawn identical in the two modes; K2's
     launches by shape exact (auto: the hoisted cells, with their terms);
     then one XE training step (make_xe_train_step, Adam) in each mode
-    profiled by part (profile_step).  The first steps' launches are
+    profiled by part (profile_step; not for HOIST_XE_UNPROFILED).  The
+    first steps' launches are
     credited to their cells' entries (auto's hoisted cells: ``..._tf``,
-    ``..._butd_td_tf``, ``..._nic_tf``)."""
+    ``..._butd_td_tf``, ``..._aoasp_tf``, ``..._nic_tf``)."""
     import numpy as np
     from simpleimagecaptionzoo_tpu_torch.engine import holds, optim, steps
     from simpleimagecaptionzoo_tpu_torch.engine.state import TrainState
@@ -4912,6 +4949,10 @@ def hoist_xe(torch, args, dev, gen, smi, families, kernels, on_path):
         visual = ({"features": torch.relu(torch.randn(
             TRAIN_B, cfg.enc_dim, generator=gen, device=dev))}
             if name == "NIC" else
+            {"spatial_feats": torch.relu(torch.randn(
+                TRAIN_B, cfg.num_pixels, cfg.enc_dim, generator=gen,
+                device=dev))}
+            if name == "AoASpatial" else
             {"bu_feats": torch.relu(torch.randn(
                 TRAIN_B, N_BOX, cfg.enc_dim, generator=gen, device=dev)),
              "bu_masks": torch.ones(TRAIN_B, N_BOX, device=dev)})
@@ -5057,6 +5098,11 @@ def hoist_xe(torch, args, dev, gen, smi, families, kernels, on_path):
                     del gp
                 res["grad_norm_max_rel_diff"] = max(norm_gap(ga, gi))
             del ga, gi
+            if name in HOIST_XE_UNPROFILED:
+                log("%s: auto and interpret draw the same %d masks; losses "
+                    "%.6f and %.6f (not profiled)" % (tag, len(ma), la, li))
+                out["%s/%s" % (name, dn)] = res
+                continue
             # one training step in each mode, profiled by part
             tx = optim.make_grad_transform("Adam", 0.1)
             step = steps.make_xe_train_step(
@@ -5093,18 +5139,19 @@ def hoist_xe(torch, args, dev, gen, smi, families, kernels, on_path):
 
 
 def drive_hoists(torch, args, dev, gen, smi, flush, kernels, on_path, *,
-                 butd, bparams, aoa, aparams, nic, nparams, acfg_sp):
+                 butd, bparams, aoa, aparams, nic, nparams, aoasp, spparams):
     """Phase 22: the JAX default mode's LSTM input hoists on K2 with its
     gate term, within HOIST_PHASE_S: (a) :func:`hold_hoisted_k2` at
     :func:`hoist_cells`' shapes; (b) :func:`hoist_decodes`, BUTDDetection
     greedy and beam 3; (c) :func:`hoist_xe`, the XE of BUTDDetection,
-    AoADetection and NIC; (d) the device's ms by part of (b) and (c), auto
-    against interpret, with the card's name and power limit."""
+    AoADetection, AoASpatial (``aoasp``, its params ``spparams``) and NIC;
+    (d) the device's ms by part of (b) and (c), auto against interpret,
+    with the card's name and power limit."""
     t22 = time.time()
-    bcfg, ncfg = butd.config, nic.config
+    bcfg, ncfg, scfg = butd.config, nic.config, aoasp.config
     out = {"card": smi}
     out["k2"] = hold_hoisted_k2(torch, dev, gen, flush, kernels, on_path,
-                                hoist_cells(bcfg, acfg_sp, ncfg))
+                                hoist_cells(bcfg, scfg, ncfg))
     t_a = time.time()
     out["decode"] = hoist_decodes(torch, dev, gen, smi, butd, bparams, bcfg,
                                   kernels, on_path)
@@ -5119,6 +5166,10 @@ def drive_hoists(torch, args, dev, gen, smi, flush, kernels, on_path, *,
          {"auto": [("_tf", FULL["hidden_dim"])],
           "interpret": [("", FULL["embed_dim"] + FULL["hidden_dim"])]},
          None),
+        ("AoASpatial", aoasp, spparams,
+         {"auto": [("_aoasp_tf", scfg.hidden_dim)],
+          "interpret": [("_aoasp", scfg.embed_dim + scfg.hidden_dim)]},
+         None),
         ("NIC", nic, nparams,
          {"auto": [("_nic_tf", 0)], "interpret": [("_nic", ncfg.embed_dim)]},
          ncfg.embed_dim)]
@@ -5131,6 +5182,383 @@ def drive_hoists(torch, args, dev, gen, smi, flush, kernels, on_path, *,
            out["seconds"]["decode"], out["seconds"]["xe"]))
     require(out["seconds"]["total"] <= HOIST_PHASE_S, "phase 22 took %.1f s, "
             "over its %.0f s" % (out["seconds"]["total"], HOIST_PHASE_S))
+    return out
+
+
+# -- phase 23: the COCO14 dry run through the port; the mesh's model axis --
+PHASE23_S = 90.0              # phase 23's share of the script's time limit
+DRY_MODELS = (("AoADetection", "dry_aoadet"), ("NIC", "dry_nic"))
+MP = 2                        # (b): the model axis's processes
+MP_XE_B = 128                 # (b): the XE step's batch
+MP_TOL = 1e-5                 # (b): the XE loss (relative), the head (abs.)
+
+
+def drive_dry_runs(torch, dev, gpu, root):
+    """(a) ``tools/reproduce_coco14.dry_run`` of each of DRY_MODELS under
+    ``root``, in this process, every kernel launch recorded (KernelCalls):
+    the fixture, the port's five preprocessing entry points, its CLI's XE,
+    SCST and eval, and every file the shell script's dry run asserts (the
+    tool raises on a missing one, or on a CLI's exit code other than 0).
+    -> ({model: readings}, {model: its KernelCalls})."""
+    from simpleimagecaptionzoo_tpu_torch.tools import reproduce_coco14
+    out, recs = {}, {}
+    for model, _ in DRY_MODELS:
+        calls = KernelCalls()
+        t0 = time.time()
+        with calls.recording(torch):
+            reproduce_coco14.dry_run(model, gpu,
+                                     os.path.join(root, "dry_" + model))
+        _sync(torch)
+        launches = {kind: sum(n for key, n in calls.count.items()
+                              if key[0] == kind)
+                    for kind in ("K1", "K2", "K2bwd")}
+        require(dev.type != "cuda" or all(launches.values()),
+                "phase 23 (a) %s: kernel launches %s; the dry run must "
+                "launch K1, K2 and K2's backward" % (model, launches))
+        out[model] = dict(seconds=time.time() - t0, launches=launches,
+                          shapes=len(calls.count))
+        recs[model] = calls
+        log("phase 23 (a) %s: DRY RUN OK in %.1f s, launches %s (%d shapes)"
+            % (model, out[model]["seconds"], launches, len(calls.count)))
+    return out, recs
+
+
+def mp_inputs(torch, seed, dev, dims):
+    """(b)'s model, params (the whole head), decode batch (``b`` rows,
+    ``n_box`` boxes of which 10-36 valid at 36) and XE batch (``xe_b``
+    rows, captions of 3-``t`` tokens), the same on every process."""
+    import numpy as np
+    from simpleimagecaptionzoo_tpu_torch.config import ModelConfig
+    from simpleimagecaptionzoo_tpu_torch.models.base import get_captioner
+    gen = torch.Generator(device=dev).manual_seed(seed + 23)
+    rng = np.random.default_rng(seed + 23)
+    model = get_captioner(ModelConfig(**dims["aoa"]))
+    params = model.init_params(gen)
+    cfg = model.config
+    b, nb, xb, t = dims["b"], dims["n_box"], dims["xe_b"], dims["t"]
+    lo = max(1, nb * 10 // 36)
+    n_valid = lo + torch.arange(b, device=dev) % (nb - lo + 1)
+    visual = {"bu_feats": torch.relu(torch.randn(b, nb, cfg.enc_dim,
+                                                 generator=gen, device=dev)),
+              "bu_masks": (torch.arange(nb, device=dev)[None, :]
+                           < n_valid[:, None]).float()}
+    caps = rng.integers(4, cfg.vocab_size, size=(xb, t))
+    caps[:, 0] = 1
+    lens = rng.integers(3, t + 1, size=(xb,))
+    for i, n in enumerate(lens):
+        caps[i, n - 1] = 2
+        caps[i, n:] = 0
+    xe = {"visual": {"bu_feats": torch.relu(torch.randn(
+        xb, nb, cfg.enc_dim, generator=gen, device=dev)),
+        "bu_masks": torch.ones(xb, nb, device=dev)},
+        "captions": torch.from_numpy(caps).to(dev),
+        "lengths": torch.from_numpy(lens).to(dev)}
+    return model, params, visual, xe
+
+
+def mp_runs(torch, model, params, visual, xe, dev, seed):
+    """Greedy (MAX_LEN) and beam-3 decodes in float32 and bf16, and one
+    XE step (Adam, dropout at the published rates from a generator seeded
+    from ``seed``, sampling off) of ``params`` -> readings: the ids, the
+    fused head's calls a decode, the steps greedy took, the XE loss and the
+    updated ``predict``."""
+    from simpleimagecaptionzoo_tpu_torch.engine import optim, steps
+    from simpleimagecaptionzoo_tpu_torch.engine.state import TrainState
+    from simpleimagecaptionzoo_tpu_torch.ops import fused_head
+    topk, calls = fused_head.topk_head, []
+
+    def counted(head, x, k):
+        calls.append(tuple(head.w.shape))
+        return topk(head, x, k)
+    out = {}
+    fused_head.topk_head = counted
+    try:
+        for dn, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+            for kind, make in (
+                    ("greedy", lambda: steps.make_greedy_decode(
+                        model, max_len=MAX_LEN, dtype=dtype, device=dev)),
+                    ("beam", lambda: steps.make_beam_decode(
+                        model, beam_size=BEAM, max_steps=MAX_LEN,
+                        dtype=dtype, device=dev))):
+                n = len(calls)
+                ids = make()(params, {}, visual)
+                _sync(torch)
+                out["%s/%s" % (kind, dn)] = dict(
+                    ids=ids, k1_calls=len(calls) - n,
+                    head_shapes=sorted(set(calls[n:])),
+                    steps=_steps_taken(ids) if kind == "greedy" else None)
+    finally:
+        fused_head.topk_head = topk
+    tx = optim.make_grad_transform("Adam", 0.1)
+    step = steps.make_xe_train_step(model, tx, model.param_labels(params),
+                                    0.1, ss_active=False, device=dev)
+    st, met = step(TrainState.create(params, tx), xe,
+                   torch.Generator(device=dev).manual_seed(seed + 7), 0.0,
+                   TRAIN_LR, 0.0)
+    out["xe"] = dict(loss=float(met["loss"]), predict=st.params["predict"])
+    return out
+
+
+def mp_child(argv):
+    """``chip_smoke.py --phase23-mp CASE RANK WORLD STORE OUT``: one
+    process of (b) on the card (cuda:0).  Before the group starts it runs
+    :func:`mp_runs` on the whole head alone (the one-process reference;
+    process 0 only); once the parent has written CASE's ``go`` file it
+    joins the gloo group (a FileStore at STORE), lays the (data, model)
+    mesh with a model axis of WORLD, keeps its vocab shard of the head
+    (``place_params``) and runs :func:`mp_runs` again, every kernel launch
+    recorded; then each K1 call of a float32 greedy and a bf16 beam decode
+    held against its plain version, each process's K1 on its shard timed
+    in turn (device-only), a float32 greedy decode profiled (the merge's
+    span) and timed by both processes at once (captions/s).  Process 0
+    gathers the updated head's shards, gates the runs against the
+    reference (:func:`mp_compare`), makes the K1 entries of the kernels
+    line (``where`` shard) and writes the readings to OUT (json)."""
+    case_path, rank, world, store, out_path = argv
+    rank, world = int(rank), int(world)
+    with open(case_path) as f:
+        case = json.load(f)
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from simpleimagecaptionzoo_tpu_torch import parallel
+    from simpleimagecaptionzoo_tpu_torch.device import resolve_device
+    from simpleimagecaptionzoo_tpu_torch.engine import holds, steps
+    from simpleimagecaptionzoo_tpu_torch.ops import fused_head
+    from simpleimagecaptionzoo_tpu_torch.parallel import vocab_shard
+    dev = resolve_device(case["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    model, params, visual, xe = mp_inputs(torch, case["seed"], dev,
+                                          case["dims"])
+    ref = mp_runs(torch, model, params, visual, xe, dev,
+                  case["seed"]) if rank == 0 else None
+    t0 = time.time()
+    while not os.path.exists(case["go"]):
+        require(time.time() - t0 < CHILD_S, "phase 23 (b): no word")
+        time.sleep(0.05)
+    parallel.configure_collective_timeout(90)
+    parallel.init_process_group("gloo", world, rank,
+                                store=torch.distributed.FileStore(store,
+                                                                  world))
+    mesh = parallel.get_mesh(dev, model_parallel=world)
+    shard = parallel.place_params(mesh, params)
+    calls = KernelCalls()
+    with calls.recording(torch):
+        got = mp_runs(torch, model, shard, visual, xe, dev, case["seed"])
+    res = {"rank": rank, "mesh": [mesh.size, mesh.index, mesh.model_size,
+                                  mesh.model_index],
+           "launches": {str(k): n for k, n in calls.count.items()}}
+    # on the card every fused-head call of the decodes launched K1 once
+    k1_calls = sum(v["k1_calls"] for k, v in got.items() if k != "xe")
+    k1_launches = sum(n for key, n in calls.count.items() if key[0] == "K1")
+    require(dev.type != "cuda" or k1_launches == k1_calls,
+            "phase 23 (b) process %d: K1 launched %d times for %d calls"
+            % (rank, k1_launches, k1_calls))
+    # every K1 call of a float32 greedy and a bf16 beam decode held
+    broken = []
+    with holds.held_calls(broken):
+        steps.make_greedy_decode(model, max_len=MAX_LEN, device=dev)(
+            shard, {}, visual)
+        steps.make_beam_decode(model, beam_size=BEAM, max_steps=MAX_LEN,
+                               dtype=torch.bfloat16, device=dev)(
+            shard, {}, visual)
+    res["held_broken"] = len(broken)
+    require(not broken, "phase 23 (b) process %d: %d kernel calls broke "
+            "their hold (first: %s)" % (rank, len(broken), broken[:1]))
+    # each process's K1 on its shard, device-only, one process at a time
+    head = {dn: fused_head.prepare_head(shard["predict"], dt)
+            for dn, dt in (("float32", torch.float32),
+                           ("bfloat16", torch.bfloat16))}
+    hd = model.config.hidden_dim
+    res["k1_shard_device_ms"] = {}
+    for turn in range(world):
+        parallel.barrier("phase23_k1_%d" % turn)
+        if turn != rank or dev.type != "cuda":
+            continue
+        flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32,
+                            device=dev)
+        for dn, h in head.items():
+            for m, k in ((case["dims"]["b"], 1),
+                         (case["dims"]["b"] * BEAM, BEAM)):
+                x = torch.randn(m, hd, device=dev).to(h.w.dtype
+                                                       if dn == "bfloat16"
+                                                       else torch.float32)
+                res["k1_shard_device_ms"]["%s/m%dk%d" % (dn, m, k)] = \
+                    time_ms(torch, lambda: fused_head.topk_head(h, x, k),
+                            flush, lead=DEVICE_LEAD)
+    # the merge's span a greedy step, and both processes' captions/s
+    greedy = steps.make_greedy_decode(model, max_len=MAX_LEN, device=dev)
+    acts = [ProfilerActivity.CPU]
+    with profile(activities=acts) as prof:
+        ids = greedy(shard, {}, visual)
+        _sync(torch)
+    n_steps = _steps_taken(ids)
+    span = [e for e in prof.key_averages()
+            if e.key == "vocab_shard.topk_merge"]
+    res["merge_ms_per_step"] = (sum(e.cpu_time_total for e in span) / 1e3
+                                / max(n_steps, 1))
+    parallel.barrier("phase23_timed")
+    t0 = time.perf_counter()
+    greedy(shard, {}, visual)
+    _sync(torch)
+    res["captions_per_s"] = case["dims"]["b"] / (time.perf_counter() - t0)
+    res["ids_agree"] = parallel.processes_agree(
+        got["greedy/float32"]["ids"].cpu().numpy())
+    # the updated head, its shards side by side (process 0 keeps it)
+    upd = {k: vocab_shard.gather_logits(v.detach())
+           for k, v in got["xe"]["predict"].items()}
+    torch.distributed.destroy_process_group()
+    parallel.get_mesh(dev)
+    if rank == 0:
+        t0 = time.perf_counter()
+        greedy(params, {}, visual)
+        _sync(torch)
+        res["one_process_captions_per_s"] = (case["dims"]["b"]
+                                             / (time.perf_counter() - t0))
+        res["measured"] = mp_compare(torch, model, params, visual, dev, got,
+                                     ref, upd, world)
+        if dev.type == "cuda":
+            kernels, on_path = {}, set()
+            flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32,
+                                device=dev)
+            cli_kernel_entries(torch, calls, kernels, on_path, flush,
+                               "phase 23 shard", where="shard",
+                               phase="phase 23", kinds=("K1",))
+            res["kernels"] = kernels
+    with open(out_path, "w") as f:
+        json.dump(res, f, default=float)
+    return 0
+
+
+def mp_compare(torch, model, params, visual, dev, got, ref, upd, world):
+    """(b)'s gates, the model axis's run ``got`` against the one-process
+    run ``ref`` of the same inputs: float32 greedy ids identical; float32
+    beam by phases 8-9's float32 gate (holds.beam_gate: ROWS_IDENTICAL of
+    the rows); bf16 beam by the beam gate (the winners rescored by the
+    plain step on the whole head within holds.beam_tol); K1 called once a
+    greedy step taken (as the reference) and as often as the reference in
+    beam search, every call on the shard's padded width; the XE loss within
+    MP_TOL of the reference's (relative) and the updated head (``upd``: the
+    shards side by side) within MP_TOL of the reference's update."""
+    from simpleimagecaptionzoo_tpu_torch.engine import holds
+    from simpleimagecaptionzoo_tpu_torch.ops import fused_head
+    v = model.config.vocab_size
+    vp = -(-(v // world) // fused_head.V_TILE) * fused_head.V_TILE
+    kp = -(-model.config.hidden_dim // fused_head.K_ALIGN) * \
+        fused_head.K_ALIGN
+    meas = {}
+    for dn, dtype in (("float32", torch.float32),
+                      ("bfloat16", torch.bfloat16)):
+        for kind in ("greedy", "beam"):
+            g, r = got["%s/%s" % (kind, dn)], ref["%s/%s" % (kind, dn)]
+            tag = "phase 23 (b) %s %s" % (kind, dn)
+            same = float((g["ids"] == r["ids"]).all(dim=1).float().mean())
+            require(g["head_shapes"] == [(kp, vp)]
+                    and g["k1_calls"] == r["k1_calls"]
+                    and (kind == "beam" or g["k1_calls"] == g["steps"]),
+                    "%s: K1 called %d times on %s, the reference %d times "
+                    "(greedy steps %s); the shard is (%d, %d)"
+                    % (tag, g["k1_calls"], g["head_shapes"], r["k1_calls"],
+                       g["steps"], kp, vp))
+            m = dict(rows_identical=same, k1_calls=g["k1_calls"])
+            if kind == "greedy" and dtype == torch.float32:
+                require(same == 1.0, "%s: %.4f of rows identical to one "
+                        "process's" % (tag, same))
+            elif kind == "beam":
+                margin = holds.rescored_margin(model, params, visual,
+                                               g["ids"], r["ids"], dtype,
+                                               dev)
+                tol = holds.beam_tol(dtype, MAX_LEN)
+                passed, _ = holds.beam_gate(dtype == torch.float32,
+                                            g["ids"], r["ids"], margin, tol)
+                m.update(min_margin=float(margin.min()), tol=tol)
+                require(passed, "%s: %.4f of rows identical to one "
+                        "process's, rescored margin %.4f (tol %.4f)"
+                        % (tag, same, float(margin.min()), tol))
+            meas["%s/%s" % (kind, dn)] = m
+    gl, rl = got["xe"]["loss"], ref["xe"]["loss"]
+    gaps = {k: float((upd[k].float() - ref["xe"]["predict"][k].float())
+                     .abs().max()) for k in ref["xe"]["predict"]}
+    require(abs(gl - rl) <= MP_TOL * abs(rl) and max(gaps.values())
+            <= MP_TOL, "phase 23 (b) XE: loss %.7g against one process's "
+            "%.7g (tol %g relative), the updated head off by %s (tol %g)"
+            % (gl, rl, MP_TOL, gaps, MP_TOL))
+    meas["xe"] = dict(loss=gl, ref_loss=rl, head_gap=gaps)
+    return meas
+
+
+def drive_phase23(torch, args, dev, smi, flush, kernels, on_path,
+                  dims=None, gpu="0"):
+    """Phase 23, within PHASE23_S: (a) the COCO14 dry run through the port
+    (:func:`drive_dry_runs`) of AoADetection (bottom-up features) and NIC
+    (pixels, the ResNet-101) at the width of their Configs/Models json on
+    the card, an entry of the kernels line for every launch shape
+    (``where`` dry_aoadet, dry_nic), each held against its plain version
+    on the path's own inputs; (b) the mesh's model axis: MP processes under
+    gloo sharing the card (:func:`mp_child`), started first, their runs
+    on the model axis waiting until (a) is done.  ``dims`` (the model and
+    batches of (b)) and ``gpu`` (the dry run's --gpu_id) default to the
+    card's run at full width; a rehearsal on the CPU passes its own."""
+    import tempfile
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="chip_smoke_p23_")
+    out = {"card": smi}
+    try:
+        go = os.path.join(root, "go")
+        dims = dims or dict(aoa=FULL, b=B, n_box=N_BOX, xe_b=MP_XE_B,
+                            t=TRAIN_T)
+        case = os.path.join(root, "mp.json")
+        with open(case, "w") as f:
+            json.dump({"seed": args.seed, "dims": dims, "go": go,
+                       "device": "cuda:0" if dev.type == "cuda"
+                       else "cpu"}, f)
+        procs = []
+        for r in range(MP):
+            log_path = os.path.join(root, "mp%d.log" % r)
+            res_path = os.path.join(root, "mp%d.json" % r)
+            procs.append((r, res_path, log_path, _child(
+                ["--phase23-mp", case, str(r), str(MP),
+                 os.path.join(root, "mp.store"), res_path], log_path)))
+        t_a = time.time()
+        out["a"], recs = drive_dry_runs(torch, dev, gpu, root)
+        out["a"]["seconds"] = time.time() - t_a
+        with open(go, "w"):
+            pass
+        t_b = time.time()
+        out["b"] = {}
+        for r, res_path, log_path, proc in procs:
+            _wait(proc, log_path, "(b) process %d" % r, CHILD_S,
+                  phase="phase 23")
+            with open(res_path) as f:
+                got = json.load(f)
+            for ename, entry in got.pop("kernels", {}).items():
+                kernels[ename] = entry
+                on_path.add(ename)
+            out["b"][r] = got
+        out["b"]["seconds"] = time.time() - t_b
+        m = out["b"][0]
+        log("phase 23 (b) model axis of %d under gloo on one card (%s): %s; "
+            "K1 on each process's shard, device ms %s; the merge %.3f / "
+            "%.3f ms a greedy step; captions/s %.1f / %.1f (two processes) "
+            "against %.1f (one)" % (
+                MP, smi, json.dumps(m["measured"]),
+                json.dumps([out["b"][r]["k1_shard_device_ms"]
+                            for r in range(MP)]),
+                *(out["b"][r]["merge_ms_per_step"] for r in range(MP)),
+                *(out["b"][r]["captions_per_s"] for r in range(MP)),
+                m["one_process_captions_per_s"]))
+        if dev.type == "cuda":
+            for model, where in DRY_MODELS:
+                cli_kernel_entries(torch, recs[model], kernels, on_path,
+                                   flush, "phase 23 " + where, where=where,
+                                   phase="phase 23")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.time() - t_phase
+    log("phase 23 took %.1f s (a %.1f, b %.1f)" % (
+        out["seconds"], out["a"]["seconds"], out["b"]["seconds"]))
+    require(out["seconds"] <= PHASE23_S, "phase 23 took %.1f s, over its "
+            "%.0f s" % (out["seconds"], PHASE23_S))
     return out
 
 
@@ -7183,10 +7611,15 @@ def main(argv=None) -> int:
     results["hoists"] = drive_hoists(
         torch, args, dev, gen, smi, flush, kernels, on_path, butd=butd,
         bparams=bparams, aoa=model, aparams=params, nic=nic, nparams=nparams,
-        acfg_sp=acfg)
+        aoasp=aoasp, spparams=aparams)
+
+    log("-- phase 23 at %.1f s" % (time.time() - t_start))
+    # -- 23. the COCO14 dry run through the port; the mesh's model axis ----
+    results["dry_run_and_model_axis"] = drive_phase23(
+        torch, args, dev, smi, flush, kernels, on_path)
 
     results["seconds"] = time.time() - t_start
-    log("-- phases 2-22 took %.1f s" % results["seconds"])
+    log("-- phases 2-23 took %.1f s" % results["seconds"])
     missing = [k for k in on_path if not kernels[k].get("launches")]
     require(not missing, "kernels not launched on the main path: %s"
             % missing)
@@ -7218,4 +7651,6 @@ if __name__ == "__main__":
         sys.exit(cli_child(sys.argv[2:]))
     if len(sys.argv) > 1 and sys.argv[1] == "--phase21-dp":
         sys.exit(dp_child(sys.argv[2:]))
+    if len(sys.argv) > 1 and sys.argv[1] == "--phase23-mp":
+        sys.exit(mp_child(sys.argv[2:]))
     sys.exit(main())

@@ -3,9 +3,9 @@
 kernels (phase 2), then the JAX default mode's LSTM input hoists on K2
 (chip_smoke.drive_hoists: K2 with its gate term held and timed at the
 hoisted cells' shapes, BUTDDetection greedy and beam 3 and the XE of
-BUTDDetection, AoADetection and NIC, each in the default mode against
-``interpret``), with the same gates; the kernels line of its entries and
-the results as JSON (``--out``).  A quicker loop than the whole smoke run
+BUTDDetection, AoADetection, AoASpatial and NIC, each in the default mode
+against ``interpret``), with the same gates; the kernels line of its
+entries and the results as JSON (``--out``).  A quicker loop than the whole smoke run
 while phase 22 changes.  Its entries' launches count phase 22's own runs
 alone (the whole smoke run adds phases 10-20's).
 
@@ -65,7 +65,7 @@ def main(argv=None) -> int:
     res = cs.drive_hoists(torch, args, dev, gen, smi, flush, kernels,
                           on_path, butd=butd, bparams=bparams, aoa=model,
                           aparams=params, nic=nic, nparams=nparams,
-                          acfg_sp=aoasp.config)
+                          aoasp=aoasp, spparams=aoasp.init_params(gen))
     res["kernels"] = list(kernels.values())
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -8,9 +8,15 @@ both need the card).  (b) leaves the from-pixels run out: at two images of
 through its depth.  It finds wrong paths, arguments and shapes before a
 chip call; it times nothing that counts.
 
-    OMP_NUM_THREADS=1 python3 scripts/rehearse_phase21.py
+    python3 scripts/rehearse_phase21.py
 
-(one thread a process: (a) runs six CLI children at once).
+Every process computes on one host thread: (a) runs six CLI children at
+once, and its resumes are bit-identical on the CPU at one thread only.  At
+two or more, the CPU's backward of the word embedding (the index's
+accumulating put of each token's row) sums repeated ids in an order that
+changes from run to run, so two uninterrupted XE runs already differ in
+their last bits (the embedding table's gradient by up to 3e-10).  On the
+card that sum runs on the GPU, and the children keep CHILD_THREADS.
 """
 import argparse
 import json
@@ -33,6 +39,8 @@ def main() -> int:
     import torch
     from simpleimagecaptionzoo_tpu_torch.config import ModelConfig
     from simpleimagecaptionzoo_tpu_torch.models.base import get_captioner
+    torch.set_num_threads(1)
+    cs.CHILD_THREADS = 1
     cs.PHASE21_S = cs.CHILD_S = 3600.0
     cs.REF_B = 16
     cs.DP_PARTS = ["xe", "scst", "eval"]

@@ -28,6 +28,7 @@ from simpleimagecaptionzoo_tpu_torch.config import ModelConfig
 from simpleimagecaptionzoo_tpu_torch.models import layers as L
 from simpleimagecaptionzoo_tpu_torch.models import resnet
 from simpleimagecaptionzoo_tpu_torch.ops import image, quant
+from simpleimagecaptionzoo_tpu_torch.parallel import vocab_shard
 
 
 @dataclasses.dataclass
@@ -153,8 +154,12 @@ class Captioner:
 
     def predict(self, params, pre_logits: torch.Tensor) -> torch.Tensor:
         """Prediction head: pre_logits (..., H) -> logits (..., V), the
-        weight-norm linear head of every family (AoA_Model.py:212)."""
-        return L.dense_wn(params["predict"], pre_logits)
+        weight-norm linear head of every family (AoA_Model.py:212).  On the
+        mesh's model axis ``params`` hold this process's vocab shard, whose
+        logits are gathered with the other shards' (``parallel/
+        vocab_shard.head_logits``)."""
+        vocab_shard.check_shard(params["predict"], self.config.vocab_size)
+        return vocab_shard.head_logits(params["predict"], pre_logits)
 
     def step(self, params, encoded: Encoded, state, tokens: torch.Tensor, *,
              train: bool = False, generator=None):

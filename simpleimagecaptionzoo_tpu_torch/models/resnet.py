@@ -117,7 +117,7 @@ def _bn(x, p, s, train=False):
     updates the running variance).  Under a process group the batch is
     the global one, as the JAX package's global array is: the per-channel
     sum and then the sum of squared deviations from the global mean are
-    summed over the processes with their gradients
+    summed over the data axis's processes with their gradients
     (``parallel.all_reduce_sum_autograd``), so every process normalizes by
     the same statistics and keeps the same running ones."""
     if not train:
@@ -128,7 +128,7 @@ def _bn(x, p, s, train=False):
                              scale[:, None, None]), s
     xf = x.float()
     n = x.shape[0] * x.shape[2] * x.shape[3]
-    count = parallel.process_count()
+    count = parallel.data_count()
     if count == 1:
         mean = xf.mean(dim=(0, 2, 3))
         var = ((xf - mean[:, None, None]) ** 2).mean(dim=(0, 2, 3))  # biased

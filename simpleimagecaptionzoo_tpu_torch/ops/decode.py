@@ -22,6 +22,12 @@ Counterpart of the JAX package's ``ops/decode.py``:
 The decode loops are eager Python: each step ends in one host sync, the
 test of whether any lane is still open.  Teacher forcing and the rollout
 run a fixed number of steps and never sync.
+
+On the mesh's model axis (``parallel/vocab_shard.py``) the params hold this
+process's vocab shard of the head: the fused head's top-k is K1 on the
+shard merged across the model group (``vocab_shard.topk_merge``), the
+rescoring's log-softmax reads the gathered logits, and ``model.predict``
+gathers them itself.
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ from simpleimagecaptionzoo_tpu_torch import END_ID, PAD_ID, STA_ID
 from simpleimagecaptionzoo_tpu_torch.models.base import (Captioner, Encoded,
                                                          _tree_map)
 from simpleimagecaptionzoo_tpu_torch.ops import fused_head
-from simpleimagecaptionzoo_tpu_torch.parallel import global_rand
+from simpleimagecaptionzoo_tpu_torch.parallel import global_rand, vocab_shard
 
 _NEG = -1e18
 
@@ -51,7 +57,7 @@ def greedy(model: Captioner, params, encoded: Encoded, max_len: int = 20
     alive."""
     mean = encoded.mean
     b, dev = mean.shape[0], mean.device
-    head = fused_head.prepare_head(params["predict"], mean.dtype)
+    head = _prepare_head(model, params, mean.dtype)
     state = model.init_state(params, encoded)
     tok = torch.full((b,), STA_ID, dtype=torch.long, device=dev)
     finished = torch.zeros((b,), dtype=torch.bool, device=dev)
@@ -59,7 +65,7 @@ def greedy(model: Captioner, params, encoded: Encoded, max_len: int = 20
     alphas = None
     for t in range(max_len):
         hidden, state, alpha = model.step_core(params, encoded, state, tok)
-        nxt = fused_head.topk_head(head, hidden, 1)[1][:, 0].long()
+        nxt = vocab_shard.topk_merge(head, hidden, 1)[1][:, 0].long()
         nxt = torch.where(finished, PAD_ID, nxt)
         ids[:, t] = nxt
         if alpha is not None:
@@ -74,6 +80,13 @@ def greedy(model: Captioner, params, encoded: Encoded, max_len: int = 20
     return ids, alphas
 
 
+def _prepare_head(model: Captioner, params, dtype) -> fused_head.Head:
+    """The fused head of ``params`` (this process's vocab shard on a model
+    axis), prepared once a decode."""
+    vocab_shard.check_shard(params["predict"], model.config.vocab_size)
+    return fused_head.prepare_head(params["predict"], dtype)
+
+
 def sequence_logprob(model: Captioner, params, encoded: Encoded,
                      ids: torch.Tensor) -> torch.Tensor:
     """Rescore id rows: ids (B, T+1) with column 0 = ``<sta>`` -> (B,)
@@ -81,15 +94,15 @@ def sequence_logprob(model: Captioner, params, encoded: Encoded,
     and the head's float32 logits, up to and including each row's first
     ``<end>``.  The measure beam search maximizes, used to compare two
     decodes' winners."""
-    head = fused_head.prepare_head(params["predict"], encoded.mean.dtype)
+    head = _prepare_head(model, params, encoded.mean.dtype)
     state = model.init_state(params, encoded)
     total = torch.zeros((ids.shape[0],), dtype=torch.float32,
                         device=ids.device)
     live = torch.ones((ids.shape[0],), dtype=torch.bool, device=ids.device)
     for t in range(ids.shape[1] - 1):
         hidden, state, _ = model.step_core(params, encoded, state, ids[:, t])
-        logp = torch.log_softmax(
-            fused_head.logits_plain(head, hidden)[:, :head.v], dim=-1)
+        logp = torch.log_softmax(vocab_shard.gather_logits(
+            fused_head.logits_plain(head, hidden)[:, :head.v]), dim=-1)
         total += torch.where(live, logp.gather(1, ids[:, t + 1:t + 2])[:, 0],
                              0.0)
         live = live & (ids[:, t + 1] != END_ID)
@@ -126,8 +139,7 @@ def beam_search(model: Captioner, params, encoded: Encoded,
     num_feat = encoded.features.shape[1]
     rows = torch.arange(b, device=dev)[:, None]                 # (B, 1)
     use_fused = fused_head.enabled(k)
-    head = (fused_head.prepare_head(params["predict"], mean.dtype)
-            if use_fused else None)
+    head = _prepare_head(model, params, mean.dtype) if use_fused else None
     lanes = torch.arange(k, device=dev)[None, :]                # (1, k)
 
     def lane_gather(a, prev):
@@ -161,7 +173,7 @@ def beam_search(model: Captioner, params, encoded: Encoded,
         if use_fused:
             pre, new_state, alpha = model.step_lanes_core(params, encoded,
                                                           state, cur)
-            vals, idx, lse = fused_head.topk_head(
+            vals, idx, lse = vocab_shard.topk_merge(
                 head, pre.reshape((b * k,) + pre.shape[2:]), k)
             logp_top = (vals - lse[:, None]).reshape(b, k * k)
             cand = scores.repeat_interleave(k, dim=1) + logp_top

@@ -23,15 +23,24 @@ The backend is explicit: NCCL for CUDA tensors, gloo for the host.  Gloo's
 data path is the host, so a CUDA tensor handed to a collective under gloo is
 copied to the host, reduced there and copied back (two processes sharing
 one card run so).  Without a process group (one process) every collective
-here is the identity and no step changes a bit.  The JAX mesh's optional
-``model`` axis (the prediction head split over the vocabulary) is not
-ported: :func:`get_mesh` refuses ``model_parallel > 1`` (ROADMAP.md).
+here is the identity and no step changes a bit.
+
+The mesh's optional ``model`` axis (``get_mesh(model_parallel=mp)``, the
+JAX package's ``parallel/mesh.py:62-76``, ``:125-151``) lays the processes
+out as (data, model), rank r at data index r // mp and model index r % mp:
+the ``mp`` processes of one model group hold the same batch rows, and each
+holds its column slice of the prediction head (:func:`place_params`;
+``parallel/vocab_shard.py`` runs the head over the slice).  The data-axis
+sums and draws above then run over the data group, the processes of one
+model index.  Like the process group itself, the mesh that
+:func:`get_mesh` built last is this process's: the collectives and the
+head read it (:func:`active_mesh`).
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
-from typing import List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -93,30 +102,88 @@ def backend() -> Optional[str]:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The data axis: ``size`` processes (the default group, or one process
-    without a group), this one ``index``, its tensors on ``device``."""
+    """The (data, model) mesh of this process: the data axis's ``size``
+    processes and this one's ``index`` on it, the model axis's
+    ``model_size`` and this one's ``model_index``, its tensors on
+    ``device``.  ``data_group`` and ``model_group`` are the process groups
+    of this process's data and model axes (None: the default group, or no
+    group, for the data axis when the model axis has one process; None for
+    a model axis of one)."""
     device: torch.device
     backend: Optional[str]
     size: int
     index: int
+    model_size: int = 1
+    model_index: int = 0
+    data_group: Any = None
+    model_group: Any = None
+
+
+_active: Optional[Mesh] = None       # the mesh get_mesh built last
+_groups: Dict[tuple, tuple] = {}     # (world group, world, mp) -> groups
+
+
+def active_mesh() -> Optional[Mesh]:
+    """The mesh :func:`get_mesh` built last in this process when its model
+    axis has more than one process, else None."""
+    return _active
+
+
+def _axis_groups(world: int, mp: int):
+    """-> (data groups by model index, model groups by data index).  Every
+    process makes every group, in the same order (``new_group`` is
+    collective); made once a process group and layout."""
+    key = (id(dist.group.WORLD), world, mp)
+    if key not in _groups:
+        model = [dist.new_group(list(range(d * mp, (d + 1) * mp)))
+                 for d in range(world // mp)]
+        data = [dist.new_group(list(range(m, world, mp)))
+                for m in range(mp)]
+        _groups[key] = (data, model)
+    return _groups[key]
 
 
 def get_mesh(device="cuda", model_parallel: int = 1) -> Mesh:
-    """The mesh of this process: the data axis over the process group (a
-    mesh of one without a group), the process's tensors on ``device``.
-    ``model_parallel`` other than 1 is refused: the vocab-split head is
-    not ported yet (ROADMAP.md, the mesh's ``model`` axis)."""
-    if model_parallel != 1:
-        raise NotImplementedError(
-            "model_parallel=%d: the port has no model axis yet (the "
-            "prediction head split over the vocabulary needs K1 over a "
-            "vocab shard and a cross-process top-k merge; ROADMAP.md)"
-            % model_parallel)
+    """The mesh of this process, its tensors on ``device``: the processes
+    of the group (or this one alone) laid out as (data, model), with
+    ``model_parallel`` processes on the model axis, rank r at data index
+    r // model_parallel and model index r % model_parallel.  A world that
+    ``model_parallel`` does not divide is refused, as the JAX package
+    refuses a device count.  With ``model_parallel`` 1 the data axis is the
+    whole group, as it is without a model axis."""
+    global _active
+    mp = int(model_parallel)
+    world, rank = process_count(), process_index()
+    if mp < 1 or world % mp:
+        raise ValueError("%d processes not divisible by model_parallel=%d"
+                         % (world, mp))
     dev = torch.device(device)
     if backend() == "nccl" and dev.type != "cuda":
         raise ValueError("the process group runs NCCL, which takes CUDA "
                          "tensors; the engine's device is %s" % dev)
-    return Mesh(dev, backend(), process_count(), process_index())
+    if mp == 1:
+        _active = None
+        return Mesh(dev, backend(), world, rank)
+    data, model = _axis_groups(world, mp)
+    _active = Mesh(dev, backend(), world // mp, rank // mp, mp, rank % mp,
+                   data[rank % mp], model[rank // mp])
+    return _active
+
+
+def data_count() -> int:
+    """The processes on the data axis (all of them without a model
+    axis)."""
+    return _active.size if _active is not None else process_count()
+
+
+def data_index() -> int:
+    """This process's index on the data axis (its rank without a model
+    axis)."""
+    return _active.index if _active is not None else process_index()
+
+
+def _data_group():
+    return _active.data_group if _active is not None else None
 
 
 # ---------------------------------------------------------------------------
@@ -208,11 +275,31 @@ def replicate_tree(mesh: Mesh, tree):
     return _rebuild(tree, iter(leaves))
 
 
+HEAD_SHARDED = ("v", "g", "b")       # predict's leaves split over V
+
+
 def place_params(mesh: Mesh, params):
-    """The params on the mesh: replicated (:func:`replicate_tree`); the JAX
-    package's vocab-split head is :func:`get_mesh`'s refused
-    ``model_parallel``."""
-    return replicate_tree(mesh, params)
+    """The params on the mesh: replicated (:func:`replicate_tree`), but for
+    the prediction head on a model axis of more than one process, of which
+    each process keeps its column slice, ``predict``'s ``v`` (H, V/mp),
+    ``g`` and ``b`` (V/mp,) at model index i: columns i V/mp to (i+1)
+    V/mp.  Weight norm stays exact: it normalizes each column of ``v``
+    (``models/layers.dense_wn``).  A vocabulary that the model axis does
+    not divide is refused."""
+    params = replicate_tree(mesh, params)
+    if mesh.model_size == 1:
+        return params
+    head = dict(params["predict"])
+    v = head["v"].shape[-1]
+    if v % mesh.model_size:
+        raise ValueError("a vocabulary of %d is not divisible by "
+                         "model_parallel=%d" % (v, mesh.model_size))
+    per = v // mesh.model_size
+    lo = mesh.model_index * per
+    for k in HEAD_SHARDED:
+        if k in head:
+            head[k] = head[k][..., lo:lo + per].contiguous()
+    return dict(params, predict=head)
 
 
 # ---------------------------------------------------------------------------
@@ -220,22 +307,25 @@ def place_params(mesh: Mesh, params):
 # ---------------------------------------------------------------------------
 
 def all_reduce_sum(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """The sum over the processes of each tensor (new tensors, the inputs
-    left as they are), through one all-reduce a dtype over the tensors laid
-    end to end in one buffer.  Without a process group the tensors come
-    back as they are.  Collective: every process calls it with the same
-    shapes in the same order."""
+    """The sum over the data axis's processes of each tensor (new tensors,
+    the inputs left as they are), through one all-reduce a dtype over the
+    tensors laid end to end in one buffer.  Without a process group, or
+    with one process on the data axis, the tensors come back as they are.
+    Collective: every process calls it with the same shapes in the same
+    order."""
     tensors = list(tensors)
-    if not dist.is_initialized():
+    if not dist.is_initialized() or data_count() == 1:
         return tensors
+    group = _data_group()
     # a profiler span a trace can read the collective's time from
     with torch.profiler.record_function("parallel.all_reduce_sum"):
-        return _end_to_end(tensors, dist.all_reduce)
+        return _end_to_end(tensors,
+                           lambda w: dist.all_reduce(w, group=group))
 
 
 def global_sum(t: torch.Tensor) -> torch.Tensor:
-    """``t``'s sum over the processes, outside autograd (a count, a
-    denominator); ``t`` itself without a process group."""
+    """``t``'s sum over the data axis's processes, outside autograd (a
+    count, a denominator); ``t`` itself without a process group."""
     if not dist.is_initialized():
         return t
     return all_reduce_sum([t.detach()])[0]
@@ -271,8 +361,10 @@ def global_rand(shape, generator: Optional[torch.Generator], device,
     this process keeps its own rows.  So every draw of a step (dropout
     masks, scheduled sampling's coins, the Gumbel uniforms) is the one
     process's draw on the whole batch, and the generators stay in step.
-    ``torch.rand(shape)`` itself without a process group."""
-    count = process_count()
+    P counts the data axis: the processes of one model group hold the same
+    rows and draw the same bits.  ``torch.rand(shape)`` itself without a
+    process group."""
+    count = data_count()
     if count == 1:
         return torch.rand(shape, generator=generator, device=device,
                           dtype=dtype)
@@ -280,7 +372,7 @@ def global_rand(shape, generator: Optional[torch.Generator], device,
     rows = shape[0]
     u = torch.rand((rows * count,) + shape[1:], generator=generator,
                    device=device, dtype=dtype)
-    i = process_index()
+    i = data_index()
     return u[i * rows:(i + 1) * rows]
 
 
@@ -310,18 +402,19 @@ def host_allgather(x) -> np.ndarray:
 def host_read(x) -> np.ndarray:
     """This process's rows of a global batch (a tensor or an array, the
     rows on axis 0: eval's decoded ids) -> the whole batch as a host array
-    on EVERY process, the processes' rows in process order, so that every
+    on EVERY process, the data axis's rows in its order, so that every
     process scores the same full result set.  Replicated values (params)
     need no gather: copy them to the host directly."""
-    if isinstance(x, torch.Tensor):
-        if not dist.is_initialized():
+    if not dist.is_initialized() or data_count() == 1:
+        if isinstance(x, torch.Tensor):
             return x.detach().cpu().numpy()
-        t = x.detach().contiguous().to(_wire_device())
-        parts = [torch.empty_like(t) for _ in range(process_count())]
-        dist.all_gather(parts, t)
-        return torch.cat(parts).cpu().numpy()
-    g = host_allgather(x)
-    return g.reshape((-1,) + g.shape[2:])
+        return np.asarray(x)
+    t = (x.detach() if isinstance(x, torch.Tensor)
+         else torch.from_numpy(np.ascontiguousarray(np.asarray(x)).copy()))
+    t = t.contiguous().to(_wire_device())
+    parts = [torch.empty_like(t) for _ in range(data_count())]
+    dist.all_gather(parts, t, group=_data_group())
+    return torch.cat(parts).cpu().numpy()
 
 
 def barrier(tag: str) -> None:
@@ -349,8 +442,9 @@ def processes_agree(fingerprint) -> bool:
 
 def local_batch_slice(global_batch_size: int, mesh: Mesh) -> int:
     """Rows of each global batch this process materializes (the batchers'
-    per-process feeding seam; one process: the full batch)."""
+    per-process feeding seam; one process on the data axis: the full
+    batch)."""
     if global_batch_size % mesh.size:
         raise ValueError(f"global batch {global_batch_size} not divisible "
-                         f"by process_count {mesh.size}")
+                         f"by the data axis's {mesh.size} processes")
     return global_batch_size // mesh.size

@@ -16,7 +16,13 @@ to OUT.  Modes:
   when given, replaces the sampler with those ids' rows: JAX's draws);
 * ``engine``: the Engine's XE training on the dataset at
   ``case["root"]``; with ``case["kill"] = (rank, epoch, steps_done)`` that
-  process SIGKILLs itself once that mid-epoch resume point has committed.
+  process SIGKILLs itself once that mid-epoch resume point has committed;
+* ``model_axis``: the mesh of ``case["mp"]`` processes a model group
+  (``get_mesh(model_parallel=...)``): one XE step (Adam) on this process's
+  data rows of ``case["batch"]`` with its vocab shard of the head, greedy
+  and beam decodes of the updated params, the fused head's top-k merged
+  over the shards (``vocab_shard.topk_merge``) on ``case["heads"]``, and
+  the int8 serving form's greedy and beam decodes.
 
 The worker imports the port only (no JAX), and its collectives time out
 after 60 s, so a hang fails the test instead of the run.
@@ -47,10 +53,6 @@ def collectives(case, rank, world):
     mesh = parallel.get_mesh("cpu")
     out = {"mesh": (mesh.size, mesh.index, mesh.backend),
            "local_rows": parallel.local_batch_slice(8, mesh)}
-    try:
-        parallel.get_mesh("cpu", model_parallel=2)
-    except NotImplementedError as e:
-        out["model_axis"] = str(e)
     out["host_read"] = parallel.host_read(
         torch.arange(6).reshape(3, 2) + 100 * rank)
     out["host_read_np"] = parallel.host_read(np.full((2, 3), rank, np.int32))
@@ -78,6 +80,24 @@ def collectives(case, rank, world):
         "c": 3})
     out["replicate"] = (rep["a"].numpy(), rep["b"][0], rep["b"][1].numpy(),
                         rep["c"])
+    # the model axis over both processes: the layout, then the data axis's
+    # collectives over a data group of one; then back to no model axis
+    try:
+        parallel.get_mesh("cpu", model_parallel=world + 1)
+    except ValueError as e:
+        out["model_refused"] = str(e)
+    m = parallel.get_mesh("cpu", model_parallel=world)
+    out["model_axis"] = dict(
+        mesh=(m.size, m.index, m.model_size, m.model_index, m.backend),
+        local_rows=parallel.local_batch_slice(8, m),
+        all_reduce=parallel.all_reduce_sum([torch.ones(2) * rank])[0].numpy(),
+        global_rand=parallel.global_rand(
+            (2, 3), torch.Generator().manual_seed(7), "cpu").numpy(),
+        host_read=parallel.host_read(torch.tensor([rank])),
+        agree_rank=parallel.processes_agree(np.array([rank])))
+    parallel.get_mesh("cpu")
+    out["after"] = (parallel.active_mesh(), parallel.data_count(),
+                    parallel.global_sum(torch.tensor(1.0)).item())
     return out
 
 
@@ -160,6 +180,95 @@ def _step(case, batch):
                 gen_state=gen.get_state().numpy(), **extra)
 
 
+def _crc(tree):
+    import zlib
+    from simpleimagecaptionzoo_tpu_torch.engine.optim import tree_leaves
+    return zlib.crc32(b"".join(t.detach().contiguous().numpy().tobytes()
+                               for t in tree_leaves(tree)))
+
+
+def model_axis_case(case, rank, world):
+    """The case's params placed on a (data, model) mesh, one Adam XE step
+    on this process's data rows, greedy and beam-3 decodes of the updated
+    params (the ids gathered over the data axis), and the merged top-k of
+    each head of ``case["heads"]`` split over the model axis; every fused
+    head call's shard width recorded."""
+    from simpleimagecaptionzoo_tpu_torch.config import ModelConfig
+    from simpleimagecaptionzoo_tpu_torch.engine import optim as TO
+    from simpleimagecaptionzoo_tpu_torch.engine import steps as TS
+    from simpleimagecaptionzoo_tpu_torch.engine.state import TrainState
+    from simpleimagecaptionzoo_tpu_torch.models.base import get_captioner
+    from simpleimagecaptionzoo_tpu_torch.ops import fused_head
+    from simpleimagecaptionzoo_tpu_torch.parallel import vocab_shard
+
+    mesh = parallel.get_mesh("cpu", model_parallel=case["mp"])
+    out = {"mesh": (mesh.size, mesh.index, mesh.model_size,
+                    mesh.model_index)}
+    tm = get_captioner(ModelConfig(**case["cfg"]))
+    params = parallel.place_params(mesh, from_jax(case["params"]))
+    out["v_shape"] = tuple(params["predict"]["v"].shape)
+    batch = case["batch"]
+    b = len(batch["captions"]) // mesh.size
+    batch = rows_of(batch, mesh.index * b, (mesh.index + 1) * b)
+    widths, topk = [], fused_head.topk_head
+
+    def recording(head, x, k):
+        widths.append((tuple(head.w.shape), head.v, k))
+        return topk(head, x, k)
+    fused_head.topk_head = recording
+    try:
+        tx = TO.make_grad_transform("Adam", 0.1)
+        state = TrainState.create(params, tx)
+        step = TS.make_xe_train_step(tm, tx, tm.param_labels(params), 0.1,
+                                     ss_active=False, device="cpu")
+        state, met = step(state, _int_batch(from_jax(batch)),
+                          torch.Generator().manual_seed(0), 0.0, 1e-2, 0.0)
+        out["loss"] = float(met["loss"])
+        out["tokens"] = float(met["tokens"])
+        p = state.params
+        out["v"] = p["predict"]["v"].numpy()
+        out["g"] = p["predict"]["g"].numpy()
+        rest = {k: v for k, v in p.items() if k != "predict"}
+        out["replicated_agree"] = parallel.processes_agree(
+            np.array([_crc(rest)], np.int64))
+        visual = from_jax(batch["visual"])
+        n = len(widths)
+        out["greedy"] = parallel.host_read(TS.make_greedy_decode(
+            tm, max_len=case["max_len"], device="cpu")(p, {}, visual))
+        out["greedy_calls"] = widths[n:]
+        n = len(widths)
+        out["beam"] = parallel.host_read(TS.make_beam_decode(
+            tm, beam_size=3, max_steps=case["max_len"] + 1,
+            device="cpu")(p, {}, visual))
+        out["beam_calls"] = widths[n:]
+        out["beam_full"] = parallel.host_read(TS.make_beam_decode(
+            tm, beam_size=fused_head.MAX_K + 1,
+            max_steps=case["max_len"] + 1, device="cpu")(p, {}, visual))
+        # the int8 serving form of the shard: per-column scales, so the
+        # shard's int8 head is the whole int8 head's columns
+        q = tm.quantize_decode_params(p)
+        out["greedy_int8"] = parallel.host_read(TS.make_greedy_decode(
+            tm, max_len=case["max_len"], device="cpu")(q, {}, visual))
+        out["beam_int8"] = parallel.host_read(TS.make_beam_decode(
+            tm, beam_size=3, max_steps=case["max_len"] + 1,
+            device="cpu")(q, {}, visual))
+    finally:
+        fused_head.topk_head = topk
+    # the merged top-k of each head, split over the model axis as
+    # place_params splits predict
+    out["topk"] = []
+    for head, x, k in case["heads"]:
+        per = head["w"].shape[1] // mesh.model_size
+        lo = mesh.model_index * per
+        shard = {"w": torch.from_numpy(head["w"][:, lo:lo + per]),
+                 "b": torch.from_numpy(head["b"][lo:lo + per])}
+        vals, idx, lse = vocab_shard.topk_merge(
+            fused_head.prepare_head(shard, torch.float32),
+            torch.from_numpy(x), k)
+        out["topk"].append((vals.numpy(), idx.numpy(), lse.numpy()))
+    return out
+
+
 def engine_case(case, rank, world):
     from simpleimagecaptionzoo_tpu_torch.config import (DataConfig,
                                                         ModelConfig,
@@ -208,7 +317,8 @@ def main():
         "gloo", world, rank, store=torch.distributed.FileStore(store_path,
                                                                world))
     run = {"collectives": collectives, "step": step_case,
-           "engine": engine_case}[case["mode"]]
+           "engine": engine_case, "model_axis": model_axis_case}[
+               case["mode"]]
     out = run(case, rank, world)
     with open(out_path + ".tmp", "wb") as f:
         pickle.dump(out, f)

@@ -6,7 +6,8 @@ its half of the batch.
 
 Holds: the collectives (host_read and host_allgather in process order,
 barrier, processes_agree on raw bytes, all_reduce_sum and its autograd,
-global_rand, replicate_tree, the mesh); the XE and SCST step at 2 x B/2
+global_rand, replicate_tree, the mesh and its (data, model) layout at
+model_parallel=2); the XE and SCST step at 2 x B/2
 against JAX's one-process step on the whole batch (JAX's draws replayed in
 SCST, as tests/test_torch_scst.py does; padded captions whose token counts
 differ between the halves; a filler row): the loss within 1e-6 of JAX's,
@@ -109,7 +110,19 @@ def test_collectives_on_two_processes(tmp_path):
     r0, r1 = torch_dist.run(tmp_path, {"mode": "collectives"})
     for rank, r in enumerate((r0, r1)):
         assert r["mesh"] == (2, rank, "gloo") and r["local_rows"] == 4
-        assert "ROADMAP" in r["model_axis"]
+        # the (data, model) layout at model_parallel=2: one data index,
+        # model index = rank; the data axis's collectives over a group of
+        # one (the identity, this process's own draw), the world's
+        # agreement over both; a model axis of 3 refused
+        m = r["model_axis"]
+        assert m["mesh"] == (1, 0, 2, rank, "gloo") and m["local_rows"] == 8
+        np.testing.assert_array_equal(m["all_reduce"], [rank, rank])
+        np.testing.assert_array_equal(m["global_rand"], torch.rand(
+            (2, 3), generator=torch.Generator().manual_seed(7)).numpy())
+        np.testing.assert_array_equal(m["host_read"], [rank])
+        assert not m["agree_rank"]
+        assert "not divisible by model_parallel=3" in r["model_refused"]
+        assert r["after"] == (None, 2, 2.0)
         np.testing.assert_array_equal(r["host_read"], np.concatenate(
             [np.arange(6).reshape(3, 2), np.arange(6).reshape(3, 2) + 100]))
         np.testing.assert_array_equal(r["host_read_np"], np.concatenate(
