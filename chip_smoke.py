@@ -364,7 +364,7 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      bf16 each mode against its plain run by phase 14's hold; (d) the
      device's ms by kind of (b) (K2, K1,
      library products, the rest) and by part of a profiled XE step in each
-     mode (not AoASpatial's), with the card's name and power limit.
+     mode, with the card's name and power limit.
      Entries ``..._butd_td_hoist[_beam]``, ``..._train_butd_td_hoist``,
      ``..._butd_td_tf``, ``..._tf`` (AoADetection), ``..._aoasp_tf``,
      ``..._nic_tf``; phases 10-11, 14, 16-17 and 19-20 credit their
@@ -399,7 +399,9 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      (its ``vocab_shard.topk_merge`` span), captions/s of the two against
      one process.  K1's launch shapes of (b) get entries
      ``fused_head_topk_<route>_shard_<shape>``.
-Then it prints one JSON line of per-kernel results (the beam shapes'
+Then it prints one JSON line of each timed phase's seconds beside its
+budget and the share used (``{"phase_budgets": ...}``: phases 18, 19-20,
+21, 22 and 23), one JSON line of per-kernel results (the beam shapes'
 launches as entries of their own, named ``..._beam``; BUTD's K2 and K3
 shapes as ``..._butd_<layer>``, NIC's and AoASpatial's K1, K2 and K3 shapes
 as ``..._nic[_<layer>]`` and ``..._aoasp[_<layer>]``; K2's backward as
@@ -752,16 +754,17 @@ def profile_decode(torch, run, dn, top=16):
     """Device time of one decode by kernel name, and the device's busy
     share of the traced span, from torch.profiler tracing the device alone
     (host ops are not traced: a from-pixels decode's trunk adds thousands
-    of them, whose tracing slows the run and stretches the span)."""
+    of them, whose tracing slows the run and stretches the span), read
+    from the trace's raw events (:func:`raw_events`)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    cuda_t = torch.autograd.DeviceType.CUDA
+    spans = sorted((s, e, name) for ev, name, s, e in raw_events(
+        torch, prof.profiler.kineto_results) if ev.device_type() == cuda_t)
     require(spans, "profile %s: the trace holds no device time" % dn)
     busy = _busy(spans)
     by_name = {}
@@ -1024,9 +1027,22 @@ def part_seconds(stamps, tag):
     plain versions, the timed steps, the held step and the profiled step),
     from the times taken at their starts; logged."""
     stamps = stamps + [time.time()]
-    out = dict(zip(("first_step", "timed", "held_and_profiled"),
+    out = dict(zip(("first_step", "timed", "held", "profiled"),
                    (b - a for a, b in zip(stamps, stamps[1:]))))
     log("%s: seconds %s" % (tag, {k: round(v, 2) for k, v in out.items()}))
+    return out
+
+
+def run_split(res, seconds):
+    """A training run's seconds (``seconds``, its wall) by part, summed
+    over its variants (:func:`part_seconds`), with the profiled steps'
+    host seconds by stage (:func:`profile_step`)."""
+    out = {"wall": round(seconds, 2)}
+    for v in res.values():
+        for k, x in v.get("variant_seconds", {}).items():
+            out[k] = round(out.get(k, 0.0) + x, 2)
+        for k, x in v.get("profile", {}).get("host_s", {}).items():
+            out["profile_" + k] = round(out.get("profile_" + k, 0.0) + x, 2)
     return out
 
 
@@ -1036,6 +1052,199 @@ def require_no_products(profile, tag):
     ms = profile["parts_ms"].get(K2_PRODUCTS_PART, 0.0)
     require(ms == 0.0, "%s: %s read %.4f ms a step; the tensor-core "
             "routes run none" % (tag, K2_PRODUCTS_PART, ms))
+
+
+EVALUATE = "autograd::engine::evaluate_function"
+
+
+def op_label(op, anchor, ranges):
+    """The part of a launch by the CPU operation ``op`` whose nearest
+    enclosing range of ``ranges`` or autograd node (itself included) is
+    ``anchor`` (None: none encloses it)."""
+    if anchor is None:
+        return "other"
+    if anchor in ranges:
+        return anchor
+    if "LstmCellBackward" in anchor:
+        return K2_BWD_OPS.get(op, K2_PRODUCTS_PART)
+    if "ConvolutionBackward" in anchor:
+        return TRUNK_BWD_PART
+    return "backward, other"
+
+
+def kernel_part(label, kernel):
+    """The part of a kernel launched under ``label`` (:func:`op_label`):
+    K2's own kernels by their names, wherever they were launched."""
+    if "lstm_cell" in kernel:
+        return ("K2 backward kernel" if K2_BWD_KERNEL.search(kernel)
+                else "K2 forward kernel")
+    if "lstm_bwd_" in kernel:
+        return "K2 backward's product kernels"
+    return label
+
+
+def function_events(torch, result):
+    """torch's own FunctionEvent tree of a trace's raw kineto events
+    (``result``), as ``prof.events()`` builds it: the reference reading's
+    input (:func:`parts_by_function_events`)."""
+    from torch.autograd.profiler_util import EventList
+    prof = torch.autograd.profiler.profile()
+    prof.use_device = "cuda"
+    tree = EventList(prof._parse_kineto_results(result), use_device="cuda")
+    tree._build_tree()
+    return tree
+
+
+def parts_by_function_events(torch, events, ranges):
+    """Device ms by part from torch's FunctionEvent tree
+    (:func:`function_events`): each kernel-bearing CPU operation's
+    ``cpu_parent`` chain walked.  The reference for :func:`read_trace`,
+    which reads the same from the raw events
+    (tests/test_torch_smoke_profile.py, and on the card
+    scripts/probe_phase19_20.py --check)."""
+    parts = {}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        anc = e
+        while anc is not None and not (anc.name in ranges
+                                       or anc.name.startswith(EVALUATE)):
+            anc = anc.cpu_parent
+        label = op_label(e.name, None if anc is None else anc.name, ranges)
+        for k in e.kernels:
+            part = kernel_part(label, k.name)
+            parts[part] = parts.get(part, 0.0) + k.duration / 1e3
+    return parts
+
+
+def event_namer():
+    """-> name(event): a raw kineto event's name as torch's own parser
+    rewrites it, or None for an event that parser leaves out (its utility
+    operations, hidden events); each distinct name rewritten once."""
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+    names = {}
+
+    def name(ev):
+        raw = ev.name()
+        got = names.get(raw)
+        if got is None:
+            got = names[raw] = (False if _filter_name(raw)
+                                else _rewrite_name(raw, with_wildcard=True))
+        if got is False or getattr(ev, "is_hidden_event", bool)():
+            return None
+        return got
+    return name
+
+
+def raw_events(torch, result):
+    """A trace's raw kineto events (``result``: the profiler's
+    ``kineto_results``) as torch's own parser keeps them: -> (event, its
+    name (:func:`event_namer`), start µs, end µs from the trace's start),
+    in the trace's order."""
+    t0 = result.trace_start_ns()
+    name_of = event_namer()
+    for ev in result.events():
+        name = name_of(ev)
+        if name is not None:
+            yield ev, name, (ev.start_ns() - t0) / 1000, \
+                (ev.end_ns() - t0) / 1000
+
+
+def read_trace(torch, result, ranges):
+    """One pass over a trace's raw kineto events (``result``: the
+    profiler's ``kineto_results``), without torch's FunctionEvent tree:
+    -> dict(spans: the device's kernels and copies as sorted (start µs,
+    end µs, name), the record_function ranges placed on the device's
+    timeline left out; parts: device ms by part, each kernel counted to
+    the part of the CPU operation that launched it (:func:`op_label`,
+    :func:`kernel_part`); k2_host_ms: the host's ms in K2's backward
+    nodes).  A part depends on the launching operation's name and on its
+    nearest enclosing range or autograd node alone, so of the CPU
+    operations only those that launched a kernel and those ranges and
+    nodes are kept, and nest as torch nests them (per thread, by their
+    intervals: what encloses an operation encloses it in any subset); each
+    operation's nearest range or node is found once, shared by the
+    operations under it.  The CUDA runtime calls, which torch nests under
+    the operation that made them, are left out.  It reads what
+    :func:`parts_by_function_events` reads from torch's tree, but for
+    kernels launched by an operation that torch folds into its only child
+    of the same name (EventList._remove_dup_nodes keeps the child's
+    kernels alone)."""
+    cpu_t, cuda_t = torch.autograd.DeviceType.CPU, \
+        torch.autograd.DeviceType.CUDA
+    t0 = result.trace_start_ns()
+    name_of = event_namer()
+    spans, launched, cpu = [], {}, []
+    for i, ev in enumerate(result.events()):
+        dtype, linked = ev.device_type(), ev.linked_correlation_id()
+        on_cpu = dtype == cpu_t
+        if on_cpu and linked > 0 or not (on_cpu or dtype == cuda_t):
+            continue
+        name = name_of(ev)
+        if name is None:
+            continue
+        if not on_cpu:
+            s, e = (ev.start_ns() - t0) / 1000, (ev.end_ns() - t0) / 1000
+            if linked > 0:
+                launched.setdefault(linked, []).append((name, e - s))
+            if not ev.is_user_annotation() and name not in ranges:
+                spans.append((s, e, name))
+        else:
+            cpu.append((i, ev, name))
+    ops = []          # [start, -end, order, thread, name, corr, sync]
+    for i, ev, name in cpu:
+        corr = ev.correlation_id()
+        if corr not in launched and not (name in ranges
+                                         or name.startswith(EVALUATE)):
+            continue
+        thread = ev.start_thread_id()
+        ops.append([(ev.start_ns() - t0) / 1000, -(ev.end_ns() - t0) / 1000,
+                    i, thread, name, corr,
+                    not ev.is_async() and thread == ev.end_thread_id()])
+    ops.sort()
+    # each synchronous operation's parent: per thread a stack of the
+    # intervals still open, as EventList._populate_cpu_children
+    parent = {}
+    by_thread = sorted((op for op in ops if op[6]), key=lambda op: op[3])
+    stack, thread = [], None
+    for op in by_thread:
+        if op[3] != thread:
+            stack, thread = [], op[3]
+        while stack:
+            top = stack[-1]
+            if op[0] >= -top[1] or -op[1] > -top[1]:
+                stack.pop()
+            else:
+                parent[op[2]] = top
+                break
+        stack.append(op)
+    anchor = {}
+
+    def anchor_of(op):
+        path = []
+        while op is not None and op[2] not in anchor:
+            if op[4] in ranges or op[4].startswith(EVALUATE):
+                anchor[op[2]] = op[4]
+                break
+            path.append(op[2])
+            op = parent.get(op[2])
+        found = None if op is None else anchor[op[2]]
+        for i in path:
+            anchor[i] = found
+        return found
+
+    parts, k2_host_us = {}, 0.0
+    for op in ops:
+        if op[4].startswith(EVALUATE + ": LstmCellBackward"):
+            k2_host_us += -op[1] - op[0]
+        if not op[6] or op[5] not in launched:
+            continue
+        label = op_label(op[4], anchor_of(op), ranges)
+        for kname, dur in launched[op[5]]:
+            part = kernel_part(label, kname)
+            parts[part] = parts.get(part, 0.0) + dur / 1e3
+    spans.sort()
+    return dict(spans=spans, parts=parts, k2_host_ms=k2_host_us / 1e3)
 
 
 def profile_step(torch, run, tag, ranges=XE_RANGES):
@@ -1049,76 +1258,47 @@ def profile_step(torch, run, tag, ranges=XE_RANGES):
     products, and anything else); to the other backward when another
     autograd node launched it, and otherwise to the innermost of
     ``ranges`` (XE_RANGES, SCST_RANGES) around its launch (wrapped around
-    the parts by the caller)."""
+    the parts by the caller).  The trace is read from its raw events
+    (:func:`read_trace`); ``host_s`` holds the host's seconds of the traced
+    step, the profiler's start and stop, and the reading."""
     from torch.profiler import ProfilerActivity, profile
+    t_in = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
-    # kernels and copies on the card; the trace also places each
-    # record_function range on the device's timeline, which is no device
-    # work
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)
-                   and e.name not in ranges)
+        t_end = time.perf_counter()
+        wall_ms = (t_end - t0) * 1e3
+    t_stop = time.perf_counter()
+    read = read_trace(torch, prof.profiler.kineto_results, ranges)
+    spans, parts = read["spans"], read["parts"]
     require(spans, "profile %s: the trace holds no device time" % tag)
     busy = _busy(spans) / 1e3
     span_ms = (spans[-1][1] - spans[0][0]) / 1e3
-    parts = {}
-    for e in events:
-        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
-            continue
-        label, anc = "other", e
-        while anc is not None:
-            if anc.name in ranges:
-                label = anc.name
-                break
-            if anc.name.startswith("autograd::engine::evaluate_function"):
-                label = (K2_BWD_OPS.get(e.name, K2_PRODUCTS_PART)
-                         if "LstmCellBackward" in anc.name
-                         else TRUNK_BWD_PART
-                         if "ConvolutionBackward" in anc.name
-                         else "backward, other")
-                break
-            anc = anc.cpu_parent
-        for k in e.kernels:
-            part = label
-            if "lstm_cell" in k.name:
-                part = ("K2 backward kernel" if K2_BWD_KERNEL.search(k.name)
-                        else "K2 forward kernel")
-            elif "lstm_bwd_" in k.name:
-                part = "K2 backward's product kernels"
-            parts[part] = parts.get(part, 0.0) + k.duration / 1e3
     # kernels the trace links to no CPU operation
     parts["unattributed"] = (sum(e - s for s, e, _ in spans) / 1e3
                              - sum(parts.values()))
-    # the host's time in K2's backward nodes (autograd's device thread)
-    k2_host_ms = sum(e.cpu_time_total for e in events
-                     if e.device_type == torch.autograd.DeviceType.CPU
-                     and e.name.startswith("autograd::engine::evaluate_"
-                                           "function: LstmCellBackward")
-                     ) / 1e3
     by_name = {}
     for s, e, n in spans:
         tot, cnt = by_name.get(n, (0.0, 0))
         by_name[n] = (tot + (e - s) / 1e3, cnt + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    host_s = dict(start=t0 - t_in, step=t_end - t0, stop=t_stop - t_end,
+                  read=time.perf_counter() - t_stop)
     out = dict(wall_ms=wall_ms, device_span_ms=span_ms, device_busy_ms=busy,
                idle_share_of_span=1 - busy / span_ms,
                kernel_launches=len(spans), parts_ms=parts,
-               k2_backward_host_ms=k2_host_ms,
+               k2_backward_host_ms=read["k2_host_ms"], host_s=host_s,
                kernels=[dict(name=n, ms=t, count=c) for n, (t, c) in top])
     log("profile %s: host wall %.2f ms, device span %.2f ms, busy %.2f ms "
         "(idle %.1f%% of the span), %d kernel launches, the host in K2's "
-        "backward nodes %.2f ms; device ms by part: %s"
+        "backward nodes %.2f ms; device ms by part: %s; host seconds %s"
         % (tag, wall_ms, span_ms, busy, 100 * (1 - busy / span_ms),
-           len(spans), k2_host_ms, ", ".join("%s %.3f" % kv for kv in sorted(
-               parts.items(), key=lambda kv: -kv[1]))))
+           len(spans), read["k2_host_ms"], ", ".join(
+               "%s %.3f" % kv for kv in sorted(parts.items(),
+                                                key=lambda kv: -kv[1])),
+           {k: round(v, 3) for k, v in host_s.items()}))
     for n, (t, c) in top:
         log("  %8.3f ms %5d x  %s" % (t, c, n[:90]))
     return out
@@ -1266,14 +1446,15 @@ def trunk_breakdown(torch, run):
         run()
         torch.cuda.synchronize()
     out = {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    cuda_t = torch.autograd.DeviceType.CUDA
+    for ev, name, s, e in raw_events(torch, prof.profiler.kineto_results):
+        if ev.device_type() != cuda_t:
             continue
-        name = e.name.lower()
+        name = name.lower()
         kind = ("pool" if "pool" in name else
                 "elementwise" if "elementwise" in name else "conv")
         k = out.setdefault(kind, {"ms": 0.0, "launches": 0})
-        k["ms"] += (e.time_range.end - e.time_range.start) / 1e3
+        k["ms"] += (e - s) / 1e3
         k["launches"] += 1
     require(out, "the trunk's trace holds no device time")
     return out
@@ -1775,6 +1956,7 @@ def drive_xe(torch, args, dev, model, params, kernels, on_path, *, name,
                    [e for _, e in vcells], t_med * 1e3,
                    len(times) - 1, TRAIN_B / t_med, peak / 2 ** 30,
                    encodes))
+            t_parts.append(time.time())
             if profiled is None or label in profiled:
                 res["profile"] = profile_step(
                     torch, lambda: step(st, batch, gen(), ss_prob, lr,
@@ -2195,6 +2377,7 @@ def drive_scst(torch, args, dev, model, params, kernels, on_path, data, *,
                    MAX_LEN, len(cells), route, TRAIN_B,
                    [e for _, e in cells], n_held, t_med * 1e3,
                    len(times) - 1, TRAIN_B / t_med, peak / 2 ** 30, encodes))
+            t_parts.append(time.time())
             if profiled is None or label in profiled:
                 res["profile"] = profile_step(
                     torch, lambda: step(st, batch, gen(), lr, lr_cnn), tag,
@@ -2605,6 +2788,10 @@ def cli_k2_bwd_entries(torch, run, a, kw, key, count, kernels, on_path,
         full_backward_max_abs_err=err(*zip(got, want)),
         lstm_cell_backward_ms=time_ms(torch, lambda: torch.autograd.grad(
             (lh, lc), lib_ins, cot, retain_graph=True), flush),
+        device_lstm_cell_backward_ms=time_ms(
+            torch, lambda: torch.autograd.grad(
+                (lh, lc), lib_ins, cot, retain_graph=True), flush,
+            lead=DEVICE_LEAD),
         whole_is="the whole backward (the backward kernel, dx·dh, dW·db); "
                  "lstm_cell_backward: the library's backward through "
                  "autograd (torch.lstm_cell's, or with a gate term "
@@ -2653,10 +2840,12 @@ def cli_k2_bwd_entries(torch, run, a, kw, key, count, kernels, on_path,
                               dev_ms, plain_ms, bnd[bk][0], bnd[bk][1]))
     log(phase + " K2 backward %s (%s) B=%d E=%d H=%d, whole: held (%s); "
         "%.4f ms (device alone %.4f), plain %.4f, the library's "
-        "backward %.4f, bound %.4f ms (%s)"
+        "backward %.4f (device alone %.4f), bound %.4f ms (%s)"
         % (dn, route, rows, e, hd, ferr, whole["full_backward_ms"],
            whole["device_full_backward_ms"], whole["full_backward_plain_ms"],
-           whole["lstm_cell_backward_ms"], bnd["full"][0], bnd["full"][1]))
+           whole["lstm_cell_backward_ms"],
+           whole["device_lstm_cell_backward_ms"], bnd["full"][0],
+           bnd["full"][1]))
     return made
 
 
@@ -3050,7 +3239,7 @@ PX_STEPS = 2
 PX_PROFILED = ("float32",)
 
 
-def write_serve_layout(torch, root, seed, dev, gen):
+def write_serve_layout(torch, root, seed, dev, gen, seconds=None):
     """Phase 19's layout under ``root``: Phase 18's vocabulary
     (:func:`write_vocab`), Configs/Datasets/Serve.data, a best checkpoint
     of BUTDSpatial at the width of Configs/Models/BUTDSpatial.json with the
@@ -3058,7 +3247,8 @@ def write_serve_layout(torch, root, seed, dev, gen):
     phase 17's), saved by the port's CheckpointManager, and photos/: 512
     photo-like JPEGs (PIL, quality 90) whose sides are drawn from 160-640
     px, and one corrupt file.  -> (the tools' flags, the photos' directory,
-    the JPEGs' bytes in name order)."""
+    the JPEGs' bytes in name order); ``seconds`` (a dict), when given,
+    gets the checkpoint's and the photos' seconds."""
     import io
     import numpy as np
     from concurrent.futures import ThreadPoolExecutor
@@ -3067,6 +3257,7 @@ def write_serve_layout(torch, root, seed, dev, gen):
     from simpleimagecaptionzoo_tpu_torch.engine.checkpoint import \
         CheckpointManager
     from simpleimagecaptionzoo_tpu_torch.models.base import get_captioner
+    t0 = time.time()
     write_vocab(root)
     with open(os.path.join(root, "Configs", "Datasets",
                            SERVE_DATASET + ".data"), "w") as f:
@@ -3083,6 +3274,7 @@ def write_serve_layout(torch, root, seed, dev, gen):
     CheckpointManager(SERVE_FAMILY, SERVE_DATASET, root=ck_root).save_best(
         {"params": params, "model_state": {"cnn_stats": cal}}, 0.0)
     del params, cal
+    t1 = time.time()
     rng = np.random.default_rng(seed + 19)
     hw = rng.integers(SERVE_SIDES[0], SERVE_SIDES[1] + 1,
                       size=(SERVE_IMAGES, 2))
@@ -3105,6 +3297,9 @@ def write_serve_layout(torch, root, seed, dev, gen):
             f.write(data)
     with open(os.path.join(photos, "corrupt.jpg"), "wb") as f:
         f.write(b"\xff\xd8\xff\xe0 not a jpeg")
+    if seconds is not None:
+        seconds.update(layout_checkpoint=t1 - t0,
+                       layout_photos=time.time() - t1)
     flags = ["--dataset", SERVE_DATASET, "--model_type", SERVE_FAMILY,
              "--dataset_config_root",
              os.path.join(root, "Configs", "Datasets") + os.sep,
@@ -3212,7 +3407,7 @@ def drive_serve(torch, args, dev, gen, smi, flush, kernels, on_path):
     try:
         os.chdir(root)
         flags, photos, jpegs = write_serve_layout(torch, root, args.seed,
-                                                  dev, gen)
+                                                  dev, gen, out["seconds"])
         out["seconds"]["layout"] = time.time() - t19
         # the host's upload decode, one thread: native (when built) and PIL
         sample = jpegs[:64]
@@ -3239,6 +3434,9 @@ def drive_serve(torch, args, dev, gen, smi, flush, kernels, on_path):
                                          jpegs)))
         inference.load_inference_bundle = keeping
         runs, dir_caps = {}, {}
+        out["seconds"]["upload_decode"] = time.time() - t19 - \
+            out["seconds"]["layout"]
+        t_dir = time.time()
         with calls.recording(torch):
             # (a) the directory run, bf16 and int8
             for dt in ("bfloat16", "int8"):
@@ -3271,9 +3469,11 @@ def drive_serve(torch, args, dev, gen, smi, flush, kernels, on_path):
                     "own clock), %.2f s with the bundle's load"
                     % (dt, SERVE_DIR_BATCH, smi, len(res),
                        float(rate.group(1)), wall))
+            out["seconds"]["directory_runs"] = time.time() - t_dir
             # (b) the servers
             nxt = 0
             for mb, dt, beam in SERVE_RUNS:
+                t_srv = time.time()
                 key = "%s/beam%d/mb%d" % (dt, beam, mb)
                 for cs in counters.values():
                     for c in cs:
@@ -3385,6 +3585,7 @@ def drive_serve(torch, args, dev, gen, smi, flush, kernels, on_path):
                     map_encodes_after_warm=encodes,
                     loads=loads, stats=stats, steps=n_steps,
                     decodes=n_dec, served=served, bundle=bundles[-1])
+                out["seconds"]["server " + key] = time.time() - t_srv
                 log("phase 19 server %s: built and warmed in %.2f s (warm "
                     "%.2f s on the batcher's thread); K2's TMA maps encoded "
                     "by the warm decode %d, by the %d served batches after "
@@ -3420,6 +3621,7 @@ def drive_serve(torch, args, dev, gen, smi, flush, kernels, on_path):
 
         out["runs"] = {}
         for key, r in runs.items():
+            t_k = [time.time()]
             b = r.pop("bundle")
             if key.startswith("dir/"):
                 out["runs"][key] = r
@@ -3429,6 +3631,7 @@ def drive_serve(torch, args, dev, gen, smi, flush, kernels, on_path):
             if mb == SERVE_DIR_BATCH and r["dtype"] in dir_caps:
                 idx = list(range(SERVE_IMAGES))
             ref, secs = decode_all(b, idx, mb)
+            t_k.append(time.time())
             served = r.pop("served")
             differ = [i for i, cs in served.items() if cs != {ref[i]}]
             require(not differ, "phase 19 %s: %d images' served captions "
@@ -3486,8 +3689,13 @@ def drive_serve(torch, args, dev, gen, smi, flush, kernels, on_path):
                         "the plain versions: %s" % (key, r["gate"]))
             finally:
                 memo.close()
+            t_k.append(time.time())
             prof = profile_decode(torch, lambda: b.decode(prm, ms, vis),
                                   "phase 19 " + key)
+            t_k.append(time.time())
+            # the in-process decode, the held and gated batch, the profile
+            out["seconds"]["holds " + key] = [
+                y - x for x, y in zip(t_k, t_k[1:])]
             r["idle_share_of_span"] = 1 - (prof["device_busy_ms"]
                                            / prof["device_span_ms"])
             r["idle_share_of_wall"] = 1 - prof["device_busy_ms"] / (
@@ -3506,16 +3714,19 @@ def drive_serve(torch, args, dev, gen, smi, flush, kernels, on_path):
                    r["loads"][-1]["n"], 100 * r["idle_share_of_span"],
                    100 * r["idle_share_of_wall"]))
         del pix
+        t_e = time.time()
         out["kernel_entries"] = cli_kernel_entries(
             torch, calls, kernels, on_path, flush, "phase 19 serving",
             where="serve", phase="phase 19")
+        out["seconds"]["entries"] = time.time() - t_e
     finally:
         inference.load_inference_bundle = load
         os.chdir(cwd)
         shutil.rmtree(root, ignore_errors=True)
     out["seconds"]["total"] = time.time() - t19
     log("phase 19 took %.1f s (%s)" % (out["seconds"]["total"], {
-        k: round(v, 1) for k, v in out["seconds"].items()}))
+        k: (round(v, 2) if isinstance(v, float) else [round(x, 2) for x in v])
+        for k, v in out["seconds"].items()}))
     return out
 
 
@@ -3586,8 +3797,11 @@ def drive_pixel_training(torch, args, dev, gen, smi, flush, kernels,
         for kind, run in runs:
             # a run that fails its gates fails the phase after the others
             # ran, so that one failure does not hide the rest
+            t_run = time.time()
             try:
                 r[kind] = run()
+                out.setdefault("split_s", {})["%s %s" % (fam, kind)] = \
+                    run_split(r[kind], time.time() - t_run)
             except RuntimeError as e:
                 failed.append("%s %s: %s" % (fam, kind, e))
                 log("phase 20 %s %s FAILED, the phase fails after the "
@@ -3612,7 +3826,8 @@ def drive_pixel_training(torch, args, dev, gen, smi, flush, kernels,
         torch, calls, kernels, on_path, flush, "phase 20 from pixels",
         where="px_train", phase="phase 20", kinds=("K1",))
     out["seconds"] = time.time() - t20
-    log("phase 20 took %.1f s" % out["seconds"])
+    log("phase 20 took %.1f s; by run %s" % (out["seconds"], json.dumps(
+        out.get("split_s", {}))))
     require(not failed, "phase 20: %d of its runs failed: %s"
             % (len(failed), " | ".join(failed)))
     return out
@@ -3763,9 +3978,10 @@ def dp_run(torch, inp, dev, rank, world, parts, lr=TRAIN_LR, held=None,
     SCST step's gradient (as the step hands it to its optimizer) is kept;
     ``held`` (a list) collects the calls of the first steps and the decode
     that broke their hold (engine/holds.held_calls); with ``profiled`` the
-    last two steps run under torch.profiler.  The runs go px, eval, XE,
-    SCST; ``gate`` (a callable) is called once before the first timed
-    steps, which can so wait for a quiet card.  -> the readings."""
+    last two steps run under torch.profiler.  The runs go px, eval, XE's
+    and SCST's first steps, then their timed steps; ``gate`` (a callable)
+    is called once before the first timed steps, which can so wait for a
+    quiet card.  -> the readings."""
     import zlib
     import numpy as np
     from simpleimagecaptionzoo_tpu_torch import parallel
@@ -3793,6 +4009,7 @@ def dp_run(torch, inp, dev, rank, world, parts, lr=TRAIN_LR, held=None,
         return optim.GradientTransformation(tx.init, update), handed
 
     def train(kind, make, batch, call):
+        """The first step (its calls held); -> the rest, a callable."""
         tx, handed = capturing(optim.make_grad_transform("Adam", 0.1))
         step = make(tx)
         state = TrainState.create(inp["params"], tx)
@@ -3803,6 +4020,10 @@ def dp_run(torch, inp, dev, rank, world, parts, lr=TRAIN_LR, held=None,
         out["held_calls"] += len(shapes)
         losses.append(float(met["loss"]))
         _sync(torch)
+        return lambda: timed(kind, step, state, batch, gen, call, losses,
+                             handed)
+
+    def timed(kind, step, state, batch, gen, call, losses, handed):
         if gate is not None and not out.get("gated"):
             gate()
             out["gated"] = True
@@ -3824,10 +4045,12 @@ def dp_run(torch, inp, dev, rank, world, parts, lr=TRAIN_LR, held=None,
                "params_crc": zlib.crc32(_host_bytes(torch, state.params))}
         if prof is not None:
             prof.__exit__(None, None, None)
-            ev = [e for e in prof.key_averages()
-                  if e.key == "parallel.all_reduce_sum"]
-            res["all_reduce_ms_per_step"] = (
-                sum(e.cpu_time_total for e in ev) / 1e3 / (DP_STEPS - 1))
+            cpu_t = torch.autograd.DeviceType.CPU
+            res["all_reduce_ms_per_step"] = sum(
+                e - s for ev, name, s, e in raw_events(
+                    torch, prof.profiler.kineto_results)
+                if name == "parallel.all_reduce_sum"
+                and ev.device_type() == cpu_t) / 1e3 / (DP_STEPS - 1)
         if world > 1 or parallel.process_count() > 1:
             res["params_agree"] = parallel.processes_agree(np.array(
                 [res["params_crc"]], np.int64))
@@ -3895,16 +4118,20 @@ def dp_run(torch, inp, dev, rank, world, parts, lr=TRAIN_LR, held=None,
         if world > 1:
             out["eval"]["ids_agree"] = parallel.processes_agree(ids)
     labels = inp["model"].param_labels(inp["params"])
+    rest = []
     if "xe" in parts:
-        train("xe", lambda tx: steps.make_xe_train_step(
+        rest.append(train("xe", lambda tx: steps.make_xe_train_step(
             inp["model"], tx, labels, 0.1, ss_active=True, device=dev),
             _rows(torch, inp["xe"], rank, world),
-            lambda st, s, b, g: st(s, b, g, TRAIN_SS, lr, 0.0))
+            lambda st, s, b, g: st(s, b, g, TRAIN_SS, lr, 0.0)))
     if "scst" in parts:
-        train("scst", lambda tx: steps.make_scst_train_step(
+        rest.append(train("scst", lambda tx: steps.make_scst_train_step(
             inp["model"], tx, labels, inp["td"], inp["probe"], MAX_LEN,
             device=dev), _rows(torch, inp["scst"], rank, world),
-            lambda st, s, b, g: st(s, b, g, lr, 0.0))
+            lambda st, s, b, g: st(s, b, g, lr, 0.0)))
+    # the first (held) steps of both before the gate, the timed ones after
+    for run in rest:
+        run()
     return out
 
 
@@ -3980,13 +4207,17 @@ def dp_child(argv):
     rank, world = int(rank), int(world)
     with open(case_path) as f:
         case = json.load(f)
+    child_ready("script read")
     import torch
     from simpleimagecaptionzoo_tpu_torch import parallel
     from simpleimagecaptionzoo_tpu_torch.device import resolve_device
+    child_ready("torch imported")
+    _wait_for(case["start"], "phase 21 (b): no start")
     dev = resolve_device(case["device"])
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     inp = dp_inputs(torch, case["seed"], dev, case["dims"])
+    child_ready("inputs on the device")
     ref, calls = None, KernelCalls()
     if rank == 0:
         with calls.recording(torch):
@@ -4005,10 +4236,7 @@ def dp_child(argv):
                                                                   world))
     def gate():
         """wait for the parent's word that the card is quiet"""
-        t0 = time.time()
-        while not os.path.exists(case["go"]):
-            require(time.time() - t0 < CHILD_S, "phase 21 (b): no word")
-            time.sleep(0.05)
+        _wait_for(case["go"], "phase 21 (b): no word")
 
     broken = []
     got = dp_run(torch, inp, dev, rank, world, case["parts"], held=broken,
@@ -4052,15 +4280,30 @@ def _state_digest(torch, eng):
     of its optimizer state's (the moments and the count, at the last
     epoch's end), the step count, its CIDEr history and its resume
     points' records."""
-    import hashlib
     st = eng.last_state
     with open(eng.ckpt._histories(eng._scst_run)) as f:
         cider = json.load(f)["cider_his"]
-    return {"params": hashlib.sha1(_host_bytes(
-        torch, eng.tree["params"])).hexdigest(),
-        "opt": hashlib.sha1(_host_bytes(torch, st.opt_state)).hexdigest(),
-        "step": int(st.step), "cider": cider,
-        "saves": list(eng.midepoch_saves)}
+    return {"params": _sha1(torch, eng.tree["params"]),
+            "opt": _sha1(torch, st.opt_state),
+            "step": int(st.step), "cider": cider,
+            "saves": list(eng.midepoch_saves)}
+
+
+def _sha1(torch, tree):
+    """sha1 of :func:`_host_bytes` of ``tree``, leaf by leaf."""
+    import hashlib
+    import numpy as np
+    from simpleimagecaptionzoo_tpu_torch.engine.optim import tree_leaves
+    h = hashlib.sha1()
+    for t in tree_leaves(tree):
+        if isinstance(t, torch.Tensor):
+            t = t.detach().cpu().contiguous()
+            if t.dtype == torch.bfloat16:
+                t = t.view(torch.int16)
+            h.update(t.numpy().reshape(-1).view(np.uint8))
+        elif t is not None:
+            h.update(np.asarray(t).tobytes())
+    return h.hexdigest()
 
 
 def run_cli(torch, argv, scst):
@@ -4086,7 +4329,9 @@ def run_cli(torch, argv, scst):
 
 def cli_child(argv):
     """``chip_smoke.py --phase21-cli SPEC``: the port's CLI (SPEC's argv, in
-    SPEC's directory).  With SPEC's ``kill`` (epoch, steps done) the process
+    SPEC's directory), once SPEC's ``ready`` file exists (the parent writes
+    the dataset while its children start).  With SPEC's ``kill`` (epoch,
+    steps done) the process
     SIGKILLs itself once that mid-epoch resume point has committed (its
     background write joined): the interruption of (a); else it writes the
     finished run's :func:`_state_digest` to SPEC's ``out``."""
@@ -4094,8 +4339,10 @@ def cli_child(argv):
     with open(argv[0]) as f:
         spec = json.load(f)
     os.chdir(spec["cwd"])
+    child_ready("script read")
     import torch
     from simpleimagecaptionzoo_tpu_torch.engine.engine import Engine
+    child_ready("torch imported")
     if spec.get("kill"):
         save = Engine._save_midepoch
 
@@ -4106,12 +4353,21 @@ def cli_child(argv):
                 _sync(torch)
                 os.kill(os.getpid(), signal.SIGKILL)
         Engine._save_midepoch = save_then_die
+    _wait_for(spec["ready"], "phase 21 (a): no dataset")
     eng = run_cli(torch, spec["argv"], spec["scst"])
     if spec.get("kill"):
         return 3                 # the kill never came
     with open(spec["out"], "w") as f:
         json.dump(_state_digest(torch, eng), f)
     return 0
+
+
+def _wait_for(path, what):
+    """Wait (at most CHILD_S) for the parent to write ``path``."""
+    t0 = time.time()
+    while not os.path.exists(path):
+        require(time.time() - t0 < CHILD_S, what)
+        time.sleep(0.05)
 
 
 def _child(args, log_path):
@@ -4123,7 +4379,29 @@ def _child(args, log_path):
                                 + args, stdout=log_f,
                                 stderr=subprocess.STDOUT, cwd=HERE,
                                 env=dict(os.environ,
-                                         OMP_NUM_THREADS=str(CHILD_THREADS)))
+                                         OMP_NUM_THREADS=str(CHILD_THREADS),
+                                         CHIP_SMOKE_SPAWNED=repr(time.time())))
+
+
+def child_ready(what):
+    """Log a child's seconds since its parent spawned it (``what``: the
+    stage reached), for :func:`startup_seconds`."""
+    t0 = os.environ.get("CHIP_SMOKE_SPAWNED")
+    if t0:
+        log("child start-up: %s %.2f s after the spawn"
+            % (what, time.time() - float(t0)))
+
+
+def startup_seconds(log_paths):
+    """{stage: [seconds, ...]} of the children's :func:`child_ready`
+    lines in ``log_paths``."""
+    out = {}
+    for path in log_paths:
+        with open(path) as f:
+            for m in re.finditer(r"child start-up: (.+) ([0-9.]+) s after",
+                                 f.read()):
+                out.setdefault(m.group(1), []).append(float(m.group(2)))
+    return out
 
 
 def _wait(proc, log_path, what, timeout, want=0, phase="phase 21"):
@@ -4157,24 +4435,29 @@ def drive_phase21(torch, args, dev, flush, kernels, on_path, model, params,
     --midepoch_save_steps 2, 2 epochs): XE float32 and bf16 and SCST
     float32, each run uninterrupted in a child process and again in another
     one SIGKILLed once epoch 2's resume point after step 2 committed (the
-    six children at once), then resumed here with --start_from checkpoint:
-    the final params, the optimizer's moments and the step count
-    bit-identical (sha1 of their bytes, :func:`_state_digest`), the CIDEr
-    history equal; the saves' ms on the loop and in the background and
-    their bytes (the uninterrupted children's, six processes sharing the
-    card).  (b) Data parallel (children started once (a)'s are done,
-    sharing cuda:0 with (a)'s resumes and (c); their timed steps wait until
-    the parent is done with those and the entries, and has timed one
-    process's steps at (b)'s shapes alone): 2 processes under gloo at 2 x 64 against one
+    six children at once, started while the dataset is written), each
+    killed run resumed here with --start_from checkpoint once its child is
+    gone (beside the uninterrupted children still running): the final
+    params, the optimizer's moments and the step count bit-identical (sha1
+    of their bytes, :func:`_state_digest`), the CIDEr history equal; the
+    saves' ms on the loop and in the background and their bytes (the
+    uninterrupted children's, six processes sharing the card).  (b) Data
+    parallel (children started beside (a)'s, on cuda:0 once (a)'s
+    children are gone, beside (a)'s resumes; their timed steps wait until
+    the
+    parent is done with those, (c)'s timed decode and the entries, and has
+    timed one process's steps at (b)'s shapes alone): 2 processes under
+    gloo at 2 x 64 against one
     process x 128 (XE with scheduled sampling,
     SCST; 3 steps each), BUTDSpatial XE from pixels at 2 x 32 and eval
     beam 3 at 2 x 32 (:func:`dp_compare`); 1 process under NCCL, its first
-    XE step bit-identical to the run without a group.  (c) A
-    reference-shaped AoADetection state_dict (random weights from --seed)
-    through tools/convert_reference_checkpoint, decoded beam 3 bf16 at
-    B=384 with every kernel call held and phase 9's gate
-    (:func:`drive_reference`), and back through
-    tools/export_reference_checkpoint: the same bits.  Every kernel call
+    XE step bit-identical to the run without a group.  (c) While (a)'s
+    children run, a reference-shaped AoADetection state_dict (random
+    weights from --seed) through tools/convert_reference_checkpoint,
+    decoded beam 3 bf16 at B=384 with every kernel call held and phase 9's
+    gate (:func:`drive_reference`), and back through
+    tools/export_reference_checkpoint: the same bits; its decode timed
+    once (a) is done.  Every kernel call
     of the resumed runs, of (b)'s one-process run and of (c)'s decode is
     recorded (``where`` mid, dist, ref) and gets its entry.
 
@@ -4189,15 +4472,16 @@ def drive_phase21(torch, args, dev, flush, kernels, on_path, model, params,
     cwd = os.getcwd()
     out = {"a": {}, "b": {}, "c": {}}
     rec = {w: KernelCalls() for w in ("mid", "ref")}
+    kids, procs = {}, []
     models = models or os.path.join(HERE, "Configs", "Models") + os.sep
     try:
+        # -- (a): six children at once, started while the dataset is
+        # written (each waits for ``ready``), then each killed run resumed
+        # here once its child is gone, beside the uninterrupted ones
+        t_a = time.time()
         ds = os.path.join(root, "ds")
         os.makedirs(ds)
-        write_cli_dataset(torch, ds, args.seed, dev)
-        out["dataset_s"] = time.time() - t_phase
-
-        # -- (a): six children at once, then the resumes here
-        t_a = time.time()
+        ready = os.path.join(root, "ds_ready")
         base = ["--dataset", "Flickr8K", "--model_type", "AoADetection",
                 "--model_config_root", models, "--use_bu", "fixed",
                 "--train_batch_size", str(CLI_B), "--scst_train_batch_size",
@@ -4210,7 +4494,6 @@ def drive_phase21(torch, args, dev, flush, kernels, on_path, model, params,
                 "xe_bf16": base + xe + ["--train_dtype", "bfloat16"],
                 "scst_f32": base + ["--operation", "scst_train",
                                     "--scst_num_epochs", "2"]}
-        kids = []
         for name in runs:
             for kind in ("ref", "kill"):
                 d = _run_dir(root, "%s_%s" % (name, kind), ds)
@@ -4219,33 +4502,30 @@ def drive_phase21(torch, args, dev, flush, kernels, on_path, model, params,
                     json.dump({"cwd": d, "argv": runs[name],
                                "scst": name.startswith("scst"),
                                "kill": MID_KILL if kind == "kill" else None,
-                               "out": d + ".digest.json"}, f)
+                               "out": d + ".digest.json", "ready": ready}, f)
                 log_path = d + ".log"
-                kids.append((name, kind, d, log_path, _child(
-                    ["--phase21-cli", spec], log_path)))
-        for name, kind, d, log_path, proc in kids:
-            _wait(proc, log_path, "(a) %s %s" % (name, kind), CHILD_S,
-                  want=-signal.SIGKILL if kind == "kill" else 0)
-        # -- (b): the gloo pair and the NCCL process, started once (a)'s
-        # children are done, beside (a)'s resumes, (c) and the entries;
-        # their timed steps wait for the parent's word (a quiet card)
-        t_b = time.time()
-        go = os.path.join(root, "go")
+                kids[name, kind] = (log_path, _child(
+                    ["--phase21-cli", spec], log_path))
+        # -- (b): the gloo pair and the NCCL process, started beside (a)'s
+        # children to import torch; they take the card once (a)'s six
+        # children are gone (``start``: ten processes do not fit on it),
+        # and their timed steps wait for the parent's word (a quiet card)
+        go, start = os.path.join(root, "go"), os.path.join(root, "start")
         dims = dims or dict(aoa=FULL, n_box=N_BOX, b=DP_B, t=TRAIN_T,
                             px_b=DP_PX_B, side=224, eval_b=DP_EVAL_B)
         groups = [("gloo", 2, DP_PARTS, False)]
         if dev.type == "cuda":
             groups.append(("nccl", 1, ["xe"], True))
-        procs = []
+        t_b = time.time()
         for name, world, parts, bits in groups:
             case = os.path.join(root, name + ".json")
             with open(case, "w") as f:
-                json.dump({"seed": args.seed, "dims": dims, "parts": parts,
-                           "backend": name, "bits": bits,
-                           "entries": name == "gloo",
+                json.dump({"seed": args.seed, "dims": dims,
+                           "parts": parts, "backend": name,
+                           "bits": bits, "entries": name == "gloo",
                            "device": "cuda:0" if dev.type == "cuda"
                            else "cpu", "profiled": name == "gloo",
-                           "go": go}, f)
+                           "go": go, "start": start}, f)
             for r in range(world):
                 log_path = os.path.join(root, "%s%d.log" % (name, r))
                 res_path = os.path.join(root, "%s%d.json" % (name, r))
@@ -4253,7 +4533,33 @@ def drive_phase21(torch, args, dev, flush, kernels, on_path, model, params,
                     ["--phase21-dp", case, str(r), str(world),
                      os.path.join(root, name + ".store"), res_path],
                     log_path)))
+        write_cli_dataset(torch, ds, args.seed, dev)
+        with open(ready, "w"):
+            pass
+        out["dataset_s"] = time.time() - t_phase
+        # -- (c), while (a)'s children run; its decode is timed later, on a
+        # quiet card
+        t_c = time.time()
+        with rec["ref"].recording(torch):
+            out["c"], time_c = drive_reference(torch, args, dev, root, model,
+                                               params, rec["ref"], gpu)
+        out["c"]["seconds"] = time.time() - t_c
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()        # (c)'s blocks, for the children
+
+        def start_b():
+            if not os.path.exists(start) and all(
+                    proc.poll() is not None for _, proc in kids.values()):
+                out["a"]["children_s"] = time.time() - t_a
+                with open(start, "w"):
+                    pass
+
+        digests = {}
         for name, argv in runs.items():
+            log_path, proc = kids[name, "kill"]
+            _wait(proc, log_path, "(a) %s kill" % name, CHILD_S,
+                  want=-signal.SIGKILL)
+            start_b()
             scst = name.startswith("scst")
             d = os.path.join(root, name + "_kill")
             with open(os.path.join(
@@ -4265,14 +4571,22 @@ def drive_phase21(torch, args, dev, flush, kernels, on_path, model, params,
                     "phase 21 (a) %s: the resume point on disk is %s"
                     % (name, m))
             os.chdir(d)
+            t_r = time.time()
             try:
                 with rec["mid"].recording(torch):
                     eng = run_cli(torch, argv + ["--start_from",
                                                  "checkpoint"], scst)
-                got = _state_digest(torch, eng)
+                digests[name] = _state_digest(torch, eng)
             finally:
                 os.chdir(cwd)
             del eng
+            out["a"][name] = dict(resume_s=time.time() - t_r)
+            start_b()
+        for name, argv in runs.items():
+            log_path, proc = kids[name, "ref"]
+            _wait(proc, log_path, "(a) %s ref" % name, CHILD_S)
+            start_b()
+            got = digests[name]
             with open(os.path.join(root, name + "_ref.digest.json")) as f:
                 want = json.load(f)
             same = {k: got[k] == want[k]
@@ -4280,7 +4594,7 @@ def drive_phase21(torch, args, dev, flush, kernels, on_path, model, params,
             require(all(same.values()), "phase 21 (a) %s: the resumed run "
                     "against the uninterrupted one, equal: %s" % (name, same))
             saves = want["saves"]
-            out["a"][name] = dict(
+            out["a"][name].update(
                 resumed_bit_identical=True, steps=want["step"],
                 saves=saves, save_loop_ms=[x["loop_ms"] for x in saves],
                 save_background_ms=[x.get("background_ms") for x in saves],
@@ -4290,18 +4604,18 @@ def drive_phase21(torch, args, dev, flush, kernels, on_path, model, params,
                 "the uninterrupted run's; its saves %s" % (
                     name, MID_KILL[0], MID_KILL[1], want["step"],
                     json.dumps(saves)))
+        out["a"]["child_startup_s"] = startup_seconds(
+            [log_path for log_path, _ in kids.values()])
         out["a"]["seconds"] = time.time() - t_a
         log("phase 21 (a) took %.1f s" % out["a"]["seconds"])
 
-        # -- (c)
-        t_c = time.time()
-        with rec["ref"].recording(torch):
-            out["c"] = drive_reference(torch, args, dev, root, model, params,
-                                       rec["ref"], gpu)
-        out["c"]["seconds"] = time.time() - t_c
+        out["c"]["captions_per_s"] = time_c()
+        log("phase 21 (c): the converted checkpoint's beam 3 bf16 at B=%d: "
+            "%.1f captions/s" % (REF_B, out["c"]["captions_per_s"]))
 
         # every kernel call of (a)'s resumes and (c): an entry for each
         # launch shape (kernels launch on the card alone)
+        t_e = time.time()
         out["kernel_entries"] = []
         for where, calls in rec.items():
             if dev.type != "cuda":
@@ -4313,11 +4627,14 @@ def drive_phase21(torch, args, dev, flush, kernels, on_path, model, params,
                 where=where, phase="phase 21")
         # one process's XE and SCST steps at (b)'s shapes, timed alone on
         # the card, then the word: (b)'s timed steps run
+        out["entries_s"] = time.time() - t_e
         inp = dp_inputs(torch, args.seed, dev, dims)
         alone = dp_run(torch, inp, dev, 0, 1, ["xe", "scst"])
         del inp
+        out["b"]["alone_s"] = time.time() - t_e - out["entries_s"]
         with open(go, "w"):
             pass
+        t_go = time.time()
         for name, r, res_path, log_path, proc in procs:
             _wait(proc, log_path, "(b) %s process %d" % (name, r),
                   CHILD_S)
@@ -4331,6 +4648,9 @@ def drive_phase21(torch, args, dev, flush, kernels, on_path, model, params,
                 on_path.add(ename)
             out["b"].setdefault(name, {})[r] = got
         out["b"]["seconds"] = time.time() - t_b
+        out["b"]["after_go_s"] = time.time() - t_go
+        out["b"]["child_startup_s"] = startup_seconds(
+            [p[3] for p in procs])
         for kind in ("xe", "scst"):
             m = out["b"]["gloo"][0]["measured"][kind]
             m["one_process_ms_per_step"] = alone[kind]["ms_per_step"]
@@ -4340,11 +4660,21 @@ def drive_phase21(torch, args, dev, flush, kernels, on_path, model, params,
 
     finally:
         os.chdir(cwd)
+        # a phase that failed leaves no child behind
+        for proc in [k[1] for k in kids.values()] + [q[4] for q in procs]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(root, ignore_errors=True)
     out["seconds"] = time.time() - t_phase
-    log("phase 21 took %.1f s (dataset %.1f, a %.1f, b %.1f, c %.1f)"
+    log("phase 21 took %.1f s (dataset %.1f, a %.1f, b %.1f, c %.1f); "
+        "a: its children gone at %.1f, start-up %s; entries %.1f, "
+        "b alone %.1f, b after the word %.1f, start-up %s"
         % (out["seconds"], out["dataset_s"], out["a"]["seconds"],
-           out["b"]["seconds"], out["c"]["seconds"]))
+           out["b"]["seconds"], out["c"]["seconds"], out["a"]["children_s"],
+           out["a"]["child_startup_s"], out["entries_s"],
+           out["b"]["alone_s"], out["b"]["after_go_s"],
+           out["b"]["child_startup_s"]))
     require(out["seconds"] <= PHASE21_S, "phase 21 took %.1f s, over its "
             "%.0f s" % (out["seconds"], PHASE21_S))
     return out
@@ -4399,7 +4729,8 @@ def drive_reference(torch, args, dev, root, model, params, calls, gpu="0"):
     call held against its plain version, and phase 9's gate (the kernel
     run's winners rescored by the plain step within holds.beam_tol of the
     plain run's); then ``tools.export_reference_checkpoint.main`` writes
-    it back, and the two state_dicts are the same bits."""
+    it back, and the two state_dicts are the same bits.  -> (the
+    readings, a callable that times the decode once more: captions/s)."""
     from simpleimagecaptionzoo_tpu_torch import STA_ID
     from simpleimagecaptionzoo_tpu_torch.engine import holds, steps
     from simpleimagecaptionzoo_tpu_torch.engine.checkpoint import \
@@ -4434,10 +4765,8 @@ def drive_reference(torch, args, dev, root, model, params, calls, gpu="0"):
                                 dtype=bf, device=dev)
     with calls.paused(), holds.plain_versions():
         ref_ids = fn(prm, {}, visual)
-    t0 = time.perf_counter()
     ids = fn(prm, {}, visual)
     _sync(torch)
-    secs = time.perf_counter() - t0
     broken = []
     with calls.paused(), holds.held_calls(broken):
         fn(prm, {}, visual)
@@ -4473,20 +4802,26 @@ def drive_reference(torch, args, dev, root, model, params, calls, gpu="0"):
     n = sum(int(v.numel()) for v in sd.values())
     log("phase 21 (c): a reference state_dict of %d keys (%d parameters) "
         "converted, beam 3 bf16 at B=%d: rows identical to the plain run "
-        "%.4f, the winners' least margin %.4f (tol %.4f), %.1f captions/s; "
-        "exported back, the same bits" % (len(sd), n, REF_B, rows_same,
-                                           float(margin.min()), tol,
-                                           REF_B / secs))
+        "%.4f, the winners' least margin %.4f (tol %.4f); exported back, "
+        "the same bits" % (len(sd), n, REF_B, rows_same,
+                           float(margin.min()), tol))
+
+    def timed():
+        """The converted checkpoint's decode once more, timed (on a
+        quiet card) -> captions/s."""
+        with calls.paused():
+            _sync(torch)
+            t0 = time.perf_counter()
+            fn(prm, {}, visual)
+            _sync(torch)
+        return REF_B / (time.perf_counter() - t0)
     return dict(keys=len(sd), parameters=n, rows_identical=rows_same,
                 min_margin=float(margin.min()), tol=tol,
-                captions_per_s=REF_B / secs, round_trip_bit_identical=True)
+                round_trip_bit_identical=True), timed
 
 
 # -- phase 22: the JAX default mode's LSTM input hoists on K2 ---------------
 HOIST_PHASE_S = 60.0          # phase 22's share of the script's time limit
-# (c)'s families held without the profiled training steps (d): the first
-# steps' holds and launches alone, within HOIST_PHASE_S
-HOIST_XE_UNPROFILED = ("AoASpatial",)
 LSTM_MODE = "SICZ_TPU_PALLAS_LSTM"
 
 
@@ -4682,6 +5017,13 @@ def hold_hoisted_k2(torch, dev, gen, flush, kernels, on_path, cells):
 # a device kernel's kind by its name: the port's own (K1, K2) or a library
 # product (cuBLAS, whose Hopper kernels include nvjet_*, and CUTLASS)
 LIBRARY_PRODUCT = re.compile(r"gemm|gemv|xmma|cutlass|nvjet", re.I)
+# a whole run's device trace of a decode now and then lacks a kernel record
+# (37 and 39 K2 records of 40 launched in two of four whole runs; none in
+# 90 traces of the decode alone, scripts/probe_trace_records.py): (b)'s
+# trace is taken again, up to TRACE_TRIES times in all, until it holds as
+# many K2 records as the timed run launched, and every trace's count is
+# kept; the gate reads the last trace taken
+TRACE_TRIES = 3
 
 
 def device_kinds(torch, run):
@@ -4693,15 +5035,15 @@ def device_kinds(torch, run):
         run()
         torch.cuda.synchronize()
     out = {}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+    cuda_t = torch.autograd.DeviceType.CUDA
+    for ev, n, s, e in raw_events(torch, prof.profiler.kineto_results):
+        if ev.device_type() != cuda_t:
             continue
-        n = ev.name
         kind = ("K2" if "lstm_cell" in n else "K1" if "head_" in n
                 else "library products" if LIBRARY_PRODUCT.search(n)
                 else "other")
         got = out.setdefault(kind, [0.0, 0])
-        got[0] += (ev.time_range.end - ev.time_range.start) / 1e3
+        got[0] += (e - s) / 1e3
         got[1] += 1
     require(out, "the trace holds no device time")
     return out
@@ -4725,7 +5067,8 @@ def hoist_decodes(torch, dev, gen, smi, butd, bparams, bcfg, kernels,
     the term to bf16, interpret does not: its first ids are reported);
     then each decode
     with the device traced: its ms and launches by kind (K2, K1, library
-    products, the rest; device_kinds).  No library product computes the
+    products, the rest; device_kinds; traced again, up to TRACE_TRIES
+    traces, until a trace holds every K2 record the timed run launched).  No library product computes the
     attention cell a step: auto's decode launches at most 2 library
     products more than interpret's (encode's projection of the mean rows,
     split-K's second kernel) while both run the same steps (float32), and
@@ -4770,8 +5113,13 @@ def hoist_decodes(torch, dev, gen, smi, butd, bparams, bcfg, kernels,
                     encodes = fused_lstm.map_encodes() - enc0
                     n_k2 = (fused_lstm.COUNT.n, fused_lstm.COUNT_WGMMA.n,
                             fused_lstm.COUNT_TF32X3.n)
-                    kinds = device_kinds(torch, lambda: fn(bparams, {},
-                                                           visual))
+                    traced = []
+                    for _ in range(TRACE_TRIES):
+                        kinds = device_kinds(torch, lambda: fn(bparams, {},
+                                                               visual))
+                        traced.append(kinds.get("K2", [0, 0])[1])
+                        if traced[-1] == n_k2[0]:
+                            break
                 ids[mode] = got[0] if isinstance(got, tuple) else got
                 k2 = {}
                 for shp in shapes:
@@ -4786,9 +5134,11 @@ def hoist_decodes(torch, dev, gen, smi, butd, bparams, bcfg, kernels,
                         "%s: K2 launches %s (counters %s), expected %s"
                         % (tag, k2, n_k2, want))
                 require(kinds.get("K2", [0, 0])[1] == 2 * n_steps,
-                        "%s: the trace holds %s K2 launches for %d steps"
-                        % (tag, kinds.get("K2"), n_steps))
+                        "%s: the trace holds %s K2 launches for %d steps "
+                        "(K2 records in each trace taken: %s)"
+                        % (tag, kinds.get("K2"), n_steps, traced))
                 res[mode] = dict(steps=n_steps, wall_ms=wall,
+                                 k2_records_by_trace=traced,
                                  map_encodes=encodes, launches=n_k2,
                                  device_by_kind=kinds,
                                  device_ms=sum(v[0] for v in kinds.values()))
@@ -4925,7 +5275,7 @@ def hoist_xe(torch, args, dev, gen, smi, families, kernels, on_path):
     dropout mask drawn identical in the two modes; K2's
     launches by shape exact (auto: the hoisted cells, with their terms);
     then one XE training step (make_xe_train_step, Adam) in each mode
-    profiled by part (profile_step; not for HOIST_XE_UNPROFILED).  The
+    profiled by part (profile_step).  The
     first steps' launches are
     credited to their cells' entries (auto's hoisted cells: ``..._tf``,
     ``..._butd_td_tf``, ``..._aoasp_tf``, ``..._nic_tf``)."""
@@ -4996,6 +5346,7 @@ def hoist_xe(torch, args, dev, gen, smi, families, kernels, on_path):
             f32 = dtype == torch.float32
             cdtype = None if f32 else dtype
             tag = "phase 22 XE %s %s" % (name, dn)
+            t_x = time.time()
             run, branches = {}, {}
             # float32 BUTD: the references replay each kernel run's ReLU
             # branches (relu_branches; its concat attention's ReLU sends
@@ -5098,11 +5449,7 @@ def hoist_xe(torch, args, dev, gen, smi, families, kernels, on_path):
                     del gp
                 res["grad_norm_max_rel_diff"] = max(norm_gap(ga, gi))
             del ga, gi
-            if name in HOIST_XE_UNPROFILED:
-                log("%s: auto and interpret draw the same %d masks; losses "
-                    "%.6f and %.6f (not profiled)" % (tag, len(ma), la, li))
-                out["%s/%s" % (name, dn)] = res
-                continue
+            res["seconds"] = dict(first_steps=time.time() - t_x)
             # one training step in each mode, profiled by part
             tx = optim.make_grad_transform("Adam", 0.1)
             step = steps.make_xe_train_step(
@@ -5119,6 +5466,8 @@ def hoist_xe(torch, args, dev, gen, smi, families, kernels, on_path):
                         "%s %s (%s)" % (tag, mode, smi))
                 require_no_products(p, "%s %s" % (tag, mode))
                 res["profile"][mode] = p
+            res["seconds"]["profiled"] = (time.time() - t_x
+                                          - res["seconds"]["first_steps"])
             log("%s: auto and interpret draw the same %d masks; losses "
                 "%.6f and %.6f%s; device ms a step (busy) %.3f (auto) "
                 "against %.3f (interpret), K2 forward %.3f / %.3f, K2 "
@@ -5177,9 +5526,11 @@ def drive_hoists(torch, args, dev, gen, smi, flush, kernels, on_path, *,
                          on_path)
     out["seconds"] = dict(total=time.time() - t22, k2=t_a - t22,
                           decode=t_b - t_a, xe=time.time() - t_b)
-    log("phase 22 took %.1f s (K2 %.1f, decode %.1f, XE %.1f)"
+    log("phase 22 took %.1f s (K2 %.1f, decode %.1f, XE %.1f; XE by run %s)"
         % (out["seconds"]["total"], out["seconds"]["k2"],
-           out["seconds"]["decode"], out["seconds"]["xe"]))
+           out["seconds"]["decode"], out["seconds"]["xe"], json.dumps({
+               k: {p: round(x, 2) for p, x in v["seconds"].items()}
+               for k, v in out["xe"].items()})))
     require(out["seconds"]["total"] <= HOIST_PHASE_S, "phase 22 took %.1f s, "
             "over its %.0f s" % (out["seconds"]["total"], HOIST_PHASE_S))
     return out
@@ -5198,7 +5549,9 @@ def drive_dry_runs(torch, dev, gpu, root):
     ``root``, in this process, every kernel launch recorded (KernelCalls):
     the fixture, the port's five preprocessing entry points, its CLI's XE,
     SCST and eval, and every file the shell script's dry run asserts (the
-    tool raises on a missing one, or on a CLI's exit code other than 0).
+    tool raises on a missing one, on an SCST best record that the SCST
+    history's val CIDEr does not call for or that it lacks, or on a CLI's
+    exit code other than 0).
     -> ({model: readings}, {model: its KernelCalls})."""
     from simpleimagecaptionzoo_tpu_torch.tools import reproduce_coco14
     out, recs = {}, {}
@@ -5393,10 +5746,12 @@ def mp_child(argv):
         ids = greedy(shard, {}, visual)
         _sync(torch)
     n_steps = _steps_taken(ids)
-    span = [e for e in prof.key_averages()
-            if e.key == "vocab_shard.topk_merge"]
-    res["merge_ms_per_step"] = (sum(e.cpu_time_total for e in span) / 1e3
-                                / max(n_steps, 1))
+    cpu_t = torch.autograd.DeviceType.CPU
+    res["merge_ms_per_step"] = sum(
+        e - s for ev, name, s, e in raw_events(
+            torch, prof.profiler.kineto_results)
+        if name == "vocab_shard.topk_merge"
+        and ev.device_type() == cpu_t) / 1e3 / max(n_steps, 1)
     parallel.barrier("phase23_timed")
     t0 = time.perf_counter()
     greedy(shard, {}, visual)
@@ -7635,10 +7990,22 @@ def main(argv=None) -> int:
             for k, v in kernels.items() if any(key not in v for key in keys)}
     require(not bare, "kernels line entries without their keys: %s" % bare)
 
+    results["phase_budgets"] = budgets = {
+        name: dict(seconds=round(sec, 1), budget=cap,
+                   share=round(sec / cap, 3))
+        for name, sec, cap in (
+            ("18", results["cli"]["seconds"], CLI_PHASE_S),
+            ("19-20", s1920, PHASES_19_20_S),
+            ("21", results["scale_out"]["seconds"], PHASE21_S),
+            ("22", results["hoists"]["seconds"]["total"], HOIST_PHASE_S),
+            ("23", results["dry_run_and_model_axis"]["seconds"],
+             PHASE23_S))}
     results["kernels"] = list(kernels.values())
     if args.out:
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
+    # each timed phase's seconds beside its budget and the share used
+    print(json.dumps({"phase_budgets": budgets}))
     print(json.dumps({"kernels": results["kernels"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -24,7 +24,9 @@ exist.
 (JPEGs, the Karpathy json and, for the Detection models, a bottom-up TSV;
 run as its own process) under ``--root`` (default: a new temporary
 directory), runs every stage on it and asserts the files the shell
-script's dry run asserts, then prints ``DRY RUN OK: <root>``.  With
+script's dry run asserts, then prints ``DRY RUN OK: <root>``.  The SCST
+best record it asserts both ways: present if and only if the SCST
+history holds a val CIDEr above 0 (the engine's rule for writing it).  With
 ``--gpu_id cpu`` it keeps the shell script's CPU configuration: the model
 json with its widths set to 32, 64-px images and the tiny run's flags.  On
 the card (``--gpu_id 0``, the default) the model json is the one in
@@ -178,10 +180,37 @@ def _assert_file(path: str) -> None:
         raise FileNotFoundError("DRY RUN FAILED: missing %s" % path)
 
 
+def _assert_scst_best(checkpoints: str) -> None:
+    """The SCST best record exists if and only if the SCST history holds a
+    val CIDEr above 0, and then holds the history's best: the engine
+    writes it when an epoch's CIDEr beats the best so far, which starts at
+    0.  A tiny run may learn a caption that scores 0 on every val image
+    (CIDEr-D's 0), and then no record is the engine's right answer."""
+    with open(os.path.join(checkpoints, "cp",
+                           "scst_state_histories.json")) as f:
+        best = max(json.load(f)["cider_his"], default=0.0)
+    path = os.path.join(checkpoints, "best", "best_scst_score_record.json")
+    if best > 0:
+        _assert_file(path)
+        with open(path) as f:
+            recorded = json.load(f)["cider"]
+        if recorded != best:
+            raise AssertionError("DRY RUN FAILED: %s holds CIDEr %r, the "
+                                 "SCST history's best is %r"
+                                 % (path, recorded, best))
+    elif os.path.exists(path):
+        raise AssertionError("DRY RUN FAILED: %s exists, but no SCST epoch "
+                             "scored a val CIDEr above 0" % path)
+    print("SCST val CIDEr best %.4f: the best record %s" % (
+        best, "written" if best > 0 else "absent, as the engine's rule "
+        "(a CIDEr above the best so far, from 0) says"), flush=True)
+
+
 def dry_run(model: str, gpu_id: str = "0", root: str = "") -> str:
     """Every stage on a generated COCO14-shaped tree under ``root`` (a new
     temporary directory when empty), asserting each stage's files as the
-    shell script's dry run does.  -> the run root."""
+    shell script's dry run does, the SCST best record both ways
+    (:func:`_assert_scst_best`).  -> the run root."""
     root = root or tempfile.mkdtemp(prefix="sicz_dryrun_")
     on_cpu = gpu_id.strip().lower() == "cpu"
     run = Run(model, root, gpu_id,
@@ -224,8 +253,9 @@ def dry_run(model: str, gpu_id: str = "0", root: str = "") -> str:
     train(run)
     for name in ("cp/Captioner_cp.msgpack", "cp/state_histories.json",
                  "cp/Captioner_scst_cp.msgpack",
-                 "best/best_scst_score_record.json"):
+                 "cp/scst_state_histories.json"):
         _assert_file(os.path.join(run.checkpoints, name))
+    _assert_scst_best(run.checkpoints)
 
     evaluate(run)
     print("DRY RUN OK: %s" % run.root, flush=True)

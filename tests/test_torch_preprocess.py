@@ -260,32 +260,89 @@ def test_each_port_script_takes_the_jax_scripts_flags():
         assert got == want and "--help" in got, (name, got ^ want)
 
 
-@pytest.mark.parametrize("model", ["AoADetection", "NIC"])
-def test_dry_run_reaches_ok_with_the_port_alone(tmp_path, model):
-    """The dry run's every stage at 32 wide on the CPU, in a process that
-    imports the port only; the files the shell script asserts exist (the
-    tool raises otherwise) and the eval prints its metric table."""
-    code = ("import sys\n"
-            "from simpleimagecaptionzoo_tpu_torch.tools import "
-            "reproduce_coco14 as r\n"
-            "rc = r.main(sys.argv[1:])\n"
-            "print('JAX_LOADED', sorted(m for m in sys.modules\n"
-            "      if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
-            "                             'simpleimagecaptionzoo_tpu')))\n"
-            "sys.exit(rc)\n")
+_DRY_CODE = (
+    "import sys\n"
+    "from simpleimagecaptionzoo_tpu_torch.tools import "
+    "reproduce_coco14 as r\n"
+    "if sys.argv[1] == 'zero_cider':\n"
+    "    from simpleimagecaptionzoo_tpu_torch.engine.engine import Engine\n"
+    "    score = Engine._score_val\n"
+    "    Engine._score_val = lambda self, beam: (score(self, beam), 0.0)[1]\n"
+    "rc = r.main(sys.argv[2:])\n"
+    "print('JAX_LOADED', sorted(m for m in sys.modules\n"
+    "      if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
+    "                             'simpleimagecaptionzoo_tpu')))\n"
+    "sys.exit(rc)\n")
+
+
+def _dry_run(tmp_path, model, how="as_is"):
+    """The tool's dry run of ``model`` at --gpu_id cpu in a process of its
+    own (``how`` "zero_cider": every val CIDEr the engine scores read as
+    0, the decode still run) -> (its output, its checkpoint directory)."""
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     out = subprocess.run(
-        [sys.executable, "-c", code, "dry_run", model, "--gpu_id", "cpu",
-         "--root", str(tmp_path / "run")], capture_output=True, text=True,
-        env=env, cwd=ROOT, timeout=300)
+        [sys.executable, "-c", _DRY_CODE, how, "dry_run", model, "--gpu_id",
+         "cpu", "--root", str(tmp_path / "run")], capture_output=True,
+        text=True, env=env, cwd=ROOT, timeout=300)
     assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
     assert "DRY RUN OK: %s" % (tmp_path / "run") in out.stdout
     assert "JAX_LOADED []" in out.stdout
+    return out.stdout, tmp_path / "run" / "CheckPoints" / (
+        "Model_%s_Dataset_COCO14" % model)
+
+
+@pytest.mark.parametrize("model", ["AoADetection", "NIC", "BUTDDetection",
+                                   "BUTDSpatial", "AoASpatial"])
+def test_dry_run_reaches_ok_with_the_port_alone(tmp_path, model):
+    """The dry run's every stage at 32 wide on the CPU at the CLI's seed
+    0, in a process that imports the port only; the files the shell
+    script asserts exist (the tool raises otherwise), the SCST best
+    record exactly where the SCST history holds a val CIDEr above 0, and
+    the eval prints its metric table."""
+    stdout, cp = _dry_run(tmp_path, model)
     for metric in ("Bleu_4", "METEOR", "ROUGE_L", "CIDEr", "SPICE"):
-        assert metric in out.stdout
+        assert metric in stdout
     cfg = _read_json(str(tmp_path / "run" / "Configs" / "Models"
                          / (model + ".json")))
     assert cfg["embed_dim"] == cfg["hidden_dim"] == 32
-    cp = tmp_path / "run" / "CheckPoints" / ("Model_%s_Dataset_COCO14"
-                                            % model)
     assert (cp / "cp" / "Captioner_scst_cp.msgpack").exists()
+    his = _read_json(str(cp / "cp" / "scst_state_histories.json"))
+    record = cp / "best" / "best_scst_score_record.json"
+    assert record.exists() == (max(his["cider_his"]) > 0)
+
+
+def test_dry_run_passes_without_an_scst_best_when_val_cider_is_0(tmp_path):
+    """Where no epoch scores a val CIDEr above 0 the engine writes no best
+    record, and the dry run still reaches DRY RUN OK."""
+    stdout, cp = _dry_run(tmp_path, "NIC", "zero_cider")
+    for scst in ("", "scst_"):
+        his = _read_json(str(cp / "cp" / ("%sstate_histories.json" % scst)))
+        assert his["cider_his"] == [0.0]
+    assert not (cp / "best" / "best_scst_score_record.json").exists()
+    assert not (cp / "best" / "best_score_record.json").exists()
+    assert (cp / "cp" / "Captioner_scst_cp.msgpack").exists()
+    assert "the best record absent" in stdout
+
+
+@pytest.mark.parametrize("history,record,ok", [
+    ([0.0], None, True), ([0.0, 0.25], 0.25, True),
+    ([0.0], 0.0, False), ([0.25], None, False), ([0.25, 0.1], 0.1, False)])
+def test_the_scst_best_record_is_checked_both_ways(tmp_path, history,
+                                                  record, ok):
+    """reproduce_coco14._assert_scst_best: the record present if and only
+    if the history holds a val CIDEr above 0, holding the history's best."""
+    from simpleimagecaptionzoo_tpu_torch.tools import reproduce_coco14 as r
+    for d in ("cp", "best"):
+        (tmp_path / d).mkdir()
+    with open(tmp_path / "cp" / "scst_state_histories.json", "w") as f:
+        json.dump({"cider_his": history}, f)
+    if record is not None:
+        with open(tmp_path / "best" / "best_scst_score_record.json",
+                  "w") as f:
+            json.dump({"cider": record}, f)
+    if ok:
+        r._assert_scst_best(str(tmp_path))
+    else:
+        with pytest.raises((AssertionError, FileNotFoundError),
+                           match="DRY RUN FAILED"):
+            r._assert_scst_best(str(tmp_path))
