@@ -398,10 +398,30 @@ Phases, each of which fails the run (nonzero exit) when it fails:
      process's K1 on its shard (device-only), the merge's ms a greedy step
      (its ``vocab_shard.topk_merge`` span), captions/s of the two against
      one process.  K1's launch shapes of (b) get entries
-     ``fused_head_topk_<route>_shard_<shape>``.
+     ``fused_head_topk_<route>_shard_<shape>``;
+ 24. the synthetic-data quality gate through the port, within PHASE24_S:
+     (a) ``simpleimagecaptionzoo_tpu_torch/examples/train_synthetic.py`` in
+     this process at the settings of
+     ``QUALITY_r04_AoADetection_zipf.json`` (AoADetection, 2,000 generated
+     images with power-law content words, 5 XE and 4 SCST epochs, beam
+     tolerance 0.05, every other flag at its default: 256 wide, batch 64),
+     every kernel launch recorded: its record must read PASS, the XE best
+     val CIDEr at least the threshold (0.9), the SCST best above the XE
+     best and beam 3 at most the tolerance below greedy; K1, K2 and K2's
+     backward launched, each launch shape an entry (``..._gate_aoadet_...``)
+     held against its plain version on the path's own inputs; printed
+     beside the card's name and power limit: the record, each stage's
+     seconds (dataset, preprocessing, XE, the test eval, the val evals,
+     SCST, the sample) and each epoch's XE and SCST steps/s; (b) the two
+     demos: ``examples/demo_e2e.py --model AoADetection --steps 60`` must
+     read ``DEMO_RESULT: OK``; ``examples/demo_scst.py`` at its defaults
+     must keep at least 0.8 of its greedy CIDEr-D with finite rewards, and
+     its result is printed as read (its rewards' trend, the rule's third
+     part, carries the rollout's dropout noise: the JAX demo reads WEAK on
+     the CPU at its defaults).
 Then it prints one JSON line of each timed phase's seconds beside its
 budget and the share used (``{"phase_budgets": ...}``: phases 18, 19-20,
-21, 22 and 23), one JSON line of per-kernel results (the beam shapes'
+21, 22, 23 and 24), one JSON line of per-kernel results (the beam shapes'
 launches as entries of their own, named ``..._beam``; BUTD's K2 and K3
 shapes as ``..._butd_<layer>``, NIC's and AoASpatial's K1, K2 and K3 shapes
 as ``..._nic[_<layer>]`` and ``..._aoasp[_<layer>]``; K2's backward as
@@ -5917,6 +5937,140 @@ def drive_phase23(torch, args, dev, smi, flush, kernels, on_path,
     return out
 
 
+# -- phase 24: the synthetic-data quality gate and the two demos ----------
+PHASE24_S = 240.0             # phase 24's share of the script's time limit
+# QUALITY_r04_AoADetection_zipf.json's settings, every other flag at its
+# default: the JAX package's AoADetection record that carries every part of
+# the gate.  QUALITY_r03_AoADetection.json's settings (uniform words, beam
+# tolerance 0.01) put the beam part inside the reference's own noise: its
+# record has no beam part, the JAX script at those settings on the CPU reads
+# beam 0.16 below greedy and SCST below XE, the port 0.016 below on the
+# card (PERF.md)
+GATE_ARGV = ["--model", "AoADetection", "--zipf", "--beam_tolerance", "0.05",
+             "--n_images", "2000", "--epochs", "5", "--scst_epochs", "4",
+             "--gate"]
+# demo_e2e at the verify skill's recipe (40 steps reads WEAK); demo_scst
+# runs at its defaults
+DEMO_E2E_ARGV = ["--model", "AoADetection", "--steps", "60"]
+
+
+@contextlib.contextmanager
+def captured(path):
+    """The block's stdout and stderr (the CLI's tables, any progress bars)
+    into the file ``path``; its last lines are logged if the block
+    raises."""
+    with open(path, "w") as f:
+        try:
+            with contextlib.redirect_stdout(f), contextlib.redirect_stderr(f):
+                yield
+        except BaseException:
+            f.flush()
+            with open(path) as g:
+                tail = g.read()[-6000:]
+            log("the captured output's last lines (%s):\n%s" % (path, tail))
+            raise
+
+
+def drive_phase24(torch, args, dev, smi, flush, kernels, on_path):
+    """Phase 24, within PHASE24_S: (a) the port's quality gate
+    (``examples/train_synthetic.run``) in this process at GATE_ARGV, every
+    kernel launch recorded (KernelCalls), its record read in all three
+    parts, an entry of the kernels line for every launch shape (``where``
+    gate_aoadet) held against its plain version on the path's own inputs;
+    (b) the two demos: ``demo_e2e`` (DEMO_E2E_ARGV) must read OK;
+    ``demo_scst`` at its defaults must keep its greedy policy's CIDEr-D
+    (at least 0.8 of it) with finite rewards, and its result (OK or WEAK:
+    the rewards' trend over its 60 steps, which carries the rollout's
+    dropout noise) is printed as read."""
+    import tempfile
+    from simpleimagecaptionzoo_tpu_torch.examples import (demo_e2e,
+                                                          demo_scst,
+                                                          train_synthetic)
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="chip_smoke_p24_")
+    out = {"card": smi}
+    try:
+        # -- (a) the gate ----------------------------------------------------
+        calls = KernelCalls()
+        gargs = train_synthetic.build_argparser().parse_args(
+            GATE_ARGV + ["--root", os.path.join(root, "synth")])
+        with captured(os.path.join(root, "gate.log")), \
+                calls.recording(torch):
+            res = train_synthetic.run(gargs)
+        _sync(torch)
+        launches = {kind: sum(n for key, n in calls.count.items()
+                              if key[0] == kind)
+                    for kind in ("K1", "K2", "K2bwd")}
+        rec = res["record"]
+        out["a"] = dict(record=rec, seconds=res["seconds"],
+                        xe_steps_per_sec=res["xe_steps_per_sec"],
+                        scst_steps_per_sec=res["scst_steps_per_sec"],
+                        launches=launches, shapes=len(calls.count),
+                        gate_seconds=time.time() - t_phase)
+        log("phase 24 (a) QUALITY_GATE: %s" % json.dumps(rec))
+        log("phase 24 (a) on %s: stage seconds %s; XE steps/s by epoch %s, "
+            "SCST steps/s by epoch %s (the first step of each excluded); "
+            "launches %s (%d shapes)" % (
+                smi, json.dumps({k: round(v, 2)
+                                 for k, v in res["seconds"].items()}),
+                json.dumps([round(r, 2) for r in res["xe_steps_per_sec"]]),
+                json.dumps([round(r, 2)
+                            for r in res["scst_steps_per_sec"]]),
+                launches, len(calls.count)))
+        scst, xe = rec["scst_val_cider"], rec["xe_val_cider"]
+        parts = dict(
+            xe=xe >= rec["xe_threshold"],
+            scst=scst is not None and scst > xe,
+            beam=(rec["beam_ge_greedy"] and rec["beam3_val_cider"]
+                  >= rec["greedy_val_cider"] - rec["beam_tolerance"]))
+        require(rec["gate"] == "PASS" and res["rc"] == 0 and all(
+            parts.values()), "phase 24 (a): the gate reads %s (parts %s)"
+            % (rec["gate"], parts))
+        require(all(launches.values()), "phase 24 (a): kernel launches %s; "
+                "the gate must launch K1, K2 and K2's backward" % launches)
+        cli_kernel_entries(torch, calls, kernels, on_path, flush,
+                           "phase 24 gate_aoadet", where="gate_aoadet",
+                           phase="phase 24")
+        del calls
+        # -- (b) the demos ---------------------------------------------------
+        t_b = time.time()
+        with captured(os.path.join(root, "demo_e2e.log")):
+            e2e = demo_e2e.run(demo_e2e.build_argparser().parse_args(
+                DEMO_E2E_ARGV))
+        with captured(os.path.join(root, "demo_scst.log")):
+            sc = demo_scst.run(demo_scst.build_argparser().parse_args([]))
+        _sync(torch)
+        out["b"] = dict(demo_e2e=e2e, demo_scst=sc,
+                        seconds=time.time() - t_b)
+        log("phase 24 (b) demo_e2e %s: DEMO_RESULT: %s (loss %.4f -> %.4f, "
+            "greedy exact %d / %d, CIDEr-D greedy %.2f beam %.2f)" % (
+                " ".join(DEMO_E2E_ARGV), "OK" if e2e["ok"] else "WEAK",
+                e2e["first_loss"], e2e["final_loss"], e2e["n_correct"],
+                e2e["n_img"], e2e["cider_greedy"], e2e["cider_beam"]))
+        r = sc["rewards"]
+        log("phase 24 (b) demo_scst: DEMO_RESULT: %s (greedy CIDEr-D %.3f -> "
+            "%.3f; mean reward of the first 10 steps %.4f, of the last 10 "
+            "%.4f)" % ("OK" if sc["ok"] else "WEAK", sc["cider_before"],
+                       sc["cider_after"], sum(r[:10]) / 10,
+                       sum(r[-10:]) / 10))
+        require(e2e["ok"], "phase 24 (b): demo_e2e reads WEAK")
+        require(all(math.isfinite(x) for x in r)
+                and sc["cider_after"] >= 0.8 * sc["cider_before"],
+                "phase 24 (b): demo_scst's greedy CIDEr-D %.3f -> %.3f, "
+                "rewards finite: %s" % (sc["cider_before"], sc["cider_after"],
+                                        all(math.isfinite(x) for x in r)))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.time() - t_phase
+    log("phase 24 took %.1f s (a %.1f, its entries %.1f, b %.1f) on %s" % (
+        out["seconds"], out["a"]["gate_seconds"],
+        out["seconds"] - out["a"]["gate_seconds"] - out["b"]["seconds"],
+        out["b"]["seconds"], smi))
+    require(out["seconds"] <= PHASE24_S, "phase 24 took %.1f s, over its "
+            "%.0f s" % (out["seconds"], PHASE24_S))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7973,8 +8127,13 @@ def main(argv=None) -> int:
     results["dry_run_and_model_axis"] = drive_phase23(
         torch, args, dev, smi, flush, kernels, on_path)
 
+    log("-- phase 24 at %.1f s" % (time.time() - t_start))
+    # -- 24. the synthetic-data quality gate and the two demos -------------
+    results["quality_gate"] = drive_phase24(torch, args, dev, smi, flush,
+                                            kernels, on_path)
+
     results["seconds"] = time.time() - t_start
-    log("-- phases 2-23 took %.1f s" % results["seconds"])
+    log("-- phases 2-24 took %.1f s" % results["seconds"])
     missing = [k for k in on_path if not kernels[k].get("launches")]
     require(not missing, "kernels not launched on the main path: %s"
             % missing)
@@ -7999,7 +8158,8 @@ def main(argv=None) -> int:
             ("21", results["scale_out"]["seconds"], PHASE21_S),
             ("22", results["hoists"]["seconds"]["total"], HOIST_PHASE_S),
             ("23", results["dry_run_and_model_axis"]["seconds"],
-             PHASE23_S))}
+             PHASE23_S),
+            ("24", results["quality_gate"]["seconds"], PHASE24_S))}
     results["kernels"] = list(kernels.values())
     if args.out:
         with open(args.out, "w") as f:

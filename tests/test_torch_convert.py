@@ -18,7 +18,8 @@ from simpleimagecaptionzoo_tpu_torch.convert import from_jax, to_numpy
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "simpleimagecaptionzoo_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "simpleimagecaptionzoo_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "simpleimagecaptionzoo_tpu",
+             "examples", "preprocess")
 
 
 def _jax_params():
@@ -177,6 +178,9 @@ SCALE_OUT_MODULES = ("parallel", "parallel.mesh", "engine.multihost",
                     "tools.convert_reference_checkpoint",
                     "tools.export_reference_checkpoint", "utils.flops",
                     "utils.profiling")
+# the example drivers: the synthetic-data quality gate and the two demos
+EXAMPLE_MODULES = ("examples", "examples.train_synthetic", "examples.demo_e2e",
+                   "examples.demo_scst")
 
 
 def test_import_leaves_jax_out_of_sys_modules():
@@ -195,7 +199,8 @@ def test_import_leaves_jax_out_of_sys_modules():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     # the training slice's modules and the system's are among those imported
-    for name in TRAINING_MODULES + SYSTEM_MODULES + SCALE_OUT_MODULES:
+    for name in (TRAINING_MODULES + SYSTEM_MODULES + SCALE_OUT_MODULES
+                 + EXAMPLE_MODULES):
         assert "'simpleimagecaptionzoo_tpu_torch.%s'" % name in out.stdout, \
             name
 
@@ -219,7 +224,8 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     assert len(files) > 10
     assert os.path.join(PORT, "models", "butd.py") in files
     assert os.path.join(PORT, "models", "nic.py") in files
-    for name in TRAINING_MODULES + SYSTEM_MODULES + SCALE_OUT_MODULES:
+    for name in (TRAINING_MODULES + SYSTEM_MODULES + SCALE_OUT_MODULES
+                 + EXAMPLE_MODULES):
         path = os.path.join(PORT, *name.split("."))
         assert path + ".py" in files or \
             os.path.join(path, "__init__.py") in files, name
